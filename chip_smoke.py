@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's Hubbard main path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's main paths once on one CUDA card: the
+Hubbard model and the O(3) SDW model.
 
     python3 chip_smoke.py      # one card; exits 0 only if every phase passed
 
@@ -19,7 +20,22 @@ Phases (any failure raises, and the script exits non-zero):
    < 6e-3) and half filling (|occupancy - 1| < 1e-3);
 5. profile — one more pair under torch.profiler: device time by kernel
    (K1, K2, K3, cuBLAS f32/f64 gemm, other) and the device's busy
-   share of a timed pair's wall time.
+   share of a timed pair's wall time;
+6. SDW kernels — K4 sdw_update (complex64 and complex128), K2c qr
+   (complex64 and complex128) and K3c solve_inner (complex128), each
+   against its plain PyTorch version at the SDW main-path shapes (W = 128,
+   h = 64, N = 16) on a wrapped G, a refactor block and a mid-chain inner
+   matrix, timed like phase 2;
+7. SDW path parity — SDWConfig(L=2, m=8, s=4, float64), W = 4, swept on
+   the card and on the CPU with the same draws: identical fields, G within
+   1e-10;
+8. SDW main path — bench.py's sdw_l4 configuration, SDWConfig(L=4,
+   opdim=3, r=0.5, beta=4, m=40, s=4, float32), 128 walkers: init_state,
+   one warm-up sweep_pair(measure=True), three timed pairs; sweeps/s, the
+   launch counts of this phase, median green_dev < 1e-4 (bench.py GATES),
+   phiSquared finite, phase exactly 1;
+9. SDW profile — one pair under torch.profiler, device time by kernel
+   group (K4, K2c, K3c, cuBLAS gemm, other) and the busy share.
 
 The second-to-last line is {"kernels": [...]} (every number measured in
 this run), and the last line is {"ok": true, "device": {...}}. Without a
@@ -48,6 +64,16 @@ K2_TOL = {"float32": 1e-4, "float64": 1e-10}    # sign-normalized Q, R/|R|
 K3_BACKWARD = 1e-13
 NEAR_TIE = 1e-5            # an f32 accept mismatch must have |u-|R|| < this*|R|
 PARITY_G_TOL = 1e-10
+HUBBARD_KERNELS = ("slice_update", "qr", "solve_inner")
+
+W_SDW = 128
+SDW_CFG = dict(L=4, opdim=3, r=0.5, beta=4.0, m=40, s=4, dtype="float32")
+SDW_GREEN_DEV_GATE = 1e-4  # bench.py GATES["sdw_l4"]
+SDW_KERNELS = ("sdw_update", "qr_complex", "solve_inner_complex")
+K4_TOL = {"complex64": 1e-5, "complex128": 1e-12}  # max |G_kernel - G_plain|
+# an f32 K4 accept mismatch must be a near-tie of the log-domain test:
+# |lhs - (c_det log|R|^2 + live)| below this (f32 roundoff is ~1e-6 there)
+K4_NEAR_TIE = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -292,7 +318,9 @@ def main_path_phase(device, card):
         signs.append(obs.sign)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = dict(_kernels.LAUNCHES)
+    counts = {k: _kernels.LAUNCHES[k] for k in HUBBARD_KERNELS}
+    others = {k: v for k, v in _kernels.LAUNCHES.items() if k not in counts}
+    check(not any(others.values()), f"other kernels launched: {others}")
     sweeps_per_s = W_MAIN * N_TIMED_PAIRS * 2 / dt
     dev_med = float(state.green_dev.double().quantile(0.5))
     occ = float(torch.stack(occs).mean())
@@ -322,7 +350,16 @@ def main_path_phase(device, card):
     return model, state, gen, counts, 1e3 * dt / N_TIMED_PAIRS
 
 
-def profile_phase(model, state, gen, wall_ms_per_pair):
+HUBBARD_GROUPS = (("slice_update_kernel", "K1 slice_update"),
+                  ("qr_kernel", "K2 qr"),
+                  ("solve_inner_kernel", "K3 solve_inner"))
+SDW_GROUPS = (("sdw_update_kernel", "K4 sdw_update"),
+              ("qr_kernel", "K2c qr"),
+              ("solve_inner_kernel", "K3c solve_inner"))
+
+
+def profile_phase(model, state, gen, wall_ms_per_pair, layers=HUBBARD_GROUPS,
+                  title="profile"):
     """Device time of one sweep pair split by kernel (torch.profiler), and
     the device's busy share of the unprofiled pair's wall time."""
     import torch
@@ -341,25 +378,299 @@ def profile_phase(model, state, gen, wall_ms_per_pair):
     for ev in kernels:
         t = ev.self_device_time_total
         name = ev.key
-        layer = ("K1 slice_update" if "slice_update_kernel" in name else
-                 "K2 qr" if "qr_kernel" in name else
-                 "K3 solve_inner" if "solve_inner_kernel" in name else
-                 ("gemm f64" if "f64" in name or "dgemm" in name else
-                  "gemm f32") if "gemm" in name.lower() else
-                 "other")
+        layer = next((label for sub, label in layers if sub in name), None)
+        if layer is None:
+            low = name.lower()
+            layer = ("other" if "gemm" not in low else
+                     "gemm c128/f64" if ("f64" in low or "dgemm" in low
+                                         or "zgemm" in low) else
+                     "gemm c64/f32")
         groups[layer] = groups.get(layer, 0.0) + t
         total += t
     if total == 0:
-        print("profile: the profiler recorded no device time (not measured)")
+        print(f"{title}: the profiler recorded no device time (not "
+              "measured)")
         return
-    print(f"profile (one pair): device time {total / 1e3:.3f} ms of "
-          f"{wall_ms_per_pair:.3f} ms wall per timed pair: device busy "
+    n_launch = sum(ev.count for ev in kernels)
+    print(f"{title} (one pair): device time {total / 1e3:.3f} ms in "
+          f"{n_launch} kernel launches, of {wall_ms_per_pair:.3f} ms wall per "
+          f"timed pair: device busy "
           f"{100 * total / 1e3 / wall_ms_per_pair:.1f} %")
     for layer, t in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {layer:16s} {t / 1e3:10.3f} ms  {100 * t / total:5.1f} %")
     for ev in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"    {ev.self_device_time_total / 1e3:9.3f} ms  "
               f"{ev.count:6d}x  {ev.key[:90]}")
+
+
+def sdw_chain_inputs(model, state, k_mid):
+    """Realistic SDW main-path operands: a refactor block (s B's onto the
+    stack's unitary factor, as the sweep's lazy U) and the factored left
+    half at interval k_mid, built from the field like the up sweep."""
+    from detqmc_tpu_torch.linalg.udv import UDV, udv_refactor
+
+    cfg = model.cfg
+    phi = state.phi
+    block = state.stack_U[:, 1]
+    for l in range(1, cfg.s + 1):
+        block = model.b_mult_left(model.exp_v_blocks(phi[:, l - 1]), block)
+    f = model._eye_mixed(phi.shape[0])
+    for k in range(1, k_mid + 1):
+        lazy = f.U
+        for l in range((k - 1) * cfg.s + 1, k * cfg.s + 1):
+            lazy = model.b_mult_left(model.exp_v_blocks(phi[:, l - 1]), lazy)
+        f = udv_refactor(lazy, f.d, f.V)
+    right = UDV(state.stack_U[:, k_mid], state.stack_d[:, k_mid],
+                state.stack_V[:, k_mid])
+    return block, f, right
+
+
+def k4_operands(model, state, gen):
+    """Slice 1's K4 operands on G wrapped to slice 1, as
+    SDWModel.update_slice builds them."""
+    import torch
+
+    phi = state.phi
+    W = phi.shape[0]
+    G = model.wrap_up(state.G, model.exp_v_blocks(phi[:, 0]),
+                      model.exp_v_blocks(phi[:, 0], 1.0))
+    u01, rnd = model._draw_proposal_randoms(W, gen)
+    phi_new, jac = model._propose_all(phi[:, 0], tuple(x[:, 0] for x in rnd),
+                                      state.box_width, state.sweeps_done % 2)
+    lhs = torch.log(u01[:, 0]) - jac + model._ds_static(
+        phi[:, 0], phi_new, phi[:, 1], phi[:, -1], state.r)
+    eye4 = torch.eye(4, dtype=model.cdtype, device=G.device)
+    delta = model.exp_v_blocks(phi_new, -1.0) @ model.exp_v_blocks(
+        phi[:, 0], 1.0) - eye4
+    return [x.contiguous() for x in (G, phi[:, 0], phi_new, lhs, delta)]
+
+
+def k4_margin(model, args, w, i):
+    """|lhs - (c_det log|R|^2 + live)| at site i of walker w, from the
+    plain chain run up to site i (later sites made to reject, lhs = +inf),
+    evaluated independently in float64 with torch.linalg.det."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import sdw_update
+
+    G, phi_l, phi_new, lhs, delta = [a[w:w + 1].clone() for a in args]
+    lhs_cut = lhs.clone()
+    lhs_cut[:, i:] = float("inf")
+    Gi, phi_i, _ = sdw_update.sdw_update_plain(
+        G, phi_l, phi_new, lhs_cut, delta, model.nb, model.cfg.dtau,
+        model.c_det)
+    N = model.cfg.n_sites
+    idx = [b * N + i for b in range(4)]
+    c128, f64 = torch.complex128, torch.float64
+    M = torch.eye(4, dtype=c128, device=G.device) \
+        - Gi[0][idx][:, idx].to(c128)
+    A = torch.eye(4, dtype=c128, device=G.device) + delta[0, i].to(c128) @ M
+    nb = model.nb.tolist()[i]
+    snb = sum(phi_i[0, j].to(f64) for j in nb)
+    live = model.cfg.dtau * float(((phi_new[0, i] - phi_l[0, i]).to(f64)
+                                   * snb).sum())
+    rhs = model.c_det * float(torch.log(torch.linalg.det(A).abs() ** 2)) \
+        + live
+    return abs(float(lhs[0, i]) - rhs), rhs
+
+
+def sdw_kernel_phase(model, state, gen):
+    """K4/K2c/K3c against their plain versions at the SDW main-path
+    shapes."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import green_solve, qr, sdw_update
+    from detqmc_tpu_torch.linalg.udv import _sign_fix, green_inner
+
+    cfg = model.cfg
+    W, h, N = state.G.shape[0], model.dim, cfg.n_sites
+    out = {}
+
+    # K4: slice 1 on the wrapped G, in both complex types
+    base = k4_operands(model, state, gen)
+    rec = {}
+    for cname, cdt, rdt in (("complex64", torch.complex64, torch.float32),
+                            ("complex128", torch.complex128, torch.float64)):
+        args = [a.to(cdt if a.is_complex() else rdt).contiguous()
+                for a in base]
+        extra = (model.nb, cfg.dtau, model.c_det)
+        Gk, pk, ak = sdw_update.sdw_update(*args, *extra)
+        Gp, pp, ap = sdw_update.sdw_update_plain(*args, *extra)
+        torch.cuda.synchronize()
+        same = (pk == pp).flatten(1).all(dim=1)
+        n_mis = int((~same).sum())
+        if n_mis:
+            check(cname == "complex64",
+                  f"K4 {cname}: {n_mis} walkers with other accept decisions")
+            for w in torch.nonzero(~same)[:, 0].tolist():
+                i = int(torch.nonzero((pk[w] != pp[w]).any(-1))[0, 0])
+                margin, rhs = k4_margin(model, args, w, i)
+                print(f"  K4 complex64 mismatch: walker {w} site {i} "
+                      f"|lhs - rhs| = {margin:.3e} (rhs {rhs:.6f})")
+                check(margin < K4_NEAR_TIE, f"K4 mismatch at walker {w} "
+                      f"site {i} is not a near-tie ({margin:.3e})")
+        err = float((Gk - Gp)[same].abs().max())
+        check(torch.equal(ak[same], ap[same]), f"K4 {cname}: acceptance "
+              "differs")
+        check(err <= K4_TOL[cname], f"K4 {cname}: max|G_k - G_p| = "
+              f"{err:.3e} > {K4_TOL[cname]}")
+        ms = time_ms(lambda: sdw_update.sdw_update(*args, *extra))
+        pms = time_ms(lambda: sdw_update.sdw_update_plain(*args, *extra),
+                      reps=3)
+        print(f"K4 sdw_update {cname} (W={W}, h={h}, N={N}): max|dG|="
+              f"{err:.3e} (tol {K4_TOL[cname]}), accepted "
+              f"{int(ak.sum())}/{W * N} sites, accept mismatches {n_mis}, "
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        rec[cname] = (err, ms, pms)
+    out["sdw_update"] = rec
+
+    # K2c: QR of the refactor blocks
+    block, left, right = sdw_chain_inputs(model, state, cfg.n_stack // 2)
+    rec = {}
+    for cname, cdt, tol in (("complex64", torch.complex64, K2_TOL["float32"]),
+                            ("complex128", torch.complex128,
+                             K2_TOL["float64"])):
+        A = block.to(cdt).contiguous()
+        Qk, Rk = qr.qr(A)
+        Qp, Rp = qr.qr_plain(A)
+        torch.cuda.synchronize()
+        check(bool((torch.tril(Rk, -1) == 0).all()),
+              "K2c: R's strict lower triangle is not exactly zero")
+        fk, fp = _sign_fix(Qk, Rk), _sign_fix(Qp, Rp)
+        amax = lambda X: X.abs().amax((-2, -1))                 # noqa: E731
+        err = max(float((fk.U - fp.U).abs().max()),
+                  float((fk.d - fp.d).abs().max() / fp.d.abs().max()),
+                  float((amax(fk.V - fp.V) / amax(fp.V)).max()))
+        recon = float((Qk @ Rk - A).abs().max() / A.abs().max())
+        check(err <= tol, f"K2c {cname}: err {err:.3e} > {tol}")
+        check(recon <= tol, f"K2c {cname}: |QR - A| {recon:.3e}")
+        ms = time_ms(lambda: qr.qr(A))
+        pms = time_ms(lambda: qr.qr_plain(A))
+        print(f"K2c qr {cname} (B={A.shape[0]}, n={h}): err={err:.3e} "
+              f"(tol {tol}), |QR-A|/|A|={recon:.3e}, kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms")
+        rec[cname] = (err, ms, pms)
+    out["qr_complex"] = rec
+
+    # K3c: inner solve at mid-chain conditioning
+    inner, r1, _ = green_inner(left, right)
+    inner, r1 = inner.contiguous(), r1.contiguous()
+    mk = green_solve.solve_inner(inner, r1)
+    mp = green_solve.solve_inner_plain(inner, r1)
+    torch.cuda.synchronize()
+    abs_err = float((mk - mp).abs().max())
+    amax = lambda X: X.abs().amax((1, 2))                      # noqa: E731
+
+    def backward(X):
+        res = amax(inner @ X - torch.diag_embed(r1).to(inner.dtype))
+        return float((res / (h * amax(inner) * amax(X))).max())
+
+    bk, bp = backward(mk), backward(mp)
+    cond = torch.linalg.cond(inner)
+    fwd = amax(mk - mp) / amax(mp)
+    bound = h * torch.finfo(torch.float64).eps * cond
+    check(bk <= K3_BACKWARD, f"K3c: backward error {bk:.3e} > {K3_BACKWARD}")
+    check(bool((fwd <= bound).all()),
+          f"K3c: forward difference beyond n eps cond(inner): "
+          f"{float((fwd / bound).max()):.3e} x the bound")
+    ms = time_ms(lambda: green_solve.solve_inner(inner, r1))
+    pms = time_ms(lambda: green_solve.solve_inner_plain(inner, r1))
+    print(f"K3c solve_inner complex128 (B={inner.shape[0]}, n={h}, "
+          f"cond(inner) {float(cond.min()):.2e}..{float(cond.max()):.2e}): "
+          f"max|dmid|={abs_err:.3e}, max rel {float(fwd.max()):.3e} (<= n "
+          f"eps cond, worst {float((fwd / bound).max()):.2e} of it), "
+          f"backward error kernel {bk:.2e} plain {bp:.2e} (tol "
+          f"{K3_BACKWARD}), kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    out["solve_inner_complex"] = {"complex128": (abs_err, ms, pms)}
+    return out
+
+
+def sdw_path_parity_phase(device):
+    """The same tiny f64 SDW chain on the card (kernels) and on the CPU."""
+    import torch
+
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel, SDWState
+
+    W = 4
+    cfg = SDWConfig(L=2, opdim=3, r=0.5, beta=1.0, m=8, s=4,
+                    dtype="float64")
+    cpu = SDWModel(cfg, device="cpu")
+    gpu = SDWModel(cfg, device=device)
+    gen = torch.Generator().manual_seed(12)
+    sc = cpu.init_state(W, gen)
+    sg = SDWState(*[x.to(device) for x in sc])
+
+    def to_dev(d):
+        return d[0].to(device), tuple(x.to(device) for x in d[1])
+
+    for _ in range(2):
+        d = tuple(cpu._draw_proposal_randoms(W, gen) for _ in range(2))
+        sc, oc = cpu.sweep_pair(sc, measure=True, draws=d)
+        sg, og = gpu.sweep_pair(sg, measure=True, draws=tuple(map(to_dev, d)))
+    torch.cuda.synchronize()
+    check(torch.equal(sg.phi.cpu(), sc.phi), "SDW path parity: fields differ")
+    check(torch.equal(og.acceptance.cpu(), oc.acceptance),
+          "SDW path parity: acceptance differs")
+    gerr = float((sg.G.cpu() - sc.G).abs().max())
+    oerr = max(float((a.cpu() - b).abs().max()) for a, b in zip(og, oc))
+    check(gerr <= PARITY_G_TOL, f"SDW path parity: G err {gerr:.3e}")
+    print(f"SDW path parity (L=2 m=8 s=4 W={W} f64, 2 pairs): fields "
+          f"identical, acceptance identical, max|dG|={gerr:.3e} (tol "
+          f"{PARITY_G_TOL}), max|d obs|={oerr:.3e}")
+
+
+def sdw_main_path_phase(device, card):
+    import torch
+
+    from detqmc_tpu_torch.linalg import _kernels
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    cfg = SDWConfig(**SDW_CFG)
+    model = SDWModel(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    state = model.init_state(W_SDW, gen)
+    state, obs = model.sweep_pair(state, measure=True, generator=gen)
+    torch.cuda.synchronize()
+    phi2s, accs = [], []
+    t0 = time.perf_counter()
+    for _ in range(N_TIMED_PAIRS):
+        state, obs = model.sweep_pair(state, measure=True, generator=gen)
+        phi2s.append(obs.phiSquared)
+        accs.append(obs.acceptance)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(_kernels.LAUNCHES)
+    sweeps_per_s = W_SDW * N_TIMED_PAIRS * 2 / dt
+    dev_med = float(state.green_dev.double().quantile(0.5))
+    phi2 = float(torch.stack(phi2s).mean())
+    acc = float(torch.stack(accs).mean())
+    K, n_pairs = cfg.n_stack, 1 + N_TIMED_PAIRS
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"sdw_update": 2 * cfg.m * n_pairs,
+                   "qr_complex": K + 2 * K * n_pairs,
+                   "solve_inner_complex": 1 + 2 * K * n_pairs})
+    cfg_s = " ".join(f"{k}={v}" for k, v in SDW_CFG.items())
+    print(f"SDW main path {cfg_s} W={W_SDW}: {sweeps_per_s:.2f} sweeps/s "
+          f"({N_TIMED_PAIRS} pairs in {dt:.4f} s) on {card}")
+    print(f"  green_dev median {dev_med:.4e} (gate {SDW_GREEN_DEV_GATE}), "
+          f"max {float(state.green_dev.max()):.4e}; phiSquared {phi2:.6f}; "
+          f"acceptance {acc:.6f}; occupancy {float(obs.occupancy.mean()):.6f}"
+          f"; sv range [{float(state.sv_min.min()):.2f}, "
+          f"{float(state.sv_max.max()):.2f}] (log10)")
+    print(f"  launches {counts} (expected {expect})")
+    check(all(counts[k] > 0 for k in SDW_KERNELS), "an SDW kernel never "
+          "launched")
+    check(counts == expect, f"launch counts {counts} != {expect}")
+    finite = all(bool(torch.isfinite(x).all()) for x in obs) and \
+        bool(torch.isfinite(state.G).all())
+    check(finite, "non-finite SDW observables or G")
+    check(bool(torch.isfinite(torch.tensor(phi2))), "phiSquared not finite")
+    check(torch.equal(state.phase, torch.ones_like(state.phase)),
+          "SDW phase is not exactly 1")
+    check(dev_med < SDW_GREEN_DEV_GATE, f"SDW median green_dev {dev_med:.3e}")
+    return model, state, gen, counts, 1e3 * dt / N_TIMED_PAIRS
 
 
 def main() -> int:
@@ -402,6 +713,19 @@ def main() -> int:
     path_parity_phase(device)
     model, state, gen, counts, wall_ms = main_path_phase(device, card)
     profile_phase(model, state, gen, wall_ms)
+    del model, state
+
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    sdw = SDWModel(SDWConfig(**SDW_CFG), device=device)
+    gen = torch.Generator(device=device).manual_seed(4321)
+    sdw_state = sdw.init_state(W_SDW, gen)
+    kern.update(sdw_kernel_phase(sdw, sdw_state, gen))
+    sdw_path_parity_phase(device)
+    sdw, sdw_state, gen, sdw_counts, wall_ms = sdw_main_path_phase(device,
+                                                                   card)
+    profile_phase(sdw, sdw_state, gen, wall_ms, SDW_GROUPS, "SDW profile")
+    counts.update({k: sdw_counts[k] for k in SDW_KERNELS})
 
     meta = {"slice_update": ("detqmc_tpu_torch/csrc/slice_update.cu",
                              "detqmc_tpu/linalg/pallas_update_lanes.py:185",
@@ -410,7 +734,17 @@ def main() -> int:
                    "detqmc_tpu/linalg/pallas_qr_lanes.py:149", "float32"),
             "solve_inner": ("detqmc_tpu_torch/csrc/green_solve.cu",
                             "detqmc_tpu/linalg/pallas_green_lanes.py:304",
-                            "float64")}
+                            "float64"),
+            "sdw_update": ("detqmc_tpu_torch/csrc/sdw_update.cu",
+                           "detqmc_tpu/linalg/pallas_sdw_update.py:516",
+                           "complex64"),
+            "qr_complex": ("detqmc_tpu_torch/csrc/qr.cu",
+                           "detqmc_tpu/linalg/pallas_cqr_lanes.py:180",
+                           "complex64"),
+            "solve_inner_complex": (
+                "detqmc_tpu_torch/csrc/green_solve.cu",
+                "detqmc_tpu/linalg/pallas_cgreen_lanes.py:279",
+                "complex128")}
     rows = []
     for name, (src, repl, dname) in meta.items():
         err, ms, pms = kern[name][dname]

@@ -1,11 +1,12 @@
 """Carry a walker state from the JAX package into the port.
 
-``state_from_jax`` takes a ``detqmc_tpu.models.hubbard.WalkerState`` —
-vmapped over walkers (leading axis) or a single walker — or any object
-with the same leaf names whose leaves ``np.asarray`` accepts, and returns
-the port's ``WalkerState`` on ``device``. JAX's PRNG ``key`` is dropped:
-the port draws from a ``torch.Generator`` held by the caller. No JAX import
-is needed: the leaves are read as numpy arrays.
+``state_from_jax`` takes a ``detqmc_tpu.models.hubbard.WalkerState`` and
+``sdw_state_from_jax`` a ``detqmc_tpu.models.sdw.SDWState`` (of the
+``fermion_repr="complex"`` chain) — vmapped over walkers (leading axis)
+or a single walker — or any object with the same leaf names whose leaves
+``np.asarray`` accepts, and return the port's state on ``device``. JAX's
+PRNG ``key`` is dropped: the port draws from a ``torch.Generator`` held by
+the caller. No JAX import is needed: the leaves are read as numpy arrays.
 """
 
 from __future__ import annotations
@@ -14,14 +15,18 @@ import numpy as np
 import torch
 
 from detqmc_tpu_torch.models.hubbard import Stack, WalkerState
+from detqmc_tpu_torch.models.sdw import SDWState
 
 
-def state_from_jax(jstate, device=None) -> WalkerState:
-    batched = np.asarray(jstate.field).ndim == 3
-
+def _leaf_reader(batched: bool, device):
     def t(leaf):
         a = np.array(leaf)               # a writable copy of the leaf
         return torch.as_tensor(a if batched else a[None], device=device)
+    return t
+
+
+def state_from_jax(jstate, device=None) -> WalkerState:
+    t = _leaf_reader(np.asarray(jstate.field).ndim == 3, device)
 
     return WalkerState(
         field=t(jstate.field), G=t(jstate.G),
@@ -29,3 +34,12 @@ def state_from_jax(jstate, device=None) -> WalkerState:
         sign=t(jstate.sign), next_dir=t(jstate.next_dir),
         sweeps_done=t(jstate.sweeps_done), green_dev=t(jstate.green_dev),
         sv_min=t(jstate.sv_min), sv_max=t(jstate.sv_max), h=t(jstate.h))
+
+
+def sdw_state_from_jax(jstate, device=None) -> SDWState:
+    t = _leaf_reader(np.asarray(jstate.phi).ndim == 4, device)
+    if not np.iscomplexobj(np.asarray(jstate.G)):
+        raise ValueError("sdw_state_from_jax needs the complex chain "
+                         "(fermion_repr='complex'), not pair planes or the "
+                         "real embedding")
+    return SDWState(*[t(getattr(jstate, name)) for name in SDWState._fields])

@@ -5,6 +5,11 @@
 // shared memory only after cudaFuncSetAttribute(...MaxDynamicSharedMemory
 // Size...); without it the launch is refused and only cudaGetLastError()
 // tells. So every entry point goes through launch_smem() below.
+//
+// Scalars: the real kernels run on float / double, the complex ones on
+// cplx<float> / cplx<double>, laid out as PyTorch's complex64 / complex128
+// (re, im). The Householder step is written once over both through the
+// small overload set below (abs2, conj_, householder_alpha, ...).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,10 +33,104 @@ __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, 
 __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 __device__ __forceinline__ float exp_t(float a) { return expf(a); }
 __device__ __forceinline__ double exp_t(double a) { return exp(a); }
+__device__ __forceinline__ float log_t(float a) { return logf(a); }
+__device__ __forceinline__ double log_t(double a) { return log(a); }
 __device__ __forceinline__ float abs_t(float a) { return fabsf(a); }
 __device__ __forceinline__ double abs_t(double a) { return fabs(a); }
 __device__ __forceinline__ float sqrt_t(float a) { return sqrtf(a); }
 __device__ __forceinline__ double sqrt_t(double a) { return sqrt(a); }
+
+// ---- complex scalars ------------------------------------------------------
+// An aggregate (no constructors), so it may live in __shared__ memory.
+template <typename T>
+struct alignas(2 * sizeof(T)) cplx {
+    T re, im;
+};
+
+template <typename T>
+__device__ __forceinline__ cplx<T> mk(T re, T im) { return cplx<T>{re, im}; }
+
+template <typename T>
+__device__ __forceinline__ cplx<T> operator+(cplx<T> a, cplx<T> b) {
+    return mk(a.re + b.re, a.im + b.im);
+}
+template <typename T>
+__device__ __forceinline__ cplx<T> operator-(cplx<T> a, cplx<T> b) {
+    return mk(a.re - b.re, a.im - b.im);
+}
+template <typename T>
+__device__ __forceinline__ cplx<T> operator-(cplx<T> a) { return mk(-a.re, -a.im); }
+template <typename T>
+__device__ __forceinline__ cplx<T> operator*(cplx<T> a, cplx<T> b) {
+    return mk(a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re);
+}
+template <typename T>
+__device__ __forceinline__ cplx<T> operator*(T a, cplx<T> b) { return mk(a * b.re, a * b.im); }
+template <typename T>
+__device__ __forceinline__ cplx<T>& operator+=(cplx<T>& a, cplx<T> b) { a = a + b; return a; }
+template <typename T>
+__device__ __forceinline__ cplx<T>& operator-=(cplx<T>& a, cplx<T> b) { a = a - b; return a; }
+
+// the same products, rounded operation by operation in the order
+// (ar br - ai bi, ar bi + ai br), as the plain PyTorch versions compute
+// them on separate real and imaginary planes
+template <typename T>
+__device__ __forceinline__ cplx<T> cmul_rn(cplx<T> a, cplx<T> b) {
+    return mk(sub_rn(mul_rn(a.re, b.re), mul_rn(a.im, b.im)),
+              add_rn(mul_rn(a.re, b.im), mul_rn(a.im, b.re)));
+}
+template <typename T>
+__device__ __forceinline__ cplx<T> cadd_rn(cplx<T> a, cplx<T> b) {
+    return mk(add_rn(a.re, b.re), add_rn(a.im, b.im));
+}
+template <typename T>
+__device__ __forceinline__ cplx<T> csub_rn(cplx<T> a, cplx<T> b) {
+    return mk(sub_rn(a.re, b.re), sub_rn(a.im, b.im));
+}
+
+// ---- the overload set the Householder code is written in ------------------
+template <typename S> struct real_of { using type = S; };
+template <typename T> struct real_of<cplx<T>> { using type = T; };
+
+template <typename S> __device__ __forceinline__ S from_real(typename real_of<S>::type x) { return x; }
+template <> __device__ __forceinline__ cplx<float> from_real<cplx<float>>(float x) { return mk(x, 0.0f); }
+template <> __device__ __forceinline__ cplx<double> from_real<cplx<double>>(double x) { return mk(x, 0.0); }
+
+__device__ __forceinline__ float abs2(float a) { return a * a; }
+__device__ __forceinline__ double abs2(double a) { return a * a; }
+template <typename T>
+__device__ __forceinline__ T abs2(cplx<T> a) { return a.re * a.re + a.im * a.im; }
+
+__device__ __forceinline__ float conj_(float a) { return a; }
+__device__ __forceinline__ double conj_(double a) { return a; }
+template <typename T>
+__device__ __forceinline__ cplx<T> conj_(cplx<T> a) { return mk(a.re, -a.im); }
+
+// a / b: real division, or a conj(b) / |b|^2
+__device__ __forceinline__ float div_s(float a, float b) { return a / b; }
+__device__ __forceinline__ double div_s(double a, double b) { return a / b; }
+template <typename T>
+__device__ __forceinline__ cplx<T> div_s(cplx<T> a, cplx<T> b) {
+    const T inv = T(1) / abs2(b);
+    const cplx<T> p = a * conj_(b);
+    return mk(p.re * inv, p.im * inv);
+}
+
+// R_jj of the reflector that zeroes x below x_j: -sign(x_j) ||x|| for
+// real x (LAPACK's convention, sign(0) = +1), -(x_j / |x_j|) ||x|| for
+// complex x (phase 1 at x_j = 0)
+__device__ __forceinline__ float householder_alpha(float x0, float norm) {
+    return x0 >= 0.0f ? -norm : norm;
+}
+__device__ __forceinline__ double householder_alpha(double x0, double norm) {
+    return x0 >= 0.0 ? -norm : norm;
+}
+template <typename T>
+__device__ __forceinline__ cplx<T> householder_alpha(cplx<T> x0, T norm) {
+    const T a0 = sqrt_t(abs2(x0));
+    if (a0 == T(0)) return mk(-norm, T(0));
+    return mk(-(x0.re / a0) * norm, -(x0.im / a0) * norm);
+}
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -40,54 +139,61 @@ __device__ __forceinline__ T warp_sum(T v) {
         v += __shfl_xor_sync(0xffffffffu, v, off);
     return v;
 }
+template <typename T>
+__device__ __forceinline__ cplx<T> warp_sum(cplx<T> v) {
+    return mk(warp_sum(v.re), warp_sum(v.im));
+}
 
 // Householder QR of the n x n matrix A (shared memory, row stride ld),
-// applying every reflector H_j = I - beta v v^T from the left to the
+// applying every reflector H_j = I - beta v v^H from the left to the
 // companion matrix C (n x n, stride ld) as it goes:
-//     on exit  triu(A) = R  (R_jj = alpha_j = -sign(x_j) ||x||),
-//              C       = H_{n-1} ... H_0 C_in = Q^T C_in.
+//     on exit  triu(A) = R  (R_jj = alpha_j, see householder_alpha),
+//              C       = H_{n-1} ... H_0 C_in = Q^H C_in.
 // Strictly-lower A entries are left stale (callers read triu only).
 // v (n) and s (2n) are shared scratch. All threads of the CTA call it.
+// S is float, double, cplx<float> or cplx<double>; beta is real.
 //
-// Per step: warp 0 forms v and beta; the dot products v^T A[:, c] (the
-// trailing columns c > j) and v^T C[:, c] (all columns) go one warp per
+// Per step: warp 0 forms v and beta; the dot products v^H A[:, c] (the
+// trailing columns c > j) and v^H C[:, c] (all columns) go one warp per
 // column, lanes striding the rows; the rank-1 updates go one thread per
 // element, a row's columns on neighbouring threads. Row stride ld = n+1
 // keeps the column walks free of shared-memory bank conflicts.
-template <typename T>
-__device__ void householder_apply(T* A, T* C, T* v, T* s, int n, int ld) {
+template <typename S>
+__device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
+    using R = typename real_of<S>::type;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    __shared__ T alpha_s, beta_s;
+    __shared__ S alpha_s;
+    __shared__ R beta_s;
     for (int j = 0; j < n; ++j) {
         for (int k = tid; k < n; k += kThreads)
-            v[k] = k >= j ? A[k * ld + j] : T(0);
+            v[k] = k >= j ? A[k * ld + j] : from_real<S>(R(0));
         __syncthreads();
         if (warp == 0) {
-            T p = 0;
-            for (int k = j + lane; k < n; k += 32) p += v[k] * v[k];
-            const T norm = sqrt_t(warp_sum(p));
-            const T x0 = v[j];
-            const T alpha = x0 >= T(0) ? -norm : norm;
+            R p = 0;
+            for (int k = j + lane; k < n; k += 32) p += abs2(v[k]);
+            const R norm = sqrt_t(warp_sum(p));
+            const S x0 = v[j];
+            const S alpha = householder_alpha(x0, norm);
             __syncwarp();
             if (lane == 0) v[j] = x0 - alpha;
             __syncwarp();
-            T q = 0;
-            for (int k = j + lane; k < n; k += 32) q += v[k] * v[k];
-            const T vtv = warp_sum(q);
+            R q = 0;
+            for (int k = j + lane; k < n; k += 32) q += abs2(v[k]);
+            const R vtv = warp_sum(q);
             if (lane == 0) {
                 alpha_s = alpha;
                 // a zero column (v == 0) leaves everything unchanged
-                beta_s = T(2) / (vtv == T(0) ? T(1) : vtv);
+                beta_s = R(2) / (vtv == R(0) ? R(1) : vtv);
             }
         }
         __syncthreads();
-        const T beta = beta_s;
+        const R beta = beta_s;
         const int na = n - j - 1;          // trailing columns of A
         for (int col = warp; col < na + n; col += kWarps) {
-            const T* M = col < na ? A : C;
+            const S* M = col < na ? A : C;
             const int c = col < na ? j + 1 + col : col - na;
-            T p = 0;
-            for (int k = j + lane; k < n; k += 32) p += v[k] * M[k * ld + c];
+            S p = from_real<S>(R(0));
+            for (int k = j + lane; k < n; k += 32) p += conj_(v[k]) * M[k * ld + c];
             p = warp_sum(p);
             if (lane == 0) s[col] = beta * p;
         }

@@ -50,11 +50,19 @@ _SIGNATURES = {
     # device, A, Q, R, batch, n, stream
     "dq_qr_f32": [_I, _P, _P, _P, _I, _I, _P],
     "dq_qr_f64": [_I, _P, _P, _P, _I, _I, _P],
+    "dq_qr_c64": [_I, _P, _P, _P, _I, _I, _P],
+    "dq_qr_c128": [_I, _P, _P, _P, _I, _I, _P],
     # device, inner, r1, mid, batch, n, stream
     "dq_solve_inner_f64": [_I, _P, _P, _P, _I, _I, _P],
+    "dq_solve_inner_c128": [_I, _P, _P, _P, _I, _I, _P],
+    # device, G, phi, phi_new, lhs, delta, nb, G_out, phi_out, acc_out,
+    # W, N, opdim, dtau, c_det, stream
+    "dq_sdw_update_c64": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P],
+    "dq_sdw_update_c128": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P],
 }
 
-LAUNCHES = {"slice_update": 0, "qr": 0, "solve_inner": 0}
+LAUNCHES = {"slice_update": 0, "qr": 0, "solve_inner": 0, "sdw_update": 0,
+            "qr_complex": 0, "solve_inner_complex": 0}
 
 _lib = None
 build_log = ""          # nvcc's output (-Xptxas -v: registers, smem)

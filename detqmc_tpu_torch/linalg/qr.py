@@ -1,14 +1,18 @@
-"""K2: batched Householder QR with explicit Q — wrapper and plain version.
+"""K2 / K2c: batched Householder QR with explicit Q — wrapper and plain
+version, for real (K2) and complex (K2c) matrices.
 
 Replaces detqmc_tpu/linalg/pallas_qr_lanes.py (``qr_lanes``, Pallas
-kernel ``_kernel``) on the card with ``csrc/qr.cu``: one CTA per matrix,
-A and Q^T in shared memory (see the source's note for what bounds it).
-``qr_plain`` is ``torch.linalg.qr``, what a CPU tensor runs.
+kernel ``_kernel``) and, for the complex SDW chain,
+pallas_cqr_lanes.py (``cqr_lanes``) on the card with ``csrc/qr.cu``: one
+CTA per matrix, A and Q^H in shared memory (see the source's note for
+what bounds it). ``qr_plain`` is ``torch.linalg.qr``, what a CPU tensor
+runs.
 
-Contract: qr(A (B, n, n)) -> (Q, R), A = Q R, Q orthogonal, R upper
-triangular with its strict lower triangle exactly zero. The column signs
-are not normalized (the kernel's R_jj = -sign(x_j)||x|| is LAPACK's
-convention); ``udv.udv_decompose`` normalizes them.
+Contract: qr(A (B, n, n)) -> (Q, R), A = Q R, Q unitary, R upper
+triangular with its strict lower triangle exactly zero. The diagonal
+phases are not normalized (the kernel's R_jj = -sign(x_j)||x|| or
+-(x_j/|x_j|)||x|| differs from LAPACK's real positive diagonal);
+``udv.udv_decompose`` folds them into U.
 """
 
 from __future__ import annotations
@@ -18,6 +22,10 @@ import torch
 from detqmc_tpu_torch.linalg import _kernels
 
 MAX_N = 128
+_ENTRIES = {torch.float32: ("qr", "dq_qr_f32"),
+            torch.float64: ("qr", "dq_qr_f64"),
+            torch.complex64: ("qr_complex", "dq_qr_c64"),
+            torch.complex128: ("qr_complex", "dq_qr_c128")}
 
 
 def qr_plain(A):
@@ -31,12 +39,13 @@ def smem_bytes(n: int, dtype) -> int:
 
 
 def qr(A):
-    """K2: CPU tensors run ``qr_plain``; CUDA tensors launch the kernel
-    (float32 or float64, contiguous (B, n, n), n <= 128 within the
-    shared-memory budget: float64 stops near n = 119) or raise."""
+    """K2 (float32/float64) or K2c (complex64/complex128): CPU tensors run
+    ``qr_plain``; CUDA tensors launch the kernel (contiguous (B, n, n),
+    n <= 128 within the shared-memory budget: float64 and complex64 stop
+    near n = 119, complex128 near n = 83) or raise."""
     if A.device.type == "cpu":
         return qr_plain(A)
-    _kernels.check_cuda_tensor("A", A, (torch.float32, torch.float64), 3)
+    _kernels.check_cuda_tensor("A", A, tuple(_ENTRIES), 3)
     B, n, n2 = A.shape
     if n2 != n or n > MAX_N:
         raise ValueError(f"qr: A shape {tuple(A.shape)} must be square "
@@ -46,6 +55,6 @@ def qr(A):
                          "budget")
     Q = torch.empty_like(A)
     R = torch.empty_like(A)
-    entry = "dq_qr_f32" if A.dtype == torch.float32 else "dq_qr_f64"
-    _kernels.launch("qr", entry, A, Q, R, B, n)
+    kernel, entry = _ENTRIES[A.dtype]
+    _kernels.launch(kernel, entry, A, Q, R, B, n)
     return Q, R

@@ -1,0 +1,853 @@
+"""O(3) spin-density-wave metal, BSS determinantal QMC — PyTorch port.
+
+Port of detqmc_tpu.models.sdw (the reference) for the full opdim-3 model:
+an O(3) order-parameter field phi(i, l) Yukawa-coupled to two fermion
+bands, B_l = exp(-dtau V(phi_l)) exp(-dtau K) on the (4N, 4N) complex
+fermion matrix in orbital-major order (x_up, x_dn, y_up, y_dn), box or
+rotate/scale proposals, exact 4x4 determinant ratios with rank-4 Woodbury
+updates of G, and the UdV-stabilized sweep of models/hubbard.py.
+
+From JAX to PyTorch (as in models/hubbard.py):
+- walkers lead every state tensor (W, ...); ``lax.scan`` is a Python
+  loop; randomness comes from a caller's ``torch.Generator`` or injected
+  draws (``draws``), which is how the tests feed JAX's own numbers;
+- ``SDWModel`` is an ``nn.Module`` on an explicit device, its constants
+  registered buffers.
+
+Representation: native complex. G and the stack's U are complex64
+(``dtype="float32"``) or complex128; the stack's d is float64 and its V
+complex128. None of the TPU's representations is ported: no (re, im) pair
+planes, no real rho-embedding, no df32, no Ozaki limbs (ROADMAP.md Queue 1
+item 12). So ``fermion_repr`` "auto", "complex" and "native_pair" all mean
+native complex, and ``green_kernel`` "auto", "xla", "df32" and "pallas"
+all mean K3c; ``green_refine_iters``, ``ozaki_chain_limbs``,
+``stab_dtype`` and ``wrap_prec`` are accepted and not read (wraps always
+run at full precision).
+
+The slice update follows the JAX model's kernel route
+(``_update_slice_pallas``): proposals, the Delta blocks and the static
+action difference are built for all sites of a slice at once, then K4
+(linalg/sdw_update.py) walks the sites with a log-domain accept
+lhs < c_det log|R|^2 + live, c_det = 1/2. The weight is phase-free (R is
+real and non-negative by the model's antiunitary symmetry), so ``phase``
+stays exactly 1. The JAX CPU route (``fermion_repr="complex"``) accepts on
+u < |R| e^{jac - dS} and tracks the phase: the same weight.
+
+Kernel versus plain version is decided by the device of the tensors:
+K4 (slice update), K2c (refactor QR) and K3c (inner solve) on a CUDA
+tensor, their plain PyTorch versions on a CPU tensor.
+
+Not ported yet (each raises NotImplementedError naming ROADMAP.md, Queue
+1 item 8 and Queue 2): opdim 1 and 2 (the reduced sectors), the real
+embedding, the delayed update (``delay > 0``, ``update_kernel="delayed"``),
+the fused wrap, the refine green route, sparse checkerboard applies,
+global shift and Wolff moves, ``turnoffFermions``, time-displaced Greens,
+``sweep_simple``, the parallel-tempering hooks, and dims beyond the
+kernels' shared-memory bounds on a CUDA device (L >= 6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from detqmc_tpu import lattice as lattice_mod
+from detqmc_tpu.lattice import kinetic_exponentials
+from detqmc_tpu_torch.linalg import _kernels, green_solve, qr as qr_mod
+from detqmc_tpu_torch.linalg import sdw_update
+from detqmc_tpu_torch.linalg.udv import UDV, green_from_two_udv, udv_refactor
+from detqmc_tpu_torch.precision import mm
+
+N_ORB = 4  # (band x, band y) x (spin up, spin dn)
+_DTYPES = {"float32": (torch.float32, torch.complex64),
+           "float64": (torch.float64, torch.complex128)}
+_ROADMAP = "ROADMAP.md Queue 1 item 8"
+
+
+def _unported(what: str, where: str = _ROADMAP) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: {where}")
+
+
+@dataclasses.dataclass(frozen=True)
+class SDWConfig:
+    """Static parameters, field for field those of
+    detqmc_tpu.models.sdw.SDWConfig (see the module docstring for the
+    fields the port maps, ignores or refuses)."""
+
+    L: int = 4
+    opdim: int = 2
+    r: float = 0.0
+    lam: float = 1.0
+    u: float = 1.0
+    c: float = 1.0
+    txhor: float = -1.0
+    txver: float = -0.5
+    tyhor: float = -0.5
+    tyver: float = -1.0
+    mu: float = -0.5
+    beta: float = 4.0
+    m: int = 40
+    s: int = 4
+    delay: int = 0
+    box_width: float = 1.0
+    checkerboard: bool = False
+    cb_apply: str = "auto"
+    spinProposalMethod: str = "box"
+    globalShift: bool = False
+    wolffClusterUpdate: bool = False
+    wolffClusterShiftUpdate: bool = False
+    globalUpdateInterval: int = 5
+    turnoffFermions: bool = False
+    fermion_repr: str = "auto"
+    fermion_matrix: str = "auto"
+    green_kernel: str = "auto"
+    green_refine_iters: int | None = None
+    ozaki_chain_limbs: int | None = None
+    update_kernel: str = "auto"
+    wrap_prec: str = "auto"
+    wrap_kernel: str = "auto"
+    dtype: str = "float32"
+    stab_dtype: str = "auto"
+
+    def __post_init__(self):
+        if self.m % self.s != 0:
+            raise ValueError(f"m={self.m} must be divisible by s={self.s}")
+        if self.opdim not in (1, 2, 3):
+            raise ValueError("opdim must be 1, 2 or 3")
+        if self.delay < 0:
+            raise ValueError("delay must be >= 0")
+        if self.checkerboard and self.L % 2 != 0:
+            raise ValueError("checkerboard requires even L")
+        if self.spinProposalMethod not in (
+                "box", "rotate_then_scale", "rotate_and_scale"):
+            raise ValueError("spinProposalMethod must be box|"
+                             "rotate_then_scale|rotate_and_scale, got "
+                             f"{self.spinProposalMethod!r}")
+        if self.spinProposalMethod != "box" and self.opdim == 1:
+            raise ValueError("rotate/scale proposals need opdim >= 2 "
+                             "(an Ising field has no direction to rotate)")
+        if self.update_kernel not in ("auto", "pallas", "delayed", "scan"):
+            raise ValueError("update_kernel must be auto|pallas|delayed|"
+                             f"scan, got {self.update_kernel!r}")
+        if self.cb_apply not in ("auto", "dense", "sparse"):
+            raise ValueError("cb_apply must be auto|dense|sparse, got "
+                             f"{self.cb_apply!r}")
+        if self.wrap_prec not in ("auto", "highest", "high"):
+            raise ValueError("wrap_prec must be auto|highest|high, got "
+                             f"{self.wrap_prec!r}")
+        if self.wrap_kernel not in ("auto", "fused", "xla"):
+            raise ValueError("wrap_kernel must be auto|fused|xla, got "
+                             f"{self.wrap_kernel!r}")
+
+    @property
+    def dtau(self) -> float:
+        return self.beta / self.m
+
+    @property
+    def n_sites(self) -> int:
+        return self.L * self.L
+
+    @property
+    def dim(self) -> int:
+        return N_ORB * self.n_sites
+
+    @property
+    def n_stack(self) -> int:
+        return self.m // self.s
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        if self.dtype not in _DTYPES:
+            raise ValueError(f"dtype must be float32|float64, got "
+                             f"{self.dtype!r}")
+        return _DTYPES[self.dtype][0]
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        """Fermion-matrix dtype (complex: sigma_y enters at opdim >= 2)."""
+        self.torch_dtype  # validates
+        return _DTYPES[self.dtype][1]
+
+
+class SDWState(NamedTuple):
+    """Per-walker state, walkers leading (JAX's SDWState minus ``key``: the
+    generator is held by the caller)."""
+
+    phi: torch.Tensor          # (W, m, N, opdim) order-parameter field
+    G: torch.Tensor            # (W, dim, dim) equal-time G at the sweep edge
+    stack_U: torch.Tensor      # (W, K+1, dim, dim) cdtype
+    stack_d: torch.Tensor      # (W, K+1, dim) float64
+    stack_V: torch.Tensor      # (W, K+1, dim, dim) complex128
+    phase: torch.Tensor        # (W,) cdtype, exactly 1 (phase-free weight)
+    box_width: torch.Tensor    # (W,) proposal width
+    r: torch.Tensor            # (W,) control parameter
+    next_dir: torch.Tensor     # (W,) int32: 0 = next sweep up, 1 = down
+    sweeps_done: torch.Tensor  # (W,) int32
+    green_dev: torch.Tensor    # (W,) f32 max |G_wrapped - G_stab| last sweep
+    sv_min: torch.Tensor       # (W,) f32 log10 smallest stack scale
+    sv_max: torch.Tensor       # (W,) f32
+
+
+class SDWObservables(NamedTuple):
+    """Per-walker measurement, the JAX package's observable set."""
+
+    phiSquared: torch.Tensor
+    phiFourth: torch.Tensor
+    phiNorm: torch.Tensor
+    sdwSusceptibility: torch.Tensor
+    occupancy: torch.Tensor
+    kineticEnergy: torch.Tensor
+    bosonAction: torch.Tensor
+    exchangeAction: torch.Tensor
+    phase: torch.Tensor
+    acceptance: torch.Tensor
+    phiCorrelation: torch.Tensor        # (W, N)
+    phiStructureFactor: torch.Tensor    # (W, N)
+    chargeCorrelation: torch.Tensor     # (W, N)
+    chargeStructureFactor: torch.Tensor
+    spinZCorrelation: torch.Tensor
+    spinZStructureFactor: torch.Tensor
+    pairingCorrelation: torch.Tensor
+    kOccupationX: torch.Tensor
+    kOccupationY: torch.Tensor
+    occupancyX: torch.Tensor
+    occupancyY: torch.Tensor
+
+
+def _pauli_stack(opdim: int) -> np.ndarray:
+    sx = np.array([[0, 1], [1, 0]], dtype=np.complex128)
+    sy = np.array([[0, -1j], [1j, 0]], dtype=np.complex128)
+    sz = np.array([[1, 0], [0, -1]], dtype=np.complex128)
+    return np.stack([sx, sy, sz][:opdim])
+
+
+def _cb_dense_product(partner: np.ndarray, cosh_og: np.ndarray,
+                      sinh_og: np.ndarray, gamma: float):
+    """Exact dense product matrices (E, E^{-1}) of the checkerboard
+    breakup, E = gamma F_0 F_1 ... F_{g-1} per orbital with F_g = cosh_g I
+    + sinh_g P_g; the inverse is the reversed product of the per-factor
+    inverses (the sinh sign flips). partner: (n_g, N); cosh_og/sinh_og:
+    (n_orb, n_g); returns two (n_orb, N, N) float64 arrays."""
+    n_g, N = partner.shape
+    n_orb = cosh_og.shape[0]
+    E = np.broadcast_to(np.eye(N), (n_orb, N, N)).copy()
+    Einv = E.copy()
+    for g in reversed(range(n_g)):
+        E = cosh_og[:, g][:, None, None] * E \
+            + sinh_og[:, g][:, None, None] * E[:, partner[g], :]
+    for g in range(n_g):
+        Einv = cosh_og[:, g][:, None, None] * Einv \
+            - sinh_og[:, g][:, None, None] * Einv[:, partner[g], :]
+    return gamma * E, Einv / gamma
+
+
+class SDWModel(nn.Module):
+    """Config + device constants (registered buffers) + the sweep."""
+
+    def __init__(self, cfg: SDWConfig, device=None):
+        super().__init__()
+        self._check_ported(cfg)
+        if cfg.green_kernel not in ("auto", "xla", "df32", "pallas"):
+            raise ValueError(f"unknown green_kernel {cfg.green_kernel!r}")
+        self.cfg = cfg
+        self.lat = lattice_mod.SquareLattice(cfg.L)
+        self.rdtype, self.cdtype = cfg.torch_dtype, cfg.cdtype
+        self.dim = cfg.dim
+        self.c_det = 0.5        # full 4x4 block: weight |R| = (|R|^2)^(1/2)
+        N = cfg.n_sites
+        dev = torch.device(device) if device is not None else None
+        if dev is not None and dev.type == "cuda":
+            self._check_kernel_bounds(cfg)
+        Kx = self.lat.hopping_matrix(1.0, tx=cfg.txhor, ty=cfg.txver)
+        Ky = self.lat.hopping_matrix(1.0, tx=cfg.tyhor, ty=cfg.tyver)
+        expKx, expKx_inv = kinetic_exponentials(Kx, cfg.dtau, cfg.mu)
+        expKy, expKy_inv = kinetic_exponentials(Ky, cfg.dtau, cfg.mu)
+        ek = np.stack([expKx, expKx, expKy, expKy])
+        eki = np.stack([expKx_inv, expKx_inv, expKy_inv, expKy_inv])
+        if cfg.checkerboard:
+            # per-orbital group coefficients: groups (0, 1) horizontal
+            # bonds, (2, 3) vertical; applied as the exact dense product
+            partner = self.lat.checkerboard_groups()
+            th = np.array([cfg.txhor, cfg.txhor, cfg.tyhor, cfg.tyhor])
+            tv = np.array([cfg.txver, cfg.txver, cfg.tyver, cfg.tyver])
+            tg = np.stack([th, th, tv, tv], axis=1)           # (n_orb, 4)
+            ek, eki = _cb_dense_product(
+                partner, np.cosh(cfg.dtau * tg), np.sinh(cfg.dtau * tg),
+                float(np.exp(cfg.dtau * cfg.mu)))
+
+        def buf(name, a, dtype):
+            self.register_buffer(name, torch.as_tensor(
+                np.asarray(a), dtype=dtype, device=dev))
+
+        cdt, rdt = self.cdtype, self.rdtype
+        buf("expK", ek, cdt)                                   # (4, N, N)
+        buf("expK_inv", eki, cdt)
+        buf("K_orb", np.stack([Kx, Kx, Ky, Ky]), cdt)
+        buf("paulis", _pauli_stack(cfg.opdim), cdt)            # (3, 2, 2)
+        nb = self.lat.neighbors()                              # (N, 4)
+        buf("nb", nb, torch.int32)       # K4's table
+        buf("nb_idx", nb, torch.int64)   # gathers
+        s_ = np.arange(N)
+        xs, ys = self.lat.xy(s_)
+        buf("disp_idx", self.lat.site(xs[None, :] + xs[:, None],
+                                      ys[None, :] + ys[:, None]), torch.int64)
+        rg = np.stack([xs, ys], axis=1)
+        kg = self.lat.k_grid()
+        buf("four_cos", np.cos(kg @ rg.T), rdt)
+        buf("four_sin", np.sin(kg @ rg.T), rdt)
+
+    @staticmethod
+    def _check_ported(cfg: SDWConfig) -> None:
+        if cfg.opdim != 3 or cfg.fermion_matrix == "reduced":
+            raise _unported(f"opdim={cfg.opdim} (the reduced two-sector "
+                            "and real opdim-1 chains)")
+        if cfg.fermion_matrix not in ("auto", "full"):
+            raise ValueError(f"bad fermion_matrix {cfg.fermion_matrix!r}")
+        if cfg.fermion_repr == "real_embed":
+            raise _unported("fermion_repr='real_embed' (a TPU device, not "
+                            "to be ported)", "ROADMAP.md Queue 1 item 12")
+        if cfg.fermion_repr not in ("auto", "complex", "native_pair"):
+            raise ValueError(f"bad fermion_repr {cfg.fermion_repr!r}")
+        if cfg.delay > 0 or cfg.update_kernel == "delayed":
+            raise _unported("the delayed SDW update (delay > 0, "
+                            "update_kernel='delayed')",
+                            "ROADMAP.md Queue 2 item 2")
+        if cfg.wrap_kernel == "fused":
+            raise _unported("wrap_kernel='fused'",
+                            "ROADMAP.md Queue 2 items 3-4")
+        if cfg.green_kernel == "refine":
+            raise _unported("green_kernel='refine'",
+                            "ROADMAP.md Queue 1 item 9")
+        if cfg.checkerboard and cfg.cb_apply == "sparse":
+            raise _unported("cb_apply='sparse' (the dense checkerboard "
+                            "product is ported)")
+        if cfg.globalShift or cfg.wolffClusterUpdate \
+                or cfg.wolffClusterShiftUpdate:
+            raise _unported("global shift and Wolff moves")
+        if cfg.turnoffFermions:
+            raise _unported("turnoffFermions")
+
+    @staticmethod
+    def _check_kernel_bounds(cfg: SDWConfig) -> None:
+        """On a CUDA device every dim must fit the one-CTA kernels' shared
+        memory (K4, K2c, K3c); larger dims (L >= 6) need the n > 128
+        kernels of ROADMAP.md Queue 2."""
+        limit = _kernels.MAX_SMEM_BYTES - 1024
+        N, dim, cdt = cfg.n_sites, cfg.dim, cfg.cdtype
+        need = {"K4 sdw_update": sdw_update.smem_bytes(N, cfg.opdim, cdt),
+                "K2c qr": qr_mod.smem_bytes(dim, cdt),
+                "K3c solve_inner": green_solve.smem_bytes(
+                    dim, torch.complex128)}
+        over = [k for k, v in need.items() if v > limit]
+        if over or dim > qr_mod.MAX_N:
+            raise _unported(f"SDW at dim {dim} on a CUDA device ({over} "
+                            "exceed the shared-memory budget)",
+                            "ROADMAP.md Queue 2 items 2-7 and 11")
+
+    @property
+    def device(self) -> torch.device:
+        return self.expK.device
+
+    # ---- potential factor ---------------------------------------------------
+    def exp_v_blocks(self, phi_slice: torch.Tensor, sign: float = -1.0
+                     ) -> torch.Tensor:
+        """exp(sign dtau V(phi)) as per-site 4x4 blocks: (..., N, 4, 4)
+        from (..., N, opdim), closed form via V^2 = (lam |phi|)^2."""
+        cfg, cdt = self.cfg, self.cdtype
+        nrm = torch.sqrt(torch.sum(phi_slice ** 2, dim=-1))
+        a = cfg.dtau * cfg.lam * nrm
+        sh_over = torch.where(nrm > 0, torch.sinh(a) / torch.clamp(
+            nrm, min=1e-30), torch.full_like(nrm, cfg.dtau * cfg.lam))
+        ch = torch.cosh(a).to(cdt)[..., None, None]
+        Phi = torch.einsum("...o,oab->...ab", phi_slice.to(cdt), self.paulis)
+        coef = (sign * sh_over).to(cdt)[..., None, None]
+        eye2 = torch.eye(2, dtype=cdt, device=phi_slice.device)
+        row1 = torch.cat([ch * eye2, coef * Phi], dim=-1)
+        row2 = torch.cat([coef * Phi.mH, ch * eye2], dim=-1)
+        return torch.cat([row1, row2], dim=-2)
+
+    def _exp_v_single(self, phi_i: torch.Tensor, sign: float) -> torch.Tensor:
+        """exp(sign dtau V) for single sites: (..., 4, 4) from (..., opdim)."""
+        return self.exp_v_blocks(phi_i, sign)
+
+    # ---- block-diagonal / kinetic applies (X: (..., dim, k)) ----------------
+    def _as_orb(self, X):
+        return X.reshape(*X.shape[:-2], N_ORB, self.cfg.n_sites, X.shape[-1])
+
+    def dv_mult_left(self, blocks, X):
+        """D_V @ X, D_V block-diagonal per site: blocks (..., N, 4, 4)."""
+        out = torch.einsum("...iab,...bik->...aik", blocks, self._as_orb(X))
+        return out.reshape(X.shape)
+
+    def dv_mult_right(self, X, blocks):
+        """X @ D_V."""
+        Xo = X.reshape(*X.shape[:-1], N_ORB, self.cfg.n_sites)
+        out = torch.einsum("...kai,...iab->...kbi", Xo, blocks)
+        return out.reshape(X.shape)
+
+    def kinetic_mult_left(self, X, inv=False, transpose=False):
+        E = self.expK_inv if inv else self.expK
+        if transpose:
+            E = E.transpose(-1, -2)
+        return mm(E, self._as_orb(X)).reshape(X.shape)
+
+    def kinetic_mult_right(self, X, inv=False):
+        E = self.expK_inv if inv else self.expK
+        Xo = X.reshape(*X.shape[:-1], N_ORB, self.cfg.n_sites)
+        out = torch.einsum("...kom,omn->...kon", Xo, E)
+        return out.reshape(X.shape)
+
+    # B = D_V expK (potential leftmost, as in Hubbard)
+    def b_mult_left(self, blocks, X):
+        return self.dv_mult_left(blocks, self.kinetic_mult_left(X))
+
+    def b_inv_mult_left(self, blocks_inv, X):
+        return self.kinetic_mult_left(self.dv_mult_left(blocks_inv, X),
+                                      inv=True)
+
+    def b_mult_right(self, X, blocks):
+        return self.kinetic_mult_right(self.dv_mult_right(X, blocks))
+
+    def b_inv_mult_right(self, X, blocks_inv):
+        return self.dv_mult_right(self.kinetic_mult_right(X, inv=True),
+                                  blocks_inv)
+
+    def bT_mult_left(self, blocks, X):
+        """B^H @ X = expK^H (D_V^H X), for the conj-transposed right stack
+        (expK is real)."""
+        return self.kinetic_mult_left(self.dv_mult_left(blocks.mH, X),
+                                      transpose=True)
+
+    # ---- boson action ---------------------------------------------------------
+    def boson_action(self, phi, r=None):
+        """S_B[phi] per walker: phi (W, m, N, opdim), r None (cfg.r) or
+        (W,)."""
+        cfg = self.cfg
+        r = cfg.r if r is None else r
+        dtau = cfg.dtau
+        d_tau = phi - torch.roll(phi, 1, dims=1)
+        s_tau = torch.sum(d_tau ** 2, dim=(1, 2, 3)) \
+            / (2.0 * cfg.c ** 2 * dtau ** 2)
+        dx = phi - phi[:, :, self.nb_idx[:, 0]]
+        dy = phi - phi[:, :, self.nb_idx[:, 2]]
+        s_grad = 0.5 * (torch.sum(dx ** 2, dim=(1, 2, 3))
+                        + torch.sum(dy ** 2, dim=(1, 2, 3)))
+        phi2 = torch.sum(phi ** 2, dim=-1).reshape(phi.shape[0], -1)
+        s_pot = 0.5 * r * torch.sum(phi2, dim=1) \
+            + 0.25 * cfg.u * torch.sum(phi2 ** 2, dim=1)
+        return dtau * (s_tau + s_grad + s_pot)
+
+    # ---- proposals -------------------------------------------------------------
+    def _draw_proposal_randoms(self, W: int, generator: torch.Generator):
+        """One sweep's draws, slice axis indexed by l - 1: (u01 (W, m, N),
+        rnd) with rnd = (deltas (W, m, N, opdim) uniform in [-1, 1),) for
+        box proposals, (dirs (W, m, N, opdim), gs (W, m, N)) standard
+        normal for the rotate methods (JAX: _draw_proposal_randoms, whose
+        box deltas are these times box_width)."""
+        cfg = self.cfg
+        shp = (W, cfg.m, cfg.n_sites)
+        kw = dict(generator=generator, dtype=self.rdtype, device=self.device)
+        u01 = torch.rand(shp, **kw)
+        if cfg.spinProposalMethod == "box":
+            return u01, (2.0 * torch.rand(shp + (cfg.opdim,), **kw) - 1.0,)
+        return u01, (torch.randn(shp + (cfg.opdim,), **kw),
+                     torch.randn(shp, **kw))
+
+    def _propose_all(self, phi_l0, rnd, box_w, alt):
+        """Proposals for every site of a slice (each site is visited once
+        per slice, so every proposal sees the pre-scan field) ->
+        (phi_new (W, N, opdim), log-measure jac (W, N)). rnd holds this
+        slice's draws; box deltas are scaled by box_w (W,) here."""
+        cfg = self.cfg
+        if cfg.spinProposalMethod == "box":
+            (deltas,) = rnd
+            return (phi_l0 + deltas * box_w[:, None, None],
+                    torch.zeros(phi_l0.shape[:-1], dtype=phi_l0.dtype,
+                                device=phi_l0.device))
+        dirs, gs = rnd
+        tiny = 1e-30
+        r2_old = torch.sum(phi_l0 ** 2, dim=-1)
+        r_old = torch.sqrt(torch.clamp(r2_old, min=tiny))
+        dir_new = dirs / torch.sqrt(torch.clamp(
+            torch.sum(dirs ** 2, dim=-1, keepdim=True), min=tiny))
+        r2_new = torch.abs(r2_old + box_w[:, None] * gs)
+        r_new = torch.sqrt(torch.clamp(r2_new, min=tiny))
+        jac_scale = 0.5 * (cfg.opdim - 2) * (
+            torch.log(torch.clamp(r2_new, min=tiny))
+            - torch.log(torch.clamp(r2_old, min=tiny)))
+        if cfg.spinProposalMethod == "rotate_and_scale":
+            return r_new[..., None] * dir_new, jac_scale
+        rot = r_old[..., None] * dir_new
+        scl = phi_l0 * (r_new / r_old)[..., None]
+        first = (alt == 0)[:, None]
+        return (torch.where(first[..., None], rot, scl),
+                torch.where(first, torch.zeros_like(jac_scale), jac_scale))
+
+    def _ds_static(self, phi_l0, phi_new, phi_lp, phi_lm, r):
+        """Static part of the per-site boson-action difference (W, N): tau
+        links, r/u potential and the gradient self terms, all functions of
+        the pre-scan field; K4 adds the live -dtau dphi . sum phi[nb]."""
+        cfg = self.cfg
+        dtau = cfg.dtau
+
+        def tau_t(p):
+            return (torch.sum((p - phi_lp) ** 2, -1)
+                    + torch.sum((p - phi_lm) ** 2, -1)) \
+                / (2.0 * cfg.c ** 2 * dtau ** 2)
+
+        p2n = torch.sum(phi_new ** 2, -1)
+        p2o = torch.sum(phi_l0 ** 2, -1)
+        pot = 0.5 * r[:, None] * (p2n - p2o) \
+            + 0.25 * cfg.u * (p2n ** 2 - p2o ** 2)
+        grad_self = 2.0 * (p2n - p2o)
+        return dtau * (tau_t(phi_new) - tau_t(phi_l0) + grad_self + pot)
+
+    # ---- site updates -------------------------------------------------------
+    def update_slice(self, G, phi, l_1based: int, u01, rnd, box_w, r, alt):
+        """Sequential single-site phi updates in slice l (the JAX model's
+        kernel route, _update_slice_pallas): G (W, dim, dim), phi
+        (W, m, N, opdim), u01 (W, N) and rnd this slice's draws. K4 on a
+        CUDA tensor, its plain version on a CPU tensor. Returns (G, phi,
+        acc_rate (W,))."""
+        cfg = self.cfg
+        m, N = cfg.m, cfg.n_sites
+        l_idx = l_1based - 1
+        phi_lp = phi[:, (l_idx + 1) % m]
+        phi_lm = phi[:, (l_idx - 1) % m]
+        phi_l0 = phi[:, l_idx]
+        phi_new, jac = self._propose_all(phi_l0, rnd, box_w, alt)
+        lhs = (torch.log(u01) - jac
+               + self._ds_static(phi_l0, phi_new, phi_lp, phi_lm, r))
+        en = self.exp_v_blocks(phi_new, -1.0)
+        eo_inv = self.exp_v_blocks(phi_l0, +1.0)
+        eye4 = torch.eye(N_ORB, dtype=self.cdtype, device=G.device)
+        delta = mm(en, eo_inv) - eye4
+        G, phi_l, acc = sdw_update.sdw_update(
+            G.contiguous(), phi_l0.contiguous(), phi_new.contiguous(),
+            lhs.contiguous(), delta.contiguous(), self.nb, cfg.dtau,
+            self.c_det)
+        phi = phi.clone()
+        phi[:, l_idx] = phi_l
+        return G, phi, acc / N
+
+    # ---- wraps ----------------------------------------------------------------
+    def wrap_up(self, G, blocks, blocks_inv):
+        """G(l) = B_l G(l-1) B_l^{-1}."""
+        return self.b_mult_left(blocks, self.b_inv_mult_right(G, blocks_inv))
+
+    def wrap_down(self, G, blocks, blocks_inv):
+        """G(l-1) = B_l^{-1} G(l) B_l."""
+        return self.b_inv_mult_left(blocks_inv, self.b_mult_right(G, blocks))
+
+    # ---- measurement ------------------------------------------------------------
+    def _phys_green_parts(self, G):
+        """(re, im) of the physical 4-orbital Green blocks, (W, 4, 4, N, N)
+        in the basis (x_up, x_dn, y_up, y_dn)."""
+        N = self.cfg.n_sites
+        g = G.reshape(-1, N_ORB, N, N_ORB, N).permute(0, 1, 3, 2, 4)
+        return g.real, g.imag
+
+    def _translation_average(self, X):
+        """(W, N, N) -> (W, N): c(d) = mean_i X[i, i + d]."""
+        rows = torch.arange(self.cfg.n_sites, device=X.device)[None, :]
+        return X[:, rows, self.disp_idx].mean(dim=-1)
+
+    def _fermion_correlations(self, G):
+        """Equal-time Wick-contracted correlators from the 4-orbital
+        blocks: a dict of (W, N) vectors and per-band occupancies (W,)."""
+        N = self.cfg.n_sites
+        rdt, dev = self.rdtype, G.device
+        re, im = self._phys_green_parts(G)                 # (W, 4, 4, N, N)
+        eyeN = torch.eye(N, dtype=rdt, device=dev)
+        d4 = torch.eye(4, dtype=rdt, device=dev)
+        # A[o, o', i, j] = <c+_{o,i} c_{o',j}> = delta delta - G[o', o]_ji
+        A_re = d4[:, :, None, None] * eyeN - re.permute(0, 2, 1, 4, 3)
+        A_im = -im.permute(0, 2, 1, 4, 3)
+        n_oi = torch.stack([torch.diagonal(A_re[:, o, o], dim1=-2, dim2=-1)
+                            for o in range(4)], dim=1)     # (W, 4, N)
+        n_i = n_oi.sum(dim=1)
+        prod = A_re * re - A_im * im
+
+        def exch(w):
+            return torch.einsum("o,p,wopij->wij", w, w, prod)
+
+        ones4 = torch.ones(4, dtype=rdt, device=dev)
+        wz = torch.tensor([0.5, -0.5, 0.5, -0.5], dtype=rdt, device=dev)
+        exch_nn, exch_zz = exch(ones4), exch(wz)
+        nn_ = n_i[:, :, None] * n_i[:, None, :] + exch_nn
+        sz_i = torch.einsum("o,won->wn", wz, n_oi)
+        szsz = sz_i[:, :, None] * sz_i[:, None, :] + exch_zz
+        # onsite s-wave pairing (see the JAX model for the sector argument)
+        pair = torch.zeros_like(exch_nn)
+        for up, dn in ((0, 1), (2, 3)):
+            pair = pair + (A_re[:, up, up] * A_re[:, dn, dn]
+                           - A_im[:, up, up] * A_im[:, dn, dn])
+        for (a1, a2), (b1, b2) in (((0, 3), (1, 2)), ((2, 1), (3, 0))):
+            pair = pair - (A_re[:, a1, a2] * A_re[:, b1, b2]
+                           - A_im[:, a1, a2] * A_im[:, b1, b2])
+        ta = self._translation_average
+
+        def ft(F, v):
+            return torch.einsum("kd,wd->wk", F, v)
+
+        kocc = []
+        for orbs in ((0, 1), (2, 3)):
+            cre = sum(ta(A_re[:, o, o]) for o in orbs)
+            cim = sum(ta(A_im[:, o, o]) for o in orbs)
+            kocc.append(ft(self.four_cos, cre) + ft(self.four_sin, cim))
+        return {
+            "chargeCorrelation": ta(nn_),
+            "chargeStructureFactor": ft(self.four_cos, ta(exch_nn)),
+            "spinZCorrelation": ta(szsz),
+            "spinZStructureFactor": ft(self.four_cos, ta(exch_zz)),
+            "pairingCorrelation": ta(pair),
+            "kOccupationX": kocc[0],
+            "kOccupationY": kocc[1],
+            "occupancyX": n_oi[:, 0].mean(-1) + n_oi[:, 1].mean(-1),
+            "occupancyY": n_oi[:, 2].mean(-1) + n_oi[:, 3].mean(-1),
+        }
+
+    def _phi_correlations(self, phi):
+        """Equal-time order-parameter observables, tau-averaged: S_phi(k)
+        (W, N) and its inverse FT c(d) = <phi_0 . phi_d> (W, N)."""
+        N = self.cfg.n_sites
+        C = torch.einsum("kn,wlno->wlko", self.four_cos, phi)
+        S = torch.einsum("kn,wlno->wlko", self.four_sin, phi)
+        sk = (C ** 2 + S ** 2).sum(-1).mean(1) / N
+        cd = torch.einsum("kd,wk->wd", self.four_cos, sk) / N
+        return cd, sk
+
+    def measure(self, G, phi, phase, acc_rate) -> SDWObservables:
+        cfg = self.cfg
+        N = cfg.n_sites
+        phi2 = torch.sum(phi ** 2, dim=-1)                     # (W, m, N)
+        phibar = phi.mean(dim=(1, 2))                          # (W, opdim)
+        chi = cfg.beta * N * torch.sum(phibar ** 2, dim=-1)
+        occ = N_ORB - torch.diagonal(G, dim1=-2, dim2=-1).sum(-1).real / N
+        Gorb = G.reshape(-1, N_ORB, N, N_ORB, N)
+        e_kin = -sum(torch.sum(self.K_orb[o].T * Gorb[:, o, :, o, :],
+                               dim=(-2, -1)) for o in range(N_ORB)).real / N
+        phicorr, phisf = self._phi_correlations(phi)
+        return SDWObservables(
+            phiSquared=phi2.mean(dim=(1, 2)),
+            phiFourth=(phi2 ** 2).mean(dim=(1, 2)),
+            phiNorm=torch.sqrt(phi2).mean(dim=(1, 2)),
+            sdwSusceptibility=chi,
+            occupancy=occ,
+            kineticEnergy=e_kin,
+            bosonAction=self.boson_action(phi) / (cfg.m * N),
+            exchangeAction=0.5 * cfg.dtau * torch.sum(phi ** 2,
+                                                      dim=(1, 2, 3)),
+            phase=phase.real,
+            acceptance=acc_rate,
+            phiCorrelation=phicorr,
+            phiStructureFactor=phisf,
+            **self._fermion_correlations(G))
+
+    # ---- sweeps -------------------------------------------------------------------
+    def _eye_mixed(self, W: int) -> UDV:
+        """Identity UdV per walker: U in cdtype, d float64, V complex128
+        (the stack layout)."""
+        dim, dev = self.dim, self.device
+        return UDV(torch.eye(dim, dtype=self.cdtype, device=dev).expand(
+                       W, dim, dim),
+                   torch.ones(W, dim, dtype=torch.float64, device=dev),
+                   torch.eye(dim, dtype=torch.complex128,
+                             device=dev).expand(W, dim, dim))
+
+    def _sweep(self, state: SDWState, up: bool, measure: bool, draws=None,
+               generator=None):
+        """One full pass over all time slices (up: l = 1..m, down:
+        l = m..1), consuming the opposite-direction UdV stack and emitting
+        this direction's. ``draws``: this sweep's (u01, rnd) as
+        ``_draw_proposal_randoms`` returns them; None draws from
+        ``generator``."""
+        cfg = self.cfg
+        K, s_int = cfg.n_stack, cfg.s
+        phi, G, phase = state.phi, state.G, state.phase
+        W = phi.shape[0]
+        if draws is None:
+            if generator is None:
+                raise ValueError("_sweep needs draws or a torch.Generator")
+            draws = self._draw_proposal_randoms(W, generator)
+        u01, rnd = draws
+        alt = state.sweeps_done % 2
+        eye_f = self._eye_mixed(W)
+        lazy_U, d_c, V_c = eye_f
+        rdt = self.rdtype
+        dev = torch.zeros(W, dtype=rdt, device=self.device)
+        acc_sum = torch.zeros(W, dtype=rdt, device=self.device)
+        obs_sum = None
+        emitted = []
+        for k in (range(1, K + 1) if up else range(K, 0, -1)):
+            ci = k if up else k - 1
+            other = UDV(state.stack_U[:, ci], state.stack_d[:, ci],
+                        state.stack_V[:, ci])
+            for l_rel in range(s_int):
+                l = (k - 1) * s_int + 1 + l_rel if up else k * s_int - l_rel
+                if up:
+                    G = self.wrap_up(G, self.exp_v_blocks(phi[:, l - 1]),
+                                     self.exp_v_blocks(phi[:, l - 1], +1.0))
+                G, phi, acc = self.update_slice(
+                    G, phi, l, u01[:, l - 1], tuple(x[:, l - 1] for x in rnd),
+                    state.box_width, state.r, alt)
+                blocks_new = self.exp_v_blocks(phi[:, l - 1])
+                if up:
+                    lazy_U = self.b_mult_left(blocks_new, lazy_U)
+                else:
+                    lazy_U = self.bT_mult_left(blocks_new, lazy_U)
+                    G = self.wrap_down(G, blocks_new, self.exp_v_blocks(
+                        phi[:, l - 1], +1.0))
+                acc_sum = acc_sum + acc
+            # re-orthogonalize: run-dtype QR (K2c) of the lazy block, f64 d,
+            # complex128 V; stabilized G through K3c
+            f_new = udv_refactor(lazy_U, d_c, V_c)
+            G_stab = (green_from_two_udv(f_new, other) if up
+                      else green_from_two_udv(other, f_new))
+            dev = torch.maximum(dev, (G - G_stab).abs().amax((-2, -1)))
+            G = G_stab
+            if measure:
+                obs = self.measure(G, phi, phase, torch.zeros_like(acc_sum))
+                obs_sum = obs if obs_sum is None else SDWObservables(
+                    *[a + b for a, b in zip(obs_sum, obs)])
+            lazy_U, d_c, V_c = f_new
+            emitted.append(f_new)
+
+        if not up:
+            emitted = emitted[::-1]
+
+        def assemble(leaves, eye_leaf):
+            parts = [eye_leaf] + leaves if up else leaves + [eye_leaf]
+            return torch.stack(parts, dim=1)
+
+        logd = torch.log10(torch.clamp(
+            torch.stack([f.d for f in emitted], dim=1), min=1e-38))
+        new_state = state._replace(
+            phi=phi, G=G,
+            stack_U=assemble([f.U for f in emitted], eye_f.U),
+            stack_d=assemble([f.d for f in emitted], eye_f.d),
+            stack_V=assemble([f.V for f in emitted], eye_f.V),
+            next_dir=torch.full_like(state.next_dir, 1 if up else 0),
+            sweeps_done=state.sweeps_done + 1,
+            green_dev=dev.float(),
+            sv_min=logd.amin((1, 2)).float(),
+            sv_max=logd.amax((1, 2)).float())
+        if obs_sum is None:
+            zero = self.measure(G, phi, phase, acc_sum)
+            obs_sum = SDWObservables(*[torch.zeros_like(a) for a in zero])
+        obs_mean = SDWObservables(*[a / K for a in obs_sum])
+        obs_mean = obs_mean._replace(
+            acceptance=acc_sum / cfg.m,
+            # one configuration (the sweep's final field), not an average
+            exchangeAction=0.5 * cfg.dtau * torch.sum(phi ** 2,
+                                                      dim=(1, 2, 3)))
+        return new_state, obs_mean
+
+    def sweep_up(self, state, measure=False, draws=None, generator=None):
+        return self._sweep(state, True, measure, draws, generator)
+
+    def sweep_down(self, state, measure=False, draws=None, generator=None):
+        return self._sweep(state, False, measure, draws, generator)
+
+    def sweep_pair(self, state: SDWState, measure: bool, draws=None,
+                   generator=None):
+        """Up + down; measurements averaged, exchangeAction from the
+        pair's final field. ``draws``: None or the (up, down) pair of
+        per-sweep draws."""
+        d_up, d_dn = (None, None) if draws is None else draws
+        state, o1 = self._sweep(state, True, measure, d_up, generator)
+        state, o2 = self._sweep(state, False, measure, d_dn, generator)
+        obs = SDWObservables(*[0.5 * (a + b) for a, b in zip(o1, o2)])
+        return state, obs._replace(exchangeAction=o2.exchangeAction)
+
+    # ---- setup -----------------------------------------------------------------------
+    def _build_right_stack(self, phi) -> UDV:
+        """Right (conj-transposed) stack entries k = 0..K from the field
+        (entry K = identity, entry 0 = the whole chain), (W, K+1, ...)."""
+        cfg = self.cfg
+        K, s_int = cfg.n_stack, cfg.s
+        eye_f = self._eye_mixed(phi.shape[0])
+        f = eye_f
+        emitted = []
+        for k in range(K, 0, -1):
+            lazy_U = f.U
+            for l_rel in range(s_int):
+                l = k * s_int - l_rel
+                lazy_U = self.bT_mult_left(self.exp_v_blocks(phi[:, l - 1]),
+                                           lazy_U)
+            f = udv_refactor(lazy_U, f.d, f.V)
+            emitted.append(f)
+        emitted = emitted[::-1]
+        return UDV(*[torch.stack([getattr(e, leaf) for e in emitted]
+                                 + [getattr(eye_f, leaf)], dim=1)
+                     for leaf in ("U", "d", "V")])
+
+    def refresh_from_field(self, state: SDWState) -> SDWState:
+        """Recompute the right stack and G(0) from the field alone."""
+        stack = self._build_right_stack(state.phi)
+        full_t = UDV(stack.U[:, 0], stack.d[:, 0], stack.V[:, 0])
+        G = green_from_two_udv(self._eye_mixed(state.phi.shape[0]), full_t)
+        return state._replace(G=G, stack_U=stack.U, stack_d=stack.d,
+                              stack_V=stack.V,
+                              next_dir=torch.zeros_like(state.next_dir))
+
+    def init_state(self, n_walkers: int,
+                   generator: torch.Generator) -> SDWState:
+        """Gaussian field (0.5 N(0, 1) per component); stack and G(0) built
+        from scratch."""
+        cfg = self.cfg
+        W, dim, K, dev = n_walkers, self.dim, cfg.n_stack, self.device
+        rdt, i32, f32 = self.rdtype, torch.int32, torch.float32
+        phi = 0.5 * torch.randn((W, cfg.m, cfg.n_sites, cfg.opdim),
+                                generator=generator, dtype=rdt, device=dev)
+        zeros_w = torch.zeros(W, dtype=f32, device=dev)
+        state0 = SDWState(
+            phi=phi,
+            G=torch.zeros(W, dim, dim, dtype=self.cdtype, device=dev),
+            stack_U=torch.zeros(W, K + 1, dim, dim, dtype=self.cdtype,
+                                device=dev),
+            stack_d=torch.zeros(W, K + 1, dim, dtype=torch.float64,
+                                device=dev),
+            stack_V=torch.zeros(W, K + 1, dim, dim, dtype=torch.complex128,
+                                device=dev),
+            phase=torch.ones(W, dtype=self.cdtype, device=dev),
+            box_width=torch.full((W,), cfg.box_width, dtype=rdt, device=dev),
+            r=torch.full((W,), cfg.r, dtype=rdt, device=dev),
+            next_dir=torch.zeros(W, dtype=i32, device=dev),
+            sweeps_done=torch.zeros(W, dtype=i32, device=dev),
+            green_dev=zeros_w, sv_min=zeros_w, sv_max=zeros_w)
+        return self.refresh_from_field(state0)
+
+    # ---- not ported yet -------------------------------------------------------------
+    def sweep_simple(self, *args, **kwargs):
+        raise _unported("sweep_simple (the naive cross-check sweep)")
+
+    def green_at_slice(self, *args, **kwargs):
+        raise _unported("green_at_slice (the sweep_simple primitive)")
+
+    def time_displaced_greens(self, *args, **kwargs):
+        raise _unported("time-displaced G")
+
+    time_displaced_greens_rev = time_displaced_greens
+    time_displaced_greens_all = time_displaced_greens
+    time_displaced_greens_rev_all = time_displaced_greens
+    measure_time_displaced = time_displaced_greens
+    pair_susceptibilities = time_displaced_greens
+
+    def global_moves(self, *args, **kwargs):
+        raise _unported("global shift and Wolff moves")
+
+    attempt_global_shift = global_moves
+    attempt_wolff_update = global_moves
+    attempt_wolff_shift_update = global_moves
+
+    def log_weight(self, *args, **kwargs):
+        raise _unported("the parallel-tempering hooks (log_weight, with_r, "
+                        "exchange_action)", "ROADMAP.md Queue 1 items 8, 10")
+
+    with_r = log_weight
+    exchange_action = log_weight

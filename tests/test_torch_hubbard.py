@@ -190,6 +190,10 @@ model = HubbardModel(HubbardConfig(L=2, beta=1.0, m=4, s=2, dtype="float64",
 gen = torch.Generator().manual_seed(0)
 state = model.init_state(2, gen)
 state, obs = model.sweep_pair(state, measure=True, generator=gen)
+from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+sdw = SDWModel(SDWConfig(L=2, opdim=3, beta=1.0, m=4, s=2, dtype="float64"))
+state = sdw.init_state(2, gen)
+state, obs = sdw.sweep_pair(state, measure=True, generator=gen)
 assert not [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib")]
 print("no-jax-ok")
 """
