@@ -35,7 +35,23 @@ Phases (any failure raises, and the script exits non-zero):
    launch counts of this phase, median green_dev < 1e-4 (bench.py GATES),
    phiSquared finite, phase exactly 1;
 9. SDW profile — one pair under torch.profiler, device time by kernel
-   group (K4, K2c, K3c, cuBLAS gemm, other) and the busy share.
+   group (K4, K2c, K3c, cuBLAS gemm, other) and the busy share;
+10. SDW L=8 kernels — K5 sdw_delayed (complex64 at the main-path shapes
+   W = 128, h = 256, N = 64, K = 8; complex128 at h = 64, bitwise), K6
+   sdw_wrap / sdw_apply (all four modes, complex64 and complex128), K7
+   qr_complex_big (n = 144 and 256, complex64 and complex128), K8
+   solve_inner_complex_big (complex128, n = 256, with its K9
+   back-substitution) and K9 trinv_big (complex128, n = 256: R^{-1} and
+   R^{-1} Q^H diag(r1) of the inner matrix's R), each against its plain
+   PyTorch version on a wrapped G, a refactor block and a mid-chain inner
+   matrix, timed like phase 2;
+11. SDW delayed/fused path parity — phase 7 with update_kernel="delayed",
+   delay=3, wrap_kernel="fused";
+12. SDW L=8 main path — bench.py's sdw_l8 configuration, SDWConfig(L=8,
+   opdim=3, r=0.5, beta=4, m=40, s=8, float32, checkerboard), 128
+   walkers: as phase 8, with the launch counts of K5-K9 (K4, K2c, K3c
+   never launch) and sweeps/s against the C++ 3.41;
+13. SDW L=8 profile — as phase 9, with the groups K5, K6, K7, K8, K9.
 
 The second-to-last line is {"kernels": [...]} (every number measured in
 this run), and the last line is {"ok": true, "device": {...}}. Without a
@@ -68,8 +84,15 @@ HUBBARD_KERNELS = ("slice_update", "qr", "solve_inner")
 
 W_SDW = 128
 SDW_CFG = dict(L=4, opdim=3, r=0.5, beta=4.0, m=40, s=4, dtype="float32")
-SDW_GREEN_DEV_GATE = 1e-4  # bench.py GATES["sdw_l4"]
+SDW_GREEN_DEV_GATE = 1e-4  # bench.py GATES["sdw_l4"] and GATES["sdw_l8"]
 SDW_KERNELS = ("sdw_update", "qr_complex", "solve_inner_complex")
+# bench.py sdw_l8 (bench.py:61-64, 127-155, 322-324)
+SDW8_CFG = dict(L=8, opdim=3, r=0.5, beta=4.0, m=40, s=8, dtype="float32",
+                checkerboard=True)
+SDW8_KERNELS = ("sdw_delayed", "sdw_wrap", "sdw_apply", "qr_complex_big",
+                "solve_inner_complex_big", "trinv_big")
+SDW8_CPP = 3.41            # C++ single-core sweeps/s (bench.py:62)
+K6_TOL = {"complex64": 1e-5, "complex128": 1e-12}   # relative to max|G|
 K4_TOL = {"complex64": 1e-5, "complex128": 1e-12}  # max |G_kernel - G_plain|
 # an f32 K4 accept mismatch must be a near-tie of the log-domain test:
 # |lhs - (c_det log|R|^2 + live)| below this (f32 roundoff is ~1e-6 there)
@@ -356,6 +379,11 @@ HUBBARD_GROUPS = (("slice_update_kernel", "K1 slice_update"),
 SDW_GROUPS = (("sdw_update_kernel", "K4 sdw_update"),
               ("qr_kernel", "K2c qr"),
               ("solve_inner_kernel", "K3c solve_inner"))
+SDW8_GROUPS = (("sdw_delayed_kernel", "K5 sdw_delayed"),
+               ("line_pass_kernel", "K6 sdw_wrap/apply"),
+               ("qr_big_kernel", "K7 qr_complex_big"),
+               ("solve_inner_big_kernel", "K8 solve_inner_big"),
+               ("trinv_big_kernel", "K9 trinv_big"))
 
 
 def profile_phase(model, state, gen, wall_ms_per_pair, layers=HUBBARD_GROUPS,
@@ -585,15 +613,222 @@ def sdw_kernel_phase(model, state, gen):
     return out
 
 
-def sdw_path_parity_phase(device):
-    """The same tiny f64 SDW chain on the card (kernels) and on the CPU."""
+def sdw8_kernel_phase(model, state, gen, model4, state4):
+    """K5-K9 against their plain versions at the sdw_l8 shapes (K5 also in
+    complex128 at the sdw_l4 shapes, bitwise)."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import green_solve, qr, sdw_delayed, sdw_wrap
+    from detqmc_tpu_torch.linalg import trinv
+    from detqmc_tpu_torch.linalg.udv import _sign_fix, green_inner
+
+    cfg = model.cfg
+    W, h, N, K = state.G.shape[0], model.dim, cfg.n_sites, model._delay_k
+    c64, c128 = torch.complex64, torch.complex128
+    out = {}
+
+    # K5: slice 1 on the wrapped G, complex64 at h = 256, then complex128
+    # at h = 64 on the L=4 model (bitwise)
+    rec = {}
+    for cname, mdl, st in (("complex64", model, state),
+                           ("complex128", model4, state4)):
+        args = k4_operands(mdl, st, gen)
+        if cname == "complex128":
+            args = [a.to(c128 if a.is_complex() else torch.float64)
+                    for a in args]
+        extra = (mdl.nb, mdl.cfg.dtau, mdl.c_det)
+        Gk, pk, ak = sdw_delayed.sdw_delayed(*args, *extra, K)
+        Gp, pp, ap = sdw_delayed.sdw_delayed_plain(*args, *extra, K)
+        torch.cuda.synchronize()
+        same = (pk == pp).flatten(1).all(dim=1)
+        n_mis = int((~same).sum())
+        if n_mis:
+            check(cname == "complex64", f"K5 {cname}: {n_mis} walkers with "
+                  "other accept decisions")
+            for w in torch.nonzero(~same)[:, 0].tolist():
+                i = int(torch.nonzero((pk[w] != pp[w]).any(-1))[0, 0])
+                margin, rhs = k4_margin(mdl, args, w, i)
+                print(f"  K5 complex64 mismatch: walker {w} site {i} "
+                      f"|lhs - rhs| = {margin:.3e} (rhs {rhs:.6f})")
+                check(margin < K4_NEAR_TIE, f"K5 mismatch at walker {w} "
+                      f"site {i} is not a near-tie ({margin:.3e})")
+        err = float((Gk - Gp)[same].abs().max())
+        check(torch.equal(ak[same], ap[same]), f"K5 {cname}: acceptance "
+              "differs")
+        if cname == "complex128":
+            check(torch.equal(Gk, Gp) and torch.equal(pk, pp),
+                  "K5 complex128: not bitwise equal to the plain version")
+        check(err <= K4_TOL[cname], f"K5 {cname}: max|G_k - G_p| = "
+              f"{err:.3e} > {K4_TOL[cname]}")
+        Kc = min(K, mdl.cfg.n_sites)
+        colT, rowp = sdw_delayed.panels(args[0], 0, Kc)
+        cargs = (colT, rowp, *args[1:], mdl.nb, 0, Kc, mdl.cfg.dtau,
+                 mdl.c_det)
+        ms = time_ms(lambda: sdw_delayed.chunk(*cargs))
+        pms = time_ms(lambda: sdw_delayed.chunk_plain(*cargs), reps=3)
+        sms = time_ms(lambda: sdw_delayed.sdw_delayed(*args, *extra, K),
+                      reps=3)
+        hh = mdl.dim
+        print(f"K5 sdw_delayed {cname} (W={W}, h={hh}, K={K}): max|dG|="
+              f"{err:.3e} (tol {K4_TOL[cname]}), accepted {int(ak.sum())}/"
+              f"{W * mdl.cfg.n_sites} sites, accept mismatches {n_mis}; one "
+              f"chunk: kernel {ms:.4f} ms, plain {pms:.4f} ms; the slice "
+              f"with its flushes {sms:.4f} ms")
+        rec[cname] = (err, ms, pms)
+    out["sdw_delayed"] = rec
+
+    # K6: the four modes on the stabilized G and slice 1's blocks
+    D0 = model.exp_v_blocks(state.phi[:, 0])
+    Di0 = model.exp_v_blocks(state.phi[:, 0], 1.0)
+    rw, ra = {}, {}
+    for cname, cdt in (("complex64", c64), ("complex128", c128)):
+        G, E, Ei, D, Di = [x.to(cdt).contiguous() for x in (
+            state.G, model.expK, model.expK_inv, D0, Di0)]
+        scale = float(G.abs().max())
+        errs = {}
+        for mode, kf, pf in (
+                ("up", lambda: sdw_wrap.wrap(G, E, Ei, D, Di, True),
+                 lambda: sdw_wrap.wrap_plain(G, E, Ei, D, Di, True)),
+                ("down", lambda: sdw_wrap.wrap(G, E, Ei, D, Di, False),
+                 lambda: sdw_wrap.wrap_plain(G, E, Ei, D, Di, False)),
+                ("apply", lambda: sdw_wrap.apply(G, E, D, False),
+                 lambda: sdw_wrap.apply_plain(G, E, D, False)),
+                ("apply-H", lambda: sdw_wrap.apply(G, E, D, True),
+                 lambda: sdw_wrap.apply_plain(G, E, D, True))):
+            k, p_ = kf(), pf()
+            torch.cuda.synchronize()
+            errs[mode] = float((k - p_).abs().max())
+            check(errs[mode] <= K6_TOL[cname] * scale,
+                  f"K6 {cname} {mode}: max|d| {errs[mode]:.3e} > "
+                  f"{K6_TOL[cname]} x max|G| {scale:.3e}")
+        wms = time_ms(lambda: sdw_wrap.wrap(G, E, Ei, D, Di, True))
+        wpms = time_ms(lambda: sdw_wrap.wrap_plain(G, E, Ei, D, Di, True))
+        ams = time_ms(lambda: sdw_wrap.apply(G, E, D, False))
+        apms = time_ms(lambda: sdw_wrap.apply_plain(G, E, D, False))
+        print(f"K6 sdw_wrap/sdw_apply {cname} (W={W}, h={h}): max|d| "
+              + ", ".join(f"{m} {e:.3e}" for m, e in errs.items())
+              + f" (tol {K6_TOL[cname]} x max|G| {scale:.3e}); wrap kernel "
+              f"{wms:.4f} ms, plain {wpms:.4f} ms; apply kernel {ams:.4f} "
+              f"ms, plain {apms:.4f} ms")
+        rw[cname] = (max(errs["up"], errs["down"]), wms, wpms)
+        ra[cname] = (max(errs["apply"], errs["apply-H"]), ams, apms)
+    out["sdw_wrap"], out["sdw_apply"] = rw, ra
+
+    # K7: the refactor block at n = 256, a random matrix at n = 144
+    block, left, right = sdw_chain_inputs(model, state, cfg.n_stack // 2)
+    rng = torch.Generator(device=block.device).manual_seed(144)
+    rec = {}
+    for cname, cdt, tol in (("complex64", c64, K2_TOL["float32"]),
+                            ("complex128", c128, K2_TOL["float64"])):
+        msg = []
+        for n in (144, h):
+            if n == h:
+                A = block.to(cdt).contiguous()
+            else:
+                A = (torch.eye(n, dtype=cdt, device=block.device) + 0.3
+                     * torch.randn((W, n, n), generator=rng, dtype=cdt,
+                                   device=block.device))
+            check(qr.kernel_for(n, cdt) == "qr_complex_big",
+                  f"K7: n={n} {cname} is not routed to K7")
+            Qk, Rk = qr.qr(A)
+            Qp, Rp = qr.qr_plain(A)
+            torch.cuda.synchronize()
+            check(bool((torch.tril(Rk, -1) == 0).all()),
+                  "K7: R's strict lower triangle is not exactly zero")
+            fk, fp = _sign_fix(Qk, Rk), _sign_fix(Qp, Rp)
+            amax = lambda X: X.abs().amax((-2, -1))             # noqa: E731
+            err = max(float((fk.U - fp.U).abs().max()),
+                      float((fk.d - fp.d).abs().max() / fp.d.abs().max()),
+                      float((amax(fk.V - fp.V) / amax(fp.V)).max()))
+            recon = float((Qk @ Rk - A).abs().max() / A.abs().max())
+            check(err <= tol, f"K7 {cname} n={n}: err {err:.3e} > {tol}")
+            check(recon <= tol, f"K7 {cname} n={n}: |QR - A| {recon:.3e}")
+            msg.append(f"n={n} err={err:.3e} |QR-A|/|A|={recon:.3e}")
+        ms = time_ms(lambda: qr.qr(A))
+        pms = time_ms(lambda: qr.qr_plain(A), reps=3)
+        print(f"K7 qr_complex_big {cname} (B={W}, plan {qr.big_plan(h, cdt)})"
+              f": {'; '.join(msg)} (tol {tol}); n={h}: kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms")
+        rec[cname] = (err, ms, pms)
+    out["qr_complex_big"] = rec
+
+    # K8: the inner matrix at mid-chain conditioning
+    inner, r1, _ = green_inner(left, right)
+    inner, r1 = inner.contiguous(), r1.contiguous()
+    check(green_solve.kernel_for(h, inner.dtype) == "solve_inner_complex_big",
+          "K8: n=256 complex128 is not routed to K8")
+    mk = green_solve.solve_inner(inner, r1)
+    mp = green_solve.solve_inner_plain(inner, r1)
+    torch.cuda.synchronize()
+    abs_err = float((mk - mp).abs().max())
+    amax = lambda X: X.abs().amax((1, 2))                      # noqa: E731
+
+    def backward(X):
+        res = amax(inner @ X - torch.diag_embed(r1).to(inner.dtype))
+        return float((res / (h * amax(inner) * amax(X))).max())
+
+    bk, bp = backward(mk), backward(mp)
+    cond = torch.linalg.cond(inner)
+    fwd = amax(mk - mp) / amax(mp)
+    bound = h * torch.finfo(torch.float64).eps * cond
+    check(bk <= K3_BACKWARD, f"K8: backward error {bk:.3e} > {K3_BACKWARD}")
+    check(bool((fwd <= bound).all()),
+          f"K8: forward difference beyond n eps cond(inner): "
+          f"{float((fwd / bound).max()):.3e} x the bound")
+    ms = time_ms(lambda: green_solve.solve_inner(inner, r1))
+    pms = time_ms(lambda: green_solve.solve_inner_plain(inner, r1), reps=3)
+    print(f"K8+K9 solve_inner_complex_big complex128 (B={inner.shape[0]}, n={h}, "
+          f"cond(inner) {float(cond.min()):.2e}..{float(cond.max()):.2e}): "
+          f"max|dmid|={abs_err:.3e}, max rel {float(fwd.max()):.3e} (<= n "
+          f"eps cond, worst {float((fwd / bound).max()):.2e} of it), "
+          f"backward error kernel {bk:.2e} plain {bp:.2e} (tol "
+          f"{K3_BACKWARD}), kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    out["solve_inner_complex_big"] = {"complex128": (abs_err, ms, pms)}
+
+    # K9: R of the same inner matrices, alone (R^{-1}, the TPU kernel's
+    # contract) and on the right-hand side K8 hands it (Q^H diag(r1))
+    Qp, Rp = torch.linalg.qr(inner)
+    rhs = (Qp.mH * r1[:, None, :]).contiguous()
+    Rp = Rp.contiguous()
+    msg, errs = [], {}
+    for what, X in (("R^-1", None), ("R^-1 Q^H diag(r1)", rhs)):
+        B0 = (torch.eye(h, dtype=inner.dtype, device=inner.device)
+              if X is None else X)
+        xk, xp = trinv.trinv(Rp, X), trinv.trinv_plain(Rp, X)
+        torch.cuda.synchronize()
+        res = amax(Rp @ xk - B0) / (h * amax(Rp) * amax(xk))
+        fwd9 = amax(xk - xp) / amax(xp)
+        check(float(res.max()) <= K3_BACKWARD,
+              f"K9 {what}: backward error {float(res.max()):.3e}")
+        check(bool((fwd9 <= bound).all()), f"K9 {what}: forward difference "
+              f"beyond n eps cond(R): {float((fwd9 / bound).max()):.3e} x")
+        if X is None:
+            check(bool((torch.tril(xk, -1) == 0).all()),
+                  "K9: R^-1's strict lower triangle is not exactly zero")
+        errs[what] = float((xk - xp).abs().max())
+        msg.append(f"{what}: max|d|={errs[what]:.3e}, max rel "
+                   f"{float(fwd9.max()):.3e}, backward {float(res.max()):.2e}")
+    ims = time_ms(lambda: trinv.trinv(Rp))
+    ms = time_ms(lambda: trinv.trinv(Rp, rhs))
+    pms = time_ms(lambda: trinv.trinv_plain(Rp, rhs))
+    print(f"K9 trinv_big complex128 (B={Rp.shape[0]}, n={h}, plan "
+          f"{trinv.plan(h, Rp.dtype)}): {'; '.join(msg)} (tol "
+          f"{K3_BACKWARD}, n eps cond); R^-1 kernel {ims:.4f} ms; on the "
+          f"path's right-hand side kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    out["trinv_big"] = {"complex128": (errs["R^-1 Q^H diag(r1)"], ms, pms)}
+    return out
+
+
+def sdw_path_parity_phase(device, **kw):
+    """The same tiny f64 SDW chain on the card (kernels) and on the CPU;
+    ``kw``: extra SDWConfig knobs (the delayed/fused routes)."""
     import torch
 
     from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel, SDWState
 
     W = 4
     cfg = SDWConfig(L=2, opdim=3, r=0.5, beta=1.0, m=8, s=4,
-                    dtype="float64")
+                    dtype="float64", **kw)
     cpu = SDWModel(cfg, device="cpu")
     gpu = SDWModel(cfg, device=device)
     gen = torch.Generator().manual_seed(12)
@@ -614,18 +849,19 @@ def sdw_path_parity_phase(device):
     gerr = float((sg.G.cpu() - sc.G).abs().max())
     oerr = max(float((a.cpu() - b).abs().max()) for a, b in zip(og, oc))
     check(gerr <= PARITY_G_TOL, f"SDW path parity: G err {gerr:.3e}")
-    print(f"SDW path parity (L=2 m=8 s=4 W={W} f64, 2 pairs): fields "
-          f"identical, acceptance identical, max|dG|={gerr:.3e} (tol "
+    knobs = "".join(f" {k}={v}" for k, v in kw.items())
+    print(f"SDW path parity (L=2 m=8 s=4 W={W} f64{knobs}, 2 pairs): "
+          f"fields identical, acceptance identical, max|dG|={gerr:.3e} (tol "
           f"{PARITY_G_TOL}), max|d obs|={oerr:.3e}")
 
 
-def sdw_main_path_phase(device, card):
+def sdw_main_path_phase(device, card, cfg_kw=SDW_CFG, kernels=SDW_KERNELS):
     import torch
 
     from detqmc_tpu_torch.linalg import _kernels
     from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
 
-    cfg = SDWConfig(**SDW_CFG)
+    cfg = SDWConfig(**cfg_kw)
     model = SDWModel(cfg, device=device)
     gen = torch.Generator(device=device).manual_seed(0)
     torch.cuda.synchronize()
@@ -648,19 +884,33 @@ def sdw_main_path_phase(device, card):
     acc = float(torch.stack(accs).mean())
     K, n_pairs = cfg.n_stack, 1 + N_TIMED_PAIRS
     expect = dict.fromkeys(counts, 0)
-    expect.update({"sdw_update": 2 * cfg.m * n_pairs,
-                   "qr_complex": K + 2 * K * n_pairs,
-                   "solve_inner_complex": 1 + 2 * K * n_pairs})
-    cfg_s = " ".join(f"{k}={v}" for k, v in SDW_CFG.items())
+    if "sdw_delayed" in kernels:
+        # K5 once per chunk of every slice; K6 once per wrap and per
+        # square apply (init_state's right stack: m B^H applies); K7 once
+        # per refactor, K8 and K9 once per G evaluation
+        chunks = -(-cfg.n_sites // model._delay_k)
+        expect.update({"sdw_delayed": 2 * cfg.m * chunks * n_pairs,
+                       "sdw_wrap": 2 * cfg.m * n_pairs,
+                       "sdw_apply": cfg.m + 2 * cfg.m * n_pairs,
+                       "qr_complex_big": K + 2 * K * n_pairs,
+                       "solve_inner_complex_big": 1 + 2 * K * n_pairs,
+                       "trinv_big": 1 + 2 * K * n_pairs})
+    else:
+        expect.update({"sdw_update": 2 * cfg.m * n_pairs,
+                       "qr_complex": K + 2 * K * n_pairs,
+                       "solve_inner_complex": 1 + 2 * K * n_pairs})
+    cfg_s = " ".join(f"{k}={v}" for k, v in cfg_kw.items())
+    ratio = (f", {sweeps_per_s / SDW8_CPP:.1f}x the C++ {SDW8_CPP}"
+             if cfg.L == 8 else "")
     print(f"SDW main path {cfg_s} W={W_SDW}: {sweeps_per_s:.2f} sweeps/s "
-          f"({N_TIMED_PAIRS} pairs in {dt:.4f} s) on {card}")
+          f"({N_TIMED_PAIRS} pairs in {dt:.4f} s{ratio}) on {card}")
     print(f"  green_dev median {dev_med:.4e} (gate {SDW_GREEN_DEV_GATE}), "
           f"max {float(state.green_dev.max()):.4e}; phiSquared {phi2:.6f}; "
           f"acceptance {acc:.6f}; occupancy {float(obs.occupancy.mean()):.6f}"
           f"; sv range [{float(state.sv_min.min()):.2f}, "
           f"{float(state.sv_max.max()):.2f}] (log10)")
     print(f"  launches {counts} (expected {expect})")
-    check(all(counts[k] > 0 for k in SDW_KERNELS), "an SDW kernel never "
+    check(all(counts[k] > 0 for k in kernels), "an SDW kernel never "
           "launched")
     check(counts == expect, f"launch counts {counts} != {expect}")
     finite = all(bool(torch.isfinite(x).all()) for x in obs) and \
@@ -689,6 +939,7 @@ def main() -> int:
     from detqmc_tpu_torch.linalg import _kernels
     from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
 
+    t_start = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -727,6 +978,19 @@ def main() -> int:
     profile_phase(sdw, sdw_state, gen, wall_ms, SDW_GROUPS, "SDW profile")
     counts.update({k: sdw_counts[k] for k in SDW_KERNELS})
 
+    sdw8 = SDWModel(SDWConfig(**SDW8_CFG), device=device)
+    gen = torch.Generator(device=device).manual_seed(8888)
+    sdw8_state = sdw8.init_state(W_SDW, gen)
+    kern.update(sdw8_kernel_phase(sdw8, sdw8_state, gen, sdw, sdw_state))
+    del sdw8, sdw8_state, sdw, sdw_state
+    sdw_path_parity_phase(device, update_kernel="delayed", delay=3,
+                          wrap_kernel="fused")
+    sdw8, sdw8_state, gen, sdw8_counts, wall_ms = sdw_main_path_phase(
+        device, card, SDW8_CFG, SDW8_KERNELS)
+    profile_phase(sdw8, sdw8_state, gen, wall_ms, SDW8_GROUPS,
+                  "SDW L=8 profile")
+    counts.update({k: sdw8_counts[k] for k in SDW8_KERNELS})
+
     meta = {"slice_update": ("detqmc_tpu_torch/csrc/slice_update.cu",
                              "detqmc_tpu/linalg/pallas_update_lanes.py:185",
                              "float32"),
@@ -744,13 +1008,32 @@ def main() -> int:
             "solve_inner_complex": (
                 "detqmc_tpu_torch/csrc/green_solve.cu",
                 "detqmc_tpu/linalg/pallas_cgreen_lanes.py:279",
-                "complex128")}
+                "complex128"),
+            "sdw_delayed": ("detqmc_tpu_torch/csrc/sdw_delayed.cu",
+                            "detqmc_tpu/linalg/pallas_sdw_delayed.py:496",
+                            "complex64"),
+            "sdw_wrap": ("detqmc_tpu_torch/csrc/sdw_wrap.cu",
+                         "detqmc_tpu/linalg/pallas_sdw_wrap.py:204",
+                         "complex64"),
+            "sdw_apply": ("detqmc_tpu_torch/csrc/sdw_wrap.cu",
+                          "detqmc_tpu/linalg/pallas_sdw_wrap.py:288",
+                          "complex64"),
+            "qr_complex_big": ("detqmc_tpu_torch/csrc/qr_big.cu",
+                               "detqmc_tpu/linalg/pallas_cqr_wy.py:266",
+                               "complex64"),
+            "solve_inner_complex_big": (
+                "detqmc_tpu_torch/csrc/green_solve_big.cu",
+                "detqmc_tpu/linalg/pallas_cgreen.py:295", "complex128"),
+            "trinv_big": ("detqmc_tpu_torch/csrc/trinv_big.cu",
+                          "detqmc_tpu/linalg/pallas_trinv_common.py:152",
+                          "complex128")}
     rows = []
     for name, (src, repl, dname) in meta.items():
         err, ms, pms = kern[name][dname]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": repl, "launches": counts[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": pms})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

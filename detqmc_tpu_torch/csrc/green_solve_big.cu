@@ -1,0 +1,64 @@
+// K8: stabilized complex inner solve mid = inner^{-1} diag(r1) for n beyond
+// the one-CTA kernel K3c (green_solve.cu), complex128: the factorization,
+// one CTA per matrix.
+//
+// Replaces the TPU kernel detqmc_tpu/linalg/pallas_cgreen.py
+// (solve_inner_complex_big, kernel body _kernel), the column-lane df32
+// solve of the SDW chain at L = 8 (n = 256). As in K3c, the H100 has
+// native complex128, so df32 is not ported and every intermediate is
+// complex128. Same algorithm (pallas_cgreen.py:18-26), in two launches:
+//   1. this kernel: blocked Householder QR of inner (householder_blocked,
+//      common.cuh, the device code of K7) with the reflectors applied to
+//      M = diag(r1), so M ends as Q^H diag(r1) in mid and R in work;
+//   2. K9 (trinv_big.cu), the blocked triangular inverse of
+//      pallas_trinv_common.py applied to M: mid = R^{-1} Q^H diag(r1),
+//      in place (linalg/green_solve.py launches both).
+// A complex128 256 x 256 matrix is 1 MB, so inner's working copy (work)
+// and M stay in global memory. What bounds it on the H100: the FP64 pipe
+// on the trailing updates (~(4/3 + 2) n^3 / 2 complex products per
+// matrix) and the n dependent column steps of one CTA per matrix.
+#include "common.cuh"
+
+namespace dq {
+
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+solve_inner_big_kernel(const S* __restrict__ inner, const double* __restrict__ r1,
+                       S* mid, S* work, int n, int b, int tc) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const BlockedSmem<S> sm = blocked_smem<S>(smem_raw, n, b, tc);
+    const int tid = threadIdx.x;
+    const size_t off = size_t(blockIdx.x) * n * n;
+    const double* r1b = r1 + size_t(blockIdx.x) * n;
+    S* A = work + off;
+    S* M = mid + off;
+    for (int idx = tid; idx < n * n; idx += kThreads) {
+        const int r = idx / n, c = idx - r * n;
+        A[idx] = inner[off + idx];
+        M[idx] = from_real<S>(r == c ? r1b[c] : 0.0);
+    }
+    __syncthreads();
+    householder_blocked(A, M, n, b, tc, sm);
+}
+
+template <typename S>
+int solve_inner_big(int device, const void* inner, const void* r1, void* mid,
+                    void* work, int batch, int n, int b, int tc, void* stream) {
+    return launch_smem(device, solve_inner_big_kernel<S>, batch,
+                       blocked_smem_bytes<S>(n, b, tc), stream,
+                       static_cast<const S*>(inner), static_cast<const double*>(r1),
+                       static_cast<S*>(mid), static_cast<S*>(work), n, b, tc);
+}
+
+}  // namespace dq
+
+extern "C" {
+
+int dq_solve_inner_big_c128(int device, const void* inner, const void* r1, void* mid,
+                            void* work, int batch, int n, int b, int tc,
+                            void* stream) {
+    return dq::solve_inner_big<dq::cplx<double>>(device, inner, r1, mid, work, batch,
+                                                 n, b, tc, stream);
+}
+
+}  // extern "C"

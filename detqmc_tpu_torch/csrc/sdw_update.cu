@@ -15,7 +15,7 @@
 //     T     = adj(A) Delta_i / R
 //     G    -= sum_b (sum_a G[:, j_a] T_ab) (x) (e_{j_b} - G[j_b, :])
 //     phi_i = accept ? phi_new_i : phi_old_i
-// Thread 0 computes the scalar chain (the 4x4 algebra, ~600 flops); all
+// Thread 0 computes the scalar chain (sdw_site.cuh, ~700 flops); all
 // threads stage the four columns and rows, form the four combined columns
 // and apply the rank-4 update, one element per thread. A rejected site
 // skips the update. What bounds it: the N dependent site steps, four
@@ -25,46 +25,9 @@
 // PyTorch version's order (linalg/sdw_update.py), so for equal inputs the
 // kernel reproduces it bit for bit up to log(), and the accept decisions
 // agree.
-#include "common.cuh"
+#include "sdw_site.cuh"
 
 namespace dq {
-
-// the six column pairs of the 2x2 minors: s_k of rows (0, 1), c_k of
-// rows (2, 3); minors[k] = s_k, minors[6 + k] = c_k
-__constant__ int kPairA[6] = {0, 0, 0, 1, 1, 2};
-__constant__ int kPairB[6] = {1, 2, 3, 2, 3, 3};
-// adj(A)[e] = +-((A[p] m[x] - A[q] m[y]) + A[r] m[z]), A flat 4 r + c,
-// m the twelve minors (pallas_sdw_update.py:_det_adj4)
-__constant__ int kAdjP[16] = {5, 1, 13, 9, 4, 0, 12, 8, 4, 0, 12, 8, 4, 0, 12, 8};
-__constant__ int kAdjX[16] = {11, 11, 5, 5, 11, 11, 5, 5, 10, 10, 4, 4, 9, 9, 3, 3};
-__constant__ int kAdjQ[16] = {6, 2, 14, 10, 6, 2, 14, 10, 5, 1, 13, 9, 5, 1, 13, 9};
-__constant__ int kAdjY[16] = {10, 10, 4, 4, 8, 8, 2, 2, 8, 8, 2, 2, 7, 7, 1, 1};
-__constant__ int kAdjR[16] = {7, 3, 15, 11, 7, 3, 15, 11, 7, 3, 15, 11, 6, 2, 14, 10};
-__constant__ int kAdjZ[16] = {9, 9, 3, 3, 7, 7, 1, 1, 6, 6, 0, 0, 6, 6, 0, 0};
-__constant__ int kAdjNeg[16] = {0, 1, 0, 1, 1, 0, 1, 0, 0, 1, 0, 1, 1, 0, 1, 0};
-
-// det(A) and adj(A) of a complex 4x4 (A flat, row-major)
-template <typename T>
-__device__ cplx<T> det_adj4(const cplx<T>* A, cplx<T>* adj) {
-    cplx<T> m[12];
-    for (int k = 0; k < 6; ++k) {
-        const int a = kPairA[k], b = kPairB[k];
-        m[k] = csub_rn(cmul_rn(A[a], A[4 + b]), cmul_rn(A[b], A[4 + a]));
-        m[6 + k] = csub_rn(cmul_rn(A[8 + a], A[12 + b]),
-                           cmul_rn(A[8 + b], A[12 + a]));
-    }
-    cplx<T> p[6];
-    for (int k = 0; k < 6; ++k) p[k] = cmul_rn(m[k], m[11 - k]);
-    const cplx<T> det = cadd_rn(cadd_rn(csub_rn(p[0], p[1]), p[2]),
-                                cadd_rn(csub_rn(p[3], p[4]), p[5]));
-    for (int e = 0; e < 16; ++e) {
-        const cplx<T> t = cadd_rn(csub_rn(cmul_rn(A[kAdjP[e]], m[kAdjX[e]]),
-                                          cmul_rn(A[kAdjQ[e]], m[kAdjY[e]])),
-                                  cmul_rn(A[kAdjR[e]], m[kAdjZ[e]]));
-        adj[e] = kAdjNeg[e] ? -t : t;
-    }
-    return det;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -100,45 +63,16 @@ sdw_update_kernel(const cplx<T>* __restrict__ G_in, const T* __restrict__ phi_in
 
     for (int i = 0; i < N; ++i) {
         if (tid == 0) {
-            // live spatial-gradient term through the already-updated field
-            T dot = T(0);
-            for (int o = 0; o < opdim; ++o) {
-                T snb = add_rn(phi[nb[4 * i] * opdim + o], phi[nb[4 * i + 1] * opdim + o]);
-                snb = add_rn(snb, phi[nb[4 * i + 2] * opdim + o]);
-                snb = add_rn(snb, phi[nb[4 * i + 3] * opdim + o]);
-                const T d = sub_rn(phin[i * opdim + o], phi0[i * opdim + o]);
-                dot = o == 0 ? mul_rn(d, snb) : add_rn(dot, mul_rn(d, snb));
-            }
-            const T live = mul_rn(dtau, dot);
-            const S* D = delta_in + (wk * N + i) * 16;
-            S Mm[16], A[16], adj[16];
+            const T live = site_live(phi, phin + i * opdim, phi0 + i * opdim,
+                                     nb + 4 * i, opdim, dtau);
+            S GII[16];
             for (int a = 0; a < 4; ++a)
-                for (int b = 0; b < 4; ++b) {
-                    const S g = G[(a * N + i) * ld + b * N + i];
-                    Mm[4 * a + b] = mk(sub_rn(a == b ? T(1) : T(0), g.re), -g.im);
-                }
-            for (int a = 0; a < 4; ++a)
-                for (int b = 0; b < 4; ++b) {
-                    S acc = cmul_rn(D[4 * a], Mm[b]);
-                    for (int k = 1; k < 4; ++k)
-                        acc = cadd_rn(acc, cmul_rn(D[4 * a + k], Mm[4 * k + b]));
-                    A[4 * a + b] = mk(add_rn(acc.re, a == b ? T(1) : T(0)), acc.im);
-                }
-            const S R = det_adj4(A, adj);
-            const T r2 = add_rn(mul_rn(R.re, R.re), mul_rn(R.im, R.im));
-            const T rhs = add_rn(mul_rn(c_det, log_t(r2)), live);
-            const bool acc = lhs_in[wk * N + i] < rhs;
+                for (int b = 0; b < 4; ++b)
+                    GII[4 * a + b] = G[(a * N + i) * ld + b * N + i];
+            const bool acc = site_step(GII, delta_in + (wk * N + i) * 16,
+                                       lhs_in[wk * N + i], live, c_det, Tm);
             accept_s = acc;
             if (acc) {
-                const T inv_den = div_rn(T(1), r2);
-                const S rinv = mk(mul_rn(R.re, inv_den), mul_rn(-R.im, inv_den));
-                for (int a = 0; a < 4; ++a)
-                    for (int b = 0; b < 4; ++b) {
-                        S t = cmul_rn(adj[4 * a], D[b]);
-                        for (int k = 1; k < 4; ++k)
-                            t = cadd_rn(t, cmul_rn(adj[4 * a + k], D[4 * k + b]));
-                        Tm[4 * a + b] = cmul_rn(t, rinv);
-                    }
                 for (int o = 0; o < opdim; ++o) phi[i * opdim + o] = phin[i * opdim + o];
                 acc_s = add_rn(acc_s, T(1));
             }

@@ -1,2 +1,3 @@
 """Linear algebra of the port: B-chain applies, UdV stabilization and the
-three kernel modules (slice_update, qr, green_solve)."""
+kernel modules (slice_update, sdw_update, sdw_delayed, sdw_wrap, qr,
+green_solve, trinv), each a kernel wrapper beside its plain version."""

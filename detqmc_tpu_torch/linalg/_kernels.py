@@ -2,8 +2,9 @@
 
 ``nvcc`` compiles every ``detqmc_tpu_torch/csrc/*.cu`` into ONE shared
 library with a plain C interface (no PyTorch headers: seconds, not
-minutes), under ``build/detqmc_tpu_torch/`` at the repository root. The
-file name carries a hash of the sources and flags, so an edited source
+minutes), under ``build/detqmc_tpu_torch/`` at the repository root: one
+``nvcc -c`` per source, all started together, then one link. The file
+name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is reused. The build happens at the first
 launch, never at import: this module imports nothing CUDA-specific, so
 the CPU test suite imports every port module on a machine without nvcc.
@@ -34,7 +35,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "detqmc_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # dynamic shared memory a block may use on Hopper (227 KB); the kernels
 # size theirs exactly and the wrappers refuse shapes beyond it
@@ -59,10 +60,32 @@ _SIGNATURES = {
     # W, N, opdim, dtau, c_det, stream
     "dq_sdw_update_c64": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P],
     "dq_sdw_update_c128": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P],
+    # device, colT, rowp, phi, phi_new, lhs, delta, nb, CT, R, phi_out,
+    # acc_out, W, N, opdim, i0, Kc, dtau, c_det, stream
+    "dq_sdw_delayed_c64": [_I] + [_P] * 11 + [_I] * 5 + [_D, _D, _P],
+    "dq_sdw_delayed_c128": [_I] + [_P] * 11 + [_I] * 5 + [_D, _D, _P],
+    # device, G, tmp, G_out, E, Einv, D, Dinv, W, N, up, TL, stream
+    "dq_sdw_wrap_c64": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    "dq_sdw_wrap_c128": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    # device, X, X_out, E, D, W, N, herm, TL, stream
+    "dq_sdw_apply_c64": [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    "dq_sdw_apply_c128": [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    # device, A, Q, R, batch, n, b, tc, stream
+    "dq_qr_big_c64": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dq_qr_big_c128": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # device, inner, r1, mid, work, batch, n, b, tc, stream
+    "dq_solve_inner_big_c128": [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    # device, R, X, batch, n, b, tc, stream
+    "dq_trinv_big_f32": [_I, _P, _P, _I, _I, _I, _I, _P],
+    "dq_trinv_big_f64": [_I, _P, _P, _I, _I, _I, _I, _P],
+    "dq_trinv_big_c64": [_I, _P, _P, _I, _I, _I, _I, _P],
+    "dq_trinv_big_c128": [_I, _P, _P, _I, _I, _I, _I, _P],
 }
 
 LAUNCHES = {"slice_update": 0, "qr": 0, "solve_inner": 0, "sdw_update": 0,
-            "qr_complex": 0, "solve_inner_complex": 0}
+            "qr_complex": 0, "solve_inner_complex": 0, "sdw_delayed": 0,
+            "sdw_wrap": 0, "sdw_apply": 0, "qr_complex_big": 0,
+            "solve_inner_complex_big": 0, "trinv_big": 0}
 
 _lib = None
 build_log = ""          # nvcc's output (-Xptxas -v: registers, smem)
@@ -107,17 +130,35 @@ def load():
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", tmp, *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{build_log}")
-        os.replace(tmp, out)   # atomic: concurrent builders see whole files
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            nvcc = _nvcc()
+            objs, procs = [], []
+            for src in sorted(SRC_DIR.glob("*.cu")):
+                obj = str(Path(tmpdir) / (src.stem + ".o"))
+                cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o",
+                       obj, str(src)]
+                objs.append(obj)
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                    str(Path(tmpdir) / "lib.so"), *objs]
+            logs, failed = [], []
+            for cmd, proc in procs:
+                logs.append(proc.communicate()[0])
+                if proc.returncode != 0:
+                    failed.append(" ".join(cmd))
+            if not failed:
+                proc = subprocess.run(link, capture_output=True, text=True)
+                logs.append(proc.stdout + proc.stderr)
+                if proc.returncode != 0:
+                    failed.append(" ".join(link))
+            build_log = "".join(logs)
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed)
+                                   + "\n" + build_log)
+            # atomic: concurrent builders see whole files
+            os.replace(Path(tmpdir) / "lib.so", out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -107,6 +107,28 @@ def _matmul4(X, Y):
     return acc
 
 
+def site_step(gii, D, lhs_i, live, cdet_t):
+    """The scalar chain of one site for every walker (csrc/sdw_site.cuh):
+    gii = G_II and D = Delta_i as (re, im) pairs of (W, 4, 4), lhs_i and
+    live (W,). Returns (accept (W,), T) with T = adj(A) Delta / det(A),
+    A = 1 + Delta (1 - G_II), as a (re, im) pair of (W, 4, 4); rejected
+    walkers divide by det := 1 (their T is discarded)."""
+    W = lhs_i.shape[0]
+    one = torch.ones((), dtype=lhs_i.dtype, device=lhs_i.device)
+    eye4 = torch.eye(4, dtype=lhs_i.dtype, device=lhs_i.device)
+    M = eye4 - gii[0], -gii[1]
+    A = _matmul4(D, M)
+    A = (A[0] + eye4).reshape(W, 16), A[1].reshape(W, 16)
+    R, adj = det_adj4(A)
+    r2 = R[0] * R[0] + R[1] * R[1]
+    accept = lhs_i < cdet_t * torch.log(r2) + live
+    Rs = torch.where(accept, R[0], one), torch.where(accept, R[1], 0 * one)
+    inv_den = one / (Rs[0] * Rs[0] + Rs[1] * Rs[1])
+    rinv = Rs[0] * inv_den, -Rs[1] * inv_den
+    t = _matmul4((adj[0].reshape(W, 4, 4), adj[1].reshape(W, 4, 4)), D)
+    return accept, _cmul(t, (rinv[0][:, None, None], rinv[1][:, None, None]))
+
+
 def sdw_update_plain(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
                      c_det: float):
     """The site chain in PyTorch, batched over walkers (see the module
@@ -121,8 +143,6 @@ def sdw_update_plain(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
     acc = torch.zeros(W, dtype=rdt, device=dev)
     dtau_t = torch.tensor(dtau, dtype=rdt, device=dev)
     cdet_t = torch.tensor(c_det, dtype=rdt, device=dev)
-    one = torch.ones((), dtype=rdt, device=dev)
-    eye4 = torch.eye(4, dtype=rdt, device=dev)
     eye_h = torch.eye(h, dtype=rdt, device=dev)
     nbs = nb.tolist()
     for i in range(N):
@@ -134,19 +154,8 @@ def sdw_update_plain(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
         for o in range(1, opdim):
             dot = dot + prod[:, o]
         live = dtau_t * dot
-        M = eye4 - Gr[:, jj][:, :, jj], -Gi[:, jj][:, :, jj]
-        D = Dr[:, i], Di[:, i]
-        A = _matmul4(D, M)
-        A = (A[0] + eye4).reshape(W, 16), A[1].reshape(W, 16)
-        R, adj = det_adj4(A)
-        r2 = R[0] * R[0] + R[1] * R[1]
-        accept = lhs[:, i] < cdet_t * torch.log(r2) + live
-        # rejected walkers divide by R := 1 (their update is discarded)
-        Rs = torch.where(accept, R[0], one), torch.where(accept, R[1], 0 * one)
-        inv_den = one / (Rs[0] * Rs[0] + Rs[1] * Rs[1])
-        rinv = Rs[0] * inv_den, -Rs[1] * inv_den
-        t = _matmul4((adj[0].reshape(W, 4, 4), adj[1].reshape(W, 4, 4)), D)
-        T = _cmul(t, (rinv[0][:, None, None], rinv[1][:, None, None]))
+        accept, T = site_step((Gr[:, jj][:, :, jj], Gi[:, jj][:, :, jj]),
+                              (Dr[:, i], Di[:, i]), lhs[:, i], live, cdet_t)
         cols = Gr[:, :, jj].transpose(1, 2), Gi[:, :, jj].transpose(1, 2)
         rows = eye_h[jj] - Gr[:, jj, :], -Gi[:, jj, :]          # (W, 4, h)
         comb = _cmul((cols[0][:, 0, None, :], cols[1][:, 0, None, :]),

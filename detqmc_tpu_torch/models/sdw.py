@@ -26,24 +26,37 @@ run at full precision).
 
 The slice update follows the JAX model's kernel route
 (``_update_slice_pallas``): proposals, the Delta blocks and the static
-action difference are built for all sites of a slice at once, then K4
-(linalg/sdw_update.py) walks the sites with a log-domain accept
-lhs < c_det log|R|^2 + live, c_det = 1/2. The weight is phase-free (R is
-real and non-negative by the model's antiunitary symmetry), so ``phase``
-stays exactly 1. The JAX CPU route (``fermion_repr="complex"``) accepts on
-u < |R| e^{jac - dS} and tracks the phase: the same weight.
+action difference are built for all sites of a slice at once, then a
+kernel walks the sites with a log-domain accept
+lhs < c_det log|R|^2 + live, c_det = 1/2: K4 (linalg/sdw_update.py, the
+immediate update) or K5 (linalg/sdw_delayed.py, chunks of ``delay`` sites,
+8 by default, G flushed by a matmul after each chunk). The weight is
+phase-free (R is real and non-negative by the model's antiunitary
+symmetry), so ``phase`` stays exactly 1. The JAX CPU route
+(``fermion_repr="complex"``) accepts on u < |R| e^{jac - dS} and tracks
+the phase: the same weight.
 
+Routes, as the JAX model dispatches them (``SDWModel.routes``):
+- update: K5 if ``update_kernel="delayed"`` or ``delay > 0``, or
+  ``update_kernel="auto"`` at dim >= 128 (sdw.py:637-646 of the JAX
+  model); else K4;
+- wraps and the square B / B^H applies: K6 (linalg/sdw_wrap.py) if
+  ``wrap_kernel="fused"``, or ``"auto"`` at dim >= 128 on a CUDA device
+  (sdw.py:526-536); else the einsum/matmul applies;
+- refactor QR: K2c within one block's shared memory, else K7; inner
+  solve: K3c, else K8 and K9 (linalg/qr.py, linalg/green_solve.py,
+  linalg/trinv.py).
 Kernel versus plain version is decided by the device of the tensors:
-K4 (slice update), K2c (refactor QR) and K3c (inner solve) on a CUDA
-tensor, their plain PyTorch versions on a CPU tensor.
+the kernels on a CUDA tensor, their plain PyTorch versions on a CPU
+tensor.
 
 Not ported yet (each raises NotImplementedError naming ROADMAP.md, Queue
 1 item 8 and Queue 2): opdim 1 and 2 (the reduced sectors), the real
-embedding, the delayed update (``delay > 0``, ``update_kernel="delayed"``),
-the fused wrap, the refine green route, sparse checkerboard applies,
-global shift and Wolff moves, ``turnoffFermions``, time-displaced Greens,
-``sweep_simple``, the parallel-tempering hooks, and dims beyond the
-kernels' shared-memory bounds on a CUDA device (L >= 6).
+embedding, the refine green route, sparse checkerboard applies, global
+shift and Wolff moves, ``turnoffFermions``, time-displaced Greens,
+``sweep_simple``, the parallel-tempering hooks, dims above 512 (L >= 12)
+on a CUDA device, and ``update_kernel="pallas"`` / ``"scan"`` (K4) at a
+dim whose G exceeds K4's shared memory on a CUDA device.
 """
 
 from __future__ import annotations
@@ -57,8 +70,9 @@ from torch import nn
 
 from detqmc_tpu import lattice as lattice_mod
 from detqmc_tpu.lattice import kinetic_exponentials
-from detqmc_tpu_torch.linalg import _kernels, green_solve, qr as qr_mod
-from detqmc_tpu_torch.linalg import sdw_update
+from detqmc_tpu_torch.linalg import _kernels, sdw_delayed, sdw_update
+from detqmc_tpu_torch.linalg import sdw_wrap
+from detqmc_tpu_torch.linalg.qr import MAX_N_BIG
 from detqmc_tpu_torch.linalg.udv import UDV, green_from_two_udv, udv_refactor
 from detqmc_tpu_torch.precision import mm
 
@@ -66,6 +80,7 @@ N_ORB = 4  # (band x, band y) x (spin up, spin dn)
 _DTYPES = {"float32": (torch.float32, torch.complex64),
            "float64": (torch.float64, torch.complex128)}
 _ROADMAP = "ROADMAP.md Queue 1 item 8"
+BIG_DIM = 128       # the JAX model's delayed-update and fused-wrap gate
 
 
 def _unported(what: str, where: str = _ROADMAP) -> NotImplementedError:
@@ -262,6 +277,10 @@ class SDWModel(nn.Module):
         dev = torch.device(device) if device is not None else None
         if dev is not None and dev.type == "cuda":
             self._check_kernel_bounds(cfg)
+        route = self.routes(cfg, dev.type if dev is not None else "cpu")
+        self._delayed = route["update"] == "delayed"
+        self._fused = route["wrap"] == "fused"
+        self._delay_k = cfg.delay if cfg.delay > 0 else 8
         Kx = self.lat.hopping_matrix(1.0, tx=cfg.txhor, ty=cfg.txver)
         Ky = self.lat.hopping_matrix(1.0, tx=cfg.tyhor, ty=cfg.tyver)
         expKx, expKx_inv = kinetic_exponentials(Kx, cfg.dtau, cfg.mu)
@@ -312,13 +331,6 @@ class SDWModel(nn.Module):
                             "to be ported)", "ROADMAP.md Queue 1 item 12")
         if cfg.fermion_repr not in ("auto", "complex", "native_pair"):
             raise ValueError(f"bad fermion_repr {cfg.fermion_repr!r}")
-        if cfg.delay > 0 or cfg.update_kernel == "delayed":
-            raise _unported("the delayed SDW update (delay > 0, "
-                            "update_kernel='delayed')",
-                            "ROADMAP.md Queue 2 item 2")
-        if cfg.wrap_kernel == "fused":
-            raise _unported("wrap_kernel='fused'",
-                            "ROADMAP.md Queue 2 items 3-4")
         if cfg.green_kernel == "refine":
             raise _unported("green_kernel='refine'",
                             "ROADMAP.md Queue 1 item 9")
@@ -332,21 +344,36 @@ class SDWModel(nn.Module):
             raise _unported("turnoffFermions")
 
     @staticmethod
+    def routes(cfg: SDWConfig, device_type: str) -> dict:
+        """{"update": "delayed" (K5) | "immediate" (K4), "wrap": "fused"
+        (K6) | "plain"} for a model on a device of this type (see the
+        module docstring)."""
+        big = cfg.dim >= BIG_DIM
+        delayed = (cfg.update_kernel == "delayed" or cfg.delay > 0
+                   or (cfg.update_kernel == "auto" and big))
+        fused = (cfg.wrap_kernel == "fused"
+                 or (cfg.wrap_kernel == "auto" and big
+                     and device_type == "cuda"))
+        return {"update": "delayed" if delayed else "immediate",
+                "wrap": "fused" if fused else "plain"}
+
+    @staticmethod
     def _check_kernel_bounds(cfg: SDWConfig) -> None:
-        """On a CUDA device every dim must fit the one-CTA kernels' shared
-        memory (K4, K2c, K3c); larger dims (L >= 6) need the n > 128
-        kernels of ROADMAP.md Queue 2."""
-        limit = _kernels.MAX_SMEM_BYTES - 1024
-        N, dim, cdt = cfg.n_sites, cfg.dim, cfg.cdtype
-        need = {"K4 sdw_update": sdw_update.smem_bytes(N, cfg.opdim, cdt),
-                "K2c qr": qr_mod.smem_bytes(dim, cdt),
-                "K3c solve_inner": green_solve.smem_bytes(
-                    dim, torch.complex128)}
-        over = [k for k, v in need.items() if v > limit]
-        if over or dim > qr_mod.MAX_N:
-            raise _unported(f"SDW at dim {dim} on a CUDA device ({over} "
-                            "exceed the shared-memory budget)",
-                            "ROADMAP.md Queue 2 items 2-7 and 11")
+        """On a CUDA device the dim must be within the blocked kernels'
+        bound (qr.MAX_N_BIG: K5-K9 all fit their shared memory up to it),
+        and the immediate update K4 needs G in one block's shared
+        memory."""
+        dim = cfg.dim
+        if dim > MAX_N_BIG:
+            raise _unported(f"SDW at dim {dim} > {MAX_N_BIG} on a CUDA device",
+                            "ROADMAP.md Queue 1 item 8")
+        if SDWModel.routes(cfg, "cuda")["update"] == "immediate" and \
+                sdw_update.smem_bytes(cfg.n_sites, cfg.opdim, cfg.cdtype) > \
+                _kernels.MAX_SMEM_BYTES - 1024:
+            raise _unported(f"update_kernel={cfg.update_kernel!r} (K4, G in "
+                            f"one block's shared memory) at dim {dim} on a "
+                            "CUDA device (update_kernel='delayed' runs K5)",
+                            "ROADMAP.md Queue 1 item 8")
 
     @property
     def device(self) -> torch.device:
@@ -374,53 +401,22 @@ class SDWModel(nn.Module):
         """exp(sign dtau V) for single sites: (..., 4, 4) from (..., opdim)."""
         return self.exp_v_blocks(phi_i, sign)
 
-    # ---- block-diagonal / kinetic applies (X: (..., dim, k)) ----------------
-    def _as_orb(self, X):
-        return X.reshape(*X.shape[:-2], N_ORB, self.cfg.n_sites, X.shape[-1])
-
-    def dv_mult_left(self, blocks, X):
-        """D_V @ X, D_V block-diagonal per site: blocks (..., N, 4, 4)."""
-        out = torch.einsum("...iab,...bik->...aik", blocks, self._as_orb(X))
-        return out.reshape(X.shape)
-
-    def dv_mult_right(self, X, blocks):
-        """X @ D_V."""
-        Xo = X.reshape(*X.shape[:-1], N_ORB, self.cfg.n_sites)
-        out = torch.einsum("...kai,...iab->...kbi", Xo, blocks)
-        return out.reshape(X.shape)
-
-    def kinetic_mult_left(self, X, inv=False, transpose=False):
-        E = self.expK_inv if inv else self.expK
-        if transpose:
-            E = E.transpose(-1, -2)
-        return mm(E, self._as_orb(X)).reshape(X.shape)
-
-    def kinetic_mult_right(self, X, inv=False):
-        E = self.expK_inv if inv else self.expK
-        Xo = X.reshape(*X.shape[:-1], N_ORB, self.cfg.n_sites)
-        out = torch.einsum("...kom,omn->...kon", Xo, E)
-        return out.reshape(X.shape)
+    # ---- B applies (X: (W, dim, dim)); the factors live in linalg/sdw_wrap.py
+    def _apply(self, blocks, X, herm: bool):
+        # the sweep applies B only to the square lazy U; K6 raises on any
+        # other operand of a CUDA tensor
+        if self._fused:
+            return sdw_wrap.apply(X.contiguous(), self.expK, blocks, herm)
+        return sdw_wrap.apply_plain(X, self.expK, blocks, herm)
 
     # B = D_V expK (potential leftmost, as in Hubbard)
     def b_mult_left(self, blocks, X):
-        return self.dv_mult_left(blocks, self.kinetic_mult_left(X))
-
-    def b_inv_mult_left(self, blocks_inv, X):
-        return self.kinetic_mult_left(self.dv_mult_left(blocks_inv, X),
-                                      inv=True)
-
-    def b_mult_right(self, X, blocks):
-        return self.kinetic_mult_right(self.dv_mult_right(X, blocks))
-
-    def b_inv_mult_right(self, X, blocks_inv):
-        return self.dv_mult_right(self.kinetic_mult_right(X, inv=True),
-                                  blocks_inv)
+        return self._apply(blocks, X, herm=False)
 
     def bT_mult_left(self, blocks, X):
         """B^H @ X = expK^H (D_V^H X), for the conj-transposed right stack
         (expK is real)."""
-        return self.kinetic_mult_left(self.dv_mult_left(blocks.mH, X),
-                                      transpose=True)
+        return self._apply(blocks, X, herm=True)
 
     # ---- boson action ---------------------------------------------------------
     def boson_action(self, phi, r=None):
@@ -510,9 +506,9 @@ class SDWModel(nn.Module):
     def update_slice(self, G, phi, l_1based: int, u01, rnd, box_w, r, alt):
         """Sequential single-site phi updates in slice l (the JAX model's
         kernel route, _update_slice_pallas): G (W, dim, dim), phi
-        (W, m, N, opdim), u01 (W, N) and rnd this slice's draws. K4 on a
-        CUDA tensor, its plain version on a CPU tensor. Returns (G, phi,
-        acc_rate (W,))."""
+        (W, m, N, opdim), u01 (W, N) and rnd this slice's draws. K5
+        (delayed) or K4 on a CUDA tensor, their plain versions on a CPU
+        tensor. Returns (G, phi, acc_rate (W,))."""
         cfg = self.cfg
         m, N = cfg.m, cfg.n_sites
         l_idx = l_1based - 1
@@ -526,22 +522,31 @@ class SDWModel(nn.Module):
         eo_inv = self.exp_v_blocks(phi_l0, +1.0)
         eye4 = torch.eye(N_ORB, dtype=self.cdtype, device=G.device)
         delta = mm(en, eo_inv) - eye4
-        G, phi_l, acc = sdw_update.sdw_update(
-            G.contiguous(), phi_l0.contiguous(), phi_new.contiguous(),
-            lhs.contiguous(), delta.contiguous(), self.nb, cfg.dtau,
-            self.c_det)
+        args = (G.contiguous(), phi_l0.contiguous(), phi_new.contiguous(),
+                lhs.contiguous(), delta.contiguous(), self.nb, cfg.dtau,
+                self.c_det)
+        if self._delayed:
+            G, phi_l, acc = sdw_delayed.sdw_delayed(*args, self._delay_k)
+        else:
+            G, phi_l, acc = sdw_update.sdw_update(*args)
         phi = phi.clone()
         phi[:, l_idx] = phi_l
         return G, phi, acc / N
 
     # ---- wraps ----------------------------------------------------------------
+    def _wrap(self, G, blocks, blocks_inv, up: bool):
+        args = (self.expK, self.expK_inv, blocks, blocks_inv, up)
+        if self._fused:
+            return sdw_wrap.wrap(G.contiguous(), *args)
+        return sdw_wrap.wrap_plain(G, *args)
+
     def wrap_up(self, G, blocks, blocks_inv):
         """G(l) = B_l G(l-1) B_l^{-1}."""
-        return self.b_mult_left(blocks, self.b_inv_mult_right(G, blocks_inv))
+        return self._wrap(G, blocks, blocks_inv, up=True)
 
     def wrap_down(self, G, blocks, blocks_inv):
         """G(l-1) = B_l^{-1} G(l) B_l."""
-        return self.b_inv_mult_left(blocks_inv, self.b_mult_right(G, blocks))
+        return self._wrap(G, blocks, blocks_inv, up=False)
 
     # ---- measurement ------------------------------------------------------------
     def _phys_green_parts(self, G):

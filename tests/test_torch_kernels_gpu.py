@@ -28,14 +28,32 @@ Tolerances (same inputs, same card):
 - K3c (complex inner solve): the K3 criteria in complex128;
 - an SDW sweep pair on the card against the CPU (f64): identical fields,
   G within 1e-10, the launch counts of the sweep structure.
+- K5 (delayed SDW update): every chunk's C, R, field and accept count
+  bitwise equal to the plain version in complex128; in complex64
+  identical accept decisions and G within 1e-5 after the slice;
+- K6 (fused wrap and B / B^H apply): 1e-5 (complex64) / 1e-12
+  (complex128) relative to max|G_plain|;
+- K7 (complex QR beyond one block): K2c's tolerances after the phase fix,
+  R's strict lower triangle exactly zero;
+- K8 (complex128 inner solve beyond one block, with K9 as its
+  back-substitution): the K3 criteria;
+- K9 (blocked triangular inverse, R^{-1} and R^{-1} X): within 1e-12
+  (float64, complex128) / 1e-4 (float32, complex64) of each column's
+  largest entry of the plain solve, R's strict lower triangle never
+  read, R^{-1}'s exactly zero;
+- SDW sweep pairs on the card against the CPU (f64) with the delayed
+  update and the fused wrap (L=2) and with the automatic routes at dim
+  144 (L=6: K5, K6, K7, K8, K9): identical fields and acceptance, G
+  within 1e-10, the launch counts of the sweep structure.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from detqmc_tpu_torch.linalg import (_kernels, green_solve, qr, sdw_update,
-                                    slice_update)
+from detqmc_tpu_torch.linalg import (_kernels, green_solve, qr, sdw_delayed,
+                                    sdw_update, sdw_wrap, slice_update,
+                                    trinv)
 from detqmc_tpu_torch.linalg.udv import (UDV, _sign_fix, green_inner,
                                          udv_refactor)
 from detqmc_tpu_torch.models.hubbard import (HubbardConfig, HubbardModel,
@@ -207,7 +225,9 @@ def test_qr_complex_kernel_matches_plain(cuda_device, dtype, tol, sizes):
 
 
 def test_qr_complex_refuses_beyond_shared_memory(cuda_device):
-    A = torch.zeros(2, 96, 96, dtype=torch.complex128, device=cuda_device)
+    # n = 96 in complex128 is beyond K2c's block and goes to K7; beyond
+    # qr.MAX_N_BIG nothing takes it
+    A = torch.zeros(2, 520, 520, dtype=torch.complex128, device=cuda_device)
     with pytest.raises(ValueError, match="shared-memory"):
         qr.qr(A)
 
@@ -256,4 +276,166 @@ def test_sdw_sweep_on_card_matches_cpu(cuda_device):
 
 def test_sdw_model_refuses_dims_beyond_the_kernels(cuda_device):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SDWModel(SDWConfig(L=6, opdim=3, m=8, s=4), device=cuda_device)
+        SDWModel(SDWConfig(L=12, opdim=3, m=8, s=4), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SDWModel(SDWConfig(L=8, opdim=3, m=8, s=4, update_kernel="pallas"),
+                 device=cuda_device)
+
+
+@pytest.mark.parametrize("dtype,K", [("float64", 3), ("float64", 8),
+                                     ("float32", 8)])
+@pytest.mark.parametrize("L", [2, 8])
+def test_sdw_delayed_kernel_matches_plain(cuda_device, dtype, K, L):
+    model, st, gen = _sdw(cuda_device, L=L, dtype=dtype)
+    G, *rest = _k4_operands(model, st, gen)
+    extra = (model.nb, model.cfg.dtau, model.c_det)
+    N = model.cfg.n_sites
+    phi, phi_new, lhs, delta = rest
+    Gc = G
+    for i0 in range(0, N, K):
+        Kc = min(K, N - i0)
+        colT, rowp = sdw_delayed.panels(Gc, i0, Kc)
+        args = (colT, rowp, phi, phi_new, lhs, delta, model.nb, i0, Kc,
+                *extra[1:])
+        k = sdw_delayed.chunk(*args)
+        p = sdw_delayed.chunk_plain(*args)
+        torch.cuda.synchronize()
+        if dtype == "float64":
+            for a, b in zip(k, p):
+                assert torch.equal(a, b)
+        phi = k[2]
+        Gc = torch.baddbmm(Gc, k[0].transpose(-1, -2), k[1], alpha=-1)
+    Gk, pk, ak = sdw_delayed.sdw_delayed(G, *rest, *extra, K)
+    Gp, pp, ap = sdw_delayed.sdw_delayed_plain(G, *rest, *extra, K)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp) and torch.equal(ak, ap)
+    tol = 0.0 if dtype == "float64" else 1e-5
+    assert float((Gk - Gp).abs().max()) <= tol
+    # the immediate update K4 where it fits: the same chain
+    if L == 2 and dtype == "float64":
+        G4, p4, a4 = sdw_update.sdw_update(G, *rest, *extra)
+        assert torch.equal(p4, pk) and torch.equal(a4, ak)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-12)])
+@pytest.mark.parametrize("L,cb", [(2, False), (4, True), (8, True)])
+def test_sdw_wrap_kernel_matches_plain(cuda_device, dtype, tol, L, cb):
+    cfg = SDWConfig(L=L, opdim=3, r=0.5, beta=4.0, m=8, s=4, dtype=dtype,
+                    checkerboard=cb)
+    model = SDWModel(cfg, device=cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    st = model.init_state(3, gen)
+    G = st.G.contiguous()
+    D = model.exp_v_blocks(st.phi[:, 0])
+    Dinv = model.exp_v_blocks(st.phi[:, 0], 1.0)
+    E, Einv = model.expK, model.expK_inv
+    pairs = [(sdw_wrap.wrap(G, E, Einv, D, Dinv, up),
+              sdw_wrap.wrap_plain(G, E, Einv, D, Dinv, up))
+             for up in (True, False)]
+    pairs += [(sdw_wrap.apply(G, E, D, herm), sdw_wrap.apply_plain(G, E, D,
+                                                                   herm))
+              for herm in (False, True)]
+    torch.cuda.synchronize()
+    for k, p in pairs:
+        assert float((k - p).abs().max()) <= tol * float(p.abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol,sizes", [
+    (torch.complex64, 1e-4, (120, 144, 256)),
+    (torch.complex128, 1e-10, (96, 144, 256))])
+def test_qr_big_kernel_matches_plain(cuda_device, dtype, tol, sizes):
+    rng = np.random.default_rng(7)
+    for n in sizes:
+        assert qr.kernel_for(n, dtype) == "qr_complex_big"
+        A = torch.as_tensor(np.eye(n) + 0.3 * rng.standard_normal((5, n, n))
+                            + 0.3j * rng.standard_normal((5, n, n)),
+                            dtype=dtype, device=cuda_device)
+        Qk, Rk = qr.qr(A)
+        torch.cuda.synchronize()
+        assert bool((torch.tril(Rk, -1) == 0).all())
+        fk = _sign_fix(Qk, Rk)
+        fp = _sign_fix(*qr.qr_plain(A))
+        for a, b in zip(fk, fp):
+            assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.parametrize("L", [6, 8])
+def test_solve_inner_big_kernel_matches_plain(cuda_device, L):
+    model, st, _ = _sdw(cuda_device, L=L, W=4)
+    f = model._eye_mixed(4)
+    for l in range(1, 5):
+        lazy = model.b_mult_left(model.exp_v_blocks(st.phi[:, l - 1]), f.U)
+        f = udv_refactor(lazy, f.d, f.V)
+    inner, r1, _ = green_inner(f, UDV(st.stack_U[:, 1], st.stack_d[:, 1],
+                                      st.stack_V[:, 1]))
+    n = inner.shape[-1]
+    assert green_solve.kernel_for(n, inner.dtype) == "solve_inner_complex_big"
+    mk = green_solve.solve_inner(inner.contiguous(), r1.contiguous())
+    mp = green_solve.solve_inner_plain(inner, r1)
+    torch.cuda.synchronize()
+    amax = lambda X: X.abs().amax((1, 2))                       # noqa: E731
+    res = amax(inner @ mk - torch.diag_embed(r1).to(inner.dtype)) / (
+        n * amax(inner) * amax(mk))
+    assert float(res.max()) < 1e-13
+    bound = n * torch.finfo(torch.float64).eps * torch.linalg.cond(inner)
+    assert bool((amax(mk - mp) / amax(mp) <= bound).all())
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-4), (torch.float64, 1e-12), (torch.complex64, 1e-4),
+    (torch.complex128, 1e-12)])
+@pytest.mark.parametrize("n", [40, 256, 300])
+@pytest.mark.parametrize("rhs", [False, True], ids=["inverse", "rhs"])
+def test_trinv_kernel_matches_plain(cuda_device, dtype, tol, n, rhs):
+    # R of a well-conditioned matrix (the inverse of a random triangle
+    # grows like 2^n), with a column grading as the inner matrix has
+    gen = torch.Generator(cuda_device).manual_seed(n)
+    kw = dict(generator=gen, dtype=dtype, device=cuda_device)
+    eye = torch.eye(n, dtype=dtype, device=cuda_device)
+    grade = torch.exp(torch.linspace(0.0, -4.0, n, device=cuda_device))
+    A = (eye + 0.5 * torch.randn((3, n, n), **kw) / n ** 0.5) * grade
+    R = torch.linalg.qr(A).R
+    garbage = (R + torch.tril(torch.full_like(R, 7.0), -1)).contiguous()
+    X = torch.randn((3, n, n), **kw) if rhs else None
+    got = trinv.trinv(garbage, X)
+    ref = trinv.trinv_plain(R, X)
+    torch.cuda.synchronize()
+    col = ref.abs().amax(-2, keepdim=True).clamp_min(1e-30)
+    assert float(((got - ref).abs() / col).max()) <= tol
+    if not rhs:
+        assert float(torch.tril(got, -1).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("L,kw", [
+    (2, dict(update_kernel="delayed", delay=3, wrap_kernel="fused")),
+    (6, dict())])
+def test_sdw_sweep_delayed_fused_on_card_matches_cpu(cuda_device, L, kw):
+    cfg = SDWConfig(L=L, opdim=3, r=0.5, beta=1.0, m=8, s=4,
+                    dtype="float64", **kw)
+    cpu, gpu = SDWModel(cfg), SDWModel(cfg, device=cuda_device)
+    assert SDWModel.routes(cfg, "cuda") == {"update": "delayed",
+                                            "wrap": "fused"}
+    W = 2
+    gen = torch.Generator().manual_seed(5)
+    sc = cpu.init_state(W, gen)
+    sg = SDWState(*[x.to(cuda_device) for x in sc])
+    d = tuple(cpu._draw_proposal_randoms(W, gen) for _ in range(2))
+    to_dev = lambda t: (t[0].to(cuda_device),                 # noqa: E731
+                        tuple(x.to(cuda_device) for x in t[1]))
+    _kernels.reset_launch_counts()
+    sc, oc = cpu.sweep_pair(sc, measure=True, draws=d)
+    sg, og = gpu.sweep_pair(sg, measure=True, draws=tuple(map(to_dev, d)))
+    torch.cuda.synchronize()
+    chunks = -(-cfg.n_sites // gpu._delay_k)
+    c128 = torch.complex128
+    expect = dict.fromkeys(_kernels.LAUNCHES, 0)
+    expect.update({"sdw_delayed": 2 * cfg.m * chunks,
+                   "sdw_wrap": 2 * cfg.m, "sdw_apply": 2 * cfg.m,
+                   qr.kernel_for(cfg.dim, c128): 2 * cfg.n_stack,
+                   green_solve.kernel_for(cfg.dim, c128): 2 * cfg.n_stack})
+    if expect["solve_inner_complex_big"]:
+        expect["trinv_big"] = 2 * cfg.n_stack      # K8's back-substitution
+    assert _kernels.LAUNCHES == expect
+    assert torch.equal(sg.phi.cpu(), sc.phi)
+    assert torch.equal(og.acceptance.cpu(), oc.acceptance)
+    assert float((sg.G.cpu() - sc.G).abs().max()) <= 1e-10

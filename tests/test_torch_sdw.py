@@ -16,8 +16,9 @@ Tolerances, all in float64:
   of the proposal into FMAs and PyTorch does not (a last-bit difference
   in the proposed value, not in the chain); the port's phase exactly 1,
   JAX's tracked phase within 1e-12 of 1;
-- exp_v_blocks, the D_V / kinetic applies, the five B applies and the
-  wraps (dense and checkerboard-dense kinetic factors): 1e-12.
+- exp_v_blocks, the D_V / kinetic applies of linalg/sdw_wrap.py, the
+  model's B and B^H applies and the wraps (dense and checkerboard-dense
+  kinetic factors): 1e-12.
 The float32 smoke run is the main-path configuration (bench.py sdw_l4)
 cut to m=8: complex64 G, complex128 V, everything finite, phase 1.
 """
@@ -30,6 +31,7 @@ import torch
 
 from detqmc_tpu.models import sdw as js
 from detqmc_tpu_torch.convert import sdw_state_from_jax
+from detqmc_tpu_torch.linalg import sdw_wrap
 from detqmc_tpu_torch.models import sdw as ts
 
 W = 2
@@ -137,17 +139,14 @@ def test_exp_v_blocks_and_b_applies_match_jax(checkerboard):
         (bt, bj), (bt_inv, bj_inv),
         (single, vj(lambda p: jm._exp_v_single(p, -1.0))(jnp.asarray(
             phi[:, 0]))),
-        (tm.dv_mult_left(bt, Xt), vj(jm.dv_mult_left)(bj, Xj)),
-        (tm.dv_mult_right(Xt, bt), vj(jm.dv_mult_right)(Xj, bj)),
-        (tm.kinetic_mult_left(Xt, inv=True, transpose=True),
+        # the factor applies the port's plain wraps are built from
+        (sdw_wrap.dv_left(bt, Xt), vj(jm.dv_mult_left)(bj, Xj)),
+        (sdw_wrap.dv_right(Xt, bt), vj(jm.dv_mult_right)(Xj, bj)),
+        (sdw_wrap.kin_left(tm.expK_inv.transpose(-1, -2), Xt),
          vj(lambda x: jm.kinetic_mult_left(x, inv=True, transpose=True))(Xj)),
-        (tm.kinetic_mult_right(Xt, inv=True),
+        (sdw_wrap.kin_right(Xt, tm.expK_inv),
          vj(lambda x: jm.kinetic_mult_right(x, inv=True))(Xj)),
         (tm.b_mult_left(bt, Xt), vj(jm.b_mult_left)(bj, Xj)),
-        (tm.b_inv_mult_left(bt_inv, Xt), vj(jm.b_inv_mult_left)(bj_inv, Xj)),
-        (tm.b_mult_right(Xt, bt), vj(jm.b_mult_right)(Xj, bj)),
-        (tm.b_inv_mult_right(Xt, bt_inv),
-         vj(jm.b_inv_mult_right)(Xj, bj_inv)),
         (tm.bT_mult_left(bt, Xt), vj(jm.bT_mult_left)(bj, Xj)),
         (tm.wrap_up(Xt, bt, bt_inv), vj(jm.wrap_up)(Xj, bj, bj_inv)),
         (tm.wrap_down(Xt, bt, bt_inv), vj(jm.wrap_down)(Xj, bj, bj_inv)),
@@ -182,7 +181,6 @@ def test_f32_main_path_config_cut_to_m8():
 
 @pytest.mark.parametrize("kw", [
     dict(opdim=2), dict(opdim=1), dict(fermion_repr="real_embed"),
-    dict(delay=4), dict(update_kernel="delayed"), dict(wrap_kernel="fused"),
     dict(green_kernel="refine"), dict(checkerboard=True, cb_apply="sparse"),
     dict(globalShift=True), dict(wolffClusterUpdate=True),
     dict(wolffClusterShiftUpdate=True), dict(turnoffFermions=True)],
@@ -191,6 +189,17 @@ def test_unported_knobs_raise(kw):
     cfg = ts.SDWConfig(**dict(dict(L=2, opdim=3, m=4, s=2), **kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.SDWModel(cfg)
+
+
+@pytest.mark.parametrize("kw,route", [
+    (dict(delay=4), "delayed"), (dict(update_kernel="delayed"), "delayed"),
+    (dict(wrap_kernel="fused"), "fused")],
+    ids=lambda x: ",".join(f"{k}={v}" for k, v in x.items())
+    if isinstance(x, dict) else x)
+def test_delayed_and_fused_knobs_build(kw, route):
+    cfg = ts.SDWConfig(**dict(dict(L=2, opdim=3, m=4, s=2), **kw))
+    ts.SDWModel(cfg)
+    assert route in ts.SDWModel.routes(cfg, "cpu").values()
 
 
 def test_unported_methods_raise_and_mapped_knobs_build():
@@ -202,11 +211,12 @@ def test_unported_methods_raise_and_mapped_knobs_build():
                dict(green_kernel="pallas", update_kernel="pallas"),
                dict(green_kernel="xla", checkerboard=True)):
         ts.SDWModel(ts.SDWConfig(**dict(base, **kw)))
-    # on a CUDA device the one-CTA kernels bound the dim: L = 4 fits,
-    # L = 6 (dim 144) needs the n > 128 kernels
-    ts.SDWModel._check_kernel_bounds(ts.SDWConfig(**dict(base, L=4)))
+    # on a CUDA device the blocked kernels bound the dim at 512: L = 4, 6,
+    # 8 and 11 fit, L = 12 (dim 576) does not
+    for L in (4, 6, 8, 11):
+        ts.SDWModel._check_kernel_bounds(ts.SDWConfig(**dict(base, L=L)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.SDWModel._check_kernel_bounds(ts.SDWConfig(**dict(base, L=6)))
+        ts.SDWModel._check_kernel_bounds(ts.SDWConfig(**dict(base, L=12)))
     model = ts.SDWModel(ts.SDWConfig(**base))
     for name in ("sweep_simple", "time_displaced_greens", "global_moves",
                  "attempt_wolff_update", "log_weight", "with_r"):
