@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's main paths once on one CUDA card: the
-Hubbard model and the O(3) SDW model.
+Hubbard model and the O(3) SDW model, their sweeps and their unequal-time
+measurements.
 
     python3 chip_smoke.py      # one card; exits 0 only if every phase passed
 
@@ -51,11 +52,35 @@ Phases (any failure raises, and the script exits non-zero):
    opdim=3, r=0.5, beta=4, m=40, s=8, float32, checkerboard), 128
    walkers: as phase 8, with the launch counts of K5-K9 (K4, K2c, K3c
    never launch) and sweeps/s against the C++ 3.41;
-13. SDW L=8 profile — as phase 9, with the groups K5, K6, K7, K8, K9.
+13. SDW L=8 profile — as phase 9, with the groups K5, K6, K7, K8, K9;
+14. the unequal-time (dynamics) slice, after the main path of each model:
+   - K3r solve_inner_rhs (float64, n = 64, B = 2688: the forward and
+     swapped anchor solves of examples/hubbard_dynamics.conf, W = 64),
+     K3c-rhs (complex128, n = 64, B = 128 x 11, sdw_l4) and K8-rhs + K9
+     (complex128, n = 256, B = 128 x 6, sdw_l8), each on the inner
+     matrices and d1min V1 right-hand sides of real unequal-time stacks,
+     against solve_inner_rhs_plain: backward error and the n eps cond
+     forward bound, timed with the plain version and torch.linalg.solve;
+   - dynamics parity: Hubbard L=4 (both particle-hole modes, W=4) and SDW
+     L=2 and L=6 (W=2), f64, card against CPU from the same field:
+     G(tau,0), G(0,tau), G(tau,tau) and the SDW forward and reverse
+     chains at every slice within 1e-10;
+   - full width: examples/hubbard_dynamics.conf (Hubbard L=8 beta=8 m=80
+     s=4 float32, W = 64, after two warm-up pairs):
+     measure_time_displaced(per_slice, susceptibilities) and
+     measure_current_correlators; sdw_l4 and sdw_l8 on their main-path
+     states: measure_time_displaced(per_slice, susceptibilities). Each
+     after a warm-up call: the median wall of five calls (synchronized),
+     the launch counts of one call, the wrap deviation
+     (median over walkers) under the model's green_dev gate, every
+     output finite, and the tau = 0 anchor within 1e-5 of the equal-time
+     G of refresh_from_field.
 
 The second-to-last line is {"kernels": [...]} (every number measured in
-this run), and the last line is {"ok": true, "device": {...}}. Without a
-CUDA device the script exits 1 before printing any result.
+this run; bound_ms is the larger of the kernel's bytes over the HBM rate
+and its operations over the peak rate, from this run's shapes), and the
+last line is {"ok": true, "device": {...}}. Without a CUDA device the
+script exits 1 before printing any result.
 """
 
 from __future__ import annotations
@@ -97,11 +122,69 @@ K4_TOL = {"complex64": 1e-5, "complex128": 1e-12}  # max |G_kernel - G_plain|
 # an f32 K4 accept mismatch must be a near-tie of the log-domain test:
 # |lhs - (c_det log|R|^2 + live)| below this (f32 roundoff is ~1e-6 there)
 K4_NEAR_TIE = 1e-4
+# examples/hubbard_dynamics.conf: Hubbard L=8 U=4 beta=8 dtau=0.1 s=4, 64
+# walkers, per-slice G(k, tau), pair susceptibilities, current correlators
+DYN_CFG = dict(L=8, U=4.0, beta=8.0, m=80, s=4, dtype="float32")
+W_DYN, N_DYN_WARMUP = 64, 2
+N_DYN_TIMED = 5            # warm calls per measurement, median wall
+ANCHOR_TOL = 1e-5          # |G(0, 0) anchor - equal-time G|, float32 G
+
+
+# The least time the card could take for a kernel's work (bound_ms): the
+# larger of the bytes it must move (each input read once, each output
+# written once) over HBM3's 3.35 TB/s and its operations over the peak for
+# their type. NVIDIA H100 SXM data sheet, dense: 67 TFLOP/s FP64 (tensor
+# core; 34 outside the tensor cores) and 67 TFLOP/s FP32 outside the
+# tensor cores, at the full 700 W power limit.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = 67e12
+# real operations per complex multiply-add over a real one
+CPLX = 4
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """{"bound_ms", "bound_by"}: the larger of bytes over the memory rate
+    and operations over the peak rate."""
+    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS
+    return {"bound_ms": 1e3 * max(t_b, t_f),
+            "bound_by": "bytes" if t_b >= t_f else "operations"}
+
+
+def record(err, ms, pms, lms, bnd) -> dict:
+    """A kernel's row of the kernels line (its name, source and launches
+    are added by main)."""
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bnd,
+            "library_ms": lms}
+
+
+def qr_flops(B: int, n: int, complex_: bool) -> float:
+    """Householder QR with Q formed: 4/3 n^3 for R, 4/3 n^3 for Q."""
+    return (CPLX if complex_ else 1) * B * 8.0 / 3.0 * n ** 3
+
+
+def solve_flops(B: int, n: int, complex_: bool, diag_rhs: bool) -> float:
+    """The QR solve inner^{-1} M with n right-hand sides: 4/3 n^3 for R,
+    Q^H M (2 n^3 for a dense M; for M = diag(r1) it is Q^H scaled, and
+    forming Q costs 4/3 n^3), n^3 for the back-substitution."""
+    return ((CPLX if complex_ else 1) * B
+            * (4.0 / 3.0 + (4.0 / 3.0 if diag_rhs else 2.0) + 1.0) * n ** 3)
+
+
+T_START = time.perf_counter()
+
+
+def lap(done: str) -> None:
+    """Print the script's elapsed time after a phase."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {done} done")
 
 
 def time_ms(fn, reps: int = 7) -> float:
@@ -207,7 +290,10 @@ def kernel_phase(model, state, gen):
         print(f"K1 slice_update {dname} (W={W}, C={C}, N={N}): "
               f"max|dG|={err:.3e} (tol {K1_TOL[dname]}), accept "
               f"mismatches {n_mis}, kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        rec[dname] = (err, ms, pms)
+        # a rank-1 update of each component's G per accepted site
+        n_acc = float(ak.sum()) * N
+        rec[dname] = record(err, ms, pms, None, bound(
+            nbytes(*args, Gk, fk, sk, ak), n_acc * C * 2 * N * N))
     out["slice_update"] = rec
 
     # K2: QR of the refactor blocks
@@ -236,10 +322,13 @@ def kernel_phase(model, state, gen):
         check(recon <= K2_TOL[dname], f"K2 {dname}: |QR - A| {recon:.3e}")
         ms = time_ms(lambda: qr.qr(Ad))
         pms = time_ms(lambda: qr.qr_plain(Ad))
+        lms = time_ms(lambda: torch.linalg.qr(Ad))
         print(f"K2 qr {dname} (B={A.shape[0]}, n={N}): err={err:.3e} "
               f"(tol {K2_TOL[dname]}), |QR-A|/|A|={recon:.3e}, kernel "
-              f"{ms:.4f} ms, plain {pms:.4f} ms")
-        rec[dname] = (err, ms, pms)
+              f"{ms:.4f} ms, plain {pms:.4f} ms, torch.linalg.qr "
+              f"{lms:.4f} ms")
+        rec[dname] = record(err, ms, pms, lms, bound(
+            nbytes(Ad, Qk, Rk), qr_flops(A.shape[0], N, False)))
     out["qr"] = rec
 
     # K3: inner solve at mid-chain conditioning
@@ -259,20 +348,25 @@ def kernel_phase(model, state, gen):
     bk, bp = backward(mk), backward(mp)
     cond = torch.linalg.cond(inner)
     fwd = amax(mk - mp) / amax(mp)
-    bound = N * torch.finfo(torch.float64).eps * cond
+    fbound = N * torch.finfo(torch.float64).eps * cond
     check(bk <= K3_BACKWARD, f"K3: backward error {bk:.3e} > {K3_BACKWARD}")
-    check(bool((fwd <= bound).all()),
+    check(bool((fwd <= fbound).all()),
           f"K3: forward difference beyond n eps cond(inner): "
-          f"{float((fwd / bound).max()):.3e} x the bound")
+          f"{float((fwd / fbound).max()):.3e} x the bound")
     ms = time_ms(lambda: green_solve.solve_inner(inner, r1))
     pms = time_ms(lambda: green_solve.solve_inner_plain(inner, r1))
+    diag = torch.diag_embed(r1)
+    lms = time_ms(lambda: torch.linalg.solve(inner, diag))
     print(f"K3 solve_inner float64 (B={inner.shape[0]}, n={N}, cond(inner) "
           f"{float(cond.min()):.2e}..{float(cond.max()):.2e}): "
           f"max|dmid|={abs_err:.3e}, max rel {float(fwd.max()):.3e} (<= n "
-          f"eps cond, worst {float((fwd / bound).max()):.2e} of it), "
+          f"eps cond, worst {float((fwd / fbound).max()):.2e} of it), "
           f"backward error kernel {bk:.2e} plain {bp:.2e} (tol "
-          f"{K3_BACKWARD}), kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    out["solve_inner"] = {"float64": (abs_err, ms, pms)}
+          f"{K3_BACKWARD}), kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"torch.linalg.solve {lms:.4f} ms")
+    out["solve_inner"] = {"float64": record(abs_err, ms, pms, lms, bound(
+        nbytes(inner, r1, mk), solve_flops(inner.shape[0], N, False,
+                                            True)))}
     return out
 
 
@@ -384,19 +478,27 @@ SDW8_GROUPS = (("sdw_delayed_kernel", "K5 sdw_delayed"),
                ("qr_big_kernel", "K7 qr_complex_big"),
                ("solve_inner_big_kernel", "K8 solve_inner_big"),
                ("trinv_big_kernel", "K9 trinv_big"))
+DYN_GROUPS = (("solve_inner_rhs_kernel", "K3r/K3c-rhs"),
+              ("solve_inner_big_rhs_kernel", "K8-rhs"),
+              ("solve_inner_kernel", "K3 solve_inner"),
+              ("qr_kernel", "K2/K2c qr"),
+              ("qr_big_kernel", "K7 qr_complex_big"),
+              ("line_pass_kernel", "K6 sdw_apply"),
+              ("trinv_big_kernel", "K9 trinv_big"))
 
 
-def profile_phase(model, state, gen, wall_ms_per_pair, layers=HUBBARD_GROUPS,
-                  title="profile"):
-    """Device time of one sweep pair split by kernel (torch.profiler), and
-    the device's busy share of the unprofiled pair's wall time."""
+def profile_phase(run, wall_ms_per_pair, layers=HUBBARD_GROUPS,
+                  title="profile", what="one pair"):
+    """Device time of one call of ``run`` (a sweep pair, or a measurement)
+    split by kernel (torch.profiler), and the device's busy share of the
+    unprofiled call's wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        model.sweep_pair(state, measure=True, generator=gen)
+        run()
         torch.cuda.synchronize()
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA
@@ -420,9 +522,9 @@ def profile_phase(model, state, gen, wall_ms_per_pair, layers=HUBBARD_GROUPS,
               "measured)")
         return
     n_launch = sum(ev.count for ev in kernels)
-    print(f"{title} (one pair): device time {total / 1e3:.3f} ms in "
+    print(f"{title} ({what}): device time {total / 1e3:.3f} ms in "
           f"{n_launch} kernel launches, of {wall_ms_per_pair:.3f} ms wall per "
-          f"timed pair: device busy "
+          f"timed call: device busy "
           f"{100 * total / 1e3 / wall_ms_per_pair:.1f} %")
     for layer, t in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {layer:16s} {t / 1e3:10.3f} ms  {100 * t / total:5.1f} %")
@@ -549,7 +651,10 @@ def sdw_kernel_phase(model, state, gen):
               f"{err:.3e} (tol {K4_TOL[cname]}), accepted "
               f"{int(ak.sum())}/{W * N} sites, accept mismatches {n_mis}, "
               f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        rec[cname] = (err, ms, pms)
+        # a rank-4 complex update of G per accepted site
+        rec[cname] = record(err, ms, pms, None, bound(
+            nbytes(*args, model.nb, Gk, pk, ak),
+            float(ak.sum()) * CPLX * 8 * h * h))
     out["sdw_update"] = rec
 
     # K2c: QR of the refactor blocks
@@ -574,10 +679,12 @@ def sdw_kernel_phase(model, state, gen):
         check(recon <= tol, f"K2c {cname}: |QR - A| {recon:.3e}")
         ms = time_ms(lambda: qr.qr(A))
         pms = time_ms(lambda: qr.qr_plain(A))
+        lms = time_ms(lambda: torch.linalg.qr(A))
         print(f"K2c qr {cname} (B={A.shape[0]}, n={h}): err={err:.3e} "
               f"(tol {tol}), |QR-A|/|A|={recon:.3e}, kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms")
-        rec[cname] = (err, ms, pms)
+              f"plain {pms:.4f} ms, torch.linalg.qr {lms:.4f} ms")
+        rec[cname] = record(err, ms, pms, lms, bound(
+            nbytes(A, Qk, Rk), qr_flops(A.shape[0], h, True)))
     out["qr_complex"] = rec
 
     # K3c: inner solve at mid-chain conditioning
@@ -596,20 +703,26 @@ def sdw_kernel_phase(model, state, gen):
     bk, bp = backward(mk), backward(mp)
     cond = torch.linalg.cond(inner)
     fwd = amax(mk - mp) / amax(mp)
-    bound = h * torch.finfo(torch.float64).eps * cond
+    fbound = h * torch.finfo(torch.float64).eps * cond
     check(bk <= K3_BACKWARD, f"K3c: backward error {bk:.3e} > {K3_BACKWARD}")
-    check(bool((fwd <= bound).all()),
+    check(bool((fwd <= fbound).all()),
           f"K3c: forward difference beyond n eps cond(inner): "
-          f"{float((fwd / bound).max()):.3e} x the bound")
+          f"{float((fwd / fbound).max()):.3e} x the bound")
     ms = time_ms(lambda: green_solve.solve_inner(inner, r1))
     pms = time_ms(lambda: green_solve.solve_inner_plain(inner, r1))
+    diag = torch.diag_embed(r1).to(inner.dtype)
+    lms = time_ms(lambda: torch.linalg.solve(inner, diag))
     print(f"K3c solve_inner complex128 (B={inner.shape[0]}, n={h}, "
           f"cond(inner) {float(cond.min()):.2e}..{float(cond.max()):.2e}): "
           f"max|dmid|={abs_err:.3e}, max rel {float(fwd.max()):.3e} (<= n "
-          f"eps cond, worst {float((fwd / bound).max()):.2e} of it), "
+          f"eps cond, worst {float((fwd / fbound).max()):.2e} of it), "
           f"backward error kernel {bk:.2e} plain {bp:.2e} (tol "
-          f"{K3_BACKWARD}), kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    out["solve_inner_complex"] = {"complex128": (abs_err, ms, pms)}
+          f"{K3_BACKWARD}), kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"torch.linalg.solve {lms:.4f} ms")
+    out["solve_inner_complex"] = {"complex128": record(
+        abs_err, ms, pms, lms, bound(nbytes(inner, r1, mk),
+                                     solve_flops(inner.shape[0], h, True,
+                                                 True)))}
     return out
 
 
@@ -666,6 +779,7 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
                  mdl.c_det)
         ms = time_ms(lambda: sdw_delayed.chunk(*cargs))
         pms = time_ms(lambda: sdw_delayed.chunk_plain(*cargs), reps=3)
+        chunk_out = sdw_delayed.chunk(*cargs)
         sms = time_ms(lambda: sdw_delayed.sdw_delayed(*args, *extra, K),
                       reps=3)
         hh = mdl.dim
@@ -674,7 +788,12 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
               f"{W * mdl.cfg.n_sites} sites, accept mismatches {n_mis}; one "
               f"chunk: kernel {ms:.4f} ms, plain {pms:.4f} ms; the slice "
               f"with its flushes {sms:.4f} ms")
-        rec[cname] = (err, ms, pms)
+        # per site of the chunk: its 4 columns and rows corrected by the
+        # earlier slots (2 x 4 x 4 j x h), then the 4 x 4 T applied (16 h)
+        ops = W * (16 * Kc * (Kc - 1) + 16 * Kc) * hh * CPLX * 2
+        rec[cname] = record(err, ms, pms, None, bound(
+            nbytes(*[a for a in cargs if isinstance(a, torch.Tensor)],
+                   *chunk_out), ops))
     out["sdw_delayed"] = rec
 
     # K6: the four modes on the stabilized G and slice 1's blocks
@@ -705,13 +824,27 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
         wpms = time_ms(lambda: sdw_wrap.wrap_plain(G, E, Ei, D, Di, True))
         ams = time_ms(lambda: sdw_wrap.apply(G, E, D, False))
         apms = time_ms(lambda: sdw_wrap.apply_plain(G, E, D, False))
+        # the library's one call: B = D_V E and B^{-1} as dense matrices
+        eye = torch.eye(h, dtype=cdt, device=G.device).expand(W, h, h)
+        Bd = sdw_wrap.apply_plain(eye, E, D, False)
+        Bi = sdw_wrap.kin_left(Ei, sdw_wrap.dv_left(Di, eye))
+        wlms = time_ms(lambda: torch.einsum("wij,wjk,wkl->wil", Bd, G, Bi))
+        alms = time_ms(lambda: torch.bmm(Bd, G))
         print(f"K6 sdw_wrap/sdw_apply {cname} (W={W}, h={h}): max|d| "
               + ", ".join(f"{m} {e:.3e}" for m, e in errs.items())
               + f" (tol {K6_TOL[cname]} x max|G| {scale:.3e}); wrap kernel "
-              f"{wms:.4f} ms, plain {wpms:.4f} ms; apply kernel {ams:.4f} "
-              f"ms, plain {apms:.4f} ms")
-        rw[cname] = (max(errs["up"], errs["down"]), wms, wpms)
-        ra[cname] = (max(errs["apply"], errs["apply-H"]), ams, apms)
+              f"{wms:.4f} ms, plain {wpms:.4f} ms, dense einsum "
+              f"{wlms:.4f} ms; apply kernel {ams:.4f} ms, plain "
+              f"{apms:.4f} ms, dense bmm {alms:.4f} ms")
+        # per side a block-diagonal E, real (the kernel reads its real
+        # parts): h^2 N real x complex mul-adds of 4 operations; and the
+        # complex 4 x 4 D blocks: 4 h^2 complex mul-adds
+        side = W * (2 * 2 * h * h * N + CPLX * 2 * 4 * h * h)
+        io = nbytes(G, E, D)
+        rw[cname] = record(max(errs["up"], errs["down"]), wms, wpms, wlms,
+                           bound(io + nbytes(G, Ei, Di), 2 * side))
+        ra[cname] = record(max(errs["apply"], errs["apply-H"]), ams, apms,
+                           alms, bound(io + nbytes(G), side))
     out["sdw_wrap"], out["sdw_apply"] = rw, ra
 
     # K7: the refactor block at n = 256, a random matrix at n = 144
@@ -746,10 +879,12 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
             msg.append(f"n={n} err={err:.3e} |QR-A|/|A|={recon:.3e}")
         ms = time_ms(lambda: qr.qr(A))
         pms = time_ms(lambda: qr.qr_plain(A), reps=3)
+        lms = time_ms(lambda: torch.linalg.qr(A), reps=3)
         print(f"K7 qr_complex_big {cname} (B={W}, plan {qr.big_plan(h, cdt)})"
               f": {'; '.join(msg)} (tol {tol}); n={h}: kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms")
-        rec[cname] = (err, ms, pms)
+              f"plain {pms:.4f} ms, torch.linalg.qr {lms:.4f} ms")
+        rec[cname] = record(err, ms, pms, lms, bound(
+            nbytes(A, Qk, Rk), qr_flops(W, h, True)))
     out["qr_complex_big"] = rec
 
     # K8: the inner matrix at mid-chain conditioning
@@ -770,20 +905,26 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
     bk, bp = backward(mk), backward(mp)
     cond = torch.linalg.cond(inner)
     fwd = amax(mk - mp) / amax(mp)
-    bound = h * torch.finfo(torch.float64).eps * cond
+    fbound = h * torch.finfo(torch.float64).eps * cond
     check(bk <= K3_BACKWARD, f"K8: backward error {bk:.3e} > {K3_BACKWARD}")
-    check(bool((fwd <= bound).all()),
+    check(bool((fwd <= fbound).all()),
           f"K8: forward difference beyond n eps cond(inner): "
-          f"{float((fwd / bound).max()):.3e} x the bound")
+          f"{float((fwd / fbound).max()):.3e} x the bound")
     ms = time_ms(lambda: green_solve.solve_inner(inner, r1))
     pms = time_ms(lambda: green_solve.solve_inner_plain(inner, r1), reps=3)
+    diag = torch.diag_embed(r1).to(inner.dtype)
+    lms = time_ms(lambda: torch.linalg.solve(inner, diag), reps=3)
     print(f"K8+K9 solve_inner_complex_big complex128 (B={inner.shape[0]}, n={h}, "
           f"cond(inner) {float(cond.min()):.2e}..{float(cond.max()):.2e}): "
           f"max|dmid|={abs_err:.3e}, max rel {float(fwd.max()):.3e} (<= n "
-          f"eps cond, worst {float((fwd / bound).max()):.2e} of it), "
+          f"eps cond, worst {float((fwd / fbound).max()):.2e} of it), "
           f"backward error kernel {bk:.2e} plain {bp:.2e} (tol "
-          f"{K3_BACKWARD}), kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    out["solve_inner_complex_big"] = {"complex128": (abs_err, ms, pms)}
+          f"{K3_BACKWARD}), kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"torch.linalg.solve {lms:.4f} ms")
+    out["solve_inner_complex_big"] = {"complex128": record(
+        abs_err, ms, pms, lms, bound(nbytes(inner, r1, mk),
+                                     solve_flops(inner.shape[0], h, True,
+                                                 True)))}
 
     # K9: R of the same inner matrices, alone (R^{-1}, the TPU kernel's
     # contract) and on the right-hand side K8 hands it (Q^H diag(r1))
@@ -800,8 +941,8 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
         fwd9 = amax(xk - xp) / amax(xp)
         check(float(res.max()) <= K3_BACKWARD,
               f"K9 {what}: backward error {float(res.max()):.3e}")
-        check(bool((fwd9 <= bound).all()), f"K9 {what}: forward difference "
-              f"beyond n eps cond(R): {float((fwd9 / bound).max()):.3e} x")
+        check(bool((fwd9 <= fbound).all()), f"K9 {what}: forward difference "
+              f"beyond n eps cond(R): {float((fwd9 / fbound).max()):.3e} x")
         if X is None:
             check(bool((torch.tril(xk, -1) == 0).all()),
                   "K9: R^-1's strict lower triangle is not exactly zero")
@@ -814,8 +955,12 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
     print(f"K9 trinv_big complex128 (B={Rp.shape[0]}, n={h}, plan "
           f"{trinv.plan(h, Rp.dtype)}): {'; '.join(msg)} (tol "
           f"{K3_BACKWARD}, n eps cond); R^-1 kernel {ims:.4f} ms; on the "
-          f"path's right-hand side kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    out["trinv_big"] = {"complex128": (errs["R^-1 Q^H diag(r1)"], ms, pms)}
+          f"path's right-hand side kernel {ms:.4f} ms, plain "
+          f"(solve_triangular, also the library call) {pms:.4f} ms")
+    # the triangular solve with n right-hand sides: n^3 complex mul-adds / 2
+    out["trinv_big"] = {"complex128": record(
+        errs["R^-1 Q^H diag(r1)"], ms, pms, pms, bound(
+            nbytes(Rp, rhs, rhs), CPLX * Rp.shape[0] * float(h) ** 3))}
     return out
 
 
@@ -923,6 +1068,185 @@ def sdw_main_path_phase(device, card, cfg_kw=SDW_CFG, kernels=SDW_KERNELS):
     return model, state, gen, counts, 1e3 * dt / N_TIMED_PAIRS
 
 
+# ---- the unequal-time (dynamics) slice ----------------------------------
+def rhs_operands(left, right_t):
+    """(inner, d1min V1) of green_tau_zero's dense-RHS solve, (B, n, n)."""
+    from detqmc_tpu_torch.linalg.udv import tau_zero_operands
+
+    return tau_zero_operands(left, right_t)[:2]
+
+
+def rhs_kernel_phase(title, route, inner, rhs):
+    """K3r / K3c-rhs / K8-rhs + K9 against solve_inner_rhs_plain on the
+    same CUDA tensors: backward error and the n eps cond forward bound,
+    then kernel, plain and torch.linalg.solve times. cond is the
+    Frobenius-norm condition number ||inner|| ||inner^{-1}|| (>= the
+    2-norm one, so the bound is never tighter than with it), computed
+    through a batched inverse: the SVDs of thousands of matrices would
+    take most of the script's time."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import green_solve
+
+    B, n, _ = inner.shape
+    check(green_solve.kernel_for(n, inner.dtype) + "_rhs" == route,
+          f"{title}: n={n} {inner.dtype} is not routed to {route}")
+    xk = green_solve.solve_inner_rhs(inner, rhs)
+    xp = green_solve.solve_inner_rhs_plain(inner, rhs)
+    torch.cuda.synchronize()
+    abs_err = float((xk - xp).abs().max())
+    amax = lambda X: X.abs().amax((1, 2))                      # noqa: E731
+
+    def backward(X):
+        return float((amax(inner @ X - rhs) / (n * amax(inner) * amax(X)))
+                     .max())
+
+    bk, bp = backward(xk), backward(xp)
+    cond = torch.linalg.cond(inner, "fro")
+    fwd = amax(xk - xp) / amax(xp)
+    fbound = n * torch.finfo(torch.float64).eps * cond
+    check(bk <= K3_BACKWARD, f"{title}: backward error {bk:.3e} > "
+          f"{K3_BACKWARD}")
+    check(bool((fwd <= fbound).all()),
+          f"{title}: forward difference beyond n eps cond(inner): "
+          f"{float((fwd / fbound).max()):.3e} x the bound")
+    slow = 3 if n > 128 else 7
+    ms = time_ms(lambda: green_solve.solve_inner_rhs(inner, rhs))
+    pms = time_ms(lambda: green_solve.solve_inner_rhs_plain(inner, rhs),
+                  reps=slow)
+    lms = time_ms(lambda: torch.linalg.solve(inner, rhs), reps=slow)
+    print(f"{title} {str(inner.dtype)[6:]} (B={B}, n={n}, cond_F(inner) "
+          f"{float(cond.min()):.2e}..{float(cond.max()):.2e}): "
+          f"max|dX|={abs_err:.3e}, max rel {float(fwd.max()):.3e} (<= n "
+          f"eps cond, worst {float((fwd / fbound).max()):.2e} of it), "
+          f"backward error kernel {bk:.2e} plain {bp:.2e} (tol "
+          f"{K3_BACKWARD}), kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"torch.linalg.solve {lms:.4f} ms")
+    return {str(inner.dtype)[6:]: record(abs_err, ms, pms, lms, bound(
+        nbytes(inner, rhs, xk),
+        solve_flops(B, n, inner.is_complex(), False)))}
+
+
+def dynamics_parity_phase(device):
+    """The unequal-time chains of tiny f64 configurations on the card
+    (kernels) and on the CPU from the same field: Hubbard L=4 both
+    particle-hole modes; SDW L=2 (K3c-rhs) and L=6 (K8-rhs + K9, K6)."""
+    import torch
+
+    from detqmc_tpu_torch.models.hubbard import (HubbardConfig,
+                                                 HubbardModel, Stack,
+                                                 WalkerState)
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel, SDWState
+
+    def worst(got, ref):
+        check(len(got) == len(ref), "parity: output counts differ")
+        return max(float((a.cpu() - b).abs().max()) for a, b in zip(got,
+                                                                    ref))
+
+    for ph in ("on", "off"):
+        cfg = HubbardConfig(L=4, U=4.0, beta=2.0, m=8, s=4,
+                            dtype="float64", ph_symmetry=ph)
+        cpu = HubbardModel(cfg, device="cpu")
+        gpu = HubbardModel(cfg, device=device)
+        sc = cpu.init_state(4, torch.Generator().manual_seed(21))
+        sg = WalkerState(*[Stack(*[x.to(device) for x in leaf])
+                           if isinstance(leaf, Stack) else leaf.to(device)
+                           for leaf in sc])
+        err = max(worst(getattr(gpu, f)(sg.field), getattr(cpu, f)(sc.field))
+                  for f in ("time_displaced_greens_all",
+                            "unequal_time_greens_all"))
+        check(err <= PARITY_G_TOL, f"dynamics parity Hubbard ph={ph}: "
+              f"{err:.3e}")
+        print(f"dynamics parity Hubbard ph={ph} (L=4 m=8 s=4 W=4 f64): "
+              f"G(tau,0), G(0,tau), G(tau,tau) at every slice and the wrap "
+              f"deviation max|d|={err:.3e} (tol {PARITY_G_TOL})")
+    for L in (2, 6):
+        cfg = SDWConfig(L=L, opdim=3, r=0.5, beta=1.0, m=8, s=4,
+                        dtype="float64")
+        cpu = SDWModel(cfg, device="cpu")
+        gpu = SDWModel(cfg, device=device)
+        sc = cpu.init_state(2, torch.Generator().manual_seed(22))
+        sg = SDWState(*[x.to(device) for x in sc])
+        err = max(worst(getattr(gpu, f)(sg.phi), getattr(cpu, f)(sc.phi))
+                  for f in ("time_displaced_greens_all",
+                            "time_displaced_greens_rev_all"))
+        check(err <= PARITY_G_TOL, f"dynamics parity SDW L={L}: {err:.3e}")
+        print(f"dynamics parity SDW L={L} (dim {cfg.dim}, m=8 s=4 W=2 f64):"
+              f" forward and reverse chains at every slice max|d|={err:.3e} "
+              f"(tol {PARITY_G_TOL})")
+
+
+def dynamics_path_phase(title, model, state, measures, expect, dev_gate):
+    """One measurement block of the unequal-time path at full width:
+    ``measures`` (name, fn(state) -> outputs, the index of the wrap
+    deviation among them). A warm-up call of each first (the first call
+    allocates the per-slice chains); then one call of each with the
+    launch counts set to 0 just before and held against ``expect`` just
+    after, every output finite, the deviation under the gate; the wall
+    time of a call (synchronized) is the median of that call and
+    N_DYN_TIMED - 1 more; then |G(0, 0) anchor - equal-time G| after
+    refresh_from_field."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import _kernels
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn(state)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    for _, fn, _ in measures:
+        fn(state)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    outs, times, dev_at = {}, {}, {}
+    for name, fn, dev_at[name] in measures:
+        outs[name], times[name] = timed(fn)
+    counts = dict(_kernels.LAUNCHES)
+    for name, fn, _ in measures:
+        walls = [times[name]] + [timed(fn)[1]
+                                 for _ in range(N_DYN_TIMED - 1)]
+        times[name] = statistics.median(walls)
+        print(f"  {name}: wall per call (warm) "
+              + ", ".join(f"{w:.3f}" for w in walls) + " ms")
+    want = dict.fromkeys(counts, 0)
+    want.update(expect)
+    print(f"{title}: median " + ", ".join(f"{k} {v:.3f} ms"
+                                          for k, v in times.items()))
+    print(f"  launches {({k: v for k, v in counts.items() if v})} "
+          f"(expected {expect})")
+    check(counts == want, f"{title}: launch counts {counts} != {want}")
+    for name, out in outs.items():
+        check(all(bool(torch.isfinite(x).all()) for x in out),
+              f"{title}: non-finite {name}")
+        # gated like the sweep's green_dev: the median over walkers
+        dev = float(out[dev_at[name]].double().quantile(0.5))
+        print(f"  {name}: wrap deviation median {dev:.4e} (gate "
+              f"{dev_gate}), max {float(out[dev_at[name]].max()):.4e}; "
+              + "; ".join(f"{tuple(x.shape)} mean {float(x.mean()):.6g}"
+                          for x in out))
+        check(dev < dev_gate, f"{title}: {name} wrap deviation {dev:.3e}")
+    # the tau = 0 anchor is the equal-time G of a fresh chain
+    fresh = model.refresh_from_field(state)
+    if hasattr(state, "field"):
+        G, G0 = fresh.G, model.time_displaced_greens(state.field)[:, 0]
+        if model.cfg.ph_on:
+            eta = model.stagger
+            eye = torch.eye(model.cfg.n_sites, dtype=G.dtype, device=G.device)
+            G = torch.cat([G, eta[:, None] * (eye - G.mT) * eta[None, :]], 1)
+    else:
+        G, G0 = fresh.G, model.time_displaced_greens(state.phi)[:, 0]
+    anchor = float((G0 - G).abs().max())
+    print(f"  |G(0, 0) anchor - equal-time G| = {anchor:.3e} (tol "
+          f"{ANCHOR_TOL})")
+    check(anchor < ANCHOR_TOL, f"{title}: tau = 0 anchor off by {anchor:.3e}")
+    for name, fn, _ in measures:
+        profile_phase(lambda: fn(state), times[name], DYN_GROUPS,
+                      f"{title.split(' (')[0]} profile", name)
+    return counts, times
+
+
 def main() -> int:
     import torch
 
@@ -939,7 +1263,6 @@ def main() -> int:
     from detqmc_tpu_torch.linalg import _kernels
     from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
 
-    t_start = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -962,9 +1285,39 @@ def main() -> int:
     state = model.init_state(W_MAIN, gen)
     kern = kernel_phase(model, state, gen)
     path_parity_phase(device)
+    lap("Hubbard kernels and path parity")
     model, state, gen, counts, wall_ms = main_path_phase(device, card)
-    profile_phase(model, state, gen, wall_ms)
+    profile_phase(lambda: model.sweep_pair(state, measure=True,
+                                           generator=gen), wall_ms)
+    lap("Hubbard main path and profile")
     del model, state
+
+    # the unequal-time path of examples/hubbard_dynamics.conf
+    dyn = HubbardModel(HubbardConfig(**DYN_CFG), device=device)
+    gen = torch.Generator(device=device).manual_seed(2024)
+    dyn_state = dyn.init_state(W_DYN, gen)
+    for _ in range(N_DYN_WARMUP):
+        dyn_state, _ = dyn.sweep_pair(dyn_state, measure=False,
+                                      generator=gen)
+    kern["solve_inner_rhs"] = rhs_kernel_phase(
+        "K3r solve_inner_rhs", "solve_inner_rhs",
+        *rhs_operands(*dyn._both_orders(*dyn._td_stacks(dyn_state.field))))
+    lap("K3r")
+    dynamics_parity_phase(device)
+    lap("dynamics parity")
+    K = dyn.cfg.n_stack
+    dyn_counts, _ = dynamics_path_phase(
+        "Hubbard dynamics L=8 beta=8 m=80 s=4 f32 W=64 "
+        "(examples/hubbard_dynamics.conf)", dyn, dyn_state,
+        [("measure_time_displaced(per_slice, susceptibilities)",
+          lambda st: dyn.measure_time_displaced(st, True, True), 1),
+         ("measure_current_correlators", dyn.measure_current_correlators,
+          2)],
+        {"qr": 4 * K, "solve_inner_rhs": 2, "solve_inner": 1},
+        GREEN_DEV_GATE)
+    counts["solve_inner_rhs"] = dyn_counts["solve_inner_rhs"]
+    lap("Hubbard dynamics path")
+    del dyn, dyn_state
 
     from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
 
@@ -972,24 +1325,58 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(4321)
     sdw_state = sdw.init_state(W_SDW, gen)
     kern.update(sdw_kernel_phase(sdw, sdw_state, gen))
+    lap("SDW L=4 kernels")
     sdw_path_parity_phase(device)
     sdw, sdw_state, gen, sdw_counts, wall_ms = sdw_main_path_phase(device,
                                                                    card)
-    profile_phase(sdw, sdw_state, gen, wall_ms, SDW_GROUPS, "SDW profile")
+    profile_phase(lambda: sdw.sweep_pair(sdw_state, measure=True,
+                                         generator=gen),
+                  wall_ms, SDW_GROUPS, "SDW profile")
+    lap("SDW L=4 main path and profile")
     counts.update({k: sdw_counts[k] for k in SDW_KERNELS})
+    kern["solve_inner_complex_rhs"] = rhs_kernel_phase(
+        "K3c-rhs solve_inner_complex_rhs", "solve_inner_complex_rhs",
+        *rhs_operands(*sdw._td_stacks(sdw_state.phi)))
+    lap("K3c-rhs")
+    dyn_counts, _ = dynamics_path_phase(
+        "SDW sdw_l4 dynamics W=128", sdw, sdw_state,
+        [("measure_time_displaced(per_slice, susceptibilities)",
+          lambda st: sdw.measure_time_displaced(st, True, True), 1)],
+        {"qr_complex": 2 * sdw.cfg.n_stack, "solve_inner_complex_rhs": 1},
+        SDW_GREEN_DEV_GATE)
+    counts["solve_inner_complex_rhs"] = dyn_counts["solve_inner_complex_rhs"]
+    lap("sdw_l4 dynamics path")
 
     sdw8 = SDWModel(SDWConfig(**SDW8_CFG), device=device)
     gen = torch.Generator(device=device).manual_seed(8888)
     sdw8_state = sdw8.init_state(W_SDW, gen)
     kern.update(sdw8_kernel_phase(sdw8, sdw8_state, gen, sdw, sdw_state))
+    lap("SDW L=8 kernels")
     del sdw8, sdw8_state, sdw, sdw_state
     sdw_path_parity_phase(device, update_kernel="delayed", delay=3,
                           wrap_kernel="fused")
     sdw8, sdw8_state, gen, sdw8_counts, wall_ms = sdw_main_path_phase(
         device, card, SDW8_CFG, SDW8_KERNELS)
-    profile_phase(sdw8, sdw8_state, gen, wall_ms, SDW8_GROUPS,
-                  "SDW L=8 profile")
+    profile_phase(lambda: sdw8.sweep_pair(sdw8_state, measure=True,
+                                          generator=gen),
+                  wall_ms, SDW8_GROUPS, "SDW L=8 profile")
+    lap("SDW L=8 main path and profile")
     counts.update({k: sdw8_counts[k] for k in SDW8_KERNELS})
+    kern["solve_inner_complex_big_rhs"] = rhs_kernel_phase(
+        "K8-rhs+K9 solve_inner_complex_big_rhs", "solve_inner_complex_big_rhs",
+        *rhs_operands(*sdw8._td_stacks(sdw8_state.phi)))
+    lap("K8-rhs")
+    c8 = sdw8.cfg
+    dyn_counts, _ = dynamics_path_phase(
+        "SDW sdw_l8 dynamics W=128", sdw8, sdw8_state,
+        [("measure_time_displaced(per_slice, susceptibilities)",
+          lambda st: sdw8.measure_time_displaced(st, True, True), 1)],
+        {"qr_complex_big": 2 * c8.n_stack, "solve_inner_complex_big_rhs": 1,
+         "trinv_big": 1, "sdw_apply": 2 * c8.m + c8.s},
+        SDW_GREEN_DEV_GATE)
+    counts["solve_inner_complex_big_rhs"] = dyn_counts[
+        "solve_inner_complex_big_rhs"]
+    lap("sdw_l8 dynamics path")
 
     meta = {"slice_update": ("detqmc_tpu_torch/csrc/slice_update.cu",
                              "detqmc_tpu/linalg/pallas_update_lanes.py:185",
@@ -1026,14 +1413,22 @@ def main() -> int:
                 "detqmc_tpu/linalg/pallas_cgreen.py:295", "complex128"),
             "trinv_big": ("detqmc_tpu_torch/csrc/trinv_big.cu",
                           "detqmc_tpu/linalg/pallas_trinv_common.py:152",
-                          "complex128")}
-    rows = []
-    for name, (src, repl, dname) in meta.items():
-        err, ms, pms = kern[name][dname]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": repl, "launches": counts[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": pms})
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+                          "complex128"),
+            "solve_inner_rhs": ("detqmc_tpu_torch/csrc/green_solve.cu",
+                                "detqmc_tpu/linalg/pallas_green_lanes.py:241",
+                                "float64"),
+            "solve_inner_complex_rhs": (
+                "detqmc_tpu_torch/csrc/green_solve.cu",
+                "detqmc_tpu/linalg/pallas_cgreen_lanes.py:347", "complex128"),
+            "solve_inner_complex_big_rhs": (
+                "detqmc_tpu_torch/csrc/green_solve_big.cu",
+                "detqmc_tpu/linalg/pallas_cgreen.py:337", "complex128")}
+    rows = [{"name": name, "route": "cuda", "source": src, "replaces": repl,
+             "launches": counts[name], **kern[name][dname]}
+            for name, (src, repl, dname) in meta.items()]
+    check(all(r["launches"] > 0 for r in rows), "a kernel of the line was "
+          "never launched on its main path")
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

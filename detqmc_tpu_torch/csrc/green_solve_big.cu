@@ -1,18 +1,23 @@
-// K8: stabilized complex inner solve mid = inner^{-1} diag(r1) for n beyond
-// the one-CTA kernel K3c (green_solve.cu), complex128: the factorization,
-// one CTA per matrix.
+// K8: stabilized complex inner solve mid = inner^{-1} M for n beyond the
+// one-CTA kernel K3c (green_solve.cu), complex128, with M = diag(r1) (the
+// equal-time G) or a dense right-hand side (the _rhs entry, the
+// unequal-time G(tau, 0) with M = d1min V1): the factorization, one CTA
+// per matrix.
 //
 // Replaces the TPU kernel detqmc_tpu/linalg/pallas_cgreen.py
 // (solve_inner_complex_big, kernel body _kernel), the column-lane df32
-// solve of the SDW chain at L = 8 (n = 256). As in K3c, the H100 has
+// solve of the SDW chain at L = 8 (n = 256), and its dense-RHS twin
+// solve_inner_complex_big_rhs (the same body with a dense RHS; the
+// reflectors already touch every column of M, so a dense M costs what
+// diag(r1) costs). As in K3c, the H100 has
 // native complex128, so df32 is not ported and every intermediate is
 // complex128. Same algorithm (pallas_cgreen.py:18-26), in two launches:
 //   1. this kernel: blocked Householder QR of inner (householder_blocked,
 //      common.cuh, the device code of K7) with the reflectors applied to
-//      M = diag(r1), so M ends as Q^H diag(r1) in mid and R in work;
+//      M, so M ends as Q^H M in mid and R in work;
 //   2. K9 (trinv_big.cu), the blocked triangular inverse of
-//      pallas_trinv_common.py applied to M: mid = R^{-1} Q^H diag(r1),
-//      in place (linalg/green_solve.py launches both).
+//      pallas_trinv_common.py applied to M: mid = R^{-1} Q^H M, in place
+//      (linalg/green_solve.py launches both).
 // A complex128 256 x 256 matrix is 1 MB, so inner's working copy (work)
 // and M stay in global memory. What bounds it on the H100: the FP64 pipe
 // on the trailing updates (~(4/3 + 2) n^3 / 2 complex products per
@@ -42,12 +47,38 @@ solve_inner_big_kernel(const S* __restrict__ inner, const double* __restrict__ r
 }
 
 template <typename S>
+__global__ void __launch_bounds__(kThreads)
+solve_inner_big_rhs_kernel(const S* __restrict__ inner, const S* __restrict__ rhs,
+                           S* out, S* work, int n, int b, int tc) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const BlockedSmem<S> sm = blocked_smem<S>(smem_raw, n, b, tc);
+    const size_t off = size_t(blockIdx.x) * n * n;
+    S* A = work + off;
+    S* M = out + off;
+    for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
+        A[idx] = inner[off + idx];
+        M[idx] = rhs[off + idx];
+    }
+    __syncthreads();
+    householder_blocked(A, M, n, b, tc, sm);
+}
+
+template <typename S>
 int solve_inner_big(int device, const void* inner, const void* r1, void* mid,
                     void* work, int batch, int n, int b, int tc, void* stream) {
     return launch_smem(device, solve_inner_big_kernel<S>, batch,
                        blocked_smem_bytes<S>(n, b, tc), stream,
                        static_cast<const S*>(inner), static_cast<const double*>(r1),
                        static_cast<S*>(mid), static_cast<S*>(work), n, b, tc);
+}
+
+template <typename S>
+int solve_inner_big_rhs(int device, const void* inner, const void* rhs, void* out,
+                        void* work, int batch, int n, int b, int tc, void* stream) {
+    return launch_smem(device, solve_inner_big_rhs_kernel<S>, batch,
+                       blocked_smem_bytes<S>(n, b, tc), stream,
+                       static_cast<const S*>(inner), static_cast<const S*>(rhs),
+                       static_cast<S*>(out), static_cast<S*>(work), n, b, tc);
 }
 
 }  // namespace dq
@@ -59,6 +90,13 @@ int dq_solve_inner_big_c128(int device, const void* inner, const void* r1, void*
                             void* stream) {
     return dq::solve_inner_big<dq::cplx<double>>(device, inner, r1, mid, work, batch,
                                                  n, b, tc, stream);
+}
+
+int dq_solve_inner_big_rhs_c128(int device, const void* inner, const void* rhs,
+                                void* out, void* work, int batch, int n, int b,
+                                int tc, void* stream) {
+    return dq::solve_inner_big_rhs<dq::cplx<double>>(device, inner, rhs, out, work,
+                                                     batch, n, b, tc, stream);
 }
 
 }  // extern "C"

@@ -56,6 +56,9 @@ _SIGNATURES = {
     # device, inner, r1, mid, batch, n, stream
     "dq_solve_inner_f64": [_I, _P, _P, _P, _I, _I, _P],
     "dq_solve_inner_c128": [_I, _P, _P, _P, _I, _I, _P],
+    # device, inner, rhs, out, batch, n, stream
+    "dq_solve_inner_rhs_f64": [_I, _P, _P, _P, _I, _I, _P],
+    "dq_solve_inner_rhs_c128": [_I, _P, _P, _P, _I, _I, _P],
     # device, G, phi, phi_new, lhs, delta, nb, G_out, phi_out, acc_out,
     # W, N, opdim, dtau, c_det, stream
     "dq_sdw_update_c64": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P],
@@ -75,6 +78,8 @@ _SIGNATURES = {
     "dq_qr_big_c128": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     # device, inner, r1, mid, work, batch, n, b, tc, stream
     "dq_solve_inner_big_c128": [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    # device, inner, rhs, out, work, batch, n, b, tc, stream
+    "dq_solve_inner_big_rhs_c128": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     # device, R, X, batch, n, b, tc, stream
     "dq_trinv_big_f32": [_I, _P, _P, _I, _I, _I, _I, _P],
     "dq_trinv_big_f64": [_I, _P, _P, _I, _I, _I, _I, _P],
@@ -85,7 +90,9 @@ _SIGNATURES = {
 LAUNCHES = {"slice_update": 0, "qr": 0, "solve_inner": 0, "sdw_update": 0,
             "qr_complex": 0, "solve_inner_complex": 0, "sdw_delayed": 0,
             "sdw_wrap": 0, "sdw_apply": 0, "qr_complex_big": 0,
-            "solve_inner_complex_big": 0, "trinv_big": 0}
+            "solve_inner_complex_big": 0, "trinv_big": 0,
+            "solve_inner_rhs": 0, "solve_inner_complex_rhs": 0,
+            "solve_inner_complex_big_rhs": 0}
 
 _lib = None
 build_log = ""          # nvcc's output (-Xptxas -v: registers, smem)

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from detqmc_tpu.lattice import kinetic_exponentials
+from detqmc_tpu_torch.lattice import kinetic_exponentials
 from detqmc_tpu_torch.precision import mm
 
 

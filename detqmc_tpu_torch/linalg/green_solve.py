@@ -1,5 +1,7 @@
 """K3 / K3c: the stabilized inner solve — wrapper and plain version, for
-the real (K3, float64) and the complex (K3c, complex128) chain.
+the real (K3, float64) and the complex (K3c, complex128) chain, with a
+diagonal right-hand side (the equal-time G) or a dense one (the
+unequal-time G(tau, 0)).
 
 Replaces the dispatcher detqmc_tpu/linalg/pallas_green.py
 (``solve_inner``) and the kernel it sends n <= 128 to,
@@ -13,7 +15,12 @@ beyond that kernel's shared memory (n > 83) go to K8,
 (``qr.big_plan``) applied to diag(r1), the matrices in global memory,
 then the back-substitution by K9 (``linalg/trinv.py``, the blocked
 triangular inverse of pallas_trinv_common.py) on Q^H diag(r1) in place:
-two launches.
+two launches. The dense-RHS twins of the same three TPU kernels,
+``solve_inner_lanes_rhs``, ``solve_inner_complex_rhs`` and
+``solve_inner_complex_big_rhs``, are the ``_rhs`` entries of the same two
+sources (``solve_inner_rhs`` below): the reflectors are applied to the
+given RHS instead of diag(r1), the rest is unchanged, and the routing by
+n and dtype is the same.
 
 The TPU kernels work in df32 — (hi, lo) f32 pairs emulating ~48-bit
 mantissas, four planes for a complex matrix — because the chip has no f64
@@ -23,10 +30,16 @@ that type: df32 is not ported. The inner matrix of the range-split Green
 formula reaches condition ~1e6 at beta = 8, so an f32 step anywhere in
 here would cost the stabilized G its accuracy.
 
-Contract: solve_inner(inner (B, n, n) f64 or c128, r1 (B, n) f64)
-    -> mid = inner^{-1} diag(r1)  (B, n, n), inner's dtype.
-``solve_inner_plain`` (what a CPU tensor runs) is torch.linalg.qr +
-solve_triangular, as detqmc_tpu/linalg/udv.green_from_two_udv does it.
+Contract:
+    solve_inner(inner (B, n, n) f64 or c128, r1 (B, n) f64)
+        -> mid = inner^{-1} diag(r1)  (B, n, n), inner's dtype;
+    solve_inner_rhs(inner (B, n, n) f64 or c128, rhs (B, n, n) same dtype)
+        -> inner^{-1} rhs  (B, n, n).
+Both take float64 up to n = 119 (one block's shared memory; the real
+n > 128 kernel is ROADMAP.md Queue 2 item 13) and complex128 up to
+qr.MAX_N_BIG. ``solve_inner_plain`` and ``solve_inner_rhs_plain`` (what a
+CPU tensor runs) are torch.linalg.qr + solve_triangular, as
+detqmc_tpu/linalg/udv.green_from_two_udv and green_tau_zero do it.
 """
 
 from __future__ import annotations
@@ -37,15 +50,31 @@ from detqmc_tpu_torch.linalg import _kernels, trinv
 from detqmc_tpu_torch.linalg.qr import MAX_N_BIG, big_plan
 
 MAX_N = 128
-_ENTRIES = {torch.float64: ("solve_inner", "dq_solve_inner_f64"),
-            torch.complex128: ("solve_inner_complex", "dq_solve_inner_c128")}
-_BIG_ENTRY = "dq_solve_inner_big_c128"
+_KERNELS = {torch.float64: "solve_inner", torch.complex128:
+            "solve_inner_complex"}
+# kernel_for's name -> the C entries with diag(r1) and with a dense RHS
+_C_ENTRIES = {"solve_inner": ("dq_solve_inner_f64", "dq_solve_inner_rhs_f64"),
+              "solve_inner_complex": ("dq_solve_inner_c128",
+                                      "dq_solve_inner_rhs_c128"),
+              "solve_inner_complex_big": ("dq_solve_inner_big_c128",
+                                          "dq_solve_inner_big_rhs_c128")}
+
+
+def entry(route: str, rhs: bool):
+    """(launch-count name, C entry) of ``kernel_for``'s route, with
+    diag(r1) or (``rhs``) a dense right-hand side."""
+    return (route + "_rhs" if rhs else route), _C_ENTRIES[route][rhs]
 
 
 def solve_inner_plain(inner, r1):
     Q, R = torch.linalg.qr(inner)
     rhs = Q.mH * r1[..., None, :]
     return torch.linalg.solve_triangular(R, rhs, upper=True)
+
+
+def solve_inner_rhs_plain(inner, rhs):
+    Q, R = torch.linalg.qr(inner)
+    return torch.linalg.solve_triangular(R, Q.mH @ rhs, upper=True)
 
 
 def smem_bytes(n: int, dtype=torch.float64) -> int:
@@ -59,13 +88,42 @@ def kernel_for(n: int, dtype) -> str:
     "solve_inner"/"solve_inner_complex" (K3/K3c, one CTA in shared
     memory) when it fits, else "solve_inner_complex_big" (K8) for
     complex128 up to qr.MAX_N_BIG; raises beyond."""
-    kernel = _ENTRIES[dtype][0]
+    kernel = _KERNELS[dtype]
     if n <= MAX_N and smem_bytes(n, dtype) <= _kernels.MAX_SMEM_BYTES - 1024:
         return kernel
     if dtype == torch.complex128 and n <= MAX_N_BIG:
         return "solve_inner_complex_big"
     raise ValueError(f"solve_inner: n={n} {dtype} exceeds the shared-memory "
-                     f"budget of K3 (float64) or n > {MAX_N_BIG}")
+                     f"budget of K3 (float64: the n > 128 kernel is "
+                     f"ROADMAP.md Queue 2 item 13) or n > {MAX_N_BIG}")
+
+
+def _solve(inner, M, rhs: bool):
+    """inner^{-1} diag(M) (M = r1, (B, n) float64) or, with ``rhs``,
+    inner^{-1} M (M (B, n, n) of inner's dtype) on CUDA tensors: checks,
+    routes by ``kernel_for`` and launches, or raises. K8's and K8-rhs's
+    back-substitution is K9, in place on Q^H M."""
+    _kernels.check_cuda_tensor("inner", inner, tuple(_KERNELS), 3)
+    if rhs:
+        _kernels.check_cuda_tensor("rhs", M, (inner.dtype,), 3)
+    else:
+        _kernels.check_cuda_tensor("r1", M, (torch.float64,), 2)
+    B, n, n2 = inner.shape
+    want = (B, n, n) if rhs else (B, n)
+    if n2 != n or tuple(M.shape) != want:
+        raise ValueError(f"solve_inner: shapes {tuple(inner.shape)}, "
+                         f"{tuple(M.shape)}: need (B, n, n), {want}")
+    route = kernel_for(n, inner.dtype)
+    kernel, c_entry = entry(route, rhs)
+    out = torch.empty_like(inner)
+    if route == "solve_inner_complex_big":
+        work = torch.empty_like(inner)
+        _kernels.launch(kernel, c_entry, inner, M, out, work, B, n,
+                        *big_plan(n, inner.dtype))
+        trinv.trinv_(work, out)         # R^{-1} (Q^H M)
+    else:
+        _kernels.launch(kernel, c_entry, inner, M, out, B, n)
+    return out
 
 
 def solve_inner(inner, r1):
@@ -74,20 +132,14 @@ def solve_inner(inner, r1):
     names (contiguous, r1 float64) or raise."""
     if inner.device.type == "cpu":
         return solve_inner_plain(inner, r1)
-    _kernels.check_cuda_tensor("inner", inner, tuple(_ENTRIES), 3)
-    _kernels.check_cuda_tensor("r1", r1, (torch.float64,), 2)
-    B, n, n2 = inner.shape
-    if n2 != n or tuple(r1.shape) != (B, n):
-        raise ValueError(f"solve_inner: shapes {tuple(inner.shape)}, "
-                         f"{tuple(r1.shape)}: need (B, n, n), (B, n)")
-    kernel = kernel_for(n, inner.dtype)
-    mid = torch.empty_like(inner)
-    if kernel == "solve_inner_complex_big":
-        work = torch.empty_like(inner)
-        _kernels.launch(kernel, _BIG_ENTRY, inner, r1, mid, work, B, n,
-                        *big_plan(n, inner.dtype))
-        trinv.trinv_(work, mid)         # R^{-1} (Q^H diag(r1))
-    else:
-        _kernels.launch(kernel, _ENTRIES[inner.dtype][1], inner, r1, mid, B,
-                        n)
-    return mid
+    return _solve(inner, r1, rhs=False)
+
+
+def solve_inner_rhs(inner, rhs):
+    """The dense-RHS twins of K3 (float64), K3c or K8 + K9 (complex128),
+    routed by ``kernel_for`` as ``solve_inner``: CPU tensors run
+    ``solve_inner_rhs_plain``; CUDA tensors (contiguous, one dtype) launch
+    the kernel or raise."""
+    if inner.device.type == "cpu":
+        return solve_inner_rhs_plain(inner, rhs)
+    return _solve(inner, rhs, rhs=True)

@@ -145,6 +145,42 @@ def green_from_two_udv(left: UDV, right_t: UDV) -> torch.Tensor:
     return G.to(left.U.dtype)
 
 
+def tau_zero_operands(left: UDV, right_t: UDV):
+    """The dense-RHS solve of ``green_tau_zero``: (inner, d1min V1), both
+    flattened to contiguous (B, n, n) in f64 / complex128, and r2 =
+    1/d2max, (..., n) with the unflattened leading shape."""
+    inner, _, r2 = green_inner(left, right_t)
+    n = inner.shape[-1]
+    d1min = torch.clamp(left.d.to(F64), max=1.0)
+    rhs = scale_rows(d1min, left.V.to(inner.dtype))
+    return (inner.reshape(-1, n, n).contiguous(),
+            rhs.reshape(-1, n, n).contiguous(), r2.expand(inner.shape[:-1]))
+
+
+def green_tau_zero(left: UDV, right_t: UDV) -> torch.Tensor:
+    """Stable time-displaced G(tau, 0) = B(tau,0) [1 + B(beta,0)]^{-1}, via
+    A (1 + C A)^{-1} = [A^{-1} + C]^{-1} with A = B(tau,0) = U1 d1 V1 (left
+    entry) and C = B(beta,tau) = V2^H d2 U2^H (conj-transposed right
+    entry):
+
+        G(tau, 0) = U2 d2max^{-1} inner^{-1} (d1min V1)
+
+    ``inner`` is exactly the equal-time pair formula's (``green_inner``);
+    only the right-hand side (dense) and the outer factors differ, and
+    every scaling stays bounded (d1min <= 1, 1/d2max <= 1). Port of
+    detqmc_tpu.linalg.udv.green_tau_zero and, for the complex chain,
+    cudv.cgreen_tau_zero_df32: the dense-RHS solve is K3 / K3c / K8 + K9
+    (green_solve.solve_inner_rhs) in f64 / complex128, and G is returned
+    in left.U's dtype. With the stacks' roles swapped, gtz(right_t, left)
+    = [1 + C^H A^H]^{-1} C^H, the solve behind G(beta, tau) and
+    G(0, tau)."""
+    inner, rhs, r2 = tau_zero_operands(left, right_t)
+    n, cdt = inner.shape[-1], inner.dtype
+    mid = green_solve.solve_inner_rhs(inner, rhs)
+    G = mm(scale_cols(right_t.U.to(cdt), r2), mid.reshape(*r2.shape, n))
+    return G.to(left.U.dtype)
+
+
 def log_det_one_plus_udv(f: UDV) -> Tuple[torch.Tensor, torch.Tensor]:
     """(log|det(1 + U d V)|, sign) in the log domain, in f64:
     1 + UdV = U dmax (dmax^{-1} U^T V^{-1} + dmin) V, each factor's slogdet

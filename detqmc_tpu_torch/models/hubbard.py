@@ -25,9 +25,19 @@ From JAX to PyTorch:
   stack's d/V and the inner solve are always f64 (native on the H100), and
   f64 products are never emulated.
 
+Unequal-time measurements (``timedisplaced``, ``timedisplacedSlices`` and
+``currentCorrelators`` of detqmc_tpu/driver.py): ``_td_stacks`` builds
+both half-chain stacks from the field, ``time_displaced_greens`` solves
+G(tau, 0) at the K+1 anchors with the dense-RHS inner solve
+(udv.green_tau_zero: K3's ``_rhs`` entry on the card; the JAX model's
+df32 / refine choice of that solve is a TPU device and is not ported),
+the ``_all`` variants wrap between anchors to every slice, and
+``measure_time_displaced``, ``pair_susceptibilities`` and
+``measure_current_correlators`` reduce them. Walkers lead, then the
+anchor (or slice) axis, then the spin component.
+
 Not ported yet (ROADMAP.md Queue 1 item 7): log_weight, the naive
-sweep_simple cross-check, time-displaced Greens, current correlators and
-pairing susceptibilities, host_chain_sign.
+sweep_simple cross-check, host_chain_sign.
 """
 
 from __future__ import annotations
@@ -39,12 +49,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from detqmc_tpu import lattice as lattice_mod
+from detqmc_tpu_torch import lattice as lattice_mod
 from detqmc_tpu_torch.linalg import bchain
 from detqmc_tpu_torch.linalg.slice_update import (slice_update,
                                                   slice_update_plain)
 from detqmc_tpu_torch.linalg.udv import (UDV, green_from_two_udv,
+                                         green_tau_zero,
                                          log_det_one_plus_udv, udv_refactor)
+from detqmc_tpu_torch.models.unequal_time import (trapezoid_weights,
+                                                  wrap_between_anchors)
 from detqmc_tpu_torch.precision import mm
 
 SPIN_SIGN = np.array([+1.0, -1.0])  # component axis: [up, down]
@@ -186,6 +199,9 @@ class HubbardModel(nn.Module):
             raise ValueError(f"unknown green_kernel {cfg.green_kernel!r}")
         if cfg.ph_on and cfg.mu != 0.0:
             raise ValueError("ph_symmetry='on' requires mu == 0")
+        # the card unless the caller names another device: on a machine
+        # without one, torch's own error, never a silent CPU run
+        device = torch.device("cuda" if device is None else device)
         self.cfg = cfg
         self.lat = (lattice_mod.SquareLattice(cfg.L) if cfg.d == 2 else
                     lattice_mod.HyperCubicLattice(cfg.L, cfg.d))
@@ -213,6 +229,22 @@ class HubbardModel(nn.Module):
         buf("disp_idx", self.lat.site_of(c_[None, :, :] + c_[:, None, :]),
             torch.int64)
         buf("stagger", self.lat.stagger())
+        # cos / sin of the Fourier phases exp(-i k.r): G(k, tau) and the
+        # current correlator's Lambda(q) as real matmuls
+        kg = self.lat.k_grid()
+        buf("four_cos", np.cos(kg @ c_.T))
+        buf("four_sin", np.sin(kg @ c_.T))
+        if cfg.d == 2:
+            # the d-wave pair form factor and the smallest longitudinal /
+            # transverse momenta of the superfluid stiffness
+            buf("_dwave_D", self.lat.dwave_form_factor())
+            q1 = 2.0 * np.pi / cfg.L
+            self.q_long_idx = int(np.argmin(
+                np.abs(kg - np.asarray([q1, 0.0])).sum(axis=1)))
+            self.q_trans_idx = int(np.argmin(
+                np.abs(kg - np.asarray([0.0, q1])).sum(axis=1)))
+        else:
+            self.register_buffer("_dwave_D", None)
 
     @property
     def prop(self) -> bchain.Propagators:
@@ -235,9 +267,10 @@ class HubbardModel(nn.Module):
 
     # -- potential diagonals ------------------------------------------------
     def exp_v(self, field_slice: torch.Tensor) -> torch.Tensor:
-        """e_l = exp(spin * alpha * s_l): (W, C, N) from (W, N)."""
+        """e_l = exp(spin * alpha * s_l): (..., C, N) from (..., N), e.g.
+        (W, C, N) from one slice (W, N), (W, m, C, N) from the field."""
         return torch.exp(self.spin_sign[:, None] * self.cfg.alpha
-                         * field_slice[:, None, :])
+                         * field_slice[..., None, :])
 
     # -- site updates --------------------------------------------------------
     def _update_slice(self, G, field_l, u01, sign):
@@ -420,6 +453,204 @@ class HubbardModel(nn.Module):
         return state, Observables(*[0.5 * (a + b)
                                     for a, b in zip(obs1, obs2)])
 
+    # -- unequal-time measurements ----------------------------------------------
+    def _td_stacks(self, field: torch.Tensor):
+        """Both half-chain stacks, built fresh from the field: left entries
+        k hold B(ks, 0), right entries k hold B(beta, ks)^T (W, K+1, C,
+        ...)."""
+        return (self._build_stack(field, transposed=False),
+                self._build_stack(field, transposed=True))
+
+    @staticmethod
+    def _both_orders(left: UDV, right_t: UDV):
+        """The stacks (left | right_t, right_t | left) on a new leading
+        axis: one batched green_tau_zero solves both orders."""
+        return (UDV(*[torch.stack([a, b]) for a, b in zip(left, right_t)]),
+                UDV(*[torch.stack([b, a]) for a, b in zip(left, right_t)]))
+
+    def _gtz_both(self, left: UDV, right_t: UDV):
+        """(gtz(left, right_t), gtz(right_t, left)) in one batched
+        dense-RHS solve: G(tau, 0) and the swapped-roles solve (G(beta,
+        tau)^T for a real field), each (W, K+1, C, N, N)."""
+        G = green_tau_zero(*self._both_orders(left, right_t))
+        return G[0], G[1]
+
+    def time_displaced_greens(self, field: torch.Tensor) -> torch.Tensor:
+        """G(tau = k s dtau, 0) for k = 0..K: (W, K+1, 2, N, N).
+
+        Both half-chain stacks are built fresh from the field and all K+1
+        anchors come from one batched stable solve. In particle-hole mode
+        the down sector is the exact per-configuration image G_dn(tau, 0)
+        = eta G_up(beta, tau)^T eta (eta = stagger; eta B_dn,l eta =
+        B_up,l^{-T} at mu = 0), and G_up(beta, tau)^T is the solve with
+        the two stacks' roles swapped."""
+        left, right_t = self._td_stacks(field)
+        if not self.cfg.ph_on:
+            return green_tau_zero(left, right_t)
+        G_up, G_bt = self._gtz_both(left, right_t)
+        eta = self.stagger
+        return torch.cat([G_up, eta[:, None] * G_bt * eta[None, :]], dim=2)
+
+    def _slice_factors(self, field: torch.Tensor) -> torch.Tensor:
+        """exp(spin alpha s) of every slice, (W, K, s, 2, N) (interval,
+        offset): in particle-hole mode the down sector's 1/e (B_dn =
+        e^{-alpha s} expK at mu = 0)."""
+        cfg = self.cfg
+        e = self.exp_v(field)                             # (W, m, C, N)
+        if cfg.ph_on:
+            e = torch.cat([e, 1.0 / e], dim=2)
+        return e.reshape(field.shape[0], cfg.n_stack, cfg.s, *e.shape[2:])
+
+    def time_displaced_greens_all(self, field: torch.Tensor):
+        """G(tau, 0) at every slice tau = 0..m: (W, m+1, 2, N, N), and the
+        wrap deviation (W,) against the stabilized anchors. Within
+        interval k, G(ks+j+1, 0) = B_{ks+j+1} G(ks+j, 0)."""
+        anchors = self.time_displaced_greens(field)
+        e = self._slice_factors(field)
+        cb = self.cb_sparse
+
+        def step(j, chains):
+            return [bchain.b_mult_left(self.prop, e[:, :, j], chains[0],
+                                       checkerboard=cb)]
+
+        (G_all,), dev = wrap_between_anchors([anchors], self.cfg.s, step)
+        return G_all, dev
+
+    def unequal_time_greens_all(self, field: torch.Tensor):
+        """G(tau, 0), G(0, tau) and G(tau, tau) at every slice, both spin
+        sectors: three (W, m+1, 2, N, N) tensors and the wrap deviation
+        (W,) over all three.
+
+        With A = B(tau, 0) (left stack) and C = B(beta, tau) (right),
+        gtz(right_t, left) = [(1 + C A)^{-1} C]^H, so G(0, tau) =
+        -(1 + C A)^{-1} C = -gtz(right_t, left)^T for the real field; the
+        G(tau, tau) anchors are the equal-time pair formula (K3). The
+        chains wrap between anchors as G(tau+1, 0) = B G(tau, 0),
+        G(0, tau+1) = G(0, tau) B^{-1}, G(tau+1, tau+1) = B G B^{-1}. In
+        particle-hole mode the down sector is reconstructed exactly:
+        G_dn(tau, 0) = eta G_up(beta, tau)^T eta, G_dn(0, tau) = -eta
+        G_up(tau, 0)^T eta, G_dn(tau, tau) = eta (1 - G_up(tau, tau))^T
+        eta."""
+        cfg = self.cfg
+        cb = self.cb_sparse
+        left, right_t = self._td_stacks(field)
+        G_fwd, G_bwd = self._gtz_both(left, right_t)
+        Gtt = green_from_two_udv(left, right_t)
+        T = lambda M: M.transpose(-1, -2)                 # noqa: E731
+        if cfg.ph_on:
+            eta = self.stagger
+            sgn = eta[:, None] * eta[None, :]
+            eye = torch.eye(cfg.n_sites, dtype=Gtt.dtype, device=Gtt.device)
+            t0 = torch.cat([G_fwd, sgn * G_bwd], dim=2)
+            zt = torch.cat([-T(G_bwd), -sgn * T(G_fwd)], dim=2)
+            tt = torch.cat([Gtt, sgn * (eye - T(Gtt))], dim=2)
+        else:
+            t0, zt, tt = G_fwd, -T(G_bwd), Gtt
+        del G_fwd, G_bwd, Gtt
+        e = self._slice_factors(field)
+
+        def step(j, chains):
+            a, b, c = chains
+            ej = e[:, :, j]
+            a = bchain.b_mult_left(self.prop, ej, a, checkerboard=cb)
+            b = bchain.b_inv_mult_right(self.prop, b, ej, checkerboard=cb)
+            c = bchain.b_inv_mult_right(
+                self.prop, bchain.b_mult_left(self.prop, ej, c,
+                                              checkerboard=cb),
+                ej, checkerboard=cb)
+            return [a, b, c]
+
+        (t0, zt, tt), dev = wrap_between_anchors([t0, zt, tt], cfg.s, step)
+        return t0, zt, tt, dev
+
+    def measure_current_correlators(self, state: WalkerState):
+        """tau-integrated current-current correlator Lambda_xx(q, iw=0)
+        over the full q grid (W, N), the superfluid-stiffness estimator
+        rho_s = [Lambda_L - Lambda_T] / 4 (W,) from the smallest
+        longitudinal and transverse momenta (Scalapino-White-Zhang), and
+        the wrap deviation (W,). Wick at fixed field with all three
+        unequal-time chains; with X = G(0, tau)^T, Y = G(tau, 0), P the +x
+        shift and u(tau)_i = sum_sigma [G(tau,tau)_{i,i+x} -
+        G(tau,tau)_{i+x,i}] the bond current,
+
+            <j_x(i,tau) j_x(j,0)> = -t^2 [ u(tau)_i u(0)_j
+                - sum_sigma ((PX)(YP^T) - (PXP^T)Y - X(PYP^T)
+                             + (XP^T)(PY))_ij ].
+
+        2-D lattices only."""
+        cfg = self.cfg
+        if cfg.d != 2:
+            raise ValueError("current correlators are implemented for "
+                             "d = 2 lattices")
+        t0, zt, tt, dev = self.unequal_time_greens_all(state.field)
+        N = cfg.n_sites
+        px = torch.as_tensor(self.lat.neighbors()[:, 0], device=t0.device)
+        ar = torch.arange(N, device=t0.device)
+        u_tau = (tt[..., ar, px] - tt[..., px, ar]).sum(dim=2)  # (W, m+1, N)
+        del tt
+        X, Y = zt.transpose(-1, -2), t0
+        PX, XP = X.index_select(-2, px), X.index_select(-1, px)
+        PY, YP = Y.index_select(-2, px), Y.index_select(-1, px)
+        PXP, PYP = PX.index_select(-1, px), PY.index_select(-1, px)
+        conn = (PX * YP - PXP * Y - X * PYP + XP * PY).sum(dim=2)
+        w = trapezoid_weights(cfg.m, cfg.dtau, conn.dtype, conn.device)
+        lam = -(cfg.t ** 2) * (
+            torch.einsum("t,wti,wj->wij", w, u_tau, u_tau[:, 0])
+            - torch.einsum("t,wtij->wij", w, conn))
+        Fc, Fs = self.four_cos, self.four_sin
+        lam_q = (torch.einsum("qi,wij,qj->wq", Fc, lam, Fc)
+                 + torch.einsum("qi,wij,qj->wq", Fs, lam, Fs)) / N
+        rho_s = 0.25 * (lam_q[:, self.q_long_idx]
+                        - lam_q[:, self.q_trans_idx])
+        return lam_q, rho_s, dev
+
+    def measure_time_displaced(self, state: WalkerState,
+                               per_slice: bool = False,
+                               susceptibilities: bool = False):
+        """Momentum-diagonal G(k, tau), averaged over both spin sectors:
+        (W, K+1, N) on the stabilization grid or, with ``per_slice``,
+        (W, m+1, N) at every slice, returned with the wrap deviation (W,).
+        ``susceptibilities`` (needs ``per_slice``) also returns the
+        tau-integrated s- and d-wave pairing susceptibilities (W,) each,
+        from the same per-slice G(tau, 0)."""
+        if susceptibilities and not per_slice:
+            raise ValueError("susceptibilities need per_slice=True "
+                             "(trapezoid over every tau slice)")
+        if per_slice:
+            G_tau, dev = self.time_displaced_greens_all(state.field)
+        else:
+            G_tau = self.time_displaced_greens(state.field)
+        # Re (F G F^H)_kk with F = exp(-i k.r) = cos - i sin
+        Fc, Fs = self.four_cos, self.four_sin
+        gk = (torch.einsum("ki,wtcij,kj->wtk", Fc, G_tau, Fc)
+              + torch.einsum("ki,wtcij,kj->wtk", Fs, G_tau, Fs))
+        gk = gk / (G_tau.shape[2] * self.cfg.n_sites)
+        if susceptibilities:
+            return (gk, dev) + self.pair_susceptibilities(G_tau)
+        return (gk, dev) if per_slice else gk
+
+    def pair_susceptibilities(self, G_tau: torch.Tensor):
+        """tau-integrated s- and d_{x2-y2}-wave pairing susceptibilities
+        (W,) each, from per-slice G(tau, 0) (W, m+1, 2, N, N), by Wick at
+        fixed field:
+
+            P = (1/N) sum_ij int_0^beta dtau G_up(tau,0)_ij
+                                             [D G_dn(tau,0) D^T]_ij
+
+        with D the identity (on-site s-wave) or the signed nearest-
+        neighbor form factor (d-wave, 2-D only; 0 elsewhere); the tau
+        integral is the trapezoid over all m+1 slices."""
+        cfg = self.cfg
+        up, dn = G_tau[:, :, 0], G_tau[:, :, -1]
+        w = trapezoid_weights(cfg.m, cfg.dtau, up.dtype, up.device)
+        ps = torch.einsum("t,wtij,wtij->w", w, up, dn) / cfg.n_sites
+        if self._dwave_D is None:
+            return ps, torch.zeros_like(ps)
+        D = self._dwave_D
+        pd = torch.einsum("t,wtij,wtij->w", w, up,
+                          mm(mm(D, dn), D.T)) / cfg.n_sites
+        return ps, pd
+
     # -- setup -------------------------------------------------------------------
     def init_state(self, n_walkers: int,
                    generator: torch.Generator) -> WalkerState:
@@ -448,32 +679,37 @@ class HubbardModel(nn.Module):
             h=torch.full((W,), cfg.stagger_h, dtype=dt, device=dev))
         return self.refresh_from_field(state0)
 
-    def refresh_from_field(self, state: WalkerState) -> WalkerState:
-        """Recompute the right stack and G(0) from the field alone."""
+    def _build_stack(self, field: torch.Tensor, transposed: bool) -> UDV:
+        """A UdV stack from the field, (W, K+1, C, ...): straight (left)
+        entries k hold B_{ks} .. B_1 (identity at 0); transposed (right)
+        entries k hold (B_m .. B_{ks+1})^T (identity at K, the whole chain
+        at 0)."""
         cfg = self.cfg
         K, s_int = cfg.n_stack, cfg.s
-        field = state.field
-        W = field.shape[0]
-        eye_f = self._eye_mixed(W)
+        cb = self.cb_sparse
+        eye_f = self._eye_mixed(field.shape[0])
         f = eye_f
         emitted = []
-        for k in range(K, 0, -1):
-            # absorb (B_{ks} .. B_{(k-1)s+1})^T in descending order
+        for k in (range(K, 0, -1) if transposed else range(1, K + 1)):
             lazy_U = f.U
             for l_rel in range(s_int):
-                l = k * s_int - l_rel
-                lazy_U = bchain.bT_mult_left(
-                    self.prop, self.exp_v(field[:, l - 1]), lazy_U,
-                    checkerboard=self.cb_sparse)
+                l = (k * s_int - l_rel if transposed
+                     else (k - 1) * s_int + 1 + l_rel)
+                e = self.exp_v(field[:, l - 1])
+                lazy_U = (bchain.bT_mult_left if transposed
+                          else bchain.b_mult_left)(self.prop, e, lazy_U,
+                                                   checkerboard=cb)
             f = udv_refactor(lazy_U, f.d, f.V)
             emitted.append(f)
-        # emitted positions K-1 .. 0: reverse, identity at K
-        emitted = emitted[::-1]
-        stack = Stack(*[torch.stack([getattr(e, leaf) for e in emitted]
-                                    + [getattr(eye_f, leaf)], dim=1)
-                        for leaf in ("U", "d", "V")])
+        parts = emitted[::-1] + [eye_f] if transposed else [eye_f] + emitted
+        return UDV(*[torch.stack([getattr(p, leaf) for p in parts], dim=1)
+                     for leaf in ("U", "d", "V")])
+
+    def refresh_from_field(self, state: WalkerState) -> WalkerState:
+        """Recompute the right stack and G(0) from the field alone."""
+        stack = Stack(*self._build_stack(state.field, transposed=True))
         full_t = UDV(stack.U[:, 0], stack.d[:, 0], stack.V[:, 0])
-        G = green_from_two_udv(eye_f, full_t)
+        G = green_from_two_udv(self._eye_mixed(state.field.shape[0]), full_t)
         sign = self._chain_sign(full_t).to(self.dtype)
         return state._replace(G=G, stack=stack, sign=sign,
                               next_dir=torch.zeros_like(state.next_dir))

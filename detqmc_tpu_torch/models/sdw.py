@@ -50,13 +50,24 @@ Kernel versus plain version is decided by the device of the tensors:
 the kernels on a CUDA tensor, their plain PyTorch versions on a CPU
 tensor.
 
+Unequal-time measurements: ``_td_stacks`` gives both half-chain stacks
+from the field (``_build_stack``, straight and transposed),
+``time_displaced_greens`` / ``_rev`` solve G(tau, 0) / G(0, tau) at the
+K+1 anchors with the dense-RHS inner solve (udv.green_tau_zero: K3c's or
+K8's ``_rhs`` entry with K9 on the card), the ``_all`` variants wrap
+between anchors to every slice (forward by ``b_mult_left``, K6's apply at
+dim >= 128 on the card; backward by ``b_inv_mult_right``, plain applies
+as in the JAX model), and ``measure_time_displaced`` and
+``pair_susceptibilities`` reduce them. Walkers lead, then the anchor (or
+slice) axis.
+
 Not ported yet (each raises NotImplementedError naming ROADMAP.md, Queue
 1 item 8 and Queue 2): opdim 1 and 2 (the reduced sectors), the real
 embedding, the refine green route, sparse checkerboard applies, global
-shift and Wolff moves, ``turnoffFermions``, time-displaced Greens,
-``sweep_simple``, the parallel-tempering hooks, dims above 512 (L >= 12)
-on a CUDA device, and ``update_kernel="pallas"`` / ``"scan"`` (K4) at a
-dim whose G exceeds K4's shared memory on a CUDA device.
+shift and Wolff moves, ``turnoffFermions``, ``sweep_simple``, the
+parallel-tempering hooks, dims above 512 (L >= 12) on a CUDA device, and
+``update_kernel="pallas"`` / ``"scan"`` (K4) at a dim whose G exceeds K4's
+shared memory on a CUDA device.
 """
 
 from __future__ import annotations
@@ -68,12 +79,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from detqmc_tpu import lattice as lattice_mod
-from detqmc_tpu.lattice import kinetic_exponentials
+from detqmc_tpu_torch import lattice as lattice_mod
+from detqmc_tpu_torch.lattice import kinetic_exponentials
 from detqmc_tpu_torch.linalg import _kernels, sdw_delayed, sdw_update
 from detqmc_tpu_torch.linalg import sdw_wrap
 from detqmc_tpu_torch.linalg.qr import MAX_N_BIG
-from detqmc_tpu_torch.linalg.udv import UDV, green_from_two_udv, udv_refactor
+from detqmc_tpu_torch.linalg.udv import (UDV, green_from_two_udv,
+                                         green_tau_zero, udv_refactor)
+from detqmc_tpu_torch.models.unequal_time import (trapezoid_weights,
+                                                  wrap_between_anchors)
 from detqmc_tpu_torch.precision import mm
 
 N_ORB = 4  # (band x, band y) x (spin up, spin dn)
@@ -274,10 +288,12 @@ class SDWModel(nn.Module):
         self.dim = cfg.dim
         self.c_det = 0.5        # full 4x4 block: weight |R| = (|R|^2)^(1/2)
         N = cfg.n_sites
-        dev = torch.device(device) if device is not None else None
-        if dev is not None and dev.type == "cuda":
+        # the card unless the caller names another device: on a machine
+        # without one, torch's own error, never a silent CPU run
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda":
             self._check_kernel_bounds(cfg)
-        route = self.routes(cfg, dev.type if dev is not None else "cpu")
+        route = self.routes(cfg, dev.type)
         self._delayed = route["update"] == "delayed"
         self._fused = route["wrap"] == "fused"
         self._delay_k = cfg.delay if cfg.delay > 0 else 8
@@ -318,6 +334,7 @@ class SDWModel(nn.Module):
         kg = self.lat.k_grid()
         buf("four_cos", np.cos(kg @ rg.T), rdt)
         buf("four_sin", np.sin(kg @ rg.T), rdt)
+        buf("_dwave_D", self.lat.dwave_form_factor(), rdt)
 
     @staticmethod
     def _check_ported(cfg: SDWConfig) -> None:
@@ -412,6 +429,12 @@ class SDWModel(nn.Module):
     # B = D_V expK (potential leftmost, as in Hubbard)
     def b_mult_left(self, blocks, X):
         return self._apply(blocks, X, herm=False)
+
+    def b_inv_mult_right(self, X, blocks_inv):
+        """X @ B^{-1} = (X expK^{-1}) D_V^{-1}, plain applies (as in the
+        JAX model, no fused kernel takes it)."""
+        return sdw_wrap.dv_right(sdw_wrap.kin_right(X, self.expK_inv),
+                                 blocks_inv)
 
     def bT_mult_left(self, blocks, X):
         """B^H @ X = expK^H (D_V^H X), for the conj-transposed right stack
@@ -770,30 +793,33 @@ class SDWModel(nn.Module):
         return state, obs._replace(exchangeAction=o2.exchangeAction)
 
     # ---- setup -----------------------------------------------------------------------
-    def _build_right_stack(self, phi) -> UDV:
-        """Right (conj-transposed) stack entries k = 0..K from the field
-        (entry K = identity, entry 0 = the whole chain), (W, K+1, ...)."""
+    def _build_stack(self, phi, transposed: bool) -> UDV:
+        """A UdV stack from the field, (W, K+1, ...): straight (left)
+        entries k hold B_{ks} .. B_1 (identity at 0); transposed (right)
+        entries k hold (B_m .. B_{ks+1})^H (identity at K, the whole chain
+        at 0)."""
         cfg = self.cfg
         K, s_int = cfg.n_stack, cfg.s
         eye_f = self._eye_mixed(phi.shape[0])
         f = eye_f
         emitted = []
-        for k in range(K, 0, -1):
+        for k in (range(K, 0, -1) if transposed else range(1, K + 1)):
             lazy_U = f.U
             for l_rel in range(s_int):
-                l = k * s_int - l_rel
-                lazy_U = self.bT_mult_left(self.exp_v_blocks(phi[:, l - 1]),
-                                           lazy_U)
+                l = (k * s_int - l_rel if transposed
+                     else (k - 1) * s_int + 1 + l_rel)
+                blocks = self.exp_v_blocks(phi[:, l - 1])
+                lazy_U = (self.bT_mult_left(blocks, lazy_U) if transposed
+                          else self.b_mult_left(blocks, lazy_U))
             f = udv_refactor(lazy_U, f.d, f.V)
             emitted.append(f)
-        emitted = emitted[::-1]
-        return UDV(*[torch.stack([getattr(e, leaf) for e in emitted]
-                                 + [getattr(eye_f, leaf)], dim=1)
+        parts = emitted[::-1] + [eye_f] if transposed else [eye_f] + emitted
+        return UDV(*[torch.stack([getattr(p, leaf) for p in parts], dim=1)
                      for leaf in ("U", "d", "V")])
 
     def refresh_from_field(self, state: SDWState) -> SDWState:
         """Recompute the right stack and G(0) from the field alone."""
-        stack = self._build_right_stack(state.phi)
+        stack = self._build_stack(state.phi, transposed=True)
         full_t = UDV(stack.U[:, 0], stack.d[:, 0], stack.V[:, 0])
         G = green_from_two_udv(self._eye_mixed(state.phi.shape[0]), full_t)
         return state._replace(G=G, stack_U=stack.U, stack_d=stack.d,
@@ -827,21 +853,132 @@ class SDWModel(nn.Module):
             green_dev=zeros_w, sv_min=zeros_w, sv_max=zeros_w)
         return self.refresh_from_field(state0)
 
+    # ---- unequal-time measurements ----------------------------------------------------
+    def _td_stacks(self, phi):
+        """Both half-chain stacks from the field: (left, right_t)."""
+        return (self._build_stack(phi, transposed=False),
+                self._build_stack(phi, transposed=True))
+
+    def time_displaced_greens(self, phi) -> torch.Tensor:
+        """Stable G(tau = k s dtau, 0) for k = 0..K: (W, K+1, dim, dim),
+        both half-chain stacks built fresh, one batched stable solve."""
+        return green_tau_zero(*self._td_stacks(phi))
+
+    def time_displaced_greens_rev(self, phi) -> torch.Tensor:
+        """Stable G(0, tau = k s dtau) at the anchors: with A = B(tau, 0)
+        and C = B(beta, tau), G(0, tau) = -(1 + C A)^{-1} C =
+        -[gtz(right_t, left)]^H, the swapped-stack solve."""
+        left, right_t = self._td_stacks(phi)
+        return -green_tau_zero(right_t, left).mH
+
+    def _per_slice(self, anchors, phi, step):
+        """Wrap anchors (W, K+1, dim, dim) to every slice with
+        ``step(G (W, K, dim, dim), blocks (W, K, N, 4, 4))`` applied with
+        slice k s + j + 1's blocks (``phi`` -> blocks is the caller's)."""
+        cfg = self.cfg
+        W = phi.shape[0]
+        blk = phi.reshape(W, cfg.n_stack, cfg.s, *phi.shape[2:])
+        (G_all,), dev = wrap_between_anchors(
+            [anchors], cfg.s, lambda j, ch: [step(ch[0], blk[:, :, j])])
+        return G_all, dev
+
+    def time_displaced_greens_all(self, phi):
+        """G(tau, 0) at every slice tau = 0..m: (W, m+1, dim, dim), and the
+        wrap deviation (W,) against the stabilized anchors; G(ks+j+1, 0)
+        = B_{ks+j+1} G(ks+j, 0), all walkers and intervals in one apply
+        (K6 at dim >= 128 on the card)."""
+        def step(G, phi_j):
+            flat = G.flatten(0, 1)
+            return self.b_mult_left(self.exp_v_blocks(phi_j.flatten(0, 1)),
+                                    flat).view_as(G)
+
+        return self._per_slice(self.time_displaced_greens(phi), phi, step)
+
+    def time_displaced_greens_rev_all(self, phi):
+        """G(0, tau) at every slice, and the wrap deviation (W,):
+        G(0, tau+1) = G(0, tau) B_{tau+1}^{-1} between anchors."""
+        def step(G, phi_j):
+            return self.b_inv_mult_right(G, self.exp_v_blocks(phi_j, +1.0))
+
+        return self._per_slice(self.time_displaced_greens_rev(phi), phi,
+                               step)
+
+    def pair_susceptibilities(self, G_tau):
+        """tau-integrated onsite s-wave and d_{x2-y2}-wave pairing
+        susceptibilities (W,) each from per-slice G(tau, 0) (W, m+1, dim,
+        dim), for the equal-time pairingCorrelation's pair operator
+        Delta_i = sum_b c_{b dn, i} c_{b up, i}. Wick at fixed phi:
+
+            <Delta_i(tau) Delta_j+(0)> = Re[ G00 G11 + G22 G33
+                                            - G03 G12 - G21 G30 ]_ij
+
+        in the physical orbital basis (x_up, x_dn, y_up, y_dn). The d-wave
+        form factor dresses the dn operators: D from the left where a
+        factor annihilates a dn orbital, D^T from the right where it
+        creates one. Trapezoid over all m+1 slices."""
+        cfg = self.cfg
+        W, T = G_tau.shape[:2]
+        re, im = self._phys_green_parts(G_tau)         # (W T, 4, 4, N, N)
+        D = self._dwave_D
+        # ((ann1, cre1), (ann2, cre2), sign): dn orbitals are odd
+        terms = (((0, 0), (1, 1), 1.0), ((2, 2), (3, 3), 1.0),
+                 ((0, 3), (1, 2), -1.0), ((2, 1), (3, 0), -1.0))
+
+        def dress(x, ann, cre):
+            if ann % 2 == 1:
+                x = mm(D, x)
+            if cre % 2 == 1:
+                x = mm(x, D.T)
+            return x
+
+        ps = pd = 0.0
+        for (a1, c1), (a2, c2), sgn in terms:
+            r1, i1, r2, i2 = (re[:, a1, c1], im[:, a1, c1],
+                              re[:, a2, c2], im[:, a2, c2])
+            ps = ps + sgn * (r1 * r2 - i1 * i2).sum((-2, -1))
+            pd = pd + sgn * (dress(r1, a1, c1) * dress(r2, a2, c2)
+                             - dress(i1, a1, c1) * dress(i2, a2, c2)
+                             ).sum((-2, -1))
+        w = trapezoid_weights(cfg.m, cfg.dtau, re.dtype, re.device)
+        return (ps.reshape(W, T) @ w / cfg.n_sites,
+                pd.reshape(W, T) @ w / cfg.n_sites)
+
+    def measure_time_displaced(self, state: SDWState,
+                               per_slice: bool = False,
+                               susceptibilities: bool = False):
+        """Momentum-diagonal G(k, tau) averaged over the 4 physical
+        orbitals: (W, K+1, N) on the stabilization grid, or (W, m+1, N) at
+        every slice with ``per_slice`` (returned with the wrap deviation
+        (W,)). ``susceptibilities`` (needs ``per_slice``) also returns the
+        tau-integrated pairing susceptibilities (W,) each."""
+        if susceptibilities and not per_slice:
+            raise ValueError("susceptibilities need per_slice=True "
+                             "(trapezoid over every tau slice)")
+        if per_slice:
+            G_tau, dev = self.time_displaced_greens_all(state.phi)
+        else:
+            G_tau = self.time_displaced_greens(state.phi)
+        W, T = G_tau.shape[:2]
+        Fc, Fs = self.four_cos, self.four_sin
+        re, im = self._phys_green_parts(G_tau)         # (W T, 4, 4, N, N)
+        gr = torch.diagonal(re, dim1=1, dim2=2).sum(-1)   # sum over o of
+        gi = torch.diagonal(im, dim1=1, dim2=2).sum(-1)   # G[o, o]
+        # Re (F G F^H)_kk with F = exp(-i k r): the cos / sin split
+        gk = (torch.einsum("ki,bij,kj->bk", Fc, gr, Fc)
+              + torch.einsum("ki,bij,kj->bk", Fs, gr, Fs)
+              + torch.einsum("ki,bij,kj->bk", Fs, gi, Fc)
+              - torch.einsum("ki,bij,kj->bk", Fc, gi, Fs))
+        gk = gk.reshape(W, T, -1) / (4.0 * self.cfg.n_sites)
+        if susceptibilities:
+            return (gk, dev) + self.pair_susceptibilities(G_tau)
+        return (gk, dev) if per_slice else gk
+
     # ---- not ported yet -------------------------------------------------------------
     def sweep_simple(self, *args, **kwargs):
         raise _unported("sweep_simple (the naive cross-check sweep)")
 
     def green_at_slice(self, *args, **kwargs):
         raise _unported("green_at_slice (the sweep_simple primitive)")
-
-    def time_displaced_greens(self, *args, **kwargs):
-        raise _unported("time-displaced G")
-
-    time_displaced_greens_rev = time_displaced_greens
-    time_displaced_greens_all = time_displaced_greens
-    time_displaced_greens_rev_all = time_displaced_greens
-    measure_time_displaced = time_displaced_greens
-    pair_susceptibilities = time_displaced_greens
 
     def global_moves(self, *args, **kwargs):
         raise _unported("global shift and Wolff moves")

@@ -48,7 +48,7 @@ def test_refresh_and_sweep_pairs_match_jax(ph, h):
     kw = dict(L=4, U=4.0, beta=2.0, m=8, s=4, dtype="float64",
               ph_symmetry=ph, stagger_h=h)
     jm = jh.HubbardModel(jh.HubbardConfig(**kw))
-    tm = th.HubbardModel(th.HubbardConfig(**kw))
+    tm = th.HubbardModel(th.HubbardConfig(**kw), device="cpu")
     seed = int(np.random.default_rng(3).integers(1 << 30))
     js = jax.jit(jax.vmap(jm.init_state))(
         jax.random.split(jax.random.key(seed), W))
@@ -83,7 +83,8 @@ def test_sweep_observables_match_numpy_oracle():
     from tests.oracle.hubbard_oracle import HubbardOracle
 
     kw = dict(L=4, U=4.0, mu=0.3, beta=2.0, m=8, s=4)
-    model = th.HubbardModel(th.HubbardConfig(dtype="float64", **kw))
+    model = th.HubbardModel(th.HubbardConfig(dtype="float64", **kw),
+                            device="cpu")
     rng = np.random.default_rng(6)
     field = torch.as_tensor(rng.choice([-1.0, 1.0], size=(W, 8, 16)))
     state = model.init_state(W, torch.Generator().manual_seed(6))
@@ -159,18 +160,21 @@ def test_f32_main_path_config_at_l4():
 
 
 def test_model_buffers_and_unported_paths():
-    model = th.HubbardModel(th.HubbardConfig(L=2, m=4, s=2))
+    model = th.HubbardModel(th.HubbardConfig(L=2, m=4, s=2), device="cpu")
     bufs = dict(model.named_buffers())
     for name in ("expK", "expK_inv", "K_mat", "stagger", "disp_idx"):
         assert name in bufs
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.HubbardModel(th.HubbardConfig(L=2, m=4, s=2, delay=2))
+        th.HubbardModel(th.HubbardConfig(L=2, m=4, s=2, delay=2),
+                        device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         th.HubbardModel(th.HubbardConfig(L=2, m=4, s=2,
-                                         green_kernel="refine"))
+                                         green_kernel="refine"),
+                        device="cpu")
 
 
 _NO_JAX = r"""
+import pkgutil
 import sys
 class _Block:
     def find_spec(self, name, path=None, target=None):
@@ -180,21 +184,33 @@ class _Block:
 for k in [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib")]:
     del sys.modules[k]
 sys.meta_path.insert(0, _Block())
+import importlib
 import torch
 import chip_smoke
-import detqmc_tpu_torch.convert
-import detqmc_tpu_torch.linalg._kernels
+import detqmc_tpu_torch
+for info in pkgutil.walk_packages(detqmc_tpu_torch.__path__,
+                                  "detqmc_tpu_torch."):
+    importlib.import_module(info.name)
 from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
 model = HubbardModel(HubbardConfig(L=2, beta=1.0, m=4, s=2, dtype="float64",
-                                   ph_symmetry="off"))
+                                   ph_symmetry="off"), device="cpu")
 gen = torch.Generator().manual_seed(0)
 state = model.init_state(2, gen)
 state, obs = model.sweep_pair(state, measure=True, generator=gen)
+model.measure_time_displaced(state, per_slice=True, susceptibilities=True)
+model.measure_current_correlators(state)
 from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
-sdw = SDWModel(SDWConfig(L=2, opdim=3, beta=1.0, m=4, s=2, dtype="float64"))
+sdw = SDWModel(SDWConfig(L=2, opdim=3, beta=1.0, m=4, s=2, dtype="float64"),
+               device="cpu")
 state = sdw.init_state(2, gen)
 state, obs = sdw.sweep_pair(state, measure=True, generator=gen)
+sdw.measure_time_displaced(state, per_slice=True, susceptibilities=True)
+sdw.time_displaced_greens_rev_all(state.phi)
 assert not [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib")]
+# nothing of the JAX package either, not even its numpy-only modules
+bad = [k for k in sys.modules
+       if k.split(".")[0] == "detqmc_tpu" or k.startswith("detqmc_tpu.")]
+assert not bad, bad
 print("no-jax-ok")
 """
 
@@ -211,4 +227,31 @@ def test_port_runs_without_jax():
         for line in path.read_text().splitlines():
             stripped = line.strip()
             assert not (stripped.startswith("import jax")
-                        or stripped.startswith("from jax")), (path, line)
+                        or stripped.startswith("from jax")
+                        or stripped.startswith("import detqmc_tpu ")
+                        or stripped.startswith("import detqmc_tpu.")
+                        or stripped.startswith("from detqmc_tpu ")
+                        or stripped.startswith("from detqmc_tpu.")), \
+                (path, line)
+
+
+@pytest.mark.parametrize("which", ["hubbard", "sdw"])
+def test_models_default_to_the_card(which):
+    """No device given: the model builds on the card, or, on a machine
+    without one, construction fails with torch's own error instead of
+    running on the CPU."""
+    from detqmc_tpu_torch.models import sdw as tsdw
+
+    def build():
+        if which == "hubbard":
+            return th.HubbardModel(th.HubbardConfig(L=2, m=4, s=2))
+        return tsdw.SDWModel(tsdw.SDWConfig(L=2, opdim=3, m=4, s=2))
+
+    if torch.cuda.is_available():
+        model = build()
+        assert model.device.type == "cuda"
+        assert all(b.device.type == "cuda" for b in model.buffers())
+    else:
+        with pytest.raises((AssertionError, RuntimeError),
+                           match="CUDA|cuda"):
+            build()

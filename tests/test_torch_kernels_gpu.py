@@ -45,6 +45,16 @@ Tolerances (same inputs, same card):
   update and the fused wrap (L=2) and with the automatic routes at dim
   144 (L=6: K5, K6, K7, K8, K9): identical fields and acceptance, G
   within 1e-10, the launch counts of the sweep structure.
+- K3r, K3c-rhs and K8-rhs + K9 (the dense-RHS inner solves of the
+  unequal-time G) on the inner matrices and d1min V1 right-hand sides of
+  real unequal-time stacks (Hubbard f64 n=64; SDW c128 n=64, 144, 256):
+  the K3 criteria (normalized residual max|inner X - rhs| / (n
+  max|inner| max|X|) below 1e-13, the difference to the plain solve
+  within n eps_f64 cond(inner) per matrix), one launch each (K8-rhs with
+  one K9);
+- the unequal-time measurements on the card against the CPU (f64):
+  Hubbard L=4 both particle-hole modes, SDW L=2 and L=6 (the K8-rhs and
+  K6 routes): every output within 1e-10, the new kernels launched.
 """
 
 import numpy as np
@@ -55,7 +65,7 @@ from detqmc_tpu_torch.linalg import (_kernels, green_solve, qr, sdw_delayed,
                                     sdw_update, sdw_wrap, slice_update,
                                     trinv)
 from detqmc_tpu_torch.linalg.udv import (UDV, _sign_fix, green_inner,
-                                         udv_refactor)
+                                         tau_zero_operands, udv_refactor)
 from detqmc_tpu_torch.models.hubbard import (HubbardConfig, HubbardModel,
                                              Stack, WalkerState)
 from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel, SDWState
@@ -144,7 +154,8 @@ def test_solve_inner_kernel_matches_plain(cuda_device):
 def test_sweep_on_card_matches_cpu(cuda_device, ph):
     cfg = HubbardConfig(L=4, U=4.0, beta=2.0, m=8, s=4, dtype="float64",
                         ph_symmetry=ph)
-    cpu, gpu = HubbardModel(cfg), HubbardModel(cfg, device=cuda_device)
+    cpu = HubbardModel(cfg, device="cpu")
+    gpu = HubbardModel(cfg, device=cuda_device)
     gen = torch.Generator().manual_seed(3)
     sc = cpu.init_state(3, gen)
     sg = WalkerState(*[Stack(*[x.to(cuda_device) for x in leaf])
@@ -256,7 +267,8 @@ def test_solve_inner_complex_kernel_matches_plain(cuda_device):
 def test_sdw_sweep_on_card_matches_cpu(cuda_device):
     cfg = SDWConfig(L=2, opdim=3, r=0.5, beta=1.0, m=8, s=4,
                     dtype="float64")
-    cpu, gpu = SDWModel(cfg), SDWModel(cfg, device=cuda_device)
+    cpu = SDWModel(cfg, device="cpu")
+    gpu = SDWModel(cfg, device=cuda_device)
     gen = torch.Generator().manual_seed(3)
     sc = cpu.init_state(3, gen)
     sg = SDWState(*[x.to(cuda_device) for x in sc])
@@ -412,7 +424,8 @@ def test_trinv_kernel_matches_plain(cuda_device, dtype, tol, n, rhs):
 def test_sdw_sweep_delayed_fused_on_card_matches_cpu(cuda_device, L, kw):
     cfg = SDWConfig(L=L, opdim=3, r=0.5, beta=1.0, m=8, s=4,
                     dtype="float64", **kw)
-    cpu, gpu = SDWModel(cfg), SDWModel(cfg, device=cuda_device)
+    cpu = SDWModel(cfg, device="cpu")
+    gpu = SDWModel(cfg, device=cuda_device)
     assert SDWModel.routes(cfg, "cuda") == {"update": "delayed",
                                             "wrap": "fused"}
     W = 2
@@ -439,3 +452,99 @@ def test_sdw_sweep_delayed_fused_on_card_matches_cpu(cuda_device, L, kw):
     assert torch.equal(sg.phi.cpu(), sc.phi)
     assert torch.equal(og.acceptance.cpu(), oc.acceptance)
     assert float((sg.G.cpu() - sc.G).abs().max()) <= 1e-10
+
+
+@pytest.mark.parametrize("case", ["hubbard-f64-64", "sdw-c128-64",
+                                  "sdw-c128-144", "sdw-c128-256"])
+def test_solve_inner_rhs_kernel_matches_plain(cuda_device, case):
+    if case.startswith("hubbard"):
+        model, st, _ = _model_state(cuda_device, "off", "float64", L=8, W=2)
+        x = st.field
+    else:
+        L = {"64": 4, "144": 6, "256": 8}[case.split("-")[-1]]
+        model, st, _ = _sdw(cuda_device, L=L, W=2)
+        x = st.phi
+    # the forward unequal-time solve's operands, as green_tau_zero forms them
+    inner, rhs, _ = tau_zero_operands(*model._td_stacks(x))
+    n = inner.shape[-1]
+    kernel, _ = green_solve.entry(green_solve.kernel_for(n, inner.dtype), True)
+    _kernels.reset_launch_counts()
+    xk = green_solve.solve_inner_rhs(inner, rhs)
+    torch.cuda.synchronize()
+    expect = dict.fromkeys(_kernels.LAUNCHES, 0)
+    expect[kernel] = 1
+    if kernel == "solve_inner_complex_big_rhs":
+        expect["trinv_big"] = 1
+    assert _kernels.LAUNCHES == expect
+    xp = green_solve.solve_inner_rhs_plain(inner, rhs)
+    amax = lambda X: X.abs().amax((1, 2))                       # noqa: E731
+    res = amax(inner @ xk - rhs) / (n * amax(inner) * amax(xk))
+    assert float(res.max()) < 1e-13
+    bound = n * torch.finfo(torch.float64).eps * torch.linalg.cond(inner)
+    assert bool((amax(xk - xp) / amax(xp) <= bound).all())
+
+
+def test_solve_inner_rhs_refuses_real_beyond_one_block(cuda_device):
+    A = torch.eye(120, dtype=torch.float64,
+                  device=cuda_device).expand(2, 120, 120).contiguous()
+    with pytest.raises(ValueError, match="ROADMAP"):
+        green_solve.solve_inner_rhs(A, A.clone())
+    with pytest.raises(TypeError):
+        green_solve.solve_inner_rhs(A[:, :64, :64].contiguous(),
+                                    A[:, :64, :64].to(torch.float32))
+
+
+def _close_on_card(got, ref, tol=1e-10):
+    for a, b in zip(got, ref):
+        assert float((a.cpu() - b).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("ph", ["on", "off"])
+def test_hubbard_dynamics_on_card_match_cpu(cuda_device, ph):
+    cfg = HubbardConfig(L=4, U=4.0, beta=2.0, m=8, s=4, dtype="float64",
+                        ph_symmetry=ph)
+    cpu = HubbardModel(cfg, device="cpu")
+    gpu = HubbardModel(cfg, device=cuda_device)
+    sc = cpu.init_state(2, torch.Generator().manual_seed(9))
+    sg = WalkerState(*[Stack(*[x.to(cuda_device) for x in leaf])
+                       if isinstance(leaf, Stack) else leaf.to(cuda_device)
+                       for leaf in sc])
+    _kernels.reset_launch_counts()
+    _close_on_card(gpu.time_displaced_greens_all(sg.field),
+                   cpu.time_displaced_greens_all(sc.field))
+    _close_on_card(gpu.unequal_time_greens_all(sg.field),
+                   cpu.unequal_time_greens_all(sc.field))
+    _close_on_card(gpu.measure_time_displaced(sg, True, True),
+                   cpu.measure_time_displaced(sc, True, True))
+    _close_on_card(gpu.measure_current_correlators(sg),
+                   cpu.measure_current_correlators(sc))
+    torch.cuda.synchronize()
+    # one dense-RHS launch per anchor solve (the ph down sector and the
+    # reverse chain ride in the same batch), K3 for the G(tau, tau) anchors
+    assert _kernels.LAUNCHES["solve_inner_rhs"] == 4
+    assert _kernels.LAUNCHES["solve_inner"] == 2
+
+
+@pytest.mark.parametrize("L", [2, 6])
+def test_sdw_dynamics_on_card_match_cpu(cuda_device, L):
+    cfg = SDWConfig(L=L, opdim=3, r=0.5, beta=1.0, m=8, s=4,
+                    dtype="float64")
+    cpu = SDWModel(cfg, device="cpu")
+    gpu = SDWModel(cfg, device=cuda_device)
+    sc = cpu.init_state(2, torch.Generator().manual_seed(10))
+    sg = SDWState(*[x.to(cuda_device) for x in sc])
+    _kernels.reset_launch_counts()
+    for name in ("time_displaced_greens_all",
+                 "time_displaced_greens_rev_all"):
+        _close_on_card(getattr(gpu, name)(sg.phi), getattr(cpu, name)(sc.phi))
+    _close_on_card(gpu.measure_time_displaced(sg, True, True),
+                   cpu.measure_time_displaced(sc, True, True))
+    torch.cuda.synchronize()
+    kernel = ("solve_inner_complex_big_rhs" if L == 6
+              else "solve_inner_complex_rhs")
+    assert _kernels.LAUNCHES[kernel] == 3
+    if L == 6:
+        # K8-rhs's back-substitution; K6's apply on the forward wraps
+        # (s per chain, two chains) and the stacks' refactor blocks
+        assert _kernels.LAUNCHES["trinv_big"] == 3
+        assert _kernels.LAUNCHES["sdw_apply"] >= 2 * cfg.s

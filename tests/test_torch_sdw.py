@@ -41,7 +41,7 @@ KW = dict(opdim=3, r=0.5, beta=1.0, m=8, s=4, dtype="float64")
 def _models(**kw):
     kw = dict(KW, **kw)
     return (js.SDWModel(js.SDWConfig(fermion_repr="complex", **kw)),
-            ts.SDWModel(ts.SDWConfig(**kw)))
+            ts.SDWModel(ts.SDWConfig(**kw), device="cpu"))
 
 
 def _sweep_draws(cfg, keys, up):
@@ -188,7 +188,7 @@ def test_f32_main_path_config_cut_to_m8():
 def test_unported_knobs_raise(kw):
     cfg = ts.SDWConfig(**dict(dict(L=2, opdim=3, m=4, s=2), **kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.SDWModel(cfg)
+        ts.SDWModel(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("kw,route", [
@@ -198,7 +198,7 @@ def test_unported_knobs_raise(kw):
     if isinstance(x, dict) else x)
 def test_delayed_and_fused_knobs_build(kw, route):
     cfg = ts.SDWConfig(**dict(dict(L=2, opdim=3, m=4, s=2), **kw))
-    ts.SDWModel(cfg)
+    ts.SDWModel(cfg, device="cpu")
     assert route in ts.SDWModel.routes(cfg, "cpu").values()
 
 
@@ -210,15 +210,15 @@ def test_unported_methods_raise_and_mapped_knobs_build():
                     green_refine_iters=2, stab_dtype="complex128"),
                dict(green_kernel="pallas", update_kernel="pallas"),
                dict(green_kernel="xla", checkerboard=True)):
-        ts.SDWModel(ts.SDWConfig(**dict(base, **kw)))
+        ts.SDWModel(ts.SDWConfig(**dict(base, **kw)), device="cpu")
     # on a CUDA device the blocked kernels bound the dim at 512: L = 4, 6,
     # 8 and 11 fit, L = 12 (dim 576) does not
     for L in (4, 6, 8, 11):
         ts.SDWModel._check_kernel_bounds(ts.SDWConfig(**dict(base, L=L)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.SDWModel._check_kernel_bounds(ts.SDWConfig(**dict(base, L=12)))
-    model = ts.SDWModel(ts.SDWConfig(**base))
-    for name in ("sweep_simple", "time_displaced_greens", "global_moves",
-                 "attempt_wolff_update", "log_weight", "with_r"):
+    model = ts.SDWModel(ts.SDWConfig(**base), device="cpu")
+    for name in ("sweep_simple", "global_moves", "attempt_wolff_update",
+                 "log_weight", "with_r"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(model, name)()

@@ -66,7 +66,7 @@ def _a(x):
 
 def _slice(L, dtype, seed, W=3):
     """A wrapped G at slice 1 and slice 1's update operands, port side."""
-    tm = ts.SDWModel(ts.SDWConfig(L=L, dtype=dtype, **KW))
+    tm = ts.SDWModel(ts.SDWConfig(L=L, dtype=dtype, **KW), device="cpu")
     gen = torch.Generator().manual_seed(seed)
     st = tm.init_state(W, gen)
     u01, rnd = tm._draw_proposal_randoms(W, gen)
@@ -122,7 +122,8 @@ def _pair(x):
 
 def _wrap_operands(L, checkerboard, seed=5, W=2):
     tm = ts.SDWModel(ts.SDWConfig(L=L, dtype="float32",
-                                  checkerboard=checkerboard, **KW))
+                                  checkerboard=checkerboard, **KW),
+                     device="cpu")
     rng = np.random.default_rng(seed)
     h, N = tm.dim, tm.cfg.n_sites
     G = torch.as_tensor(rng.standard_normal((W, h, h))
@@ -209,7 +210,8 @@ def test_k8_plain_matches_solve_inner_complex_big_interpret():
 
 
 def test_k8_plain_matches_jax_green_from_two_udv_dim144():
-    tm = ts.SDWModel(ts.SDWConfig(L=6, dtype="float64", **KW))
+    tm = ts.SDWModel(ts.SDWConfig(L=6, dtype="float64", **KW),
+                     device="cpu")
     st = tm.init_state(2, torch.Generator().manual_seed(4))
     f = tm._eye_mixed(2)
     for l in range(1, 5):

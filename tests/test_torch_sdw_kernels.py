@@ -39,7 +39,7 @@ def _models(L, dtype):
     kw = dict(L=L, dtype=dtype, **KW)
     jm = js.SDWModel(js.SDWConfig(fermion_repr="complex",
                                   update_kernel="scan", **kw))
-    return jm, ts.SDWModel(ts.SDWConfig(**kw))
+    return jm, ts.SDWModel(ts.SDWConfig(**kw), device="cpu")
 
 
 def _slice_inputs(tm, seed, W=2):

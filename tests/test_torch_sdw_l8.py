@@ -38,7 +38,8 @@ KW = dict(L=2, opdim=3, r=0.5, beta=1.0, m=8, s=4, dtype="float64")
 def test_delayed_fused_sweep_pairs_match_jax(delay):
     jm = js.SDWModel(js.SDWConfig(fermion_repr="complex", delay=delay, **KW))
     tm = ts.SDWModel(ts.SDWConfig(update_kernel="delayed", delay=delay,
-                                  wrap_kernel="fused", **KW))
+                                  wrap_kernel="fused", **KW),
+                     device="cpu")
     assert ts.SDWModel.routes(tm.cfg, "cpu") == {"update": "delayed",
                                                  "wrap": "fused"}
     jst = _jax_init(jm, seed=6)
