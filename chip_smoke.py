@@ -74,7 +74,30 @@ Phases (any failure raises, and the script exits non-zero):
      the launch counts of one call, the wrap deviation
      (median over walkers) under the model's green_dev gate, every
      output finite, and the tau = 0 anchor within 1e-5 of the equal-time
-     G of refresh_from_field.
+     G of refresh_from_field;
+15. Hubbard at L = 16 with the delayed update (N = 256, beyond the
+   one-block kernels K1-K3):
+   - kernels: K1b slice_update_delayed (float32 at W = 128, N = 256,
+     k = 16 on a wrapped G, decisions equal but at near-ties; float64
+     bitwise at C = 2, N = 144, k = 5, whose last chunk is ragged), real
+     K7 qr_big (float32 and float64, n = 144 and 256), real K8 + K9
+     solve_inner_big (float64, n = 256, mid-chain inner matrix) and K8-rhs
+     + K9 solve_inner_big_rhs (float64, n = 256, B = 5376: both orders of
+     every walker's 21 anchors), each against its plain version, timed
+     with it and the library's one call;
+   - path parity: L = 12 f64 m=8 s=4 W=2 on the card and on the CPU with
+     the same draws, delay = 3 and delay = 0 with two spin sectors (the
+     CPU runs the rank-1 chain, the card K1b): identical fields and signs,
+     G within 1e-10, only K1b, K7, K8 and K9 launched;
+   - main path: HubbardConfig(L=16, U=4, beta=8, m=80, s=4, checkerboard,
+     delay=16, float32), 128 walkers, as phase 4, with the launch counts
+     of K1b, K7, K8, K9 (K1, K2, K3 never launch), then a profile with
+     those four groups;
+   - CLI: detqmc_tpu_torch.cli.main_hubbard.main in-process with the
+     same keys, thermalization=2 sweeps=4 jkBlocks=2 timedisplaced=true
+     timeseries=true on the card: exit 0, the JAX CLI's files, finite
+     results, half filling, one K8-rhs launch; the measurement block's
+     wall time.
 
 The second-to-last line is {"kernels": [...]} (every number measured in
 this run; bound_ms is the larger of the kernel's bytes over the HBM rate
@@ -97,7 +120,7 @@ MAIN_CFG = dict(L=8, U=4.0, beta=8.0, m=80, s=4, dtype="float32")
 GREEN_DEV_GATE = 6e-3     # bench.py GATES["hubbard"]
 OCC_GATE = 1e-3
 # kernel vs plain tolerances (same inputs, same card)
-K1_TOL = {"float32": 1e-5, "float64": 1e-12}    # max |G_kernel - G_plain|
+K1_TOL = 1e-5   # float32: max |G_kernel - G_plain| / max(1, max|G|)
 K2_TOL = {"float32": 1e-4, "float64": 1e-10}    # sign-normalized Q, R/|R|
 # K3: both solves are backward stable, so the kernel's normalized residual
 # max|inner X - diag(r1)| / (n max|inner| max|X|) must be O(eps_f64), and
@@ -128,6 +151,22 @@ DYN_CFG = dict(L=8, U=4.0, beta=8.0, m=80, s=4, dtype="float32")
 W_DYN, N_DYN_WARMUP = 64, 2
 N_DYN_TIMED = 5            # warm calls per measurement, median wall
 ANCHOR_TOL = 1e-5          # |G(0, 0) anchor - equal-time G|, float32 G
+# Hubbard at L = 16 with the delayed update (examples/hubbard_l8_beta8.conf's
+# keys at L = 16, updateMethod=delayed, delay=16): N = 256 sites, beyond
+# the one-block kernels K1, K2 and K3
+L16_CFG = dict(L=16, U=4.0, mu=0.0, beta=8.0, m=80, s=4, checkerboard=True,
+               delay=16, dtype="float32")
+W_L16 = 128
+L16_KERNELS = ("slice_update_delayed", "qr_big", "solve_inner_big",
+               "trinv_big")
+L16_CLI = ["model=hubbard", "L=16", "U=4.0", "mu=0.0", "beta=8.0",
+           "dtau=0.1", "s=4", "checkerboard=true", "updateMethod=delayed",
+           "delay=16", "walkers=128", "thermalization=2", "sweeps=4",
+           "jkBlocks=2", "timedisplaced=true", "timeseries=true"]
+# K1b bitwise in float64 with two spin sectors and a ragged tail chunk
+# (144 = 28 x 5 + 4)
+K1B_F64_CFG = dict(L=12, U=4.0, beta=2.0, m=8, s=4, dtype="float64",
+                   ph_symmetry="off", delay=5)
 
 
 # The least time the card could take for a kernel's work (bound_ms): the
@@ -212,18 +251,16 @@ def chain_inputs(model, state, k_mid):
     from detqmc_tpu_torch.linalg import bchain
     from detqmc_tpu_torch.linalg.udv import UDV, udv_refactor
 
-    cfg, prop = model.cfg, model.prop
+    cfg, prop, ev = model.cfg, model.prop_chain, model.exp_v_chain
     W = state.field.shape[0]
     block = state.stack.U[:, 1]
     for l in range(1, cfg.s + 1):
-        block = bchain.b_mult_left(prop, model.exp_v(state.field[:, l - 1]),
-                                   block)
+        block = bchain.b_mult_left(prop, ev(state.field[:, l - 1]), block)
     f = model._eye_mixed(W)
     for k in range(1, k_mid + 1):
         lazy = f.U
         for l in range((k - 1) * cfg.s + 1, k * cfg.s + 1):
-            lazy = bchain.b_mult_left(prop, model.exp_v(state.field[:, l - 1]),
-                                      lazy)
+            lazy = bchain.b_mult_left(prop, ev(state.field[:, l - 1]), lazy)
         f = udv_refactor(lazy, f.d, f.V)
     right = UDV(state.stack.U[:, k_mid], state.stack.d[:, k_mid],
                 state.stack.V[:, k_mid])
@@ -234,7 +271,7 @@ def kernel_phase(model, state, gen):
     """K1/K2/K3 against their plain versions at the main-path shapes."""
     import torch
 
-    from detqmc_tpu_torch.linalg import green_solve, qr, slice_update
+    from detqmc_tpu_torch.linalg import qr, slice_update
     from detqmc_tpu_torch.linalg.udv import green_inner
 
     cfg = model.cfg
@@ -249,47 +286,18 @@ def kernel_phase(model, state, gen):
     rec = {}
     for dname, dt in (("float32", torch.float32), ("float64", torch.float64)):
         args = [x.to(dt).contiguous() for x in (G1, f1, u1, state.sign)]
-        Gk, fk, sk, ak = slice_update.slice_update(*args, cfg.alpha)
-        Gp, fp, sp, ap = slice_update.slice_update_plain(*args, cfg.alpha)
-        torch.cuda.synchronize()
-        same = (fk == fp).all(dim=1)
-        n_mis = int((~same).sum())
-        if n_mis:
-            check(dname == "float32",
-                  f"K1 {dname}: {n_mis} walkers with other accept decisions")
-            for w in torch.nonzero(~same)[:, 0].tolist():
-                i = int(torch.nonzero(fk[w] != fp[w])[0, 0])
-                # G of the plain chain just before site i: make sites >= i
-                # reject (u = +inf), rerun the plain version on walker w
-                uw = args[2][w:w + 1].clone()
-                uw[:, i:] = float("inf")
-                Gi, _, _, _ = slice_update.slice_update_plain(
-                    args[0][w:w + 1], args[1][w:w + 1], uw,
-                    args[3][w:w + 1], cfg.alpha)
-                s_i = float(args[1][w, i])
-                delta = torch.exp(torch.tensor(-2.0 * cfg.alpha * s_i,
-                                               dtype=dt)) - 1.0
-                R = 1.0 + delta * (1.0 - Gi[0, 0, i, i].cpu())
-                rtot = float(abs(R * R / (1.0 + delta)))
-                margin = abs(float(args[2][w, i]) - rtot)
-                print(f"  K1 float32 mismatch: walker {w} site {i} "
-                      f"|u-|R||={margin:.3e} |R|={rtot:.6f}")
-                check(margin < NEAR_TIE * rtot,
-                      f"K1 float32 mismatch at walker {w} site {i} is not "
-                      f"a near-tie ({margin:.3e})")
-        err = float((Gk - Gp)[same].abs().max())
-        check(torch.equal(sk[same], sp[same]) and torch.equal(ak[same],
-                                                              ap[same]),
-              f"K1 {dname}: sign/acceptance differ")
-        check(err <= K1_TOL[dname],
-              f"K1 {dname}: max|G_k - G_p| = {err:.3e} > {K1_TOL[dname]}")
+        err, n_mis, (Gk, fk, sk, ak) = update_check(
+            "K1", model, args,
+            lambda *a: slice_update.slice_update(*a, cfg.alpha),
+            lambda *a: slice_update.slice_update_plain(*a, cfg.alpha))
         ms = time_ms(lambda: slice_update.slice_update(*args, cfg.alpha))
         pms = time_ms(lambda: slice_update.slice_update_plain(*args,
                                                               cfg.alpha),
                       reps=3)
         print(f"K1 slice_update {dname} (W={W}, C={C}, N={N}): "
-              f"max|dG|={err:.3e} (tol {K1_TOL[dname]}), accept "
-              f"mismatches {n_mis}, kernel {ms:.4f} ms, plain {pms:.4f} ms")
+              f"max|dG|={err:.3e} (float64: bitwise; float32: tol "
+              f"{K1_TOL} x max(1, max|G|)), accept mismatches "
+              f"{n_mis}, kernel {ms:.4f} ms, plain {pms:.4f} ms")
         # a rank-1 update of each component's G per accepted site
         n_acc = float(ak.sum()) * N
         rec[dname] = record(err, ms, pms, None, bound(
@@ -333,55 +341,80 @@ def kernel_phase(model, state, gen):
 
     # K3: inner solve at mid-chain conditioning
     inner, r1, _ = green_inner(left, right)
-    inner = inner.reshape(-1, N, N).contiguous()
-    r1 = r1.reshape(-1, N).contiguous()
+    out["solve_inner"] = diag_solve_phase(
+        "K3 solve_inner", "solve_inner", inner.reshape(-1, N, N).contiguous(),
+        r1.reshape(-1, N).contiguous())
+    return out
+
+
+def diag_solve_phase(title, route, inner, r1):
+    """K3 / K3c / K8 + K9 (``route``) against solve_inner_plain on the
+    same CUDA tensors: the kernel's normalized residual max|inner X -
+    diag(r1)| / (n max|inner| max|X|) (both solves are backward stable:
+    O(eps_f64)) and, per matrix, the forward difference max|dX| / max|X|
+    within n eps cond(inner); then kernel, plain and torch.linalg.solve
+    times. Returns {dtype: record}."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import green_solve
+
+    B, n, _ = inner.shape
+    check(green_solve.kernel_for(n, inner.dtype) == route,
+          f"{title}: n={n} {inner.dtype} is not routed to {route}")
     mk = green_solve.solve_inner(inner, r1)
     mp = green_solve.solve_inner_plain(inner, r1)
     torch.cuda.synchronize()
     abs_err = float((mk - mp).abs().max())
     amax = lambda X: X.abs().amax((1, 2))                      # noqa: E731
+    diag = torch.diag_embed(r1).to(inner.dtype)
 
     def backward(X):
-        res = amax(inner @ X - torch.diag_embed(r1))
-        return float((res / (N * amax(inner) * amax(X))).max())
+        return float((amax(inner @ X - diag) / (n * amax(inner) * amax(X)))
+                     .max())
 
     bk, bp = backward(mk), backward(mp)
     cond = torch.linalg.cond(inner)
     fwd = amax(mk - mp) / amax(mp)
-    fbound = N * torch.finfo(torch.float64).eps * cond
-    check(bk <= K3_BACKWARD, f"K3: backward error {bk:.3e} > {K3_BACKWARD}")
+    fbound = n * torch.finfo(torch.float64).eps * cond
+    check(bk <= K3_BACKWARD, f"{title}: backward error {bk:.3e} > "
+          f"{K3_BACKWARD}")
     check(bool((fwd <= fbound).all()),
-          f"K3: forward difference beyond n eps cond(inner): "
+          f"{title}: forward difference beyond n eps cond(inner): "
           f"{float((fwd / fbound).max()):.3e} x the bound")
+    slow = 3 if n > 128 else 7
     ms = time_ms(lambda: green_solve.solve_inner(inner, r1))
-    pms = time_ms(lambda: green_solve.solve_inner_plain(inner, r1))
-    diag = torch.diag_embed(r1)
-    lms = time_ms(lambda: torch.linalg.solve(inner, diag))
-    print(f"K3 solve_inner float64 (B={inner.shape[0]}, n={N}, cond(inner) "
+    pms = time_ms(lambda: green_solve.solve_inner_plain(inner, r1), reps=slow)
+    lms = time_ms(lambda: torch.linalg.solve(inner, diag), reps=slow)
+    dname = str(inner.dtype)[6:]
+    print(f"{title} {dname} (B={B}, n={n}, cond(inner) "
           f"{float(cond.min()):.2e}..{float(cond.max()):.2e}): "
           f"max|dmid|={abs_err:.3e}, max rel {float(fwd.max()):.3e} (<= n "
           f"eps cond, worst {float((fwd / fbound).max()):.2e} of it), "
           f"backward error kernel {bk:.2e} plain {bp:.2e} (tol "
           f"{K3_BACKWARD}), kernel {ms:.4f} ms, plain {pms:.4f} ms, "
           f"torch.linalg.solve {lms:.4f} ms")
-    out["solve_inner"] = {"float64": record(abs_err, ms, pms, lms, bound(
-        nbytes(inner, r1, mk), solve_flops(inner.shape[0], N, False,
-                                            True)))}
-    return out
+    return {dname: record(abs_err, ms, pms, lms, bound(
+        nbytes(inner, r1, mk), solve_flops(B, n, inner.is_complex(),
+                                           True)))}
 
 
-def path_parity_phase(device):
-    """The same tiny f64 chain on the card (kernels) and on the CPU."""
+def path_parity_phase(device, L=4, W=4, variants=(dict(ph_symmetry="on"),
+                                                dict(ph_symmetry="off")),
+                      kernels=HUBBARD_KERNELS):
+    """The same tiny f64 chain on the card (kernels) and on the CPU, for
+    each of ``variants`` (HubbardConfig knobs); the card's run must
+    launch each of ``kernels`` and no other kernel."""
     import torch
 
+    from detqmc_tpu_torch.linalg import _kernels
     from detqmc_tpu_torch.models.hubbard import (HubbardConfig,
                                                  HubbardModel, Stack,
                                                  WalkerState)
 
-    W = 4
-    for ph in ("on", "off"):
-        cfg = HubbardConfig(L=4, U=4.0, beta=2.0, m=8, s=4,
-                            dtype="float64", ph_symmetry=ph)
+    for kw in variants:
+        cfg = HubbardConfig(L=L, U=4.0, beta=2.0, m=8, s=4,
+                            dtype="float64", **kw)
+        ph = " ".join(f"{k}={v}" for k, v in kw.items())
         cpu = HubbardModel(cfg, device="cpu")
         gpu = HubbardModel(cfg, device=device)
         gen = torch.Generator().manual_seed(11)
@@ -393,6 +426,8 @@ def path_parity_phase(device):
                                  else leaf.to(device) for leaf in s])
 
         sg = to_dev(sc)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
         for _ in range(2):
             u = tuple(torch.rand((W, cfg.m, cfg.n_sites), generator=gen,
                                  dtype=torch.float64) for _ in range(2))
@@ -400,30 +435,36 @@ def path_parity_phase(device):
             sg, og = gpu.sweep_pair(sg, measure=True,
                                     u01=tuple(x.to(device) for x in u))
         torch.cuda.synchronize()
+        launched = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        check(set(launched) == set(kernels),
+              f"path parity {ph}: launched {launched}, expected {kernels}")
         check(torch.equal(sg.field.cpu(), sc.field),
-              f"path parity ph={ph}: fields differ")
+              f"path parity {ph}: fields differ")
         check(torch.equal(sg.sign.cpu(), sc.sign),
-              f"path parity ph={ph}: signs differ")
+              f"path parity {ph}: signs differ")
         gerr = float((sg.G.cpu() - sc.G).abs().max())
         oerr = max(float((a.cpu() - b).abs().max()) for a, b in zip(og, oc))
-        check(gerr <= PARITY_G_TOL, f"path parity ph={ph}: G err {gerr:.3e}")
-        print(f"path parity ph={ph} (L=4 m=8 s=4 W={W} f64, 2 pairs): "
-              f"fields identical, signs identical, max|dG|={gerr:.3e} "
-              f"(tol {PARITY_G_TOL}), max|d obs|={oerr:.3e}")
+        check(gerr <= PARITY_G_TOL, f"path parity {ph}: G err {gerr:.3e}")
+        print(f"path parity {ph} (L={L} m=8 s=4 W={W} f64, 2 pairs; card "
+              f"{gpu.route['update']} chunk {gpu.route['chunk']}, CPU "
+              f"{cpu.route['update']}): fields identical, signs identical, "
+              f"max|dG|={gerr:.3e} (tol {PARITY_G_TOL}), max|d obs|="
+              f"{oerr:.3e}; launches {launched}")
 
 
-def main_path_phase(device, card):
+def main_path_phase(device, card, cfg_kw=MAIN_CFG, W=W_MAIN,
+                    kernels=HUBBARD_KERNELS):
     import torch
 
     from detqmc_tpu_torch.linalg import _kernels
     from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
 
-    cfg = HubbardConfig(**MAIN_CFG)
+    cfg = HubbardConfig(**cfg_kw)
     model = HubbardModel(cfg, device=device)
     gen = torch.Generator(device=device).manual_seed(0)
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()
-    state = model.init_state(W_MAIN, gen)
+    state = model.init_state(W, gen)
     state, obs = model.sweep_pair(state, measure=True, generator=gen)
     torch.cuda.synchronize()
     occs, accs, signs = [], [], []
@@ -435,20 +476,25 @@ def main_path_phase(device, card):
         signs.append(obs.sign)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {k: _kernels.LAUNCHES[k] for k in HUBBARD_KERNELS}
+    counts = {k: _kernels.LAUNCHES[k] for k in kernels}
     others = {k: v for k, v in _kernels.LAUNCHES.items() if k not in counts}
     check(not any(others.values()), f"other kernels launched: {others}")
-    sweeps_per_s = W_MAIN * N_TIMED_PAIRS * 2 / dt
+    sweeps_per_s = W * N_TIMED_PAIRS * 2 / dt
     dev_med = float(state.green_dev.double().quantile(0.5))
     occ = float(torch.stack(occs).mean())
     acc = float(torch.stack(accs).mean())
     sign = float(torch.stack(signs).mean())
-    n_pairs = 1 + N_TIMED_PAIRS
-    expect = {"slice_update": 2 * cfg.m * n_pairs,
-              "qr": cfg.n_stack + 2 * cfg.n_stack * n_pairs,
-              "solve_inner": 1 + 2 * cfg.n_stack * n_pairs}
-    cfg_s = " ".join(f"{k}={v}" for k, v in MAIN_CFG.items())
-    print(f"main path {cfg_s} W={W_MAIN}: "
+    n_pairs, K = 1 + N_TIMED_PAIRS, cfg.n_stack
+    # one update per slice; one QR per refactor (init_state's K, 2K per
+    # pair); one inner solve per G evaluation (init's and 2K per pair),
+    # each with its K9 back-substitution on the blocked route
+    update, qr_k, solve = kernels[:3]
+    expect = {update: 2 * cfg.m * n_pairs, qr_k: K + 2 * K * n_pairs,
+              solve: 1 + 2 * K * n_pairs}
+    if "trinv_big" in kernels:
+        expect["trinv_big"] = expect[solve]
+    cfg_s = " ".join(f"{k}={v}" for k, v in cfg_kw.items())
+    print(f"main path {cfg_s} W={W}: "
           f"{sweeps_per_s:.2f} sweeps/s ({N_TIMED_PAIRS} pairs in "
           f"{dt:.4f} s) on {card}")
     print(f"  green_dev median {dev_med:.4e} (gate {GREEN_DEV_GATE}), max "
@@ -478,6 +524,10 @@ SDW8_GROUPS = (("sdw_delayed_kernel", "K5 sdw_delayed"),
                ("qr_big_kernel", "K7 qr_complex_big"),
                ("solve_inner_big_kernel", "K8 solve_inner_big"),
                ("trinv_big_kernel", "K9 trinv_big"))
+L16_GROUPS = (("slice_update_delayed_kernel", "K1b slice_update_delayed"),
+              ("qr_big_kernel", "K7 qr_big"),
+              ("solve_inner_big_kernel", "K8 solve_inner_big"),
+              ("trinv_big_kernel", "K9 trinv_big"))
 DYN_GROUPS = (("solve_inner_rhs_kernel", "K3r/K3c-rhs"),
               ("solve_inner_big_rhs_kernel", "K8-rhs"),
               ("solve_inner_kernel", "K3 solve_inner"),
@@ -609,7 +659,7 @@ def sdw_kernel_phase(model, state, gen):
     shapes."""
     import torch
 
-    from detqmc_tpu_torch.linalg import green_solve, qr, sdw_update
+    from detqmc_tpu_torch.linalg import qr, sdw_update
     from detqmc_tpu_torch.linalg.udv import _sign_fix, green_inner
 
     cfg = model.cfg
@@ -689,40 +739,9 @@ def sdw_kernel_phase(model, state, gen):
 
     # K3c: inner solve at mid-chain conditioning
     inner, r1, _ = green_inner(left, right)
-    inner, r1 = inner.contiguous(), r1.contiguous()
-    mk = green_solve.solve_inner(inner, r1)
-    mp = green_solve.solve_inner_plain(inner, r1)
-    torch.cuda.synchronize()
-    abs_err = float((mk - mp).abs().max())
-    amax = lambda X: X.abs().amax((1, 2))                      # noqa: E731
-
-    def backward(X):
-        res = amax(inner @ X - torch.diag_embed(r1).to(inner.dtype))
-        return float((res / (h * amax(inner) * amax(X))).max())
-
-    bk, bp = backward(mk), backward(mp)
-    cond = torch.linalg.cond(inner)
-    fwd = amax(mk - mp) / amax(mp)
-    fbound = h * torch.finfo(torch.float64).eps * cond
-    check(bk <= K3_BACKWARD, f"K3c: backward error {bk:.3e} > {K3_BACKWARD}")
-    check(bool((fwd <= fbound).all()),
-          f"K3c: forward difference beyond n eps cond(inner): "
-          f"{float((fwd / fbound).max()):.3e} x the bound")
-    ms = time_ms(lambda: green_solve.solve_inner(inner, r1))
-    pms = time_ms(lambda: green_solve.solve_inner_plain(inner, r1))
-    diag = torch.diag_embed(r1).to(inner.dtype)
-    lms = time_ms(lambda: torch.linalg.solve(inner, diag))
-    print(f"K3c solve_inner complex128 (B={inner.shape[0]}, n={h}, "
-          f"cond(inner) {float(cond.min()):.2e}..{float(cond.max()):.2e}): "
-          f"max|dmid|={abs_err:.3e}, max rel {float(fwd.max()):.3e} (<= n "
-          f"eps cond, worst {float((fwd / fbound).max()):.2e} of it), "
-          f"backward error kernel {bk:.2e} plain {bp:.2e} (tol "
-          f"{K3_BACKWARD}), kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-          f"torch.linalg.solve {lms:.4f} ms")
-    out["solve_inner_complex"] = {"complex128": record(
-        abs_err, ms, pms, lms, bound(nbytes(inner, r1, mk),
-                                     solve_flops(inner.shape[0], h, True,
-                                                 True)))}
+    out["solve_inner_complex"] = diag_solve_phase(
+        "K3c solve_inner", "solve_inner_complex", inner.contiguous(),
+        r1.contiguous())
     return out
 
 
@@ -731,8 +750,7 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
     complex128 at the sdw_l4 shapes, bitwise)."""
     import torch
 
-    from detqmc_tpu_torch.linalg import green_solve, qr, sdw_delayed, sdw_wrap
-    from detqmc_tpu_torch.linalg import trinv
+    from detqmc_tpu_torch.linalg import qr, sdw_delayed, sdw_wrap, trinv
     from detqmc_tpu_torch.linalg.udv import _sign_fix, green_inner
 
     cfg = model.cfg
@@ -890,41 +908,11 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
     # K8: the inner matrix at mid-chain conditioning
     inner, r1, _ = green_inner(left, right)
     inner, r1 = inner.contiguous(), r1.contiguous()
-    check(green_solve.kernel_for(h, inner.dtype) == "solve_inner_complex_big",
-          "K8: n=256 complex128 is not routed to K8")
-    mk = green_solve.solve_inner(inner, r1)
-    mp = green_solve.solve_inner_plain(inner, r1)
-    torch.cuda.synchronize()
-    abs_err = float((mk - mp).abs().max())
-    amax = lambda X: X.abs().amax((1, 2))                      # noqa: E731
-
-    def backward(X):
-        res = amax(inner @ X - torch.diag_embed(r1).to(inner.dtype))
-        return float((res / (h * amax(inner) * amax(X))).max())
-
-    bk, bp = backward(mk), backward(mp)
+    out["solve_inner_complex_big"] = diag_solve_phase(
+        "K8+K9 solve_inner_complex_big", "solve_inner_complex_big", inner, r1)
     cond = torch.linalg.cond(inner)
-    fwd = amax(mk - mp) / amax(mp)
     fbound = h * torch.finfo(torch.float64).eps * cond
-    check(bk <= K3_BACKWARD, f"K8: backward error {bk:.3e} > {K3_BACKWARD}")
-    check(bool((fwd <= fbound).all()),
-          f"K8: forward difference beyond n eps cond(inner): "
-          f"{float((fwd / fbound).max()):.3e} x the bound")
-    ms = time_ms(lambda: green_solve.solve_inner(inner, r1))
-    pms = time_ms(lambda: green_solve.solve_inner_plain(inner, r1), reps=3)
-    diag = torch.diag_embed(r1).to(inner.dtype)
-    lms = time_ms(lambda: torch.linalg.solve(inner, diag), reps=3)
-    print(f"K8+K9 solve_inner_complex_big complex128 (B={inner.shape[0]}, n={h}, "
-          f"cond(inner) {float(cond.min()):.2e}..{float(cond.max()):.2e}): "
-          f"max|dmid|={abs_err:.3e}, max rel {float(fwd.max()):.3e} (<= n "
-          f"eps cond, worst {float((fwd / fbound).max()):.2e} of it), "
-          f"backward error kernel {bk:.2e} plain {bp:.2e} (tol "
-          f"{K3_BACKWARD}), kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-          f"torch.linalg.solve {lms:.4f} ms")
-    out["solve_inner_complex_big"] = {"complex128": record(
-        abs_err, ms, pms, lms, bound(nbytes(inner, r1, mk),
-                                     solve_flops(inner.shape[0], h, True,
-                                                 True)))}
+    amax = lambda X: X.abs().amax((1, 2))                      # noqa: E731
 
     # K9: R of the same inner matrices, alone (R^{-1}, the TPU kernel's
     # contract) and on the right-hand side K8 hands it (Q^H diag(r1))
@@ -1110,7 +1098,9 @@ def rhs_kernel_phase(title, route, inner, rhs):
     check(bool((fwd <= fbound).all()),
           f"{title}: forward difference beyond n eps cond(inner): "
           f"{float((fwd / fbound).max()):.3e} x the bound")
-    slow = 3 if n > 128 else 7
+    # the plain QR and the LU of thousands of 256 x 256 matrices take
+    # seconds: one timed call there
+    slow = 1 if B * n ** 3 > 5e10 else 3 if n > 128 else 7
     ms = time_ms(lambda: green_solve.solve_inner_rhs(inner, rhs))
     pms = time_ms(lambda: green_solve.solve_inner_rhs_plain(inner, rhs),
                   reps=slow)
@@ -1247,6 +1237,225 @@ def dynamics_path_phase(title, model, state, measures, expect, dev_gate):
     return counts, times
 
 
+# ---- Hubbard at L = 16 with the delayed update ---------------------------
+def update_check(title, model, args, kernel, plain):
+    """A slice update kernel (K1 or K1b, ``kernel(G, field, u01, sign)``)
+    against its plain version on the same CUDA tensors: bitwise in float64
+    (both round as the plain version does); in float32 identical decisions
+    except at a near-tie (the plain chain rerun up to the first differing
+    site, later sites made to reject: |u - |R|| < NEAR_TIE |R| there) and
+    G within K1_TOL of max(1, max|G|) where they agree. Returns (err,
+    accept mismatches, outputs of the kernel)."""
+    import torch
+
+    kout, pout = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    (Gk, fk, sk, ak), (Gp, fp, sp, ap) = kout, pout
+    if Gk.dtype == torch.float64:
+        check(all(torch.equal(a, b) for a, b in zip(kout, pout)),
+              f"{title} float64: not bitwise equal to the plain version")
+        return float((Gk - Gp).abs().max()), 0, kout
+    same = (fk == fp).all(dim=1)
+    n_mis = int((~same).sum())
+    alpha = model.cfg.alpha
+    for w in torch.nonzero(~same)[:, 0].tolist():
+        i = int(torch.nonzero(fk[w] != fp[w])[0, 0])
+        G, fl, u, sign = [a[w:w + 1] for a in args]
+        u = u.clone()
+        u[:, i:] = float("inf")
+        Gi = plain(G, fl, u, sign)[0]
+        delta = torch.exp(-2.0 * model.spin_sign * alpha * fl[0, i]) - 1.0
+        R = 1.0 + delta * (1.0 - Gi[0, :, i, i])
+        rtot = float((R[0] * R[0] / (1.0 + delta[0]) if R.numel() == 1
+                      else R[0] * R[1]).abs())
+        margin = abs(float(args[2][w, i]) - rtot)
+        print(f"  {title} float32 mismatch: walker {w} site {i} "
+              f"|u-|R||={margin:.3e} |R|={rtot:.6f}")
+        check(margin < NEAR_TIE * rtot, f"{title} float32 mismatch at walker "
+              f"{w} site {i} is not a near-tie ({margin:.3e})")
+    err = float((Gk - Gp)[same].abs().max())
+    scale = max(1.0, float(Gp.abs().max()))
+    check(torch.equal(sk[same], sp[same]) and torch.equal(ak[same], ap[same]),
+          f"{title} float32: sign/acceptance differ")
+    check(err <= K1_TOL * scale, f"{title} float32: max|G_k - "
+          f"G_p| = {err:.3e} > {K1_TOL} x {scale:.3e}")
+    return err, n_mis, kout
+
+
+def k1b_ops(field_in, field_out, k, C, N):
+    """The operations K1b's data needs (this run's accepted sites): every
+    site rebuilds its row and column (2 C N values) from the slots accepted
+    before it in its chunk, a mul-add each; every accepted slot adds one
+    rank-1 update of C N^2 entries, a mul-add each."""
+    import torch
+
+    acc = (field_out != field_in).double()
+    pad = (-N) % k
+    chunks = torch.nn.functional.pad(acc, (0, pad)).view(acc.shape[0], -1, k)
+    before = chunks.cumsum(-1) - chunks
+    return float(before.sum()) * 2 * (2 * C * N) + float(acc.sum()) * 2 * C \
+        * N * N
+
+
+def l16_kernel_phase(model, state, gen, device):
+    """K1b, real K7, real K8 + K9 and K8-rhs + K9 on operands of the L=16
+    state, each against its plain version, timed (CUDA events) with the
+    plain version and the library's one call where there is one."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import qr, slice_update
+    from detqmc_tpu_torch.linalg.udv import _sign_fix, green_inner
+    from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
+
+    cfg = model.cfg
+    W, C, N, k = state.G.shape[0], model.ncomp, cfg.n_sites, \
+        model.route["chunk"]
+    out = {}
+
+    # K1b float32 at the main-path shape: slice 1 on the wrapped G
+    G1 = model.wrap_up(state.G, model.exp_v(state.field[:, 0])).contiguous()
+    f1 = state.field[:, 0].contiguous()
+    u1 = torch.rand((W, N), generator=gen, dtype=G1.dtype, device=device)
+    args = (G1, f1, u1, state.sign.contiguous())
+    k1b = lambda *a: slice_update.slice_update_delayed(  # noqa: E731
+        *a, cfg.alpha, k)
+    err, n_mis, (Gk, fk, sk, ak) = update_check(
+        "K1b", model, args, k1b,
+        lambda *a: slice_update.slice_update_delayed_plain(*a, cfg.alpha, k))
+    ms = time_ms(lambda: k1b(*args))
+    pms = time_ms(lambda: slice_update.slice_update_delayed_plain(
+        *args, cfg.alpha, k), reps=3)
+    print(f"K1b slice_update_delayed float32 (W={W}, C={C}, N={N}, k={k}): "
+          f"max|dG|={err:.3e} (tol {K1_TOL} x max(1, max|G|)), "
+          f"accepted {int(float(ak.sum()) * N)}/{W * N} sites, accept "
+          f"mismatches {n_mis}, kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    rec = {"float32": record(err, ms, pms, None, bound(
+        nbytes(*args, Gk, fk, sk, ak), k1b_ops(f1, fk, k, C, N)))}
+
+    # K1b float64 bitwise: two spin sectors, N = 144, a ragged tail chunk
+    m12 = HubbardModel(HubbardConfig(**K1B_F64_CFG), device=device)
+    st12 = m12.init_state(32, gen)
+    G12 = m12.wrap_up(st12.G, m12.exp_v(st12.field[:, 0])).contiguous()
+    f12 = st12.field[:, 0].contiguous()
+    args12 = (G12, f12, torch.rand(f12.shape, generator=gen,
+                                   dtype=torch.float64, device=device),
+              st12.sign.contiguous())
+    k12, a12 = m12.route["chunk"], m12.cfg.alpha
+    k1b12 = lambda *a: slice_update.slice_update_delayed(  # noqa: E731
+        *a, a12, k12)
+    _, _, (_, fk12, _, _) = update_check(
+        "K1b", m12, args12, k1b12,
+        lambda *a: slice_update.slice_update_delayed_plain(*a, a12, k12))
+    ms12 = time_ms(lambda: k1b12(*args12))
+    print(f"K1b slice_update_delayed float64 (W=32, C={m12.ncomp}, "
+          f"N={m12.cfg.n_sites}, k={k12}, tail chunk "
+          f"{m12.cfg.n_sites % k12}): bitwise equal to the plain version "
+          f"(fields, signs, acceptance, G), accepted "
+          f"{int((fk12 != f12).sum())}/{32 * m12.cfg.n_sites} sites, "
+          f"kernel {ms12:.4f} ms")
+    out["slice_update_delayed"] = rec
+    del m12, st12, G12, args12
+
+    # real K7: the refactor block (n = 256), a random matrix at n = 144
+    block, left, right = chain_inputs(model, state, cfg.n_stack // 2)
+    rng = torch.Generator(device=device).manual_seed(144)
+    rec = {}
+    for dname, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        tol, msg = K2_TOL[dname], []
+        for n in (144, N):
+            # the refactor block, or a random well-conditioned matrix
+            A = (block.reshape(-1, N, N).to(dt).contiguous() if n == N else
+                 torch.eye(n, dtype=dt, device=device) + 0.3 / n ** 0.5
+                 * torch.randn((W, n, n), generator=rng, dtype=dt,
+                               device=device))
+            check(qr.kernel_for(n, dt) == "qr_big",
+                  f"K7: n={n} {dname} is not routed to qr_big")
+            Qk, Rk = qr.qr(A)
+            Qp, Rp = qr.qr_plain(A)
+            torch.cuda.synchronize()
+            check(bool((torch.tril(Rk, -1) == 0).all()),
+                  "K7: R's strict lower triangle is not exactly zero")
+            fk_, fp_ = _sign_fix(Qk, Rk), _sign_fix(Qp, Rp)
+            amax = lambda X: X.abs().amax((-2, -1))             # noqa: E731
+            err = max(float((fk_.U - fp_.U).abs().max()),
+                      float((fk_.d - fp_.d).abs().max() / fp_.d.abs().max()),
+                      float((amax(fk_.V - fp_.V) / amax(fp_.V)).max()))
+            recon = float((Qk @ Rk - A).abs().max() / A.abs().max())
+            check(err <= tol, f"K7 {dname} n={n}: err {err:.3e} > {tol}")
+            check(recon <= tol, f"K7 {dname} n={n}: |QR - A| {recon:.3e}")
+            msg.append(f"n={n} err={err:.3e} |QR-A|/|A|={recon:.3e}")
+        ms = time_ms(lambda: qr.qr(A))
+        pms = time_ms(lambda: qr.qr_plain(A), reps=3)
+        lms = time_ms(lambda: torch.linalg.qr(A), reps=3)
+        print(f"K7 qr_big {dname} (B={A.shape[0]}, plan {qr.big_plan(N, dt)}"
+              f"): {'; '.join(msg)} (tol {tol}); n={N}: kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms, torch.linalg.qr {lms:.4f} ms")
+        rec[dname] = record(err, ms, pms, lms, bound(
+            nbytes(A, Qk, Rk), qr_flops(A.shape[0], N, False)))
+    out["qr_big"] = rec
+    del block
+
+    # real K8 + K9: the inner matrix at mid-chain conditioning
+    inner, r1, _ = green_inner(left, right)
+    out["solve_inner_big"] = diag_solve_phase(
+        "K8+K9 solve_inner_big", "solve_inner_big",
+        inner.reshape(-1, N, N).contiguous(), r1.reshape(-1, N).contiguous())
+    del inner, r1, left, right
+
+    # K8-rhs + K9: the unequal-time anchors, both orders in one batch
+    out["solve_inner_big_rhs"] = rhs_kernel_phase(
+        "K8-rhs+K9 solve_inner_big_rhs", "solve_inner_big_rhs",
+        *rhs_operands(*model._both_orders(*model._td_stacks(state.field))))
+    return out
+
+
+def cli_phase():
+    """The port's CLI in-process at the full width of L16_CFG (its own
+    model, generator and driver; the card is the CLI's default device):
+    exit code 0, the JAX CLI's files, finite results, half filling, the
+    unequal-time solve launched once per measurement block. Returns the
+    launch counts of the run."""
+    import math
+    import os
+    import tempfile
+
+    from detqmc_tpu_torch.cli.main_hubbard import main as cli_main
+    from detqmc_tpu_torch.io.series import load_results
+    from detqmc_tpu_torch.linalg import _kernels
+    from detqmc_tpu_torch.timing import timing
+
+    with tempfile.TemporaryDirectory() as outdir:
+        argv = L16_CLI + [f"outdir={outdir}"]
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        wall = time.perf_counter() - t0
+        counts = dict(_kernels.LAUNCHES)
+        check(rc == 0, f"CLI exited {rc}")
+        files = set(os.listdir(outdir))
+        want = {"info.dat", "results.values", "greendev.series", "sv.series",
+                "occupancy.series", "sign.series", "greenKTauVector.series",
+                "results-greenKTauVector.values", "state.npz"}
+        check(want <= files, f"CLI: missing {sorted(want - files)}")
+        res = load_results(os.path.join(outdir, "results.values"))
+    check(res and all(math.isfinite(v) for pair in res.values()
+                      for v in pair), f"CLI: non-finite results {res}")
+    occ = res["occupancy"][0]
+    check(abs(occ - 1.0) < OCC_GATE, f"CLI: |occupancy - 1| = {abs(occ - 1)}")
+    launched = {k: v for k, v in counts.items() if v}
+    check(counts["solve_inner_big_rhs"] == 1 and set(launched) == set(
+        L16_KERNELS + ("solve_inner_big_rhs",)),
+          f"CLI: launches {launched}")
+    print(f"CLI detqmc_tpu_torch.cli.main_hubbard {' '.join(L16_CLI)}: exit "
+          f"0 in {wall:.2f} s; measurement block (4 measurements) "
+          f"{timing.total['measurement block']:.3f} s, thermalization (2 "
+          f"pairs) {timing.total['thermalization']:.3f} s, init "
+          f"{timing.total['init']:.3f} s; occupancy {occ!r}, "
+          f"{len(res)} finite results, {len(files)} files; launches "
+          f"{launched}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1377,12 +1586,38 @@ def main() -> int:
     counts["solve_inner_complex_big_rhs"] = dyn_counts[
         "solve_inner_complex_big_rhs"]
     lap("sdw_l8 dynamics path")
+    del sdw8, sdw8_state
+    torch.cuda.empty_cache()
+
+    # Hubbard at L = 16 with the delayed update: K1b, real K7, real K8 + K9
+    l16 = HubbardModel(HubbardConfig(**L16_CFG), device=device)
+    gen = torch.Generator(device=device).manual_seed(1616)
+    l16_state = l16.init_state(W_L16, gen)
+    kern.update(l16_kernel_phase(l16, l16_state, gen, device))
+    del l16, l16_state
+    torch.cuda.empty_cache()
+    lap("L=16 kernels")
+    path_parity_phase(device, L=12, W=2, variants=(
+        dict(delay=3), dict(delay=0, ph_symmetry="off")),
+        kernels=L16_KERNELS)
+    lap("L=12 path parity")
+    l16, l16_state, gen, l16_counts, wall_ms = main_path_phase(
+        device, card, L16_CFG, W_L16, L16_KERNELS)
+    profile_phase(lambda: l16.sweep_pair(l16_state, measure=True,
+                                         generator=gen),
+                  wall_ms, L16_GROUPS, "L=16 profile")
+    counts.update({k: l16_counts[k] for k in L16_KERNELS[:3]})
+    del l16, l16_state
+    torch.cuda.empty_cache()
+    lap("L=16 main path and profile")
+    counts["solve_inner_big_rhs"] = cli_phase()["solve_inner_big_rhs"]
+    lap("CLI")
 
     meta = {"slice_update": ("detqmc_tpu_torch/csrc/slice_update.cu",
                              "detqmc_tpu/linalg/pallas_update_lanes.py:185",
                              "float32"),
             "qr": ("detqmc_tpu_torch/csrc/qr.cu",
-                   "detqmc_tpu/linalg/pallas_qr_lanes.py:149", "float32"),
+                   "detqmc_tpu/linalg/pallas_qr_lanes.py:149", "float64"),
             "solve_inner": ("detqmc_tpu_torch/csrc/green_solve.cu",
                             "detqmc_tpu/linalg/pallas_green_lanes.py:304",
                             "float64"),
@@ -1422,7 +1657,19 @@ def main() -> int:
                 "detqmc_tpu/linalg/pallas_cgreen_lanes.py:347", "complex128"),
             "solve_inner_complex_big_rhs": (
                 "detqmc_tpu_torch/csrc/green_solve_big.cu",
-                "detqmc_tpu/linalg/pallas_cgreen.py:337", "complex128")}
+                "detqmc_tpu/linalg/pallas_cgreen.py:337", "complex128"),
+            "slice_update_delayed": (
+                "detqmc_tpu_torch/csrc/slice_update_delayed.cu",
+                "detqmc_tpu/linalg/pallas_update.py:240", "float32"),
+            "qr_big": ("detqmc_tpu_torch/csrc/qr_big.cu",
+                       "detqmc_tpu/linalg/pallas_qr_wy.py:175", "float64"),
+            "solve_inner_big": ("detqmc_tpu_torch/csrc/green_solve_big.cu",
+                                "detqmc_tpu/linalg/pallas_green.py:245",
+                                "float64"),
+            # no Pallas kernel: the JAX package runs XLA there
+            "solve_inner_big_rhs": (
+                "detqmc_tpu_torch/csrc/green_solve_big.cu",
+                "detqmc_tpu/linalg/udv.py:379", "float64")}
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": repl,
              "launches": counts[name], **kern[name][dname]}
             for name, (src, repl, dname) in meta.items()]

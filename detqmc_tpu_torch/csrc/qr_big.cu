@@ -1,11 +1,15 @@
-// K7: batched complex Householder QR with Q formed explicitly, for n beyond
-// the one-CTA kernel K2c (qr.cu), one CTA per matrix.
+// K7: batched Householder QR with Q formed explicitly, for n beyond the
+// one-CTA kernels K2 / K2c (qr.cu), one CTA per matrix; real (float32,
+// float64) and complex (complex64, complex128).
 //
 // Replaces the TPU kernels detqmc_tpu/linalg/pallas_cqr_wy.py (cqr_wy, the
 // compact-WY layout, kernel body _kernel) and pallas_cqr.py (cqr_big, the
 // rank-1 column-lane layout of the same factorization), which cudv.py
 // sends every complex refactor QR with n > 128 to (cudv.py:38-67): the SDW
-// chain at L = 8 (n = 256). One Hopper kernel replaces both layouts.
+// chain at L = 8 (n = 256); and their real twins pallas_qr_wy.py (qr_wy)
+// and pallas_qr_big.py (qr_big), the refactor QR of the Hubbard chain at
+// N > 128 (udv._big_qr_impl, udv.py:80-104): L = 16, n = 256. One Hopper
+// kernel, one template, replaces all four layouts.
 // A complex64 256 x 256 matrix is 512 KB (1 MB in complex128), beyond a
 // block's 227 KB, so A and the Q^H accumulator stay in global memory (the
 // output buffers R and Q serve as the work arrays) and only a panel of b
@@ -13,9 +17,10 @@
 // memory (householder_blocked, common.cuh: panel factorization, T, and
 // the trailing update X <- X - V T^H V^H X tile by tile, all in the
 // kernel's own loops). At the end Q^H is conjugate-transposed in place.
-// Contract as K2c: A = Q R, Q unitary, R's strict lower triangle exactly
-// zero, R_jj = -(x_j/|x_j|)||x|| (not normalized; udv._sign_fix folds the
-// phase). What bounds it on the H100: one CTA per matrix (128 matrices on
+// Contract as K2 / K2c: A = Q R, Q orthogonal / unitary, R's strict lower
+// triangle exactly zero, R_jj = -sign(x_j)||x|| (real, sign(0) = +1, as
+// pallas_qr_big.py:22-23) or -(x_j/|x_j|)||x|| (complex; not normalized:
+// udv._sign_fix folds the sign or phase). What bounds it on the H100: one CTA per matrix (128 matrices on
 // 132 SMs at the main path), n / b panels of b dependent column steps
 // (three __syncthreads each), and the trailing updates, ~(4/3 + 2) n^3 / 2
 // complex products per matrix read from shared memory, their tiles moving
@@ -65,6 +70,16 @@ int qr_big(int device, const void* A, void* Q, void* R, int batch, int n, int b,
 }  // namespace dq
 
 extern "C" {
+
+int dq_qr_big_f32(int device, const void* A, void* Q, void* R, int batch, int n,
+                  int b, int tc, void* stream) {
+    return dq::qr_big<float>(device, A, Q, R, batch, n, b, tc, stream);
+}
+
+int dq_qr_big_f64(int device, const void* A, void* Q, void* R, int batch, int n,
+                  int b, int tc, void* stream) {
+    return dq::qr_big<double>(device, A, Q, R, batch, n, b, tc, stream);
+}
 
 int dq_qr_big_c64(int device, const void* A, void* Q, void* R, int batch, int n,
                   int b, int tc, void* stream) {

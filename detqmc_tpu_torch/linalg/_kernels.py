@@ -73,12 +73,20 @@ _SIGNATURES = {
     # device, X, X_out, E, D, W, N, herm, TL, stream
     "dq_sdw_apply_c64": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     "dq_sdw_apply_c128": [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    # device, G, field, u01, sign, G_out, field_out, sign_out, acc_out,
+    # W, C, N, k, alpha, stream
+    "dq_slice_update_delayed_f32": [_I] + [_P] * 8 + [_I] * 4 + [_D, _P],
+    "dq_slice_update_delayed_f64": [_I] + [_P] * 8 + [_I] * 4 + [_D, _P],
     # device, A, Q, R, batch, n, b, tc, stream
+    "dq_qr_big_f32": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dq_qr_big_f64": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "dq_qr_big_c64": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "dq_qr_big_c128": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     # device, inner, r1, mid, work, batch, n, b, tc, stream
+    "dq_solve_inner_big_f64": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     "dq_solve_inner_big_c128": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     # device, inner, rhs, out, work, batch, n, b, tc, stream
+    "dq_solve_inner_big_rhs_f64": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     "dq_solve_inner_big_rhs_c128": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     # device, R, X, batch, n, b, tc, stream
     "dq_trinv_big_f32": [_I, _P, _P, _I, _I, _I, _I, _P],
@@ -92,7 +100,8 @@ LAUNCHES = {"slice_update": 0, "qr": 0, "solve_inner": 0, "sdw_update": 0,
             "sdw_wrap": 0, "sdw_apply": 0, "qr_complex_big": 0,
             "solve_inner_complex_big": 0, "trinv_big": 0,
             "solve_inner_rhs": 0, "solve_inner_complex_rhs": 0,
-            "solve_inner_complex_big_rhs": 0}
+            "solve_inner_complex_big_rhs": 0, "slice_update_delayed": 0,
+            "qr_big": 0, "solve_inner_big": 0, "solve_inner_big_rhs": 0}
 
 _lib = None
 build_log = ""          # nvcc's output (-Xptxas -v: registers, smem)

@@ -8,19 +8,22 @@ Replaces the dispatcher detqmc_tpu/linalg/pallas_green.py
 detqmc_tpu/linalg/pallas_green_lanes.py (``solve_inner_lanes``), and for
 the complex SDW chain pallas_cgreen_lanes.py (``solve_inner_complex``),
 with ``csrc/green_solve.cu``: Householder QR of the inner matrix applied
-to diag(r1), then back-substitution, one CTA per matrix. Complex matrices
-beyond that kernel's shared memory (n > 83) go to K8,
-``csrc/green_solve_big.cu``, the counterpart of pallas_cgreen.py
-(``solve_inner_complex_big``): K7's blocked factorization
-(``qr.big_plan``) applied to diag(r1), the matrices in global memory,
-then the back-substitution by K9 (``linalg/trinv.py``, the blocked
-triangular inverse of pallas_trinv_common.py) on Q^H diag(r1) in place:
-two launches. The dense-RHS twins of the same three TPU kernels,
+to diag(r1), then back-substitution, one CTA per matrix. Matrices beyond
+that kernel's shared memory (n > 119 in float64, n > 83 in complex128) go
+to K8, ``csrc/green_solve_big.cu``, the counterpart of pallas_green.py's
+own column-lane kernel (the dispatcher's n > 128 branch) and of
+pallas_cgreen.py (``solve_inner_complex_big``): K7's blocked
+factorization (``qr.big_plan``) applied to diag(r1), the matrices in
+global memory, then the back-substitution by K9 (``linalg/trinv.py``, the
+blocked triangular inverse of pallas_trinv_common.py) on Q^H diag(r1) in
+place: two launches. The dense-RHS twins of these TPU kernels,
 ``solve_inner_lanes_rhs``, ``solve_inner_complex_rhs`` and
 ``solve_inner_complex_big_rhs``, are the ``_rhs`` entries of the same two
 sources (``solve_inner_rhs`` below): the reflectors are applied to the
 given RHS instead of diag(r1), the rest is unchanged, and the routing by
-n and dtype is the same.
+n and dtype is the same. The real n > 128 dense-RHS solve has no Pallas
+kernel (the JAX package runs XLA there, udv.green_tau_zero); K8's real
+``_rhs`` entry takes it.
 
 The TPU kernels work in df32 — (hi, lo) f32 pairs emulating ~48-bit
 mantissas, four planes for a complex matrix — because the chip has no f64
@@ -35,9 +38,7 @@ Contract:
         -> mid = inner^{-1} diag(r1)  (B, n, n), inner's dtype;
     solve_inner_rhs(inner (B, n, n) f64 or c128, rhs (B, n, n) same dtype)
         -> inner^{-1} rhs  (B, n, n).
-Both take float64 up to n = 119 (one block's shared memory; the real
-n > 128 kernel is ROADMAP.md Queue 2 item 13) and complex128 up to
-qr.MAX_N_BIG. ``solve_inner_plain`` and ``solve_inner_rhs_plain`` (what a
+Both take float64 and complex128 up to qr.MAX_N_BIG. ``solve_inner_plain`` and ``solve_inner_rhs_plain`` (what a
 CPU tensor runs) are torch.linalg.qr + solve_triangular, as
 detqmc_tpu/linalg/udv.green_from_two_udv and green_tau_zero do it.
 """
@@ -56,6 +57,8 @@ _KERNELS = {torch.float64: "solve_inner", torch.complex128:
 _C_ENTRIES = {"solve_inner": ("dq_solve_inner_f64", "dq_solve_inner_rhs_f64"),
               "solve_inner_complex": ("dq_solve_inner_c128",
                                       "dq_solve_inner_rhs_c128"),
+              "solve_inner_big": ("dq_solve_inner_big_f64",
+                                  "dq_solve_inner_big_rhs_f64"),
               "solve_inner_complex_big": ("dq_solve_inner_big_c128",
                                           "dq_solve_inner_big_rhs_c128")}
 
@@ -86,16 +89,15 @@ def smem_bytes(n: int, dtype=torch.float64) -> int:
 def kernel_for(n: int, dtype) -> str:
     """The kernel a CUDA tensor of this size and dtype goes to:
     "solve_inner"/"solve_inner_complex" (K3/K3c, one CTA in shared
-    memory) when it fits, else "solve_inner_complex_big" (K8) for
-    complex128 up to qr.MAX_N_BIG; raises beyond."""
+    memory) when it fits, else "solve_inner_big"/"solve_inner_complex_big"
+    (K8) up to qr.MAX_N_BIG; raises beyond."""
     kernel = _KERNELS[dtype]
     if n <= MAX_N and smem_bytes(n, dtype) <= _kernels.MAX_SMEM_BYTES - 1024:
         return kernel
-    if dtype == torch.complex128 and n <= MAX_N_BIG:
-        return "solve_inner_complex_big"
+    if n <= MAX_N_BIG:
+        return "solve_inner_big" if kernel == "solve_inner" else kernel + "_big"
     raise ValueError(f"solve_inner: n={n} {dtype} exceeds the shared-memory "
-                     f"budget of K3 (float64: the n > 128 kernel is "
-                     f"ROADMAP.md Queue 2 item 13) or n > {MAX_N_BIG}")
+                     f"budget of K3 / K3c and n > {MAX_N_BIG} (K8)")
 
 
 def _solve(inner, M, rhs: bool):
@@ -116,7 +118,7 @@ def _solve(inner, M, rhs: bool):
     route = kernel_for(n, inner.dtype)
     kernel, c_entry = entry(route, rhs)
     out = torch.empty_like(inner)
-    if route == "solve_inner_complex_big":
+    if route.endswith("_big"):
         work = torch.empty_like(inner)
         _kernels.launch(kernel, c_entry, inner, M, out, work, B, n,
                         *big_plan(n, inner.dtype))
@@ -127,7 +129,7 @@ def _solve(inner, M, rhs: bool):
 
 
 def solve_inner(inner, r1):
-    """K3 (float64), K3c or K8 + K9 (complex128): CPU tensors run
+    """K3 (float64), K3c (complex128) or K8 + K9 (both): CPU tensors run
     ``solve_inner_plain``; CUDA tensors launch the kernel ``kernel_for``
     names (contiguous, r1 float64) or raise."""
     if inner.device.type == "cpu":
@@ -136,8 +138,8 @@ def solve_inner(inner, r1):
 
 
 def solve_inner_rhs(inner, rhs):
-    """The dense-RHS twins of K3 (float64), K3c or K8 + K9 (complex128),
-    routed by ``kernel_for`` as ``solve_inner``: CPU tensors run
+    """The dense-RHS twins of K3 (float64), K3c (complex128) or K8 + K9
+    (both), routed by ``kernel_for`` as ``solve_inner``: CPU tensors run
     ``solve_inner_rhs_plain``; CUDA tensors (contiguous, one dtype) launch
     the kernel or raise."""
     if inner.device.type == "cpu":

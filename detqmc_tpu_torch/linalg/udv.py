@@ -78,13 +78,23 @@ def _sign_fix(Q, R) -> UDV:
 def udv_refactor(M: torch.Tensor, d: torch.Tensor, V: torch.Tensor) -> UDV:
     """UdV of (M @ diag(d) @ V) for well-conditioned M and positive d.
 
-    QR commutes with positive column scaling, so the run-dtype QR sees only
-    the unscaled M (one interval block, condition O(1)); the d and V
-    composition happens in f64 (d) and the compose type (V):
+    QR commutes with positive column scaling, so the QR sees only the
+    unscaled M (one interval block); the d and V composition happens in
+    f64 (d) and the compose type (V):
         M diag(d) = U_g diag(g_d d) [V_g o (d_k / d_j)]      (j <= k)
-    The ratio d_k/d_j is bounded by the chain's d-spread (~1e55 at
-    beta = 8), far inside f64 range, and is never formed in the run dtype;
-    the V-chain product is a plain f64 matmul."""
+    The columns are first put in order of decreasing d (M's columns and
+    V's rows permuted alike: M diag(d) V = (M P) diag(P^T d) (P^T V)), so
+    every ratio d_k / d_j with j <= k is at most 1 and V stays graded —
+    the pre-pivoting of Bai, Lee, Li & Xu. The JAX package's unpivoted
+    refactor keeps the column order the chain made, and V's entries then
+    reach the chain's whole d-spread: at L=16, beta=8 its G loses ~1e-2
+    even in f64 (PERF.md; ``python -m
+    detqmc_tpu_torch.stabilization_check``). The V-chain
+    product is a plain f64 matmul."""
+    order = torch.argsort(d, dim=-1, descending=True, stable=True)
+    M = torch.gather(M, -1, order[..., None, :].expand(M.shape))
+    d = torch.gather(d, -1, order)
+    V = torch.gather(V, -2, order[..., :, None].expand(V.shape))
     g = udv_decompose(M)
     d = d.to(F64)
     d_new = g.d.to(F64) * d

@@ -18,12 +18,22 @@ From JAX to PyTorch:
   constants registered buffers.
 - Kernel versus plain version is decided by the device of the tensors
   (see linalg/slice_update.py, qr.py, green_solve.py): no config value
-  routes the card's main path to a plain version. ``update_kernel`` and
-  ``green_kernel`` are validated and otherwise not read; the paths that
-  are not ported yet raise NotImplementedError.
+  routes the card's main path to a plain version. The site update follows
+  ``HubbardModel.routes``: the delayed rank-k update (K1b) when ``delay >
+  0`` or ``update_kernel="pallas"``, as the JAX model routes it, and on
+  the card also when G does not fit K1's shared memory (N > 128); the
+  rank-1 update (K1) otherwise. ``green_kernel`` is validated and
+  otherwise not read; ``"refine"`` is not ported yet and raises
+  NotImplementedError.
 - ``stab_dtype`` and ``ozaki_chain_limbs`` are accepted and not read: the
-  stack's d/V and the inner solve are always f64 (native on the H100), and
-  f64 products are never emulated.
+  whole UdV stack (U, d and V), the lazy block products that feed its
+  refactor QR, the inner matrix and its solve are always f64 (native on
+  the H100; f64 products are never emulated). The run dtype is G's, the
+  field's and the G wraps' and updates'. The JAX package keeps the
+  stack's U and the lazy blocks in the run dtype; in float32 that costs
+  the stabilized G eps_f32 cond(B-block) of accuracy, which at L=16,
+  beta=8, s=4 keeps the wrap deviation above the 6e-3 gate (PERF.md;
+  ``python -m detqmc_tpu_torch.stabilization_check``).
 
 Unequal-time measurements (``timedisplaced``, ``timedisplacedSlices`` and
 ``currentCorrelators`` of detqmc_tpu/driver.py): ``_td_stacks`` builds
@@ -50,9 +60,8 @@ import torch
 from torch import nn
 
 from detqmc_tpu_torch import lattice as lattice_mod
-from detqmc_tpu_torch.linalg import bchain
-from detqmc_tpu_torch.linalg.slice_update import (slice_update,
-                                                  slice_update_plain)
+from detqmc_tpu_torch.linalg import _kernels, bchain
+from detqmc_tpu_torch.linalg import slice_update as su
 from detqmc_tpu_torch.linalg.udv import (UDV, green_from_two_udv,
                                          green_tau_zero,
                                          log_det_one_plus_udv, udv_refactor)
@@ -61,6 +70,7 @@ from detqmc_tpu_torch.models.unequal_time import (trapezoid_weights,
 from detqmc_tpu_torch.precision import mm
 
 SPIN_SIGN = np.array([+1.0, -1.0])  # component axis: [up, down]
+CHAIN_DTYPE = torch.float64         # the UdV stack and its block products
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
@@ -144,7 +154,7 @@ class Stack(NamedTuple):
     """UdV stack: entry k factors B_{ks}..B_1 (left, after an up sweep) or
     (B_m..B_{ks+1})^T (right, after a down sweep / init)."""
 
-    U: torch.Tensor  # (W, K+1, C, N, N) run dtype
+    U: torch.Tensor  # (W, K+1, C, N, N) f64 (CHAIN_DTYPE)
     d: torch.Tensor  # (W, K+1, C, N)    f64
     V: torch.Tensor  # (W, K+1, C, N, N) f64
 
@@ -180,21 +190,25 @@ class Observables(NamedTuple):
 
 
 class HubbardModel(nn.Module):
-    """Config + device constants (registered buffers) + the sweep."""
+    """Config + device constants (registered buffers) + the sweep.
+
+    ``vector_observables`` declares which observable names are vectors
+    (the driver registers them with its observable handler)."""
+
+    vector_observables = ("spinCorrelation", "greenKTauVector",
+                          "currentCorrelatorVector")
 
     def __init__(self, cfg: HubbardConfig, device=None):
         super().__init__()
-        if cfg.delay > 0:
-            raise NotImplementedError(
-                "delay > 0 (the delayed rank-k Hubbard update, kernel K1b) "
-                "is not ported yet: ROADMAP.md Queue 2, 'Hubbard delayed "
-                "update'")
         if cfg.green_kernel == "refine":
             raise NotImplementedError(
                 "green_kernel='refine' is not ported yet: ROADMAP.md "
                 "Queue 1 item 9 (the refine route with the trinv kernel)")
         if cfg.update_kernel not in ("auto", "scan", "pallas", "lanes"):
             raise ValueError(f"unknown update_kernel {cfg.update_kernel!r}")
+        if cfg.update_kernel == "lanes" and cfg.delay > 0:
+            raise ValueError("update_kernel='lanes' has no delayed path "
+                             "(use 'pallas' or 'scan')")
         if cfg.green_kernel not in ("auto", "xla", "pallas"):
             raise ValueError(f"unknown green_kernel {cfg.green_kernel!r}")
         if cfg.ph_on and cfg.mu != 0.0:
@@ -202,6 +216,18 @@ class HubbardModel(nn.Module):
         # the card unless the caller names another device: on a machine
         # without one, torch's own error, never a silent CPU run
         device = torch.device("cuda" if device is None else device)
+        self.route = self.routes(cfg, device.type)
+        k = self.route["chunk"]
+        if (self.route["update"] == "slice_update_delayed"
+                and device.type == "cuda" and not su.delayed_fits(
+                    cfg.ncomp, cfg.n_sites, k, cfg.torch_dtype)):
+            need = su.delayed_smem_bytes(cfg.ncomp, cfg.n_sites, k,
+                                         cfg.torch_dtype)
+            raise ValueError(
+                f"delay={k}: K1b's buffers for N={cfg.n_sites}, "
+                f"C={cfg.ncomp}, {cfg.dtype} need {need} bytes of shared "
+                f"memory, beyond the {_kernels.MAX_SMEM_BYTES - 1024} a "
+                "block may use")
         self.cfg = cfg
         self.lat = (lattice_mod.SquareLattice(cfg.L) if cfg.d == 2 else
                     lattice_mod.HyperCubicLattice(cfg.L, cfg.d))
@@ -209,12 +235,14 @@ class HubbardModel(nn.Module):
         self.dtype = dt
         self.ncomp = cfg.ncomp
         self.cb_sparse = cfg.checkerboard and cfg.cb_apply == "sparse"
-        prop = bchain.make_propagators(
-            self.lat, cfg.t, cfg.dtau, cfg.mu, dtype=dt, device=device,
-            checkerboard=cfg.checkerboard,
-            cb_dense=cfg.checkerboard and not self.cb_sparse)
-        for name, tensor in prop._asdict().items():
-            self.register_buffer(name, tensor)
+        # the run dtype's propagators for G; f64 ones for the stack
+        for dtype, suffix in ((dt, ""), (CHAIN_DTYPE, "_chain")):
+            prop = bchain.make_propagators(
+                self.lat, cfg.t, cfg.dtau, cfg.mu, dtype=dtype,
+                device=device, checkerboard=cfg.checkerboard,
+                cb_dense=cfg.checkerboard and not self.cb_sparse)
+            for name, tensor in prop._asdict().items():
+                self.register_buffer(name + suffix, tensor)
         N = cfg.n_sites
         s_ = np.arange(N)
         c_ = self.lat.coords(s_)
@@ -225,6 +253,7 @@ class HubbardModel(nn.Module):
 
         buf("K_mat", self.lat.hopping_matrix(cfg.t))
         buf("spin_sign", SPIN_SIGN[:self.ncomp])
+        buf("spin_sign_chain", SPIN_SIGN[:self.ncomp], CHAIN_DTYPE)
         # disp_idx[d, i] = site index of r_i + r_d
         buf("disp_idx", self.lat.site_of(c_[None, :, :] + c_[:, None, :]),
             torch.int64)
@@ -246,21 +275,50 @@ class HubbardModel(nn.Module):
         else:
             self.register_buffer("_dwave_D", None)
 
+    @staticmethod
+    def routes(cfg: HubbardConfig, device_type: str) -> dict:
+        """{"update": "slice_update" (K1, rank-1) | "slice_update_delayed"
+        (K1b), "chunk": k} for a model on a device of this type: the
+        delayed update when delay > 0 or update_kernel="pallas" (the JAX
+        model's routes, hubbard.py:471-488), and on a CUDA device also
+        when G does not fit K1's shared memory. The chunk is cfg.delay, or
+        without one the largest divisor of N up to 32 (the Pallas kernel's
+        choice) that fits K1b's shared memory; the rank-1 update's chunk
+        is 1."""
+        N, C = cfg.n_sites, cfg.ncomp
+        k1_fits = (N <= su.MAX_N and su.smem_bytes(C, N, cfg.torch_dtype)
+                   <= _kernels.MAX_SMEM_BYTES - 1024)
+        delayed = (cfg.delay > 0 or cfg.update_kernel == "pallas"
+                   or (device_type == "cuda" and not k1_fits))
+        if not delayed:
+            return {"update": "slice_update", "chunk": 1}
+        return {"update": "slice_update_delayed",
+                "chunk": cfg.delay if cfg.delay > 0
+                else su.default_chunk(C, N, cfg.torch_dtype)}
+
     @property
     def prop(self) -> bchain.Propagators:
+        """The propagators in the run dtype (G's wraps)."""
         return bchain.Propagators(self.expK, self.expK_inv, self.cb_partner,
                                   self.cb_cosh, self.cb_sinh, self.cb_gamma)
+
+    @property
+    def prop_chain(self) -> bchain.Propagators:
+        """The propagators in f64 (the stack's block products)."""
+        return bchain.Propagators(
+            self.expK_chain, self.expK_inv_chain, self.cb_partner_chain,
+            self.cb_cosh_chain, self.cb_sinh_chain, self.cb_gamma_chain)
 
     @property
     def device(self) -> torch.device:
         return self.expK.device
 
     def _eye_mixed(self, W: int) -> UDV:
-        """Identity UdV per walker and component: U in the run dtype, d/V
-        in f64 (the stack layout)."""
+        """Identity UdV per walker and component: U in CHAIN_DTYPE, d and
+        V in f64 (the stack layout)."""
         N, C, dev = self.cfg.n_sites, self.ncomp, self.device
         f64 = torch.float64
-        return UDV(torch.eye(N, dtype=self.dtype, device=dev).expand(
+        return UDV(torch.eye(N, dtype=CHAIN_DTYPE, device=dev).expand(
                        W, C, N, N),
                    torch.ones(W, C, N, dtype=f64, device=dev),
                    torch.eye(N, dtype=f64, device=dev).expand(W, C, N, N))
@@ -272,16 +330,30 @@ class HubbardModel(nn.Module):
         return torch.exp(self.spin_sign[:, None] * self.cfg.alpha
                          * field_slice[..., None, :])
 
+    def exp_v_chain(self, field_slice: torch.Tensor) -> torch.Tensor:
+        """``exp_v`` in f64, for the stack's block products."""
+        return torch.exp(self.spin_sign_chain[:, None] * self.cfg.alpha
+                         * field_slice[..., None, :].to(CHAIN_DTYPE))
+
     # -- site updates --------------------------------------------------------
     def _update_slice(self, G, field_l, u01, sign):
-        """The plain chain (K1's plain version) regardless of device."""
-        return slice_update_plain(G, field_l, u01, sign, self.cfg.alpha)
+        """The route's plain chain (K1's or K1b's plain version) regardless
+        of device."""
+        if self.route["update"] == "slice_update":
+            return su.slice_update_plain(G, field_l, u01, sign,
+                                         self.cfg.alpha)
+        return su.slice_update_delayed_plain(G, field_l, u01, sign,
+                                             self.cfg.alpha,
+                                             self.route["chunk"])
 
     def update_slice(self, G, field_l, u01, sign):
-        """K1 on a CUDA tensor, its plain version on a CPU tensor."""
-        return slice_update(G.contiguous(), field_l.contiguous(),
-                            u01.contiguous(), sign.contiguous(),
-                            self.cfg.alpha)
+        """The route's kernel (K1 or K1b) on a CUDA tensor, its plain
+        version on a CPU tensor."""
+        args = [x.contiguous() for x in (G, field_l, u01, sign)]
+        if self.route["update"] == "slice_update":
+            return su.slice_update(*args, self.cfg.alpha)
+        return su.slice_update_delayed(*args, self.cfg.alpha,
+                                       self.route["chunk"])
 
     # -- wraps ----------------------------------------------------------------
     def wrap_up(self, G, e):
@@ -385,19 +457,19 @@ class HubbardModel(nn.Module):
                 G, fl_new, sign, acc = self.update_slice(G, fl, u01[l - 1],
                                                          sign)
                 field[:, l - 1] = fl_new
-                e_new = self.exp_v(fl_new)
+                e_chain = self.exp_v_chain(fl_new)
                 if up:
-                    lazy_U = bchain.b_mult_left(self.prop, e_new, lazy_U,
-                                                checkerboard=cb)
+                    lazy_U = bchain.b_mult_left(self.prop_chain, e_chain,
+                                                lazy_U, checkerboard=cb)
                 else:
-                    lazy_U = bchain.bT_mult_left(self.prop, e_new, lazy_U,
-                                                 checkerboard=cb)
-                    G = self.wrap_down(G, e_new)
+                    lazy_U = bchain.bT_mult_left(self.prop_chain, e_chain,
+                                                 lazy_U, checkerboard=cb)
+                    G = self.wrap_down(G, self.exp_v(fl_new))
                 acc_sum = acc_sum + acc
-            # re-orthogonalize: run-dtype QR of the lazy block, f64 d/V
+            # re-orthogonalize: f64 QR of the lazy block, f64 d/V
             f_new = udv_refactor(lazy_U, d_c, V_c)
             G_stab = (green_from_two_udv(f_new, other) if up
-                      else green_from_two_udv(other, f_new))
+                      else green_from_two_udv(other, f_new)).to(dt)
             dev = torch.maximum(dev, (G - G_stab).abs().amax((-3, -2, -1)))
             G = G_stab
             if measure:
@@ -472,7 +544,7 @@ class HubbardModel(nn.Module):
         """(gtz(left, right_t), gtz(right_t, left)) in one batched
         dense-RHS solve: G(tau, 0) and the swapped-roles solve (G(beta,
         tau)^T for a real field), each (W, K+1, C, N, N)."""
-        G = green_tau_zero(*self._both_orders(left, right_t))
+        G = green_tau_zero(*self._both_orders(left, right_t)).to(self.dtype)
         return G[0], G[1]
 
     def time_displaced_greens(self, field: torch.Tensor) -> torch.Tensor:
@@ -486,7 +558,7 @@ class HubbardModel(nn.Module):
         the two stacks' roles swapped."""
         left, right_t = self._td_stacks(field)
         if not self.cfg.ph_on:
-            return green_tau_zero(left, right_t)
+            return green_tau_zero(left, right_t).to(self.dtype)
         G_up, G_bt = self._gtz_both(left, right_t)
         eta = self.stagger
         return torch.cat([G_up, eta[:, None] * G_bt * eta[None, :]], dim=2)
@@ -535,7 +607,7 @@ class HubbardModel(nn.Module):
         cb = self.cb_sparse
         left, right_t = self._td_stacks(field)
         G_fwd, G_bwd = self._gtz_both(left, right_t)
-        Gtt = green_from_two_udv(left, right_t)
+        Gtt = green_from_two_udv(left, right_t).to(self.dtype)
         T = lambda M: M.transpose(-1, -2)                 # noqa: E731
         if cfg.ph_on:
             eta = self.stagger
@@ -666,7 +738,7 @@ class HubbardModel(nn.Module):
         state0 = WalkerState(
             field=field,
             G=torch.zeros(W, C, N, N, dtype=dt, device=dev),
-            stack=Stack(torch.zeros(W, K + 1, C, N, N, dtype=dt, device=dev),
+            stack=Stack(torch.zeros(W, K + 1, C, N, N, dtype=f64, device=dev),
                         torch.zeros(W, K + 1, C, N, dtype=f64, device=dev),
                         torch.zeros(W, K + 1, C, N, N, dtype=f64,
                                     device=dev)),
@@ -695,9 +767,9 @@ class HubbardModel(nn.Module):
             for l_rel in range(s_int):
                 l = (k * s_int - l_rel if transposed
                      else (k - 1) * s_int + 1 + l_rel)
-                e = self.exp_v(field[:, l - 1])
+                e = self.exp_v_chain(field[:, l - 1])
                 lazy_U = (bchain.bT_mult_left if transposed
-                          else bchain.b_mult_left)(self.prop, e, lazy_U,
+                          else bchain.b_mult_left)(self.prop_chain, e, lazy_U,
                                                    checkerboard=cb)
             f = udv_refactor(lazy_U, f.d, f.V)
             emitted.append(f)
@@ -709,7 +781,8 @@ class HubbardModel(nn.Module):
         """Recompute the right stack and G(0) from the field alone."""
         stack = Stack(*self._build_stack(state.field, transposed=True))
         full_t = UDV(stack.U[:, 0], stack.d[:, 0], stack.V[:, 0])
-        G = green_from_two_udv(self._eye_mixed(state.field.shape[0]), full_t)
+        G = green_from_two_udv(self._eye_mixed(state.field.shape[0]),
+                               full_t).to(self.dtype)
         sign = self._chain_sign(full_t).to(self.dtype)
         return state._replace(G=G, stack=stack, sign=sign,
                               next_dir=torch.zeros_like(state.next_dir))

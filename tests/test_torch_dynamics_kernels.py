@@ -22,8 +22,8 @@ the JAX package, and the routes that send a CUDA tensor to the kernels.
   version only: the interpret-mode big solve costs about a minute),
   1e-10 absolute (G is O(1), both sides f64, eps_f64 cond << 1e-10).
 - Routes (pure Python): the dense-RHS entries follow ``kernel_for`` as
-  the diagonal solve does; float64 beyond K3's shared memory raises with
-  the ROADMAP pointer; a CPU tensor runs the plain version and any other
+  the diagonal solve does (float64 beyond K3's shared memory to K8-rhs);
+  n > 512 raises; a CPU tensor runs the plain version and any other
   non-CUDA tensor is refused.
 The kernels themselves are held against the plain version on the card in
 tests/test_torch_kernels_gpu.py.
@@ -138,7 +138,9 @@ def test_green_tau_zero_matches_jax_complex_dim144():
     (64, torch.float64, "solve_inner_rhs"),
     (64, torch.complex128, "solve_inner_complex_rhs"),
     (144, torch.complex128, "solve_inner_complex_big_rhs"),
-    (256, torch.complex128, "solve_inner_complex_big_rhs")])
+    (256, torch.complex128, "solve_inner_complex_big_rhs"),
+    (144, torch.float64, "solve_inner_big_rhs"),
+    (256, torch.float64, "solve_inner_big_rhs")])
 def test_rhs_routes_follow_the_diagonal_solve(n, dtype, route):
     kernel, entry = green_solve.entry(green_solve.kernel_for(n, dtype), True)
     assert kernel == route and kernel in _kernels.LAUNCHES
@@ -146,10 +148,12 @@ def test_rhs_routes_follow_the_diagonal_solve(n, dtype, route):
 
 
 def test_rhs_refuses_what_no_kernel_takes():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        green_solve.kernel_for(120, torch.float64)
-    with pytest.raises(ValueError, match="shared-memory"):
-        green_solve.kernel_for(520, torch.complex128)
+    # float64 beyond K3's shared memory goes to the big solve (K8-rhs)
+    assert green_solve.entry(green_solve.kernel_for(120, torch.float64),
+                             True)[0] == "solve_inner_big_rhs"
+    for dtype in (torch.float64, torch.complex128):
+        with pytest.raises(ValueError, match="shared-memory"):
+            green_solve.kernel_for(520, dtype)
     inner = torch.eye(8, dtype=torch.float64).expand(3, 8, 8).contiguous()
     rhs = torch.randn(3, 8, 8, dtype=torch.float64,
                       generator=torch.Generator().manual_seed(0))

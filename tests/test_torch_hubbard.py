@@ -153,7 +153,8 @@ def test_f32_main_path_config_at_l4():
     state = model.init_state(W, gen)
     state, obs = model.sweep_pair(state, measure=True, generator=gen)
     assert state.G.dtype == torch.float32
-    assert state.stack.V.dtype == torch.float64
+    # the whole stack is f64: U as well as d and V
+    assert state.stack.U.dtype == state.stack.V.dtype == torch.float64
     assert (obs.occupancy - 1.0).abs().max() < 1e-5
     assert torch.isfinite(state.green_dev).all()
     assert all(bool(torch.isfinite(x).all()) for x in obs)
@@ -164,9 +165,10 @@ def test_model_buffers_and_unported_paths():
     bufs = dict(model.named_buffers())
     for name in ("expK", "expK_inv", "K_mat", "stagger", "disp_idx"):
         assert name in bufs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.HubbardModel(th.HubbardConfig(L=2, m=4, s=2, delay=2),
-                        device="cpu")
+    # the delayed update (K1b) builds; the refine route is not ported
+    delayed = th.HubbardModel(th.HubbardConfig(L=2, m=4, s=2, delay=2),
+                              device="cpu")
+    assert delayed.route == {"update": "slice_update_delayed", "chunk": 2}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         th.HubbardModel(th.HubbardConfig(L=2, m=4, s=2,
                                          green_kernel="refine"),
@@ -199,6 +201,13 @@ state = model.init_state(2, gen)
 state, obs = model.sweep_pair(state, measure=True, generator=gen)
 model.measure_time_displaced(state, per_slice=True, susceptibilities=True)
 model.measure_current_correlators(state)
+import tempfile
+from detqmc_tpu_torch.cli.main_hubbard import main
+from detqmc_tpu_torch.driver import DetQMC
+with tempfile.TemporaryDirectory() as outdir:
+    assert main(["L=2", "beta=1.0", "m=4", "s=2", "walkers=2", "sweeps=2",
+                 "thermalization=1", "updateMethod=delayed", "delay=3",
+                 "dtype=float64", "device=cpu", "outdir=" + outdir]) == 0
 from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
 sdw = SDWModel(SDWConfig(L=2, opdim=3, beta=1.0, m=4, s=2, dtype="float64"),
                device="cpu")

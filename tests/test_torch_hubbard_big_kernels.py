@@ -1,0 +1,128 @@
+"""The real n > 128 kernels of the PyTorch port's Hubbard chain (K7 QR,
+K8 inner solve) through their plain versions, against the JAX package's
+Pallas kernels in interpret mode, and the routes that send a CUDA tensor
+to them.
+
+- K7's plain version ``qr.qr_plain`` (torch.linalg.qr) against
+  ``pallas_qr_wy.qr_wy`` and ``pallas_qr_big.qr_big`` (the compact-WY and
+  column-lane real f32 QRs the port's one K7 replaces) at n = 136 in f32,
+  after folding R's diagonal signs into Q (``udv._sign_fix``): U, d and
+  V within 1e-4 of each factor's largest entry (f32 Householder, the
+  tolerance of tests/test_torch_qr.py's K2 check).
+- K8's plain version ``green_solve.solve_inner_plain`` against
+  ``pallas_green.solve_inner`` at n = 136, which takes its own
+  column-lane df32 kernel above n = 128, on
+  tests/test_pallas_green._make_graded's well-conditioned graded inner
+  matrix (cond ~ 3e3). df32 carries ~48 mantissa bits and rounds its
+  output to f32, so per column of the solution the two agree to f32
+  rounding: 1e-6 of the column's largest entry (the f32 output's own
+  rounding is 6e-8). The plain solve is also held against NumPy's LU
+  solve within n eps_f64 cond.
+- Routes (pure Python): real QRs beyond K2's shared memory and real
+  inner solves beyond K3's go to K7 / K8 up to n = 512 and raise beyond.
+The kernels themselves are held against the plain versions on the card
+in tests/test_torch_kernels_gpu.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from detqmc_tpu.linalg import df32
+from detqmc_tpu.linalg.pallas_green import solve_inner as jax_solve_inner
+from detqmc_tpu.linalg.pallas_qr_big import qr_big
+from detqmc_tpu.linalg.pallas_qr_wy import qr_wy
+from detqmc_tpu_torch.linalg import _kernels, green_solve, qr, trinv
+from detqmc_tpu_torch.linalg.udv import _sign_fix
+
+N_BIG = 136    # > 128 and a multiple of 8: the Pallas kernels' big layouts
+
+
+@pytest.mark.parametrize("kernel", [qr_wy, qr_big], ids=["qr_wy", "qr_big"])
+def test_k7_plain_matches_pallas_real_qr_f32(kernel):
+    rng = np.random.default_rng(11)
+    A = (np.eye(N_BIG) + 0.3 * rng.standard_normal((2, N_BIG, N_BIG))
+         ).astype(np.float32)
+    ours = _sign_fix(*qr.qr_plain(torch.as_tensor(A)))
+    Qj, Rj = kernel(jnp.asarray(A), interpret=True)
+    theirs = _sign_fix(torch.as_tensor(np.array(Qj)),
+                       torch.as_tensor(np.array(Rj)))
+    for a, b in zip(ours, theirs):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _graded(seed, n, spread):
+    """tests/test_pallas_green._make_graded in numpy: graded rows and
+    columns plus the identity, like the stabilization inner matrix."""
+    A = np.random.default_rng(seed).standard_normal((n, n))
+    scale_r = np.exp(np.linspace(-spread, 0, n))
+    scale_c = np.exp(np.linspace(0, -spread, n))
+    return scale_r[:, None] * A * scale_c[None, :] + np.eye(n)
+
+
+def test_k8_plain_matches_pallas_green_column_kernel():
+    inner = _graded(3, N_BIG, 2.0)[None]
+    r1 = np.exp(np.linspace(0.0, -4.0, N_BIG))[None]
+    got = green_solve.solve_inner_plain(torch.as_tensor(inner),
+                                        torch.as_tensor(r1)).numpy()
+    hi, lo = df32.from_f64(jnp.asarray(inner))
+    ref = np.asarray(jax_solve_inner(hi, lo, jnp.asarray(r1, jnp.float32),
+                                     interpret=True), np.float64)
+    col = np.abs(ref).max(axis=-2, keepdims=True)
+    assert (np.abs(got - ref) / col).max() <= 1e-6
+    exact = np.linalg.solve(inner, np.eye(N_BIG)[None] * r1[:, None, :])
+    cond = np.linalg.cond(inner[0])
+    assert cond < 1e4
+    eps = np.finfo(np.float64).eps
+    assert np.abs(got - exact).max() / np.abs(exact).max() <= \
+        N_BIG * eps * cond
+
+
+@pytest.mark.parametrize("n,dtype,route", [
+    (128, torch.float32, "qr"), (136, torch.float32, "qr_big"),
+    (119, torch.float64, "qr"), (120, torch.float64, "qr_big"),
+    (144, torch.float64, "qr_big"), (256, torch.float32, "qr_big"),
+    (512, torch.float64, "qr_big")])
+def test_real_qr_routes(n, dtype, route):
+    assert qr.kernel_for(n, dtype) == route
+    assert route in _kernels.LAUNCHES
+    if route == "qr_big":
+        b, tc = qr.big_plan(n, dtype)
+        assert qr.big_smem_bytes(n, dtype, b, tc) <= \
+            _kernels.MAX_SMEM_BYTES - 1024
+        assert qr._BIG_ENTRIES[dtype] in _kernels._SIGNATURES
+
+
+@pytest.mark.parametrize("n,route", [
+    (64, "solve_inner"), (119, "solve_inner"), (120, "solve_inner_big"),
+    (144, "solve_inner_big"), (256, "solve_inner_big"),
+    (512, "solve_inner_big")])
+def test_real_solve_routes(n, route):
+    assert green_solve.kernel_for(n, torch.float64) == route
+    for rhs in (False, True):
+        kernel, entry = green_solve.entry(route, rhs)
+        assert kernel == route + ("_rhs" if rhs else "")
+        assert kernel in _kernels.LAUNCHES and entry in _kernels._SIGNATURES
+    if route == "solve_inner_big":
+        # K9, the back-substitution, fits its shared memory there too
+        b, tc = trinv.plan(n, torch.float64)
+        assert trinv.smem_bytes(n, torch.float64, b, tc) <= \
+            _kernels.MAX_SMEM_BYTES - 1024
+
+
+def test_real_routes_refuse_beyond_the_blocked_kernels():
+    for dtype in (torch.float32, torch.float64):
+        with pytest.raises(ValueError, match="shared-memory"):
+            qr.kernel_for(520, dtype)
+    with pytest.raises(ValueError, match="shared-memory"):
+        green_solve.kernel_for(520, torch.float64)
+    # the mirror of common.cuh blocked_smem_bytes counts the reflectors'
+    # beta in the real type: as wide as S for a real S, half of it for a
+    # complex one
+    n, b, tc = 256, 32, 16
+    elems = n * (b + 1) + n * (tc + 1) + 2 * b * tc + 2 * b * b + 2 * b
+    assert qr.big_smem_bytes(n, torch.float64, b, tc) == 8 * elems + 8 * b
+    assert qr.big_smem_bytes(n, torch.float32, b, tc) == 4 * elems + 4 * b
+    assert qr.big_smem_bytes(n, torch.complex128, b, tc) == \
+        16 * elems + 8 * b

@@ -55,6 +55,20 @@ Tolerances (same inputs, same card):
 - the unequal-time measurements on the card against the CPU (f64):
   Hubbard L=4 both particle-hole modes, SDW L=2 and L=6 (the K8-rhs and
   K6 routes): every output within 1e-10, the new kernels launched.
+- K1b (delayed Hubbard update, G in global memory): fields, signs,
+  acceptance and G bitwise equal to the plain version in float64 (the
+  same rounding order); in float32 identical decisions except at a
+  near-tie (|u - |R|| < 1e-5 |R| at the first differing site) and G
+  within 1e-5 of max|G| where the decisions agree;
+- K7 on real matrices (float32 / float64, n = 144 and 256): K2's
+  tolerances after the sign fix, R's strict lower triangle exactly zero;
+- K8 + K9 and K8-rhs + K9 in float64 on a Hubbard chain's inner matrices
+  (n = 144 and 256): the K3 criteria, one K8 and one K9 launch each;
+- Hubbard sweep pairs at L = 12 on the card against the CPU (f64) with
+  delay = 3 (K1b, particle-hole mode) and delay = 0 (two spin sectors: the
+  CPU runs the rank-1 chain, the card K1b, as N = 144 exceeds K1):
+  identical fields and signs, G within 1e-10, the launch counts of the
+  sweep structure (K1b, K7, K8, K9; K1, K2, K3 never).
 """
 
 import numpy as np
@@ -80,9 +94,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _model_state(device, ph="on", dtype="float64", L=4, W=3, seed=0):
+def _model_state(device, ph="on", dtype="float64", L=4, W=3, seed=0,
+                 delay=0):
     cfg = HubbardConfig(L=L, U=4.0, beta=4.0, m=16, s=4, dtype=dtype,
-                        ph_symmetry=ph)
+                        ph_symmetry=ph, delay=delay)
     model = HubbardModel(cfg, device=device)
     gen = torch.Generator(device).manual_seed(seed)
     return model, model.init_state(W, gen), gen
@@ -125,7 +140,9 @@ def test_qr_kernel_matches_plain(cuda_device, dtype, tol, sizes):
 
 
 def test_qr_refuses_beyond_shared_memory(cuda_device):
-    A = torch.zeros(2, 128, 128, dtype=torch.float64, device=cuda_device)
+    # float64 n = 128 is beyond K2's block and goes to K7; beyond
+    # qr.MAX_N_BIG nothing takes it
+    A = torch.zeros(2, 520, 520, dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="shared-memory"):
         qr.qr(A)
 
@@ -485,9 +502,11 @@ def test_solve_inner_rhs_kernel_matches_plain(cuda_device, case):
 
 
 def test_solve_inner_rhs_refuses_real_beyond_one_block(cuda_device):
-    A = torch.eye(120, dtype=torch.float64,
-                  device=cuda_device).expand(2, 120, 120).contiguous()
-    with pytest.raises(ValueError, match="ROADMAP"):
+    # beyond K3r's block float64 goes to K8-rhs, beyond qr.MAX_N_BIG
+    # nothing takes it
+    A = torch.eye(520, dtype=torch.float64,
+                  device=cuda_device).expand(2, 520, 520).contiguous()
+    with pytest.raises(ValueError, match="shared-memory"):
         green_solve.solve_inner_rhs(A, A.clone())
     with pytest.raises(TypeError):
         green_solve.solve_inner_rhs(A[:, :64, :64].contiguous(),
@@ -548,3 +567,132 @@ def test_sdw_dynamics_on_card_match_cpu(cuda_device, L):
         # (s per chain, two chains) and the stacks' refactor blocks
         assert _kernels.LAUNCHES["trinv_big"] == 3
         assert _kernels.LAUNCHES["sdw_apply"] >= 2 * cfg.s
+
+
+@pytest.mark.parametrize("dtype,ph,L,k", [
+    ("float64", "on", 4, 3), ("float64", "off", 12, 5),
+    ("float64", "on", 16, 16), ("float32", "on", 16, 16),
+    ("float32", "off", 12, 24)])
+def test_slice_update_delayed_kernel_matches_plain(cuda_device, dtype, ph, L,
+                                                   k):
+    model, state, gen = _model_state(cuda_device, ph, dtype, L=L, W=3,
+                                     delay=k)
+    G = model.wrap_up(state.G, model.exp_v(state.field[:, 0])).contiguous()
+    fl = state.field[:, 0].contiguous()
+    u01 = torch.rand(fl.shape, generator=gen, dtype=G.dtype,
+                     device=cuda_device)
+    args = (G, fl, u01, state.sign, model.cfg.alpha, k)
+    _kernels.reset_launch_counts()
+    Gk, fk, sk, ak = slice_update.slice_update_delayed(*args)
+    Gp, fp, sp, ap = slice_update.slice_update_delayed_plain(*args)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["slice_update_delayed"] == 1
+    if dtype == "float64":
+        for a, b in zip((Gk, fk, sk, ak), (Gp, fp, sp, ap)):
+            assert torch.equal(a, b)
+        return
+    same = (fk == fp).all(dim=1)
+    for w in torch.nonzero(~same)[:, 0].tolist():
+        # the plain chain just before the first differing site i (later
+        # sites made to reject): its ratio there must be a near-tie
+        i = int(torch.nonzero(fk[w] != fp[w])[0, 0])
+        uw = u01[w:w + 1].clone()
+        uw[:, i:] = float("inf")
+        Gi = slice_update.slice_update_delayed_plain(
+            G[w:w + 1], fl[w:w + 1], uw, state.sign[w:w + 1],
+            model.cfg.alpha, k)[0]
+        delta = torch.exp(-2.0 * model.spin_sign * model.cfg.alpha
+                          * fl[w, i]) - 1.0
+        R = 1.0 + delta * (1.0 - Gi[0, :, i, i])
+        rtot = float((R[0] * R[0] / (1.0 + delta[0]) if R.numel() == 1
+                      else R[0] * R[1]).abs())
+        assert abs(float(u01[w, i]) - rtot) < 1e-5 * rtot
+    assert torch.equal(sk[same], sp[same]) and torch.equal(ak[same], ap[same])
+    assert float((Gk - Gp)[same].abs().max()) <= 1e-5 * float(Gp.abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize("n", [144, 256])
+def test_qr_big_real_kernel_matches_plain(cuda_device, dtype, tol, n):
+    assert qr.kernel_for(n, dtype) == "qr_big"
+    rng = np.random.default_rng(n)
+    # well conditioned: the sign-fixed factors of two f32 QRs differ by
+    # ~n eps cond(A)
+    A = torch.as_tensor(np.eye(n) + 0.3 / n ** 0.5
+                        * rng.standard_normal((5, n, n)),
+                        dtype=dtype, device=cuda_device)
+    _kernels.reset_launch_counts()
+    Qk, Rk = qr.qr(A)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["qr_big"] == 1
+    assert bool((torch.tril(Rk, -1) == 0).all())
+    fk = _sign_fix(Qk, Rk)
+    fp = _sign_fix(*qr.qr_plain(A))
+    for a, b in zip(fk, fp):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.parametrize("rhs", [False, True], ids=["diag", "rhs"])
+@pytest.mark.parametrize("L", [12, 16])
+def test_solve_inner_big_real_kernels_match_plain(cuda_device, L, rhs):
+    model, st, _ = _model_state(cuda_device, "off", "float64", L=L, W=2)
+    n = L * L
+    if rhs:
+        inner, M, _ = tau_zero_operands(*model._td_stacks(st.field))
+    else:
+        k = model.cfg.n_stack // 2
+        inner, M, _ = green_inner(model._eye_mixed(2), UDV(
+            st.stack.U[:, k], st.stack.d[:, k], st.stack.V[:, k]))
+        inner, M = inner.reshape(-1, n, n).contiguous(), M.reshape(-1, n)
+    kernel, _ = green_solve.entry(green_solve.kernel_for(n, inner.dtype), rhs)
+    assert kernel == "solve_inner_big" + ("_rhs" if rhs else "")
+    solve = green_solve.solve_inner_rhs if rhs else green_solve.solve_inner
+    plain = (green_solve.solve_inner_rhs_plain if rhs
+             else green_solve.solve_inner_plain)
+    _kernels.reset_launch_counts()
+    xk = solve(inner, M.contiguous())
+    torch.cuda.synchronize()
+    expect = dict.fromkeys(_kernels.LAUNCHES, 0)
+    expect.update({kernel: 1, "trinv_big": 1})
+    assert _kernels.LAUNCHES == expect
+    xp = plain(inner, M)
+    B0 = M if rhs else torch.diag_embed(M)
+    amax = lambda X: X.abs().amax((1, 2))                       # noqa: E731
+    res = amax(inner @ xk - B0) / (n * amax(inner) * amax(xk))
+    assert float(res.max()) < 1e-13
+    bound = n * torch.finfo(torch.float64).eps * torch.linalg.cond(inner)
+    assert bool((amax(xk - xp) / amax(xp) <= bound).all())
+
+
+@pytest.mark.parametrize("delay,ph", [(3, "auto"), (0, "off")])
+def test_hubbard_l12_sweep_on_card_matches_cpu(cuda_device, delay, ph):
+    cfg = HubbardConfig(L=12, U=4.0, beta=2.0, m=8, s=4, dtype="float64",
+                        ph_symmetry=ph, delay=delay)
+    cpu = HubbardModel(cfg, device="cpu")
+    gpu = HubbardModel(cfg, device=cuda_device)
+    assert gpu.route["update"] == "slice_update_delayed"
+    assert cpu.route["update"] == ("slice_update_delayed" if delay
+                                   else "slice_update")
+    W = 2
+    gen = torch.Generator().manual_seed(12)
+    sc = cpu.init_state(W, gen)
+    sg = WalkerState(*[Stack(*[x.to(cuda_device) for x in leaf])
+                       if isinstance(leaf, Stack) else leaf.to(cuda_device)
+                       for leaf in sc])
+    u = tuple(torch.rand((W, cfg.m, cfg.n_sites), generator=gen,
+                         dtype=torch.float64) for _ in range(2))
+    _kernels.reset_launch_counts()
+    sc, oc = cpu.sweep_pair(sc, measure=True, u01=u)
+    sg, og = gpu.sweep_pair(sg, measure=True,
+                            u01=tuple(x.to(cuda_device) for x in u))
+    torch.cuda.synchronize()
+    K = cfg.n_stack
+    expect = dict.fromkeys(_kernels.LAUNCHES, 0)
+    expect.update({"slice_update_delayed": 2 * cfg.m, "qr_big": 2 * K,
+                   "solve_inner_big": 2 * K, "trinv_big": 2 * K})
+    assert _kernels.LAUNCHES == expect
+    assert torch.equal(sg.field.cpu(), sc.field)
+    assert torch.equal(sg.sign.cpu(), sc.sign)
+    assert float((sg.G.cpu() - sc.G).abs().max()) <= 1e-10
+    _close_on_card(og, oc)

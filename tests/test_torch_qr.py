@@ -11,6 +11,12 @@ Matrices are made with numpy from a seed. Tolerances:
 - f64 ``udv_refactor`` against JAX's on a d graded over 1e+-40: 1e-12
   relative per factor (the d_k/d_j ratio and the V-chain are f64 on both
   sides; JAX's Ozaki path is not taken off the TPU);
+- on an unsorted d the port pre-pivots (puts the columns in order of
+  decreasing d) where JAX keeps the chain's order: both factor the same
+  matrix (U diag(d) V within 1e-12 of M diag(d) V, on a d spread over
+  1e+-3), and on a d spread over 1e+-40 the port's V stays graded (its
+  triangular factor T_jk = R_jk d_k / (R_jj d_j) within |R_jk / R_jj| of
+  the QR of the reordered M) where JAX's V reaches the spread;
 The kernel itself is held against torch.linalg.qr on the card in
 tests/test_torch_kernels_gpu.py.
 """
@@ -70,6 +76,34 @@ def test_udv_refactor_matches_jax_f64():
         np.testing.assert_allclose(a.numpy() / scale, b / scale, rtol=0,
                                    atol=1e-12)
     assert tf.V.dtype == torch.float64 and tf.d.dtype == torch.float64
+
+
+def test_udv_refactor_prepivots_an_unsorted_d():
+    rng = np.random.default_rng(5)
+    M, V = _blocks(6), np.triu(1.0 + rng.uniform(-0.5, 0.5, (B, n, n)))
+    for spread in (3.0, 40.0):
+        d = 10.0 ** rng.uniform(-spread, spread, (B, n))     # unsorted
+        tf = tudv.udv_refactor(torch.as_tensor(M), torch.as_tensor(d),
+                               torch.as_tensor(V))
+        jf = judv.udv_refactor(jnp.asarray(M), jnp.asarray(d),
+                               jnp.asarray(V), compose_dtype=jnp.float64)
+        # V = T P^T V_in with T = diag(1/(R_jj d_j)) R diag(d) of the
+        # sorted d (M P = Q R): T_jk = R_jk d_k / (R_jj d_j), d_k <= d_j,
+        # so |T_jk| <= |R_jk / R_jj|
+        order = np.argsort(-d, kind="stable")
+        T = tf.V.numpy() @ np.linalg.inv(
+            np.take_along_axis(V, order[..., None], axis=-2))
+        R = np.linalg.qr(np.take_along_axis(M, order[:, None, :], axis=-1))[1]
+        bound = np.abs(R / np.diagonal(R, axis1=-2, axis2=-1)[..., None])
+        if spread == 3.0:
+            A = M * d[:, None, :] @ V
+            for f in (tf, jf):
+                got = np.asarray(f.U) * np.asarray(f.d)[:, None, :] \
+                    @ np.asarray(f.V)
+                assert np.abs(got - A).max() <= 1e-12 * np.abs(A).max()
+        else:
+            assert (np.abs(np.triu(T)) <= bound * (1 + 1e-9) + 1e-12).all()
+            assert np.abs(np.asarray(jf.V)).max() > 1e20
 
 
 def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices():

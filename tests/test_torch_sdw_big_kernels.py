@@ -290,7 +290,7 @@ def test_qr_and_solve_routes(n, dtype, one_block):
 
 def test_routes_beyond_the_blocked_kernels_raise():
     for n, dtype in ((520, torch.complex64), (520, torch.complex128),
-                     (136, torch.float64)):
+                     (520, torch.float64)):
         with pytest.raises(ValueError, match="shared-memory"):
             qr.kernel_for(n, dtype)
     with pytest.raises(ValueError, match="shared-memory"):
