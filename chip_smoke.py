@@ -5,7 +5,9 @@ measurements.
     python3 chip_smoke.py      # one card; exits 0 only if every phase passed
 
 Phases (any failure raises, and the script exits non-zero):
-1. build  — nvcc compiles detqmc_tpu_torch/csrc/*.cu for sm_90a;
+1. build  — nvcc compiles detqmc_tpu_torch/csrc/*.cu for sm_90a; then
+   one FP64 tensor-core product (mma.sync m8n8k4, the fragments K8 and
+   K9 are written in) against torch.matmul;
 2. kernels — K1 slice_update, K2 qr, K3 solve_inner, each against its
    plain PyTorch version on the same CUDA tensors at the main-path shapes
    (W = 256, N = 64, C = 1), with stated tolerances, and timed (CUDA
@@ -84,7 +86,8 @@ Phases (any failure raises, and the script exits non-zero):
      solve_inner_big (float64, n = 256, mid-chain inner matrix) and K8-rhs
      + K9 solve_inner_big_rhs (float64, n = 256, B = 5376: both orders of
      every walker's 21 anchors), each against its plain version, timed
-     with it and the library's one call;
+     with it and the library's calls (torch.linalg.solve: five), with
+     K8's and K9's plans and CTAs per SM;
    - path parity: L = 12 f64 m=8 s=4 W=2 on the card and on the CPU with
      the same draws, delay = 3 and delay = 0 with two spin sectors (the
      CPU runs the rank-1 chain, the card K1b): identical fields and signs,
@@ -97,7 +100,11 @@ Phases (any failure raises, and the script exits non-zero):
      same keys, thermalization=2 sweeps=4 jkBlocks=2 timedisplaced=true
      timeseries=true on the card: exit 0, the JAX CLI's files, finite
      results, half filling, one K8-rhs launch; the measurement block's
-     wall time.
+     wall time; then a resume on the card: the same lattice in float64
+     with 16 walkers, 4 measurements uninterrupted against 2 saved and 2
+     resumed by a second CLI run (the CUDA generator's state through
+     checkpoint.py): fields, signs, counters and generator state
+     identical, results within 1e-8.
 
 The second-to-last line is {"kernels": [...]} (every number measured in
 this run; bound_ms is the larger of the kernel's bytes over the HBM rate
@@ -163,6 +170,12 @@ L16_CLI = ["model=hubbard", "L=16", "U=4.0", "mu=0.0", "beta=8.0",
            "dtau=0.1", "s=4", "checkerboard=true", "updateMethod=delayed",
            "delay=16", "walkers=128", "thermalization=2", "sweeps=4",
            "jkBlocks=2", "timedisplaced=true", "timeseries=true"]
+# the CLI resume check: L16_CLI's lattice, float64, 16 walkers, a
+# checkpoint every 2 measurements (2 measurements per block)
+L16_RESUME = ["model=hubbard", "L=16", "U=4.0", "mu=0.0", "beta=8.0",
+              "dtau=0.1", "s=4", "checkerboard=true", "updateMethod=delayed",
+              "delay=16", "walkers=16", "thermalization=2", "jkBlocks=2",
+              "blockMeas=2", "saveInterval=2", "dtype=float64", "rngSeed=7"]
 # K1b bitwise in float64 with two spin sectors and a ragged tail chunk
 # (144 = 28 x 5 + 4)
 K1B_F64_CFG = dict(L=12, U=4.0, beta=2.0, m=8, s=4, dtype="float64",
@@ -177,6 +190,8 @@ K1B_F64_CFG = dict(L=12, U=4.0, beta=2.0, m=8, s=4, dtype="float64",
 # tensor cores, at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 67e12
+# calls of torch.linalg.solve per timing (its time varies most between runs)
+LIBRARY_REPS = 5
 # real operations per complex multiply-add over a real one
 CPLX = 4
 
@@ -347,6 +362,44 @@ def kernel_phase(model, state, gen):
     return out
 
 
+def big_plans(inner) -> str:
+    """', K8 plan (b, tc, nbuf) x CTAs/SM, K9 plan x CTAs/SM' of a K8 route
+    (the CUDA occupancy calculator's count), else ''."""
+    from detqmc_tpu_torch.linalg import _kernels, green_solve, trinv
+
+    B, n, _ = inner.shape
+    if not green_solve.kernel_for(n, inner.dtype).endswith("_big"):
+        return ""
+    sms = _kernels.sm_count(inner.device)
+    p8 = green_solve.big_plan(n, inner.dtype, B, sms)
+    p9 = trinv.plan(n, inner.dtype, B, sms)
+    dev = inner.device
+    k8 = green_solve.blocks_per_sm(n, inner.dtype, p8, device=dev)
+    k9 = trinv.blocks_per_sm(n, inner.dtype, p9, device=dev)
+    return f", K8 plan {p8} x {k8}/SM, K9 plan {p9} x {k9}/SM"
+
+
+def mma_check_phase(device) -> None:
+    """The FP64 tensor-core fragment mapping of K8 and K9 (one warp, one
+    mma.sync m8n8k4) against torch.matmul, before anything built on it."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import tensor_core
+
+    gen = torch.Generator(device=device).manual_seed(884)
+    A, B, C = (torch.randn(shape, generator=gen, dtype=torch.float64,
+                           device=device) for shape in ((8, 4), (4, 8), (8, 8)))
+    D = tensor_core.mma884(A, B, C)
+    ref = tensor_core.mma884_plain(A, B, C)
+    torch.cuda.synchronize()
+    err = float((D - ref).abs().max())
+    tol = 8 * torch.finfo(torch.float64).eps * float(
+        (A.abs() @ B.abs() + C.abs()).max())
+    print(f"mma.sync m8n8k4 f64 fragment mapping: max|D - (A B + C)| = "
+          f"{err:.3e} (tol {tol:.3e}, 8 eps (|A||B| + |C|))")
+    check(err <= tol, f"mma884: {err:.3e} > {tol:.3e}")
+
+
 def diag_solve_phase(title, route, inner, r1):
     """K3 / K3c / K8 + K9 (``route``) against solve_inner_plain on the
     same CUDA tensors: the kernel's normalized residual max|inner X -
@@ -384,9 +437,9 @@ def diag_solve_phase(title, route, inner, r1):
     slow = 3 if n > 128 else 7
     ms = time_ms(lambda: green_solve.solve_inner(inner, r1))
     pms = time_ms(lambda: green_solve.solve_inner_plain(inner, r1), reps=slow)
-    lms = time_ms(lambda: torch.linalg.solve(inner, diag), reps=slow)
+    lms = time_ms(lambda: torch.linalg.solve(inner, diag), reps=LIBRARY_REPS)
     dname = str(inner.dtype)[6:]
-    print(f"{title} {dname} (B={B}, n={n}, cond(inner) "
+    print(f"{title} {dname} (B={B}, n={n}{big_plans(inner)}, cond(inner) "
           f"{float(cond.min()):.2e}..{float(cond.max()):.2e}): "
           f"max|dmid|={abs_err:.3e}, max rel {float(fwd.max()):.3e} (<= n "
           f"eps cond, worst {float((fwd / fbound).max()):.2e} of it), "
@@ -750,7 +803,8 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
     complex128 at the sdw_l4 shapes, bitwise)."""
     import torch
 
-    from detqmc_tpu_torch.linalg import qr, sdw_delayed, sdw_wrap, trinv
+    from detqmc_tpu_torch.linalg import (_kernels, qr, sdw_delayed, sdw_wrap,
+                                        trinv)
     from detqmc_tpu_torch.linalg.udv import _sign_fix, green_inner
 
     cfg = model.cfg
@@ -940,8 +994,10 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
     ims = time_ms(lambda: trinv.trinv(Rp))
     ms = time_ms(lambda: trinv.trinv(Rp, rhs))
     pms = time_ms(lambda: trinv.trinv_plain(Rp, rhs))
-    print(f"K9 trinv_big complex128 (B={Rp.shape[0]}, n={h}, plan "
-          f"{trinv.plan(h, Rp.dtype)}): {'; '.join(msg)} (tol "
+    p9 = trinv.plan(h, Rp.dtype, Rp.shape[0], _kernels.sm_count(Rp.device))
+    print(f"K9 trinv_big complex128 (B={Rp.shape[0]}, n={h}, plan {p9} x "
+          f"{trinv.blocks_per_sm(h, Rp.dtype, p9, device=Rp.device)}/SM): "
+          f"{'; '.join(msg)} (tol "
           f"{K3_BACKWARD}, n eps cond); R^-1 kernel {ims:.4f} ms; on the "
           f"path's right-hand side kernel {ms:.4f} ms, plain "
           f"(solve_triangular, also the library call) {pms:.4f} ms")
@@ -1098,14 +1154,16 @@ def rhs_kernel_phase(title, route, inner, rhs):
     check(bool((fwd <= fbound).all()),
           f"{title}: forward difference beyond n eps cond(inner): "
           f"{float((fwd / fbound).max()):.3e} x the bound")
-    # the plain QR and the LU of thousands of 256 x 256 matrices take
-    # seconds: one timed call there
+    # the plain QR of thousands of 256 x 256 matrices takes seconds: one
+    # timed call there; the library's LU, whose time varies most, five
     slow = 1 if B * n ** 3 > 5e10 else 3 if n > 128 else 7
     ms = time_ms(lambda: green_solve.solve_inner_rhs(inner, rhs))
     pms = time_ms(lambda: green_solve.solve_inner_rhs_plain(inner, rhs),
                   reps=slow)
-    lms = time_ms(lambda: torch.linalg.solve(inner, rhs), reps=slow)
-    print(f"{title} {str(inner.dtype)[6:]} (B={B}, n={n}, cond_F(inner) "
+    lms = time_ms(lambda: torch.linalg.solve(inner, rhs),
+                  reps=max(slow, LIBRARY_REPS))
+    print(f"{title} {str(inner.dtype)[6:]} (B={B}, n={n}{big_plans(inner)}, "
+          f"cond_F(inner) "
           f"{float(cond.min()):.2e}..{float(cond.max()):.2e}): "
           f"max|dX|={abs_err:.3e}, max rel {float(fwd.max()):.3e} (<= n "
           f"eps cond, worst {float((fwd / fbound).max()):.2e} of it), "
@@ -1453,7 +1511,65 @@ def cli_phase():
           f"{timing.total['init']:.3f} s; occupancy {occ!r}, "
           f"{len(res)} finite results, {len(files)} files; launches "
           f"{launched}")
+    cli_resume_check()
     return counts
+
+
+def cli_resume_check() -> None:
+    """A CLI run on the card saved at measurement 2 and resumed by a
+    second CLI run ends where the uninterrupted run ends: the checkpoint
+    carries the CUDA generator's state (checkpoint.py), so the resumed run
+    draws what the uninterrupted one draws. float64 (L16_RESUME), so that
+    G rebuilt from the field on resume agrees with the running G far below
+    any accept decision's margin: fields, signs, counters and the
+    generator's state identical, every result within 1e-8 (relative)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from detqmc_tpu_torch.checkpoint import load_checkpoint
+    from detqmc_tpu_torch.cli.main_hubbard import main as cli_main
+    from detqmc_tpu_torch.io.series import load_results
+
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, split = os.path.join(tmp, "whole"), os.path.join(tmp, "split")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rcs = [cli_main(L16_RESUME + ["sweeps=4", f"outdir={whole}"]),
+                   cli_main(L16_RESUME + ["sweeps=2", f"outdir={split}"])]
+            saved = load_checkpoint(os.path.join(split, "state"))
+            # the same command with sweeps=4 resumes from split/state
+            rcs.append(cli_main(L16_RESUME + ["sweeps=4",
+                                              f"outdir={split}"]))
+        wall = time.perf_counter() - t0
+        check(rcs == [0, 0, 0], f"CLI resume: exit codes {rcs}")
+        check(saved is not None and saved[2]["measurements_done"] == 2,
+              "CLI resume: no checkpoint at measurement 2")
+        (sw, _, mw, gw), (ss, _, ms, gs) = (
+            load_checkpoint(os.path.join(d, "state")) for d in (whole, split))
+        rw, rs = (load_results(os.path.join(d, "results.values"))
+                  for d in (whole, split))
+    check(mw["measurements_done"] == ms["measurements_done"] == 4,
+          f"CLI resume: measurements {mw['measurements_done']}, "
+          f"{ms['measurements_done']}")
+    check(sw.keys() == ss.keys() and all(
+        (sw[k] == ss[k]).all() for k in sw), "CLI resume: the resumed "
+          "run's fields, signs or counters differ from the uninterrupted "
+          f"run's: {[k for k in sw if not (sw[k] == ss[k]).all()]}")
+    check(gw is not None and bool((gw == gs).all()),
+          "CLI resume: generator states differ")
+    check(rw.keys() == rs.keys(), "CLI resume: result names differ")
+    worst = max(abs(a - b) / max(abs(a), 1e-300)
+                for k in rw for a, b in zip(rw[k], rs[k]) if a != b) \
+        if rw != rs else 0.0
+    check(worst <= 1e-8, f"CLI resume: results differ by {worst:.3e}")
+    print(f"CLI resume on the card ({' '.join(L16_RESUME)}): 4 measurements "
+          f"uninterrupted vs saved at 2 and resumed (the CUDA generator "
+          f"state through checkpoint.py): fields, signs, counters and "
+          f"generator state identical ({len(sw)} arrays), {len(rw)} results "
+          f"within {worst:.3e} (tol 1e-8); three CLI runs {wall:.2f} s")
 
 
 def main() -> int:
@@ -1489,6 +1605,7 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             print("  " + line.strip())
 
+    mma_check_phase(device)
     model = HubbardModel(HubbardConfig(**MAIN_CFG), device=device)
     gen = torch.Generator(device=device).manual_seed(1234)
     state = model.init_state(W_MAIN, gen)

@@ -210,7 +210,7 @@ __device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
 }
 
 // ---- blocked Householder for matrices beyond one block's shared memory ----
-// K7 (qr_big.cu) and K8 (green_solve_big.cu) keep their n x n matrices in
+// K7 (qr_big.cu) keeps its n x n matrices in
 // global memory (L2 / HBM) and only a panel, one column tile and the small
 // compact-WY factors in dynamic shared memory, laid out by blocked_smem
 // for a panel width b and a tile width tc (elements of S unless noted):

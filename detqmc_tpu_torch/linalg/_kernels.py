@@ -40,6 +40,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # dynamic shared memory a block may use on Hopper (227 KB); the kernels
 # size theirs exactly and the wrappers refuse shapes beyond it
 MAX_SMEM_BYTES = 232448
+# at most this much, two CTAs share an SM: 2 x (smem + the 1 KB each CTA
+# reserves) within the SM's 228 KB
+TWO_CTA_SMEM_BYTES = 115712
+# the H100 SXM's SM count, for plans computed without a device at hand
+H100_SMS = 132
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C entry point -> argtypes (all return int = cudaError_t)
@@ -82,17 +87,23 @@ _SIGNATURES = {
     "dq_qr_big_f64": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "dq_qr_big_c64": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "dq_qr_big_c128": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
-    # device, inner, r1, mid, work, batch, n, b, tc, stream
-    "dq_solve_inner_big_f64": [_I] + [_P] * 4 + [_I] * 4 + [_P],
-    "dq_solve_inner_big_c128": [_I] + [_P] * 4 + [_I] * 4 + [_P],
-    # device, inner, rhs, out, work, batch, n, b, tc, stream
-    "dq_solve_inner_big_rhs_f64": [_I] + [_P] * 4 + [_I] * 4 + [_P],
-    "dq_solve_inner_big_rhs_c128": [_I] + [_P] * 4 + [_I] * 4 + [_P],
-    # device, R, X, batch, n, b, tc, stream
-    "dq_trinv_big_f32": [_I, _P, _P, _I, _I, _I, _I, _P],
-    "dq_trinv_big_f64": [_I, _P, _P, _I, _I, _I, _I, _P],
-    "dq_trinv_big_c64": [_I, _P, _P, _I, _I, _I, _I, _P],
-    "dq_trinv_big_c128": [_I, _P, _P, _I, _I, _I, _I, _P],
+    # device, inner, r1, mid, work, batch, n, b, tc, nbuf, stream
+    "dq_solve_inner_big_f64": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    "dq_solve_inner_big_c128": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    # device, inner, rhs, out, work, batch, n, b, tc, nbuf, stream
+    "dq_solve_inner_big_rhs_f64": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    "dq_solve_inner_big_rhs_c128": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    # device, R, X, batch, n, b, tc, nbuf, stream
+    "dq_trinv_big_f32": [_I, _P, _P] + [_I] * 5 + [_P],
+    "dq_trinv_big_f64": [_I, _P, _P] + [_I] * 5 + [_P],
+    "dq_trinv_big_c64": [_I, _P, _P] + [_I] * 5 + [_P],
+    "dq_trinv_big_c128": [_I, _P, _P] + [_I] * 5 + [_P],
+    # device, A, B, C, D, stream (one FP64 tensor-core product)
+    "dq_mma884_check": [_I] + [_P] * 5,
+    # CTAs per SM (no launch): device, complex, rhs, n, b, tc, nbuf
+    "dq_solve_inner_big_blocks_per_sm": [_I] * 7,
+    # device, dtype code, n, b, tc, nbuf
+    "dq_trinv_big_blocks_per_sm": [_I] * 6,
 }
 
 LAUNCHES = {"slice_update": 0, "qr": 0, "solve_inner": 0, "sdw_update": 0,
@@ -101,7 +112,8 @@ LAUNCHES = {"slice_update": 0, "qr": 0, "solve_inner": 0, "sdw_update": 0,
             "solve_inner_complex_big": 0, "trinv_big": 0,
             "solve_inner_rhs": 0, "solve_inner_complex_rhs": 0,
             "solve_inner_complex_big_rhs": 0, "slice_update_delayed": 0,
-            "qr_big": 0, "solve_inner_big": 0, "solve_inner_big_rhs": 0}
+            "qr_big": 0, "solve_inner_big": 0, "solve_inner_big_rhs": 0,
+            "mma884": 0}
 
 _lib = None
 build_log = ""          # nvcc's output (-Xptxas -v: registers, smem)
@@ -203,6 +215,32 @@ def launch(kernel: str, entry: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {entry} failed to launch: "
                            f"cudaError {err}")
     LAUNCHES[kernel] += 1
+
+
+def row_pad(dtype) -> int:
+    """Row padding, in elements, of the tensor-core kernels' shared-memory
+    operands (tc_blocked.cuh pad_of): 2 for complex128, else 4."""
+    return 2 if dtype.itemsize == 16 else 4
+
+
+def query(entry: str, device, *ints) -> int:
+    """Call the C query ``entry`` (no launch) on ``device`` with int
+    arguments; raise on a negative (error) result."""
+    import torch
+
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    res = getattr(load(), entry)(index, *ints)
+    if res < 0:
+        raise RuntimeError(f"{entry}{ints}: cudaError {-res}")
+    return res
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_cuda_tensor(name: str, t, dtypes, ndim: int) -> None:

@@ -12,11 +12,12 @@ to diag(r1), then back-substitution, one CTA per matrix. Matrices beyond
 that kernel's shared memory (n > 119 in float64, n > 83 in complex128) go
 to K8, ``csrc/green_solve_big.cu``, the counterpart of pallas_green.py's
 own column-lane kernel (the dispatcher's n > 128 branch) and of
-pallas_cgreen.py (``solve_inner_complex_big``): K7's blocked
-factorization (``qr.big_plan``) applied to diag(r1), the matrices in
-global memory, then the back-substitution by K9 (``linalg/trinv.py``, the
-blocked triangular inverse of pallas_trinv_common.py) on Q^H diag(r1) in
-place: two launches. The dense-RHS twins of these TPU kernels,
+pallas_cgreen.py (``solve_inner_complex_big``): a blocked Householder
+QR on the FP64 tensor cores (``csrc/tc_blocked.cuh``, laid out by
+``big_plan``) applied to diag(r1), the matrices in global memory, then the
+back-substitution by K9 (``linalg/trinv.py``, the blocked triangular
+inverse of pallas_trinv_common.py) on Q^H diag(r1) in place: two
+launches. The dense-RHS twins of these TPU kernels,
 ``solve_inner_lanes_rhs``, ``solve_inner_complex_rhs`` and
 ``solve_inner_complex_big_rhs``, are the ``_rhs`` entries of the same two
 sources (``solve_inner_rhs`` below): the reflectors are applied to the
@@ -48,9 +49,20 @@ from __future__ import annotations
 import torch
 
 from detqmc_tpu_torch.linalg import _kernels, trinv
-from detqmc_tpu_torch.linalg.qr import MAX_N_BIG, big_plan
+from detqmc_tpu_torch.linalg.qr import MAX_N_BIG
 
 MAX_N = 128
+# K8's plans (panel width b, tile width tc, tile buffers nbuf), widest
+# first, for the (b, tc) that csrc/green_solve_big.cu compiles: one CTA per
+# SM, and two per SM (each within _kernels.TWO_CTA_SMEM_BYTES) when the
+# batch has more matrices than the card has SMs
+_BIG_PLANS = {torch.float64: ((32, 16, 2), (16, 16, 2), (16, 16, 1)),
+              torch.complex128: ((16, 8, 2), (8, 8, 2), (8, 8, 1))}
+# complex128 has none: at n = 256 only b = tc = 8 fits twice, and it took
+# 30.2 ms at B = 768 against 24.7 ms for one (16, 8, 2) CTA per SM
+# (solve_timing.py --plans, PERF.md)
+_BIG_PLANS_TWO_CTA = {torch.float64: ((16, 16, 1),),
+                      torch.complex128: ()}
 _KERNELS = {torch.float64: "solve_inner", torch.complex128:
             "solve_inner_complex"}
 # kernel_for's name -> the C entries with diag(r1) and with a dense RHS
@@ -86,6 +98,44 @@ def smem_bytes(n: int, dtype=torch.float64) -> int:
     return item * (2 * n * (n + 1) + 3 * n)
 
 
+def vh_slices(b: int, w: int) -> int:
+    """tc_blocked.cuh vh_slices: k-slices of a b x w product."""
+    frags = (b // 8) * (w // 8)
+    return 1 if frags >= 8 else 8 // frags
+
+
+def big_smem_bytes(n: int, dtype, b: int, tc: int, nbuf: int) -> int:
+    """Dynamic shared memory of K8 (tc_blocked.cuh tc_smem_bytes: the
+    reflectors' beta are real)."""
+    item, real_item = dtype.itemsize, dtype.to_real().itemsize
+    np_, pad = -(-n // 8) * 8, _kernels.row_pad(dtype)
+    part = max(vh_slices(b, tc) * b * (tc + pad), vh_slices(b, b) * b * (b + pad))
+    elems = (np_ * (b + pad) + nbuf * np_ * (tc + pad) + part + b * (tc + pad)
+             + b * b + 3 * b)
+    return item * elems + real_item * b
+
+
+def big_plan(n: int, dtype, batch: int = 1, sms: int = _kernels.H100_SMS):
+    """(b, tc, nbuf) of K8 at this n, dtype and batch: with more matrices
+    than SMs, the widest two-CTA plan that fits; else (or if none fits)
+    the widest one-CTA plan within the shared-memory budget."""
+    if batch > sms:
+        for plan in _BIG_PLANS_TWO_CTA[dtype]:
+            if big_smem_bytes(n, dtype, *plan) <= _kernels.TWO_CTA_SMEM_BYTES:
+                return plan
+    for plan in _BIG_PLANS[dtype]:
+        if big_smem_bytes(n, dtype, *plan) <= _kernels.MAX_SMEM_BYTES - 1024:
+            return plan
+    raise ValueError(f"n={n} {dtype} exceeds K8's shared-memory budget")
+
+
+def blocks_per_sm(n: int, dtype, plan, rhs: bool = False, device="cuda") -> int:
+    """CTAs of K8 (``rhs``: K8-rhs) one SM of ``device`` holds at this
+    plan, as the CUDA occupancy calculator reports it."""
+    return _kernels.query("dq_solve_inner_big_blocks_per_sm", device,
+                          int(dtype == torch.complex128), int(rhs), n, *plan)
+
+
 def kernel_for(n: int, dtype) -> str:
     """The kernel a CUDA tensor of this size and dtype goes to:
     "solve_inner"/"solve_inner_complex" (K3/K3c, one CTA in shared
@@ -100,11 +150,12 @@ def kernel_for(n: int, dtype) -> str:
                      f"budget of K3 / K3c and n > {MAX_N_BIG} (K8)")
 
 
-def _solve(inner, M, rhs: bool):
+def _solve(inner, M, rhs: bool, plan=None, plan9=None):
     """inner^{-1} diag(M) (M = r1, (B, n) float64) or, with ``rhs``,
     inner^{-1} M (M (B, n, n) of inner's dtype) on CUDA tensors: checks,
     routes by ``kernel_for`` and launches, or raises. K8's and K8-rhs's
-    back-substitution is K9, in place on Q^H M."""
+    back-substitution is K9, in place on Q^H M. ``plan`` / ``plan9``
+    override ``big_plan`` / ``trinv.plan`` (to time other layouts)."""
     _kernels.check_cuda_tensor("inner", inner, tuple(_KERNELS), 3)
     if rhs:
         _kernels.check_cuda_tensor("rhs", M, (inner.dtype,), 3)
@@ -120,9 +171,10 @@ def _solve(inner, M, rhs: bool):
     out = torch.empty_like(inner)
     if route.endswith("_big"):
         work = torch.empty_like(inner)
-        _kernels.launch(kernel, c_entry, inner, M, out, work, B, n,
-                        *big_plan(n, inner.dtype))
-        trinv.trinv_(work, out)         # R^{-1} (Q^H M)
+        plan = plan or big_plan(n, inner.dtype, B,
+                                _kernels.sm_count(inner.device))
+        _kernels.launch(kernel, c_entry, inner, M, out, work, B, n, *plan)
+        trinv.trinv_(work, out, plan9)  # R^{-1} (Q^H M)
     else:
         _kernels.launch(kernel, c_entry, inner, M, out, B, n)
     return out

@@ -53,7 +53,7 @@ def smem_bytes(n: int, dtype) -> int:
 
 
 def big_smem_bytes(n: int, dtype, b: int, tc: int) -> int:
-    """Dynamic shared memory of K7 and K8 (common.cuh
+    """Dynamic shared memory of K7 (common.cuh
     blocked_smem_bytes: the reflectors' beta are real)."""
     item, real_item = dtype.itemsize, dtype.to_real().itemsize
     return item * (n * (b + 1) + n * (tc + 1) + 2 * b * tc + 2 * b * b
@@ -61,7 +61,7 @@ def big_smem_bytes(n: int, dtype, b: int, tc: int) -> int:
 
 
 def big_plan(n: int, dtype):
-    """(b, tc) of the blocked kernels K7 / K8 at this n and dtype: the
+    """(b, tc) of the blocked kernel K7 at this n and dtype: the
     widest panel and tile within the shared-memory budget (every
     n <= MAX_N_BIG fits one of them)."""
     for b, tc in _BIG_PLANS:

@@ -46,8 +46,9 @@ the ``_all`` variants wrap between anchors to every slice, and
 ``measure_current_correlators`` reduce them. Walkers lead, then the
 anchor (or slice) axis, then the spin component.
 
-Not ported yet (ROADMAP.md Queue 1 item 7): log_weight, the naive
-sweep_simple cross-check, host_chain_sign.
+Not ported yet: log_weight (ROADMAP.md Queue 1 item 10, with parallel
+tempering), the naive sweep_simple cross-check (item 4's cross-checks);
+host_chain_sign is not ported (item 12).
 """
 
 from __future__ import annotations

@@ -106,8 +106,8 @@ def test_real_solve_routes(n, route):
         assert kernel in _kernels.LAUNCHES and entry in _kernels._SIGNATURES
     if route == "solve_inner_big":
         # K9, the back-substitution, fits its shared memory there too
-        b, tc = trinv.plan(n, torch.float64)
-        assert trinv.smem_bytes(n, torch.float64, b, tc) <= \
+        b, tc, nbuf = trinv.plan(n, torch.float64)
+        assert trinv.smem_bytes(n, torch.float64, b, tc, nbuf) <= \
             _kernels.MAX_SMEM_BYTES - 1024
 
 
@@ -126,3 +126,71 @@ def test_real_routes_refuse_beyond_the_blocked_kernels():
     assert qr.big_smem_bytes(n, torch.float32, b, tc) == 4 * elems + 4 * b
     assert qr.big_smem_bytes(n, torch.complex128, b, tc) == \
         16 * elems + 8 * b
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("batch", [1, 128, 5376])
+def test_k8_k9_plans_fit_shared_memory(dtype, batch):
+    # every n that K8 takes gets a K8 and a K9 layout within one block's
+    # 227 KB; a batch with more matrices than SMs gets K8's two-CTA layout
+    # (<= 113 KB) where the design says so: n = 256 in float64 (complex128
+    # keeps one CTA per SM, whose two-CTA layout measured slower); K9 goes
+    # two-CTA wherever its grid has waves and a plan fits
+    sms = _kernels.H100_SMS
+    for n in range(129, 513):
+        b, tc, nbuf = green_solve.big_plan(n, dtype, batch, sms)
+        assert (b, tc, nbuf) in green_solve._BIG_PLANS[dtype] + \
+            green_solve._BIG_PLANS_TWO_CTA[dtype]
+        smem = green_solve.big_smem_bytes(n, dtype, b, tc, nbuf)
+        assert smem <= _kernels.MAX_SMEM_BYTES - 1024
+        # the panel is factored in the tile buffers: they must hold it
+        assert nbuf * (tc + _kernels.row_pad(dtype)) >= b + 1
+        two = [p for p in green_solve._BIG_PLANS_TWO_CTA[dtype]
+               if green_solve.big_smem_bytes(n, dtype, *p)
+               <= _kernels.TWO_CTA_SMEM_BYTES]
+        if batch > sms and two:
+            assert (b, tc, nbuf) == two[0]
+        b9, tc9, nbuf9 = trinv.plan(n, dtype, batch, sms)
+        smem9 = trinv.smem_bytes(n, dtype, b9, tc9, nbuf9)
+        assert smem9 <= _kernels.MAX_SMEM_BYTES - 1024
+        assert b9 % 8 == 0 and b9 <= 32 and tc9 in (8, 16, 32)
+        if batch * -(-n // tc9) > sms and any(
+                trinv.smem_bytes(n, dtype, *p) <= _kernels.TWO_CTA_SMEM_BYTES
+                for p in trinv._PLANS):
+            assert smem9 <= _kernels.TWO_CTA_SMEM_BYTES
+    plan = green_solve.big_plan(256, dtype, batch, sms)
+    two_cta = green_solve.big_smem_bytes(256, dtype, *plan) <= \
+        _kernels.TWO_CTA_SMEM_BYTES
+    assert two_cta == (batch > sms and dtype == torch.float64)
+
+
+def test_k8_k9_smem_mirrors():
+    # green_solve.big_smem_bytes mirrors tc_blocked.cuh tc_smem_bytes and
+    # trinv.smem_bytes trinv_big.cu trinv_smem_bytes: float64 pads rows by
+    # 4, complex128 by 2; the reflectors' beta count in the real type
+    n, b, tc = 256, 32, 16
+    part = max(1 * b * (tc + 4), 1 * b * (b + 4))
+    elems = n * (b + 4) + 2 * n * (tc + 4) + part + b * (tc + 4) + b * b + 3 * b
+    assert green_solve.big_smem_bytes(n, torch.float64, b, tc, 2) == \
+        8 * elems + 8 * b
+    n, b, tc = 255, 8, 8      # np = 256; 8 k-slices of one 8 x 8 fragment
+    part = 8 * b * (tc + 2)
+    elems = 256 * (b + 2) + 256 * (tc + 2) + part + b * (tc + 2) + b * b + 3 * b
+    assert green_solve.big_smem_bytes(n, torch.complex128, b, tc, 1) == \
+        16 * elems + 8 * b
+    assert trinv.smem_bytes(300, torch.float32, 16, 32, 2) == 4 * (
+        304 * 36 + 2 * 304 * 20)
+    assert trinv.smem_bytes(256, torch.complex128, 8, 16, 1) == 16 * (
+        256 * 18 + 256 * 10)
+
+
+def test_k7_plan_is_unchanged():
+    # K7 (qr_big.cu, householder_blocked) keeps its own plan: (32, 16)
+    # everywhere but complex128 from n = 227 (16, 16) and 395 (16, 8)
+    for dtype in (torch.float32, torch.float64, torch.complex64):
+        assert {qr.big_plan(n, dtype) for n in range(84, 513)} == {(32, 16)}
+    for n in range(84, 513):
+        assert qr.big_plan(n, torch.complex128) == (
+            (32, 16) if n < 227 else (16, 16) if n < 395 else (16, 8))
+    assert qr.big_smem_bytes(256, torch.complex128, 16, 16) == 156288
+    assert qr.big_smem_bytes(256, torch.float64, 32, 16) == 127744

@@ -64,6 +64,20 @@ Tolerances (same inputs, same card):
   tolerances after the sign fix, R's strict lower triangle exactly zero;
 - K8 + K9 and K8-rhs + K9 in float64 on a Hubbard chain's inner matrices
   (n = 144 and 256): the K3 criteria, one K8 and one K9 launch each;
+- the FP64 tensor-core fragment (mma.sync m8n8k4, the lane -> (row, col)
+  mapping that K8 and K9 are written in) against torch.matmul within
+  8 eps (|A||B| + |C|);
+- K8 + K9 and K8-rhs + K9 redesigned (tensor-core trailing updates,
+  cp.async tiles, two CTAs per SM on batches with waves), float64 and
+  complex128, n = 120 ... 512 (ragged n, panels and tiles), B = 1, 133 and
+  300, on graded inner matrices at cond ~1e11: the K3 criteria, one K8 and
+  one K9 launch each; every compiled K8 plan at n = 256; the two-CTA
+  plans held twice per SM by the occupancy calculator;
+- K9 at every plan that fits (float64, complex128, n = 256), and with an
+  exactly zero R_jj in all four dtypes (the guarded reciprocal, against a
+  column-by-column back-substitution with the same rule): within 1e-12
+  (float64, complex128) / 1e-4 (float32, complex64) of each column's
+  largest entry;
 - Hubbard sweep pairs at L = 12 on the card against the CPU (f64) with
   delay = 3 (K1b, particle-hole mode) and delay = 0 (two spin sectors: the
   CPU runs the rank-1 chain, the card K1b, as N = 144 exceeds K1):
@@ -696,3 +710,164 @@ def test_hubbard_l12_sweep_on_card_matches_cpu(cuda_device, delay, ph):
     assert torch.equal(sg.sign.cpu(), sc.sign)
     assert float((sg.G.cpu() - sc.G).abs().max()) <= 1e-10
     _close_on_card(og, oc)
+
+
+def test_mma884_fragment_mapping(cuda_device):
+    from detqmc_tpu_torch.linalg import tensor_core
+
+    gen = torch.Generator(cuda_device).manual_seed(884)
+    A, B, C = (torch.randn(shape, generator=gen, dtype=torch.float64,
+                           device=cuda_device)
+               for shape in ((8, 4), (4, 8), (8, 8)))
+    _kernels.reset_launch_counts()
+    D = tensor_core.mma884(A, B, C)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["mma884"] == 1
+    tol = 8 * torch.finfo(torch.float64).eps * float(
+        (A.abs() @ B.abs() + C.abs()).max())
+    assert float((D - (A @ B + C)).abs().max()) <= tol
+    # each entry lands where the mapping says: one-hot A and B
+    for i, j in ((0, 0), (3, 5), (7, 2)):
+        Ae = torch.zeros_like(A)
+        Be = torch.zeros_like(B)
+        Ae[i, 1], Be[1, j] = 1.0, 1.0
+        D = tensor_core.mma884(Ae, Be, torch.zeros_like(C))
+        E = torch.zeros_like(C)
+        E[i, j] = 1.0
+        assert torch.equal(D, E)
+
+
+def _graded_inner(B, n, dtype, device, seed, cond=1e11):
+    """U diag(s) P with U Haar-random, s graded from 1 to 1/cond (the
+    condition of the mid-chain inner matrices) and P a random signed
+    permutation: its condition is known, no SVD needed."""
+    gen = torch.Generator(device).manual_seed(seed)
+    U = torch.linalg.qr(torch.randn((B, n, n), generator=gen, dtype=dtype,
+                                    device=device)).Q
+    s = torch.logspace(0, -float(np.log10(cond)), n, dtype=torch.float64,
+                       device=device).to(dtype)
+    perm = torch.randperm(n, generator=gen, device=device)
+    sign = torch.where(torch.rand(n, generator=gen, device=device) < 0.5,
+                       -1.0, 1.0).to(dtype)
+    return ((U * (s * sign))[:, :, perm]).contiguous(), gen
+
+
+def _check_k8(inner, gen, rhs, plan=None, cond=1e11):
+    B, n, _ = inner.shape
+    dtype = inner.dtype
+    route = green_solve.kernel_for(n, dtype)
+    assert route.endswith("_big")
+    kernel, _ = green_solve.entry(route, rhs)
+    if rhs:
+        M = torch.randn((B, n, n), generator=gen, dtype=dtype,
+                        device=inner.device)
+        B0 = M
+    else:
+        M = torch.rand((B, n), generator=gen, dtype=torch.float64,
+                       device=inner.device) + 0.1
+        B0 = torch.diag_embed(M).to(dtype)
+    _kernels.reset_launch_counts()
+    xk = green_solve._solve(inner, M, rhs, plan=plan)
+    torch.cuda.synchronize()
+    expect = dict.fromkeys(_kernels.LAUNCHES, 0)
+    expect.update({kernel: 1, "trinv_big": 1})
+    assert _kernels.LAUNCHES == expect
+    xp = (green_solve.solve_inner_rhs_plain(inner, M) if rhs
+          else green_solve.solve_inner_plain(inner, M))
+    amax = lambda X: X.abs().amax((1, 2))                       # noqa: E731
+    res = amax(inner @ xk - B0) / (n * amax(inner) * amax(xk))
+    assert float(res.max()) < 1e-13
+    bound = n * torch.finfo(torch.float64).eps * cond
+    assert bool((amax(xk - xp) / amax(xp) <= bound).all())
+
+
+@pytest.mark.parametrize("batch", [1, 133, 300])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("n", [120, 136, 200, 255, 256, 384, 512])
+def test_k8_redesign_matches_plain(cuda_device, n, dtype, batch):
+    inner, gen = _graded_inner(batch, n, dtype, cuda_device, n + batch)
+    for rhs in (False, True):
+        _check_k8(inner, gen, rhs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_k8_every_plan_matches_plain(cuda_device, dtype):
+    inner, gen = _graded_inner(3, 256, dtype, cuda_device, 7)
+    plans = set(green_solve._BIG_PLANS[dtype]
+                + green_solve._BIG_PLANS_TWO_CTA[dtype])
+    for plan in sorted(plans):
+        if green_solve.big_smem_bytes(256, dtype, *plan) <= \
+                _kernels.MAX_SMEM_BYTES - 1024:
+            for rhs in (False, True):
+                _check_k8(inner, gen, rhs, plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_two_cta_plans_fit_twice(cuda_device, dtype):
+    sms = _kernels.sm_count(cuda_device)
+    for plan in green_solve._BIG_PLANS_TWO_CTA[dtype] + (
+            (8, 8, 1),) * (dtype == torch.complex128):
+        if dtype == torch.float64:
+            assert green_solve.big_plan(256, dtype, 2 * sms, sms) == plan
+        for rhs in (False, True):
+            assert green_solve.blocks_per_sm(256, dtype, plan, rhs,
+                                             cuda_device) >= 2
+    assert green_solve.blocks_per_sm(
+        256, dtype, green_solve.big_plan(256, dtype, 1, sms),
+        device=cuda_device) >= 1
+    p9 = trinv.plan(256, dtype, 2 * sms, sms)
+    assert trinv.smem_bytes(256, dtype, *p9) <= _kernels.TWO_CTA_SMEM_BYTES
+    assert trinv.blocks_per_sm(256, dtype, p9, cuda_device) >= 2
+
+
+def _triangle(B, n, dtype, device, seed):
+    gen = torch.Generator(device).manual_seed(seed)
+    eye = torch.eye(n, dtype=dtype, device=device)
+    grade = torch.exp(torch.linspace(0.0, -4.0, n, device=device))
+    A = (eye + 0.5 * torch.randn((B, n, n), generator=gen, dtype=dtype,
+                                 device=device) / n ** 0.5) * grade
+    return torch.linalg.qr(A).R.contiguous(), gen
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_trinv_every_plan_matches_plain(cuda_device, dtype):
+    n = 256
+    R, gen = _triangle(3, n, dtype, cuda_device, 9)
+    X = torch.randn((3, n, n), generator=gen, dtype=dtype, device=cuda_device)
+    ref = trinv.trinv_plain(R, X)
+    col = ref.abs().amax(-2, keepdim=True).clamp_min(1e-30)
+    for plan in trinv._PLANS:
+        if trinv.smem_bytes(n, dtype, *plan) > _kernels.MAX_SMEM_BYTES - 1024:
+            continue
+        got = X.clone()
+        trinv.trinv_(R, got, plan)
+        torch.cuda.synchronize()
+        assert float(((got - ref).abs() / col).max()) <= 1e-12, plan
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-4), (torch.float64, 1e-12), (torch.complex64, 1e-4),
+    (torch.complex128, 1e-12)])
+@pytest.mark.parametrize("batch", [2, 133])
+def test_trinv_zero_diagonal_is_guarded(cuda_device, dtype, tol, batch):
+    # an exactly zero R_jj takes pallas_trinv_common.py's guarded
+    # reciprocal: 1 / (0 + 1) in the real case, 0 in the complex one
+    n = 136
+    R, gen = _triangle(batch, n, dtype, cuda_device, batch)
+    R[:, 50, 50] = 0.0
+    X = torch.randn((batch, n, n), generator=gen, dtype=dtype,
+                    device=cuda_device)
+    got = trinv.trinv(R, X)
+    Rd = R.to(torch.complex128 if dtype.is_complex else torch.float64)
+    ref = X.to(Rd.dtype).clone()
+    d = torch.diagonal(Rd, dim1=-2, dim2=-1)
+    safe = torch.where(d == 0, torch.ones_like(d), d)
+    inv = torch.where(d == 0, torch.zeros_like(d) if dtype.is_complex
+                      else torch.ones_like(d), 1.0 / safe)
+    for j in range(n - 1, -1, -1):
+        ref[:, j, :] *= inv[:, j, None]
+        ref[:, :j, :] -= Rd[:, :j, j, None] * ref[:, j, None, :]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    col = ref.abs().amax(-2, keepdim=True).clamp_min(1e-30)
+    assert float(((got.to(ref.dtype) - ref).abs() / col).max()) <= tol

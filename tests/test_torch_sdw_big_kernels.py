@@ -284,8 +284,9 @@ def test_qr_and_solve_routes(n, dtype, one_block):
             "solve_inner_complex" if one_block else "solve_inner_complex_big")
     b, tc = qr.big_plan(n, dtype)
     assert qr.big_smem_bytes(n, dtype, b, tc) <= 232448 - 1024
-    b, tc = trinv.plan(n, dtype)
-    assert b <= 32 and trinv.smem_bytes(n, dtype, b, tc) <= 232448 - 1024
+    b, tc, nbuf = trinv.plan(n, dtype)
+    assert b <= 32 and trinv.smem_bytes(n, dtype, b, tc, nbuf) <= \
+        232448 - 1024
 
 
 def test_routes_beyond_the_blocked_kernels_raise():
