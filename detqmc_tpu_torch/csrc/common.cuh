@@ -144,6 +144,51 @@ __device__ __forceinline__ cplx<T> warp_sum(cplx<T> v) {
     return mk(warp_sum(v.re), warp_sum(v.im));
 }
 
+// ---- the phase probe ------------------------------------------------------
+// A kernel instantiated with a probe on (ON = true) sums clock64() deltas
+// per phase as thread 0 of each CTA sees them and writes, per CTA, the P
+// phase sums, the CTA's total cycles and its total nanoseconds on the
+// global timer (so the host converts cycles to time at the clock the run
+// had). With ON = false every member is empty: the production instance
+// carries no stamps.
+template <bool ON, int P>
+struct Probe {
+    long long t = 0, t0 = 0, ns0 = 0, acc[ON ? P : 1] = {};
+    __device__ __forceinline__ static long long globaltimer() {
+        long long ns = 0;
+#if defined(__CUDA_ARCH__)
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+#endif
+        return ns;
+    }
+    __device__ __forceinline__ void start() {
+        if constexpr (ON) {
+            ns0 = globaltimer();
+            t0 = t = clock64();
+        }
+    }
+    // close the current phase, charging its cycles to `phase`
+    __device__ __forceinline__ void lap(int phase) {
+        if constexpr (ON) {
+            const long long now = clock64();
+            acc[phase] += now - t;
+            t = now;
+        }
+    }
+    // out: per CTA P + 2 values (phases, total cycles, total ns)
+    __device__ __forceinline__ void store(long long* out) {
+        if constexpr (ON) {
+            const long long now = clock64(), ns = globaltimer();
+            if (threadIdx.x == 0) {
+                long long* o = out + size_t(blockIdx.x) * (P + 2);
+                for (int p = 0; p < P; ++p) o[p] = acc[p];
+                o[P] = now - t0;
+                o[P + 1] = ns - ns0;
+            }
+        }
+    }
+};
+
 // Householder QR of the n x n matrix A (shared memory, row stride ld),
 // applying every reflector H_j = I - beta v v^H from the left to the
 // companion matrix C (n x n, stride ld) as it goes:
@@ -158,8 +203,14 @@ __device__ __forceinline__ cplx<T> warp_sum(cplx<T> v) {
 // column, lanes striding the rows; the rank-1 updates go one thread per
 // element, a row's columns on neighbouring threads. Row stride ld = n+1
 // keeps the column walks free of shared-memory bank conflicts.
-template <typename S>
-__device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
+// The phase probe's phases of householder_apply and of the one-CTA solves
+// (green_solve.cu): v and its norm, the reflector's application (A and
+// the companion together: their loops interleave), the back-substitution,
+// the barriers, the loads and stores.
+enum { kHhPanel, kHhApply, kHhBacksub, kHhBarrier, kHhLoadStore, kHhPhases };
+
+template <typename S, typename PR>
+__device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld, PR& probe) {
     using R = typename real_of<S>::type;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     __shared__ S alpha_s;
@@ -167,7 +218,9 @@ __device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
     for (int j = 0; j < n; ++j) {
         for (int k = tid; k < n; k += kThreads)
             v[k] = k >= j ? A[k * ld + j] : from_real<S>(R(0));
+        probe.lap(kHhPanel);
         __syncthreads();
+        probe.lap(kHhBarrier);
         if (warp == 0) {
             R p = 0;
             for (int k = j + lane; k < n; k += 32) p += abs2(v[k]);
@@ -186,7 +239,9 @@ __device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
                 beta_s = R(2) / (vtv == R(0) ? R(1) : vtv);
             }
         }
+        probe.lap(kHhPanel);
         __syncthreads();
+        probe.lap(kHhBarrier);
         const R beta = beta_s;
         const int na = n - j - 1;          // trailing columns of A
         for (int col = warp; col < na + n; col += kWarps) {
@@ -197,7 +252,9 @@ __device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
             p = warp_sum(p);
             if (lane == 0) s[col] = beta * p;
         }
+        probe.lap(kHhApply);
         __syncthreads();
+        probe.lap(kHhBarrier);
         const int width = na + n, rows = n - j;
         for (int idx = tid; idx < rows * width; idx += kThreads) {
             const int k = j + idx / width, col = idx % width;
@@ -205,8 +262,16 @@ __device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
             else          C[k * ld + col - na] -= v[k] * s[col];
         }
         if (tid == 0) A[j * ld + j] = alpha_s;
+        probe.lap(kHhApply);
         __syncthreads();
+        probe.lap(kHhBarrier);
     }
+}
+
+template <typename S>
+__device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
+    Probe<false, 1> none;
+    householder_apply(A, C, v, s, n, ld, none);
 }
 
 // ---- blocked Householder for matrices beyond one block's shared memory ----

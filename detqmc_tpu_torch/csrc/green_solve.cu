@@ -34,11 +34,11 @@
 namespace dq {
 
 // Steps 1 and 2 on A and M resident in shared memory, then M -> out.
-template <typename S>
+template <typename S, typename PR>
 __device__ void solve_resident(S* A, S* M, S* v, S* s, S* __restrict__ out,
-                               int n, int ld) {
+                               int n, int ld, PR& probe) {
     const int tid = threadIdx.x;
-    householder_apply(A, M, v, s, n, ld);
+    householder_apply(A, M, v, s, n, ld, probe);
     for (int c = tid; c < n; c += kThreads) {
         for (int j = n - 1; j >= 0; --j) {
             S acc = M[j * ld + c];
@@ -46,11 +46,14 @@ __device__ void solve_resident(S* A, S* M, S* v, S* s, S* __restrict__ out,
             M[j * ld + c] = div_s(acc, A[j * ld + j]);
         }
     }
+    probe.lap(kHhBacksub);
     __syncthreads();
+    probe.lap(kHhBarrier);
     for (int idx = tid; idx < n * n; idx += kThreads) {
         const int r = idx / n, c = idx - r * n;
         out[idx] = M[r * ld + c];
     }
+    probe.lap(kHhLoadStore);
 }
 
 // Shared-memory layout: A and M (n x ld each), then v (n) and s (2n).
@@ -80,14 +83,17 @@ solve_inner_kernel(const S* __restrict__ inner, const double* __restrict__ r1,
         sm.M[r * ld + c] = from_real<S>(r == c ? r1b[c] : 0.0);
     }
     __syncthreads();
-    solve_resident(sm.A, sm.M, sm.v, sm.s, mid + off, n, ld);
+    Probe<false, 1> none;
+    solve_resident(sm.A, sm.M, sm.v, sm.s, mid + off, n, ld, none);
 }
 
-template <typename S>
+template <typename S, bool PROBE>
 __global__ void __launch_bounds__(kThreads)
 solve_inner_rhs_kernel(const S* __restrict__ inner, const S* __restrict__ rhs,
-                       S* __restrict__ out, int n) {
+                       S* __restrict__ out, int n, long long* probe_out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
+    Probe<PROBE, kHhPhases> probe;
+    probe.start();
     const int ld = n + 1;
     SolveSmem<S> sm(smem_raw, n);
     const size_t off = size_t(blockIdx.x) * n * n;
@@ -96,8 +102,11 @@ solve_inner_rhs_kernel(const S* __restrict__ inner, const S* __restrict__ rhs,
         sm.A[r * ld + c] = inner[off + idx];
         sm.M[r * ld + c] = rhs[off + idx];
     }
+    probe.lap(kHhLoadStore);
     __syncthreads();
-    solve_resident(sm.A, sm.M, sm.v, sm.s, out + off, n, ld);
+    probe.lap(kHhBarrier);
+    solve_resident(sm.A, sm.M, sm.v, sm.s, out + off, n, ld, probe);
+    probe.store(probe_out);
 }
 
 // mirrored by linalg/green_solve.py smem_bytes
@@ -118,11 +127,11 @@ int solve_inner(int device, const void* inner, const void* r1, void* mid,
 
 template <typename S>
 int solve_inner_rhs(int device, const void* inner, const void* rhs, void* out,
-                    int batch, int n, void* stream) {
-    return launch_smem(device, solve_inner_rhs_kernel<S>, batch,
-                       solve_smem_bytes<S>(n), stream,
+                    int batch, int n, void* stream, long long* probe = nullptr) {
+    auto kernel = probe ? solve_inner_rhs_kernel<S, true> : solve_inner_rhs_kernel<S, false>;
+    return launch_smem(device, kernel, batch, solve_smem_bytes<S>(n), stream,
                        static_cast<const S*>(inner), static_cast<const S*>(rhs),
-                       static_cast<S*>(out), n);
+                       static_cast<S*>(out), n, probe);
 }
 
 }  // namespace dq
@@ -150,6 +159,23 @@ int dq_solve_inner_rhs_c128(int device, const void* inner, const void* rhs,
                             void* out, int batch, int n, void* stream) {
     return dq::solve_inner_rhs<dq::cplx<double>>(device, inner, rhs, out,
                                                  batch, n, stream);
+}
+
+// the f64 dense-RHS solve with the phase probe on: probe (batch x 7
+// int64) gets each CTA's cycles per phase (panel, apply, back-substitution,
+// barriers, loads and stores), its total cycles and its total ns
+int dq_solve_inner_rhs_probe_f64(int device, const void* inner, const void* rhs,
+                                 void* out, int batch, int n, void* probe,
+                                 void* stream) {
+    return dq::solve_inner_rhs<double>(device, inner, rhs, out, batch, n, stream,
+                                       static_cast<long long*>(probe));
+}
+
+int dq_solve_inner_rhs_probe_c128(int device, const void* inner, const void* rhs,
+                                  void* out, int batch, int n, void* probe,
+                                  void* stream) {
+    return dq::solve_inner_rhs<dq::cplx<double>>(device, inner, rhs, out, batch, n,
+                                                 stream, static_cast<long long*>(probe));
 }
 
 }  // extern "C"

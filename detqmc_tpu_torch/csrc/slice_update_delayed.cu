@@ -47,13 +47,18 @@ namespace dq {
 
 constexpr int kUnroll = 8;   // G entries per thread in flight in the flush
 
-template <typename T>
+// the phase probe's phases (Probe, common.cuh)
+enum { kGather, kDecide, kSlot, kBarrier, kFlush, kCopy, kPhases };
+
+template <typename T, bool PROBE>
 __global__ void __launch_bounds__(kThreads)
 slice_update_delayed_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
                             const T* __restrict__ u01, const T* __restrict__ sign_in,
                             T* G_out, T* __restrict__ field_out,
                             T* __restrict__ sign_out, T* __restrict__ acc_out,
-                            int C, int N, int k, T alpha) {
+                            int C, int N, int k, T alpha, long long* probe_out) {
+    Probe<PROBE, kPhases> probe;
+    probe.start();
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* U = reinterpret_cast<T*>(smem_raw);   // C*k*N
     T* Wb = U + size_t(C) * k * N;           // C*k*N
@@ -87,7 +92,9 @@ slice_update_delayed_kernel(const T* __restrict__ G_in, const T* __restrict__ fi
         uni[idx] = u01[wk * N + idx];
     }
     if (tid == 0) { sign_s = sign_in[wk]; acc_s = T(0); }
+    probe.lap(kCopy);
     __syncthreads();
+    probe.lap(kBarrier);
 
     for (int i0 = 0; i0 < N; i0 += k) {
         const int kc = min(k, N - i0);
@@ -109,7 +116,9 @@ slice_update_delayed_kernel(const T* __restrict__ G_in, const T* __restrict__ fi
                 Uc[nk * N + a] = col;
                 Wc[nk * N + a] = row;
             }
+            probe.lap(kGather);
             __syncthreads();
+            probe.lap(kBarrier);
             if (tid == 0) {
                 const T s_i = fld[i];
                 T delta[2], R[2];
@@ -131,7 +140,9 @@ slice_update_delayed_kernel(const T* __restrict__ G_in, const T* __restrict__ fi
                     acc_s = acc_s + T(1);
                 }
             }
+            probe.lap(kDecide);
             __syncthreads();
+            probe.lap(kBarrier);
             if (accept_s) {                  // block-uniform
                 for (int idx = tid; idx < C * N; idx += kThreads) {
                     const int c = idx / N, a = idx - c * N;
@@ -141,7 +152,9 @@ slice_update_delayed_kernel(const T* __restrict__ G_in, const T* __restrict__ fi
                     Wc[a] = a == i ? add_rn(-Wc[a], T(1)) : -Wc[a];
                 }
                 ++nk;
+                probe.lap(kSlot);
                 __syncthreads();
+                probe.lap(kBarrier);
             }
         }
         // flush: G_c += sum_slots U_c[slot] (x) Wb_c[slot], slot by slot;
@@ -169,7 +182,9 @@ slice_update_delayed_kernel(const T* __restrict__ G_in, const T* __restrict__ fi
                     G[idx] = v[q];
                 }
             }
+            probe.lap(kFlush);
             __syncthreads();
+            probe.lap(kBarrier);
         }
     }
 
@@ -178,20 +193,23 @@ slice_update_delayed_kernel(const T* __restrict__ G_in, const T* __restrict__ fi
         sign_out[wk] = sign_s;
         acc_out[wk] = div_rn(acc_s, T(N));
     }
+    probe.store(probe_out);
 }
 
 template <typename T>
 int slice_update_delayed(int device, const void* G, const void* field, const void* u01,
                          const void* sign, void* G_out, void* field_out, void* sign_out,
                          void* acc_out, int W, int C, int N, int k, double alpha,
-                         void* stream) {
+                         void* stream, long long* probe = nullptr) {
     const size_t smem = sizeof(T) * (2 * size_t(C) * k * N + 2 * size_t(N));
-    return launch_smem(device, slice_update_delayed_kernel<T>, W, smem, stream,
+    auto kernel = probe ? slice_update_delayed_kernel<T, true>
+                        : slice_update_delayed_kernel<T, false>;
+    return launch_smem(device, kernel, W, smem, stream,
                        static_cast<const T*>(G), static_cast<const T*>(field),
                        static_cast<const T*>(u01), static_cast<const T*>(sign),
                        static_cast<T*>(G_out), static_cast<T*>(field_out),
                        static_cast<T*>(sign_out), static_cast<T*>(acc_out),
-                       C, N, k, static_cast<T>(alpha));
+                       C, N, k, static_cast<T>(alpha), probe);
 }
 
 }  // namespace dq
@@ -212,6 +230,29 @@ int dq_slice_update_delayed_f64(int device, const void* G, const void* field,
                                 int W, int C, int N, int k, double alpha, void* stream) {
     return dq::slice_update_delayed<double>(device, G, field, u01, sign, G_out, field_out,
                                             sign_out, acc_out, W, C, N, k, alpha, stream);
+}
+
+// the same with the phase probe on: probe (W x 8 int64) gets each CTA's
+// cycles per phase (gather, decision, slot write, barriers, flush, copy),
+// its total cycles and its total ns
+int dq_slice_update_delayed_probe_f32(int device, const void* G, const void* field,
+                                      const void* u01, const void* sign, void* G_out,
+                                      void* field_out, void* sign_out, void* acc_out,
+                                      int W, int C, int N, int k, double alpha,
+                                      void* probe, void* stream) {
+    return dq::slice_update_delayed<float>(device, G, field, u01, sign, G_out, field_out,
+                                           sign_out, acc_out, W, C, N, k, alpha, stream,
+                                           static_cast<long long*>(probe));
+}
+
+int dq_slice_update_delayed_probe_f64(int device, const void* G, const void* field,
+                                      const void* u01, const void* sign, void* G_out,
+                                      void* field_out, void* sign_out, void* acc_out,
+                                      int W, int C, int N, int k, double alpha,
+                                      void* probe, void* stream) {
+    return dq::slice_update_delayed<double>(device, G, field, u01, sign, G_out, field_out,
+                                            sign_out, acc_out, W, C, N, k, alpha, stream,
+                                            static_cast<long long*>(probe));
 }
 
 }  // extern "C"

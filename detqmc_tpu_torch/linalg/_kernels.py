@@ -64,6 +64,9 @@ _SIGNATURES = {
     # device, inner, rhs, out, batch, n, stream
     "dq_solve_inner_rhs_f64": [_I, _P, _P, _P, _I, _I, _P],
     "dq_solve_inner_rhs_c128": [_I, _P, _P, _P, _I, _I, _P],
+    # the same, then the phase probe's record (batch x 7 int64)
+    "dq_solve_inner_rhs_probe_f64": [_I, _P, _P, _P, _I, _I, _P, _P],
+    "dq_solve_inner_rhs_probe_c128": [_I, _P, _P, _P, _I, _I, _P, _P],
     # device, G, phi, phi_new, lhs, delta, nb, G_out, phi_out, acc_out,
     # W, N, opdim, dtau, c_det, stream
     "dq_sdw_update_c64": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P],
@@ -82,6 +85,11 @@ _SIGNATURES = {
     # W, C, N, k, alpha, stream
     "dq_slice_update_delayed_f32": [_I] + [_P] * 8 + [_I] * 4 + [_D, _P],
     "dq_slice_update_delayed_f64": [_I] + [_P] * 8 + [_I] * 4 + [_D, _P],
+    # the same, then the phase probe's record (W x 8 int64)
+    "dq_slice_update_delayed_probe_f32": [_I] + [_P] * 8 + [_I] * 4
+    + [_D, _P, _P],
+    "dq_slice_update_delayed_probe_f64": [_I] + [_P] * 8 + [_I] * 4
+    + [_D, _P, _P],
     # device, A, Q, R, batch, n, b, tc, stream
     "dq_qr_big_f32": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "dq_qr_big_f64": [_I, _P, _P, _P, _I, _I, _I, _I, _P],

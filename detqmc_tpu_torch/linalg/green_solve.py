@@ -150,12 +150,28 @@ def kernel_for(n: int, dtype) -> str:
                      f"budget of K3 / K3c and n > {MAX_N_BIG} (K8)")
 
 
-def _solve(inner, M, rhs: bool, plan=None, plan9=None):
+# the phase probe's phases of the one-CTA dense-RHS solve (K3r,
+# green_solve.cu solve_resident), in the order of its per-CTA record; the
+# record ends with the CTA's total cycles and ns
+RESIDENT_PROBE_PHASES = ("panel", "apply (A and M)", "back-substitution",
+                         "barriers", "loads and stores")
+
+
+def rhs_probe_phases(n: int, dtype):
+    """The phase names of the dense-RHS kernel ``kernel_for`` routes this
+    n and dtype to, if it has a phase probe, else None."""
+    return (RESIDENT_PROBE_PHASES if not kernel_for(n, dtype).endswith("_big")
+            else None)
+
+
+def _solve(inner, M, rhs: bool, plan=None, plan9=None, probe=False):
     """inner^{-1} diag(M) (M = r1, (B, n) float64) or, with ``rhs``,
     inner^{-1} M (M (B, n, n) of inner's dtype) on CUDA tensors: checks,
     routes by ``kernel_for`` and launches, or raises. K8's and K8-rhs's
     back-substitution is K9, in place on Q^H M. ``plan`` / ``plan9``
-    override ``big_plan`` / ``trinv.plan`` (to time other layouts)."""
+    override ``big_plan`` / ``trinv.plan`` (to time other layouts). With
+    ``probe`` (a dense RHS on a one-CTA route) the kernel's instance with
+    clock64() stamps runs and the result is (out, its per-CTA record)."""
     _kernels.check_cuda_tensor("inner", inner, tuple(_KERNELS), 3)
     if rhs:
         _kernels.check_cuda_tensor("rhs", M, (inner.dtype,), 3)
@@ -168,6 +184,9 @@ def _solve(inner, M, rhs: bool, plan=None, plan9=None):
                          f"{tuple(M.shape)}: need (B, n, n), {want}")
     route = kernel_for(n, inner.dtype)
     kernel, c_entry = entry(route, rhs)
+    if probe and (not rhs or route.endswith("_big")):
+        raise ValueError("solve_inner: the probe is on the dense-RHS "
+                         "one-CTA solves only")
     out = torch.empty_like(inner)
     if route.endswith("_big"):
         work = torch.empty_like(inner)
@@ -175,6 +194,12 @@ def _solve(inner, M, rhs: bool, plan=None, plan9=None):
                                 _kernels.sm_count(inner.device))
         _kernels.launch(kernel, c_entry, inner, M, out, work, B, n, *plan)
         trinv.trinv_(work, out, plan9)  # R^{-1} (Q^H M)
+    elif probe:
+        rec = torch.zeros((B, len(RESIDENT_PROBE_PHASES) + 2),
+                          dtype=torch.int64, device=inner.device)
+        _kernels.launch(kernel, c_entry.replace("_rhs_", "_rhs_probe_"),
+                        inner, M, out, B, n, rec)
+        return out, rec
     else:
         _kernels.launch(kernel, c_entry, inner, M, out, B, n)
     return out

@@ -181,11 +181,24 @@ def delayed_fits(C: int, N: int, k: int, dtype) -> bool:
             <= _kernels.MAX_SMEM_BYTES - 1024)
 
 
-def slice_update_delayed(G, field_l, u01, sign, alpha: float, k: int):
+# the phase probe's phases of K1b (slice_update_delayed.cu), in the order
+# of its per-CTA record; the record ends with the CTA's total cycles and ns
+DELAYED_PROBE_PHASES = ("gather", "decision", "slot write", "barriers",
+                        "flush", "copy")
+
+
+def slice_update_delayed(G, field_l, u01, sign, alpha: float, k: int,
+                         probe: bool = False):
     """K1b: CPU tensors run ``slice_update_delayed_plain``; CUDA tensors
     launch the kernel (float32 or float64, C in {1, 2}, any N, chunk k
-    within the shared-memory budget) or raise."""
+    within the shared-memory budget) or raise. With ``probe`` the kernel's
+    instance with clock64() stamps runs instead, and the result gains a
+    (W, len(DELAYED_PROBE_PHASES) + 2) int64 record per CTA: cycles per
+    phase, total cycles, total ns."""
     if G.device.type == "cpu":
+        if probe:
+            raise ValueError("slice_update_delayed: the probe needs a CUDA "
+                             "tensor")
         return slice_update_delayed_plain(G, field_l, u01, sign, alpha, k)
     dts = (torch.float32, torch.float64)
     _kernels.check_cuda_tensor("G", G, dts, 4)
@@ -207,8 +220,16 @@ def slice_update_delayed(G, field_l, u01, sign, alpha: float, k: int):
     f_out = torch.empty_like(field_l)
     s_out = torch.empty_like(sign)
     acc = torch.empty_like(sign)
-    entry = ("dq_slice_update_delayed_f32" if G.dtype == torch.float32
-             else "dq_slice_update_delayed_f64")
-    _kernels.launch("slice_update_delayed", entry, G, field_l, u01, sign,
-                    G_out, f_out, s_out, acc, W, C, N, k, float(alpha))
+    suffix = "f32" if G.dtype == torch.float32 else "f64"
+    if probe:
+        rec = torch.zeros((W, len(DELAYED_PROBE_PHASES) + 2),
+                          dtype=torch.int64, device=G.device)
+        _kernels.launch("slice_update_delayed",
+                        "dq_slice_update_delayed_probe_" + suffix, G,
+                        field_l, u01, sign, G_out, f_out, s_out, acc, W, C,
+                        N, k, float(alpha), rec)
+        return G_out, f_out, s_out, acc, rec
+    _kernels.launch("slice_update_delayed",
+                    "dq_slice_update_delayed_" + suffix, G, field_l, u01,
+                    sign, G_out, f_out, s_out, acc, W, C, N, k, float(alpha))
     return G_out, f_out, s_out, acc

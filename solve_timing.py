@@ -1,9 +1,23 @@
-"""Time the port's n > 128 inner solve (K8 + K9) and K9 alone on one CUDA
-card, at the shapes of the main paths, beside the library's calls:
+"""Time the port's n > 128 inner solve (K8 + K9), K9 alone, the delayed
+Hubbard update K1b and the one-CTA dense-RHS solves K3c-rhs and K3r on
+one CUDA card, at the shapes of the main paths, beside the library's
+calls:
 
     python3 solve_timing.py                  # this checkout's kernels
     python3 solve_timing.py --tree OTHER     # the package of another checkout
     python3 solve_timing.py --plans          # also K8's and K9's other plans
+    python3 solve_timing.py --rows k1b,k3    # only these groups (k8, k1b, k3)
+
+Rows of the k1b group: K1b float32 W=128 N=256 k=16 on slice 1 of a
+wrapped Hubbard L=16 G (chip_smoke.py's main-path shape) and K1b float64
+C=2 N=144 k=5 (two spin sectors, a ragged tail chunk); of the k3 group:
+K3c-rhs complex128 B=1408 n=64 (sdw_l4's unequal-time anchors), K3r
+float64 B=2688 n=64 (the control that must not move), and for reference
+K8-rhs + K9 called directly at complex128 n=64 (routing never sends n=64
+there). Where the checkout's package has the kernel's phase probe, each
+K1b / K3c-rhs / K3r row also prints its split: the probe instance's
+clock64() cycles per phase, averaged over the CTAs, and the same in us
+at the clock the run had (each CTA's cycles over its global-timer ns).
 
 Rows (float64 as the Hubbard L=16 chain, complex128 as SDW L=8):
 K8 + K9 f64 B=128 n=256 (diag(r1)), K8-rhs + K9 f64 B=5376 n=256, K8 + K9
@@ -65,6 +79,105 @@ def backward(inner, X, M) -> float:
     return float((amax(inner @ X - M) / (n * amax(inner) * amax(X))).max())
 
 
+def split(rec, names) -> dict:
+    """The phase probe's per-CTA record (cycles per phase, total cycles,
+    total ns) as {phase: [mean cycles, mean us]} plus the CTA's total."""
+    rec = rec.double()
+    us_per_cycle = (rec[:, -1] / rec[:, -2] / 1e3)[:, None]
+    cyc, us = rec[:, :-1].mean(0), (rec[:, :-1] * us_per_cycle).mean(0)
+    out = {name: [round(float(c), 1), round(float(u), 3)]
+           for name, c, u in zip(names, cyc, us)}
+    out["cta total"] = [round(float(cyc[-1]), 1), round(float(us[-1]), 3)]
+    return out
+
+
+def k1b_rows(emit, gen, device, reps):
+    """K1b at the L=16 main-path shape (float32) and at C=2 N=144 k=5
+    (float64), with the probe's split where the package has it."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import slice_update
+    from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
+
+    cases = (("float32", 128, dict(L=16, U=4.0, mu=0.0, beta=8.0, m=80, s=4,
+                                   checkerboard=True, delay=16,
+                                   dtype="float32")),
+             ("float64", 32, dict(L=12, U=4.0, beta=2.0, m=8, s=4,
+                                  dtype="float64", ph_symmetry="off",
+                                  delay=5)))
+    for dname, W, cfg in cases:
+        model = HubbardModel(HubbardConfig(**cfg), device=device)
+        state = model.init_state(W, gen)
+        G = model.wrap_up(state.G, model.exp_v(state.field[:, 0]))
+        fl = state.field[:, 0].contiguous()
+        u = torch.rand(fl.shape, generator=gen, dtype=G.dtype, device=device)
+        a = (G.contiguous(), fl, u, state.sign.contiguous(),
+             model.cfg.alpha, model.route["chunk"])
+        C, N = G.shape[1], G.shape[-1]
+        ms = time_ms(lambda: slice_update.slice_update_delayed(*a), reps)
+        acc = float(slice_update.slice_update_delayed(*a)[3].mean())
+        row = dict(kernel="K1b", dtype=dname, W=W, C=C, N=N, k=a[-1], ms=ms,
+                   us_per_site=1e3 * ms / N, acceptance=acc)
+        if hasattr(slice_update, "DELAYED_PROBE_PHASES"):
+            rec = slice_update.slice_update_delayed(*a, probe=True)[-1]
+            row["probe"] = split(rec, slice_update.DELAYED_PROBE_PHASES)
+        emit(row)
+        del model, state, G, a
+        torch.cuda.empty_cache()
+
+
+def k3_rows(emit, gen, device, reps, lib_reps):
+    """K3c-rhs c128 B=1408 and K3r f64 B=2688 at n=64 (graded inner
+    matrices at cond 1e11, a random dense RHS) beside torch.linalg.solve,
+    with the probe's split where the package has it; then K8-rhs + K9
+    called directly at c128 n=64, for reference."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import _kernels, green_solve, trinv
+
+    n = 64
+    for name, dtype, B in (("K3c-rhs", torch.complex128, 1408),
+                           ("K3r", torch.float64, 2688)):
+        inner = graded_inner(B, n, dtype, gen, device)
+        M = torch.randn((B, n, n), generator=gen, dtype=dtype, device=device)
+        X = green_solve._solve(inner, M, True)
+        torch.cuda.synchronize()
+        err = backward(inner, X, M)
+        if err > BACKWARD_TOL:
+            raise AssertionError(f"{name}: backward error {err:.3e}")
+        ms = time_ms(lambda: green_solve._solve(inner, M, True), reps)
+        lms = time_ms(lambda: torch.linalg.solve(inner, M), lib_reps)
+        row = dict(kernel=name, dtype=str(dtype)[6:], B=B, n=n, ms=ms,
+                   library_ms=lms, library="torch.linalg.solve",
+                   backward=err)
+        names = (green_solve.rhs_probe_phases(n, dtype)
+                 if hasattr(green_solve, "rhs_probe_phases") else None)
+        if names:
+            rec = green_solve._solve(inner, M, True, probe=True)[1]
+            row["probe"] = split(rec, names)
+        emit(row)
+        if dtype == torch.complex128:
+            # K8-rhs + K9 at n = 64, called past the routing (reference)
+            plan = green_solve.big_plan(n, dtype, B, _kernels.sm_count(device))
+
+            def k8():
+                out, work = torch.empty_like(inner), torch.empty_like(inner)
+                _kernels.launch("solve_inner_complex_big_rhs",
+                                "dq_solve_inner_big_rhs_c128", inner, M, out,
+                                work, B, n, *plan)
+                trinv.trinv_(work, out)
+                return out
+
+            X8 = k8()
+            torch.cuda.synchronize()
+            emit(dict(kernel="K8-rhs+K9 (reference)", dtype="complex128", B=B,
+                      n=n, k8_plan=plan, ms=time_ms(k8, reps),
+                      backward=backward(inner, X8, M)))
+            del X8
+        del inner, M, X
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent),
@@ -73,7 +186,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=256)
     ap.add_argument("--plans", action="store_true",
                     help="also time K8's and K9's other plans")
+    ap.add_argument("--rows", default="k8,k1b,k3",
+                    help="comma-separated groups: k8, k1b, k3")
     args = ap.parse_args(argv)
+    groups = set(args.rows.split(","))
     import torch
 
     if not torch.cuda.is_available():
@@ -96,11 +212,15 @@ def main(argv=None) -> int:
         rows.append(row)
         print(json.dumps(row), flush=True)
 
+    if "k1b" in groups:
+        k1b_rows(emit, gen, device, args.reps)
+    if "k3" in groups:
+        k3_rows(emit, gen, device, args.reps, lib_reps)
     cases = (("K8+K9", torch.float64, 128, False),
              ("K8-rhs+K9", torch.float64, 5376, True),
              ("K8+K9", torch.complex128, 128, False),
              ("K8-rhs+K9", torch.complex128, 768, True))
-    for name, dtype, B, rhs in cases:
+    for name, dtype, B, rhs in cases if "k8" in groups else ():
         n = 256
         inner = graded_inner(B, n, dtype, gen, device)
         if rhs:

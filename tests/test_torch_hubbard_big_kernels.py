@@ -10,8 +10,10 @@ to them.
   V within 1e-4 of each factor's largest entry (f32 Householder, the
   tolerance of tests/test_torch_qr.py's K2 check).
 - K8's plain version ``green_solve.solve_inner_plain`` against
-  ``pallas_green.solve_inner`` at n = 136, which takes its own
-  column-lane df32 kernel above n = 128, on
+  ``pallas_green.solve_inner``'s own column-lane df32 kernel, the one it
+  sends n > 128 to, at n = 20: the dispatcher sends every n that is not a
+  multiple of 8 to the same kernel, and interpret mode costs ~7 s there
+  against ~120 s at n = 136. On
   tests/test_pallas_green._make_graded's well-conditioned graded inner
   matrix (cond ~ 3e3). df32 carries ~48 mantissa bits and rounds its
   output to f32, so per column of the solution the two agree to f32
@@ -37,6 +39,7 @@ from detqmc_tpu_torch.linalg import _kernels, green_solve, qr, trinv
 from detqmc_tpu_torch.linalg.udv import _sign_fix
 
 N_BIG = 136    # > 128 and a multiple of 8: the Pallas kernels' big layouts
+N_COL = 20     # not a multiple of 8: pallas_green.solve_inner's column kernel
 
 
 @pytest.mark.parametrize("kernel", [qr_wy, qr_big], ids=["qr_wy", "qr_big"])
@@ -62,8 +65,8 @@ def _graded(seed, n, spread):
 
 
 def test_k8_plain_matches_pallas_green_column_kernel():
-    inner = _graded(3, N_BIG, 2.0)[None]
-    r1 = np.exp(np.linspace(0.0, -4.0, N_BIG))[None]
+    inner = _graded(3, N_COL, 2.0)[None]
+    r1 = np.exp(np.linspace(0.0, -4.0, N_COL))[None]
     got = green_solve.solve_inner_plain(torch.as_tensor(inner),
                                         torch.as_tensor(r1)).numpy()
     hi, lo = df32.from_f64(jnp.asarray(inner))
@@ -71,12 +74,12 @@ def test_k8_plain_matches_pallas_green_column_kernel():
                                      interpret=True), np.float64)
     col = np.abs(ref).max(axis=-2, keepdims=True)
     assert (np.abs(got - ref) / col).max() <= 1e-6
-    exact = np.linalg.solve(inner, np.eye(N_BIG)[None] * r1[:, None, :])
+    exact = np.linalg.solve(inner, np.eye(N_COL)[None] * r1[:, None, :])
     cond = np.linalg.cond(inner[0])
     assert cond < 1e4
     eps = np.finfo(np.float64).eps
     assert np.abs(got - exact).max() / np.abs(exact).max() <= \
-        N_BIG * eps * cond
+        N_COL * eps * cond
 
 
 @pytest.mark.parametrize("n,dtype,route", [
