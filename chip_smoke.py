@@ -58,7 +58,8 @@ Phases (any failure raises, and the script exits non-zero):
 14. the unequal-time (dynamics) slice, after the main path of each model:
    - K3r solve_inner_rhs (float64, n = 64, B = 2688: the forward and
      swapped anchor solves of examples/hubbard_dynamics.conf, W = 64),
-     K3c-rhs (complex128, n = 64, B = 128 x 11, sdw_l4) and K8-rhs + K9
+     K3c-rhs (complex128, n = 64, B = 128 x 11, sdw_l4; with its CTAs
+     per SM) and K8-rhs + K9
      (complex128, n = 256, B = 128 x 6, sdw_l8), each on the inner
      matrices and d1min V1 right-hand sides of real unequal-time stacks,
      against solve_inner_rhs_plain: backward error and the n eps cond
@@ -362,13 +363,19 @@ def kernel_phase(model, state, gen):
     return out
 
 
-def big_plans(inner) -> str:
+def big_plans(inner, rhs=False) -> str:
     """', K8 plan (b, tc, nbuf) x CTAs/SM, K9 plan x CTAs/SM' of a K8 route
-    (the CUDA occupancy calculator's count), else ''."""
+    (the CUDA occupancy calculator's count); ', x CTAs/SM' of K3c-rhs
+    (``rhs``, complex128); else ''."""
+    import torch
+
     from detqmc_tpu_torch.linalg import _kernels, green_solve, trinv
 
     B, n, _ = inner.shape
     if not green_solve.kernel_for(n, inner.dtype).endswith("_big"):
+        if rhs and inner.dtype == torch.complex128:
+            return (f", {green_solve.rhs_blocks_per_sm(n, inner.device)} "
+                    "CTAs/SM")
         return ""
     sms = _kernels.sm_count(inner.device)
     p8 = green_solve.big_plan(n, inner.dtype, B, sms)
@@ -581,7 +588,8 @@ L16_GROUPS = (("slice_update_delayed_kernel", "K1b slice_update_delayed"),
               ("qr_big_kernel", "K7 qr_big"),
               ("solve_inner_big_kernel", "K8 solve_inner_big"),
               ("trinv_big_kernel", "K9 trinv_big"))
-DYN_GROUPS = (("solve_inner_rhs_kernel", "K3r/K3c-rhs"),
+DYN_GROUPS = (("solve_inner_rhs_kernel", "K3r"),
+              ("solve_inner_rhs_tc_kernel", "K3c-rhs"),
               ("solve_inner_big_rhs_kernel", "K8-rhs"),
               ("solve_inner_kernel", "K3 solve_inner"),
               ("qr_kernel", "K2/K2c qr"),
@@ -1162,7 +1170,8 @@ def rhs_kernel_phase(title, route, inner, rhs):
                   reps=slow)
     lms = time_ms(lambda: torch.linalg.solve(inner, rhs),
                   reps=max(slow, LIBRARY_REPS))
-    print(f"{title} {str(inner.dtype)[6:]} (B={B}, n={n}{big_plans(inner)}, "
+    print(f"{title} {str(inner.dtype)[6:]} (B={B}, n={n}"
+          f"{big_plans(inner, rhs=True)}, "
           f"cond_F(inner) "
           f"{float(cond.min()):.2e}..{float(cond.max()):.2e}): "
           f"max|dX|={abs_err:.3e}, max rel {float(fwd.max()):.3e} (<= n "

@@ -22,14 +22,17 @@
 //      one thread per column of M walks j = n-1 .. 0, so no CTA barrier is
 //      needed (each thread reads only the rows of its own column that it
 //      has already solved). The complex division is M conj(a) / |a|^2.
-// r1 is real in both cases; a dense RHS has inner's type. Shared memory:
+// The complex128 dense-RHS entry (K3c-rhs) runs its own kernel,
+// solve_inner_rhs_tc_kernel below (the same algorithm on the tensor
+// cores; its note says why). r1 is real in both cases; a dense RHS has
+// inner's type. Shared memory of solve_resident:
 // 2 n (n+1) values (66 KB at n=64 in f64, 133 KB in complex128). What
 // bounds it: the n dependent reflector steps, then the n-deep
 // back-substitution chain per column; a dense M costs the same as the
 // diagonal one (the reflectors touch all n columns of M either way), and
 // the design answers the latency chain with many matrices in flight (one
 // CTA each) rather than with a faster single solve.
-#include "common.cuh"
+#include "tc_blocked.cuh"
 
 namespace dq {
 
@@ -134,6 +137,332 @@ int solve_inner_rhs(int device, const void* inner, const void* rhs, void* out,
                        static_cast<S*>(out), n, probe);
 }
 
+// ---- K3c-rhs: the complex128 dense-RHS solve on the tensor cores ---------
+// X = inner^{-1} M for complex128 n <= 83 (the one-CTA route of
+// kernel_for), one CTA per matrix. The first design (solve_resident above,
+// which K3, K3c and K3r keep) held A and M in shared memory, 133 KB at
+// n = 64, one CTA per SM: 11 waves of 452 us at B = 1408, 70 % of it the
+// reflectors' application to A and M with both operands of every
+// multiply-add read from shared memory, 15 % warp 0's serial norms behind
+// three barriers a column, 13 % a back-substitution that kept 64 of 256
+// threads busy (the phase probe, solve_timing.py, NVIDIA H100 80GB HBM3,
+// 700 W). This design (np = n rounded up to 8; inner is padded with the
+// identity and M with zeros, which changes no entry of X):
+//   - A in shared memory at an odd row stride (np + 1: every fragment
+//     pattern below is free of bank conflicts for 16-byte elements), M in
+//     registers: warp w owns M's column fragments w, w + 8, ... and holds
+//     them transposed as mma accumulators, lane (g, q) the entries
+//     M[8 rf + 2q + j][8 cf + g]. With the row index of a k-slice taken
+//     in the order 2q + s (any order of the k sum is the same sum), a
+//     transposed accumulator is also an A operand, so Q^H M and the
+//     back-substitution chain through registers with no shuffle and no
+//     CTA barrier;
+//   - panels of 8 columns factored in a side buffer V (stride 9) at two
+//     barriers a column, every warp forming the norm and v^H v = 2 ||x||
+//     (||x|| + |x_0|) itself (householder_tc's panel), one warp per
+//     column for the dot products; T of the compact-WY form from V^H V
+//     (one warp per pair). The panel is most of the time left (the
+//     probe: 74 %), but warp 0 alone, with no CTA barrier in the panel,
+//     measured slower (218 against 120 us of panel per CTA): the seven
+//     dot products serialize in one warp;
+//   - per panel, each warp applies I - V T^H V^H to its M strip and to
+//     one trailing column strip of A as mma.sync m8n8k4 products
+//     (complex128 as four real ones): W^T = X^T conj(V), Y^T = W^T
+//     conj(T), X^T -= Y^T V^T;
+//   - the back-substitution by 8-row blocks, descending: R's diagonal
+//     blocks inverted once into shared memory (the side buffer), then per
+//     block X_b^T = Z_b^T Dinv_b^T and Z_c^T -= X_b^T R_cb^T, all in
+//     registers;
+//   - 77 KB of shared memory at n = 64: two CTAs per SM.
+// Reflectors, alpha and beta are householder_tc's, up to rounding.
+constexpr int kLdV = 9;        // side buffer stride: V, then R's block inverses
+
+enum { kTcPanel, kTcApplyA, kTcApplyM, kTcBacksub, kTcBarrier, kTcLoadStore, kTcPhases };
+
+__host__ __device__ constexpr size_t rhs_tc_smem_bytes(int n) {
+    // A np x (np + 1), the side buffer np x 9, T and V^H V 8 x 9 each,
+    // alpha, vhead, s (8 each) and beta (8 doubles)
+    return sizeof(cplx<double>) * (size_t(round_up(n, 8)) * (round_up(n, 8) + 1)
+                                   + size_t(round_up(n, 8)) * kLdV + 2 * 8 * kLdV + 3 * 8)
+           + sizeof(double) * 8;
+}
+
+template <int RF, int CFW, bool PROBE>
+__global__ void __launch_bounds__(kThreads, CFW == 1 ? 2 : 1)
+solve_inner_rhs_tc_kernel(const cplx<double>* __restrict__ inner,
+                          const cplx<double>* __restrict__ rhs,
+                          cplx<double>* __restrict__ out, int n, long long* probe_out) {
+    using S = cplx<double>;
+    constexpr int NP = 8 * RF, LDA = NP + 1;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    S* A = reinterpret_cast<S*>(smem_raw);          // NP x LDA
+    S* V = A + NP * LDA;                            // NP x kLdV
+    S* T = V + NP * kLdV;                           // 8 x kLdV
+    S* SV = T + 8 * kLdV;                           // 8 x kLdV
+    S* alpha_s = SV + 8 * kLdV;                     // 8
+    S* vhead_s = alpha_s + 8;                       // 8
+    S* s_s = vhead_s + 8;                           // 8
+    double* beta_s = reinterpret_cast<double*>(s_s + 8);   // 8
+    Probe<PROBE, kTcPhases> probe;
+    probe.start();
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, q = lane & 3;
+    const S zero = mk(0.0, 0.0);
+    const size_t off = size_t(blockIdx.x) * n * n;
+
+    for (int idx = tid; idx < NP * NP; idx += kThreads) {
+        const int r = idx / NP, c = idx - r * NP;
+        A[r * LDA + c] = r < n && c < n ? inner[off + size_t(r) * n + c]
+                                        : mk(r == c ? 1.0 : 0.0, 0.0);
+    }
+    // this warp's M strip, transposed: Mt[rf][u].c[j] = M[8 rf + 2q + j][8 cf + g]
+    Acc<S> Mt[RF][CFW];
+#pragma unroll
+    for (int u = 0; u < CFW; ++u) {
+        const int c = 8 * (warp + 8 * u) + g;
+#pragma unroll
+        for (int rf = 0; rf < RF; ++rf)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                const int r = 8 * rf + 2 * q + j;
+                Mt[rf][u].c[j] = r < n && c < n ? rhs[off + size_t(r) * n + c] : zero;
+            }
+    }
+    probe.lap(kTcLoadStore);
+    __syncthreads();
+    probe.lap(kTcBarrier);
+
+#pragma unroll 1
+    for (int p = 0; p < RF; ++p) {
+        const int j0 = 8 * p, mp = NP - j0;
+        // the panel, rows j0.. of columns j0..j0+7, into V (absolute rows)
+        for (int idx = tid; idx < mp * 8; idx += kThreads) {
+            const int r = j0 + (idx >> 3), c = idx & 7;
+            V[r * kLdV + c] = A[r * LDA + j0 + c];
+        }
+        probe.lap(kTcPanel);
+        __syncthreads();
+        probe.lap(kTcBarrier);
+        for (int jj = 0; jj < 8; ++jj) {
+            const int jr = j0 + jj;   // the pivot row
+            double nrm = 0;
+            for (int k = jr + lane; k < NP; k += 32) nrm += abs2(V[k * kLdV + jj]);
+            const double norm = sqrt_t(warp_sum(nrm));
+            const S x0 = V[jr * kLdV + jj];
+            const S alpha = householder_alpha(x0, norm);
+            const double vtv = 2.0 * norm * (norm + sqrt_t(abs2(x0)));
+            // a zero column (v == 0) leaves everything unchanged
+            const double beta = 2.0 / (vtv == 0.0 ? 1.0 : vtv);
+            const S vh = x0 - alpha;
+            for (int c = jj + 1 + warp; c < 8; c += kWarps) {
+                S d = zero;
+                for (int k = jr + 1 + lane; k < NP; k += 32)
+                    d += conj_(V[k * kLdV + jj]) * V[k * kLdV + c];
+                d = warp_sum(d);
+                if (lane == 0) s_s[c] = beta * (d + conj_(vh) * V[jr * kLdV + c]);
+            }
+            if (tid == 0) {
+                alpha_s[jj] = alpha;
+                beta_s[jj] = beta;
+                vhead_s[jj] = vh;
+            }
+            probe.lap(kTcPanel);
+            __syncthreads();
+            probe.lap(kTcBarrier);
+            const int na = 7 - jj;
+            for (int idx = tid; idx < (NP - jr) * na; idx += kThreads) {
+                const int k = jr + idx / na, c = jj + 1 + idx % na;
+                const S vk = k == jr ? vhead_s[jj] : V[k * kLdV + jj];
+                V[k * kLdV + c] -= vk * s_s[c];
+            }
+            if (tid == 0) V[jr * kLdV + jj] = vhead_s[jj];
+            probe.lap(kTcPanel);
+            __syncthreads();
+            probe.lap(kTcBarrier);
+        }
+        // R's diagonal block to A (strict lower part 0); V keeps the
+        // reflectors, zero above the diagonal. Meanwhile (V^H V)_ki for
+        // k < i, one warp per pair: rows from j0 + i, where reflector i
+        // starts (the entries above it are R's, not yet zeroed)
+        if (tid < 64) {
+            const int r = tid >> 3, c = tid & 7;
+            const S val = V[(j0 + r) * kLdV + c];
+            A[(j0 + r) * LDA + j0 + c] = r < c ? val : r == c ? alpha_s[c] : zero;
+            if (r < c) V[(j0 + r) * kLdV + c] = zero;
+        }
+        for (int pr = warp; pr < 28; pr += kWarps) {
+            int i = 1, k = pr;
+            while (k >= i) k -= i++;
+            S d = zero;
+            for (int rr = j0 + i + lane; rr < NP; rr += 32)
+                d += conj_(V[rr * kLdV + k]) * V[rr * kLdV + i];
+            d = warp_sum(d);
+            if (lane == 0) SV[k * kLdV + i] = d;
+        }
+        probe.lap(kTcPanel);
+        __syncthreads();
+        probe.lap(kTcBarrier);
+        // T of the compact-WY form: lane r of warp 0 fills row r,
+        // T_rr = beta_r, T_ri = -beta_i sum_{r <= k < i} T_rk (V^H V)_ki
+        if (warp == 0 && lane < 8) {
+            const int r = lane;
+            for (int i = 0; i < 8; ++i) T[r * kLdV + i] = zero;
+            T[r * kLdV + r] = mk(beta_s[r], 0.0);
+            for (int i = r + 1; i < 8; ++i) {
+                S acc = zero;
+                for (int k = r; k < i; ++k) acc += T[r * kLdV + k] * SV[k * kLdV + i];
+                T[r * kLdV + i] = (-beta_s[i]) * acc;
+            }
+        }
+        probe.lap(kTcPanel);
+        __syncthreads();
+        probe.lap(kTcBarrier);
+        // X <- X - V T^H V^H X on a transposed strip X^T (8 columns of X
+        // as fragment rows): W^T = X^T conj(V), Y^T = W^T conj(T),
+        // X^T -= Y^T V^T. xt(rf, s) gives this lane's A operand
+        // X^T[g][8 rf + 2q + s]
+        auto wy = [&](auto xt) {
+            Acc<S> w[2] = {acc_zero<S>(), acc_zero<S>()};
+#pragma unroll
+            for (int rf = 0; rf < RF; ++rf)
+                if (rf >= p)
+#pragma unroll
+                    for (int s = 0; s < 2; ++s)
+                        mma_acc(w[s], xt(rf, s), conj_(V[(8 * rf + 2 * q + s) * kLdV + g]));
+            Acc<S> y = acc_zero<S>();
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+                mma_acc(y, w[0].c[s] + w[1].c[s], conj_(T[(2 * q + s) * kLdV + g]));
+            }
+            return y;
+        };
+        // A's trailing column strips, one per warp
+        for (int cf = p + 1 + warp; cf < RF; cf += kWarps) {
+            const int c = 8 * cf + g;
+            const Acc<S> y = wy([&](int rf, int s) { return A[(8 * rf + 2 * q + s) * LDA + c]; });
+#pragma unroll
+            for (int rf = 0; rf < RF; ++rf)
+                if (rf >= p) {
+                    Acc<S> x;
+                    x.c[0] = A[(8 * rf + 2 * q) * LDA + c];
+                    x.c[1] = A[(8 * rf + 2 * q + 1) * LDA + c];
+#pragma unroll
+                    for (int s = 0; s < 2; ++s)
+                        mma_acc(x, -y.c[s], V[(8 * rf + g) * kLdV + 2 * q + s]);
+                    A[(8 * rf + 2 * q) * LDA + c] = x.c[0];
+                    A[(8 * rf + 2 * q + 1) * LDA + c] = x.c[1];
+                }
+        }
+        probe.lap(kTcApplyA);
+        // this warp's M strip, in registers
+#pragma unroll
+        for (int u = 0; u < CFW; ++u) {
+            if (warp + 8 * u >= RF) continue;
+            const Acc<S> y = wy([&](int rf, int s) { return Mt[rf][u].c[s]; });
+#pragma unroll
+            for (int rf = 0; rf < RF; ++rf)
+                if (rf >= p)
+#pragma unroll
+                    for (int s = 0; s < 2; ++s)
+                        mma_acc(Mt[rf][u], -y.c[s], V[(8 * rf + g) * kLdV + 2 * q + s]);
+        }
+        probe.lap(kTcApplyM);
+        __syncthreads();   // A's strips and V are free for the next panel
+        probe.lap(kTcBarrier);
+    }
+
+    // R's diagonal blocks inverted into the side buffer: warp w, lane
+    // c < 8 solves column c of block w, w + 8, ...
+    for (int rb = warp; rb < RF; rb += kWarps) {
+        if (lane < 8) {
+            const int c = lane, b0 = 8 * rb;
+            S x[8];
+#pragma unroll
+            for (int j = 7; j >= 0; --j) {
+                S acc = mk(j == c ? 1.0 : 0.0, 0.0);
+#pragma unroll
+                for (int k = j + 1; k < 8; ++k) acc -= A[(b0 + j) * LDA + b0 + k] * x[k];
+                x[j] = div_s(acc, A[(b0 + j) * LDA + b0 + j]);
+            }
+#pragma unroll
+            for (int j = 0; j < 8; ++j) V[(b0 + j) * kLdV + c] = x[j];
+        }
+    }
+    probe.lap(kTcBacksub);
+    __syncthreads();
+    probe.lap(kTcBarrier);
+    // X = R^{-1} Q^H M by 8-row blocks, descending, in registers
+#pragma unroll
+    for (int u = 0; u < CFW; ++u) {
+        if (warp + 8 * u >= RF) continue;
+#pragma unroll
+        for (int rb = RF - 1; rb >= 0; --rb) {
+            Acc<S> x = acc_zero<S>();
+#pragma unroll
+            for (int s = 0; s < 2; ++s)
+                mma_acc(x, Mt[rb][u].c[s], V[(8 * rb + g) * kLdV + 2 * q + s]);
+            Mt[rb][u] = x;
+#pragma unroll
+            for (int rc = 0; rc < rb; ++rc)
+#pragma unroll
+                for (int s = 0; s < 2; ++s)
+                    mma_acc(Mt[rc][u], -x.c[s], A[(8 * rc + g) * LDA + 8 * rb + 2 * q + s]);
+        }
+    }
+    probe.lap(kTcBacksub);
+#pragma unroll
+    for (int u = 0; u < CFW; ++u) {
+        const int c = 8 * (warp + 8 * u) + g;
+        if (c >= n) continue;
+#pragma unroll
+        for (int rf = 0; rf < RF; ++rf)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                const int r = 8 * rf + 2 * q + j;
+                if (r < n) out[off + size_t(r) * n + c] = Mt[rf][u].c[j];
+            }
+    }
+    probe.lap(kTcLoadStore);
+    probe.store(probe_out);
+}
+
+// f(kernel) for the instance of np = 8 rf, rf = 1..11 (kernel_for sends
+// n <= 83 here; with the probe: rf = 8 only, the sdw_l4 shape), `missing`
+// if there is none
+template <bool PROBE, typename F>
+int with_rhs_tc(int rf, int missing, F f) {
+    if constexpr (PROBE) {
+        return rf == 8 ? f(solve_inner_rhs_tc_kernel<8, 1, true>) : missing;
+    } else {
+        switch (rf) {
+            case 1: return f(solve_inner_rhs_tc_kernel<1, 1, false>);
+            case 2: return f(solve_inner_rhs_tc_kernel<2, 1, false>);
+            case 3: return f(solve_inner_rhs_tc_kernel<3, 1, false>);
+            case 4: return f(solve_inner_rhs_tc_kernel<4, 1, false>);
+            case 5: return f(solve_inner_rhs_tc_kernel<5, 1, false>);
+            case 6: return f(solve_inner_rhs_tc_kernel<6, 1, false>);
+            case 7: return f(solve_inner_rhs_tc_kernel<7, 1, false>);
+            case 8: return f(solve_inner_rhs_tc_kernel<8, 1, false>);
+            case 9: return f(solve_inner_rhs_tc_kernel<9, 2, false>);
+            case 10: return f(solve_inner_rhs_tc_kernel<10, 2, false>);
+            case 11: return f(solve_inner_rhs_tc_kernel<11, 2, false>);
+            default: return missing;
+        }
+    }
+}
+
+template <bool PROBE>
+int solve_inner_rhs_tc(int device, const void* inner, const void* rhs, void* out,
+                       int batch, int n, void* stream, long long* probe) {
+    return with_rhs_tc<PROBE>(
+        round_up(n, 8) / 8, static_cast<int>(cudaErrorInvalidValue), [&](auto kernel) {
+            return launch_tc(device, kernel, batch, rhs_tc_smem_bytes(n), stream,
+                             static_cast<const cplx<double>*>(inner),
+                             static_cast<const cplx<double>*>(rhs),
+                             static_cast<cplx<double>*>(out), n, probe);
+        });
+}
+
 }  // namespace dq
 
 extern "C" {
@@ -157,8 +486,8 @@ int dq_solve_inner_rhs_f64(int device, const void* inner, const void* rhs,
 
 int dq_solve_inner_rhs_c128(int device, const void* inner, const void* rhs,
                             void* out, int batch, int n, void* stream) {
-    return dq::solve_inner_rhs<dq::cplx<double>>(device, inner, rhs, out,
-                                                 batch, n, stream);
+    return dq::solve_inner_rhs_tc<false>(device, inner, rhs, out, batch, n, stream,
+                                         nullptr);
 }
 
 // the f64 dense-RHS solve with the phase probe on: probe (batch x 7
@@ -171,11 +500,23 @@ int dq_solve_inner_rhs_probe_f64(int device, const void* inner, const void* rhs,
                                        static_cast<long long*>(probe));
 }
 
+// the same with the phase probe on (n = 57..64 only): probe (batch x 8
+// int64) gets each CTA's cycles per phase (panel, application to A, to M,
+// back-substitution, barriers, loads and stores), total cycles and ns
 int dq_solve_inner_rhs_probe_c128(int device, const void* inner, const void* rhs,
                                   void* out, int batch, int n, void* probe,
                                   void* stream) {
-    return dq::solve_inner_rhs<dq::cplx<double>>(device, inner, rhs, out, batch, n,
-                                                 stream, static_cast<long long*>(probe));
+    return dq::solve_inner_rhs_tc<true>(device, inner, rhs, out, batch, n, stream,
+                                        static_cast<long long*>(probe));
+}
+
+// CTAs of the complex128 dense-RHS kernel one SM holds at this n (the
+// occupancy calculator, after launch_tc's attributes), or -(cudaError)
+int dq_solve_inner_rhs_c128_blocks_per_sm(int device, int n) {
+    return dq::with_rhs_tc<false>(
+        dq::round_up(n, 8) / 8, -static_cast<int>(cudaErrorInvalidValue), [&](auto kernel) {
+            return dq::blocks_per_sm(device, kernel, dq::rhs_tc_smem_bytes(n));
+        });
 }
 
 }  // extern "C"

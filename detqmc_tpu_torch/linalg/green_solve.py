@@ -22,9 +22,12 @@ launches. The dense-RHS twins of these TPU kernels,
 ``solve_inner_complex_big_rhs``, are the ``_rhs`` entries of the same two
 sources (``solve_inner_rhs`` below): the reflectors are applied to the
 given RHS instead of diag(r1), the rest is unchanged, and the routing by
-n and dtype is the same. The real n > 128 dense-RHS solve has no Pallas
-kernel (the JAX package runs XLA there, udv.green_tau_zero); K8's real
-``_rhs`` entry takes it.
+n and dtype is the same. The complex128 one-CTA dense-RHS solve (K3c-rhs,
+the unequal-time anchors of sdw_l4) is its own kernel since its redesign:
+A in shared memory, the RHS in registers as FP64 tensor-core fragments,
+two CTAs per SM up to n = 64 (``rhs_smem_bytes``, ``rhs_blocks_per_sm``).
+The real n > 128 dense-RHS solve has no Pallas kernel (the JAX package
+runs XLA there, udv.green_tau_zero); K8's real ``_rhs`` entry takes it.
 
 The TPU kernels work in df32 — (hi, lo) f32 pairs emulating ~48-bit
 mantissas, four planes for a complex matrix — because the chip has no f64
@@ -150,18 +153,38 @@ def kernel_for(n: int, dtype) -> str:
                      f"budget of K3 / K3c and n > {MAX_N_BIG} (K8)")
 
 
-# the phase probe's phases of the one-CTA dense-RHS solve (K3r,
-# green_solve.cu solve_resident), in the order of its per-CTA record; the
-# record ends with the CTA's total cycles and ns
+# the phase probes' phases of the one-CTA dense-RHS solves, in the order
+# of their per-CTA records (each record ends with the CTA's total cycles
+# and ns): K3r (green_solve.cu solve_resident) and K3c-rhs
+# (solve_inner_rhs_tc_kernel, whose probe instance is compiled at np = 64)
 RESIDENT_PROBE_PHASES = ("panel", "apply (A and M)", "back-substitution",
                          "barriers", "loads and stores")
+TC_RHS_PROBE_PHASES = ("panel", "apply to A", "apply to M",
+                       "back-substitution", "barriers", "loads and stores")
+
+
+def rhs_smem_bytes(n: int) -> int:
+    """Dynamic shared memory of the complex128 dense-RHS kernel
+    (green_solve.cu rhs_tc_smem_bytes): A at np x (np + 1), the side
+    buffer np x 9, T and V^H V 8 x 9 each, three vectors of 8 and beta."""
+    np_ = -(-n // 8) * 8
+    return 16 * (np_ * (np_ + 1) + np_ * 9 + 2 * 8 * 9 + 3 * 8) + 8 * 8
+
+
+def rhs_blocks_per_sm(n: int, device="cuda") -> int:
+    """CTAs of the complex128 dense-RHS kernel one SM of ``device`` holds
+    at this n, as the CUDA occupancy calculator reports it."""
+    return _kernels.query("dq_solve_inner_rhs_c128_blocks_per_sm", device, n)
 
 
 def rhs_probe_phases(n: int, dtype):
     """The phase names of the dense-RHS kernel ``kernel_for`` routes this
-    n and dtype to, if it has a phase probe, else None."""
-    return (RESIDENT_PROBE_PHASES if not kernel_for(n, dtype).endswith("_big")
-            else None)
+    n and dtype to, if it has a phase probe at this n, else None."""
+    if kernel_for(n, dtype).endswith("_big"):
+        return None
+    if dtype == torch.complex128:
+        return TC_RHS_PROBE_PHASES if -(-n // 8) == 8 else None
+    return RESIDENT_PROBE_PHASES
 
 
 def _solve(inner, M, rhs: bool, plan=None, plan9=None, probe=False):
@@ -184,9 +207,10 @@ def _solve(inner, M, rhs: bool, plan=None, plan9=None, probe=False):
                          f"{tuple(M.shape)}: need (B, n, n), {want}")
     route = kernel_for(n, inner.dtype)
     kernel, c_entry = entry(route, rhs)
-    if probe and (not rhs or route.endswith("_big")):
-        raise ValueError("solve_inner: the probe is on the dense-RHS "
-                         "one-CTA solves only")
+    phases = rhs_probe_phases(n, inner.dtype) if probe and rhs else None
+    if probe and not phases:
+        raise ValueError(f"solve_inner: no phase probe for n={n} "
+                         f"{inner.dtype}{'' if rhs else ' diag(r1)'}")
     out = torch.empty_like(inner)
     if route.endswith("_big"):
         work = torch.empty_like(inner)
@@ -195,7 +219,7 @@ def _solve(inner, M, rhs: bool, plan=None, plan9=None, probe=False):
         _kernels.launch(kernel, c_entry, inner, M, out, work, B, n, *plan)
         trinv.trinv_(work, out, plan9)  # R^{-1} (Q^H M)
     elif probe:
-        rec = torch.zeros((B, len(RESIDENT_PROBE_PHASES) + 2),
+        rec = torch.zeros((B, len(phases) + 2),
                           dtype=torch.int64, device=inner.device)
         _kernels.launch(kernel, c_entry.replace("_rhs_", "_rhs_probe_"),
                         inner, M, out, B, n, rec)

@@ -184,7 +184,10 @@ def delayed_fits(C: int, N: int, k: int, dtype) -> bool:
 # the phase probe's phases of K1b (slice_update_delayed.cu), in the order
 # of its per-CTA record; the record ends with the CTA's total cycles and ns
 DELAYED_PROBE_PHASES = ("gather", "decision", "slot write", "barriers",
-                        "flush", "copy")
+                        "flush", "set-up")
+# K1b holds up to 16 of the C N effective column and row entries per
+# thread in registers (csrc/slice_update_delayed.cu delayed_ept)
+MAX_DELAYED_ENTRIES = 16 * 256
 
 
 def slice_update_delayed(G, field_l, u01, sign, alpha: float, k: int,
@@ -203,9 +206,11 @@ def slice_update_delayed(G, field_l, u01, sign, alpha: float, k: int,
     dts = (torch.float32, torch.float64)
     _kernels.check_cuda_tensor("G", G, dts, 4)
     W, C, N, N2 = G.shape
-    if N2 != N or C not in (1, 2) or not 1 <= k <= N:
+    if (N2 != N or C not in (1, 2) or not 1 <= k <= N
+            or C * N > MAX_DELAYED_ENTRIES):
         raise ValueError(f"slice_update_delayed: G shape {tuple(G.shape)}, "
-                         f"k={k}: needs C in (1, 2), square N and 1 <= k <= N")
+                         f"k={k}: needs C in (1, 2), square N, 1 <= k <= N "
+                         f"and C N <= {MAX_DELAYED_ENTRIES}")
     for name, t, shape in (("field_l", field_l, (W, N)),
                            ("u01", u01, (W, N)), ("sign", sign, (W,))):
         _kernels.check_cuda_tensor(name, t, (G.dtype,), len(shape))

@@ -83,6 +83,17 @@ Tolerances (same inputs, same card):
   CPU runs the rank-1 chain, the card K1b, as N = 144 exceeds K1):
   identical fields and signs, G within 1e-10, the launch counts of the
   sweep structure (K1b, K7, K8, K9; K1, K2, K3 never).
+- K1b redesigned (register-tiled flush, every thread deciding, the next
+  site prefetched) at every accept rate (u = 0: all accept; u = +inf:
+  none; uniform u), k = 1, 5, 16, 32, N = 144, 256, 400 (ragged and
+  vector tile rows), one and two spin sectors: bitwise equal to the plain
+  version in float64; its phase probe instance gives the same outputs;
+- K3c-rhs redesigned (the complex128 dense-RHS solve on the tensor cores)
+  at n = 1, 8, 37, 64 and 83 (the routing limit), batches of 1 and 267
+  (not a multiple of 132 SMs x 2 CTAs), graded inner matrices at cond
+  1e11: the K3 criteria (at n >= 8; n = 1 is a scalar division), one
+  launch; two CTAs per SM up to n = 64; its probe instance (n = 64) gives
+  the same outputs.
 """
 
 import numpy as np
@@ -586,7 +597,11 @@ def test_sdw_dynamics_on_card_match_cpu(cuda_device, L):
 @pytest.mark.parametrize("dtype,ph,L,k", [
     ("float64", "on", 4, 3), ("float64", "off", 12, 5),
     ("float64", "on", 16, 16), ("float32", "on", 16, 16),
-    ("float32", "off", 12, 24)])
+    ("float32", "off", 12, 24),
+    # ragged flush tiles: N % 8 = 4 (float32's 8-wide tile rows end in
+    # scalar loads), N % 4 = 1 (no vector loads at all)
+    ("float32", "off", 10, 7), ("float32", "on", 14, 16),
+    ("float64", "off", 5, 4)])
 def test_slice_update_delayed_kernel_matches_plain(cuda_device, dtype, ph, L,
                                                    k):
     model, state, gen = _model_state(cuda_device, ph, dtype, L=L, W=3,
@@ -871,3 +886,70 @@ def test_trinv_zero_diagonal_is_guarded(cuda_device, dtype, tol, batch):
     assert bool(torch.isfinite(got).all())
     col = ref.abs().amax(-2, keepdim=True).clamp_min(1e-30)
     assert float(((got.to(ref.dtype) - ref).abs() / col).max()) <= tol
+
+
+# (k, L, C) whose float64 buffers fit one block (C = 2 at k = 32 fits only
+# N = 144): a pure function of the sizes, the same on every worker
+K1B_CASES = [(k, L, C) for C in (1, 2) for L in (12, 16, 20)
+             for k in (1, 5, 16, 32)
+             if slice_update.delayed_fits(C, L * L, k, torch.float64)]
+
+
+@pytest.mark.parametrize("k,L,C", K1B_CASES)
+@pytest.mark.parametrize("u", ["accept", "reject", "uniform"])
+def test_k1b_redesign_bitwise_f64(cuda_device, u, k, L, C):
+    model, state, gen = _model_state(cuda_device, "on" if C == 1 else "off",
+                                     "float64", L=L, W=3, seed=L + k,
+                                     delay=k)
+    G = model.wrap_up(state.G, model.exp_v(state.field[:, 0])).contiguous()
+    fl = state.field[:, 0].contiguous()
+    u01 = {"accept": torch.zeros_like(fl),
+           "reject": torch.full_like(fl, float("inf")),
+           "uniform": torch.rand(fl.shape, generator=gen, dtype=G.dtype,
+                                 device=cuda_device)}[u]
+    args = (G, fl, u01, state.sign.contiguous(), model.cfg.alpha, k)
+    _kernels.reset_launch_counts()
+    out = slice_update.slice_update_delayed(*args)
+    probed = slice_update.slice_update_delayed(*args, probe=True)
+    ref = slice_update.slice_update_delayed_plain(*args)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["slice_update_delayed"] == 2
+    for a, b, c in zip(out, ref, probed):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    rec = probed[-1]
+    assert rec.shape == (3, len(slice_update.DELAYED_PROBE_PHASES) + 2)
+    assert bool((rec >= 0).all()) and bool((rec[:, -2] > 0).all())
+    if u == "reject":
+        assert torch.equal(out[1], fl) and float(out[3].abs().max()) == 0
+
+
+@pytest.mark.parametrize("batch", [1, 267])
+@pytest.mark.parametrize("n", [1, 8, 37, 64, 83])
+def test_k3c_rhs_redesign_matches_plain(cuda_device, n, batch):
+    inner, gen = _graded_inner(batch, n, torch.complex128, cuda_device,
+                               n + batch)
+    M = torch.randn((batch, n, n), generator=gen, dtype=torch.complex128,
+                    device=cuda_device)
+    assert green_solve.kernel_for(n, torch.complex128) == \
+        "solve_inner_complex"
+    _kernels.reset_launch_counts()
+    xk = green_solve.solve_inner_rhs(inner, M)
+    torch.cuda.synchronize()
+    expect = dict.fromkeys(_kernels.LAUNCHES, 0)
+    expect["solve_inner_complex_rhs"] = 1
+    assert _kernels.LAUNCHES == expect
+    xp = green_solve.solve_inner_rhs_plain(inner, M)
+    amax = lambda X: X.abs().amax((1, 2))                       # noqa: E731
+    res = amax(inner @ xk - M) / (n * amax(inner) * amax(xk))
+    assert float(res.max()) < 1e-13
+    if n >= 8:
+        bound = n * torch.finfo(torch.float64).eps * 1e11
+        assert bool((amax(xk - xp) / amax(xp) <= bound).all())
+    if n <= 64:
+        assert green_solve.rhs_blocks_per_sm(n, cuda_device) >= 2
+    if green_solve.rhs_probe_phases(n, torch.complex128):
+        xq, rec = green_solve._solve(inner, M, True, probe=True)
+        torch.cuda.synchronize()
+        assert torch.equal(xq, xk)
+        assert rec.shape == (batch, len(green_solve.TC_RHS_PROBE_PHASES) + 2)
+        assert bool((rec[:, -2] > 0).all())
