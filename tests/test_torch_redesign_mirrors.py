@@ -20,7 +20,7 @@ import torch
 from detqmc_tpu_torch.linalg import _kernels, green_solve
 from detqmc_tpu_torch.linalg import slice_update as su
 
-# default_chunk before the redesign (PR 6's tree), (N, C, dtype) -> k
+# default_chunk as it chose before K1b's redesign, (N, C, dtype) -> k
 CHUNKS = {(64, 1, "float32"): 32, (64, 1, "float64"): 32,
           (64, 2, "float32"): 32, (64, 2, "float64"): 32,
           (144, 1, "float32"): 24, (144, 1, "float64"): 24,

@@ -19,7 +19,7 @@ package, and the routes that send a CUDA tensor to them.
   ``udv.udv_decompose`` against the JAX complex ``udv_decompose`` in
   complex128, 1e-12.
 - K8 ``linalg.green_solve``'s plain version: against
-  ``pallas_cgreen.solve_inner_complex_big`` in interpret mode at n = 24
+  ``pallas_cgreen.solve_inner_complex_big`` in interpret mode at n = 8
   (the column-lane kernel takes any n % 8 == 0; a df32
   solve: 1e-5 of each column's largest entry, as
   tests/test_pallas_complex.py holds it), and through
@@ -195,10 +195,11 @@ def test_k7_plain_matches_jax_udv_decompose_c128():
 
 
 def test_k8_plain_matches_solve_inner_complex_big_interpret():
-    # the column-lane kernel K8 replaces takes any n % 8 == 0; at n = 24
-    # interpret mode costs ~14 s, against ~230 s at n = 136
+    # the column-lane kernel K8 replaces takes any n % 8 == 0; at n = 8
+    # (one 8-column chunk) interpret mode costs ~5 s, against ~230 s at
+    # n = 136
     rng = np.random.default_rng(22)
-    n = 24
+    n = 8
     inner = torch.as_tensor(_rand_complex(rng, 1, n))
     r1 = torch.as_tensor(np.exp(np.linspace(0.0, -4.0, n))[None])
     mid = green_solve.solve_inner(inner, r1)
