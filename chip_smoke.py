@@ -883,16 +883,18 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
     for cname, cdt in (("complex64", c64), ("complex128", c128)):
         G, E, Ei, D, Di = [x.to(cdt).contiguous() for x in (
             state.G, model.expK, model.expK_inv, D0, Di0)]
+        # the kernel reads the real copies of E, as the model hands them
+        Er, Eir = E.real.contiguous(), Ei.real.contiguous()
         scale = float(G.abs().max())
         errs = {}
         for mode, kf, pf in (
-                ("up", lambda: sdw_wrap.wrap(G, E, Ei, D, Di, True),
+                ("up", lambda: sdw_wrap.wrap(G, Er, Eir, D, Di, True),
                  lambda: sdw_wrap.wrap_plain(G, E, Ei, D, Di, True)),
-                ("down", lambda: sdw_wrap.wrap(G, E, Ei, D, Di, False),
+                ("down", lambda: sdw_wrap.wrap(G, Er, Eir, D, Di, False),
                  lambda: sdw_wrap.wrap_plain(G, E, Ei, D, Di, False)),
-                ("apply", lambda: sdw_wrap.apply(G, E, D, False),
+                ("apply", lambda: sdw_wrap.apply(G, Er, D, False),
                  lambda: sdw_wrap.apply_plain(G, E, D, False)),
-                ("apply-H", lambda: sdw_wrap.apply(G, E, D, True),
+                ("apply-H", lambda: sdw_wrap.apply(G, Er, D, True),
                  lambda: sdw_wrap.apply_plain(G, E, D, True))):
             k, p_ = kf(), pf()
             torch.cuda.synchronize()
@@ -900,9 +902,9 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
             check(errs[mode] <= K6_TOL[cname] * scale,
                   f"K6 {cname} {mode}: max|d| {errs[mode]:.3e} > "
                   f"{K6_TOL[cname]} x max|G| {scale:.3e}")
-        wms = time_ms(lambda: sdw_wrap.wrap(G, E, Ei, D, Di, True))
+        wms = time_ms(lambda: sdw_wrap.wrap(G, Er, Eir, D, Di, True))
         wpms = time_ms(lambda: sdw_wrap.wrap_plain(G, E, Ei, D, Di, True))
-        ams = time_ms(lambda: sdw_wrap.apply(G, E, D, False))
+        ams = time_ms(lambda: sdw_wrap.apply(G, Er, D, False))
         apms = time_ms(lambda: sdw_wrap.apply_plain(G, E, D, False))
         # the library's one call: B = D_V E and B^{-1} as dense matrices
         eye = torch.eye(h, dtype=cdt, device=G.device).expand(W, h, h)
@@ -910,19 +912,22 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
         Bi = sdw_wrap.kin_left(Ei, sdw_wrap.dv_left(Di, eye))
         wlms = time_ms(lambda: torch.einsum("wij,wjk,wkl->wil", Bd, G, Bi))
         alms = time_ms(lambda: torch.bmm(Bd, G))
-        print(f"K6 sdw_wrap/sdw_apply {cname} (W={W}, h={h}): max|d| "
+        p6 = sdw_wrap.plan(N, cdt, W, _kernels.sm_count(G.device))
+        print(f"K6 sdw_wrap/sdw_apply {cname} (W={W}, h={h}, plan (TL, og, "
+              f"nb, tiles per CTA) {p6} x "
+              f"{sdw_wrap.blocks_per_sm(N, cdt, p6, G.device)}/SM): max|d| "
               + ", ".join(f"{m} {e:.3e}" for m, e in errs.items())
               + f" (tol {K6_TOL[cname]} x max|G| {scale:.3e}); wrap kernel "
               f"{wms:.4f} ms, plain {wpms:.4f} ms, dense einsum "
               f"{wlms:.4f} ms; apply kernel {ams:.4f} ms, plain "
               f"{apms:.4f} ms, dense bmm {alms:.4f} ms")
         # per side a block-diagonal E, real (the kernel reads its real
-        # parts): h^2 N real x complex mul-adds of 4 operations; and the
+        # copy): h^2 N real x complex mul-adds of 4 operations; and the
         # complex 4 x 4 D blocks: 4 h^2 complex mul-adds
         side = W * (2 * 2 * h * h * N + CPLX * 2 * 4 * h * h)
-        io = nbytes(G, E, D)
+        io = nbytes(G, Er, D)
         rw[cname] = record(max(errs["up"], errs["down"]), wms, wpms, wlms,
-                           bound(io + nbytes(G, Ei, Di), 2 * side))
+                           bound(io + nbytes(G, Eir, Di), 2 * side))
         ra[cname] = record(max(errs["apply"], errs["apply-H"]), ams, apms,
                            alms, bound(io + nbytes(G), side))
     out["sdw_wrap"], out["sdw_apply"] = rw, ra
@@ -960,7 +965,9 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
         ms = time_ms(lambda: qr.qr(A))
         pms = time_ms(lambda: qr.qr_plain(A), reps=3)
         lms = time_ms(lambda: torch.linalg.qr(A), reps=3)
-        print(f"K7 qr_complex_big {cname} (B={W}, plan {qr.big_plan(h, cdt)})"
+        p7 = qr.big_plan(h, cdt, W, _kernels.sm_count(A.device))
+        print(f"K7 qr_complex_big {cname} (B={W}, plan (b, tc, nbuf) {p7} x "
+              f"{qr.big_blocks_per_sm(h, cdt, p7, A.device)}/SM)"
               f": {'; '.join(msg)} (tol {tol}); n={h}: kernel {ms:.4f} ms, "
               f"plain {pms:.4f} ms, torch.linalg.qr {lms:.4f} ms")
         rec[cname] = record(err, ms, pms, lms, bound(
@@ -1370,7 +1377,7 @@ def l16_kernel_phase(model, state, gen, device):
     plain version and the library's one call where there is one."""
     import torch
 
-    from detqmc_tpu_torch.linalg import qr, slice_update
+    from detqmc_tpu_torch.linalg import _kernels, qr, slice_update
     from detqmc_tpu_torch.linalg.udv import _sign_fix, green_inner
     from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
 
@@ -1454,7 +1461,9 @@ def l16_kernel_phase(model, state, gen, device):
         ms = time_ms(lambda: qr.qr(A))
         pms = time_ms(lambda: qr.qr_plain(A), reps=3)
         lms = time_ms(lambda: torch.linalg.qr(A), reps=3)
-        print(f"K7 qr_big {dname} (B={A.shape[0]}, plan {qr.big_plan(N, dt)}"
+        p7 = qr.big_plan(N, dt, A.shape[0], _kernels.sm_count(device))
+        print(f"K7 qr_big {dname} (B={A.shape[0]}, plan (b, tc, nbuf) {p7} x "
+              f"{qr.big_blocks_per_sm(N, dt, p7, device)}/SM"
               f"): {'; '.join(msg)} (tol {tol}); n={N}: kernel {ms:.4f} ms, "
               f"plain {pms:.4f} ms, torch.linalg.qr {lms:.4f} ms")
         rec[dname] = record(err, ms, pms, lms, bound(

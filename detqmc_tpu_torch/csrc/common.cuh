@@ -274,187 +274,6 @@ __device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
     householder_apply(A, C, v, s, n, ld, none);
 }
 
-// ---- blocked Householder for matrices beyond one block's shared memory ----
-// K7 (qr_big.cu) keeps its n x n matrices in
-// global memory (L2 / HBM) and only a panel, one column tile and the small
-// compact-WY factors in dynamic shared memory, laid out by blocked_smem
-// for a panel width b and a tile width tc (elements of S unless noted):
-//     V  n x (b + 1)    the panel, then its reflectors
-//     X  n x (tc + 1)   one column tile of the matrix being updated
-//     Wt, Y  b x tc     V^H X and T^H V^H X of the tile
-//     T, SV  b x b      the compact-WY factor and V^H V
-//     alpha, s  b;  beta  b (real)
-// blocked_smem_bytes is mirrored by linalg/qr.py big_smem_bytes.
-template <typename S>
-struct BlockedSmem {
-    S *V, *X, *Wt, *Y, *T, *SV, *alpha, *s;
-    typename real_of<S>::type* beta;
-};
-
-template <typename S>
-__host__ __device__ inline size_t blocked_smem_bytes(int n, int b, int tc) {
-    return sizeof(S) * (size_t(n) * (b + 1) + size_t(n) * (tc + 1) + 2 * size_t(b) * tc
-                        + 2 * size_t(b) * b + 2 * size_t(b))
-           + sizeof(typename real_of<S>::type) * size_t(b);
-}
-
-template <typename S>
-__device__ BlockedSmem<S> blocked_smem(unsigned char* raw, int n, int b, int tc) {
-    BlockedSmem<S> sm;
-    sm.V = reinterpret_cast<S*>(raw);
-    sm.X = sm.V + n * (b + 1);
-    sm.Wt = sm.X + n * (tc + 1);
-    sm.Y = sm.Wt + b * tc;
-    sm.T = sm.Y + b * tc;
-    sm.SV = sm.T + b * b;
-    sm.alpha = sm.SV + b * b;
-    sm.s = sm.alpha + b;
-    sm.beta = reinterpret_cast<typename real_of<S>::type*>(sm.s + b);
-    return sm;
-}
-
-// Blocked Householder QR of the n x n matrix A (global memory, row-major,
-// stride n), applying every reflector to the companion C (n x n, global)
-// as it goes; the reflectors are those of householder_apply, so
-//     on exit  A = R  (upper triangle, R_jj = alpha_j; strict lower
-//              triangle exactly zero),  C = Q^H C_in.
-// Per panel of b columns (pallas_cqr_wy.py:9-22, in native complex):
-//   1. the panel A[j0:, j0:j0+b] is factored in shared memory column by
-//      column (warp 0 forms v and beta, one warp per column for the dot
-//      products, one thread per element for the rank-1 updates);
-//   2. R's rows of the panel go back to A, the panel's strict lower part
-//      becomes 0, and V keeps only the reflectors (zero above the
-//      diagonal);
-//   3. T of the compact-WY form H_0 ... H_{b-1} = I - V T V^H from
-//      SV = V^H V: lane r of warp 0 fills row r,
-//      T_ri = -beta_i sum_{r <= k < i} T_rk SV_ki, T_rr = beta_r;
-//   4. A's trailing columns and all of C's, rows j0.., take
-//      X <- X - V (T^H (V^H X)) one tile of tc columns at a time.
-// All threads of the CTA call it.
-template <typename S>
-__device__ void householder_blocked(S* A, S* C, int n, int b, int tc,
-                                    const BlockedSmem<S>& sm) {
-    using R = typename real_of<S>::type;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int ldv = b + 1, ldx = tc + 1;
-    const S zero = from_real<S>(R(0));
-    S *V = sm.V, *X = sm.X;
-    for (int j0 = 0; j0 < n; j0 += b) {
-        const int bw = min(b, n - j0), mp = n - j0;
-        for (int idx = tid; idx < mp * bw; idx += kThreads) {
-            const int r = idx / bw, c = idx - r * bw;
-            V[r * ldv + c] = A[size_t(j0 + r) * n + j0 + c];
-        }
-        __syncthreads();
-        // 1. the panel, column by column
-        for (int jj = 0; jj < bw; ++jj) {
-            if (warp == 0) {
-                R p = 0;
-                for (int k = jj + lane; k < mp; k += 32) p += abs2(V[k * ldv + jj]);
-                const R norm = sqrt_t(warp_sum(p));
-                const S x0 = V[jj * ldv + jj];
-                const S alpha = householder_alpha(x0, norm);
-                __syncwarp();
-                if (lane == 0) V[jj * ldv + jj] = x0 - alpha;
-                __syncwarp();
-                R q = 0;
-                for (int k = jj + lane; k < mp; k += 32) q += abs2(V[k * ldv + jj]);
-                const R vtv = warp_sum(q);
-                if (lane == 0) {
-                    sm.alpha[jj] = alpha;
-                    // a zero column (v == 0) leaves everything unchanged
-                    sm.beta[jj] = R(2) / (vtv == R(0) ? R(1) : vtv);
-                }
-            }
-            __syncthreads();
-            const R beta = sm.beta[jj];
-            const int na = bw - jj - 1;
-            for (int col = warp; col < na; col += kWarps) {
-                const int c = jj + 1 + col;
-                S p = zero;
-                for (int k = jj + lane; k < mp; k += 32)
-                    p += conj_(V[k * ldv + jj]) * V[k * ldv + c];
-                p = warp_sum(p);
-                if (lane == 0) sm.s[col] = beta * p;
-            }
-            __syncthreads();
-            for (int idx = tid; idx < (mp - jj) * na; idx += kThreads) {
-                const int k = jj + idx / na, col = idx % na;
-                V[k * ldv + jj + 1 + col] -= V[k * ldv + jj] * sm.s[col];
-            }
-            __syncthreads();
-        }
-        // 2. R's panel rows to A; V keeps the reflectors only
-        for (int idx = tid; idx < mp * bw; idx += kThreads) {
-            const int r = idx / bw, c = idx - r * bw;
-            S val = zero;
-            if (r < c) {
-                val = V[r * ldv + c];
-                V[r * ldv + c] = zero;
-            } else if (r == c) {
-                val = sm.alpha[c];
-            }
-            A[size_t(j0 + r) * n + j0 + c] = val;
-        }
-        __syncthreads();
-        // 3. T from SV = V^H V (V is zero above its diagonal)
-        for (int pr = warp; pr < bw * bw; pr += kWarps) {
-            const int i = pr / bw, k = pr - i * bw;
-            if (i >= k) continue;   // warp-uniform
-            S p = zero;
-            for (int rr = k + lane; rr < mp; rr += 32)
-                p += conj_(V[rr * ldv + i]) * V[rr * ldv + k];
-            p = warp_sum(p);
-            if (lane == 0) sm.SV[i * b + k] = p;
-        }
-        __syncthreads();
-        if (warp == 0 && lane < bw) {
-            const int r = lane;
-            sm.T[r * b + r] = from_real<S>(sm.beta[r]);
-            for (int i = r + 1; i < bw; ++i) {
-                S acc = zero;
-                for (int k = r; k < i; ++k) acc += sm.T[r * b + k] * sm.SV[k * b + i];
-                sm.T[r * b + i] = (-sm.beta[i]) * acc;
-            }
-        }
-        __syncthreads();
-        // 4. X <- X - V T^H V^H X: A's trailing columns, then C's
-        const int ta = (n - j0 - bw + tc - 1) / tc, nt = ta + (n + tc - 1) / tc;
-        for (int tile = 0; tile < nt; ++tile) {
-            S* M = tile < ta ? A : C;
-            const int c0 = tile < ta ? j0 + bw + tile * tc : (tile - ta) * tc;
-            const int tw = min(tc, n - c0);
-            for (int idx = tid; idx < mp * tw; idx += kThreads) {
-                const int r = idx / tw, c = idx - r * tw;
-                X[r * ldx + c] = M[size_t(j0 + r) * n + c0 + c];
-            }
-            __syncthreads();
-            for (int idx = tid; idx < bw * tw; idx += kThreads) {
-                const int c = idx / bw, i = idx - c * bw;
-                S acc = zero;
-                for (int rr = i; rr < mp; ++rr) acc += conj_(V[rr * ldv + i]) * X[rr * ldx + c];
-                sm.Wt[i * tc + c] = acc;
-            }
-            __syncthreads();
-            for (int idx = tid; idx < bw * tw; idx += kThreads) {
-                const int i = idx / tw, c = idx - i * tw;
-                S acc = zero;
-                for (int k = 0; k <= i; ++k) acc += conj_(sm.T[k * b + i]) * sm.Wt[k * tc + c];
-                sm.Y[i * tc + c] = acc;
-            }
-            __syncthreads();
-            for (int idx = tid; idx < mp * tw; idx += kThreads) {
-                const int r = idx / tw, c = idx - r * tw;
-                S acc = X[r * ldx + c];
-                const int imax = min(bw, r + 1);
-                for (int i = 0; i < imax; ++i) acc -= V[r * ldv + i] * sm.Y[i * tc + c];
-                M[size_t(j0 + r) * n + c0 + c] = acc;
-            }
-            __syncthreads();
-        }
-    }
-}
-
 // Launch `kernel` with `smem` bytes of dynamic shared memory on `stream`
 // of `device`, raising the kernel's dynamic shared-memory cap first.
 // Returns cudaGetLastError().

@@ -50,7 +50,9 @@
 //     twice, and it lost to one (16, 8, 2) CTA.
 // K8 + K9 then take 1.9 ms at f64 B = 128 (torch.linalg.solve 4.6-4.9)
 // and 65.5 ms at f64 B = 5376 (96-114): 3.4x and 3.9x faster than the
-// first design (solve_timing.py). What holds it now is the panel's chain (two
+// first design (solve_timing.py). K7's redesign on the same factorization
+// (a warp's panel dot products interleaved, a division-free rank-1
+// update, Y = -T^H W on the tensor cores) took them to 1.6 and 59 ms. What holds it now is the panel's chain (two
 // barriers and a warp reduction per column, n columns per matrix) and, at
 // B = 5376, the tiles' traffic (each panel reads and writes the trailing
 // matrix and all of M: 14 MiB per f64 matrix at b = 16, 23 ms of HBM

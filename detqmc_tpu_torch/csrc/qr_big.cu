@@ -12,59 +12,145 @@
 // kernel, one template, replaces all four layouts.
 // A complex64 256 x 256 matrix is 512 KB (1 MB in complex128), beyond a
 // block's 227 KB, so A and the Q^H accumulator stay in global memory (the
-// output buffers R and Q serve as the work arrays) and only a panel of b
-// columns, one column tile and the compact-WY factors live in shared
-// memory (householder_blocked, common.cuh: panel factorization, T, and
-// the trailing update X <- X - V T^H V^H X tile by tile, all in the
-// kernel's own loops). At the end Q^H is conjugate-transposed in place.
+// output buffers R and Q serve as the work arrays). The factorization is
+// K8's (householder_tc, tc_blocked.cuh) with the identity as the
+// companion, so C ends as Q^H; then Q^H is conjugate-transposed in place,
+// 32 x 32 tile pairs through shared memory. The identity is never stored:
+// the first panel forms its tiles in shared memory.
 // Contract as K2 / K2c: A = Q R, Q orthogonal / unitary, R's strict lower
 // triangle exactly zero, R_jj = -sign(x_j)||x|| (real, sign(0) = +1, as
 // pallas_qr_big.py:22-23) or -(x_j/|x_j|)||x|| (complex; not normalized:
-// udv._sign_fix folds the sign or phase). What bounds it on the H100: one CTA per matrix (128 matrices on
-// 132 SMs at the main path), n / b panels of b dependent column steps
-// (three __syncthreads each), and the trailing updates, ~(4/3 + 2) n^3 / 2
-// complex products per matrix read from shared memory, their tiles moving
-// through L2.
-#include "common.cuh"
+// udv._sign_fix folds the sign or phase). No atomics: two calls are
+// bitwise equal.
+//
+// What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W): the work is
+// (4/3 + 2) n^3 real multiply-adds per matrix (x4 in complex), 0.09 ms for
+// 128 float64 matrices at n = 256 on the FP64 tensor cores. The first
+// design (householder_blocked, one output per thread with two shared-memory
+// loads per multiply-add, tiles loaded synchronously, warp 0 alone on each
+// column, SV one warp per pair) took 5.09 ms there; its clock64() probe
+// (solve_timing.py) put 64 % of a CTA's time in the tile products (A's
+// trailing columns 23 %, Q's 41 %), 18 % in the synchronous tile loads,
+// 10 % in the panel and 7 % in SV and T. This design:
+//   - the products on the FP64 tensor cores (float64, complex128: mma.sync
+//     m8n8k4) or register-tiled on the FP32 pipe (float32, complex64: 4 x 2
+//     blocks of V^H X and 4 x 4 blocks of X + V Y per thread, operands
+//     streamed from shared memory; no TF32, which loses the float32
+//     tolerance);
+//   - the next tile copied by cp.async while the current one is computed;
+//   - the panel at two barriers a column, every warp forming the norm, a
+//     warp's dot products interleaved, the rank-1 update division-free;
+//   - SV = V^H V and Y = -T^H (V^H X) as products too;
+//   - float64 at two CTAs per SM (b = tc = 16, one tile buffer) when the
+//     batch has more matrices than the card has SMs (linalg/qr.py
+//     big_plan).
+// It takes 1.30 ms at float64 and 2.15 ms at complex64 there
+// (solve_timing.py; torch.linalg.qr 80 and 103 ms). What holds it now, by
+// the probe (float64 / complex64, share of a CTA's time): the panel's
+// chain of n dependent columns (27 % / 21 %: two barriers, a norm and the
+// warp reductions a column), the tile products (41 % / 60 %; the FP32
+// pipe at about a third of its peak), the tiles' loads and the panel's
+// copies (20 % / 11 %: each panel reads and writes the trailing matrix
+// and all of Q^H), SV and T (7 % / 5 %) and the transposition (5 % / 3 %).
+// Not taken: forming Q backward (LAPACK's orgqr order, 29 % fewer Q
+// products and no transposition, but V and T kept for a second pass) and
+// a cluster of two CTAs per matrix for the panel.
+#include <type_traits>
+
+#include "tc_blocked.cuh"
 
 namespace dq {
 
+// C = C^H in place (n x n, global), a pair of 32 x 32 tiles at a time
+// through shared memory (buf: 2 x 32 x 33)
 template <typename S>
-__global__ void __launch_bounds__(kThreads)
-qr_big_kernel(const S* __restrict__ A_in, S* Q_out, S* R_out, int n, int b, int tc) {
-    using R = typename real_of<S>::type;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const BlockedSmem<S> sm = blocked_smem<S>(smem_raw, n, b, tc);
-    const int tid = threadIdx.x;
-    const size_t off = size_t(blockIdx.x) * n * n;
-    S* A = R_out + off;
-    S* C = Q_out + off;
-    for (int idx = tid; idx < n * n; idx += kThreads) {
-        const int r = idx / n, c = idx - r * n;
-        A[idx] = A_in[off + idx];
-        C[idx] = from_real<S>(r == c ? R(1) : R(0));
-    }
-    __syncthreads();
-    householder_blocked(A, C, n, b, tc, sm);
-    // Q = (Q^H)^H in place: each thread swaps the pairs (r, c), r < c
-    for (int idx = tid; idx < n * n; idx += kThreads) {
-        const int r = idx / n, c = idx - r * n;
-        if (r < c) {
-            const S u = C[idx], l = C[size_t(c) * n + r];
-            C[idx] = conj_(l);
-            C[size_t(c) * n + r] = conj_(u);
-        } else if (r == c) {
-            C[idx] = conj_(C[idx]);
+__device__ void conj_transpose(S* C, int n, S* buf) {
+    const int nt = (n + 31) / 32;
+    S *b0 = buf, *b1 = buf + 32 * 33;
+    for (int bi = 0; bi < nt; ++bi)
+        for (int bj = bi; bj < nt; ++bj) {
+            for (int idx = threadIdx.x; idx < 1024; idx += kThreads) {
+                const int r = idx >> 5, c = idx & 31;
+                if (32 * bi + r < n && 32 * bj + c < n)
+                    b0[r * 33 + c] = C[size_t(32 * bi + r) * n + 32 * bj + c];
+                if (bi != bj && 32 * bj + r < n && 32 * bi + c < n)
+                    b1[r * 33 + c] = C[size_t(32 * bj + r) * n + 32 * bi + c];
+            }
+            __syncthreads();
+            const S* lo = bi == bj ? b0 : b1;
+            for (int idx = threadIdx.x; idx < 1024; idx += kThreads) {
+                const int r = idx >> 5, c = idx & 31;
+                if (32 * bi + r < n && 32 * bj + c < n)
+                    C[size_t(32 * bi + r) * n + 32 * bj + c] = conj_(lo[c * 33 + r]);
+                if (bi != bj && 32 * bj + r < n && 32 * bi + c < n)
+                    C[size_t(32 * bj + r) * n + 32 * bi + c] = conj_(b0[c * 33 + r]);
+            }
+            __syncthreads();
         }
+}
+
+template <typename S, int BP, int TC, bool PROBE>
+__global__ void __launch_bounds__(kThreads, 2)
+qr_big_kernel(const S* __restrict__ A_in, S* Q_out, S* R_out, int n, int nbuf,
+              long long* probe_out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const TcSmem<S> sm = tc_smem<S>(smem_raw, n, BP, TC, nbuf);
+    Probe<PROBE, kQrPhases> probe;
+    probe.start();
+    const size_t off = size_t(blockIdx.x) * n * n;
+    householder_tc<S, BP, TC>(A_in + off, R_out + off, nullptr, Q_out + off, n, nbuf, sm,
+                              probe);
+    conj_transpose(Q_out + off, n, reinterpret_cast<S*>(smem_raw));
+    probe.lap(kQrTranspose);
+    probe.store(probe_out);
+}
+
+// the compiled (b, tc) plans (linalg/qr.py _BIG_PLANS): complex128 (16, 8)
+// and (8, 8), the others (32, 16) and (16, 16); nbuf is 1 or 2. The probe
+// instances: float64 and complex64 at (32, 16), the main paths' plans.
+template <typename S>
+bool qr_plan_ok(int b, int tc, int nbuf) {
+    const bool shape = std::is_same<S, cplx<double>>::value
+                           ? (tc == 8 && (b == 16 || b == 8))
+                           : (tc == 16 && (b == 32 || b == 16));
+    return shape && (nbuf == 1 || nbuf == 2) && nbuf * (tc + pad_of<S>::value) >= b + 1;
+}
+
+template <typename S>
+constexpr bool has_qr_probe() {
+    return std::is_same<S, double>::value || std::is_same<S, cplx<float>>::value;
+}
+
+// calls f(kernel pointer) for the instance of (b, probe)
+template <typename S, typename F>
+int with_qr_kernel(int b, bool probe, F f) {
+    if constexpr (std::is_same<S, cplx<double>>::value) {
+        return b == 16 ? f(qr_big_kernel<S, 16, 8, false>) : f(qr_big_kernel<S, 8, 8, false>);
+    } else {
+        if constexpr (has_qr_probe<S>())
+            if (probe) return f(qr_big_kernel<S, 32, 16, true>);
+        return b == 32 ? f(qr_big_kernel<S, 32, 16, false>) : f(qr_big_kernel<S, 16, 16, false>);
     }
 }
 
 template <typename S>
-int qr_big(int device, const void* A, void* Q, void* R, int batch, int n, int b,
-           int tc, void* stream) {
-    return launch_smem(device, qr_big_kernel<S>, batch, blocked_smem_bytes<S>(n, b, tc),
-                       stream, static_cast<const S*>(A), static_cast<S*>(Q),
-                       static_cast<S*>(R), n, b, tc);
+int qr_big(int device, const void* A, void* Q, void* R, int batch, int n, int b, int tc,
+           int nbuf, void* stream, long long* probe = nullptr) {
+    if (!qr_plan_ok<S>(b, tc, nbuf) || (probe && (!has_qr_probe<S>() || b != 32)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = tc_smem_bytes<S>(n, b, tc, nbuf);
+    return with_qr_kernel<S>(b, probe != nullptr, [&](auto kernel) {
+        return launch_tc(device, kernel, batch, smem, stream, static_cast<const S*>(A),
+                         static_cast<S*>(Q), static_cast<S*>(R), n, nbuf, probe);
+    });
+}
+
+template <typename S>
+int qr_big_blocks(int device, int n, int b, int tc, int nbuf) {
+    if (!qr_plan_ok<S>(b, tc, nbuf)) return -static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = tc_smem_bytes<S>(n, b, tc, nbuf);
+    return with_qr_kernel<S>(
+        b, false, [&](auto kernel) { return blocks_per_sm(device, kernel, smem); });
 }
 
 }  // namespace dq
@@ -72,23 +158,49 @@ int qr_big(int device, const void* A, void* Q, void* R, int batch, int n, int b,
 extern "C" {
 
 int dq_qr_big_f32(int device, const void* A, void* Q, void* R, int batch, int n,
-                  int b, int tc, void* stream) {
-    return dq::qr_big<float>(device, A, Q, R, batch, n, b, tc, stream);
+                  int b, int tc, int nbuf, void* stream) {
+    return dq::qr_big<float>(device, A, Q, R, batch, n, b, tc, nbuf, stream);
 }
 
 int dq_qr_big_f64(int device, const void* A, void* Q, void* R, int batch, int n,
-                  int b, int tc, void* stream) {
-    return dq::qr_big<double>(device, A, Q, R, batch, n, b, tc, stream);
+                  int b, int tc, int nbuf, void* stream) {
+    return dq::qr_big<double>(device, A, Q, R, batch, n, b, tc, nbuf, stream);
 }
 
 int dq_qr_big_c64(int device, const void* A, void* Q, void* R, int batch, int n,
-                  int b, int tc, void* stream) {
-    return dq::qr_big<dq::cplx<float>>(device, A, Q, R, batch, n, b, tc, stream);
+                  int b, int tc, int nbuf, void* stream) {
+    return dq::qr_big<dq::cplx<float>>(device, A, Q, R, batch, n, b, tc, nbuf, stream);
 }
 
 int dq_qr_big_c128(int device, const void* A, void* Q, void* R, int batch, int n,
-                   int b, int tc, void* stream) {
-    return dq::qr_big<dq::cplx<double>>(device, A, Q, R, batch, n, b, tc, stream);
+                   int b, int tc, int nbuf, void* stream) {
+    return dq::qr_big<dq::cplx<double>>(device, A, Q, R, batch, n, b, tc, nbuf, stream);
+}
+
+// the same with the phase probe on (float64 and complex64 at b = 32, tc =
+// 16): probe (batch x 8 int64) gets each CTA's cycles per phase, total
+// cycles and total ns
+int dq_qr_big_probe_f64(int device, const void* A, void* Q, void* R, int batch, int n,
+                        int b, int tc, int nbuf, void* probe, void* stream) {
+    return dq::qr_big<double>(device, A, Q, R, batch, n, b, tc, nbuf, stream,
+                              static_cast<long long*>(probe));
+}
+
+int dq_qr_big_probe_c64(int device, const void* A, void* Q, void* R, int batch, int n,
+                        int b, int tc, int nbuf, void* probe, void* stream) {
+    return dq::qr_big<dq::cplx<float>>(device, A, Q, R, batch, n, b, tc, nbuf, stream,
+                                       static_cast<long long*>(probe));
+}
+
+// CTAs of K7 per SM at this plan (dtype: 0 float32, 1 float64, 2 complex64,
+// 3 complex128), or -(cudaError)
+int dq_qr_big_blocks_per_sm(int device, int dtype, int n, int b, int tc, int nbuf) {
+    switch (dtype) {
+        case 0: return dq::qr_big_blocks<float>(device, n, b, tc, nbuf);
+        case 1: return dq::qr_big_blocks<double>(device, n, b, tc, nbuf);
+        case 2: return dq::qr_big_blocks<dq::cplx<float>>(device, n, b, tc, nbuf);
+        default: return dq::qr_big_blocks<dq::cplx<double>>(device, n, b, tc, nbuf);
+    }
 }
 
 }  // extern "C"

@@ -78,11 +78,6 @@ __device__ __forceinline__ cplx<T> recip_guarded(cplx<T> a) {
     return mk(a.re * ia2, -a.im * ia2);
 }
 
-template <typename S>
-__host__ __device__ constexpr bool on_tensor_cores() {
-    return std::is_same<S, double>::value || std::is_same<S, cplx<double>>::value;
-}
-
 // shared memory: X np x (tc + pad), nbuf panels np x (b + pad); mirrored
 // by linalg/trinv.py smem_bytes
 template <typename S>

@@ -77,12 +77,16 @@ _SIGNATURES = {
     # acc_out, W, N, opdim, i0, Kc, dtau, c_det, stream
     "dq_sdw_delayed_c64": [_I] + [_P] * 11 + [_I] * 5 + [_D, _D, _P],
     "dq_sdw_delayed_c128": [_I] + [_P] * 11 + [_I] * 5 + [_D, _D, _P],
-    # device, G, tmp, G_out, E, Einv, D, Dinv, W, N, up, TL, stream
-    "dq_sdw_wrap_c64": [_I] + [_P] * 7 + [_I] * 4 + [_P],
-    "dq_sdw_wrap_c128": [_I] + [_P] * 7 + [_I] * 4 + [_P],
-    # device, X, X_out, E, D, W, N, herm, TL, stream
-    "dq_sdw_apply_c64": [_I] + [_P] * 4 + [_I] * 4 + [_P],
-    "dq_sdw_apply_c128": [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    # device, G, tmp, G_out, E, Einv, D, Dinv, W, N, up, TL, og, nb, tpc,
+    # stream
+    "dq_sdw_wrap_c64": [_I] + [_P] * 7 + [_I] * 7 + [_P],
+    "dq_sdw_wrap_c128": [_I] + [_P] * 7 + [_I] * 7 + [_P],
+    # device, X, X_out, E, D, W, N, herm, TL, og, nb, tpc, stream
+    "dq_sdw_apply_c64": [_I] + [_P] * 4 + [_I] * 7 + [_P],
+    "dq_sdw_apply_c128": [_I] + [_P] * 4 + [_I] * 7 + [_P],
+    # the same, then the phase probe's record (CTAs x 6 int64)
+    "dq_sdw_wrap_probe_c64": [_I] + [_P] * 7 + [_I] * 7 + [_P, _P],
+    "dq_sdw_apply_probe_c64": [_I] + [_P] * 4 + [_I] * 7 + [_P, _P],
     # device, G, field, u01, sign, G_out, field_out, sign_out, acc_out,
     # W, C, N, k, alpha, stream
     "dq_slice_update_delayed_f32": [_I] + [_P] * 8 + [_I] * 4 + [_D, _P],
@@ -92,11 +96,14 @@ _SIGNATURES = {
     + [_D, _P, _P],
     "dq_slice_update_delayed_probe_f64": [_I] + [_P] * 8 + [_I] * 4
     + [_D, _P, _P],
-    # device, A, Q, R, batch, n, b, tc, stream
-    "dq_qr_big_f32": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
-    "dq_qr_big_f64": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
-    "dq_qr_big_c64": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
-    "dq_qr_big_c128": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # device, A, Q, R, batch, n, b, tc, nbuf, stream
+    "dq_qr_big_f32": [_I, _P, _P, _P] + [_I] * 5 + [_P],
+    "dq_qr_big_f64": [_I, _P, _P, _P] + [_I] * 5 + [_P],
+    "dq_qr_big_c64": [_I, _P, _P, _P] + [_I] * 5 + [_P],
+    "dq_qr_big_c128": [_I, _P, _P, _P] + [_I] * 5 + [_P],
+    # the same, then the phase probe's record (batch x 8 int64)
+    "dq_qr_big_probe_f64": [_I, _P, _P, _P] + [_I] * 5 + [_P, _P],
+    "dq_qr_big_probe_c64": [_I, _P, _P, _P] + [_I] * 5 + [_P, _P],
     # device, inner, r1, mid, work, batch, n, b, tc, nbuf, stream
     "dq_solve_inner_big_f64": [_I] + [_P] * 4 + [_I] * 5 + [_P],
     "dq_solve_inner_big_c128": [_I] + [_P] * 4 + [_I] * 5 + [_P],
@@ -114,6 +121,9 @@ _SIGNATURES = {
     "dq_solve_inner_big_blocks_per_sm": [_I] * 7,
     # device, dtype code, n, b, tc, nbuf
     "dq_trinv_big_blocks_per_sm": [_I] * 6,
+    "dq_qr_big_blocks_per_sm": [_I] * 6,
+    # device, complex128, N, TL, og, nb
+    "dq_sdw_wrap_blocks_per_sm": [_I] * 6,
 }
 
 LAUNCHES = {"slice_update": 0, "qr": 0, "solve_inner": 0, "sdw_update": 0,

@@ -52,7 +52,7 @@ from __future__ import annotations
 import torch
 
 from detqmc_tpu_torch.linalg import _kernels, trinv
-from detqmc_tpu_torch.linalg.qr import MAX_N_BIG
+from detqmc_tpu_torch.linalg.qr import MAX_N_BIG, tc_smem_bytes
 
 MAX_N = 128
 # K8's plans (panel width b, tile width tc, tile buffers nbuf), widest
@@ -101,21 +101,8 @@ def smem_bytes(n: int, dtype=torch.float64) -> int:
     return item * (2 * n * (n + 1) + 3 * n)
 
 
-def vh_slices(b: int, w: int) -> int:
-    """tc_blocked.cuh vh_slices: k-slices of a b x w product."""
-    frags = (b // 8) * (w // 8)
-    return 1 if frags >= 8 else 8 // frags
-
-
-def big_smem_bytes(n: int, dtype, b: int, tc: int, nbuf: int) -> int:
-    """Dynamic shared memory of K8 (tc_blocked.cuh tc_smem_bytes: the
-    reflectors' beta are real)."""
-    item, real_item = dtype.itemsize, dtype.to_real().itemsize
-    np_, pad = -(-n // 8) * 8, _kernels.row_pad(dtype)
-    part = max(vh_slices(b, tc) * b * (tc + pad), vh_slices(b, b) * b * (b + pad))
-    elems = (np_ * (b + pad) + nbuf * np_ * (tc + pad) + part + b * (tc + pad)
-             + b * b + 3 * b)
-    return item * elems + real_item * b
+# K8's dynamic shared memory is householder_tc's, as K7's
+big_smem_bytes = tc_smem_bytes
 
 
 def big_plan(n: int, dtype, batch: int = 1, sms: int = _kernels.H100_SMS):

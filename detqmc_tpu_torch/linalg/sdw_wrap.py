@@ -4,13 +4,15 @@ versions, with the plain factor applies the model is built from.
 Replaces detqmc_tpu/linalg/pallas_sdw_wrap.py (``fused_wrap``, Pallas
 kernel ``_kernel``; ``fused_apply_left``, ``_apply_kernel``) on the card
 with ``csrc/sdw_wrap.cu`` (see the source's note for the design: row-tile
-and column-tile passes through shared memory, a global scratch buffer
-between the two halves of a wrap).
+and column-tile passes through shared memory, the kinetic step
+register-tiled on a real copy of E staged once per CTA, a global scratch
+buffer between the two halves of a wrap; ``plan`` picks the tiles).
 
 Layout (as the model's): dim index = orbital * N + site, h = 4 N; E, Einv
-(4, N, N) the per-orbital dense kinetic factors (real values in a complex
-tensor, the model's ``expK`` buffers; the kernel reads their real parts);
-D, Dinv (W, N, 4, 4) the per-site potential blocks.
+(4, N, N) the per-orbital dense kinetic factors, real: the model's
+``expK`` buffers (real values in a complex tensor) or its real copies
+``expK_real`` / ``expK_inv_real``, which it builds once and hands to the
+kernel; D, Dinv (W, N, 4, 4) the per-site potential blocks.
 
     wrap(G, E, Einv, D, Dinv, up=True)   G' = D . (E @ ((G @ Einv) . Dinv))
     wrap(G, E, Einv, D, Dinv, up=False)  G' = Einv @ (Dinv . ((G . D) @ E))
@@ -35,8 +37,19 @@ _WRAP = {torch.complex64: "dq_sdw_wrap_c64",
          torch.complex128: "dq_sdw_wrap_c128"}
 _APPLY = {torch.complex64: "dq_sdw_apply_c64",
           torch.complex128: "dq_sdw_apply_c128"}
-_TILES = (16, 8, 4)
+# K6's plans (lines per tile TL, orbitals of F staged together og, line
+# buffers nb), in order of preference: F staged once per CTA (og = 4) with
+# a prefetch buffer, the widest tile first, then without one; then F
+# staged per tile
+_PLANS = ((32, 4, 3), (16, 4, 3), (8, 4, 3), (4, 4, 3), (16, 4, 2),
+          (8, 4, 2), (16, 2, 3), (16, 1, 3), (8, 2, 3), (8, 1, 3), (4, 2, 3),
+          (4, 1, 3), (8, 1, 2), (4, 1, 2))
+_THREADS = 256   # csrc/common.cuh kThreads
 
+
+def lines_per_thread(dtype) -> int:
+    """csrc/sdw_wrap.cu k6_rt: lines of a thread's kinetic block."""
+    return 2 if dtype == torch.complex128 else 4
 
 # ---- plain factor applies (X: (..., h, k) or (..., k, h)) -----------------
 def _as_orb(X, N):
@@ -80,21 +93,63 @@ def apply_plain(X, E, D, herm: bool):
 
 
 # ---- the kernel --------------------------------------------------------------
-def smem_bytes(N: int, dtype, TL: int) -> int:
-    """Dynamic shared memory of one line pass (csrc/sdw_wrap.cu)."""
-    item = torch.empty((), dtype=dtype).element_size()
-    h = Q * N
-    return item * (2 * TL * (h + 1) + 16 * N) + item // 2 * N * (N + 1)
+def smem_bytes(N: int, dtype, TL: int, og: int, nb: int) -> int:
+    """Dynamic shared memory of one line pass (csrc/sdw_wrap.cu
+    k6_smem_bytes): nb line buffers of h x (TL + line pad), D's blocks,
+    og orbitals of the real F at N x (round_up(N, 4) + F pad)."""
+    item = dtype.itemsize
+    c128 = item == 16
+    ldt = TL + ((1 if c128 else 2) if TL >= 8 else 0)
+    ldf = -(-N // 4) * 4 + (2 if c128 else 4)
+    return item * (nb * Q * N * ldt + 16 * N) + item // 2 * og * N * ldf
 
 
-def tile_lines(N: int, dtype) -> int:
-    """Lines per block: the largest of 16, 8, 4 within the shared-memory
-    budget; raises if none fits (N beyond 128 in complex128)."""
-    for TL in _TILES:
-        if smem_bytes(N, dtype, TL) <= _kernels.MAX_SMEM_BYTES - 1024:
-            return TL
-    raise ValueError(f"sdw_wrap: N={N} {dtype} exceeds the shared-memory "
-                     "budget")
+def kinetic_blocks(N: int, dtype, TL: int, og: int) -> int:
+    """Threads' blocks of one kinetic step (per group of og orbitals)."""
+    return og * -(-N // 4) * (TL // lines_per_thread(dtype))
+
+
+def plan(N: int, dtype, W: int = 1, sms: int = _kernels.H100_SMS):
+    """(TL, og, nb, tpc) of K6: the first of _PLANS within the
+    shared-memory budget whose kinetic step has a block for every thread
+    (else the first within the budget), and tpc tiles per CTA so that a
+    walker's tiles spread over max(1, sms // W) CTAs (one CTA per walker
+    at W >= sms); raises if no plan fits (N beyond 128 in complex128)."""
+    fit = [p for p in _PLANS if smem_bytes(N, dtype, *p)
+           <= _kernels.MAX_SMEM_BYTES - 1024]
+    if not fit:
+        raise ValueError(f"sdw_wrap: N={N} {dtype} exceeds the "
+                         "shared-memory budget")
+    full = [p for p in fit if kinetic_blocks(N, dtype, p[0], p[1]) >= _THREADS]
+    TL, og, nb = (full or fit)[0]
+    tiles = -(-Q * N // TL)
+    ctas = max(1, min(tiles, sms // max(W, 1)))
+    return TL, og, nb, -(-tiles // ctas)
+
+
+def blocks_per_sm(N: int, dtype, plan, device="cuda") -> int:
+    """CTAs of a K6 line pass one SM of ``device`` holds at this plan
+    (TL, og, nb, ...), as the CUDA occupancy calculator reports it."""
+    return _kernels.query("dq_sdw_wrap_blocks_per_sm", device,
+                          int(dtype == torch.complex128), N, *plan[:3])
+
+
+def ctas(N: int, W: int, TL: int, tpc: int) -> int:
+    """CTAs of one line pass at this plan."""
+    return W * -(-(-(-Q * N // TL)) // tpc)
+
+
+def real_factor(E, dtype):
+    """The real kinetic factor K6 reads, for G of complex ``dtype``: E
+    itself if it is already the real copy, else its real part (the
+    model builds it once: ``SDWModel.expK_real``)."""
+    rdt = dtype.to_real()
+    if E.is_complex():
+        E = E.real
+    if E.dtype != rdt:
+        raise TypeError(f"sdw_wrap: E dtype {E.dtype}, need {rdt} for "
+                        f"{dtype}")
+    return E.contiguous()
 
 
 def _check(X, E, D, extra=()):
@@ -104,36 +159,78 @@ def _check(X, E, D, extra=()):
     if h2 != h or h != Q * N:
         raise ValueError(f"sdw_wrap: X shape {tuple(X.shape)} must be "
                          "(W, 4 N, 4 N)")
+    rdt = X.dtype.to_real()
     for name, t, shape in ((("E", E, (Q, N, N)), ("D", D, (W, N, Q, Q)))
                            + tuple(extra)):
-        _kernels.check_cuda_tensor(name, t, (X.dtype,), len(shape))
+        kinetic = len(shape) == 3
+        _kernels.check_cuda_tensor(name, t, (rdt,) if kinetic else
+                                   (X.dtype,), len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"sdw_wrap: {name} shape {tuple(t.shape)} != "
                              f"{shape}")
-    return W, N, tile_lines(N, X.dtype)
+    return W, N, plan(N, X.dtype, W, _kernels.sm_count(X.device))
 
 
-def wrap(G, E, Einv, D, Dinv, up: bool):
+# the phase probe's phases of K6 (sdw_wrap.cu), in the order of its per-CTA
+# record; the record ends with the CTA's total cycles and ns. The probe
+# instances are compiled for complex64 (the main path's K6).
+PROBE_PHASES = ("F staging", "kinetic step", "D step",
+                "line loads and stores")
+
+
+def _probe_record(X, n_ctas: int, probe: bool):
+    if not probe:
+        return None
+    if X.dtype != torch.complex64:
+        raise ValueError(f"sdw_wrap: no phase probe for {X.dtype}")
+    return torch.zeros((n_ctas, len(PROBE_PHASES) + 2), dtype=torch.int64,
+                       device=X.device)
+
+
+def _complex(E, dtype):
+    return E if E.is_complex() else E.to(dtype)
+
+
+def wrap(G, E, Einv, D, Dinv, up: bool, probe: bool = False):
     """K6 wrap: CPU tensors run ``wrap_plain``; CUDA tensors launch the
-    kernel (two line passes) or raise."""
+    kernel (two line passes) or raise. E, Einv complex or their real
+    copies. With ``probe`` (complex64) the kernel's instance with
+    clock64() stamps runs, and the result is (G', the per-CTA record of
+    both passes)."""
     if G.device.type == "cpu":
-        return wrap_plain(G, E, Einv, D, Dinv, up)
-    W, N, TL = _check(G, E, D, (("Einv", Einv, tuple(E.shape)),
-                                ("Dinv", Dinv, tuple(D.shape))))
+        if probe:
+            raise ValueError("sdw_wrap: the probe needs a CUDA tensor")
+        return wrap_plain(G, _complex(E, G.dtype), _complex(Einv, G.dtype), D,
+                          Dinv, up)
+    E, Einv = real_factor(E, G.dtype), real_factor(Einv, G.dtype)
+    W, N, (TL, og, nb, tpc) = _check(
+        G, E, D, (("Einv", Einv, tuple(E.shape)),
+                  ("Dinv", Dinv, tuple(D.shape))))
     tmp = torch.empty_like(G)
     out = torch.empty_like(G)
-    _kernels.launch("sdw_wrap", _WRAP[G.dtype], G, tmp, out, E, Einv, D,
-                    Dinv, W, N, int(up), TL)
+    args = (G, tmp, out, E, Einv, D, Dinv, W, N, int(up), TL, og, nb, tpc)
+    rec = _probe_record(G, 2 * ctas(N, W, TL, tpc), probe)
+    if rec is not None:
+        _kernels.launch("sdw_wrap", "dq_sdw_wrap_probe_c64", *args, rec)
+        return out, rec
+    _kernels.launch("sdw_wrap", _WRAP[G.dtype], *args)
     return out
 
 
-def apply(X, E, D, herm: bool):
+def apply(X, E, D, herm: bool, probe: bool = False):
     """K6 apply: CPU tensors run ``apply_plain``; CUDA tensors launch the
-    kernel (one line pass) or raise."""
+    kernel (one line pass) or raise. With ``probe`` as ``wrap``."""
     if X.device.type == "cpu":
-        return apply_plain(X, E, D, herm)
-    W, N, TL = _check(X, E, D)
+        if probe:
+            raise ValueError("sdw_wrap: the probe needs a CUDA tensor")
+        return apply_plain(X, _complex(E, X.dtype), D, herm)
+    E = real_factor(E, X.dtype)
+    W, N, (TL, og, nb, tpc) = _check(X, E, D)
     out = torch.empty_like(X)
-    _kernels.launch("sdw_apply", _APPLY[X.dtype], X, out, E, D, W, N,
-                    int(herm), TL)
+    args = (X, out, E, D, W, N, int(herm), TL, og, nb, tpc)
+    rec = _probe_record(X, ctas(N, W, TL, tpc), probe)
+    if rec is not None:
+        _kernels.launch("sdw_apply", "dq_sdw_apply_probe_c64", *args, rec)
+        return out, rec
+    _kernels.launch("sdw_apply", _APPLY[X.dtype], *args)
     return out

@@ -321,6 +321,12 @@ class SDWModel(nn.Module):
         cdt, rdt = self.cdtype, self.rdtype
         buf("expK", ek, cdt)                                   # (4, N, N)
         buf("expK_inv", eki, cdt)
+        # K6 reads the kinetic factors as real matrices: their real copies,
+        # built once here (not saved: they follow from the config)
+        self.register_buffer("expK_real", self.expK.real.contiguous(),
+                             persistent=False)
+        self.register_buffer("expK_inv_real", self.expK_inv.real.contiguous(),
+                             persistent=False)
         buf("K_orb", np.stack([Kx, Kx, Ky, Ky]), cdt)
         buf("paulis", _pauli_stack(cfg.opdim), cdt)            # (3, 2, 2)
         nb = self.lat.neighbors()                              # (N, 4)
@@ -423,7 +429,7 @@ class SDWModel(nn.Module):
         # the sweep applies B only to the square lazy U; K6 raises on any
         # other operand of a CUDA tensor
         if self._fused:
-            return sdw_wrap.apply(X.contiguous(), self.expK, blocks, herm)
+            return sdw_wrap.apply(X.contiguous(), self.expK_real, blocks, herm)
         return sdw_wrap.apply_plain(X, self.expK, blocks, herm)
 
     # B = D_V expK (potential leftmost, as in Hubbard)
@@ -558,10 +564,11 @@ class SDWModel(nn.Module):
 
     # ---- wraps ----------------------------------------------------------------
     def _wrap(self, G, blocks, blocks_inv, up: bool):
-        args = (self.expK, self.expK_inv, blocks, blocks_inv, up)
         if self._fused:
-            return sdw_wrap.wrap(G.contiguous(), *args)
-        return sdw_wrap.wrap_plain(G, *args)
+            return sdw_wrap.wrap(G.contiguous(), self.expK_real,
+                                 self.expK_inv_real, blocks, blocks_inv, up)
+        return sdw_wrap.wrap_plain(G, self.expK, self.expK_inv, blocks,
+                                   blocks_inv, up)
 
     def wrap_up(self, G, blocks, blocks_inv):
         """G(l) = B_l G(l-1) B_l^{-1}."""

@@ -43,6 +43,11 @@ import sys
 from pathlib import Path
 
 BACKWARD_TOL = 1e-13
+# chip_smoke.py's L16_CFG and SDW8_CFG: the Hubbard L=16 and sdw_l8 chains
+L16 = dict(L=16, U=4.0, mu=0.0, beta=8.0, m=80, s=4, checkerboard=True,
+           delay=16, dtype="float32")
+SDW8 = dict(L=8, opdim=3, r=0.5, beta=4.0, m=40, s=8, dtype="float32",
+            checkerboard=True)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -178,6 +183,102 @@ def k3_rows(emit, gen, device, reps, lib_reps):
         torch.cuda.empty_cache()
 
 
+def k7_rows(emit, gen, device, reps, lib_reps):
+    """K7 float64 B=128 n=256 on a refactor block of the Hubbard L=16
+    chain and complex64 B=128 n=256 on an sdw_l8 block, beside
+    torch.linalg.qr, with the probe's split where the package has it."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import bchain, qr
+    from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    W = 128
+    hub = HubbardModel(HubbardConfig(**L16), device=device)
+    st = hub.init_state(W, gen)
+    block = st.stack.U[:, 1]
+    for l in range(1, hub.cfg.s + 1):
+        block = bchain.b_mult_left(hub.prop_chain,
+                                   hub.exp_v_chain(st.field[:, l - 1]), block)
+    n = hub.cfg.n_sites
+    blocks = [("float64", block.reshape(-1, n, n).to(torch.float64))]
+    del hub, st
+    sdw = SDWModel(SDWConfig(**SDW8), device=device)
+    st = sdw.init_state(W, gen)
+    block = st.stack_U[:, 1]
+    for l in range(1, sdw.cfg.s + 1):
+        block = sdw.b_mult_left(sdw.exp_v_blocks(st.phi[:, l - 1]), block)
+    blocks.append(("complex64", block.to(torch.complex64)))
+    del sdw, st
+    for dname, A in blocks:
+        A = A.contiguous()
+        B, n = A.shape[0], A.shape[-1]
+        Q, R = qr.qr(A)
+        torch.cuda.synchronize()
+        recon = float((Q @ R - A).abs().max() / A.abs().max())
+        ms = time_ms(lambda: qr.qr(A), reps)
+        lms = time_ms(lambda: torch.linalg.qr(A), lib_reps)
+        row = dict(kernel="K7", dtype=dname, B=B, n=n, ms=ms,
+                   library_ms=lms, library="torch.linalg.qr",
+                   plan=qr.big_plan(n, A.dtype), qr_minus_a=recon)
+        if hasattr(qr, "BIG_PROBE_PHASES"):
+            row["probe"] = split(qr.qr(A, probe=True)[-1],
+                                 qr.BIG_PROBE_PHASES)
+        emit(row)
+        del A, Q, R
+        torch.cuda.empty_cache()
+
+
+def k6_rows(emit, gen, device, reps, lib_reps):
+    """K6 wrap (up) and apply (B X), complex64 W=128 h=256 on an sdw_l8 G
+    (and the same in complex128), beside the dense products (einsum
+    B G B^-1, bmm B G), with the probe's split (complex64) where the
+    package has it."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import sdw_wrap
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    W = 128
+    model = SDWModel(SDWConfig(**SDW8), device=device)
+    st = model.init_state(W, gen)
+    D0 = model.exp_v_blocks(st.phi[:, 0])
+    Di0 = model.exp_v_blocks(st.phi[:, 0], 1.0)
+    for cdt in (torch.complex64, torch.complex128):
+        G, D, Di, Ec, Eic = [x.to(cdt).contiguous() for x in (
+            st.G, D0, Di0, model.expK, model.expK_inv)]
+        # the kinetic factors as the model hands them to K6 (its real
+        # copies, where the package has them)
+        real = hasattr(model, "expK_real")
+        E, Ei = (Ec.real.contiguous(), Eic.real.contiguous()) if real \
+            else (Ec, Eic)
+        h = G.shape[-1]
+        eye = torch.eye(h, dtype=cdt, device=device).expand(W, h, h)
+        Bd = sdw_wrap.apply_plain(eye, Ec, D, False)
+        Bi = sdw_wrap.kin_left(Eic, sdw_wrap.dv_left(Di, eye))
+        cases = (("wrap",
+                  lambda **kw: sdw_wrap.wrap(G, E, Ei, D, Di, True, **kw),
+                  lambda: torch.einsum("wij,wjk,wkl->wil", Bd, G, Bi),
+                  "einsum B G B^-1"),
+                 ("apply", lambda **kw: sdw_wrap.apply(G, E, D, False, **kw),
+                  lambda: torch.bmm(Bd, G), "bmm B G"))
+        for mode, fn, lib, lname in cases:
+            ms = time_ms(fn, reps)
+            lms = time_ms(lib, lib_reps)
+            row = dict(kernel="K6", mode=mode, dtype=str(cdt)[6:], W=W, h=h,
+                       ms=ms, library_ms=lms, library=lname)
+            if hasattr(sdw_wrap, "plan"):
+                row["plan"] = sdw_wrap.plan(h // 4, cdt, W)
+            if hasattr(sdw_wrap, "PROBE_PHASES") and cdt == torch.complex64:
+                rec = fn(probe=True)[1]
+                row["probe"] = split(rec, sdw_wrap.PROBE_PHASES)
+                row["probe_ctas"] = rec.shape[0]
+            emit(row)
+        del G, Bd, Bi, eye
+    del model, st
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent),
@@ -186,8 +287,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=256)
     ap.add_argument("--plans", action="store_true",
                     help="also time K8's and K9's other plans")
-    ap.add_argument("--rows", default="k8,k1b,k3",
-                    help="comma-separated groups: k8, k1b, k3")
+    ap.add_argument("--rows", default="k8,k1b,k3,k7,k6",
+                    help="comma-separated groups: k8, k1b, k3, k7, k6")
     args = ap.parse_args(argv)
     groups = set(args.rows.split(","))
     import torch
@@ -212,6 +313,10 @@ def main(argv=None) -> int:
         rows.append(row)
         print(json.dumps(row), flush=True)
 
+    if "k7" in groups:
+        k7_rows(emit, gen, device, args.reps, lib_reps)
+    if "k6" in groups:
+        k6_rows(emit, gen, device, args.reps, lib_reps)
     if "k1b" in groups:
         k1b_rows(emit, gen, device, args.reps)
     if "k3" in groups:

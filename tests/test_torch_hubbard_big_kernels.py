@@ -91,8 +91,8 @@ def test_real_qr_routes(n, dtype, route):
     assert qr.kernel_for(n, dtype) == route
     assert route in _kernels.LAUNCHES
     if route == "qr_big":
-        b, tc = qr.big_plan(n, dtype)
-        assert qr.big_smem_bytes(n, dtype, b, tc) <= \
+        plan = qr.big_plan(n, dtype)
+        assert qr.tc_smem_bytes(n, dtype, *plan) <= \
             _kernels.MAX_SMEM_BYTES - 1024
         assert qr._BIG_ENTRIES[dtype] in _kernels._SIGNATURES
 
@@ -120,14 +120,26 @@ def test_real_routes_refuse_beyond_the_blocked_kernels():
             qr.kernel_for(520, dtype)
     with pytest.raises(ValueError, match="shared-memory"):
         green_solve.kernel_for(520, torch.float64)
-    # the mirror of common.cuh blocked_smem_bytes counts the reflectors'
-    # beta in the real type: as wide as S for a real S, half of it for a
-    # complex one
+    # the mirror of tc_blocked.cuh tc_smem_bytes (K7's and K8's) counts the
+    # reflectors' beta in the real type: as wide as S for a real S, half of
+    # it for a complex one; the FP32 products split V^H X into
+    # 2048 / (b tc) k-slices (at most 8), the tensor-core ones into
+    # 8 / fragments when there are fewer than 8 fragments
     n, b, tc = 256, 32, 16
-    elems = n * (b + 1) + n * (tc + 1) + 2 * b * tc + 2 * b * b + 2 * b
-    assert qr.big_smem_bytes(n, torch.float64, b, tc) == 8 * elems + 8 * b
-    assert qr.big_smem_bytes(n, torch.float32, b, tc) == 4 * elems + 4 * b
-    assert qr.big_smem_bytes(n, torch.complex128, b, tc) == \
+    part = max(4 * b * (tc + 4), 2 * b * (b + 4))
+    elems = (n * (b + 4) + 2 * n * (tc + 4) + part + b * (tc + 4) + b * b
+             + 3 * b)
+    assert qr.tc_smem_bytes(n, torch.float32, b, tc, 2) == 4 * elems + 4 * b
+    assert qr.tc_smem_bytes(n, torch.complex64, b, tc, 2) == \
+        8 * elems + 4 * b
+    part = max(1 * b * (tc + 4), 1 * b * (b + 4))
+    elems = (n * (b + 4) + 2 * n * (tc + 4) + part + b * (tc + 4) + b * b
+             + 3 * b)
+    assert qr.tc_smem_bytes(n, torch.float64, b, tc, 2) == 8 * elems + 8 * b
+    b, tc = 16, 8
+    part = max(4 * b * (tc + 2), 2 * b * (b + 2))
+    elems = n * (b + 2) + n * (tc + 2) + part + b * (tc + 2) + b * b + 3 * b
+    assert qr.tc_smem_bytes(n, torch.complex128, b, tc, 1) == \
         16 * elems + 8 * b
 
 
@@ -188,12 +200,23 @@ def test_k8_k9_smem_mirrors():
 
 
 def test_k7_plan_is_unchanged():
-    # K7 (qr_big.cu, householder_blocked) keeps its own plan: (32, 16)
-    # everywhere but complex128 from n = 227 (16, 16) and 395 (16, 8)
-    for dtype in (torch.float32, torch.float64, torch.complex64):
-        assert {qr.big_plan(n, dtype) for n in range(84, 513)} == {(32, 16)}
+    # K7 (qr_big.cu, householder_tc with the identity as its companion)
+    # takes K8's plan table: (32, 16, 2) and narrower where shared memory
+    # runs out; complex128 (16, 8, 2), (8, 8, 2), (8, 8, 1); float64 two
+    # CTAs per SM at (16, 16, 1) when the batch has more matrices than SMs
+    sms = _kernels.H100_SMS
+    assert {qr.big_plan(n, torch.float32) for n in range(84, 513)} == \
+        {(32, 16, 2)}
     for n in range(84, 513):
+        assert qr.big_plan(n, torch.float64) == (
+            (32, 16, 2) if n < 337 else (16, 16, 2) if n < 457
+            else (16, 16, 1))
+        assert qr.big_plan(n, torch.complex64) == (
+            (32, 16, 2) if n < 321 else (16, 16, 2) if n < 425
+            else (16, 16, 1))
         assert qr.big_plan(n, torch.complex128) == (
-            (32, 16) if n < 227 else (16, 16) if n < 395 else (16, 8))
-    assert qr.big_smem_bytes(256, torch.complex128, 16, 16) == 156288
-    assert qr.big_smem_bytes(256, torch.float64, 32, 16) == 127744
+            (16, 8, 2) if n < 345 else (8, 8, 2) if n < 449 else (8, 8, 1))
+        assert qr.big_plan(n, torch.float64, 2 * sms, sms) == (
+            (16, 16, 1) if n < 329 else qr.big_plan(n, torch.float64))
+    assert qr.tc_smem_bytes(256, torch.complex64, 32, 16, 2) == 190336
+    assert qr.tc_smem_bytes(256, torch.float64, 32, 16, 2) == 179200

@@ -953,3 +953,119 @@ def test_k3c_rhs_redesign_matches_plain(cuda_device, n, batch):
         assert torch.equal(xq, xk)
         assert rec.shape == (batch, len(green_solve.TC_RHS_PROBE_PHASES) + 2)
         assert bool((rec[:, -2] > 0).all())
+
+
+K7_TOL = {torch.float32: 1e-4, torch.float64: 1e-10, torch.complex64: 1e-4,
+          torch.complex128: 1e-10}
+
+
+@pytest.mark.parametrize("batch", [3, 133])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n", [129, 144, 200, 256, 384, 512])
+def test_k7_redesign_matches_plain(cuda_device, n, dtype, batch):
+    # well conditioned (eye + 0.3 / sqrt(n) noise): the sign-fixed factors
+    # of two float32 QRs differ by ~n eps cond(A)
+    gen = torch.Generator(cuda_device).manual_seed(n + batch)
+    A = (torch.eye(n, dtype=dtype, device=cuda_device) + 0.3 / n ** 0.5
+         * torch.randn((batch, n, n), generator=gen, dtype=dtype,
+                       device=cuda_device))
+    route = "qr_complex_big" if dtype.is_complex else "qr_big"
+    assert qr.kernel_for(n, dtype) == route
+    _kernels.reset_launch_counts()
+    Qk, Rk = qr.qr(A)
+    Qk2, Rk2 = qr.qr(A)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[route] == 2
+    assert torch.equal(Qk, Qk2) and torch.equal(Rk, Rk2)   # deterministic
+    assert bool((torch.tril(Rk, -1) == 0).all())
+    tol = K7_TOL[dtype]
+    eye = torch.eye(n, dtype=dtype, device=cuda_device)
+    assert float((Qk.mH @ Qk - eye).abs().max()) <= tol
+    assert float((Qk @ Rk - A).abs().max() / A.abs().max()) <= tol
+    fk, fp = _sign_fix(Qk, Rk), _sign_fix(*qr.qr_plain(A))
+    for a, b in zip(fk, fp):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+    sms = _kernels.sm_count(cuda_device)
+    plan = qr.big_plan(n, dtype, batch, sms)
+    assert qr.big_blocks_per_sm(n, dtype, plan, cuda_device) >= (
+        2 if qr.tc_smem_bytes(n, dtype, *plan) <= _kernels.TWO_CTA_SMEM_BYTES
+        else 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex64])
+def test_k7_probe_matches_production(cuda_device, dtype):
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    n = 256
+    A = torch.randn((4, n, n), generator=gen, dtype=dtype, device=cuda_device)
+    Q, R = qr.qr(A)
+    Qp, Rp, rec = qr.qr(A, probe=True)
+    torch.cuda.synchronize()
+    assert torch.equal(Q, Qp) and torch.equal(R, Rp)
+    assert rec.shape == (4, len(qr.BIG_PROBE_PHASES) + 2)
+    assert bool((rec >= 0).all()) and bool((rec[:, -2] > 0).all())
+
+
+def _k6_operands(W, N, dtype, device, seed):
+    """A G, kinetic factors near the identity (real values in a complex
+    tensor, as the model's) and potential blocks near the identity."""
+    gen = torch.Generator(device).manual_seed(seed)
+    rdt = dtype.to_real()
+    h = 4 * N
+
+    def near_eye(shape, dt):
+        eye = torch.eye(shape[-1], dtype=dt, device=device)
+        return eye + 0.2 / shape[-1] ** 0.5 * torch.randn(
+            shape, generator=gen, dtype=dt, device=device)
+
+    G = torch.randn((W, h, h), generator=gen, dtype=dtype, device=device)
+    E = near_eye((4, N, N), rdt).to(dtype)
+    Ei = torch.linalg.inv(E)
+    Ei = Ei.real.to(dtype)
+    D, Di = near_eye((W, N, 4, 4), dtype), near_eye((W, N, 4, 4), dtype)
+    return G, E, Ei, D, Di
+
+
+@pytest.mark.parametrize("W", [3, 130])
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-5),
+                                       (torch.complex128, 1e-12)])
+@pytest.mark.parametrize("N", [32, 49, 64, 100, 128])
+def test_k6_redesign_matches_plain(cuda_device, N, dtype, tol, W):
+    G, E, Ei, D, Di = _k6_operands(W, N, dtype, cuda_device, N + W)
+    Er, Eir = E.real.contiguous(), Ei.real.contiguous()
+    _kernels.reset_launch_counts()
+    cases = [(sdw_wrap.wrap(G, Er, Eir, D, Di, up),
+              sdw_wrap.wrap(G, E, Ei, D, Di, up),
+              sdw_wrap.wrap_plain(G, E, Ei, D, Di, up)) for up in (True, False)]
+    cases += [(sdw_wrap.apply(G, Er, D, herm), sdw_wrap.apply(G, E, D, herm),
+               sdw_wrap.apply_plain(G, E, D, herm)) for herm in (False, True)]
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["sdw_wrap"] == 4
+    assert _kernels.LAUNCHES["sdw_apply"] == 4
+    for k, k2, p in cases:
+        assert torch.equal(k, k2)       # deterministic, real or complex E
+        assert float((k - p).abs().max()) <= tol * float(p.abs().max())
+    TL, og, nb, tpc = sdw_wrap.plan(N, dtype, W, _kernels.sm_count(cuda_device))
+    assert sdw_wrap.smem_bytes(N, dtype, TL, og, nb) <= \
+        _kernels.MAX_SMEM_BYTES - 1024
+
+
+def test_k6_probe_matches_production(cuda_device):
+    G, E, Ei, D, Di = _k6_operands(4, 64, torch.complex64, cuda_device, 3)
+    for up in (True, False):
+        out, rec = sdw_wrap.wrap(G, E, Ei, D, Di, up, probe=True)
+        assert torch.equal(out, sdw_wrap.wrap(G, E, Ei, D, Di, up))
+        assert rec.shape[1] == len(sdw_wrap.PROBE_PHASES) + 2
+        assert bool((rec[:, -2] > 0).all())
+    for herm in (False, True):
+        out, rec = sdw_wrap.apply(G, E, D, herm, probe=True)
+        assert torch.equal(out, sdw_wrap.apply(G, E, D, herm))
+        assert bool((rec[:, -2] > 0).all())
+
+
+def test_k6_refuses_what_it_cannot_take(cuda_device):
+    G, E, Ei, D, Di = _k6_operands(2, 32, torch.complex64, cuda_device, 1)
+    with pytest.raises(TypeError):      # a float64 E for complex64 G
+        sdw_wrap.apply(G, E.real.double(), D, False)
+    with pytest.raises(ValueError):     # beyond every plan
+        sdw_wrap.plan(140, torch.complex128)

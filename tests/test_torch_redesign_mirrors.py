@@ -1,6 +1,6 @@
-"""Python mirrors of the K1b and K3c-rhs kernels' host-side rules (pure
-Python; the kernels themselves are held against their plain versions on
-the card in tests/test_torch_kernels_gpu.py).
+"""Python mirrors of the K1b, K3c-rhs, K7 and K6 kernels' host-side rules
+(pure Python; the kernels themselves are held against their plain
+versions on the card in tests/test_torch_kernels_gpu.py).
 
 - K1b (csrc/slice_update_delayed.cu) keeps its shared-memory layout, so
   ``default_chunk`` picks the chunk it picked before the register-tiled
@@ -12,13 +12,28 @@ the card in tests/test_torch_kernels_gpu.py).
   that ``kernel_for`` sends to the one-CTA complex route (n <= 83, the
   routing limit, unchanged): its shared memory, mirrored by
   ``rhs_smem_bytes``, fits one block there and two per SM up to n = 64.
+- K7 (csrc/qr_big.cu on tc_blocked.cuh householder_tc) takes every n from
+  129 to MAX_N_BIG = 512 in all four dtypes: ``big_plan`` names a plan
+  that csrc/qr_big.cu compiles, its shared memory (``tc_smem_bytes``, the
+  FP32 products' k-slices included) fits one block, the panel fits the
+  tile buffers, and float64 takes two CTAs per SM when the batch has more
+  matrices than SMs and the two-CTA plan fits.
+- K6 (csrc/sdw_wrap.cu) takes every N the model routes to it (dim >= 128:
+  N from 32 to 128) in complex64 and complex128: ``plan``'s shared memory
+  fits one block, F is staged once per CTA (all four orbitals) at the
+  main path's N = 64 in complex64, and a walker's tiles spread over
+  max(1, SMs // W) CTAs.
+- The SDW model builds the real copies of its kinetic factors once
+  (``expK_real`` and ``expK_inv_real``, equal to the complex buffers' real
+  parts) and hands them to K6.
 """
 
 import pytest
 import torch
 
-from detqmc_tpu_torch.linalg import _kernels, green_solve
+from detqmc_tpu_torch.linalg import _kernels, green_solve, qr, sdw_wrap
 from detqmc_tpu_torch.linalg import slice_update as su
+from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
 
 # default_chunk as it chose before K1b's redesign, (N, C, dtype) -> k
 CHUNKS = {(64, 1, "float32"): 32, (64, 1, "float64"): 32,
@@ -66,3 +81,106 @@ def test_k3c_rhs_routing_limit_unchanged():
     assert green_solve.rhs_probe_phases(84, torch.complex128) is None
     assert green_solve.rhs_probe_phases(64, torch.float64) == \
         green_solve.RESIDENT_PROBE_PHASES
+
+
+# the (b, tc) instances csrc/qr_big.cu compiles (qr_plan_ok)
+K7_COMPILED = {torch.float32: {(32, 16), (16, 16)},
+               torch.float64: {(32, 16), (16, 16)},
+               torch.complex64: {(32, 16), (16, 16)},
+               torch.complex128: {(16, 8), (8, 8)}}
+
+
+@pytest.mark.parametrize("batch", [1, 128, 5376])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
+def test_k7_plan_and_shared_memory(dtype, batch):
+    sms = _kernels.H100_SMS
+    pad = _kernels.row_pad(dtype)
+    for n in range(129, qr.MAX_N_BIG + 1):
+        assert qr.kernel_for(n, dtype) == (
+            "qr_complex_big" if dtype.is_complex else "qr_big")
+        b, tc, nbuf = qr.big_plan(n, dtype, batch, sms)
+        assert (b, tc) in K7_COMPILED[dtype] and nbuf in (1, 2)
+        assert nbuf * (tc + pad) >= b + 1       # the panel fits the tiles
+        smem = qr.tc_smem_bytes(n, dtype, b, tc, nbuf)
+        assert smem <= _kernels.MAX_SMEM_BYTES - 1024
+        two = [p for p in qr._BIG_PLANS_TWO_CTA.get(dtype, ())
+               if qr.tc_smem_bytes(n, dtype, *p) <= _kernels.TWO_CTA_SMEM_BYTES]
+        one = [p for p in qr._BIG_PLANS[dtype]
+               if qr.tc_smem_bytes(n, dtype, *p) <= _kernels.MAX_SMEM_BYTES - 1024]
+        assert (b, tc, nbuf) == (two[0] if batch > sms and two else one[0])
+    # the main paths: one CTA per matrix at B = 128 on 132 SMs
+    assert qr.big_plan(256, torch.float64, 128, sms) == (32, 16, 2)
+    assert qr.big_plan(256, torch.complex64, 128, sms) == (32, 16, 2)
+    assert qr.big_plan(256, torch.float64, 2 * sms, sms) == (16, 16, 1)
+
+
+@pytest.mark.parametrize("dtype,b,w,ks", [
+    (torch.float64, 32, 16, 1), (torch.float64, 16, 16, 2),
+    (torch.complex128, 16, 8, 4), (torch.complex128, 8, 8, 8),
+    (torch.float32, 32, 16, 4), (torch.float32, 32, 32, 2),
+    (torch.complex64, 16, 16, 8), (torch.complex64, 16, 8, 8)])
+def test_k7_product_slices(dtype, b, w, ks):
+    # tensor-core products: one k-slice per 8 fragments, FP32 ones: every
+    # thread a 4 x 2 block (2048 / (b w) slices, at most 8)
+    assert qr.slices(dtype, b, w) == ks
+    assert qr.on_tensor_cores(dtype) == (dtype in (torch.float64,
+                                                   torch.complex128))
+
+
+@pytest.mark.parametrize("W", [1, 3, 128, 512])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_k6_tile_plan(dtype, W):
+    sms = _kernels.H100_SMS
+    for N in range(32, 129):
+        TL, og, nb, tpc = sdw_wrap.plan(N, dtype, W, sms)
+        assert (TL, og, nb) in sdw_wrap._PLANS
+        assert sdw_wrap.smem_bytes(N, dtype, TL, og, nb) <= \
+            _kernels.MAX_SMEM_BYTES - 1024
+        tiles = -(-4 * N // TL)
+        want = max(1, min(tiles, sms // W))     # CTAs a walker may take
+        assert tpc == -(-tiles // want)
+        per_walker = -(-tiles // tpc)
+        assert per_walker <= want
+        assert sdw_wrap.ctas(N, W, TL, tpc) == W * per_walker
+        # every plan before the chosen one exceeds the budget or leaves
+        # threads of the kinetic step idle (a thread holds 4 lines in
+        # complex64, 2 in complex128); the chosen one fills them wherever
+        # a plan within the budget can
+        fits = lambda p: sdw_wrap.smem_bytes(N, dtype, *p) <= \
+            _kernels.MAX_SMEM_BYTES - 1024                      # noqa: E731
+        fills = lambda p: sdw_wrap.kinetic_blocks(                # noqa: E731
+            N, dtype, p[0], p[1]) >= 256
+        for p in sdw_wrap._PLANS[:sdw_wrap._PLANS.index((TL, og, nb))]:
+            assert not (fits(p) and fills(p))
+        assert fills((TL, og, nb)) or not any(
+            fits(p) and fills(p) for p in sdw_wrap._PLANS)
+    # sdw_l8's K6 (complex64, N = 64): F staged once per CTA, 16 lines a
+    # tile with a prefetch buffer, one CTA walking a walker's 16 tiles
+    assert sdw_wrap.plan(64, torch.complex64, 128, sms) == (16, 4, 3, 16)
+    assert sdw_wrap.plan(64, torch.complex128, 128, sms) == (8, 4, 2, 32)
+    assert sdw_wrap.smem_bytes(64, torch.complex64, 16, 4, 3) == (
+        8 * (3 * 256 * 18 + 16 * 64) + 4 * 4 * 64 * 68)
+
+
+def test_k6_real_kinetic_factors_built_once():
+    cfg = SDWConfig(L=6, opdim=3, r=0.5, beta=1.0, m=8, s=4, dtype="float32",
+                    checkerboard=True)
+    model = SDWModel(cfg, device="cpu")
+    for real, cplx in ((model.expK_real, model.expK),
+                       (model.expK_inv_real, model.expK_inv)):
+        assert real.dtype == torch.float32 and real.is_contiguous()
+        assert torch.equal(real, cplx.real)
+        assert float(cplx.imag.abs().max()) == 0.0
+    # built once: the same tensors on every access, not saved with the model
+    assert model.expK_real is model.expK_real
+    assert model.expK_real.data_ptr() == dict(model.named_buffers())[
+        "expK_real"].data_ptr()
+    assert "expK_real" not in model.state_dict()
+    # the wrapper takes them as they are
+    assert sdw_wrap.real_factor(model.expK_real, torch.complex64) is \
+        model.expK_real
+    assert torch.equal(sdw_wrap.real_factor(model.expK, torch.complex64),
+                       model.expK_real)
+    with pytest.raises(TypeError):
+        sdw_wrap.real_factor(model.expK_real, torch.complex128)

@@ -286,8 +286,8 @@ def test_qr_and_solve_routes(n, dtype, one_block):
     if dtype == torch.complex128:
         assert green_solve.kernel_for(n, dtype) == (
             "solve_inner_complex" if one_block else "solve_inner_complex_big")
-    b, tc = qr.big_plan(n, dtype)
-    assert qr.big_smem_bytes(n, dtype, b, tc) <= 232448 - 1024
+    plan = qr.big_plan(n, dtype)
+    assert qr.tc_smem_bytes(n, dtype, *plan) <= 232448 - 1024
     b, tc, nbuf = trinv.plan(n, dtype)
     assert b <= 32 and trinv.smem_bytes(n, dtype, b, tc, nbuf) <= \
         232448 - 1024
@@ -305,7 +305,7 @@ def test_routes_beyond_the_blocked_kernels_raise():
     # every blocked kernel fits its shared memory up to dim 512
     for dtype in (torch.complex64, torch.complex128):
         qr.big_plan(512, dtype)
-        sdw_wrap.tile_lines(128, dtype)
+        sdw_wrap.plan(128, dtype)
         trinv.plan(512, dtype)
 
 
