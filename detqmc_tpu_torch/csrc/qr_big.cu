@@ -13,10 +13,12 @@
 // A complex64 256 x 256 matrix is 512 KB (1 MB in complex128), beyond a
 // block's 227 KB, so A and the Q^H accumulator stay in global memory (the
 // output buffers R and Q serve as the work arrays). The factorization is
-// K8's (householder_tc, tc_blocked.cuh) with the identity as the
-// companion, so C ends as Q^H; then Q^H is conjugate-transposed in place,
-// 32 x 32 tile pairs through shared memory. The identity is never stored:
-// the first panel forms its tiles in shared memory.
+// K8's (householder_tc, tc_blocked.cuh) without a companion, each panel's
+// V and T left in Q's buffer; then Q = H_0 H_1 ... H_{K-1} is formed
+// backward (LAPACK's orgqr order, form_q_backward): panel k touches only
+// Q's rows and columns from j0, so Q costs 4/3 n^3 instead of the
+// forward 2 n^3, comes out as Q (not Q^H: no transposition), and its
+// identity parts are formed in shared memory, never stored.
 // Contract as K2 / K2c: A = Q R, Q orthogonal / unitary, R's strict lower
 // triangle exactly zero, R_jj = -sign(x_j)||x|| (real, sign(0) = +1, as
 // pallas_qr_big.py:22-23) or -(x_j/|x_j|)||x|| (complex; not normalized:
@@ -24,8 +26,8 @@
 // bitwise equal.
 //
 // What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W): the work is
-// (4/3 + 2) n^3 real multiply-adds per matrix (x4 in complex), 0.09 ms for
-// 128 float64 matrices at n = 256 on the FP64 tensor cores. The first
+// 8/3 n^3 real operations per matrix for R and Q (x4 in complex), 0.09 ms
+// for 128 float64 matrices at n = 256 on the FP64 tensor cores. The first
 // design (householder_blocked, one output per thread with two shared-memory
 // loads per multiply-add, tiles loaded synchronously, warp 0 alone on each
 // column, SV one warp per pair) took 5.09 ms there; its clock64() probe
@@ -43,54 +45,59 @@
 //   - SV = V^H V and Y = -T^H (V^H X) as products too;
 //   - float64 at two CTAs per SM (b = tc = 16, one tile buffer) when the
 //     batch has more matrices than the card has SMs (linalg/qr.py
-//     big_plan).
-// It takes 1.30 ms at float64 and 2.15 ms at complex64 there
+//     big_plan);
+//   - Q formed backward (above).
+// It takes 1.17 ms at float64 and 1.80 ms at complex64 there
 // (solve_timing.py; torch.linalg.qr 80 and 103 ms). What holds it now, by
 // the probe (float64 / complex64, share of a CTA's time): the panel's
-// chain of n dependent columns (27 % / 21 %: two barriers, a norm and the
-// warp reductions a column), the tile products (41 % / 60 %; the FP32
+// chain of n dependent columns (36 % / 26 %: two barriers, a norm and the
+// warp reductions a column), the tile products (33 % / 53 %; the FP32
 // pipe at about a third of its peak), the tiles' loads and the panel's
-// copies (20 % / 11 %: each panel reads and writes the trailing matrix
-// and all of Q^H), SV and T (7 % / 5 %) and the transposition (5 % / 3 %).
-// Not taken: forming Q backward (LAPACK's orgqr order, 29 % fewer Q
-// products and no transposition, but V and T kept for a second pass) and
-// a cluster of two CTAs per matrix for the panel.
+// copies (22 % / 14 %: each panel reads and writes the trailing matrix),
+// SV and T (9 % / 7 %). Not taken: a cluster of two CTAs per matrix for
+// the panel.
 #include <type_traits>
 
 #include "tc_blocked.cuh"
 
 namespace dq {
 
-// C = C^H in place (n x n, global), a pair of 32 x 32 tiles at a time
-// through shared memory (buf: 2 x 32 x 33)
-template <typename S>
-__device__ void conj_transpose(S* C, int n, S* buf) {
-    const int nt = (n + 31) / 32;
-    S *b0 = buf, *b1 = buf + 32 * 33;
-    for (int bi = 0; bi < nt; ++bi)
-        for (int bj = bi; bj < nt; ++bj) {
-            for (int idx = threadIdx.x; idx < 1024; idx += kThreads) {
-                const int r = idx >> 5, c = idx & 31;
-                if (32 * bi + r < n && 32 * bj + c < n)
-                    b0[r * 33 + c] = C[size_t(32 * bi + r) * n + 32 * bj + c];
-                if (bi != bj && 32 * bj + r < n && 32 * bi + c < n)
-                    b1[r * 33 + c] = C[size_t(32 * bj + r) * n + 32 * bi + c];
-            }
-            __syncthreads();
-            const S* lo = bi == bj ? b0 : b1;
-            for (int idx = threadIdx.x; idx < 1024; idx += kThreads) {
-                const int r = idx >> 5, c = idx & 31;
-                if (32 * bi + r < n && 32 * bj + c < n)
-                    C[size_t(32 * bi + r) * n + 32 * bj + c] = conj_(lo[c * 33 + r]);
-                if (bi != bj && 32 * bj + r < n && 32 * bi + c < n)
-                    C[size_t(32 * bj + r) * n + 32 * bi + c] = conj_(b0[c * 33 + r]);
-            }
-            __syncthreads();
+// Q = H_0 H_1 ... H_{K-1} (H_k = I - V_k T_k V_k^H) from the V and T that
+// householder_tc left in Q, formed backward (LAPACK's orgqr order):
+// panel k, last first, applies H_k to Q's rows and columns j0 .. n, whose
+// rows or columns below j0 + bw are still the identity's (formed in the
+// tile buffers, so the V and T stored there are read once and then
+// overwritten). Panel k costs mp^2 instead of the forward mp n.
+template <typename S, int BP, int TC, typename PR>
+__device__ void form_q_backward(S* Q, int n, int nbuf, const TcSmem<S>& sm, PR& probe) {
+    using R = typename real_of<S>::type;
+    constexpr int LDV = BP + pad_of<S>::value;
+    const int np = round_up(n, 8);
+    const S zero = from_real<S>(R(0));
+    for (int j0 = (n - 1) / BP * BP; j0 >= 0; j0 -= BP) {
+        const int bw = min(BP, n - j0), mp = n - j0;
+        for (int idx = threadIdx.x; idx < np * LDV; idx += kThreads) {
+            const int r = idx / LDV, c = idx - r * LDV;
+            sm.V[idx] = r < mp && c < bw && r >= c ? Q[size_t(j0 + r) * n + j0 + c] : zero;
         }
+        for (int idx = threadIdx.x; idx < BP * BP; idx += kThreads) {
+            const int r = idx / BP, i = idx % BP;
+            sm.T[idx] = r < bw && i < bw && i >= r ? Q[vt_t_index(n, j0, bw, r, i)] : zero;
+        }
+        __syncthreads();
+        probe.lap(kQrLoadStore);
+        const int nt = (mp + TC - 1) / TC;
+        apply_reflectors<S, BP, TC, false>(sm, n, j0, mp, nbuf, nt, 0, [&](int t) {
+            const int c0 = j0 + t * TC;
+            return TileRef<S>{Q, Q, c0, min(TC, n - c0), j0 + bw};
+        }, probe);
+    }
 }
 
+// two CTAs per SM only in float64 (the FP32 products need more registers
+// than half an SM's)
 template <typename S, int BP, int TC, bool PROBE>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, on_tensor_cores<S>() ? 2 : 1)
 qr_big_kernel(const S* __restrict__ A_in, S* Q_out, S* R_out, int n, int nbuf,
               long long* probe_out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -98,10 +105,9 @@ qr_big_kernel(const S* __restrict__ A_in, S* Q_out, S* R_out, int n, int nbuf,
     Probe<PROBE, kQrPhases> probe;
     probe.start();
     const size_t off = size_t(blockIdx.x) * n * n;
-    householder_tc<S, BP, TC>(A_in + off, R_out + off, nullptr, Q_out + off, n, nbuf, sm,
-                              probe);
-    conj_transpose(Q_out + off, n, reinterpret_cast<S*>(smem_raw));
-    probe.lap(kQrTranspose);
+    householder_tc<S, BP, TC>(A_in + off, R_out + off, nullptr, nullptr, n, nbuf, sm, probe,
+                              Q_out + off);
+    form_q_backward<S, BP, TC>(Q_out + off, n, nbuf, sm, probe);
     probe.store(probe_out);
 }
 

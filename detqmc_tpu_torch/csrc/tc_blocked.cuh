@@ -3,7 +3,8 @@
 // held in registers, register-tiled FP32 products on the CUDA cores,
 // cp.async tile loads, and a blocked Householder QR (householder_tc) whose
 // shared memory fits twice on an SM in float64. K8 runs it with M = diag(r1)
-// or a dense right-hand side as the companion, K7 with the identity.
+// or a dense right-hand side as the companion; K7 without one, keeping the
+// reflectors to form Q afterwards (apply_reflectors both times).
 //
 // ---- the FP64 tensor-core product -----------------------------------------
 // Hopper has no f64 wgmma; its FP64 tensor cores are reached by
@@ -285,10 +286,10 @@ __device__ void vh_product(const S* V, int ldv, const S* M, int ldm, int mr, S* 
         vh_product_fma<S, BP, W>(V, ldv, M, ldm, mr, part, ldp);
 }
 
-// Y = -T^H W on the tensor cores: T (BP x BP, stride BP) upper triangular,
-// W the k-slices of V^H X in part (stride TC + pad); one 8 x 8 fragment
-// of Y (stride TC + pad) per warp
-template <typename S, int BP, int TC>
+// Y = -op(T) W on the tensor cores, op(T) = T^H (HERM) or T: T (BP x BP,
+// stride BP) upper triangular, W the k-slices of V^H X in part (stride
+// TC + pad); one 8 x 8 fragment of Y (stride TC + pad) per warp
+template <typename S, int BP, int TC, bool HERM>
 __device__ void ty_product_tc(const S* T, const S* part, S* Y) {
     constexpr int LDT = TC + pad_of<S>::value, FC = TC / 8, F = (BP / 8) * FC;
     constexpr int KSW = vh_slices(BP, TC);
@@ -301,7 +302,8 @@ __device__ void ty_product_tc(const S* T, const S* part, S* Y) {
             const S* W = part + size_t(sl) * BP * LDT;
 #pragma unroll
             for (int k = 0; k < BP; k += 4)
-                mma_acc(acc, conj_(T[(k + q) * BP + i0 + g]), W[(k + q) * LDT + c0 + g]);
+                mma_acc(acc, HERM ? conj_(T[(k + q) * BP + i0 + g]) : T[(i0 + g) * BP + k + q],
+                        W[(k + q) * LDT + c0 + g]);
         }
         S* out = Y + (i0 + g) * LDT + c0 + 2 * q;
         out[0] = -acc.c[0];
@@ -436,52 +438,155 @@ __device__ TcSmem<S> tc_smem(unsigned char* raw, int n, int bp, int tc, int nbuf
 
 // The phase probe's phases of K7 (qr_big.cu), in the order of its per-CTA
 // record (linalg/qr.py BIG_PROBE_PHASES)
-enum { kQrPanel, kQrT, kQrUpdateA, kQrUpdateQ, kQrLoadStore, kQrTranspose,
-       kQrPhases };
+enum { kQrPanel, kQrT, kQrUpdateA, kQrUpdateQ, kQrLoadStore, kQrPhases };
+
+// A tile of apply_reflectors: TC columns from c0 (tw of them real) of the
+// rows j0 .. j0 + mp, read from src and written to dst (global, stride
+// n); elements whose row or column lies below id_lim are the identity's,
+// formed in shared memory instead of read.
+template <typename S>
+struct TileRef {
+    S* dst;
+    const S* src;
+    int c0, tw, id_lim;
+};
+
+// X <- X - V op(T) V^H X for the nt tiles tile(t) names, op(T) = T^H
+// (HERM: the reflectors' H^H, householder_tc) or T (H itself,
+// form_q_backward, qr_big.cu); V and T in sm. Tile t + 1 is copied by
+// cp.async while tile t is computed (nbuf = 2). V^H X, Y = -op(T) W and
+// V Y + X are register-tiled products, on the FP64 tensor cores (float64,
+// complex128) or the FP32 pipe (float32, complex64; Y there element by
+// element); the result goes from registers to global memory. The probe
+// charges tiles t < ta to A's update, the others to Q's.
+template <typename S, int BP, int TC, bool HERM, typename TileOf, typename PR>
+__device__ void apply_reflectors(const TcSmem<S>& sm, int n, int j0, int mp, int nbuf,
+                                 int nt, int ta, TileOf tile_of, PR& probe) {
+    using R = typename real_of<S>::type;
+    constexpr int PAD = pad_of<S>::value, LDV = BP + PAD, LDX = TC + PAD, LDT = TC + PAD;
+    constexpr int KSW = slices_of<S>(BP, TC);
+    // the FP32 path adds the k-slices of V^H X up before Y (one barrier more)
+    constexpr bool SUM_FIRST = !on_tensor_cores<S>() && KSW > 1;
+    const int tid = threadIdx.x, np = round_up(n, 8), mr4 = round_up(mp, 4);
+    const S zero = from_real<S>(R(0)), one = from_real<S>(R(1));
+    const S *V = sm.V, *T = sm.T;
+    S* Y = sm.Y;
+    auto issue = [&](int t, int buf) {
+        const TileRef<S> tl = tile_of(t);
+        S* Xb = sm.X + size_t(buf) * np * LDX;
+        for (int idx = tid; idx < mp * TC; idx += kThreads) {
+            const int r = idx / TC, c = idx % TC;
+            if (c >= tl.tw) continue;
+            const int gr = j0 + r, gc = tl.c0 + c;
+            if (gr < tl.id_lim || gc < tl.id_lim) Xb[r * LDX + c] = gr == gc ? one : zero;
+            else cp_async(Xb + r * LDX + c, tl.src + size_t(gr) * n + gc);
+        }
+        cp_async_commit();
+    };
+    if (nt > 0) issue(0, 0);
+    for (int t = 0; t < nt; ++t) {
+        const int buf = nbuf == 2 ? (t & 1) : 0;
+        if (nbuf == 1 && t > 0) {
+            __syncthreads();   // every warp is done with tile t - 1
+            issue(t, 0);
+        }
+        cp_async_wait_all();
+        __syncthreads();       // tile t landed; tile t - 1 is done
+        if (nbuf == 2 && t + 1 < nt) issue(t + 1, (t + 1) & 1);
+        probe.lap(kQrLoadStore);
+        const TileRef<S> tl = tile_of(t);
+        const S* Xb = sm.X + size_t(buf) * np * LDX;
+        // W = V^H X, partial sums over k-slices
+        vh_product<S, BP, TC>(V, LDV, Xb, LDX, mr4, sm.part, LDT);
+        __syncthreads();
+        if constexpr (SUM_FIRST) {
+            for (int idx = tid; idx < BP * TC; idx += kThreads) {
+                const int i = idx / TC, c = idx - i * TC;
+                S w = sm.part[i * LDT + c];
+                for (int sl = 1; sl < KSW; ++sl) w += sm.part[sl * BP * LDT + i * LDT + c];
+                sm.part[i * LDT + c] = w;
+            }
+            __syncthreads();
+        }
+        // Y = -op(T) W
+        if constexpr (on_tensor_cores<S>()) {
+            ty_product_tc<S, BP, TC, HERM>(T, sm.part, Y);
+        } else {
+            for (int idx = tid; idx < BP * TC; idx += kThreads) {
+                const int i = idx / TC, c = idx - i * TC;
+                S acc = zero;
+                if (HERM) {
+                    for (int k = 0; k <= i; ++k)
+                        acc += conj_(T[k * BP + i]) * sm.part[k * LDT + c];
+                } else {
+                    for (int k = i; k < BP; ++k) acc += T[i * BP + k] * sm.part[k * LDT + c];
+                }
+                Y[i * LDT + c] = -acc;
+            }
+        }
+        __syncthreads();
+        // X + V Y, straight to the tile's destination
+        if constexpr (on_tensor_cores<S>())
+            add_v_times_tc<S, BP, TC>(V, Y, Xb, tl.dst, n, j0, tl.c0, tl.tw, mp);
+        else
+            add_v_times_fma<S, BP, TC>(V, Y, Xb, tl.dst, n, j0, tl.c0, tl.tw, mp);
+        probe.lap(t < ta ? kQrUpdateA : kQrUpdateQ);
+    }
+    __syncthreads();   // the tiles are in global memory
+    probe.lap(kQrLoadStore);
+}
+
+// Where householder_tc keeps panel j0's T (row r, column i) for a later
+// pass, in vt (n x n) whose lower triangle holds the panels' V: above the
+// diagonal, right of the panel's own block, or, for the last panels, in
+// rows 0 .. bw (their j0 >= n - 2 BP lies beyond panel 0's own T there for
+// every n K7 takes)
+__host__ __device__ inline size_t vt_t_index(int n, int j0, int bw, int r, int i) {
+    return j0 + 2 * bw <= n ? size_t(j0 + r) * n + j0 + bw + i : size_t(r) * n + j0 + i;
+}
 
 // Blocked Householder QR of the n x n matrix in A_in (global, row-major,
-// stride n), every reflector applied to the companion in C_in as it goes:
+// stride n), every reflector applied to the companion in C_in as it goes
+// (C == nullptr: none):
 //     on exit  A = R  (upper triangle, R_jj = alpha_j of householder_alpha;
-//              strict lower triangle exactly zero),  C = Q^H C_in.
-// The first panel reads A_in and C_in (C_in == nullptr: the identity,
-// formed in the tile buffers), every later one A and C (A_in may be A,
-// C_in may be C). The reflectors are those of householder_apply
+//              strict lower triangle exactly zero),  C = Q^H C_in,
+// and, given vt, every panel's V (v's head on the diagonal) in vt's lower
+// triangle and its T where vt_t_index says (form_q_backward, qr_big.cu).
+// The first panel reads A_in and C_in, every later one A and C (A_in may
+// be A, C_in may be C). The reflectors are those of householder_apply
 // (common.cuh) up to rounding. Per panel of BP columns at j0 (mp = n - j0
 // rows):
 //   1. the panel in shared memory, column by column, two barriers a
 //      column: every warp forms ||x|| itself (the same sum in the same
 //      order, so all agree bitwise), alpha and beta = 2 / v^H v with
 //      v^H v = 2 ||x|| (||x|| + |x_0|), and its share of the products
-//      x^H a_c (its columns' sums interleaved); s_c = beta (x^H a_c - conj(alpha) a_c[0]) is v^H a_c
-//      times beta (v = x - alpha e_0); then the rank-1 update of the
-//      panel's trailing columns (each thread one column and several
-//      rows), v's head kept apart until it lands;
+//      x^H a_c (its columns' sums interleaved); s_c = beta (x^H a_c -
+//      conj(alpha) a_c[0]) is v^H a_c times beta (v = x - alpha e_0);
+//      then the rank-1 update of the panel's trailing columns (each
+//      thread one column and several rows), v's head kept apart until it
+//      lands;
 //   2. R's panel rows to A (strict lower part 0); V keeps the reflectors;
 //   3. SV = V^H V (vh_product), then T row by row (lane r of warp 0):
 //      T_rr = beta_r, T_ri = -beta_i sum_{r <= k < i} T_rk SV_ki;
 //   4. every tile of TC columns (A's trailing columns, then all of C's),
-//      rows j0..n: X <- X - V (T^H (V^H X)), with the next tile's cp.async
-//      copy in flight (nbuf = 2). V^H X, Y = -T^H (V^H X) and V Y + X are
-//      register-tiled products, on the FP64 tensor cores (float64,
-//      complex128) or the FP32 pipe (float32, complex64; Y there element by
-//      element); the result goes from registers to global memory. Rows beyond mp and columns beyond the panel are zero in V,
-//      so ragged n, panels and tiles need no masks inside the products.
+//      rows j0..n: X <- X - V (T^H (V^H X)) (apply_reflectors). Rows
+//      beyond mp and columns beyond the panel are zero in V, so ragged n,
+//      panels and tiles need no masks inside the products.
 // The probe (Probe, common.cuh) charges thread 0's cycles to the panel,
 // SV and T, A's and C's tile products, and the loads and stores.
 template <typename S, int BP, int TC, typename PR>
 __device__ void householder_tc(const S* A_in, S* A, const S* C_in, S* C, int n,
-                               int nbuf, const TcSmem<S>& sm, PR& probe) {
+                               int nbuf, const TcSmem<S>& sm, PR& probe,
+                               S* vt = nullptr) {
     using R = typename real_of<S>::type;
     constexpr int PAD = pad_of<S>::value, LDV = BP + PAD, LDX = TC + PAD;
-    constexpr int LDT = TC + PAD, LDS = BP + PAD, LDP = BP + 1;
-    constexpr int KSW = slices_of<S>(BP, TC), KSS = slices_of<S>(BP, BP);
+    constexpr int LDS = BP + PAD, LDP = BP + 1;
+    constexpr int KSS = slices_of<S>(BP, BP);
     constexpr int CPW = (BP + kWarps - 1) / kWarps;   // panel columns per warp
-    // the FP32 path adds the k-slices of V^H X up before Y (one barrier more)
-    constexpr bool SUM_FIRST = !on_tensor_cores<S>() && KSW > 1;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int np = round_up(n, 8);
-    const S zero = from_real<S>(R(0)), one = from_real<S>(R(1));
-    S *V = sm.V, *T = sm.T, *Y = sm.Y;
+    const S zero = from_real<S>(R(0));
+    S *V = sm.V, *T = sm.T;
     // stale rows of a tile buffer must be finite: they meet V's zero rows
     for (int idx = tid; idx < nbuf * np * LDX; idx += kThreads) sm.X[idx] = zero;
     __syncthreads();
@@ -565,6 +670,7 @@ __device__ void householder_tc(const S* A_in, S* A, const S* C_in, S* C, int n,
             const S val = in ? P[r * LDP + c] : zero;
             V[idx] = r < c ? zero : val;
             if (in) A[size_t(j0 + r) * n + j0 + c] = r < c ? val : r == c ? sm.alpha[c] : zero;
+            if (vt && in && r >= c) vt[size_t(j0 + r) * n + j0 + c] = val;
         }
         __syncthreads();
         probe.lap(kQrLoadStore);
@@ -587,82 +693,20 @@ __device__ void householder_tc(const S* A_in, S* A, const S* C_in, S* C, int n,
                         }
                         T[r * BP + i] = (-sm.beta[i]) * acc;
                     }
+                    if (vt)
+                        for (int i = r; i < bw; ++i)
+                            vt[vt_t_index(n, j0, bw, r, i)] = T[r * BP + i];
                 }
             }
         }
         probe.lap(kQrT);
-        // 4. the tiles
-        const int ta = (n - j0 - bw + TC - 1) / TC, nt = ta + (n + TC - 1) / TC;
-        auto tile_of = [&](int t, S*& M, const S*& Msrc, int& c0, int& tw) {
-            M = t < ta ? A : C;
-            Msrc = t < ta ? Asrc : Csrc;
-            c0 = t < ta ? j0 + bw + t * TC : (t - ta) * TC;
-            tw = min(TC, n - c0);
-        };
-        auto issue = [&](int t, int buf) {
-            S* M;
-            const S* Msrc;
-            int c0, tw;
-            tile_of(t, M, Msrc, c0, tw);
-            S* Xb = sm.X + size_t(buf) * np * LDX;
-            for (int idx = tid; idx < mp * TC; idx += kThreads) {
-                const int r = idx / TC, c = idx % TC;
-                if (c >= tw) continue;
-                if (Msrc) cp_async(Xb + r * LDX + c, Msrc + size_t(j0 + r) * n + c0 + c);
-                else Xb[r * LDX + c] = j0 + r == c0 + c ? one : zero;
-            }
-            cp_async_commit();
-        };
-        if (nt > 0) issue(0, 0);
-        for (int t = 0; t < nt; ++t) {
-            const int buf = nbuf == 2 ? (t & 1) : 0;
-            if (nbuf == 1 && t > 0) {
-                __syncthreads();   // every warp is done with tile t - 1
-                issue(t, 0);
-            }
-            cp_async_wait_all();
-            __syncthreads();       // tile t landed; tile t - 1 is done
-            if (nbuf == 2 && t + 1 < nt) issue(t + 1, (t + 1) & 1);
-            probe.lap(kQrLoadStore);
-            S* M;
-            const S* Msrc;
-            int c0, tw;
-            tile_of(t, M, Msrc, c0, tw);
-            const S* Xb = sm.X + size_t(buf) * np * LDX;
-            // W = V^H X, partial sums over k-slices
-            vh_product<S, BP, TC>(V, LDV, Xb, LDX, mr4, sm.part, LDT);
-            __syncthreads();
-            if constexpr (SUM_FIRST) {
-                for (int idx = tid; idx < BP * TC; idx += kThreads) {
-                    const int i = idx / TC, c = idx - i * TC;
-                    S w = sm.part[i * LDT + c];
-                    for (int sl = 1; sl < KSW; ++sl) w += sm.part[sl * BP * LDT + i * LDT + c];
-                    sm.part[i * LDT + c] = w;
-                }
-                __syncthreads();
-            }
-            // Y = -T^H W
-            if constexpr (on_tensor_cores<S>()) {
-                ty_product_tc<S, BP, TC>(T, sm.part, Y);
-            } else {
-                for (int idx = tid; idx < BP * TC; idx += kThreads) {
-                    const int i = idx / TC, c = idx - i * TC;
-                    S acc = zero;
-                    for (int k = 0; k <= i; ++k)
-                        acc += conj_(T[k * BP + i]) * sm.part[k * LDT + c];
-                    Y[i * LDT + c] = -acc;
-                }
-            }
-            __syncthreads();
-            // X + V Y, straight to M
-            if constexpr (on_tensor_cores<S>())
-                add_v_times_tc<S, BP, TC>(V, Y, Xb, M, n, j0, c0, tw, mp);
-            else
-                add_v_times_fma<S, BP, TC>(V, Y, Xb, M, n, j0, c0, tw, mp);
-            probe.lap(t < ta ? kQrUpdateA : kQrUpdateQ);
-        }
-        __syncthreads();   // the panel's tiles are in global memory
-        probe.lap(kQrLoadStore);
+        // 4. the tiles: A's trailing columns, then all of C's
+        const int ta = (n - j0 - bw + TC - 1) / TC;
+        const int nt = ta + (C ? (n + TC - 1) / TC : 0);
+        apply_reflectors<S, BP, TC, true>(sm, n, j0, mp, nbuf, nt, ta, [&](int t) {
+            const int c0 = t < ta ? j0 + bw + t * TC : (t - ta) * TC;
+            return TileRef<S>{t < ta ? A : C, t < ta ? Asrc : Csrc, c0, min(TC, n - c0), 0};
+        }, probe);
     }
 }
 

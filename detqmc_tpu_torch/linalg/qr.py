@@ -11,10 +11,10 @@ K7, ``csrc/qr_big.cu``, the counterpart of pallas_qr_wy.py (``qr_wy``)
 and pallas_qr_big.py (``qr_big``) for real matrices and of
 pallas_cqr_wy.py (``cqr_wy``) and pallas_cqr.py (``cqr_big``) for complex
 ones: K8's blocked Householder QR (``csrc/tc_blocked.cuh``
-householder_tc) with the identity as the companion, the matrices in
-global memory, the products on the FP64 tensor cores (float64,
-complex128) or register-tiled on the FP32 pipe (float32, complex64), then
-Q^H conjugate-transposed in place; ``big_plan`` picks the panel width b,
+householder_tc), the matrices in global memory, the products on the FP64
+tensor cores (float64, complex128) or register-tiled on the FP32 pipe
+(float32, complex64), then Q formed from the panels' reflectors in
+reverse order; ``big_plan`` picks the panel width b,
 the tile width tc and the tile buffers nbuf. ``qr_plain`` is
 ``torch.linalg.qr``, what a CPU tensor runs.
 
@@ -133,7 +133,7 @@ def kernel_for(n: int, dtype) -> str:
 # instances are compiled for float64 and complex64 at the one-CTA plan
 # (32, 16, ...) (the main paths' K7).
 BIG_PROBE_PHASES = ("panel", "T", "update of A", "update of Q",
-                    "loads and stores", "transpose")
+                    "loads and stores")
 _BIG_PROBE_ENTRIES = {torch.float64: "dq_qr_big_probe_f64",
                       torch.complex64: "dq_qr_big_probe_c64"}
 
