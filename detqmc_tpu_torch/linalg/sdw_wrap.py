@@ -51,6 +51,7 @@ def lines_per_thread(dtype) -> int:
     """csrc/sdw_wrap.cu k6_rt: lines of a thread's kinetic block."""
     return 2 if dtype == torch.complex128 else 4
 
+
 # ---- plain factor applies (X: (..., h, k) or (..., k, h)) -----------------
 def _as_orb(X, N):
     return X.reshape(*X.shape[:-2], Q, N, X.shape[-1])
@@ -136,7 +137,8 @@ def blocks_per_sm(N: int, dtype, plan, device="cuda") -> int:
 
 def ctas(N: int, W: int, TL: int, tpc: int) -> int:
     """CTAs of one line pass at this plan."""
-    return W * -(-(-(-Q * N // TL)) // tpc)
+    tiles = -(-Q * N // TL)
+    return W * -(-tiles // tpc)
 
 
 def real_factor(E, dtype):
