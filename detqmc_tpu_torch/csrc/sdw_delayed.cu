@@ -38,14 +38,20 @@
 
 namespace dq {
 
-template <typename T>
+// the phase probe's phases (Probe, common.cuh), mirrored by
+// linalg/sdw_delayed.py PROBE_PHASES: the slot corrections of the site's
+// columns and rows, the scalar chain (thread 0), the slot writes, the
+// barriers, the field's loads and stores
+enum { kCorrect, kDecide, kSlot, kBarrier, kLoadStore, kPhases };
+
+template <typename T, bool PROBE>
 __global__ void __launch_bounds__(kThreads)
 sdw_delayed_kernel(const cplx<T>* __restrict__ colT, const cplx<T>* __restrict__ rowp,
                    const T* __restrict__ phi_in, const T* __restrict__ phin_in,
                    const T* __restrict__ lhs_in, const cplx<T>* __restrict__ delta_in,
                    const int* __restrict__ nb, cplx<T>* CT, cplx<T>* Rb,
                    T* __restrict__ phi_out, T* __restrict__ acc_out, int N,
-                   int opdim, int i0, int Kc, T dtau, T c_det) {
+                   int opdim, int i0, int Kc, T dtau, T c_det, long long* probe_out) {
     using S = cplx<T>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int h = 4 * N, Kq = 4 * Kc;
@@ -55,6 +61,8 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ colT, const cplx<T>* __restrict__
     __shared__ S Tm[16];
     __shared__ int accept_s;
     __shared__ T acc_s;
+    Probe<PROBE, kPhases> probe;
+    probe.start();
 
     const int tid = threadIdx.x;
     const size_t wk = blockIdx.x;
@@ -67,7 +75,9 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ colT, const cplx<T>* __restrict__
     const T* phin = phin_in + wk * N * opdim;
     for (int idx = tid; idx < N * opdim; idx += kThreads) phi[idx] = phi0[idx];
     if (tid == 0) acc_s = T(0);
+    probe.lap(kLoadStore);
     __syncthreads();
+    probe.lap(kBarrier);
 
     for (int j = 0; j < Kc; ++j) {
         const int i = i0 + j, jq = 4 * j;
@@ -84,7 +94,9 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ colT, const cplx<T>* __restrict__
             ccol[idx] = cc;
             crow[idx] = cr;
         }
+        probe.lap(kCorrect);
         __syncthreads();
+        probe.lap(kBarrier);
         if (tid == 0) {
             const T live = site_live(phi, phin + i * opdim, phi0 + i * opdim,
                                      nb + 4 * i, opdim, dtau);
@@ -100,7 +112,9 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ colT, const cplx<T>* __restrict__
                 acc_s = add_rn(acc_s, T(1));
             }
         }
+        probe.lap(kDecide);
         __syncthreads();
+        probe.lap(kBarrier);
         const bool accept = accept_s;
         for (int idx = tid; idx < 4 * h; idx += kThreads) {
             const int b = idx / h, r = idx - b * h, jb = b * N + i;
@@ -114,11 +128,15 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ colT, const cplx<T>* __restrict__
             const S g = crow[idx];
             Rw[(jq + b) * h + r] = mk(sub_rn(r == jb ? T(1) : T(0), g.re), -g.im);
         }
+        probe.lap(kSlot);
         __syncthreads();
+        probe.lap(kBarrier);
     }
     for (int idx = tid; idx < N * opdim; idx += kThreads)
         phi_out[wk * N * opdim + idx] = phi[idx];
     if (tid == 0) acc_out[wk] = acc_s;
+    probe.lap(kLoadStore);
+    probe.store(probe_out);
 }
 
 template <typename T>
@@ -126,17 +144,18 @@ int sdw_delayed(int device, const void* colT, const void* rowp, const void* phi,
                 const void* phin, const void* lhs, const void* delta,
                 const void* nb, void* CT, void* R, void* phi_out, void* acc_out,
                 int W, int N, int opdim, int i0, int Kc, double dtau,
-                double c_det, void* stream) {
+                double c_det, void* stream, long long* probe = nullptr) {
     const size_t h = 4 * size_t(N);
     const size_t smem = sizeof(cplx<T>) * 8 * h + sizeof(T) * size_t(N) * opdim;
-    return launch_smem(device, sdw_delayed_kernel<T>, W, smem, stream,
+    auto kernel = probe ? sdw_delayed_kernel<T, true> : sdw_delayed_kernel<T, false>;
+    return launch_smem(device, kernel, W, smem, stream,
                        static_cast<const cplx<T>*>(colT),
                        static_cast<const cplx<T>*>(rowp), static_cast<const T*>(phi),
                        static_cast<const T*>(phin), static_cast<const T*>(lhs),
                        static_cast<const cplx<T>*>(delta), static_cast<const int*>(nb),
                        static_cast<cplx<T>*>(CT), static_cast<cplx<T>*>(R),
                        static_cast<T*>(phi_out), static_cast<T*>(acc_out), N, opdim,
-                       i0, Kc, static_cast<T>(dtau), static_cast<T>(c_det));
+                       i0, Kc, static_cast<T>(dtau), static_cast<T>(c_det), probe);
 }
 
 }  // namespace dq
@@ -161,6 +180,19 @@ int dq_sdw_delayed_c128(int device, const void* colT, const void* rowp,
     return dq::sdw_delayed<double>(device, colT, rowp, phi, phin, lhs, delta,
                                    nb, CT, R, phi_out, acc_out, W, N, opdim, i0,
                                    Kc, dtau, c_det, stream);
+}
+
+// the same with the phase probe on: probe (W x 7 int64) gets each CTA's
+// cycles per phase (PROBE_PHASES), its total cycles and its total ns
+int dq_sdw_delayed_probe_c64(int device, const void* colT, const void* rowp,
+                             const void* phi, const void* phin, const void* lhs,
+                             const void* delta, const void* nb, void* CT, void* R,
+                             void* phi_out, void* acc_out, int W, int N, int opdim,
+                             int i0, int Kc, double dtau, double c_det, void* probe,
+                             void* stream) {
+    return dq::sdw_delayed<float>(device, colT, rowp, phi, phin, lhs, delta, nb,
+                                  CT, R, phi_out, acc_out, W, N, opdim, i0, Kc,
+                                  dtau, c_det, stream, static_cast<long long*>(probe));
 }
 
 }  // extern "C"

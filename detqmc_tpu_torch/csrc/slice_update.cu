@@ -22,13 +22,19 @@
 
 namespace dq {
 
-template <typename T>
+// the phase probe's phases (Probe, common.cuh), mirrored by
+// linalg/slice_update.py PROBE_PHASES: staging column i and row i, the
+// ratio and decision (thread 0), the barriers, the rank-1 update, G's and
+// the field's loads and stores
+enum { kStage, kDecide, kBarrier, kUpdate, kLoadStore, kPhases };
+
+template <typename T, bool PROBE>
 __global__ void __launch_bounds__(kThreads)
 slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
                     const T* __restrict__ u01, const T* __restrict__ sign_in,
                     T* __restrict__ G_out, T* __restrict__ field_out,
                     T* __restrict__ sign_out, T* __restrict__ acc_out,
-                    int C, int N, T alpha) {
+                    int C, int N, T alpha, long long* probe_out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* G = reinterpret_cast<T*>(smem_raw);   // C*N*N, row-major per comp
     T* u = G + C * N * N;                    // C*N: column i (pre-update)
@@ -37,6 +43,8 @@ slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
     __shared__ T coef_s[2];
     __shared__ T sign_s, acc_s;
     __shared__ int accept_s;
+    Probe<PROBE, kPhases> probe;
+    probe.start();
 
     const int tid = threadIdx.x;
     const size_t wk = blockIdx.x;
@@ -45,7 +53,9 @@ slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
     for (int idx = tid; idx < C * NN; idx += kThreads) G[idx] = Gw[idx];
     for (int idx = tid; idx < N; idx += kThreads) fld[idx] = field_in[wk * N + idx];
     if (tid == 0) { sign_s = sign_in[wk]; acc_s = T(0); }
+    probe.lap(kLoadStore);
     __syncthreads();
+    probe.lap(kBarrier);
 
     for (int i = 0; i < N; ++i) {
         // every thread: stage column i and e_i - row i of each component
@@ -55,6 +65,7 @@ slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
             u[idx] = Gc[a * N + i];
             w[idx] = sub_rn(a == i ? T(1) : T(0), Gc[i * N + a]);
         }
+        probe.lap(kStage);
         if (tid == 0) {
             const T s_i = fld[i];
             T delta[2], R[2];
@@ -75,7 +86,9 @@ slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
                 acc_s = acc_s + T(1);
             }
         }
+        probe.lap(kDecide);
         __syncthreads();
+        probe.lap(kBarrier);
         if (accept_s) {
             for (int idx = tid; idx < C * NN; idx += kThreads) {
                 const int c = idx / NN, r = idx - c * NN;
@@ -84,7 +97,9 @@ slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
                 G[idx] = sub_rn(G[idx], mul_rn(mul_rn(coef_s[c], u[c * N + a]), w[c * N + b]));
             }
         }
+        probe.lap(kUpdate);
         __syncthreads();
+        probe.lap(kBarrier);
     }
 
     T* Go = G_out + wk * C * NN;
@@ -94,19 +109,23 @@ slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
         sign_out[wk] = sign_s;
         acc_out[wk] = div_rn(acc_s, T(N));
     }
+    probe.lap(kLoadStore);
+    probe.store(probe_out);
 }
 
 template <typename T>
 int slice_update(int device, const void* G, const void* field, const void* u01,
                  const void* sign, void* G_out, void* field_out, void* sign_out,
-                 void* acc_out, int W, int C, int N, double alpha, void* stream) {
+                 void* acc_out, int W, int C, int N, double alpha, void* stream,
+                 long long* probe = nullptr) {
     const size_t smem = sizeof(T) * (size_t(C) * N * N + 2 * size_t(C) * N + N);
-    return launch_smem(device, slice_update_kernel<T>, W, smem, stream,
+    auto kernel = probe ? slice_update_kernel<T, true> : slice_update_kernel<T, false>;
+    return launch_smem(device, kernel, W, smem, stream,
                        static_cast<const T*>(G), static_cast<const T*>(field),
                        static_cast<const T*>(u01), static_cast<const T*>(sign),
                        static_cast<T*>(G_out), static_cast<T*>(field_out),
                        static_cast<T*>(sign_out), static_cast<T*>(acc_out),
-                       C, N, static_cast<T>(alpha));
+                       C, N, static_cast<T>(alpha), probe);
 }
 
 }  // namespace dq
@@ -127,6 +146,28 @@ int dq_slice_update_f64(int device, const void* G, const void* field,
                         int W, int C, int N, double alpha, void* stream) {
     return dq::slice_update<double>(device, G, field, u01, sign, G_out, field_out,
                                     sign_out, acc_out, W, C, N, alpha, stream);
+}
+
+// the same with the phase probe on: probe (W x 7 int64) gets each CTA's
+// cycles per phase (PROBE_PHASES), its total cycles and its total ns
+int dq_slice_update_probe_f32(int device, const void* G, const void* field,
+                              const void* u01, const void* sign, void* G_out,
+                              void* field_out, void* sign_out, void* acc_out,
+                              int W, int C, int N, double alpha, void* probe,
+                              void* stream) {
+    return dq::slice_update<float>(device, G, field, u01, sign, G_out, field_out,
+                                   sign_out, acc_out, W, C, N, alpha, stream,
+                                   static_cast<long long*>(probe));
+}
+
+int dq_slice_update_probe_f64(int device, const void* G, const void* field,
+                              const void* u01, const void* sign, void* G_out,
+                              void* field_out, void* sign_out, void* acc_out,
+                              int W, int C, int N, double alpha, void* probe,
+                              void* stream) {
+    return dq::slice_update<double>(device, G, field, u01, sign, G_out, field_out,
+                                    sign_out, acc_out, W, C, N, alpha, stream,
+                                    static_cast<long long*>(probe));
 }
 
 }  // extern "C"

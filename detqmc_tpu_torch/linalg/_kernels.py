@@ -53,6 +53,9 @@ _SIGNATURES = {
     # W, C, N, alpha, stream
     "dq_slice_update_f32": [_I] + [_P] * 8 + [_I, _I, _I, _D, _P],
     "dq_slice_update_f64": [_I] + [_P] * 8 + [_I, _I, _I, _D, _P],
+    # the same, then the phase probe's record (W x 7 int64)
+    "dq_slice_update_probe_f32": [_I] + [_P] * 8 + [_I, _I, _I, _D, _P, _P],
+    "dq_slice_update_probe_f64": [_I] + [_P] * 8 + [_I, _I, _I, _D, _P, _P],
     # device, A, Q, R, batch, n, stream
     "dq_qr_f32": [_I, _P, _P, _P, _I, _I, _P],
     "dq_qr_f64": [_I, _P, _P, _P, _I, _I, _P],
@@ -77,6 +80,8 @@ _SIGNATURES = {
     # acc_out, W, N, opdim, i0, Kc, dtau, c_det, stream
     "dq_sdw_delayed_c64": [_I] + [_P] * 11 + [_I] * 5 + [_D, _D, _P],
     "dq_sdw_delayed_c128": [_I] + [_P] * 11 + [_I] * 5 + [_D, _D, _P],
+    # the same, then the phase probe's record (W x 7 int64)
+    "dq_sdw_delayed_probe_c64": [_I] + [_P] * 11 + [_I] * 5 + [_D, _D, _P, _P],
     # device, G, tmp, G_out, E, Einv, D, Dinv, W, N, up, TL, og, nb, tpc,
     # stream
     "dq_sdw_wrap_c64": [_I] + [_P] * 7 + [_I] * 7 + [_P],

@@ -123,15 +123,26 @@ def chunk_plain(colT, rowp, phi, phi_new, lhs, delta, nb, i0: int, Kc: int,
     return torch.complex(Cr, Ci), torch.complex(Rr, Ri), phi, acc
 
 
+# the phase probe's phases of K5 (sdw_delayed.cu), in the order of its
+# per-CTA record; the record ends with the CTA's total cycles and ns
+PROBE_PHASES = ("corrections", "decision", "slot write", "barriers",
+                "loads and stores")
+
+
 def chunk(colT, rowp, phi, phi_new, lhs, delta, nb, i0: int, Kc: int,
-          dtau: float, c_det: float):
+          dtau: float, c_det: float, probe: bool = False):
     """K5: CPU tensors run ``chunk_plain``; CUDA tensors launch the kernel
-    (complex64 or complex128, contiguous, h = 4 N) or raise."""
+    (complex64 or complex128, contiguous, h = 4 N) or raise. With
+    ``probe`` (complex64) the kernel's instance with clock64() stamps runs
+    instead, and the result gains a (W, len(PROBE_PHASES) + 2) int64
+    record per CTA."""
     if colT.device.type == "cpu":
         return chunk_plain(colT, rowp, phi, phi_new, lhs, delta, nb, i0, Kc,
                            dtau, c_det)
     cdt = colT.dtype
     _kernels.check_cuda_tensor("colT", colT, tuple(_ENTRIES), 3)
+    if probe and cdt != torch.complex64:
+        raise ValueError(f"sdw_delayed: no phase probe for {cdt}")
     W, Kq, h = colT.shape
     N, opdim = phi.shape[1], phi.shape[2]
     rdt = cdt.to_real()
@@ -154,6 +165,14 @@ def chunk(colT, rowp, phi, phi_new, lhs, delta, nb, i0: int, Kc: int,
     R = torch.empty_like(colT)
     phi_out = torch.empty_like(phi)
     acc = torch.empty(W, dtype=rdt, device=colT.device)
+    if probe:
+        rec = torch.zeros((W, len(PROBE_PHASES) + 2), dtype=torch.int64,
+                          device=colT.device)
+        _kernels.launch("sdw_delayed", "dq_sdw_delayed_probe_c64", colT,
+                        rowp, phi, phi_new, lhs, delta, nb, CT, R, phi_out,
+                        acc, W, N, opdim, i0, Kc, float(dtau), float(c_det),
+                        rec)
+        return CT, R, phi_out, acc, rec
     _kernels.launch("sdw_delayed", _ENTRIES[cdt], colT, rowp, phi, phi_new,
                     lhs, delta, nb, CT, R, phi_out, acc, W, N, opdim, i0, Kc,
                     float(dtau), float(c_det))

@@ -80,11 +80,20 @@ def smem_bytes(C: int, N: int, dtype) -> int:
     return item * (C * N * N + 2 * C * N + N)
 
 
-def slice_update(G, field_l, u01, sign, alpha: float):
+# the phase probe's phases of K1 (slice_update.cu), in the order of its
+# per-CTA record; the record ends with the CTA's total cycles and ns
+PROBE_PHASES = ("stage", "decision", "barriers", "update", "loads and stores")
+
+
+def slice_update(G, field_l, u01, sign, alpha: float, probe: bool = False):
     """K1: CPU tensors run ``slice_update_plain``; CUDA tensors launch
     the kernel (float32 or float64, C in {1, 2}, N <= 128 within the
-    shared-memory budget) or raise."""
+    shared-memory budget) or raise. With ``probe`` the kernel's instance
+    with clock64() stamps runs instead, and the result gains a
+    (W, len(PROBE_PHASES) + 2) int64 record per CTA."""
     if G.device.type == "cpu":
+        if probe:
+            raise ValueError("slice_update: the probe needs a CUDA tensor")
         return slice_update_plain(G, field_l, u01, sign, alpha)
     dts = (torch.float32, torch.float64)
     _kernels.check_cuda_tensor("G", G, dts, 4)
@@ -105,10 +114,17 @@ def slice_update(G, field_l, u01, sign, alpha: float):
     f_out = torch.empty_like(field_l)
     s_out = torch.empty_like(sign)
     acc = torch.empty_like(sign)
-    entry = ("dq_slice_update_f32" if G.dtype == torch.float32
-             else "dq_slice_update_f64")
-    _kernels.launch("slice_update", entry, G, field_l, u01, sign,
-                    G_out, f_out, s_out, acc, W, C, N, float(alpha))
+    suffix = "f32" if G.dtype == torch.float32 else "f64"
+    if probe:
+        rec = torch.zeros((W, len(PROBE_PHASES) + 2), dtype=torch.int64,
+                          device=G.device)
+        _kernels.launch("slice_update", "dq_slice_update_probe_" + suffix,
+                        G, field_l, u01, sign, G_out, f_out, s_out, acc, W,
+                        C, N, float(alpha), rec)
+        return G_out, f_out, s_out, acc, rec
+    _kernels.launch("slice_update", "dq_slice_update_" + suffix, G, field_l,
+                    u01, sign, G_out, f_out, s_out, acc, W, C, N,
+                    float(alpha))
     return G_out, f_out, s_out, acc
 
 

@@ -6,7 +6,8 @@ calls:
     python3 solve_timing.py                  # this checkout's kernels
     python3 solve_timing.py --tree OTHER     # the package of another checkout
     python3 solve_timing.py --plans          # also K8's and K9's other plans
-    python3 solve_timing.py --rows k1b,k3    # only these groups (k8, k1b, k3)
+    python3 solve_timing.py --rows k1b,k3    # only these groups (k8, k1b,
+                                             # k3, k7, k6, k5, k1)
 
 Rows of the k1b group: K1b float32 W=128 N=256 k=16 on slice 1 of a
 wrapped Hubbard L=16 G (chip_smoke.py's main-path shape) and K1b float64
@@ -18,6 +19,16 @@ there). Where the checkout's package has the kernel's phase probe, each
 K1b / K3c-rhs / K3r row also prints its split: the probe instance's
 clock64() cycles per phase, averaged over the CTAs, and the same in us
 at the clock the run had (each CTA's cycles over its global-timer ns).
+
+Rows of the k5 group: the delayed SDW update K5 on slice 1 of a wrapped
+G, one whole slice (every chunk with its flush), complex64 W=128 h=256
+K=8 (sdw_l8's main-path shape) and complex128 at h=64 (sdw_l4's G) and
+h=256; where the package launches K5 once per chunk, also the first
+chunk's kernel alone, its G -= C R flush (baddbmm) and its panel copies.
+Rows of the k1 group: the rank-1 Hubbard update K1 on slice 1 of a
+wrapped Hubbard L=8 G, float32 W=256 N=64 C=1 (the main path) and
+float64 W=256 N=64 C=2. Both with the probe's split where the package
+has it, and with --plans every plan of the package's K1.
 
 Rows (float64 as the Hubbard L=16 chain, complex128 as SDW L=8):
 K8 + K9 f64 B=128 n=256 (diag(r1)), K8-rhs + K9 f64 B=5376 n=256, K8 + K9
@@ -127,6 +138,113 @@ def k1b_rows(emit, gen, device, reps):
             rec = slice_update.slice_update_delayed(*a, probe=True)[-1]
             row["probe"] = split(rec, slice_update.DELAYED_PROBE_PHASES)
         emit(row)
+        del model, state, G, a
+        torch.cuda.empty_cache()
+
+
+def k5_rows(emit, gen, device, reps):
+    """K5 over one slice (complex64 at sdw_l8's h=256, complex128 at
+    h=64 and h=256), with the parent design's per-chunk pieces and the
+    probe's split where the package has them."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import sdw_delayed
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    W = 128
+    cases = (("complex64", SDW8), ("complex128", dict(SDW8, L=4, s=4,
+                                                      checkerboard=False)),
+             ("complex128", SDW8))
+    for cname, cfg in cases:
+        model = SDWModel(SDWConfig(**cfg), device=device)
+        st = model.init_state(W, gen)
+        phi = st.phi
+        G = model.wrap_up(st.G, model.exp_v_blocks(phi[:, 0]),
+                          model.exp_v_blocks(phi[:, 0], 1.0))
+        u01, rnd = model._draw_proposal_randoms(W, gen)
+        phi_new, jac = model._propose_all(
+            phi[:, 0], tuple(x[:, 0] for x in rnd), st.box_width,
+            st.sweeps_done % 2)
+        lhs = torch.log(u01[:, 0]) - jac + model._ds_static(
+            phi[:, 0], phi_new, phi[:, 1], phi[:, -1], st.r)
+        delta = model.exp_v_blocks(phi_new, -1.0) @ model.exp_v_blocks(
+            phi[:, 0], 1.0) - torch.eye(4, dtype=model.cdtype, device=device)
+        cdt = getattr(torch, cname)
+        args = [x.to(cdt if x.is_complex() else cdt.to_real()).contiguous()
+                for x in (G, phi[:, 0], phi_new, lhs, delta)]
+        extra = (model.nb, model.cfg.dtau, model.c_det)
+        K, N, h = model._delay_k, model.cfg.n_sites, model.dim
+        ms = time_ms(lambda: sdw_delayed.sdw_delayed(*args, *extra, K), reps)
+        acc = float(sdw_delayed.sdw_delayed(*args, *extra, K)[2].sum())
+        row = dict(kernel="K5", dtype=cname, W=W, h=h, K=K,
+                   chunks=-(-N // K), slice_ms=ms,
+                   acceptance=acc / (W * N))
+        if hasattr(sdw_delayed, "chunk"):
+            # the parent design: the first chunk's kernel, flush and copies
+            colT, rowp = sdw_delayed.panels(args[0], 0, K)
+            cargs = (colT, rowp, *args[1:], model.nb, 0, K, *extra[1:])
+            CT, R = sdw_delayed.chunk(*cargs)[:2]
+            Gc = args[0].clone()
+            row.update(
+                chunk_ms=time_ms(lambda: sdw_delayed.chunk(*cargs), reps),
+                flush_ms=time_ms(lambda: Gc.baddbmm_(
+                    CT.transpose(-1, -2), R, alpha=-1), reps),
+                panels_ms=time_ms(lambda: sdw_delayed.panels(args[0], 0, K),
+                                  reps))
+            if (hasattr(sdw_delayed, "PROBE_PHASES")
+                    and cdt == torch.complex64):
+                rec = sdw_delayed.chunk(*cargs, probe=True)[-1]
+                row["probe_first_chunk"] = split(rec,
+                                                 sdw_delayed.PROBE_PHASES)
+        else:
+            row["plan"] = sdw_delayed.plan(N, cdt, K)
+            if hasattr(sdw_delayed, "PROBE_PHASES"):
+                rec = sdw_delayed.sdw_delayed(*args, *extra, K,
+                                              probe=True)[-1]
+                row["probe"] = split(rec, sdw_delayed.PROBE_PHASES)
+        emit(row)
+        del model, st, G, args
+        torch.cuda.empty_cache()
+
+
+def k1_rows(emit, gen, device, reps, plans):
+    """K1 on slice 1 of a wrapped Hubbard L=8 G: float32 W=256 C=1 (the
+    main path) and float64 W=256 C=2, with the probe's split where the
+    package has it (and with ``plans`` every plan of the package)."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import slice_update
+    from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
+
+    W = 256
+    for dname, ph in (("float32", "on"), ("float64", "off")):
+        model = HubbardModel(HubbardConfig(L=8, U=4.0, beta=8.0, m=80, s=4,
+                                           dtype=dname, ph_symmetry=ph),
+                             device=device)
+        state = model.init_state(W, gen)
+        G = model.wrap_up(state.G, model.exp_v(state.field[:, 0]))
+        fl = state.field[:, 0].contiguous()
+        u = torch.rand(fl.shape, generator=gen, dtype=G.dtype, device=device)
+        a = (G.contiguous(), fl, u, state.sign.contiguous(),
+             model.cfg.alpha)
+        C, N = G.shape[1], G.shape[-1]
+        ms = time_ms(lambda: slice_update.slice_update(*a), reps)
+        acc = float(slice_update.slice_update(*a)[3].mean())
+        row = dict(kernel="K1", dtype=dname, W=W, C=C, N=N, ms=ms,
+                   us_per_site=1e3 * ms / N, acceptance=acc)
+        if hasattr(slice_update, "plan"):
+            row["plan"] = slice_update.plan(C, N, G.dtype)
+        if hasattr(slice_update, "PROBE_PHASES"):
+            rec = slice_update.slice_update(*a, probe=True)[-1]
+            row["probe"] = split(rec, slice_update.PROBE_PHASES)
+        emit(row)
+        if plans and hasattr(slice_update, "PLANS"):
+            for p in slice_update.PLANS:
+                if slice_update.plan_fits(C, N, G.dtype, p):
+                    emit(dict(kernel="K1", dtype=dname, W=W, C=C, N=N,
+                              plan=p, ms=time_ms(lambda: slice_update.
+                                                 slice_update(*a, plan=p),
+                                                 reps)))
         del model, state, G, a
         torch.cuda.empty_cache()
 
@@ -286,9 +404,10 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--seed", type=int, default=256)
     ap.add_argument("--plans", action="store_true",
-                    help="also time K8's and K9's other plans")
-    ap.add_argument("--rows", default="k8,k1b,k3,k7,k6",
-                    help="comma-separated groups: k8, k1b, k3, k7, k6")
+                    help="also time K8's, K9's and K1's other plans")
+    ap.add_argument("--rows", default="k8,k1b,k3,k7,k6,k5,k1",
+                    help="comma-separated groups: k8, k1b, k3, k7, k6, k5, "
+                    "k1")
     args = ap.parse_args(argv)
     groups = set(args.rows.split(","))
     import torch
@@ -317,6 +436,10 @@ def main(argv=None) -> int:
         k7_rows(emit, gen, device, args.reps, lib_reps)
     if "k6" in groups:
         k6_rows(emit, gen, device, args.reps, lib_reps)
+    if "k5" in groups:
+        k5_rows(emit, gen, device, args.reps)
+    if "k1" in groups:
+        k1_rows(emit, gen, device, args.reps, args.plans)
     if "k1b" in groups:
         k1b_rows(emit, gen, device, args.reps)
     if "k3" in groups:
