@@ -39,8 +39,9 @@ Phases (any failure raises, and the script exits non-zero):
    phiSquared finite, phase exactly 1;
 9. SDW profile — one pair under torch.profiler, device time by kernel
    group (K4, K2c, K3c, cuBLAS gemm, other) and the busy share;
-10. SDW L=8 kernels — K5 sdw_delayed (complex64 at the main-path shapes
-   W = 128, h = 256, N = 64, K = 8; complex128 at h = 64, bitwise), K6
+10. SDW L=8 kernels — K5 sdw_delayed (one launch per slice with its
+   flushes; complex64 at the main-path shapes W = 128, h = 256, N = 64,
+   K = 8, with its plan and CTAs per SM; complex128 at h = 64, bitwise), K6
    sdw_wrap / sdw_apply (all four modes, complex64 and complex128), K7
    qr_complex_big (n = 144 and 256, complex64 and complex128), K8
    solve_inner_complex_big (complex128, n = 256, with its K9
@@ -150,6 +151,10 @@ SDW8_KERNELS = ("sdw_delayed", "sdw_wrap", "sdw_apply", "qr_complex_big",
 SDW8_CPP = 3.41            # C++ single-core sweeps/s (bench.py:62)
 K6_TOL = {"complex64": 1e-5, "complex128": 1e-12}   # relative to max|G|
 K4_TOL = {"complex64": 1e-5, "complex128": 1e-12}  # max |G_kernel - G_plain|
+# K5 before its redesign (PR 8's chip run 17 and PR 9's run 1, NVIDIA H100
+# 80GB HBM3, 700 W): ms per chunk launch, and per slice with its baddbmm
+# flushes and panel copies (solve_timing.py)
+K5_PR8_MS = {"complex64": (0.1383, 1.4804)}
 # an f32 K4 accept mismatch must be a near-tie of the log-domain test:
 # |lhs - (c_det log|R|^2 + live)| below this (f32 roundoff is ~1e-6 there)
 K4_NEAR_TIE = 1e-4
@@ -310,10 +315,14 @@ def kernel_phase(model, state, gen):
         pms = time_ms(lambda: slice_update.slice_update_plain(*args,
                                                               cfg.alpha),
                       reps=3)
+        plan = slice_update.plan(C, N, dt)
         print(f"K1 slice_update {dname} (W={W}, C={C}, N={N}): "
               f"max|dG|={err:.3e} (float64: bitwise; float32: tol "
               f"{K1_TOL} x max(1, max|G|)), accept mismatches "
-              f"{n_mis}, kernel {ms:.4f} ms, plain {pms:.4f} ms")
+              f"{n_mis}, kernel {ms:.4f} ms, plain {pms:.4f} ms; plan "
+              f"{plan} ({slice_update.threads(C, N, plan)} threads) x "
+              f"{slice_update.blocks_per_sm(C, N, dt, plan, G1.device)} "
+              "CTAs/SM")
         # a rank-1 update of each component's G per accepted site
         n_acc = float(ak.sum()) * N
         rec[dname] = record(err, ms, pms, None, bound(
@@ -579,7 +588,9 @@ HUBBARD_GROUPS = (("slice_update_kernel", "K1 slice_update"),
 SDW_GROUPS = (("sdw_update_kernel", "K4 sdw_update"),
               ("qr_kernel", "K2c qr"),
               ("solve_inner_kernel", "K3c solve_inner"))
-SDW8_GROUPS = (("sdw_delayed_kernel", "K5 sdw_delayed"),
+# K5's G -= C R flush runs in its own body since PR 9 (no "gemm c64" of
+# it is left in the profile)
+SDW8_GROUPS = (("sdw_delayed_kernel", "K5 sdw_delayed + flush"),
                ("line_pass_kernel", "K6 sdw_wrap/apply"),
                ("qr_big_kernel", "K7 qr_complex_big"),
                ("solve_inner_big_kernel", "K8 solve_inner_big"),
@@ -853,27 +864,23 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
                   "K5 complex128: not bitwise equal to the plain version")
         check(err <= K4_TOL[cname], f"K5 {cname}: max|G_k - G_p| = "
               f"{err:.3e} > {K4_TOL[cname]}")
-        Kc = min(K, mdl.cfg.n_sites)
-        colT, rowp = sdw_delayed.panels(args[0], 0, Kc)
-        cargs = (colT, rowp, *args[1:], mdl.nb, 0, Kc, mdl.cfg.dtau,
-                 mdl.c_det)
-        ms = time_ms(lambda: sdw_delayed.chunk(*cargs))
-        pms = time_ms(lambda: sdw_delayed.chunk_plain(*cargs), reps=3)
-        chunk_out = sdw_delayed.chunk(*cargs)
-        sms = time_ms(lambda: sdw_delayed.sdw_delayed(*args, *extra, K),
-                      reps=3)
-        hh = mdl.dim
+        ms = time_ms(lambda: sdw_delayed.sdw_delayed(*args, *extra, K))
+        pms = time_ms(lambda: sdw_delayed.sdw_delayed_plain(*args, *extra,
+                                                            K), reps=1)
+        hh, Nn = mdl.dim, mdl.cfg.n_sites
+        plan = sdw_delayed.plan(Nn, args[0].dtype, K)
+        bps = sdw_delayed.blocks_per_sm(Nn, args[0].dtype, K, args[0].device)
+        parent = (f" (PR 8's K5: {K5_PR8_MS[cname][0]} ms a chunk, "
+                  f"{K5_PR8_MS[cname][1]} ms the slice with its flushes and "
+                  "copies)" if cname in K5_PR8_MS else "")
         print(f"K5 sdw_delayed {cname} (W={W}, h={hh}, K={K}): max|dG|="
               f"{err:.3e} (tol {K4_TOL[cname]}), accepted {int(ak.sum())}/"
-              f"{W * mdl.cfg.n_sites} sites, accept mismatches {n_mis}; one "
-              f"chunk: kernel {ms:.4f} ms, plain {pms:.4f} ms; the slice "
-              f"with its flushes {sms:.4f} ms")
-        # per site of the chunk: its 4 columns and rows corrected by the
-        # earlier slots (2 x 4 x 4 j x h), then the 4 x 4 T applied (16 h)
-        ops = W * (16 * Kc * (Kc - 1) + 16 * Kc) * hh * CPLX * 2
+              f"{W * Nn} sites, accept mismatches {n_mis}; the slice in one "
+              f"launch with its flushes: kernel {ms:.4f} ms{parent}, plain "
+              f"{pms:.4f} ms; plan {plan} x {bps} CTAs/SM")
         rec[cname] = record(err, ms, pms, None, bound(
-            nbytes(*[a for a in cargs if isinstance(a, torch.Tensor)],
-                   *chunk_out), ops))
+            nbytes(*args, mdl.nb, Gk, pk, ak),
+            k5_ops(args[1], pk, K, hh)))
     out["sdw_delayed"] = rec
 
     # K6: the four modes on the stabilized G and slice 1's blocks
@@ -1089,11 +1096,10 @@ def sdw_main_path_phase(device, card, cfg_kw=SDW_CFG, kernels=SDW_KERNELS):
     K, n_pairs = cfg.n_stack, 1 + N_TIMED_PAIRS
     expect = dict.fromkeys(counts, 0)
     if "sdw_delayed" in kernels:
-        # K5 once per chunk of every slice; K6 once per wrap and per
-        # square apply (init_state's right stack: m B^H applies); K7 once
-        # per refactor, K8 and K9 once per G evaluation
-        chunks = -(-cfg.n_sites // model._delay_k)
-        expect.update({"sdw_delayed": 2 * cfg.m * chunks * n_pairs,
+        # K5 once per slice; K6 once per wrap and per square apply
+        # (init_state's right stack: m B^H applies); K7 once per
+        # refactor, K8 and K9 once per G evaluation
+        expect.update({"sdw_delayed": 2 * cfg.m * n_pairs,
                        "sdw_wrap": 2 * cfg.m * n_pairs,
                        "sdw_apply": cfg.m + 2 * cfg.m * n_pairs,
                        "qr_complex_big": K + 2 * K * n_pairs,
@@ -1369,6 +1375,24 @@ def k1b_ops(field_in, field_out, k, C, N):
     before = chunks.cumsum(-1) - chunks
     return float(before.sum()) * 2 * (2 * C * N) + float(acc.sum()) * 2 * C \
         * N * N
+
+
+def k5_ops(phi_in, phi_out, K, h):
+    """The real operations K5's data needs over one slice (this run's
+    accepted sites, 8 per complex multiply-add): every site's 16 G_II
+    entries corrected by the slots accepted before it in its chunk; every
+    accepted site's 4 columns and 4 rows (h entries each) corrected the
+    same way and its 4 C slots formed (16 h); every chunk's flush, h^2
+    per accepted slot."""
+    import torch
+
+    acc = (phi_out != phi_in).any(-1).double()                 # (W, N)
+    pad = (-acc.shape[1]) % K
+    chunks = torch.nn.functional.pad(acc, (0, pad)).view(acc.shape[0], -1, K)
+    slots = 4 * (chunks.cumsum(-1) - chunks)      # slots before each site
+    cmacs = (16 * slots.sum() + ((8 * h * slots + 16 * h) * chunks).sum()
+             + h * h * 4 * chunks.sum())
+    return 8 * float(cmacs)
 
 
 def l16_kernel_phase(model, state, gen, device):

@@ -274,12 +274,12 @@ __device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
     householder_apply(A, C, v, s, n, ld, none);
 }
 
-// Launch `kernel` with `smem` bytes of dynamic shared memory on `stream`
-// of `device`, raising the kernel's dynamic shared-memory cap first.
-// Returns cudaGetLastError().
+// Launch `kernel` on `grid` CTAs of `block` threads with `smem` bytes of
+// dynamic shared memory on `stream` of `device`, raising the kernel's
+// dynamic shared-memory cap first. Returns cudaGetLastError().
 template <typename Kernel, typename... Args>
-int launch_smem(int device, Kernel kernel, int grid, size_t smem,
-                void* stream, Args... args) {
+int launch_block(int device, Kernel kernel, int grid, int block, size_t smem,
+                 void* stream, Args... args) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     const void* fn = reinterpret_cast<const void*>(kernel);
@@ -288,11 +288,37 @@ int launch_smem(int device, Kernel kernel, int grid, size_t smem,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (grid > 0) {
         void* params[] = {static_cast<void*>(&args)...};
-        err = cudaLaunchKernel(fn, dim3(grid), dim3(kThreads), params, smem,
+        err = cudaLaunchKernel(fn, dim3(grid), dim3(block), params, smem,
                                static_cast<cudaStream_t>(stream));
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+// the same with kThreads threads per CTA
+template <typename Kernel, typename... Args>
+int launch_smem(int device, Kernel kernel, int grid, size_t smem,
+                void* stream, Args... args) {
+    return launch_block(device, kernel, grid, kThreads, smem, stream, args...);
+}
+
+// CTAs of `kernel` (`threads` per CTA) one SM holds at `smem` bytes with
+// the largest shared-memory carveout (as launch_tc asks), or -(cudaError)
+// on a failure.
+template <typename Kernel>
+int blocks_per_sm(int device, Kernel kernel, size_t smem, int threads = kThreads) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    const void* fn = reinterpret_cast<const void*>(kernel);
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
+    int blocks = 0;
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
+    return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 }  // namespace dq

@@ -1,198 +1,404 @@
-// K5: delayed SDW slice update, one chunk of Kc sites, one CTA per walker.
+// K5: the delayed SDW slice update, one launch per slice, one CTA per
+// walker, the flush G -= C R in the kernel's own body.
 //
 // Replaces the TPU kernel detqmc_tpu/linalg/pallas_sdw_delayed.py
 // (slice_update_sdw_delayed, kernel body _kernel) in its default
-// flush-each scheme (pallas_sdw_delayed.py:292-306): for every chunk the
-// caller slices the chunk's column and row panels out of the current G,
-// this kernel walks the chunk's sites and emits the rank-(Kc q) factors,
-// and the caller flushes G -= C @ R with one batched matmul. The kernel
-// never touches G. Slots are site-major: slot k = j q + b is orbital b of
-// the chunk's j-th site i = i0 + j, dim index j_b = b N + i (q = 4).
+// flush-each scheme (pallas_sdw_delayed.py:292-306): the slice's N sites
+// go in chunks of K (the last one ragged); each chunk's sites emit
+// rank-(4 K) factors C (h x 4K) and R (4K x h), and G is flushed with
+// them before the next chunk reads it. Slots are site-major: slot
+// k = j q + b is orbital b of the chunk's j-th site i = i0 + j, dim index
+// j_b = b N + i (q = 4). Per site (pallas_sdw_delayed.py:91-216):
+//     col_b = G[:, j_b] - sum_{k < j q} C[:, k] R[k, j_b]   (k ascending)
+//     row_b = G[j_b, :] - sum_{k < j q} C[j_b, k] R[k, :]
+//     accept, T = the scalar chain of K4 (sdw_site.cuh) on G_II = col_b[j_a]
+//     C[:, j q + b] = accept ? sum_a col_a T_ab : 0;  R[j q + b, :] = e_{j_b} - row_b
+//     phi_i = accept ? phi_new_i : phi_i
+// and after the chunk G -= C R, slot by slot in ascending k. A rejected
+// site's slots hold C = 0, which adds exact zeros to every sum: only
+// accepted sites take slots here (nk of them), and the plain version
+// (linalg/sdw_delayed.py), which keeps every slot, gets the same values.
 //
-// Inputs (walker w; h = 4 N, Kq = Kc q):
-//     colT (W, Kq, h)  colT[k][r] = G[r][j_b]     (column panel, transposed)
-//     rowp (W, Kq, h)  rowp[k][c] = G[j_b][c]     (row panel)
-//     phi  (W, N, opdim) the slice's field after the previous chunks
-// Outputs:
-//     CT   (W, Kq, h)  CT[k][r] = C[r][k], C = accept ? cols . T : 0
-//     R    (W, Kq, h)  R[k][c]  = e_{j_b}[c] - G_cur[j_b][c]
-//     phi_out, acc_out (accepted sites of this chunk)
-// Per site (pallas_sdw_delayed.py:91-216): the site's q columns and rows
-// of the current G are the panel's, corrected by the chunk's earlier slots
-// k < j q in ascending order,
-//     col_b -= C[:, k] R[k, j_b];   row_b -= C[j_b, k] R[k, :],
-// then thread 0 runs the scalar chain of K4 (sdw_site.cuh) on G_II, and
-// all threads write the site's C slots (gate . sum_a col_a T_ab) and R
-// slots. phi is updated by select, as in K4.
+// G is the working copy in global memory: the output buffer G_out, whose
+// first flush reads G_in (a chunk without an accepted site flushes
+// nothing; if that is the first, its flush copies). The chunk's C and R
+// slots (4 K x h each; C stored transposed, slot-major) stay in shared
+// memory where they fit (2 x 32 x 256 x 8 B = 128 KB at h = 256, K = 8 in
+// complex64) and in a global scratch (L2) where they do not (complex128
+// at h = 256, complex64 at h = 512): linalg/sdw_delayed.py plan.
 //
-// What bounds it on the H100: per site, 2 q h (j q) complex products for
-// the slot corrections and one single-thread scalar chain, three
-// __syncthreads. Shared memory holds only the site's corrected columns and
-// rows (2 q h values: 16 KB at h = 256 in complex64) and the field; CT and
-// R stay in global memory (L1/L2: 2 Kq h values, 128 KB per walker at
-// h = 256, K = 8 in complex64), so every dim up to 512 fits in complex64
-// and complex128 alike. The O(h^2 Kq) flush is the caller's tensor-core
-// matmul, not this kernel's work. Every product and sum is explicitly
-// rounded in the plain version's order (linalg/sdw_delayed.py).
+// What bounds it (NVIDIA H100 80GB HBM3; the parent design's probe in
+// PERF.md): per chunk the flush reads and writes G once (134 MB over 128
+// walkers at h = 256 in complex64: 0.04 ms of HBM) and does 8 h^2 (4 nk)
+// real operations per walker; the site walk is a dependent chain of
+// scalar steps. This design:
+//   - one launch per slice: no panel copies, no library flush, no
+//     per-chunk launches; the delta blocks, the fields and the proposal's
+//     lhs are staged in shared memory once;
+//   - the flush is register-tiled (TR x 4 complex entries a thread, 16-byte
+//     loads, the next tile's G loads in flight during the products),
+//     FP32 SIMT products in complex64 (no TF32), FP64 in complex128, every
+//     product and sum explicitly rounded in the plain version's order;
+//   - no broadcast of the accept: lanes 0-15 of every warp form the
+//     16 corrected G_II entries and every warp runs the scalar chain on
+//     them, one 4x4 entry a lane (sdw_site.cuh site_step_warp: the
+//     parent's single thread spent 2.6 us a site on it), so all warps
+//     decide alike and none waits on another; a rejected site takes no
+//     barrier, an accepted one writes its slots and takes one. Each warp keeps its
+//     own copy of the live field (the next sites' live term reads it), so
+//     a fast warp's update never meets a slow warp's read;
+//   - no global read on a site step's critical path: G does not change
+//     inside a chunk, so the next site's entries are loaded while the
+//     current one is decided; no runtime integer division per element.
 #include "sdw_site.cuh"
 
 namespace dq {
 
 // the phase probe's phases (Probe, common.cuh), mirrored by
-// linalg/sdw_delayed.py PROBE_PHASES: the slot corrections of the site's
-// columns and rows, the scalar chain (thread 0), the slot writes, the
-// barriers, the field's loads and stores
-enum { kCorrect, kDecide, kSlot, kBarrier, kLoadStore, kPhases };
+// linalg/sdw_delayed.py PROBE_PHASES: the corrected G_II entries, the
+// live term and the scalar chain, the slot writes of an accepted site,
+// the barriers, the flush, the staging of the slice's operands
+enum { kGather, kDecide, kSlot, kBarrier, kFlush, kSetup, kPhases };
 
-template <typename T, bool PROBE>
-__global__ void __launch_bounds__(kThreads)
-sdw_delayed_kernel(const cplx<T>* __restrict__ colT, const cplx<T>* __restrict__ rowp,
+constexpr int kFlushCols = 4;   // complex entries per flush tile row
+
+// M consecutive complex values at src (16-byte aligned) into v, and back
+template <int M>
+__device__ __forceinline__ void load_c(cplx<float> (&v)[M], const cplx<float>* src) {
+    static_assert(M % 2 == 0, "complex64 loads go in pairs");
+#pragma unroll
+    for (int q = 0; q < M; q += 2) {
+        const float4 x = *reinterpret_cast<const float4*>(src + q);
+        v[q] = mk(x.x, x.y);
+        v[q + 1] = mk(x.z, x.w);
+    }
+}
+template <int M>
+__device__ __forceinline__ void load_c(cplx<double> (&v)[M], const cplx<double>* src) {
+#pragma unroll
+    for (int q = 0; q < M; ++q) {
+        const double2 x = *reinterpret_cast<const double2*>(src + q);
+        v[q] = mk(x.x, x.y);
+    }
+}
+template <int M>
+__device__ __forceinline__ void store_c(cplx<float>* dst, const cplx<float> (&v)[M]) {
+#pragma unroll
+    for (int q = 0; q < M; q += 2)
+        *reinterpret_cast<float4*>(dst + q) = make_float4(v[q].re, v[q].im, v[q + 1].re,
+                                                          v[q + 1].im);
+}
+template <int M>
+__device__ __forceinline__ void store_c(cplx<double>* dst, const cplx<double> (&v)[M]) {
+#pragma unroll
+    for (int q = 0; q < M; ++q)
+        *reinterpret_cast<double2*>(dst + q) = make_double2(v[q].re, v[q].im);
+}
+
+// Gd = Gs - sum_{s < ns} C[:, s] R[s, :] (C stored slot-major: Cs[s h + r]),
+// slot by slot in ascending s, each entry rounded as the plain version
+// rounds it. Thread t takes the tiles t, t + kThreads, ... of TR x 4
+// entries, the tiles of a row band on neighbouring threads (coalesced G
+// rows, one C read for the band); the next tile's G loads are issued
+// before the current tile's products. ns = 0 copies. h % 4 == 0.
+template <typename T, int TR>
+__device__ __forceinline__ void flush(const cplx<T>* Gs, cplx<T>* Gd, const cplx<T>* Cs,
+                                      const cplx<T>* Rs, int h, int ns) {
+    using S = cplx<T>;
+    constexpr int TC = kFlushCols;
+    const int tcn = h / TC, tiles = (h / TR) * tcn;
+    // tile t = band tcn + col; t += kThreads steps (band, col) by (db, dc)
+    const int db = kThreads / tcn, dc = kThreads - db * tcn;
+    int band = threadIdx.x / tcn, col = threadIdx.x - (threadIdx.x / tcn) * tcn;
+    S cur[TR][TC] = {}, nxt[TR][TC] = {};
+    auto load_tile = [&](int bd, int cl, S (&v)[TR][TC]) {
+        const S* src = Gs + size_t(bd) * TR * h + cl * TC;
+#pragma unroll
+        for (int p = 0; p < TR; ++p) load_c(v[p], src + size_t(p) * h);
+    };
+    int t = threadIdx.x;
+    if (t < tiles) load_tile(band, col, cur);
+    for (; t < tiles; t += kThreads) {
+        int nband = band + db, ncol = col + dc;
+        if (ncol >= tcn) {
+            ncol -= tcn;
+            ++nband;
+        }
+        if (t + kThreads < tiles) load_tile(nband, ncol, nxt);
+        const int r0 = band * TR, c0 = col * TC;
+        for (int s = 0; s < ns; ++s) {
+            S c[TR], r[TC];
+            load_c(c, Cs + size_t(s) * h + r0);
+            load_c(r, Rs + size_t(s) * h + c0);
+#pragma unroll
+            for (int p = 0; p < TR; ++p)
+#pragma unroll
+                for (int q = 0; q < TC; ++q)
+                    cur[p][q] = csub_rn(cur[p][q], cmul_rn(c[p], r[q]));
+        }
+        S* dst = Gd + size_t(r0) * h + c0;
+#pragma unroll
+        for (int p = 0; p < TR; ++p) store_c(dst + size_t(p) * h, cur[p]);
+#pragma unroll
+        for (int p = 0; p < TR; ++p)
+#pragma unroll
+            for (int q = 0; q < TC; ++q) cur[p][q] = nxt[p][q];
+        band = nband;
+        col = ncol;
+    }
+}
+
+// shared memory of one CTA (linalg/sdw_delayed.py smem_bytes): the C and R
+// slots if resident, the slice's delta blocks (16 N complex), then phi_new
+// and lhs, every warp's copy of the live field, and the neighbour table
+inline size_t delayed_smem(int N, int opdim, int K, size_t cbytes, bool resident) {
+    const size_t h = 4 * size_t(N), rbytes = cbytes / 2;
+    return (resident ? 2 * 4 * size_t(K) * h * cbytes : 0) + 16 * size_t(N) * cbytes +
+           rbytes * (size_t(N) * opdim * (1 + kWarps) + N) + sizeof(int) * 4 * size_t(N);
+}
+
+// EPT: entries of a site's columns and rows per thread (h <= EPT kThreads);
+// TR: flush tile rows; RESIDENT: the slots in shared memory (else in the
+// global scratch `slots`, 2 x 4 K x h per walker)
+template <typename T, int EPT, int TR, bool RESIDENT, bool PROBE>
+__global__ void __launch_bounds__(kThreads, 1)
+sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
                    const T* __restrict__ phi_in, const T* __restrict__ phin_in,
                    const T* __restrict__ lhs_in, const cplx<T>* __restrict__ delta_in,
-                   const int* __restrict__ nb, cplx<T>* CT, cplx<T>* Rb,
-                   T* __restrict__ phi_out, T* __restrict__ acc_out, int N,
-                   int opdim, int i0, int Kc, T dtau, T c_det, long long* probe_out) {
+                   const int* __restrict__ nb_in, T* __restrict__ phi_out,
+                   T* __restrict__ acc_out, cplx<T>* slots, int N, int opdim, int K,
+                   T dtau, T c_det, long long* probe_out) {
     using S = cplx<T>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int h = 4 * N, Kq = 4 * Kc;
-    S* ccol = reinterpret_cast<S*>(smem_raw);   // 4 x h: G_cur[:, j_b]
-    S* crow = ccol + 4 * h;                      // 4 x h: G_cur[j_b, :]
-    T* phi = reinterpret_cast<T*>(crow + 4 * h); // N x opdim, live
-    __shared__ S Tm[16];
-    __shared__ int accept_s;
-    __shared__ T acc_s;
+    const int h = 4 * N, Kq = 4 * K, NO = N * opdim;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const size_t wk = blockIdx.x;
+    S* Cs;                                   // Kq x h: Cs[s h + r] = C[r][s]
+    S* dl;                                   // 16 N: the delta blocks
+    if constexpr (RESIDENT) {
+        Cs = reinterpret_cast<S*>(smem_raw);
+        dl = Cs + 2 * size_t(Kq) * h;
+    } else {
+        Cs = slots + wk * 2 * size_t(Kq) * h;
+        dl = reinterpret_cast<S*>(smem_raw);
+    }
+    S* Rs = Cs + size_t(Kq) * h;             // Kq x h: Rs[s h + c] = R[s][c]
+    T* phin = reinterpret_cast<T*>(dl + 16 * N);   // N x opdim
+    T* lhs = phin + NO;                            // N
+    T* phiw = lhs + N;                             // kWarps x N x opdim
+    int* nb = reinterpret_cast<int*>(phiw + kWarps * NO);   // N x 4
     Probe<PROBE, kPhases> probe;
     probe.start();
 
-    const int tid = threadIdx.x;
-    const size_t wk = blockIdx.x;
-    const size_t pan = wk * size_t(Kq) * h;
-    const S* colw = colT + pan;
-    const S* roww = rowp + pan;
-    S* Cw = CT + pan;
-    S* Rw = Rb + pan;
-    const T* phi0 = phi_in + wk * N * opdim;
-    const T* phin = phin_in + wk * N * opdim;
-    for (int idx = tid; idx < N * opdim; idx += kThreads) phi[idx] = phi0[idx];
-    if (tid == 0) acc_s = T(0);
-    probe.lap(kLoadStore);
+    for (int idx = tid; idx < 16 * N; idx += kThreads) dl[idx] = delta_in[wk * 16 * N + idx];
+    for (int idx = tid; idx < NO; idx += kThreads) {
+        phin[idx] = phin_in[wk * NO + idx];
+        const T p = phi_in[wk * NO + idx];
+        for (int w = 0; w < kWarps; ++w) phiw[w * NO + idx] = p;
+    }
+    for (int idx = tid; idx < N; idx += kThreads) lhs[idx] = lhs_in[wk * N + idx];
+    for (int idx = tid; idx < 4 * N; idx += kThreads) nb[idx] = nb_in[idx];
+    T* phi = phiw + warp * NO;               // this warp's live field
+
+    const S* Gw = G_in + wk * size_t(h) * h;
+    S* G = G_out + wk * size_t(h) * h;
+    // lanes e and e + 16 hold G_II's entry e = 4 a + b: G_cur[j_a][j_b]
+    const SiteLanes L;
+    // a site's G entries in registers: the G_II entry, and the owned
+    // entries r = tid + m kThreads of its four columns and rows
+    struct Site {
+        S gii, col[4][EPT], row[4][EPT];
+    };
+    auto prefetch = [&](Site& f, const S* Gs, int i) {
+        f.gii = Gs[size_t(L.a * N + i) * h + L.b * N + i];
+#pragma unroll
+        for (int m = 0; m < EPT; ++m) {
+            const int r = tid + m * kThreads;
+            if (r < h)
+#pragma unroll
+                for (int b = 0; b < 4; ++b) {
+                    f.col[b][m] = Gs[size_t(r) * h + b * N + i];
+                    f.row[b][m] = Gs[size_t(b * N + i) * h + r];
+                }
+        }
+    };
+    T n_acc = T(0);
+    probe.lap(kSetup);
     __syncthreads();
     probe.lap(kBarrier);
 
-    for (int j = 0; j < Kc; ++j) {
-        const int i = i0 + j, jq = 4 * j;
-        // the site's columns and rows of the current G: panel minus the
-        // chunk's earlier slots (C of a rejected slot is exactly 0)
-        for (int idx = tid; idx < 4 * h; idx += kThreads) {
-            const int b = idx / h, r = idx - b * h, jb = b * N + i;
-            S cc = colw[(jq + b) * h + r];
-            S cr = roww[(jq + b) * h + r];
-            for (int k = 0; k < jq; ++k) {
-                cc = csub_rn(cc, cmul_rn(Cw[k * h + r], Rw[k * h + jb]));
-                cr = csub_rn(cr, cmul_rn(Cw[k * h + jb], Rw[k * h + r]));
-            }
-            ccol[idx] = cc;
-            crow[idx] = cr;
-        }
-        probe.lap(kCorrect);
-        __syncthreads();
-        probe.lap(kBarrier);
-        if (tid == 0) {
-            const T live = site_live(phi, phin + i * opdim, phi0 + i * opdim,
-                                     nb + 4 * i, opdim, dtau);
-            S GII[16];
-            for (int a = 0; a < 4; ++a)
-                for (int b = 0; b < 4; ++b)
-                    GII[4 * a + b] = ccol[b * h + a * N + i];
-            const bool acc = site_step(GII, delta_in + (wk * N + i) * 16,
-                                       lhs_in[wk * N + i], live, c_det, Tm);
-            accept_s = acc;
-            if (acc) {
+    for (int i0 = 0; i0 < N; i0 += K) {
+        const int end = min(i0 + K, N);
+        const S* Gs = i0 == 0 ? Gw : G;      // the first chunk reads G_in
+        int nk = 0;                          // accepted sites: slots 0 .. 4 nk - 1
+        Site f;
+        prefetch(f, Gs, i0);
+        for (int i = i0; i < end; ++i) {
+            const Site g = f;
+            if (i + 1 < end) prefetch(f, Gs, i + 1);
+            const int ns = 4 * nk;
+            // lane e's G_II[a][b] = col_b[j_a], corrected slot by slot
+            S x = g.gii;
+            const int ja = L.a * N + i, jb = L.b * N + i;
+            for (int s = 0; s < ns; ++s)
+                x = csub_rn(x, cmul_rn(Cs[size_t(s) * h + ja], Rs[size_t(s) * h + jb]));
+            probe.lap(kGather);
+            // every warp decides, on identical inputs (site i's own field
+            // is still the slice's: phi_i = phi_in_i)
+            const T live = site_live(phi, phin + i * opdim, phi + i * opdim, nb + 4 * i,
+                                     opdim, dtau);
+            S Tm[16];
+            const bool accept = site_step_warp(x, dl + 16 * i, lhs[i], live, c_det, L, Tm);
+            probe.lap(kDecide);
+            if (!accept) continue;           // uniform: no barrier
+            n_acc = add_rn(n_acc, T(1));
+            if (lane == 0)
                 for (int o = 0; o < opdim; ++o) phi[i * opdim + o] = phin[i * opdim + o];
-                acc_s = add_rn(acc_s, T(1));
+            __syncwarp();
+            // the owned entries of the site's columns and rows, corrected by
+            // the chunk's slots; the site's slots from them
+#pragma unroll
+            for (int m = 0; m < EPT; ++m) {
+                const int r = tid + m * kThreads;
+                if (r >= h) continue;
+                S col[4], row[4];
+#pragma unroll
+                for (int b = 0; b < 4; ++b) {
+                    col[b] = g.col[b][m];
+                    row[b] = g.row[b][m];
+                }
+                for (int s = 0; s < ns; ++s) {
+                    const S* Cr = Cs + size_t(s) * h;
+                    const S* Rr = Rs + size_t(s) * h;
+                    const S cr = Cr[r], rr = Rr[r];
+#pragma unroll
+                    for (int b = 0; b < 4; ++b) {
+                        col[b] = csub_rn(col[b], cmul_rn(cr, Rr[b * N + i]));
+                        row[b] = csub_rn(row[b], cmul_rn(Cr[b * N + i], rr));
+                    }
+                }
+#pragma unroll
+                for (int b = 0; b < 4; ++b) {
+                    S c = cmul_rn(col[0], Tm[b]);
+#pragma unroll
+                    for (int a = 1; a < 4; ++a) c = cadd_rn(c, cmul_rn(col[a], Tm[4 * a + b]));
+                    Cs[size_t(ns + b) * h + r] = c;
+                    Rs[size_t(ns + b) * h + r] =
+                        mk(sub_rn(r == b * N + i ? T(1) : T(0), row[b].re), -row[b].im);
+                }
             }
+            ++nk;
+            probe.lap(kSlot);
+            __syncthreads();
+            probe.lap(kBarrier);
         }
-        probe.lap(kDecide);
-        __syncthreads();
-        probe.lap(kBarrier);
-        const bool accept = accept_s;
-        for (int idx = tid; idx < 4 * h; idx += kThreads) {
-            const int b = idx / h, r = idx - b * h, jb = b * N + i;
-            S c = mk(T(0), T(0));
-            if (accept) {
-                c = cmul_rn(ccol[r], Tm[b]);
-                for (int a = 1; a < 4; ++a)
-                    c = cadd_rn(c, cmul_rn(ccol[a * h + r], Tm[4 * a + b]));
+        // flush: the first chunk also copies G_in to G_out. A later chunk's
+        // flush writes the G its sites read: every warp's loads of this
+        // chunk must have landed first
+        if (nk > 0 || i0 == 0) {
+            if (i0 > 0) {
+                __syncthreads();
+                probe.lap(kBarrier);
             }
-            Cw[(jq + b) * h + r] = c;
-            const S g = crow[idx];
-            Rw[(jq + b) * h + r] = mk(sub_rn(r == jb ? T(1) : T(0), g.re), -g.im);
+            flush<T, TR>(Gs, G, Cs, Rs, h, 4 * nk);
+            probe.lap(kFlush);
+            __syncthreads();
+            probe.lap(kBarrier);
         }
-        probe.lap(kSlot);
-        __syncthreads();
-        probe.lap(kBarrier);
     }
-    for (int idx = tid; idx < N * opdim; idx += kThreads)
-        phi_out[wk * N * opdim + idx] = phi[idx];
-    if (tid == 0) acc_out[wk] = acc_s;
-    probe.lap(kLoadStore);
+
+    // warp 0's field is every warp's
+    for (int idx = tid; idx < NO; idx += kThreads) phi_out[wk * NO + idx] = phiw[idx];
+    if (tid == 0) acc_out[wk] = n_acc;
     probe.store(probe_out);
 }
 
-template <typename T>
-int sdw_delayed(int device, const void* colT, const void* rowp, const void* phi,
-                const void* phin, const void* lhs, const void* delta,
-                const void* nb, void* CT, void* R, void* phi_out, void* acc_out,
-                int W, int N, int opdim, int i0, int Kc, double dtau,
-                double c_det, void* stream, long long* probe = nullptr) {
-    const size_t h = 4 * size_t(N);
-    const size_t smem = sizeof(cplx<T>) * 8 * h + sizeof(T) * size_t(N) * opdim;
-    auto kernel = probe ? sdw_delayed_kernel<T, true> : sdw_delayed_kernel<T, false>;
-    return launch_smem(device, kernel, W, smem, stream,
-                       static_cast<const cplx<T>*>(colT),
-                       static_cast<const cplx<T>*>(rowp), static_cast<const T*>(phi),
+// the instance for h = 4 N (EPT = 1 up to h = 256, else 2) and the slots'
+// residence; nullptr where h is beyond 512
+template <typename T, bool PROBE>
+auto delayed_kernel(int N, bool resident) {
+    constexpr int TR = sizeof(T) == 4 ? 4 : 2;
+    using Fn = decltype(&sdw_delayed_kernel<T, 1, TR, true, PROBE>);
+    const int h = 4 * N;
+    Fn fn = nullptr;
+    if (h <= kThreads)
+        fn = resident ? sdw_delayed_kernel<T, 1, TR, true, PROBE>
+                      : sdw_delayed_kernel<T, 1, TR, false, PROBE>;
+    else if (h <= 2 * kThreads)
+        fn = resident ? sdw_delayed_kernel<T, 2, TR, true, PROBE>
+                      : sdw_delayed_kernel<T, 2, TR, false, PROBE>;
+    return fn;
+}
+
+template <typename T, bool PROBE>
+int sdw_delayed(int device, const void* G, void* G_out, const void* phi, const void* phin,
+                const void* lhs, const void* delta, const void* nb, void* phi_out,
+                void* acc_out, void* slots, int W, int N, int opdim, int K, int resident,
+                double dtau, double c_det, void* stream, long long* probe = nullptr) {
+    auto fn = delayed_kernel<T, PROBE>(N, resident != 0);
+    if (!fn || K < 1 || K > N) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = delayed_smem(N, opdim, K, sizeof(cplx<T>), resident != 0);
+    return launch_smem(device, fn, W, smem, stream, static_cast<const cplx<T>*>(G),
+                       static_cast<cplx<T>*>(G_out), static_cast<const T*>(phi),
                        static_cast<const T*>(phin), static_cast<const T*>(lhs),
                        static_cast<const cplx<T>*>(delta), static_cast<const int*>(nb),
-                       static_cast<cplx<T>*>(CT), static_cast<cplx<T>*>(R),
-                       static_cast<T*>(phi_out), static_cast<T*>(acc_out), N, opdim,
-                       i0, Kc, static_cast<T>(dtau), static_cast<T>(c_det), probe);
+                       static_cast<T*>(phi_out), static_cast<T*>(acc_out),
+                       static_cast<cplx<T>*>(slots), N, opdim, K, static_cast<T>(dtau),
+                       static_cast<T>(c_det), probe);
+}
+
+template <typename T>
+int delayed_blocks(int device, int N, int opdim, int K, int resident) {
+    auto fn = delayed_kernel<T, false>(N, resident != 0);
+    if (!fn) return -static_cast<int>(cudaErrorInvalidValue);
+    return blocks_per_sm(device, fn, delayed_smem(N, opdim, K, sizeof(cplx<T>), resident != 0));
 }
 
 }  // namespace dq
 
 extern "C" {
 
-int dq_sdw_delayed_c64(int device, const void* colT, const void* rowp,
-                       const void* phi, const void* phin, const void* lhs,
-                       const void* delta, const void* nb, void* CT, void* R,
-                       void* phi_out, void* acc_out, int W, int N, int opdim,
-                       int i0, int Kc, double dtau, double c_det, void* stream) {
-    return dq::sdw_delayed<float>(device, colT, rowp, phi, phin, lhs, delta, nb,
-                                  CT, R, phi_out, acc_out, W, N, opdim, i0, Kc,
-                                  dtau, c_det, stream);
+// G -> G_out over one slice in chunks of K; slots: the global scratch
+// (W x 2 x 4 K x 4 N complex) when resident == 0, else unused
+// (linalg/sdw_delayed.py plan)
+int dq_sdw_delayed_c64(int device, const void* G, void* G_out, const void* phi,
+                       const void* phin, const void* lhs, const void* delta,
+                       const void* nb, void* phi_out, void* acc_out, void* slots, int W,
+                       int N, int opdim, int K, int resident, double dtau, double c_det,
+                       void* stream) {
+    return dq::sdw_delayed<float, false>(device, G, G_out, phi, phin, lhs, delta, nb,
+                                         phi_out, acc_out, slots, W, N, opdim, K, resident,
+                                         dtau, c_det, stream);
 }
 
-int dq_sdw_delayed_c128(int device, const void* colT, const void* rowp,
-                        const void* phi, const void* phin, const void* lhs,
-                        const void* delta, const void* nb, void* CT, void* R,
-                        void* phi_out, void* acc_out, int W, int N, int opdim,
-                        int i0, int Kc, double dtau, double c_det, void* stream) {
-    return dq::sdw_delayed<double>(device, colT, rowp, phi, phin, lhs, delta,
-                                   nb, CT, R, phi_out, acc_out, W, N, opdim, i0,
-                                   Kc, dtau, c_det, stream);
+int dq_sdw_delayed_c128(int device, const void* G, void* G_out, const void* phi,
+                        const void* phin, const void* lhs, const void* delta,
+                        const void* nb, void* phi_out, void* acc_out, void* slots, int W,
+                        int N, int opdim, int K, int resident, double dtau, double c_det,
+                        void* stream) {
+    return dq::sdw_delayed<double, false>(device, G, G_out, phi, phin, lhs, delta, nb,
+                                          phi_out, acc_out, slots, W, N, opdim, K,
+                                          resident, dtau, c_det, stream);
 }
 
-// the same with the phase probe on: probe (W x 7 int64) gets each CTA's
-// cycles per phase (PROBE_PHASES), its total cycles and its total ns
-int dq_sdw_delayed_probe_c64(int device, const void* colT, const void* rowp,
-                             const void* phi, const void* phin, const void* lhs,
-                             const void* delta, const void* nb, void* CT, void* R,
-                             void* phi_out, void* acc_out, int W, int N, int opdim,
-                             int i0, int Kc, double dtau, double c_det, void* probe,
-                             void* stream) {
-    return dq::sdw_delayed<float>(device, colT, rowp, phi, phin, lhs, delta, nb,
-                                  CT, R, phi_out, acc_out, W, N, opdim, i0, Kc,
-                                  dtau, c_det, stream, static_cast<long long*>(probe));
+// the same with the phase probe on (complex64): probe (W x 8 int64) gets
+// each CTA's cycles per phase (PROBE_PHASES), its total cycles and its
+// total ns
+int dq_sdw_delayed_probe_c64(int device, const void* G, void* G_out, const void* phi,
+                             const void* phin, const void* lhs, const void* delta,
+                             const void* nb, void* phi_out, void* acc_out, void* slots,
+                             int W, int N, int opdim, int K, int resident, double dtau,
+                             double c_det, void* probe, void* stream) {
+    return dq::sdw_delayed<float, true>(device, G, G_out, phi, phin, lhs, delta, nb,
+                                        phi_out, acc_out, slots, W, N, opdim, K, resident,
+                                        dtau, c_det, stream, static_cast<long long*>(probe));
+}
+
+// CTAs per SM of the production instance (no launch)
+int dq_sdw_delayed_blocks_per_sm(int device, int complex128, int N, int opdim, int K,
+                                 int resident) {
+    return complex128 ? dq::delayed_blocks<double>(device, N, opdim, K, resident)
+                      : dq::delayed_blocks<float>(device, N, opdim, K, resident);
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 // The per-site scalar chain of the SDW slice updates K4 (sdw_update.cu) and
 // K5 (sdw_delayed.cu): the live gradient term, the closed-form 4x4
 // determinant / adjugate, the log-domain accept and the Woodbury factor T.
-// One thread runs it per site (~700 rounded flops). Every product and sum
+// K4 runs it on one thread per site (site_step, ~1500 rounded operations);
+// K5 spreads it over 16 lanes of a warp, one 4x4 entry a lane
+// (site_step_warp: the same operations on each entry). Every product and sum
 // is explicitly rounded (cmul_rn ...) in the order of the plain PyTorch
 // versions (linalg/sdw_update.py, linalg/sdw_delayed.py), so for equal
 // inputs kernel and plain version agree bit for bit up to log().
@@ -101,6 +103,77 @@ __device__ bool site_step(const cplx<T>* GII, const cplx<T>* D, T lhs, T live,
             }
     }
     return acc;
+}
+
+// The lane tables of site_step_warp: lane e = lane & 15 computes entry e of
+// A, of the minors (e < 12; m[e]), of adj(A) and of T, and reads its
+// operands from the lanes below
+struct SiteLanes {
+    int e, a, b, ro, pa, pb, p, x, q, y, r, z;
+    bool neg;
+    __device__ SiteLanes() {
+        e = threadIdx.x & 15;
+        a = e >> 2;
+        b = e & 3;
+        const int k = e < 6 ? e : (e < 12 ? e - 6 : 0);
+        ro = e < 6 ? 0 : 8;                  // the minor's rows: (0, 1) or (2, 3)
+        pa = kPairA[k];
+        pb = kPairB[k];
+        p = kAdjP[e];
+        x = kAdjX[e];
+        q = kAdjQ[e];
+        y = kAdjY[e];
+        r = kAdjR[e];
+        z = kAdjZ[e];
+        neg = kAdjNeg[e] != 0;
+    }
+};
+
+template <typename T>
+__device__ __forceinline__ cplx<T> shfl_c(cplx<T> v, int src) {
+    return mk(__shfl_sync(0xffffffffu, v.re, src), __shfl_sync(0xffffffffu, v.im, src));
+}
+
+// site_step over a warp: lane e (and e + 16) holds g = G_II[e] (entry
+// 4 a + b); every lane gets the same decision and, on accept, all 16
+// entries of T in Tm. Each entry is formed by the operations site_step
+// forms it with, in the same order, so both give the same bits. The whole
+// warp calls it (the shuffles need every lane).
+template <typename T>
+__device__ bool site_step_warp(cplx<T> g, const cplx<T>* D, T lhs, T live, T c_det,
+                               const SiteLanes& L, cplx<T>* Tm) {
+    using S = cplx<T>;
+    const S M = mk(sub_rn(L.a == L.b ? T(1) : T(0), g.re), -g.im);
+    S acc = cmul_rn(D[4 * L.a], shfl_c(M, L.b));
+#pragma unroll
+    for (int k = 1; k < 4; ++k)
+        acc = cadd_rn(acc, cmul_rn(D[4 * L.a + k], shfl_c(M, 4 * k + L.b)));
+    const S A = mk(add_rn(acc.re, L.a == L.b ? T(1) : T(0)), acc.im);
+    // the twelve minors (lanes 0-11), their six products (lanes 0-5)
+    const S m = csub_rn(cmul_rn(shfl_c(A, L.ro + L.pa), shfl_c(A, L.ro + 4 + L.pb)),
+                        cmul_rn(shfl_c(A, L.ro + L.pb), shfl_c(A, L.ro + 4 + L.pa)));
+    const S pk = cmul_rn(m, shfl_c(m, L.e < 6 ? 11 - L.e : 0));
+    const S det = cadd_rn(cadd_rn(csub_rn(shfl_c(pk, 0), shfl_c(pk, 1)), shfl_c(pk, 2)),
+                          cadd_rn(csub_rn(shfl_c(pk, 3), shfl_c(pk, 4)), shfl_c(pk, 5)));
+    const S t = cadd_rn(csub_rn(cmul_rn(shfl_c(A, L.p), shfl_c(m, L.x)),
+                                cmul_rn(shfl_c(A, L.q), shfl_c(m, L.y))),
+                        cmul_rn(shfl_c(A, L.r), shfl_c(m, L.z)));
+    const S adj = L.neg ? -t : t;
+    const T r2 = add_rn(mul_rn(det.re, det.re), mul_rn(det.im, det.im));
+    const T rhs = add_rn(mul_rn(c_det, log_t(r2)), live);
+    const bool accept = lhs < rhs;
+    if (accept) {                            // warp-uniform
+        const T inv_den = div_rn(T(1), r2);
+        const S rinv = mk(mul_rn(det.re, inv_den), mul_rn(-det.im, inv_den));
+        S u = cmul_rn(shfl_c(adj, 4 * L.a), D[L.b]);
+#pragma unroll
+        for (int k = 1; k < 4; ++k)
+            u = cadd_rn(u, cmul_rn(shfl_c(adj, 4 * L.a + k), D[4 * k + L.b]));
+        const S Te = cmul_rn(u, rinv);
+#pragma unroll
+        for (int f = 0; f < 16; ++f) Tm[f] = shfl_c(Te, f);
+    }
+    return accept;
 }
 
 }  // namespace dq

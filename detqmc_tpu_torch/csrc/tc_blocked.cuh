@@ -732,22 +732,4 @@ int launch_tc(int device, Kernel kernel, int grid, size_t smem, void* stream,
     return launch_smem(device, kernel, grid, smem, stream, args...);
 }
 
-// CTAs of `kernel` one SM holds at `smem` bytes (after the attributes that
-// launch_tc sets), or -(cudaError) on a failure.
-template <typename Kernel>
-int blocks_per_sm(int device, Kernel kernel, size_t smem) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return -static_cast<int>(err);
-    const void* fn = reinterpret_cast<const void*>(kernel);
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-    int blocks = 0;
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
-    return err == cudaSuccess ? blocks : -static_cast<int>(err);
-}
-
 }  // namespace dq

@@ -50,12 +50,12 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C entry point -> argtypes (all return int = cudaError_t)
 _SIGNATURES = {
     # device, G, field, u01, sign, G_out, field_out, sign_out, acc_out,
-    # W, C, N, alpha, stream
-    "dq_slice_update_f32": [_I] + [_P] * 8 + [_I, _I, _I, _D, _P],
-    "dq_slice_update_f64": [_I] + [_P] * 8 + [_I, _I, _I, _D, _P],
+    # W, C, N, tr, tc, inreg, alpha, stream
+    "dq_slice_update_f32": [_I] + [_P] * 8 + [_I] * 6 + [_D, _P],
+    "dq_slice_update_f64": [_I] + [_P] * 8 + [_I] * 6 + [_D, _P],
     # the same, then the phase probe's record (W x 7 int64)
-    "dq_slice_update_probe_f32": [_I] + [_P] * 8 + [_I, _I, _I, _D, _P, _P],
-    "dq_slice_update_probe_f64": [_I] + [_P] * 8 + [_I, _I, _I, _D, _P, _P],
+    "dq_slice_update_probe_f32": [_I] + [_P] * 8 + [_I] * 6 + [_D, _P, _P],
+    "dq_slice_update_probe_f64": [_I] + [_P] * 8 + [_I] * 6 + [_D, _P, _P],
     # device, A, Q, R, batch, n, stream
     "dq_qr_f32": [_I, _P, _P, _P, _I, _I, _P],
     "dq_qr_f64": [_I, _P, _P, _P, _I, _I, _P],
@@ -76,12 +76,12 @@ _SIGNATURES = {
     # W, N, opdim, dtau, c_det, stream
     "dq_sdw_update_c64": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P],
     "dq_sdw_update_c128": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P],
-    # device, colT, rowp, phi, phi_new, lhs, delta, nb, CT, R, phi_out,
-    # acc_out, W, N, opdim, i0, Kc, dtau, c_det, stream
-    "dq_sdw_delayed_c64": [_I] + [_P] * 11 + [_I] * 5 + [_D, _D, _P],
-    "dq_sdw_delayed_c128": [_I] + [_P] * 11 + [_I] * 5 + [_D, _D, _P],
-    # the same, then the phase probe's record (W x 7 int64)
-    "dq_sdw_delayed_probe_c64": [_I] + [_P] * 11 + [_I] * 5 + [_D, _D, _P, _P],
+    # device, G, G_out, phi, phi_new, lhs, delta, nb, phi_out, acc_out,
+    # slots, W, N, opdim, K, resident, dtau, c_det, stream
+    "dq_sdw_delayed_c64": [_I] + [_P] * 10 + [_I] * 5 + [_D, _D, _P],
+    "dq_sdw_delayed_c128": [_I] + [_P] * 10 + [_I] * 5 + [_D, _D, _P],
+    # the same, then the phase probe's record (W x 8 int64)
+    "dq_sdw_delayed_probe_c64": [_I] + [_P] * 10 + [_I] * 5 + [_D, _D, _P, _P],
     # device, G, tmp, G_out, E, Einv, D, Dinv, W, N, up, TL, og, nb, tpc,
     # stream
     "dq_sdw_wrap_c64": [_I] + [_P] * 7 + [_I] * 7 + [_P],
@@ -129,6 +129,10 @@ _SIGNATURES = {
     "dq_qr_big_blocks_per_sm": [_I] * 6,
     # device, complex128, N, TL, og, nb
     "dq_sdw_wrap_blocks_per_sm": [_I] * 6,
+    # device, complex128, N, opdim, K, resident
+    "dq_sdw_delayed_blocks_per_sm": [_I] * 6,
+    # device, float64, C, N, tr, tc, inreg
+    "dq_slice_update_blocks_per_sm": [_I] * 7,
 }
 
 LAUNCHES = {"slice_update": 0, "qr": 0, "solve_inner": 0, "sdw_update": 0,

@@ -4,19 +4,13 @@ Replaces detqmc_tpu/linalg/pallas_sdw_delayed.py
 (``slice_update_sdw_delayed``, Pallas kernel ``_kernel``) on the card with
 ``csrc/sdw_delayed.cu``, in the JAX package's default flush-each scheme
 (pallas_sdw_delayed.py:292-306, 376-434). The slice's N sites go in
-chunks of K; for each chunk
-
-1. the chunk's column panel (h x Kq) and row panel (Kq x h) are sliced
-   out of the current G in site-major slot order, slot k = j q + b for
-   orbital b of the chunk's j-th site (``_col_panel``/``_row_panel``,
-   pallas_sdw_delayed.py:321-333; here both stored (W, Kq, h));
-2. ``chunk`` walks the chunk's sites and emits C (h x Kq, returned as the
-   transposed view of a (W, Kq, h) tensor) and R (Kq x h), the new field
-   and the accept count — K5 on a CUDA tensor, ``chunk_plain`` on a CPU
-   tensor; neither touches G;
-3. G -= C @ R, one batched matmul outside the kernel (``baddbmm_`` in
-   place on the slice's copy of G, the subtraction in the gemm's
-   epilogue; the JAX package flushes outside Pallas too, ``_pmm``).
+chunks of K (the last one ragged); for each chunk the sites emit C
+(h x Kq) and R (Kq x h), Kq = 4 K, in site-major slot order, slot
+k = j q + b for orbital b of the chunk's j-th site, and G is flushed,
+G -= C @ R, before the next chunk reads it. One launch of K5 runs the
+whole slice, every flush in its own body (one CTA per walker, G in global
+memory: see the source's note); the JAX package flushes outside Pallas
+(``_pmm``).
 
 Per site i = i0 + j, with j_b = b N + i (pallas_sdw_delayed.py:91-216):
 
@@ -27,13 +21,18 @@ Per site i = i0 + j, with j_b = b N + i (pallas_sdw_delayed.py:91-216):
     R[j q + b, :] = e_{j_b} - row_b
     phi_i = accept ? phi_new_i : phi_i
 
-The chain is algebraically the immediate update's (K4): same accepts,
-G equal up to rounding. phi is updated by select, not by the TPU kernel's
-phi + gate * dphi (ROADMAP.md Queue 3). ``chunk_plain`` is the same
-algebra batched over walkers, every complex product and sum written out
-on (re, im) planes in the kernel's order (the rounding scheme of
-linalg/sdw_update.py), so kernel and plain version agree bit for bit up
-to log(); both run the same flush.
+and after the chunk G[r, c] -= C[r, k] R[k, c] for k ascending, each
+complex product and difference rounded once. The chain is algebraically
+the immediate update's (K4): same accepts, G equal up to rounding. phi is
+updated by select, not by the TPU kernel's phi + gate * dphi (ROADMAP.md
+Queue 3). The plain version, ``sdw_delayed_plain``, is the same algebra
+batched over walkers: ``panels`` slices a chunk's column and row panels
+out of G, ``chunk_plain`` walks its sites and ``flush_plain`` subtracts
+C R slot by slot on whole (W, h, h) planes; every complex product and sum
+is written out on (re, im) planes in the kernel's order (the rounding
+scheme of linalg/sdw_update.py). The kernel gives a rejected site no
+slots; its C slots in the plain version are exact zeros, which change no
+sum. So kernel and plain version agree bit for bit up to log().
 
 Contract (walkers leading, as linalg/sdw_update.sdw_update):
     sdw_delayed(G (W, h, h) complex, phi_l, phi_new (W, N, opdim), lhs
@@ -49,8 +48,14 @@ from detqmc_tpu_torch.linalg import _kernels
 from detqmc_tpu_torch.linalg.sdw_update import _cmul, site_step
 
 Q = 4   # orbitals per site (the full opdim-3 model)
+MAX_DIM = 512   # h = 4 N: a site's columns and rows at <= 2 entries a thread
 _ENTRIES = {torch.complex64: "dq_sdw_delayed_c64",
             torch.complex128: "dq_sdw_delayed_c128"}
+_THREADS, _WARPS = 256, 8
+# the phase probe's phases of K5 (sdw_delayed.cu), in the order of its
+# per-CTA record; the record ends with the CTA's total cycles and ns
+PROBE_PHASES = ("gather", "decision", "slot write", "barriers", "flush",
+                "set-up")
 
 
 def panels(G, i0: int, Kc: int):
@@ -68,7 +73,7 @@ def panels(G, i0: int, Kc: int):
 
 def chunk_plain(colT, rowp, phi, phi_new, lhs, delta, nb, i0: int, Kc: int,
                 dtau: float, c_det: float):
-    """One chunk in PyTorch (see the module docstring): returns
+    """One chunk's sites in PyTorch (see the module docstring): returns
     (CT (W, Kq, h), R (W, Kq, h), phi', acc (W,)) with CT[k] = C[:, k]."""
     W, Kq, h = colT.shape
     N, opdim = phi.shape[1], phi.shape[2]
@@ -123,36 +128,99 @@ def chunk_plain(colT, rowp, phi, phi_new, lhs, delta, nb, i0: int, Kc: int,
     return torch.complex(Cr, Ci), torch.complex(Rr, Ri), phi, acc
 
 
-# the phase probe's phases of K5 (sdw_delayed.cu), in the order of its
-# per-CTA record; the record ends with the CTA's total cycles and ns
-PROBE_PHASES = ("corrections", "decision", "slot write", "barriers",
-                "loads and stores")
+def flush_plain(G, CT, R):
+    """G - C @ R with C = CT^T, slot by slot in ascending k, each complex
+    product and difference rounded once (the kernel's flush order)."""
+    Gr, Gi = G.real.clone(), G.imag.clone()
+    Cr, Ci, Rr, Ri = CT.real, CT.imag, R.real, R.imag
+    for k in range(CT.shape[1]):
+        p = _cmul((Cr[:, k, :, None], Ci[:, k, :, None]),
+                  (Rr[:, k, None, :], Ri[:, k, None, :]))
+        Gr, Gi = Gr - p[0], Gi - p[1]
+    return torch.complex(Gr, Gi)
 
 
-def chunk(colT, rowp, phi, phi_new, lhs, delta, nb, i0: int, Kc: int,
-          dtau: float, c_det: float, probe: bool = False):
-    """K5: CPU tensors run ``chunk_plain``; CUDA tensors launch the kernel
-    (complex64 or complex128, contiguous, h = 4 N) or raise. With
-    ``probe`` (complex64) the kernel's instance with clock64() stamps runs
-    instead, and the result gains a (W, len(PROBE_PHASES) + 2) int64
-    record per CTA."""
-    if colT.device.type == "cpu":
-        return chunk_plain(colT, rowp, phi, phi_new, lhs, delta, nb, i0, Kc,
-                           dtau, c_det)
-    cdt = colT.dtype
-    _kernels.check_cuda_tensor("colT", colT, tuple(_ENTRIES), 3)
+def sdw_delayed_plain(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
+                      c_det: float, K: int):
+    """The slice in PyTorch on any device: chunks of K sites (the last
+    one ragged), G flushed after each."""
+    N = phi_l.shape[1]
+    K = max(1, min(K, N))
+    phi = phi_l.contiguous()
+    acc = torch.zeros(G.shape[0], dtype=phi_l.dtype, device=G.device)
+    for i0 in range(0, N, K):
+        Kc = min(K, N - i0)
+        colT, rowp = panels(G, i0, Kc)
+        CT, R, phi, a = chunk_plain(colT, rowp, phi, phi_new, lhs, delta, nb,
+                                    i0, Kc, dtau, c_det)
+        G = flush_plain(G, CT, R)
+        acc = acc + a
+    return G, phi, acc
+
+
+def smem_bytes(N: int, dtype, K: int, resident: bool, opdim: int = 3) -> int:
+    """Dynamic shared memory of K5 (csrc/sdw_delayed.cu delayed_smem): the
+    C and R slots if resident (2 x 4 K x 4 N complex), the slice's delta
+    blocks (16 N complex), phi_new and lhs, every warp's copy of the live
+    field, the neighbour table."""
+    c = dtype.itemsize
+    h = Q * N
+    return ((2 * Q * K * h * c if resident else 0) + 16 * N * c
+            + c // 2 * (N * opdim * (1 + _WARPS) + N) + 4 * 4 * N)
+
+
+def plan(N: int, dtype, K: int, opdim: int = 3):
+    """(residence, flush tile) of K5 at h = 4 N: the C and R slots in
+    shared memory ("shared") where they fit one block, else in a global
+    scratch ("global"); flush tiles of 4 x 4 complex64 or 2 x 4
+    complex128 entries a thread. Raises beyond h = 512 (K is never
+    changed)."""
+    if Q * N > MAX_DIM or not 1 <= K <= N or dtype not in _ENTRIES:
+        raise ValueError(f"sdw_delayed: N={N} K={K} {dtype}: needs h = 4 N "
+                         f"<= {MAX_DIM}, 1 <= K <= N, complex64 or "
+                         "complex128")
+    budget = _kernels.MAX_SMEM_BYTES - 1024
+    resident = smem_bytes(N, dtype, K, True, opdim) <= budget
+    tile = (4 if dtype == torch.complex64 else 2, 4)
+    return ("shared" if resident else "global"), tile
+
+
+def blocks_per_sm(N: int, dtype, K: int, device="cuda", opdim: int = 3) -> int:
+    """CTAs of K5 one SM of ``device`` holds at its plan, as the CUDA
+    occupancy calculator reports it."""
+    res = plan(N, dtype, K, opdim)[0] == "shared"
+    return _kernels.query("dq_sdw_delayed_blocks_per_sm", device,
+                          int(dtype == torch.complex128), N, opdim, K,
+                          int(res))
+
+
+def sdw_delayed(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
+                c_det: float, K: int, probe: bool = False):
+    """The slice in chunks of K sites (see the module docstring): one
+    launch of K5 on CUDA tensors (complex64 or complex128, contiguous,
+    h = 4 N <= 512) or a raise; ``sdw_delayed_plain`` on CPU tensors.
+    With ``probe`` (complex64) the kernel's instance with clock64() stamps
+    runs instead, and the result gains a (W, len(PROBE_PHASES) + 2) int64
+    record per CTA: cycles per phase, total cycles, total ns."""
+    if G.device.type == "cpu":
+        if probe:
+            raise ValueError("sdw_delayed: the probe needs a CUDA tensor")
+        return sdw_delayed_plain(G, phi_l, phi_new, lhs, delta, nb, dtau,
+                                 c_det, K)
+    cdt = G.dtype
+    _kernels.check_cuda_tensor("G", G, tuple(_ENTRIES), 3)
     if probe and cdt != torch.complex64:
         raise ValueError(f"sdw_delayed: no phase probe for {cdt}")
-    W, Kq, h = colT.shape
-    N, opdim = phi.shape[1], phi.shape[2]
+    W, h, h2 = G.shape
+    N, opdim = phi_l.shape[1], phi_l.shape[2]
     rdt = cdt.to_real()
-    if h != Q * N or Kq != Q * Kc or not 0 <= i0 <= N - Kc:
-        raise ValueError(f"sdw_delayed: panel {tuple(colT.shape)} needs "
-                         f"h = 4 N = {Q * N}, Kq = 4 Kc = {Q * Kc}, "
-                         f"0 <= i0 <= N - Kc")
+    if h2 != h or h != Q * N:
+        raise ValueError(f"sdw_delayed: G {tuple(G.shape)} needs h = 4 N "
+                         f"= {Q * N}")
+    K = max(1, min(K, N))
+    residence, _ = plan(N, cdt, K, opdim)
     for name, t, dts, shape in (
-            ("rowp", rowp, (cdt,), (W, Kq, h)),
-            ("phi", phi, (rdt,), (W, N, opdim)),
+            ("phi_l", phi_l, (rdt,), (W, N, opdim)),
             ("phi_new", phi_new, (rdt,), (W, N, opdim)),
             ("lhs", lhs, (rdt,), (W, N)),
             ("delta", delta, (cdt,), (W, N, Q, Q)),
@@ -161,52 +229,18 @@ def chunk(colT, rowp, phi, phi_new, lhs, delta, nb, i0: int, Kc: int,
         if tuple(t.shape) != shape:
             raise ValueError(f"sdw_delayed: {name} shape {tuple(t.shape)} "
                              f"!= {shape}")
-    CT = torch.empty_like(colT)
-    R = torch.empty_like(colT)
-    phi_out = torch.empty_like(phi)
-    acc = torch.empty(W, dtype=rdt, device=colT.device)
+    G_out = torch.empty_like(G)
+    phi_out = torch.empty_like(phi_l)
+    acc = torch.empty(W, dtype=rdt, device=G.device)
+    resident = residence == "shared"
+    slots = torch.empty((0,) if resident else (W, 2, Q * K, h), dtype=cdt,
+                        device=G.device)
+    args = (G, G_out, phi_l, phi_new, lhs, delta, nb, phi_out, acc, slots, W,
+            N, opdim, K, int(resident), float(dtau), float(c_det))
     if probe:
         rec = torch.zeros((W, len(PROBE_PHASES) + 2), dtype=torch.int64,
-                          device=colT.device)
-        _kernels.launch("sdw_delayed", "dq_sdw_delayed_probe_c64", colT,
-                        rowp, phi, phi_new, lhs, delta, nb, CT, R, phi_out,
-                        acc, W, N, opdim, i0, Kc, float(dtau), float(c_det),
-                        rec)
-        return CT, R, phi_out, acc, rec
-    _kernels.launch("sdw_delayed", _ENTRIES[cdt], colT, rowp, phi, phi_new,
-                    lhs, delta, nb, CT, R, phi_out, acc, W, N, opdim, i0, Kc,
-                    float(dtau), float(c_det))
-    return CT, R, phi_out, acc
-
-
-def _chain(chunk_fn, G, phi_l, phi_new, lhs, delta, nb, dtau, c_det, K):
-    N = phi_l.shape[1]
-    K = max(1, min(K, N))
-    phi = phi_l.contiguous()
-    acc = torch.zeros(G.shape[0], dtype=phi_l.dtype, device=G.device)
-    # one copy per slice, then every flush accumulates in place (an
-    # out-of-place baddbmm would copy G once per chunk)
-    G = G.clone()
-    for i0 in range(0, N, K):
-        Kc = min(K, N - i0)
-        colT, rowp = panels(G, i0, Kc)
-        CT, R, phi, a = chunk_fn(colT, rowp, phi, phi_new, lhs, delta, nb, i0,
-                                 Kc, dtau, c_det)
-        G.baddbmm_(CT.transpose(-1, -2), R, alpha=-1)
-        acc = acc + a
-    return G, phi, acc
-
-
-def sdw_delayed_plain(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
-                      c_det: float, K: int):
-    """The slice through ``chunk_plain`` on any device."""
-    return _chain(chunk_plain, G, phi_l, phi_new, lhs, delta, nb, dtau,
-                  c_det, K)
-
-
-def sdw_delayed(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
-                c_det: float, K: int):
-    """The slice in chunks of K sites (the last one ragged), G flushed
-    after every chunk (see the module docstring); each chunk through
-    ``chunk``: K5 on a CUDA tensor, ``chunk_plain`` on a CPU tensor."""
-    return _chain(chunk, G, phi_l, phi_new, lhs, delta, nb, dtau, c_det, K)
+                          device=G.device)
+        _kernels.launch("sdw_delayed", "dq_sdw_delayed_probe_c64", *args, rec)
+        return G_out, phi_out, acc, rec
+    _kernels.launch("sdw_delayed", _ENTRIES[cdt], *args)
+    return G_out, phi_out, acc

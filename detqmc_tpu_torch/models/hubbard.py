@@ -282,13 +282,12 @@ class HubbardModel(nn.Module):
         (K1b), "chunk": k} for a model on a device of this type: the
         delayed update when delay > 0 or update_kernel="pallas" (the JAX
         model's routes, hubbard.py:471-488), and on a CUDA device also
-        when G does not fit K1's shared memory. The chunk is cfg.delay, or
+        where no plan of K1 fits G (slice_update.plan). The chunk is cfg.delay, or
         without one the largest divisor of N up to 32 (the Pallas kernel's
         choice) that fits K1b's shared memory; the rank-1 update's chunk
         is 1."""
         N, C = cfg.n_sites, cfg.ncomp
-        k1_fits = (N <= su.MAX_N and su.smem_bytes(C, N, cfg.torch_dtype)
-                   <= _kernels.MAX_SMEM_BYTES - 1024)
+        k1_fits = su.fits(C, N, cfg.torch_dtype)
         delayed = (cfg.delay > 0 or cfg.update_kernel == "pallas"
                    or (device_type == "cuda" and not k1_fits))
         if not delayed:

@@ -198,7 +198,8 @@ def k5_rows(emit, gen, device, reps):
                                                  sdw_delayed.PROBE_PHASES)
         else:
             row["plan"] = sdw_delayed.plan(N, cdt, K)
-            if hasattr(sdw_delayed, "PROBE_PHASES"):
+            row["ctas_per_sm"] = sdw_delayed.blocks_per_sm(N, cdt, K, device)
+            if cdt == torch.complex64:
                 rec = sdw_delayed.sdw_delayed(*args, *extra, K,
                                               probe=True)[-1]
                 row["probe"] = split(rec, sdw_delayed.PROBE_PHASES)
@@ -234,6 +235,8 @@ def k1_rows(emit, gen, device, reps, plans):
                    us_per_site=1e3 * ms / N, acceptance=acc)
         if hasattr(slice_update, "plan"):
             row["plan"] = slice_update.plan(C, N, G.dtype)
+            row["ctas_per_sm"] = slice_update.blocks_per_sm(
+                C, N, G.dtype, row["plan"], device)
         if hasattr(slice_update, "PROBE_PHASES"):
             rec = slice_update.slice_update(*a, probe=True)[-1]
             row["probe"] = split(rec, slice_update.PROBE_PHASES)

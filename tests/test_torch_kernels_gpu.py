@@ -12,8 +12,12 @@ installed:
         --noconftest -o addopts="" -q
 
 Tolerances (same inputs, same card):
-- K1: identical accept decisions, signs and acceptance; G within 1e-12
-  (f64) / 1e-5 (f32) — the kernel rounds as the plain version rounds;
+- K1 (G in register tiles, or in shared memory where they do not fit;
+  every plan that takes the shape, L = 4, 8, 10): identical accept
+  decisions, signs and acceptance; G within 1e-12 (f64) / 1e-5 (f32) —
+  the kernel rounds as the plain version rounds; in float64 at every
+  accept rate (u = 0: all accept; u = +inf: none; uniform u) bitwise
+  equal to the plain version, its probe instance too;
 - K2: after the sign fix 1e-10 (f64) / 1e-4 (f32) relative to each
   factor's largest entry, R's strict lower triangle exactly zero;
 - K3: normalized residual max|inner X - diag(r1)| / (n max|inner| max|X|)
@@ -28,9 +32,12 @@ Tolerances (same inputs, same card):
 - K3c (complex inner solve): the K3 criteria in complex128;
 - an SDW sweep pair on the card against the CPU (f64): identical fields,
   G within 1e-10, the launch counts of the sweep structure.
-- K5 (delayed SDW update): every chunk's C, R, field and accept count
-  bitwise equal to the plain version in complex128; in complex64
-  identical accept decisions and G within 1e-5 after the slice;
+- K5 (delayed SDW update, one launch per slice with its flushes) on
+  synthetic operands at h = 64, 256, 512, K = 1, 3 (a ragged last
+  chunk), 8, 16, W = 3 and 130: G, field and accept count bitwise equal
+  to the plain slice in complex128; in complex64 identical accept
+  decisions and G within 1e-5; its probe instance equal to the
+  production one;
 - K6 (fused wrap and B / B^H apply): 1e-5 (complex64) / 1e-12
   (complex128) relative to max|G_plain|;
 - K7 (complex QR beyond one block): K2c's tolerances after the phase fix,
@@ -130,7 +137,7 @@ def _model_state(device, ph="on", dtype="float64", L=4, W=3, seed=0,
 
 @pytest.mark.parametrize("ph", ["on", "off"])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("L", [4, 8])
+@pytest.mark.parametrize("L", [4, 8, 10])
 def test_slice_update_kernel_matches_plain(cuda_device, ph, dtype, L):
     model, state, gen = _model_state(cuda_device, ph, dtype, L=L)
     G = model.wrap_up(state.G, model.exp_v(state.field[:, 0])).contiguous()
@@ -138,13 +145,62 @@ def test_slice_update_kernel_matches_plain(cuda_device, ph, dtype, L):
     u01 = torch.rand(fl.shape, generator=gen, dtype=G.dtype,
                      device=cuda_device)
     args = (G, fl, u01, state.sign, model.cfg.alpha)
-    Gk, fk, sk, ak = slice_update.slice_update(*args)
     Gp, fp, sp, ap = slice_update.slice_update_plain(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(fk, fp) and torch.equal(sk, sp)
-    assert torch.equal(ak, ap)
-    tol = 1e-12 if dtype == "float64" else 1e-5
-    assert float((Gk - Gp).abs().max()) <= tol
+    C, N = G.shape[1], G.shape[-1]
+    # every plan of K1 that takes this shape; the default is the first
+    plans = [p for p in slice_update.PLANS
+             if slice_update.plan_fits(C, N, G.dtype, p)]
+    assert plans and slice_update.plan(C, N, G.dtype) == plans[0]
+    for plan in plans:
+        Gk, fk, sk, ak = slice_update.slice_update(*args, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(fk, fp) and torch.equal(sk, sp)
+        assert torch.equal(ak, ap)
+        tol = 1e-12 if dtype == "float64" else 1e-5
+        assert float((Gk - Gp).abs().max()) <= tol
+
+
+# (L, C) of float64 shapes K1 takes (L = 11 and C = 2: N = 121 goes to
+# K1b): a pure function of the sizes, the same on every worker
+K1_CASES = [(L, C) for L in (4, 8, 10, 11) for C in (1, 2)
+            if slice_update.fits(C, L * L, torch.float64)]
+
+
+@pytest.mark.parametrize("L,C", K1_CASES)
+@pytest.mark.parametrize("u", ["accept", "reject", "uniform"])
+def test_k1_redesign_bitwise_f64(cuda_device, u, L, C):
+    """K1 with G in registers (or, where its tiles do not fit them, in
+    shared memory) at every accept rate, every plan that fits: bitwise
+    equal to the plain version in float64; its probe instance too."""
+    model, state, gen = _model_state(cuda_device, "on" if C == 1 else "off",
+                                     "float64", L=L, W=3, seed=L)
+    G = model.wrap_up(state.G, model.exp_v(state.field[:, 0])).contiguous()
+    fl = state.field[:, 0].contiguous()
+    u01 = {"accept": torch.zeros_like(fl),
+           "reject": torch.full_like(fl, float("inf")),
+           "uniform": torch.rand(fl.shape, generator=gen, dtype=G.dtype,
+                                 device=cuda_device)}[u]
+    args = (G, fl, u01, state.sign.contiguous(), model.cfg.alpha)
+    ref = slice_update.slice_update_plain(*args)
+    N = G.shape[-1]
+    plans = [p for p in slice_update.PLANS
+             if slice_update.plan_fits(C, N, G.dtype, p)]
+    assert plans
+    for plan in plans:
+        _kernels.reset_launch_counts()
+        out = slice_update.slice_update(*args, plan=plan)
+        probed = slice_update.slice_update(*args, plan=plan, probe=True)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["slice_update"] == 2
+        for a, b, c in zip(out, ref, probed):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        rec = probed[-1]
+        assert rec.shape == (3, len(slice_update.PROBE_PHASES) + 2)
+        assert bool((rec >= 0).all()) and bool((rec[:, -2] > 0).all())
+        assert slice_update.blocks_per_sm(C, N, G.dtype, plan,
+                                          cuda_device) >= 1
+    if u == "reject":
+        assert torch.equal(ref[1], fl) and float(ref[3].abs().max()) == 0
 
 
 @pytest.mark.parametrize("dtype,tol,sizes", [
@@ -336,39 +392,64 @@ def test_sdw_model_refuses_dims_beyond_the_kernels(cuda_device):
                  device=cuda_device)
 
 
-@pytest.mark.parametrize("dtype,K", [("float64", 3), ("float64", 8),
-                                     ("float32", 8)])
-@pytest.mark.parametrize("L", [2, 8])
-def test_sdw_delayed_kernel_matches_plain(cuda_device, dtype, K, L):
-    model, st, gen = _sdw(cuda_device, L=L, dtype=dtype)
-    G, *rest = _k4_operands(model, st, gen)
-    extra = (model.nb, model.cfg.dtau, model.c_det)
-    N = model.cfg.n_sites
-    phi, phi_new, lhs, delta = rest
-    Gc = G
-    for i0 in range(0, N, K):
-        Kc = min(K, N - i0)
-        colT, rowp = sdw_delayed.panels(Gc, i0, Kc)
-        args = (colT, rowp, phi, phi_new, lhs, delta, model.nb, i0, Kc,
-                *extra[1:])
-        k = sdw_delayed.chunk(*args)
-        p = sdw_delayed.chunk_plain(*args)
-        torch.cuda.synchronize()
-        if dtype == "float64":
-            for a, b in zip(k, p):
-                assert torch.equal(a, b)
-        phi = k[2]
-        Gc = torch.baddbmm(Gc, k[0].transpose(-1, -2), k[1], alpha=-1)
-    Gk, pk, ak = sdw_delayed.sdw_delayed(G, *rest, *extra, K)
-    Gp, pp, ap = sdw_delayed.sdw_delayed_plain(G, *rest, *extra, K)
+def _k5_operands(device, N, cdt, W, seed):
+    """Synthetic operands of one K5 slice at any N (h = 4 N): G near 0.5 I
+    with a random complex part, a random field and proposal, lhs = log u,
+    small random delta blocks, a ring's neighbour table (i +- 1, i +- 2)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    rdt, h = cdt.to_real(), 4 * N
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, dtype=rdt, device=device)
+
+    G = 0.5 * torch.eye(h, dtype=cdt, device=device) + torch.complex(
+        randn(W, h, h), randn(W, h, h)) * (0.5 / h ** 0.5)
+    phi = randn(W, N, 3)
+    phi_new = phi + 0.5 * randn(W, N, 3)
+    lhs = torch.log(torch.rand((W, N), generator=gen, dtype=rdt,
+                               device=device))
+    delta = 0.3 * torch.complex(randn(W, N, 4, 4), randn(W, N, 4, 4))
+    i = torch.arange(N)
+    nb = torch.stack([(i + 1) % N, (i - 1) % N, (i + 2) % N, (i - 2) % N],
+                     dim=1).to(torch.int32).to(device)
+    return [x.contiguous() for x in (G, phi, phi_new, lhs, delta)], nb
+
+
+@pytest.mark.parametrize("W", [3, 130])
+@pytest.mark.parametrize("N", [16, 64, 128])
+@pytest.mark.parametrize("K", [1, 3, 8, 16])
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_sdw_delayed_kernel_matches_plain(cuda_device, dtype, K, N, W):
+    """K5 over one slice (one launch; K = 3 leaves a ragged last chunk;
+    h = 64, 256, 512: the slots in shared memory or in the global scratch
+    as the plan says) against the plain slice: complex128 bitwise,
+    complex64 identical decisions and G within 1e-5; the probe instance
+    (complex64) equal to the production one."""
+    cdt = getattr(torch, dtype)
+    ops, nb = _k5_operands(cuda_device, N, cdt, W, seed=N + K + W)
+    extra = (nb, 0.1, 1.0)
+    _kernels.reset_launch_counts()
+    Gk, pk, ak = sdw_delayed.sdw_delayed(*ops, *extra, K)
     torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["sdw_delayed"] == 1
+    Gp, pp, ap = sdw_delayed.sdw_delayed_plain(*ops, *extra, K)
     assert torch.equal(pk, pp) and torch.equal(ak, ap)
-    tol = 0.0 if dtype == "float64" else 1e-5
+    assert 0 < float(ak.sum()) < W * N        # both outcomes occur
+    tol = 0.0 if dtype == "complex128" else 1e-5
     assert float((Gk - Gp).abs().max()) <= tol
+    if dtype == "complex64":
+        Gq, pq, aq, rec = sdw_delayed.sdw_delayed(*ops, *extra, K,
+                                                  probe=True)
+        torch.cuda.synchronize()
+        assert torch.equal(Gq, Gk) and torch.equal(pq, pk)
+        assert torch.equal(aq, ak)
+        assert rec.shape == (W, len(sdw_delayed.PROBE_PHASES) + 2)
+        assert bool((rec[:, -2] > 0).all())
     # the immediate update K4 where it fits: the same chain
-    if L == 2 and dtype == "float64":
-        G4, p4, a4 = sdw_update.sdw_update(G, *rest, *extra)
+    if N == 16 and dtype == "complex128":
+        G4, p4, a4 = sdw_update.sdw_update(*ops, *extra)
         assert torch.equal(p4, pk) and torch.equal(a4, ak)
+    assert sdw_delayed.blocks_per_sm(N, cdt, K, cuda_device) >= 1
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-12)])
@@ -481,10 +562,9 @@ def test_sdw_sweep_delayed_fused_on_card_matches_cpu(cuda_device, L, kw):
     sc, oc = cpu.sweep_pair(sc, measure=True, draws=d)
     sg, og = gpu.sweep_pair(sg, measure=True, draws=tuple(map(to_dev, d)))
     torch.cuda.synchronize()
-    chunks = -(-cfg.n_sites // gpu._delay_k)
     c128 = torch.complex128
     expect = dict.fromkeys(_kernels.LAUNCHES, 0)
-    expect.update({"sdw_delayed": 2 * cfg.m * chunks,
+    expect.update({"sdw_delayed": 2 * cfg.m,
                    "sdw_wrap": 2 * cfg.m, "sdw_apply": 2 * cfg.m,
                    qr.kernel_for(cfg.dim, c128): 2 * cfg.n_stack,
                    green_solve.kernel_for(cfg.dim, c128): 2 * cfg.n_stack})

@@ -23,6 +23,16 @@ versions on the card in tests/test_torch_kernels_gpu.py).
   fits one block, F is staged once per CTA (all four orbitals) at the
   main path's N = 64 in complex64, and a walker's tiles spread over
   max(1, SMs // W) CTAs.
+- K5 (csrc/sdw_delayed.cu, one launch per slice) takes every dim the
+  model routes to the delayed update up to h = 512 in complex64 and
+  complex128 at every chunk K: ``plan`` keeps the C and R slots in
+  shared memory where ``smem_bytes`` fits one block (sdw_l8's complex64
+  h = 256, K = 8 does) and in the global scratch otherwise (complex128
+  at h = 256, complex64 at h = 512), never refusing a dim up to 512.
+- K1 (csrc/slice_update.cu) holds G in registers (4 x 4 tiles a thread
+  at the main path's N = 64, 256 threads), in 4 x 8 tiles or in shared
+  memory where those do not fit the registers, and refuses only float64 with two
+  sectors beyond N = 117 (the model routes those to K1b).
 - The SDW model builds the real copies of its kinetic factors once
   (``expK_real`` and ``expK_inv_real``, equal to the complex buffers' real
   parts) and hands them to K6.
@@ -31,8 +41,10 @@ versions on the card in tests/test_torch_kernels_gpu.py).
 import pytest
 import torch
 
-from detqmc_tpu_torch.linalg import _kernels, green_solve, qr, sdw_wrap
+from detqmc_tpu_torch.linalg import (_kernels, green_solve, qr,
+                                    sdw_delayed, sdw_wrap)
 from detqmc_tpu_torch.linalg import slice_update as su
+from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
 from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
 
 # default_chunk as it chose before K1b's redesign, (N, C, dtype) -> k
@@ -184,3 +196,92 @@ def test_k6_real_kinetic_factors_built_once():
                        model.expK_real)
     with pytest.raises(TypeError):
         sdw_wrap.real_factor(model.expK_real, torch.complex128)
+
+
+@pytest.mark.parametrize("K", [1, 3, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_k5_plan_and_shared_memory(dtype, K):
+    budget = _kernels.MAX_SMEM_BYTES - 1024
+    c = dtype.itemsize
+    for N in range(max(K, 32), 129):                  # h = 128 ... 512
+        h = 4 * N
+        rest = 16 * N * c + c // 2 * (N * 3 * 9 + N) + 16 * N
+        assert sdw_delayed.smem_bytes(N, dtype, K, False) == rest
+        assert sdw_delayed.smem_bytes(N, dtype, K, True) == \
+            2 * 4 * K * h * c + rest
+        residence, tile = sdw_delayed.plan(N, dtype, K)
+        assert residence == ("shared" if 2 * 4 * K * h * c + rest <= budget
+                             else "global")
+        assert tile == ((4, 4) if dtype == torch.complex64 else (2, 4))
+        assert rest <= budget           # the global residence always fits
+    for bad in (dict(N=129, K=K), dict(N=K - 1, K=K)):
+        if bad["N"] >= 1:
+            with pytest.raises(ValueError):
+                sdw_delayed.plan(bad["N"], dtype, bad["K"])
+
+
+def test_k5_main_path_plans():
+    # sdw_l8 (complex64, h = 256, K = 8): the slots in shared memory, one
+    # CTA per walker; complex128 there and complex64 at h = 512: global
+    assert sdw_delayed.plan(64, torch.complex64, 8) == ("shared", (4, 4))
+    assert sdw_delayed.smem_bytes(64, torch.complex64, 8, True) == 147456
+    assert sdw_delayed.plan(64, torch.complex128, 8)[0] == "global"
+    assert sdw_delayed.plan(128, torch.complex64, 8)[0] == "global"
+    assert sdw_delayed.plan(16, torch.complex128, 8)[0] == "shared"
+    assert sdw_delayed.PROBE_PHASES == ("gather", "decision", "slot write",
+                                        "barriers", "flush", "set-up")
+
+
+# K1's plan at the shapes users run: (C, N, dtype) -> (plan, threads)
+K1_PLANS = {(1, 64, "float32"): ((4, 4, "registers"), 256),
+            (2, 64, "float32"): ((4, 4, "registers"), 512),
+            (1, 64, "float64"): ((4, 4, "registers"), 256),
+            (2, 64, "float64"): ((4, 4, "registers"), 512),
+            (1, 100, "float32"): ((4, 8, "registers"), 352),
+            (2, 100, "float64"): ((4, 8, "shared"), 672),
+            (1, 128, "float32"): ((4, 8, "registers"), 512),
+            (2, 128, "float32"): ((4, 8, "shared"), 1024),
+            (1, 128, "float64"): ((4, 4, "shared"), 1024),
+            (2, 116, "float64"): ((4, 8, "shared"), 896)}
+
+
+@pytest.mark.parametrize("C,N,dtype", sorted(K1_PLANS))
+def test_k1_plan(C, N, dtype):
+    dt = getattr(torch, dtype)
+    plan, threads = K1_PLANS[C, N, dtype]
+    assert su.plan(C, N, dt) == plan
+    assert su.threads(C, N, plan) == threads
+    assert threads <= su.max_threads(plan, dt) <= 1024
+    assert su.smem_bytes(C, N, dt, plan[2]) <= _kernels.MAX_SMEM_BYTES - 1024
+    # every plan before the chosen one does not fit
+    for p in su.PLANS[:su.PLANS.index(plan)]:
+        assert not su.plan_fits(C, N, dt, p)
+
+
+def test_k1_limits_and_routes():
+    # the CTA sizes the register instances are compiled for
+    assert su.max_threads((4, 4, "registers"), torch.float32) == 576
+    assert su.max_threads((4, 8, "registers"), torch.float32) == 512
+    assert su.max_threads((4, 4, "registers"), torch.float64) == 512
+    assert su.max_threads((4, 8, "registers"), torch.float64) == 384
+    assert su.max_threads((4, 8, "shared"), torch.float64) == 1024
+    # every N <= 128 fits in float32 and with one sector in float64; two
+    # float64 sectors stop at N = 117 (G, 214 KB, and the publish buffers)
+    for N in range(1, 129):
+        for C in (1, 2):
+            assert su.fits(C, N, torch.float32)
+        assert su.fits(1, N, torch.float64)
+        assert su.fits(2, N, torch.float64) == (N <= 117)
+    assert not su.fits(1, 129, torch.float32)
+    with pytest.raises(ValueError):
+        su.plan(2, 118, torch.float64)
+    assert su.PROBE_PHASES == ("decision", "publish", "barriers", "update",
+                               "loads and stores")
+    # the model's route follows: K1 at L = 10 in float64 with two sectors
+    # (N = 100), K1b beyond K1's plans
+    f64 = HubbardConfig(L=10, m=8, s=4, dtype="float64", ph_symmetry="off")
+    assert HubbardModel.routes(f64, "cuda") == {"update": "slice_update",
+                                                "chunk": 1}
+    f64 = HubbardConfig(L=11, m=8, s=4, dtype="float64", ph_symmetry="off")
+    assert HubbardModel.routes(f64, "cuda")["update"] == \
+        "slice_update_delayed"
