@@ -1,5 +1,5 @@
 // K5: the delayed SDW slice update, one launch per slice, one CTA per
-// walker, the flush G -= C R in the kernel's own body.
+// walker, the flushes G -= C R in the kernel's own body.
 //
 // Replaces the TPU kernel detqmc_tpu/linalg/pallas_sdw_delayed.py
 // (slice_update_sdw_delayed, kernel body _kernel) in its default
@@ -16,22 +16,32 @@
 //     phi_i = accept ? phi_new_i : phi_i
 // and after the chunk G -= C R, slot by slot in ascending k. A rejected
 // site's slots hold C = 0, which adds exact zeros to every sum: only
-// accepted sites take slots here (nk of them), and the plain version
+// accepted sites take slots here, and the plain version
 // (linalg/sdw_delayed.py), which keeps every slot, gets the same values.
 //
-// G is the working copy in global memory: the output buffer G_out, whose
-// first flush reads G_in (a chunk without an accepted site flushes
-// nothing; if that is the first, its flush copies). The chunk's C and R
-// slots (4 K x h each; C stored transposed, slot-major) stay in shared
-// memory where they fit (2 x 32 x 256 x 8 B = 128 KB at h = 256, K = 8 in
-// complex64) and in a global scratch (L2) where they do not (complex128
-// at h = 256, complex64 at h = 512): linalg/sdw_delayed.py plan.
+// Each entry of G, and each column and row entry a site reads, is its
+// input minus the slots' products in slot order, rounded one product and
+// one difference at a time, whichever chunk flushed them: the plain
+// version's per-chunk flush and a later flush of the same slots give the
+// same bits (for every K). So this kernel keeps the slots of K accepted
+// sites (4 K slots, the memory the chunk's slots take) and flushes when
+// they are full and at the end of the slice: the result is the per-chunk
+// flush's, with fewer passes over G (sdw_l8's acceptance is ~0.2).
 //
-// What bounds it (NVIDIA H100 80GB HBM3; the parent design's probe in
-// PERF.md): per chunk the flush reads and writes G once (134 MB over 128
-// walkers at h = 256 in complex64: 0.04 ms of HBM) and does 8 h^2 (4 nk)
-// real operations per walker; the site walk is a dependent chain of
-// scalar steps. This design:
+// G is the working copy in global memory: the output buffer G_out, whose
+// first flush reads G_in (with no accepted site the final flush copies).
+// The C and R slots (4 K x h each; C stored transposed, slot-major) stay
+// in shared memory where they fit (2 x 32 x 256 x 8 B = 128 KB at
+// h = 256, K = 8 in complex64) and in a global scratch (L2) where they do
+// not (complex128 at h = 256, complex64 at h = 512):
+// linalg/sdw_delayed.py plan.
+//
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W; the probes in PERF.md):
+// the flush's products, 8 explicitly rounded FP32 operations per complex
+// multiply-add, h^2 per accepted slot (half the FMA peak's rate at best),
+// then the site walk's dependent chain. The parent design spent 57 % of
+// its per-chunk kernel in slot corrections and 34 % in one thread's
+// scalar chain, and left the flush to a library product. This design:
 //   - one launch per slice: no panel copies, no library flush, no
 //     per-chunk launches; the delta blocks, the fields and the proposal's
 //     lhs are staged in shared memory once;
@@ -41,15 +51,17 @@
 //     product and sum explicitly rounded in the plain version's order;
 //   - no broadcast of the accept: lanes 0-15 of every warp form the
 //     16 corrected G_II entries and every warp runs the scalar chain on
-//     them, one 4x4 entry a lane (sdw_site.cuh site_step_warp: the
-//     parent's single thread spent 2.6 us a site on it), so all warps
-//     decide alike and none waits on another; a rejected site takes no
-//     barrier, an accepted one writes its slots and takes one. Each warp keeps its
-//     own copy of the live field (the next sites' live term reads it), so
-//     a fast warp's update never meets a slow warp's read;
-//   - no global read on a site step's critical path: G does not change
-//     inside a chunk, so the next site's entries are loaded while the
-//     current one is decided; no runtime integer division per element.
+//     them, one 4x4 entry a lane (sdw_site.cuh site_step_warp), so all
+//     warps decide alike and none waits on another; a rejected site takes
+//     no barrier, an accepted one writes its slots and takes one. Each
+//     warp keeps its own copy of the live field (the next sites' live
+//     term reads it), so a fast warp's update never meets a slow warp's
+//     read;
+//   - a site's G_II entries are loaded while the site before is decided;
+//     its columns and rows (strided reads of 4 h entries) only once it is
+//     accepted (prefetching them for every site cost more than their
+//     latency on the accepted ones: PERF.md); no runtime integer division
+//     per element.
 #include "sdw_site.cuh"
 
 namespace dq {
@@ -204,108 +216,94 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
     S* G = G_out + wk * size_t(h) * h;
     // lanes e and e + 16 hold G_II's entry e = 4 a + b: G_cur[j_a][j_b]
     const SiteLanes L;
-    // a site's G entries in registers: the G_II entry, and the owned
-    // entries r = tid + m kThreads of its four columns and rows
-    struct Site {
-        S gii, col[4][EPT], row[4][EPT];
-    };
-    auto prefetch = [&](Site& f, const S* Gs, int i) {
-        f.gii = Gs[size_t(L.a * N + i) * h + L.b * N + i];
-#pragma unroll
-        for (int m = 0; m < EPT; ++m) {
-            const int r = tid + m * kThreads;
-            if (r < h)
-#pragma unroll
-                for (int b = 0; b < 4; ++b) {
-                    f.col[b][m] = Gs[size_t(r) * h + b * N + i];
-                    f.row[b][m] = Gs[size_t(b * N + i) * h + r];
-                }
-        }
-    };
     T n_acc = T(0);
     probe.lap(kSetup);
     __syncthreads();
     probe.lap(kBarrier);
 
-    for (int i0 = 0; i0 < N; i0 += K) {
-        const int end = min(i0 + K, N);
-        const S* Gs = i0 == 0 ? Gw : G;      // the first chunk reads G_in
-        int nk = 0;                          // accepted sites: slots 0 .. 4 nk - 1
-        Site f;
-        prefetch(f, Gs, i0);
-        for (int i = i0; i < end; ++i) {
-            const Site g = f;
-            if (i + 1 < end) prefetch(f, Gs, i + 1);
-            const int ns = 4 * nk;
-            // lane e's G_II[a][b] = col_b[j_a], corrected slot by slot
-            S x = g.gii;
-            const int ja = L.a * N + i, jb = L.b * N + i;
-            for (int s = 0; s < ns; ++s)
-                x = csub_rn(x, cmul_rn(Cs[size_t(s) * h + ja], Rs[size_t(s) * h + jb]));
-            probe.lap(kGather);
-            // every warp decides, on identical inputs (site i's own field
-            // is still the slice's: phi_i = phi_in_i)
-            const T live = site_live(phi, phin + i * opdim, phi + i * opdim, nb + 4 * i,
-                                     opdim, dtau);
-            S Tm[16];
-            const bool accept = site_step_warp(x, dl + 16 * i, lhs[i], live, c_det, L, Tm);
-            probe.lap(kDecide);
-            if (!accept) continue;           // uniform: no barrier
-            n_acc = add_rn(n_acc, T(1));
-            if (lane == 0)
-                for (int o = 0; o < opdim; ++o) phi[i * opdim + o] = phin[i * opdim + o];
-            __syncwarp();
-            // the owned entries of the site's columns and rows, corrected by
-            // the chunk's slots; the site's slots from them
+    // the slots hold K accepted sites; G is flushed when they are full and
+    // at the end of the slice (or copied there if nothing was flushed)
+    const S* Gs = Gw;                        // G_in until the first flush
+    int nk = 0;                              // accepted sites in the slots
+    auto flush_slots = [&]() {
+        // the sites' loads of G and reads of the slots must have landed
+        __syncthreads();
+        probe.lap(kBarrier);
+        flush<T, TR>(Gs, G, Cs, Rs, h, 4 * nk);
+        probe.lap(kFlush);
+        __syncthreads();
+        probe.lap(kBarrier);
+        Gs = G;
+        nk = 0;
+    };
+    // lane e's G_II entry G[j_a][j_b] of the next site is loaded while
+    // the current one is decided
+    auto gii_of = [&](int i) { return Gs[size_t(L.a * N + i) * h + L.b * N + i]; };
+    S gnext = gii_of(0);
+    for (int i = 0; i < N; ++i) {
+        if (nk == K) {
+            flush_slots();
+            gnext = gii_of(i);
+        }
+        S x = gnext;
+        if (i + 1 < N) gnext = gii_of(i + 1);
+        const int ns = 4 * nk;
+        // lane e's G_II[a][b] = col_b[j_a], corrected slot by slot
+        const int ja = L.a * N + i, jb = L.b * N + i;
+#pragma unroll 4
+        for (int s = 0; s < ns; ++s)
+            x = csub_rn(x, cmul_rn(Cs[size_t(s) * h + ja], Rs[size_t(s) * h + jb]));
+        probe.lap(kGather);
+        // every warp decides, on identical inputs (site i's own field
+        // is still the slice's: phi_i = phi_in_i)
+        const T live = site_live(phi, phin + i * opdim, phi + i * opdim, nb + 4 * i,
+                                 opdim, dtau);
+        S Tm[16];
+        const bool accept = site_step_warp(x, dl + 16 * i, lhs[i], live, c_det, L, Tm);
+        probe.lap(kDecide);
+        if (!accept) continue;           // uniform: no barrier
+        n_acc = add_rn(n_acc, T(1));
+        if (lane == 0)
+            for (int o = 0; o < opdim; ++o) phi[i * opdim + o] = phin[i * opdim + o];
+        __syncwarp();
+        // the owned entries of the site's columns and rows, corrected by
+        // the slots; the site's slots from them
 #pragma unroll
-            for (int m = 0; m < EPT; ++m) {
-                const int r = tid + m * kThreads;
-                if (r >= h) continue;
-                S col[4], row[4];
+        for (int m = 0; m < EPT; ++m) {
+            const int r = tid + m * kThreads;
+            if (r >= h) continue;
+            S col[4], row[4];
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+                col[b] = Gs[size_t(r) * h + b * N + i];
+                row[b] = Gs[size_t(b * N + i) * h + r];
+            }
+            for (int s = 0; s < ns; ++s) {
+                const S* Cr = Cs + size_t(s) * h;
+                const S* Rr = Rs + size_t(s) * h;
+                const S cr = Cr[r], rr = Rr[r];
 #pragma unroll
                 for (int b = 0; b < 4; ++b) {
-                    col[b] = g.col[b][m];
-                    row[b] = g.row[b][m];
-                }
-                for (int s = 0; s < ns; ++s) {
-                    const S* Cr = Cs + size_t(s) * h;
-                    const S* Rr = Rs + size_t(s) * h;
-                    const S cr = Cr[r], rr = Rr[r];
-#pragma unroll
-                    for (int b = 0; b < 4; ++b) {
-                        col[b] = csub_rn(col[b], cmul_rn(cr, Rr[b * N + i]));
-                        row[b] = csub_rn(row[b], cmul_rn(Cr[b * N + i], rr));
-                    }
-                }
-#pragma unroll
-                for (int b = 0; b < 4; ++b) {
-                    S c = cmul_rn(col[0], Tm[b]);
-#pragma unroll
-                    for (int a = 1; a < 4; ++a) c = cadd_rn(c, cmul_rn(col[a], Tm[4 * a + b]));
-                    Cs[size_t(ns + b) * h + r] = c;
-                    Rs[size_t(ns + b) * h + r] =
-                        mk(sub_rn(r == b * N + i ? T(1) : T(0), row[b].re), -row[b].im);
+                    col[b] = csub_rn(col[b], cmul_rn(cr, Rr[b * N + i]));
+                    row[b] = csub_rn(row[b], cmul_rn(Cr[b * N + i], rr));
                 }
             }
-            ++nk;
-            probe.lap(kSlot);
-            __syncthreads();
-            probe.lap(kBarrier);
-        }
-        // flush: the first chunk also copies G_in to G_out. A later chunk's
-        // flush writes the G its sites read: every warp's loads of this
-        // chunk must have landed first
-        if (nk > 0 || i0 == 0) {
-            if (i0 > 0) {
-                __syncthreads();
-                probe.lap(kBarrier);
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+                S c = cmul_rn(col[0], Tm[b]);
+#pragma unroll
+                for (int a = 1; a < 4; ++a) c = cadd_rn(c, cmul_rn(col[a], Tm[4 * a + b]));
+                Cs[size_t(ns + b) * h + r] = c;
+                Rs[size_t(ns + b) * h + r] =
+                    mk(sub_rn(r == b * N + i ? T(1) : T(0), row[b].re), -row[b].im);
             }
-            flush<T, TR>(Gs, G, Cs, Rs, h, 4 * nk);
-            probe.lap(kFlush);
-            __syncthreads();
-            probe.lap(kBarrier);
         }
+        ++nk;
+        probe.lap(kSlot);
+        __syncthreads();
+        probe.lap(kBarrier);
     }
+    if (nk > 0 || Gs == Gw) flush_slots();
 
     // warp 0's field is every warp's
     for (int idx = tid; idx < NO; idx += kThreads) phi_out[wk * NO + idx] = phiw[idx];
@@ -358,7 +356,7 @@ int delayed_blocks(int device, int N, int opdim, int K, int resident) {
 
 extern "C" {
 
-// G -> G_out over one slice in chunks of K; slots: the global scratch
+// G -> G_out over one slice, slots of K accepted sites; slots: the global scratch
 // (W x 2 x 4 K x 4 N complex) when resident == 0, else unused
 // (linalg/sdw_delayed.py plan)
 int dq_sdw_delayed_c64(int device, const void* G, void* G_out, const void* phi,

@@ -8,9 +8,13 @@ chunks of K (the last one ragged); for each chunk the sites emit C
 (h x Kq) and R (Kq x h), Kq = 4 K, in site-major slot order, slot
 k = j q + b for orbital b of the chunk's j-th site, and G is flushed,
 G -= C @ R, before the next chunk reads it. One launch of K5 runs the
-whole slice, every flush in its own body (one CTA per walker, G in global
+whole slice, the flushes in its own body (one CTA per walker, G in global
 memory: see the source's note); the JAX package flushes outside Pallas
-(``_pmm``).
+(``_pmm``). Every entry, flushed or read by a site, is its input minus
+the slots' products in slot order, one rounding per product and per
+difference, so when a slot is flushed does not change a bit: the result
+is the same for every K (``test_k5_plain_is_the_same_for_every_chunk``),
+and the kernel flushes the slots of K accepted sites when they are full.
 
 Per site i = i0 + j, with j_b = b N + i (pallas_sdw_delayed.py:91-216):
 

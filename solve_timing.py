@@ -38,7 +38,8 @@ Haar-random U, V and s graded from 1 to 1e-11 (the mid-chain condition),
 made on the card from --seed; the timed work does not depend on the
 values. Each call: CUDA events, one warm-up, the median of --reps calls
 (torch.linalg.solve and solve_triangular at least five), the backward
-error checked against 1e-13. With --tree the package is imported from
+error checked against 1e-13; the K5 and K1 rows also time 20 calls back
+to back (``batched``: the wrapper's host work then overlaps the card's). With --tree the package is imported from
 that directory (an unpacked parent commit, say), so two versions can be
 timed in one session on one card: parent, change, change, parent. Each
 row prints as one JSON line with the card's name and power limit.
@@ -75,6 +76,24 @@ def time_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def time_ms_batched(fn, calls: int = 20) -> float:
+    """CUDA events around ``calls`` back-to-back calls, over ``calls``:
+    the host's per-call work (the wrapper's checks and allocations)
+    overlaps the card's, so small kernels show their device time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / calls
 
 
 def graded_inner(B: int, n: int, dtype, gen, device):
@@ -178,6 +197,8 @@ def k5_rows(emit, gen, device, reps):
         acc = float(sdw_delayed.sdw_delayed(*args, *extra, K)[2].sum())
         row = dict(kernel="K5", dtype=cname, W=W, h=h, K=K,
                    chunks=-(-N // K), slice_ms=ms,
+                   slice_batched_ms=time_ms_batched(
+                       lambda: sdw_delayed.sdw_delayed(*args, *extra, K)),
                    acceptance=acc / (W * N))
         if hasattr(sdw_delayed, "chunk"):
             # the parent design: the first chunk's kernel, flush and copies
@@ -232,6 +253,8 @@ def k1_rows(emit, gen, device, reps, plans):
         ms = time_ms(lambda: slice_update.slice_update(*a), reps)
         acc = float(slice_update.slice_update(*a)[3].mean())
         row = dict(kernel="K1", dtype=dname, W=W, C=C, N=N, ms=ms,
+                   batched_ms=time_ms_batched(
+                       lambda: slice_update.slice_update(*a)),
                    us_per_site=1e3 * ms / N, acceptance=acc)
         if hasattr(slice_update, "plan"):
             row["plan"] = slice_update.plan(C, N, G.dtype)
@@ -244,10 +267,11 @@ def k1_rows(emit, gen, device, reps, plans):
         if plans and hasattr(slice_update, "PLANS"):
             for p in slice_update.PLANS:
                 if slice_update.plan_fits(C, N, G.dtype, p):
+                    run = lambda: slice_update.slice_update(  # noqa: E731
+                        *a, plan=p)
                     emit(dict(kernel="K1", dtype=dname, W=W, C=C, N=N,
-                              plan=p, ms=time_ms(lambda: slice_update.
-                                                 slice_update(*a, plan=p),
-                                                 reps)))
+                              plan=p, ms=time_ms(run, reps),
+                              batched_ms=time_ms_batched(run)))
         del model, state, G, a
         torch.cuda.empty_cache()
 

@@ -117,6 +117,22 @@ def test_k5_plain_matches_k4_plain_f64(L, delay):
     assert acc_d.sum() > 0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k5_plain_is_the_same_for_every_chunk(dtype):
+    """Every entry is its input minus the slots' products in slot order,
+    rounded one operation at a time, whichever chunk's flush subtracts
+    them: the slice comes out bit for bit the same for every K (K5 flushes
+    the slots of K accepted sites when they are full, not per chunk)."""
+    tm, ops = _slice(4, dtype, seed=21)
+    extra = (tm.nb, tm.cfg.dtau, tm.c_det)
+    ref = sdw_delayed.sdw_delayed_plain(*ops, *extra, 1)
+    assert 0 < float(ref[2].sum()) < ref[2].numel() * tm.cfg.n_sites
+    for K in (2, 3, 8, 16):
+        out = sdw_delayed.sdw_delayed_plain(*ops, *extra, K)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+
+
 def _pair(x):
     return jnp.stack([_a(x.real), _a(x.imag)], axis=1)
 
