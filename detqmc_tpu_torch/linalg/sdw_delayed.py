@@ -55,7 +55,7 @@ Q = 4   # orbitals per site (the full opdim-3 model)
 MAX_DIM = 512   # h = 4 N: a site's columns and rows at <= 2 entries a thread
 _ENTRIES = {torch.complex64: "dq_sdw_delayed_c64",
             torch.complex128: "dq_sdw_delayed_c128"}
-_THREADS, _WARPS = 256, 8
+_WARPS = 8      # warps of a K5 CTA, each with its copy of the live field
 # the phase probe's phases of K5 (sdw_delayed.cu), in the order of its
 # per-CTA record; the record ends with the CTA's total cycles and ns
 PROBE_PHASES = ("gather", "decision", "slot write", "barriers", "flush",

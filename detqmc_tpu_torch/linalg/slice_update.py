@@ -144,10 +144,10 @@ PROBE_PHASES = ("decision", "publish", "barriers", "update",
 
 
 def slice_update(G, field_l, u01, sign, alpha: float, probe: bool = False,
-                 plan=None):
+                 tiles=None):
     """K1: CPU tensors run ``slice_update_plain``; CUDA tensors launch
     the kernel (float32 or float64, C in {1, 2}, N <= 128 where a plan
-    fits) or raise. ``plan`` overrides ``plan(C, N, dtype)``. With
+    fits) or raise. ``tiles`` (a plan) overrides ``plan(C, N, dtype)``. With
     ``probe`` the kernel's instance with clock64() stamps runs instead,
     and the result gains a (W, len(PROBE_PHASES) + 2) int64 record per
     CTA: cycles per phase, total cycles, total ns."""
@@ -167,7 +167,7 @@ def slice_update(G, field_l, u01, sign, alpha: float, probe: bool = False,
         if tuple(t.shape) != shape:
             raise ValueError(f"slice_update: {name} shape "
                              f"{tuple(t.shape)} != {shape}")
-    p = globals()["plan"](C, N, G.dtype) if plan is None else tuple(plan)
+    p = plan(C, N, G.dtype) if tiles is None else tuple(tiles)
     if not plan_fits(C, N, G.dtype, p):
         raise ValueError(f"slice_update: C={C} N={N} {G.dtype} does not "
                          f"fit the plan {p}")

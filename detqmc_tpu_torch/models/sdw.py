@@ -30,7 +30,7 @@ action difference are built for all sites of a slice at once, then a
 kernel walks the sites with a log-domain accept
 lhs < c_det log|R|^2 + live, c_det = 1/2: K4 (linalg/sdw_update.py, the
 immediate update) or K5 (linalg/sdw_delayed.py, chunks of ``delay`` sites,
-8 by default, G flushed by a matmul after each chunk). The weight is
+8 by default, one launch per slice with its flushes). The weight is
 phase-free (R is real and non-negative by the model's antiunitary
 symmetry), so ``phase`` stays exactly 1. The JAX CPU route
 (``fermion_repr="complex"``) accepts on u < |R| e^{jac - dS} and tracks

@@ -268,7 +268,7 @@ def k1_rows(emit, gen, device, reps, plans):
             for p in slice_update.PLANS:
                 if slice_update.plan_fits(C, N, G.dtype, p):
                     run = lambda: slice_update.slice_update(  # noqa: E731
-                        *a, plan=p)
+                        *a, tiles=p)
                     emit(dict(kernel="K1", dtype=dname, W=W, C=C, N=N,
                               plan=p, ms=time_ms(run, reps),
                               batched_ms=time_ms_batched(run)))

@@ -152,7 +152,7 @@ def test_slice_update_kernel_matches_plain(cuda_device, ph, dtype, L):
              if slice_update.plan_fits(C, N, G.dtype, p)]
     assert plans and slice_update.plan(C, N, G.dtype) == plans[0]
     for plan in plans:
-        Gk, fk, sk, ak = slice_update.slice_update(*args, plan=plan)
+        Gk, fk, sk, ak = slice_update.slice_update(*args, tiles=plan)
         torch.cuda.synchronize()
         assert torch.equal(fk, fp) and torch.equal(sk, sp)
         assert torch.equal(ak, ap)
@@ -188,8 +188,8 @@ def test_k1_redesign_bitwise_f64(cuda_device, u, L, C):
     assert plans
     for plan in plans:
         _kernels.reset_launch_counts()
-        out = slice_update.slice_update(*args, plan=plan)
-        probed = slice_update.slice_update(*args, plan=plan, probe=True)
+        out = slice_update.slice_update(*args, tiles=plan)
+        probed = slice_update.slice_update(*args, tiles=plan, probe=True)
         torch.cuda.synchronize()
         assert _kernels.LAUNCHES["slice_update"] == 2
         for a, b, c in zip(out, ref, probed):
