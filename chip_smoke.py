@@ -151,10 +151,6 @@ SDW8_KERNELS = ("sdw_delayed", "sdw_wrap", "sdw_apply", "qr_complex_big",
 SDW8_CPP = 3.41            # C++ single-core sweeps/s (bench.py:62)
 K6_TOL = {"complex64": 1e-5, "complex128": 1e-12}   # relative to max|G|
 K4_TOL = {"complex64": 1e-5, "complex128": 1e-12}  # max |G_kernel - G_plain|
-# K5 before it ran a slice in one launch (NVIDIA H100 80GB HBM3, 700 W;
-# chip_smoke.py and solve_timing.py): ms per chunk launch, and per slice
-# with its baddbmm flushes and panel copies
-K5_PER_CHUNK_MS = {"complex64": (0.1383, 1.4804)}
 # an f32 K4 accept mismatch must be a near-tie of the log-domain test:
 # |lhs - (c_det log|R|^2 + live)| below this (f32 roundoff is ~1e-6 there)
 K4_NEAR_TIE = 1e-4
@@ -870,14 +866,12 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
         hh, Nn = mdl.dim, mdl.cfg.n_sites
         plan = sdw_delayed.plan(Nn, args[0].dtype, K)
         bps = sdw_delayed.blocks_per_sm(Nn, args[0].dtype, K, args[0].device)
-        parent = (f" (the per-chunk K5: {K5_PER_CHUNK_MS[cname][0]} ms a "
-                  f"chunk, {K5_PER_CHUNK_MS[cname][1]} ms the slice with its "
-                  "flushes and copies)" if cname in K5_PER_CHUNK_MS else "")
         print(f"K5 sdw_delayed {cname} (W={W}, h={hh}, K={K}): max|dG|="
               f"{err:.3e} (tol {K4_TOL[cname]}), accepted {int(ak.sum())}/"
               f"{W * Nn} sites, accept mismatches {n_mis}; the slice in one "
-              f"launch with its flushes: kernel {ms:.4f} ms{parent}, plain "
-              f"{pms:.4f} ms; plan {plan} x {bps} CTAs/SM")
+              f"launch with its flushes: kernel {ms:.4f} ms (the per-chunk "
+              f"K5's: PERF.md section 6, row 15), plain {pms:.4f} ms; plan "
+              f"{plan} x {bps} CTAs/SM")
         rec[cname] = record(err, ms, pms, None, bound(
             nbytes(*args, mdl.nb, Gk, pk, ak),
             k5_ops(args[1], pk, K, hh)))

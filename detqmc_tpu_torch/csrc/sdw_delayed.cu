@@ -32,9 +32,15 @@
 // first flush reads G_in (with no accepted site the final flush copies).
 // The C and R slots (4 K x h each; C stored transposed, slot-major) stay
 // in shared memory where they fit (2 x 32 x 256 x 8 B = 128 KB at
-// h = 256, K = 8 in complex64) and in a global scratch (L2) where they do
-// not (complex128 at h = 256, complex64 at h = 512):
-// linalg/sdw_delayed.py plan.
+// h = 256, K = 8 in complex64). Where only one buffer fits (complex128 at
+// h = 256, complex64 at h = 512, K = 8) R stays there and C goes to a
+// global scratch (L2): the flush reads a slot's R entries at a different
+// column on every thread of a warp but its C entries at one band's rows,
+// a broadcast. Where neither fits, both go to the scratch
+// (linalg/sdw_delayed.py plan). The flush loads scratch entries a few
+// slots ahead (flush). Both measured (PERF.md): complex128 at
+// h = 256 2.1 -> 1.8 ms a slice; complex64 at h = 512 19.3 -> 15.3 ms,
+// still twice the parent's per-chunk kernels with their library flushes.
 //
 // What bounds it (NVIDIA H100 80GB HBM3, 700 W; the probes in PERF.md):
 // the flush's products, 8 explicitly rounded FP32 operations per complex
@@ -112,12 +118,19 @@ __device__ __forceinline__ void store_c(cplx<double>* dst, const cplx<double> (&
 // rounds it. Thread t takes the tiles t, t + kThreads, ... of TR x 4
 // entries, the tiles of a row band on neighbouring threads (coalesced G
 // rows, one C read for the band); the next tile's G loads are issued
-// before the current tile's products. ns = 0 copies. h % 4 == 0.
-template <typename T, int TR>
+// before the current tile's products. Where the slots live in the global
+// scratch (RES < 2: C; RES == 0: R too) their entries are loaded kRing
+// slots ahead of their products: from L2 a load waits longer than one
+// slot's products take (PERF.md); from shared memory the ring cost
+// more than it hid. ns = 0 copies. h % 4 == 0.
+constexpr int kRing = 4;
+template <typename T, int TR, int RES>
 __device__ __forceinline__ void flush(const cplx<T>* Gs, cplx<T>* Gd, const cplx<T>* Cs,
                                       const cplx<T>* Rs, int h, int ns) {
     using S = cplx<T>;
     constexpr int TC = kFlushCols;
+    constexpr bool RING_C = RES < 2, RING_R = RES == 0;
+    constexpr int D = RING_C ? kRing : 1;   // slots a pass of the inner loop
     const int tcn = h / TC, tiles = (h / TR) * tcn;
     // tile t = band tcn + col; t += kThreads steps (band, col) by (db, dc)
     const int db = kThreads / tcn, dc = kThreads - db * tcn;
@@ -138,15 +151,41 @@ __device__ __forceinline__ void flush(const cplx<T>* Gs, cplx<T>* Gd, const cplx
         }
         if (t + kThreads < tiles) load_tile(nband, ncol, nxt);
         const int r0 = band * TR, c0 = col * TC;
-        for (int s = 0; s < ns; ++s) {
-            S c[TR], r[TC];
-            load_c(c, Cs + size_t(s) * h + r0);
-            load_c(r, Rs + size_t(s) * h + c0);
+        S cq[D][TR], rq[RING_R ? kRing : 1][TC];
+        if constexpr (RING_C) {
 #pragma unroll
-            for (int p = 0; p < TR; ++p)
+            for (int d = 0; d < kRing; ++d)
+                if (d < ns) {
+                    load_c(cq[d], Cs + size_t(d) * h + r0);
+                    if constexpr (RING_R) load_c(rq[d], Rs + size_t(d) * h + c0);
+                }
+        }
+        for (int s0 = 0; s0 < ns; s0 += D) {
 #pragma unroll
-                for (int q = 0; q < TC; ++q)
-                    cur[p][q] = csub_rn(cur[p][q], cmul_rn(c[p], r[q]));
+            for (int d = 0; d < D; ++d) {
+                const int s = s0 + d;
+                if (s >= ns) break;
+                S c[TR], r[TC];
+                if constexpr (RING_C) {
+#pragma unroll
+                    for (int p = 0; p < TR; ++p) c[p] = cq[d][p];
+                    if (s + kRing < ns) load_c(cq[d], Cs + size_t(s + kRing) * h + r0);
+                } else {
+                    load_c(c, Cs + size_t(s) * h + r0);
+                }
+                if constexpr (RING_R) {
+#pragma unroll
+                    for (int q = 0; q < TC; ++q) r[q] = rq[d][q];
+                    if (s + kRing < ns) load_c(rq[d], Rs + size_t(s + kRing) * h + c0);
+                } else {
+                    load_c(r, Rs + size_t(s) * h + c0);
+                }
+#pragma unroll
+                for (int p = 0; p < TR; ++p)
+#pragma unroll
+                    for (int q = 0; q < TC; ++q)
+                        cur[p][q] = csub_rn(cur[p][q], cmul_rn(c[p], r[q]));
+            }
         }
         S* dst = Gd + size_t(r0) * h + c0;
 #pragma unroll
@@ -160,19 +199,21 @@ __device__ __forceinline__ void flush(const cplx<T>* Gs, cplx<T>* Gd, const cplx
     }
 }
 
-// shared memory of one CTA (linalg/sdw_delayed.py smem_bytes): the C and R
-// slots if resident, the slice's delta blocks (16 N complex), then phi_new
-// and lhs, every warp's copy of the live field, and the neighbour table
-inline size_t delayed_smem(int N, int opdim, int K, size_t cbytes, bool resident) {
+// shared memory of one CTA (linalg/sdw_delayed.py smem_bytes): the slot
+// buffers it holds (RES of C and R: 2 both, 1 R), the slice's delta blocks
+// (16 N complex), then phi_new and lhs, every warp's copy of the live
+// field, and the neighbour table
+inline size_t delayed_smem(int N, int opdim, int K, size_t cbytes, int res) {
     const size_t h = 4 * size_t(N), rbytes = cbytes / 2;
-    return (resident ? 2 * 4 * size_t(K) * h * cbytes : 0) + 16 * size_t(N) * cbytes +
+    return res * 4 * size_t(K) * h * cbytes + 16 * size_t(N) * cbytes +
            rbytes * (size_t(N) * opdim * (1 + kWarps) + N) + sizeof(int) * 4 * size_t(N);
 }
 
 // EPT: entries of a site's columns and rows per thread (h <= EPT kThreads);
-// TR: flush tile rows; RESIDENT: the slots in shared memory (else in the
-// global scratch `slots`, 2 x 4 K x h per walker)
-template <typename T, int EPT, int TR, bool RESIDENT, bool PROBE>
+// TR: flush tile rows; RES: the slot buffers in shared memory (2: C and R;
+// 1: R, C in the global scratch `slots`, 4 K x h per walker; 0: neither,
+// both in the scratch, 2 x 4 K x h per walker)
+template <typename T, int EPT, int TR, int RES, bool PROBE>
 __global__ void __launch_bounds__(kThreads, 1)
 sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
                    const T* __restrict__ phi_in, const T* __restrict__ phin_in,
@@ -186,15 +227,22 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const size_t wk = blockIdx.x;
     S* Cs;                                   // Kq x h: Cs[s h + r] = C[r][s]
+    S* Rs;                                   // Kq x h: Rs[s h + c] = R[s][c]
     S* dl;                                   // 16 N: the delta blocks
-    if constexpr (RESIDENT) {
-        Cs = reinterpret_cast<S*>(smem_raw);
-        dl = Cs + 2 * size_t(Kq) * h;
+    S* sm = reinterpret_cast<S*>(smem_raw);
+    if constexpr (RES == 2) {
+        Cs = sm;
+        Rs = Cs + size_t(Kq) * h;
+        dl = Rs + size_t(Kq) * h;
+    } else if constexpr (RES == 1) {
+        Rs = sm;
+        dl = Rs + size_t(Kq) * h;
+        Cs = slots + wk * size_t(Kq) * h;
     } else {
         Cs = slots + wk * 2 * size_t(Kq) * h;
-        dl = reinterpret_cast<S*>(smem_raw);
+        Rs = Cs + size_t(Kq) * h;
+        dl = sm;
     }
-    S* Rs = Cs + size_t(Kq) * h;             // Kq x h: Rs[s h + c] = R[s][c]
     T* phin = reinterpret_cast<T*>(dl + 16 * N);   // N x opdim
     T* lhs = phin + NO;                            // N
     T* phiw = lhs + N;                             // kWarps x N x opdim
@@ -229,7 +277,7 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
         // the sites' loads of G and reads of the slots must have landed
         __syncthreads();
         probe.lap(kBarrier);
-        flush<T, TR>(Gs, G, Cs, Rs, h, 4 * nk);
+        flush<T, TR, RES>(Gs, G, Cs, Rs, h, 4 * nk);
         probe.lap(kFlush);
         __syncthreads();
         probe.lap(kBarrier);
@@ -312,20 +360,24 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
 }
 
 // the instance for h = 4 N (EPT = 1 up to h = 256, else 2) and the slots'
-// residence; nullptr where h is beyond 512
-template <typename T, bool PROBE>
-auto delayed_kernel(int N, bool resident) {
+// residence res (RES); nullptr where h is beyond 512 or res is not 0-2
+template <typename T, int EPT, bool PROBE>
+auto delayed_instance(int res) {
     constexpr int TR = sizeof(T) == 4 ? 4 : 2;
-    using Fn = decltype(&sdw_delayed_kernel<T, 1, TR, true, PROBE>);
-    const int h = 4 * N;
+    using Fn = decltype(&sdw_delayed_kernel<T, EPT, TR, 2, PROBE>);
     Fn fn = nullptr;
-    if (h <= kThreads)
-        fn = resident ? sdw_delayed_kernel<T, 1, TR, true, PROBE>
-                      : sdw_delayed_kernel<T, 1, TR, false, PROBE>;
-    else if (h <= 2 * kThreads)
-        fn = resident ? sdw_delayed_kernel<T, 2, TR, true, PROBE>
-                      : sdw_delayed_kernel<T, 2, TR, false, PROBE>;
+    if (res == 2) fn = sdw_delayed_kernel<T, EPT, TR, 2, PROBE>;
+    else if (res == 1) fn = sdw_delayed_kernel<T, EPT, TR, 1, PROBE>;
+    else if (res == 0) fn = sdw_delayed_kernel<T, EPT, TR, 0, PROBE>;
     return fn;
+}
+
+template <typename T, bool PROBE>
+auto delayed_kernel(int N, int res) {
+    const int h = 4 * N;
+    return h <= kThreads ? delayed_instance<T, 1, PROBE>(res)
+           : h <= 2 * kThreads ? delayed_instance<T, 2, PROBE>(res)
+                               : nullptr;
 }
 
 template <typename T, bool PROBE>
@@ -333,9 +385,9 @@ int sdw_delayed(int device, const void* G, void* G_out, const void* phi, const v
                 const void* lhs, const void* delta, const void* nb, void* phi_out,
                 void* acc_out, void* slots, int W, int N, int opdim, int K, int resident,
                 double dtau, double c_det, void* stream, long long* probe = nullptr) {
-    auto fn = delayed_kernel<T, PROBE>(N, resident != 0);
+    auto fn = delayed_kernel<T, PROBE>(N, resident);
     if (!fn || K < 1 || K > N) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = delayed_smem(N, opdim, K, sizeof(cplx<T>), resident != 0);
+    const size_t smem = delayed_smem(N, opdim, K, sizeof(cplx<T>), resident);
     return launch_smem(device, fn, W, smem, stream, static_cast<const cplx<T>*>(G),
                        static_cast<cplx<T>*>(G_out), static_cast<const T*>(phi),
                        static_cast<const T*>(phin), static_cast<const T*>(lhs),
@@ -347,17 +399,18 @@ int sdw_delayed(int device, const void* G, void* G_out, const void* phi, const v
 
 template <typename T>
 int delayed_blocks(int device, int N, int opdim, int K, int resident) {
-    auto fn = delayed_kernel<T, false>(N, resident != 0);
+    auto fn = delayed_kernel<T, false>(N, resident);
     if (!fn) return -static_cast<int>(cudaErrorInvalidValue);
-    return blocks_per_sm(device, fn, delayed_smem(N, opdim, K, sizeof(cplx<T>), resident != 0));
+    return blocks_per_sm(device, fn, delayed_smem(N, opdim, K, sizeof(cplx<T>), resident));
 }
 
 }  // namespace dq
 
 extern "C" {
 
-// G -> G_out over one slice, slots of K accepted sites; slots: the global scratch
-// (W x 2 x 4 K x 4 N complex) when resident == 0, else unused
+// G -> G_out over one slice, slots of K accepted sites; resident: the slot
+// buffers in shared memory (2: C and R, 1: R, 0: none); slots: the global
+// scratch for the others (W x (2 - resident) x 4 K x 4 N complex)
 // (linalg/sdw_delayed.py plan)
 int dq_sdw_delayed_c64(int device, const void* G, void* G_out, const void* phi,
                        const void* phin, const void* lhs, const void* delta,

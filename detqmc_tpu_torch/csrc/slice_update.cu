@@ -20,10 +20,10 @@
 // site. This design:
 //   - G lives in registers: thread t owns a TR x TC tile of one
 //     component (4 x 4 at N = 64: 256 threads a walker), so the update is
-//     TR TC register operations on TR + TC values read from shared memory;
-//     shapes whose tiles do not fit the registers keep the tiles in shared
-//     memory instead, each thread owning its own (linalg/slice_update.py
-//     plan), with the same schedule;
+//     TR TC register operations on TR + TC values read from shared memory
+//     (4 x 8 tiles where 4 x 4 ones need more threads than the registers
+//     hold; shapes that neither fits go to K1b: linalg/slice_update.py
+//     plan);
 //   - no broadcast of the ratio: every thread forms the ratio and the
 //     decision itself with the same operations in the same order, so all
 //     agree bit for bit; a rejected site costs no barrier. Every warp
@@ -57,14 +57,12 @@ constexpr int k1_max_threads() {
 
 constexpr int kDiag = 4;   // diagonal entries a lane keeps (N <= 128)
 
-// TR x TC tile per thread, components in blocks of tiles: thread t owns
-// tile t % tpc of component t / tpc. INREG: the tile in registers (else in
-// shared memory, row-major per component like G). Shared memory: the
-// field, the uniforms and the sites' delta_c (C x NP), two publish buffers
-// of C x 2 x NP values (u, w; NP = N rounded up to a multiple of 8), and G
-// when not INREG.
-template <typename T, int TR, int TC, bool INREG, bool PROBE>
-__global__ void __launch_bounds__(INREG ? k1_max_threads<TR * TC * int(sizeof(T)) / 4>() : 1024)
+// TR x TC tile per thread in registers, components in blocks of tiles:
+// thread t owns tile t % tpc of component t / tpc. Shared memory: the
+// field, the uniforms and the sites' delta_c (C x NP), and two publish
+// buffers of C x 2 x NP values (u, w; NP = N rounded up to a multiple of 8).
+template <typename T, int TR, int TC, bool PROBE>
+__global__ void __launch_bounds__(k1_max_threads<TR * TC * int(sizeof(T)) / 4>())
 slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
                     const T* __restrict__ u01, const T* __restrict__ sign_in,
                     T* __restrict__ G_out, T* __restrict__ field_out,
@@ -76,7 +74,6 @@ slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
     T* uni = fld + NP;                         // NP  straight to field_out)
     T* dlt = uni + NP;                         // C x NP: delta_c of each site
     T* pub = dlt + C * NP;                     // 2 x C x 2 x NP: u, w
-    T* Gs = pub + 2 * 2 * C * NP;              // C x N x N (not INREG)
     Probe<PROBE, kPhases> probe;
     probe.start();
 
@@ -100,18 +97,14 @@ slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
             dlt[cc * NP + idx] = sub_rn(exp_t(mul_rn(mul_rn(mul_rn(T(-2), sgn), alpha), s)), T(1));
         }
     }
-    // the tile: registers, or this thread's entries of Gs
-    T reg[INREG ? TR : 1][INREG ? TC : 1] = {};
-    auto at = [&](int p, int q) -> T& {
-        if constexpr (INREG) return reg[p][q];
-        else return Gs[size_t(c) * NN + size_t(a0 + p) * N + b0 + q];
-    };
+    // the tile
+    T reg[TR][TC] = {};
     auto inside = [&](int p, int q) { return owner && a0 + p < N && b0 + q < N; };
 #pragma unroll
     for (int p = 0; p < TR; ++p)
 #pragma unroll
         for (int q = 0; q < TC; ++q)
-            if (inside(p, q)) at(p, q) = Gw[size_t(c) * NN + size_t(a0 + p) * N + b0 + q];
+            if (inside(p, q)) reg[p][q] = Gw[size_t(c) * NN + size_t(a0 + p) * N + b0 + q];
     // every warp keeps the diagonal of every component: lane l holds the
     // entries k = l + 32 m
     const int lane = tid & 31;
@@ -164,7 +157,7 @@ slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
             for (int p = 0; p < TR; ++p)
 #pragma unroll
                 for (int q = 0; q < TC; ++q)
-                    if (b0 + q == i && a0 + p < N) po[a0 + p] = at(p, q);
+                    if (b0 + q == i && a0 + p < N) po[a0 + p] = reg[p][q];
         }
         if (owner && unsigned(i - a0) < unsigned(TR)) {
 #pragma unroll
@@ -172,7 +165,7 @@ slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
 #pragma unroll
                 for (int q = 0; q < TC; ++q)
                     if (a0 + p == i && b0 + q < N)
-                        po[NP + b0 + q] = sub_rn(b0 + q == i ? T(1) : T(0), at(p, q));
+                        po[NP + b0 + q] = sub_rn(b0 + q == i ? T(1) : T(0), reg[p][q]);
         }
         probe.lap(kPublish);
         __syncthreads();
@@ -188,7 +181,7 @@ slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
         for (int p = 0; p < TR; ++p)
 #pragma unroll
             for (int q = 0; q < TC; ++q)
-                if (INREG || inside(p, q)) at(p, q) = sub_rn(at(p, q), mul_rn(u[p], w[q]));
+                reg[p][q] = sub_rn(reg[p][q], mul_rn(u[p], w[q]));
         // the warp's diagonal, with the tile entries' own operations
 #pragma unroll
         for (int cc = 0; cc < 2; ++cc)
@@ -210,7 +203,7 @@ slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
     for (int p = 0; p < TR; ++p)
 #pragma unroll
         for (int q = 0; q < TC; ++q)
-            if (inside(p, q)) Go[size_t(c) * NN + size_t(a0 + p) * N + b0 + q] = at(p, q);
+            if (inside(p, q)) Go[size_t(c) * NN + size_t(a0 + p) * N + b0 + q] = reg[p][q];
     if (tid == 0) {
         sign_out[wk] = sign;
         acc_out[wk] = div_rn(acc_n, T(N));
@@ -219,18 +212,14 @@ slice_update_kernel(const T* __restrict__ G_in, const T* __restrict__ field_in,
     probe.store(probe_out);
 }
 
-// the plan's instance (linalg/slice_update.py plan): tile 4 x 4 or 4 x 8,
-// G in registers or in shared memory; nullptr for another tile
+// the plan's instance (linalg/slice_update.py plan): tile 4 x 4 or 4 x 8;
+// nullptr for another tile
 template <typename T, bool PROBE>
-auto k1_kernel(int tr, int tc, bool inreg) {
-    using Fn = decltype(&slice_update_kernel<T, 4, 4, true, PROBE>);
+auto k1_kernel(int tr, int tc) {
+    using Fn = decltype(&slice_update_kernel<T, 4, 4, PROBE>);
     Fn fn = nullptr;
-    if (tr == 4 && tc == 4)
-        fn = inreg ? slice_update_kernel<T, 4, 4, true, PROBE>
-                   : slice_update_kernel<T, 4, 4, false, PROBE>;
-    else if (tr == 4 && tc == 8)
-        fn = inreg ? slice_update_kernel<T, 4, 8, true, PROBE>
-                   : slice_update_kernel<T, 4, 8, false, PROBE>;
+    if (tr == 4 && tc == 4) fn = slice_update_kernel<T, 4, 4, PROBE>;
+    else if (tr == 4 && tc == 8) fn = slice_update_kernel<T, 4, 8, PROBE>;
     return fn;
 }
 
@@ -238,21 +227,20 @@ inline int k1_threads(int C, int N, int tr, int tc) {
     return (C * ((N + tr - 1) / tr) * ((N + tc - 1) / tc) + 31) / 32 * 32;
 }
 
-inline size_t k1_smem(int C, int N, bool inreg, size_t item) {
+inline size_t k1_smem(int C, int N, size_t item) {
     const size_t NP = (N + 7) / 8 * 8;
-    return item * (2 * NP + 5 * size_t(C) * NP + (inreg ? 0 : size_t(C) * N * N));
+    return item * (2 * NP + 5 * size_t(C) * NP);
 }
 
 template <typename T>
 int slice_update(int device, const void* G, const void* field, const void* u01,
                  const void* sign, void* G_out, void* field_out, void* sign_out,
-                 void* acc_out, int W, int C, int N, int tr, int tc, int inreg,
-                 double alpha, void* stream, long long* probe = nullptr) {
-    auto fn = probe ? k1_kernel<T, true>(tr, tc, inreg != 0)
-                    : k1_kernel<T, false>(tr, tc, inreg != 0);
+                 void* acc_out, int W, int C, int N, int tr, int tc, double alpha,
+                 void* stream, long long* probe = nullptr) {
+    auto fn = probe ? k1_kernel<T, true>(tr, tc) : k1_kernel<T, false>(tr, tc);
     if (!fn || C < 1 || C > 2) return static_cast<int>(cudaErrorInvalidValue);
     return launch_block(device, fn, W, k1_threads(C, N, tr, tc),
-                        k1_smem(C, N, inreg != 0, sizeof(T)), stream,
+                        k1_smem(C, N, sizeof(T)), stream,
                         static_cast<const T*>(G), static_cast<const T*>(field),
                         static_cast<const T*>(u01), static_cast<const T*>(sign),
                         static_cast<T*>(G_out), static_cast<T*>(field_out),
@@ -261,10 +249,10 @@ int slice_update(int device, const void* G, const void* field, const void* u01,
 }
 
 template <typename T>
-int k1_blocks(int device, int C, int N, int tr, int tc, int inreg) {
-    auto fn = k1_kernel<T, false>(tr, tc, inreg != 0);
+int k1_blocks(int device, int C, int N, int tr, int tc) {
+    auto fn = k1_kernel<T, false>(tr, tc);
     if (!fn) return -static_cast<int>(cudaErrorInvalidValue);
-    return blocks_per_sm(device, fn, k1_smem(C, N, inreg != 0, sizeof(T)),
+    return blocks_per_sm(device, fn, k1_smem(C, N, sizeof(T)),
                          k1_threads(C, N, tr, tc));
 }
 
@@ -272,25 +260,21 @@ int k1_blocks(int device, int C, int N, int tr, int tc, int inreg) {
 
 extern "C" {
 
-// tr, tc, inreg: the plan (linalg/slice_update.py plan)
+// tr, tc: the plan (linalg/slice_update.py plan)
 int dq_slice_update_f32(int device, const void* G, const void* field,
                         const void* u01, const void* sign, void* G_out,
                         void* field_out, void* sign_out, void* acc_out, int W,
-                        int C, int N, int tr, int tc, int inreg, double alpha,
-                        void* stream) {
+                        int C, int N, int tr, int tc, double alpha, void* stream) {
     return dq::slice_update<float>(device, G, field, u01, sign, G_out, field_out,
-                                   sign_out, acc_out, W, C, N, tr, tc, inreg, alpha,
-                                   stream);
+                                   sign_out, acc_out, W, C, N, tr, tc, alpha, stream);
 }
 
 int dq_slice_update_f64(int device, const void* G, const void* field,
                         const void* u01, const void* sign, void* G_out,
                         void* field_out, void* sign_out, void* acc_out, int W,
-                        int C, int N, int tr, int tc, int inreg, double alpha,
-                        void* stream) {
+                        int C, int N, int tr, int tc, double alpha, void* stream) {
     return dq::slice_update<double>(device, G, field, u01, sign, G_out, field_out,
-                                    sign_out, acc_out, W, C, N, tr, tc, inreg, alpha,
-                                    stream);
+                                    sign_out, acc_out, W, C, N, tr, tc, alpha, stream);
 }
 
 // the same with the phase probe on: probe (W x 7 int64) gets each CTA's
@@ -298,28 +282,27 @@ int dq_slice_update_f64(int device, const void* G, const void* field,
 int dq_slice_update_probe_f32(int device, const void* G, const void* field,
                               const void* u01, const void* sign, void* G_out,
                               void* field_out, void* sign_out, void* acc_out, int W,
-                              int C, int N, int tr, int tc, int inreg, double alpha,
-                              void* probe, void* stream) {
+                              int C, int N, int tr, int tc, double alpha, void* probe,
+                              void* stream) {
     return dq::slice_update<float>(device, G, field, u01, sign, G_out, field_out,
-                                   sign_out, acc_out, W, C, N, tr, tc, inreg, alpha,
-                                   stream, static_cast<long long*>(probe));
+                                   sign_out, acc_out, W, C, N, tr, tc, alpha, stream,
+                                   static_cast<long long*>(probe));
 }
 
 int dq_slice_update_probe_f64(int device, const void* G, const void* field,
                               const void* u01, const void* sign, void* G_out,
                               void* field_out, void* sign_out, void* acc_out, int W,
-                              int C, int N, int tr, int tc, int inreg, double alpha,
-                              void* probe, void* stream) {
+                              int C, int N, int tr, int tc, double alpha, void* probe,
+                              void* stream) {
     return dq::slice_update<double>(device, G, field, u01, sign, G_out, field_out,
-                                    sign_out, acc_out, W, C, N, tr, tc, inreg, alpha,
-                                    stream, static_cast<long long*>(probe));
+                                    sign_out, acc_out, W, C, N, tr, tc, alpha, stream,
+                                    static_cast<long long*>(probe));
 }
 
 // CTAs per SM of the production instance at this plan (no launch)
-int dq_slice_update_blocks_per_sm(int device, int f64, int C, int N, int tr, int tc,
-                                  int inreg) {
-    return f64 ? dq::k1_blocks<double>(device, C, N, tr, tc, inreg)
-               : dq::k1_blocks<float>(device, C, N, tr, tc, inreg);
+int dq_slice_update_blocks_per_sm(int device, int f64, int C, int N, int tr, int tc) {
+    return f64 ? dq::k1_blocks<double>(device, C, N, tr, tc)
+               : dq::k1_blocks<float>(device, C, N, tr, tc);
 }
 
 }  // extern "C"

@@ -50,12 +50,12 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C entry point -> argtypes (all return int = cudaError_t)
 _SIGNATURES = {
     # device, G, field, u01, sign, G_out, field_out, sign_out, acc_out,
-    # W, C, N, tr, tc, inreg, alpha, stream
-    "dq_slice_update_f32": [_I] + [_P] * 8 + [_I] * 6 + [_D, _P],
-    "dq_slice_update_f64": [_I] + [_P] * 8 + [_I] * 6 + [_D, _P],
+    # W, C, N, tr, tc, alpha, stream
+    "dq_slice_update_f32": [_I] + [_P] * 8 + [_I] * 5 + [_D, _P],
+    "dq_slice_update_f64": [_I] + [_P] * 8 + [_I] * 5 + [_D, _P],
     # the same, then the phase probe's record (W x 7 int64)
-    "dq_slice_update_probe_f32": [_I] + [_P] * 8 + [_I] * 6 + [_D, _P, _P],
-    "dq_slice_update_probe_f64": [_I] + [_P] * 8 + [_I] * 6 + [_D, _P, _P],
+    "dq_slice_update_probe_f32": [_I] + [_P] * 8 + [_I] * 5 + [_D, _P, _P],
+    "dq_slice_update_probe_f64": [_I] + [_P] * 8 + [_I] * 5 + [_D, _P, _P],
     # device, A, Q, R, batch, n, stream
     "dq_qr_f32": [_I, _P, _P, _P, _I, _I, _P],
     "dq_qr_f64": [_I, _P, _P, _P, _I, _I, _P],
@@ -131,8 +131,8 @@ _SIGNATURES = {
     "dq_sdw_wrap_blocks_per_sm": [_I] * 6,
     # device, complex128, N, opdim, K, resident
     "dq_sdw_delayed_blocks_per_sm": [_I] * 6,
-    # device, float64, C, N, tr, tc, inreg
-    "dq_slice_update_blocks_per_sm": [_I] * 7,
+    # device, float64, C, N, tr, tc
+    "dq_slice_update_blocks_per_sm": [_I] * 6,
 }
 
 LAUNCHES = {"slice_update": 0, "qr": 0, "solve_inner": 0, "sdw_update": 0,

@@ -162,40 +162,47 @@ def sdw_delayed_plain(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
     return G, phi, acc
 
 
-def smem_bytes(N: int, dtype, K: int, resident: bool, opdim: int = 3) -> int:
+# K5's slot residences: the slot buffers (4 K x 4 N complex each) it keeps
+# in shared memory, C and R, R alone (C in a global scratch), or neither
+RESIDENCES = {"shared": 2, "rows": 1, "global": 0}
+
+
+def smem_bytes(N: int, dtype, K: int, buffers: int, opdim: int = 3) -> int:
     """Dynamic shared memory of K5 (csrc/sdw_delayed.cu delayed_smem): the
-    C and R slots if resident (2 x 4 K x 4 N complex), the slice's delta
-    blocks (16 N complex), phi_new and lhs, every warp's copy of the live
-    field, the neighbour table."""
+    slot buffers it holds (``buffers`` of C and R, each 4 K x 4 N
+    complex), the slice's delta blocks (16 N complex), phi_new and lhs,
+    every warp's copy of the live field, the neighbour table."""
     c = dtype.itemsize
     h = Q * N
-    return ((2 * Q * K * h * c if resident else 0) + 16 * N * c
+    return (buffers * Q * K * h * c + 16 * N * c
             + c // 2 * (N * opdim * (1 + _WARPS) + N) + 4 * 4 * N)
 
 
 def plan(N: int, dtype, K: int, opdim: int = 3):
     """(residence, flush tile) of K5 at h = 4 N: the C and R slots in
-    shared memory ("shared") where they fit one block, else in a global
-    scratch ("global"); flush tiles of 4 x 4 complex64 or 2 x 4
-    complex128 entries a thread. Raises beyond h = 512 (K is never
-    changed)."""
+    shared memory ("shared") where both fit one block, else R there and C
+    in a global scratch ("rows": the flush reads R at a column per thread,
+    C at a row band per warp) where R fits, else both in the scratch
+    ("global"); flush tiles of 4 x 4 complex64 or 2 x 4 complex128
+    entries a thread. Raises beyond h = 512 (K is never changed)."""
     if Q * N > MAX_DIM or not 1 <= K <= N or dtype not in _ENTRIES:
         raise ValueError(f"sdw_delayed: N={N} K={K} {dtype}: needs h = 4 N "
                          f"<= {MAX_DIM}, 1 <= K <= N, complex64 or "
                          "complex128")
     budget = _kernels.MAX_SMEM_BYTES - 1024
-    resident = smem_bytes(N, dtype, K, True, opdim) <= budget
+    residence = next(r for r, b in RESIDENCES.items()
+                     if smem_bytes(N, dtype, K, b, opdim) <= budget)
     tile = (4 if dtype == torch.complex64 else 2, 4)
-    return ("shared" if resident else "global"), tile
+    return residence, tile
 
 
 def blocks_per_sm(N: int, dtype, K: int, device="cuda", opdim: int = 3) -> int:
     """CTAs of K5 one SM of ``device`` holds at its plan, as the CUDA
     occupancy calculator reports it."""
-    res = plan(N, dtype, K, opdim)[0] == "shared"
+    buffers = RESIDENCES[plan(N, dtype, K, opdim)[0]]
     return _kernels.query("dq_sdw_delayed_blocks_per_sm", device,
                           int(dtype == torch.complex128), N, opdim, K,
-                          int(res))
+                          buffers)
 
 
 def sdw_delayed(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
@@ -236,11 +243,11 @@ def sdw_delayed(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
     G_out = torch.empty_like(G)
     phi_out = torch.empty_like(phi_l)
     acc = torch.empty(W, dtype=rdt, device=G.device)
-    resident = residence == "shared"
-    slots = torch.empty((0,) if resident else (W, 2, Q * K, h), dtype=cdt,
+    buffers = RESIDENCES[residence]
+    slots = torch.empty((W, 2 - buffers, Q * K, h), dtype=cdt,
                         device=G.device)
     args = (G, G_out, phi_l, phi_new, lhs, delta, nb, phi_out, acc, slots, W,
-            N, opdim, K, int(resident), float(dtau), float(c_det))
+            N, opdim, K, buffers, float(dtau), float(c_det))
     if probe:
         rec = torch.zeros((W, len(PROBE_PHASES) + 2), dtype=torch.int64,
                           device=G.device)

@@ -5,9 +5,10 @@ K1 replaces detqmc_tpu/linalg/pallas_update_lanes.py (``slice_update``,
 Pallas kernel ``_kernel``) on the card with ``csrc/slice_update.cu``: one
 CTA per walker, G for all C spin components spread over its threads as
 register tiles (``plan``), the N sequential site steps inside the block
-(see the source's note for what bounds it). ``slice_update_plain`` is the
-same chain in PyTorch — the port of ``HubbardModel._update_slice`` batched
-over walkers — and is what a CPU tensor runs.
+(see the source's note for what bounds it). Shapes whose tiles do not fit
+the registers go to K1b (``HubbardModel.routes``). ``slice_update_plain``
+is the same chain in PyTorch — the port of ``HubbardModel._update_slice``
+batched over walkers — and is what a CPU tensor runs.
 
 K1b replaces detqmc_tpu/linalg/pallas_update.py (``slice_update``,
 ``make_slice_update``, Pallas kernel ``_kernel``) with
@@ -74,50 +75,43 @@ def slice_update_plain(G, field_l, u01, sign, alpha: float):
     return G, field_l, sign, _rate(acc_n, N)
 
 
-# K1's plans (csrc/slice_update.cu): a TR x TC tile of G per thread, in
-# registers or in shared memory; ``plan`` takes the first that fits
-PLANS = ((4, 4, "registers"), (4, 8, "registers"), (4, 4, "shared"),
-         (4, 8, "shared"))
+# K1's plans (csrc/slice_update.cu): a TR x TC tile of G in registers per
+# thread; ``plan`` takes the first that fits
+PLANS = ((4, 4), (4, 8))
 
 
 def threads(C: int, N: int, plan) -> int:
     """Threads of K1's CTA at this plan: one a tile, rounded to warps."""
-    tr, tc = plan[:2]
+    tr, tc = plan
     return -(-C * -(-N // tr) * -(-N // tc) // 32) * 32
 
 
 def max_threads(plan, dtype) -> int:
     """The CTA size K1's instance is compiled for (its __launch_bounds__):
     a register tile and ~96 other registers a thread within the SM's
-    65536 (k1_max_threads), else 1024."""
-    tr, tc, residence = plan
-    if residence != "registers":
-        return 1024
+    65536 (k1_max_threads)."""
+    tr, tc = plan
     words = tr * tc * dtype.itemsize // 4
     return 65536 // (words + 96) // 32 * 32
 
 
-def smem_bytes(C: int, N: int, dtype, residence: str = "registers") -> int:
+def smem_bytes(C: int, N: int, dtype) -> int:
     """Dynamic shared memory of K1 (csrc/slice_update.cu k1_smem): the
-    field, the uniforms and each site's delta per component, two publish
-    buffers (column and row per component) and, in shared residence,
-    G."""
+    field, the uniforms and each site's delta per component, and two
+    publish buffers (column and row per component)."""
     NP = -(-N // 8) * 8
-    return dtype.itemsize * (2 * NP + 5 * C * NP
-                             + (C * N * N if residence == "shared" else 0))
+    return dtype.itemsize * (2 * NP + 5 * C * NP)
 
 
 def plan_fits(C: int, N: int, dtype, plan) -> bool:
     return (C in (1, 2) and 1 <= N <= MAX_N
             and threads(C, N, plan) <= max_threads(plan, dtype)
-            and smem_bytes(C, N, dtype, plan[2])
-            <= _kernels.MAX_SMEM_BYTES - 1024)
+            and smem_bytes(C, N, dtype) <= _kernels.MAX_SMEM_BYTES - 1024)
 
 
 def plan(C: int, N: int, dtype):
-    """(TR, TC, residence) of K1: the first of PLANS that fits (G in
-    registers wherever a tile of it fits them); raises where none does
-    (the model then routes to K1b)."""
+    """(TR, TC) of K1: the first of PLANS that fits; raises where none
+    does (the model then routes to K1b)."""
     for p in PLANS:
         if plan_fits(C, N, dtype, p):
             return p
@@ -133,8 +127,7 @@ def blocks_per_sm(C: int, N: int, dtype, plan, device="cuda") -> int:
     """CTAs of K1 one SM of ``device`` holds at this plan, as the CUDA
     occupancy calculator reports it."""
     return _kernels.query("dq_slice_update_blocks_per_sm", device,
-                          int(dtype == torch.float64), C, N, plan[0],
-                          plan[1], int(plan[2] == "registers"))
+                          int(dtype == torch.float64), C, N, *plan)
 
 
 # the phase probe's phases of K1 (slice_update.cu), in the order of its
@@ -143,14 +136,12 @@ PROBE_PHASES = ("decision", "publish", "barriers", "update",
                 "loads and stores")
 
 
-def slice_update(G, field_l, u01, sign, alpha: float, probe: bool = False,
-                 tiles=None):
+def slice_update(G, field_l, u01, sign, alpha: float, probe: bool = False):
     """K1: CPU tensors run ``slice_update_plain``; CUDA tensors launch
     the kernel (float32 or float64, C in {1, 2}, N <= 128 where a plan
-    fits) or raise. ``tiles`` (a plan) overrides ``plan(C, N, dtype)``. With
-    ``probe`` the kernel's instance with clock64() stamps runs instead,
-    and the result gains a (W, len(PROBE_PHASES) + 2) int64 record per
-    CTA: cycles per phase, total cycles, total ns."""
+    fits) or raise. With ``probe`` the kernel's instance with clock64()
+    stamps runs instead, and the result gains a (W, len(PROBE_PHASES) + 2)
+    int64 record per CTA: cycles per phase, total cycles, total ns."""
     if G.device.type == "cpu":
         if probe:
             raise ValueError("slice_update: the probe needs a CUDA tensor")
@@ -167,17 +158,14 @@ def slice_update(G, field_l, u01, sign, alpha: float, probe: bool = False,
         if tuple(t.shape) != shape:
             raise ValueError(f"slice_update: {name} shape "
                              f"{tuple(t.shape)} != {shape}")
-    p = plan(C, N, G.dtype) if tiles is None else tuple(tiles)
-    if not plan_fits(C, N, G.dtype, p):
-        raise ValueError(f"slice_update: C={C} N={N} {G.dtype} does not "
-                         f"fit the plan {p}")
+    p = plan(C, N, G.dtype)
     G_out = torch.empty_like(G)
     f_out = torch.empty_like(field_l)
     s_out = torch.empty_like(sign)
     acc = torch.empty_like(sign)
     suffix = "f32" if G.dtype == torch.float32 else "f64"
-    args = (G, field_l, u01, sign, G_out, f_out, s_out, acc, W, C, N, p[0],
-            p[1], int(p[2] == "registers"), float(alpha))
+    args = (G, field_l, u01, sign, G_out, f_out, s_out, acc, W, C, N, *p,
+            float(alpha))
     if probe:
         rec = torch.zeros((W, len(PROBE_PHASES) + 2), dtype=torch.int64,
                           device=G.device)

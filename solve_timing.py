@@ -24,11 +24,16 @@ Rows of the k5 group: the delayed SDW update K5 on slice 1 of a wrapped
 G, one whole slice (every chunk with its flush), complex64 W=128 h=256
 K=8 (sdw_l8's main-path shape) and complex128 at h=64 (sdw_l4's G) and
 h=256; where the package launches K5 once per chunk, also the first
-chunk's kernel alone, its G -= C R flush (baddbmm) and its panel copies.
+chunk's kernel alone, its G -= C R flush (baddbmm) and its panel copies;
+and complex64 at h=256 and h=512 on synthetic operands (N=64 and 128 on
+a ring, acceptance ~0.8; no model has h=512), where the slots at h=512
+do not all fit shared memory.
 Rows of the k1 group: the rank-1 Hubbard update K1 on slice 1 of a
-wrapped Hubbard L=8 G, float32 W=256 N=64 C=1 (the main path) and
-float64 W=256 N=64 C=2. Both with the probe's split where the package
-has it, and with --plans every plan of the package's K1.
+wrapped Hubbard G, W=256: L=8 float32 N=64 C=1 (the main path) and
+float64 N=64 C=2, with the probe's split where the package has it; and
+L=10 float64 and float32 with C=2 (N=100) and L=11 float64 C=1 (N=121),
+K1 where the package takes the shape and K1b at the model's default
+chunk beside it (the model's route where K1 does not).
 
 Rows (float64 as the Hubbard L=16 chain, complex128 as SDW L=8):
 K8 + K9 f64 B=128 n=256 (diag(r1)), K8-rhs + K9 f64 B=5376 n=256, K8 + K9
@@ -227,20 +232,59 @@ def k5_rows(emit, gen, device, reps):
         emit(row)
         del model, st, G, args
         torch.cuda.empty_cache()
+    # complex64 at h = 256 and 512 on synthetic operands: G near 0.5 I with
+    # a random complex part, a random field and proposal, lhs = log u,
+    # small random delta blocks, a ring's neighbour table (i +- 1, i +- 2)
+    cdt, rdt, K = torch.complex64, torch.float32, 8
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, dtype=rdt, device=device)
+
+    for N in (64, 128):
+        h = 4 * N
+        G = 0.5 * torch.eye(h, dtype=cdt, device=device) + torch.complex(
+            randn(W, h, h), randn(W, h, h)) * (0.5 / h ** 0.5)
+        phi = randn(W, N, 3)
+        u = torch.rand((W, N), generator=gen, dtype=rdt, device=device)
+        ops = (G, phi, phi + 0.5 * randn(W, N, 3), torch.log(u),
+               0.3 * torch.complex(randn(W, N, 4, 4), randn(W, N, 4, 4)))
+        i = torch.arange(N)
+        nb = torch.stack([(i + 1) % N, (i - 1) % N, (i + 2) % N,
+                          (i - 2) % N], dim=1).to(torch.int32).to(device)
+        run = lambda: sdw_delayed.sdw_delayed(  # noqa: E731
+            *ops, nb, 0.1, 1.0, K)
+        ms = time_ms(run, reps)
+        row = dict(kernel="K5", dtype="complex64", W=W, h=h, K=K,
+                   chunks=N // K, operands="synthetic", slice_ms=ms,
+                   slice_batched_ms=time_ms_batched(run),
+                   acceptance=float(run()[2].sum()) / (W * N))
+        if hasattr(sdw_delayed, "plan"):
+            row["plan"] = sdw_delayed.plan(N, cdt, K)
+            row["ctas_per_sm"] = sdw_delayed.blocks_per_sm(N, cdt, K,
+                                                           device)
+            rec = sdw_delayed.sdw_delayed(*ops, nb, 0.1, 1.0, K,
+                                          probe=True)[-1]
+            row["probe"] = split(rec, sdw_delayed.PROBE_PHASES)
+        emit(row)
+        del G, ops
+        torch.cuda.empty_cache()
 
 
-def k1_rows(emit, gen, device, reps, plans):
-    """K1 on slice 1 of a wrapped Hubbard L=8 G: float32 W=256 C=1 (the
-    main path) and float64 W=256 C=2, with the probe's split where the
-    package has it (and with ``plans`` every plan of the package)."""
+def k1_rows(emit, gen, device, reps):
+    """K1 on slice 1 of a wrapped Hubbard G, W=256: L=8 float32 C=1 (the
+    main path) and float64 C=2, with the probe's split where the package
+    has it; at L=10 (C=2) and L=11 (C=1) K1 where the package takes the
+    shape and K1b at the model's default chunk beside it."""
     import torch
 
     from detqmc_tpu_torch.linalg import slice_update
     from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
 
     W = 256
-    for dname, ph in (("float32", "on"), ("float64", "off")):
-        model = HubbardModel(HubbardConfig(L=8, U=4.0, beta=8.0, m=80, s=4,
+    for dname, ph, L in (("float32", "on", 8), ("float64", "off", 8),
+                         ("float64", "off", 10), ("float32", "off", 10),
+                         ("float64", "on", 11)):
+        model = HubbardModel(HubbardConfig(L=L, U=4.0, beta=8.0, m=80, s=4,
                                            dtype=dname, ph_symmetry=ph),
                              device=device)
         state = model.init_state(W, gen)
@@ -250,28 +294,28 @@ def k1_rows(emit, gen, device, reps, plans):
         a = (G.contiguous(), fl, u, state.sign.contiguous(),
              model.cfg.alpha)
         C, N = G.shape[1], G.shape[-1]
-        ms = time_ms(lambda: slice_update.slice_update(*a), reps)
-        acc = float(slice_update.slice_update(*a)[3].mean())
-        row = dict(kernel="K1", dtype=dname, W=W, C=C, N=N, ms=ms,
-                   batched_ms=time_ms_batched(
-                       lambda: slice_update.slice_update(*a)),
-                   us_per_site=1e3 * ms / N, acceptance=acc)
-        if hasattr(slice_update, "plan"):
-            row["plan"] = slice_update.plan(C, N, G.dtype)
-            row["ctas_per_sm"] = slice_update.blocks_per_sm(
-                C, N, G.dtype, row["plan"], device)
-        if hasattr(slice_update, "PROBE_PHASES"):
-            rec = slice_update.slice_update(*a, probe=True)[-1]
-            row["probe"] = split(rec, slice_update.PROBE_PHASES)
+        row = dict(kernel="K1", dtype=dname, W=W, C=C, N=N)
+        if (not hasattr(slice_update, "fits")
+                or slice_update.fits(C, N, G.dtype)):
+            ms = time_ms(lambda: slice_update.slice_update(*a), reps)
+            acc = float(slice_update.slice_update(*a)[3].mean())
+            row.update(ms=ms, batched_ms=time_ms_batched(
+                lambda: slice_update.slice_update(*a)),
+                us_per_site=1e3 * ms / N, acceptance=acc)
+            if hasattr(slice_update, "plan"):
+                row["plan"] = slice_update.plan(C, N, G.dtype)
+                row["ctas_per_sm"] = slice_update.blocks_per_sm(
+                    C, N, G.dtype, row["plan"], device)
+            if hasattr(slice_update, "PROBE_PHASES"):
+                rec = slice_update.slice_update(*a, probe=True)[-1]
+                row["probe"] = split(rec, slice_update.PROBE_PHASES)
+        else:
+            row["k1"] = "fits no plan"
+        if L > 8:
+            k = slice_update.default_chunk(C, N, G.dtype)
+            row.update(k1b_chunk=k, k1b_ms=time_ms(
+                lambda: slice_update.slice_update_delayed(*a, k), reps))
         emit(row)
-        if plans and hasattr(slice_update, "PLANS"):
-            for p in slice_update.PLANS:
-                if slice_update.plan_fits(C, N, G.dtype, p):
-                    run = lambda: slice_update.slice_update(  # noqa: E731
-                        *a, tiles=p)
-                    emit(dict(kernel="K1", dtype=dname, W=W, C=C, N=N,
-                              plan=p, ms=time_ms(run, reps),
-                              batched_ms=time_ms_batched(run)))
         del model, state, G, a
         torch.cuda.empty_cache()
 
@@ -431,7 +475,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--seed", type=int, default=256)
     ap.add_argument("--plans", action="store_true",
-                    help="also time K8's, K9's and K1's other plans")
+                    help="also time K8's and K9's other plans")
     ap.add_argument("--rows", default="k8,k1b,k3,k7,k6,k5,k1",
                     help="comma-separated groups: k8, k1b, k3, k7, k6, k5, "
                     "k1")
@@ -466,7 +510,7 @@ def main(argv=None) -> int:
     if "k5" in groups:
         k5_rows(emit, gen, device, args.reps)
     if "k1" in groups:
-        k1_rows(emit, gen, device, args.reps, args.plans)
+        k1_rows(emit, gen, device, args.reps)
     if "k1b" in groups:
         k1b_rows(emit, gen, device, args.reps)
     if "k3" in groups:

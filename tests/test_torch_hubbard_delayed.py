@@ -160,8 +160,8 @@ def test_routes_by_size_and_device(L):
             "update": "slice_update_delayed", "chunk": 16}
         assert routes(th.HubbardConfig(L=L, m=8, s=4, update_kernel="pallas"),
                       dev)["update"] == "slice_update_delayed"
-    # two spin sectors in f64 follow the same rule (K1's G, 64 KB at N =
-    # 64, fits its shared memory; N > 128 never does); the default chunk
+    # two spin sectors in f64 follow the same rule (K1's register tiles
+    # hold G at N = 64; N > 128 never fits); the default chunk
     # is the largest divisor whose buffers fit (N = 256: 32 would need
     # 266 KB)
     f64 = th.HubbardConfig(L=L, m=8, s=4, dtype="float64", ph_symmetry="off")

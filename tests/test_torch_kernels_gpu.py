@@ -12,8 +12,9 @@ installed:
         --noconftest -o addopts="" -q
 
 Tolerances (same inputs, same card):
-- K1 (G in register tiles, or in shared memory where they do not fit;
-  every plan that takes the shape, L = 4, 8, 10): identical accept
+- K1 (G in register tiles, each plan through the shape that selects it,
+  L = 4, 8, 10; two sectors at L = 10 fit no tile and must be refused,
+  the model taking K1b): identical accept
   decisions, signs and acceptance; G within 1e-12 (f64) / 1e-5 (f32) —
   the kernel rounds as the plain version rounds; in float64 at every
   accept rate (u = 0: all accept; u = +inf: none; uniform u) bitwise
@@ -37,7 +38,8 @@ Tolerances (same inputs, same card):
   chunk), 8, 16, W = 3 and 130: G, field and accept count bitwise equal
   to the plain slice in complex128; in complex64 identical accept
   decisions and G within 1e-5; its probe instance equal to the
-  production one;
+  production one; and on the SDW L = 8 model's own slice-1 operands
+  (wrapped G, proposal, lhs; h = 256) at every K, bitwise in complex128;
 - K6 (fused wrap and B / B^H apply): 1e-5 (complex64) / 1e-12
   (complex128) relative to max|G_plain|;
 - K7 (complex QR beyond one block): K2c's tolerances after the phase fix,
@@ -145,23 +147,30 @@ def test_slice_update_kernel_matches_plain(cuda_device, ph, dtype, L):
     u01 = torch.rand(fl.shape, generator=gen, dtype=G.dtype,
                      device=cuda_device)
     args = (G, fl, u01, state.sign, model.cfg.alpha)
-    Gp, fp, sp, ap = slice_update.slice_update_plain(*args)
     C, N = G.shape[1], G.shape[-1]
-    # every plan of K1 that takes this shape; the default is the first
-    plans = [p for p in slice_update.PLANS
-             if slice_update.plan_fits(C, N, G.dtype, p)]
-    assert plans and slice_update.plan(C, N, G.dtype) == plans[0]
-    for plan in plans:
-        Gk, fk, sk, ak = slice_update.slice_update(*args, tiles=plan)
-        torch.cuda.synchronize()
-        assert torch.equal(fk, fp) and torch.equal(sk, sp)
-        assert torch.equal(ak, ap)
-        tol = 1e-12 if dtype == "float64" else 1e-5
-        assert float((Gk - Gp).abs().max()) <= tol
+    # the plan the shape selects: 4 x 4 tiles up to L = 8, 4 x 8 at L = 10
+    # with one sector; two sectors at L = 10 fit no register tile, and the
+    # model takes K1b
+    if not slice_update.fits(C, N, G.dtype):
+        assert (L, ph) == (10, "off")
+        assert model.route["update"] == "slice_update_delayed"
+        with pytest.raises(ValueError, match="fits no K1 plan"):
+            slice_update.slice_update(*args)
+        return
+    assert slice_update.plan(C, N, G.dtype) == ((4, 8) if L == 10
+                                                else (4, 4))
+    Gp, fp, sp, ap = slice_update.slice_update_plain(*args)
+    Gk, fk, sk, ak = slice_update.slice_update(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(fk, fp) and torch.equal(sk, sp)
+    assert torch.equal(ak, ap)
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    assert float((Gk - Gp).abs().max()) <= tol
 
 
-# (L, C) of float64 shapes K1 takes (L = 11 and C = 2: N = 121 goes to
-# K1b): a pure function of the sizes, the same on every worker
+# (L, C) of float64 shapes K1 takes (4 x 4 tiles up to L = 8, 4 x 8 at
+# L = 10 with one sector; L = 10 with two sectors and L = 11 go to K1b): a
+# pure function of the sizes, the same on every worker
 K1_CASES = [(L, C) for L in (4, 8, 10, 11) for C in (1, 2)
             if slice_update.fits(C, L * L, torch.float64)]
 
@@ -169,9 +178,9 @@ K1_CASES = [(L, C) for L in (4, 8, 10, 11) for C in (1, 2)
 @pytest.mark.parametrize("L,C", K1_CASES)
 @pytest.mark.parametrize("u", ["accept", "reject", "uniform"])
 def test_k1_redesign_bitwise_f64(cuda_device, u, L, C):
-    """K1 with G in registers (or, where its tiles do not fit them, in
-    shared memory) at every accept rate, every plan that fits: bitwise
-    equal to the plain version in float64; its probe instance too."""
+    """K1 with G in register tiles at every accept rate, each plan
+    through the shape that selects it: bitwise equal to the plain version
+    in float64; its probe instance too."""
     model, state, gen = _model_state(cuda_device, "on" if C == 1 else "off",
                                      "float64", L=L, W=3, seed=L)
     G = model.wrap_up(state.G, model.exp_v(state.field[:, 0])).contiguous()
@@ -183,22 +192,19 @@ def test_k1_redesign_bitwise_f64(cuda_device, u, L, C):
     args = (G, fl, u01, state.sign.contiguous(), model.cfg.alpha)
     ref = slice_update.slice_update_plain(*args)
     N = G.shape[-1]
-    plans = [p for p in slice_update.PLANS
-             if slice_update.plan_fits(C, N, G.dtype, p)]
-    assert plans
-    for plan in plans:
-        _kernels.reset_launch_counts()
-        out = slice_update.slice_update(*args, tiles=plan)
-        probed = slice_update.slice_update(*args, tiles=plan, probe=True)
-        torch.cuda.synchronize()
-        assert _kernels.LAUNCHES["slice_update"] == 2
-        for a, b, c in zip(out, ref, probed):
-            assert torch.equal(a, b) and torch.equal(a, c)
-        rec = probed[-1]
-        assert rec.shape == (3, len(slice_update.PROBE_PHASES) + 2)
-        assert bool((rec >= 0).all()) and bool((rec[:, -2] > 0).all())
-        assert slice_update.blocks_per_sm(C, N, G.dtype, plan,
-                                          cuda_device) >= 1
+    plan = slice_update.plan(C, N, G.dtype)
+    assert plan == ((4, 8) if L == 10 else (4, 4))
+    _kernels.reset_launch_counts()
+    out = slice_update.slice_update(*args)
+    probed = slice_update.slice_update(*args, probe=True)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["slice_update"] == 2
+    for a, b, c in zip(out, ref, probed):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    rec = probed[-1]
+    assert rec.shape == (3, len(slice_update.PROBE_PHASES) + 2)
+    assert bool((rec >= 0).all()) and bool((rec[:, -2] > 0).all())
+    assert slice_update.blocks_per_sm(C, N, G.dtype, plan, cuda_device) >= 1
     if u == "reject":
         assert torch.equal(ref[1], fl) and float(ref[3].abs().max()) == 0
 
@@ -421,10 +427,12 @@ def _k5_operands(device, N, cdt, W, seed):
 @pytest.mark.parametrize("dtype", ["complex64", "complex128"])
 def test_sdw_delayed_kernel_matches_plain(cuda_device, dtype, K, N, W):
     """K5 over one slice (one launch; K = 3 leaves a ragged last chunk;
-    h = 64, 256, 512: the slots in shared memory or in the global scratch
-    as the plan says) against the plain slice: complex128 bitwise,
-    complex64 identical decisions and G within 1e-5; the probe instance
-    (complex64) equal to the production one."""
+    h = 64, 256, 512: the slots in shared memory, R there and C in the
+    global scratch, or both in the scratch, as the plan says) against the
+    plain slice: complex128 bitwise, complex64 identical decisions and G
+    within 1e-5; the probe instance (complex64) equal to the production
+    one. At h = 256 in complex128 the
+    L = 8 model's own slice too (the physics K5 is fed), bitwise."""
     cdt = getattr(torch, dtype)
     ops, nb = _k5_operands(cuda_device, N, cdt, W, seed=N + K + W)
     extra = (nb, 0.1, 1.0)
@@ -445,6 +453,20 @@ def test_sdw_delayed_kernel_matches_plain(cuda_device, dtype, K, N, W):
         assert torch.equal(aq, ak)
         assert rec.shape == (W, len(sdw_delayed.PROBE_PHASES) + 2)
         assert bool((rec[:, -2] > 0).all())
+    # the L = 8 model's slice 1 (N = 64 sites), as SDWModel.update_slice
+    # feeds it
+    if N == 64 and dtype == "complex128" and W == 3:
+        model, st, gen = _sdw(cuda_device, L=8, W=W, seed=K)
+        args = _k4_operands(model, st, gen)
+        mx = (model.nb, model.cfg.dtau, model.c_det)
+        _kernels.reset_launch_counts()
+        out = sdw_delayed.sdw_delayed(*args, *mx, K)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["sdw_delayed"] == 1
+        ref = sdw_delayed.sdw_delayed_plain(*args, *mx, K)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+        assert 0 < float(out[2].sum()) < W * N
     # the immediate update K4 where it fits: the same chain
     if N == 16 and dtype == "complex128":
         G4, p4, a4 = sdw_update.sdw_update(*ops, *extra)

@@ -27,12 +27,14 @@ versions on the card in tests/test_torch_kernels_gpu.py).
   model routes to the delayed update up to h = 512 in complex64 and
   complex128 at every chunk K: ``plan`` keeps the C and R slots in
   shared memory where ``smem_bytes`` fits one block (sdw_l8's complex64
-  h = 256, K = 8 does) and in the global scratch otherwise (complex128
-  at h = 256, complex64 at h = 512), never refusing a dim up to 512.
+  h = 256, K = 8 does), R there and C in the global scratch where R fits
+  (complex128 at h = 256, complex64 at h = 512), both in the scratch
+  otherwise, never refusing a dim up to 512.
 - K1 (csrc/slice_update.cu) holds G in registers (4 x 4 tiles a thread
-  at the main path's N = 64, 256 threads), in 4 x 8 tiles or in shared
-  memory where those do not fit the registers, and refuses only float64 with two
-  sectors beyond N = 117 (the model routes those to K1b).
+  at the main path's N = 64, 256 threads, 4 x 8 tiles where those need
+  more threads than the registers hold) and refuses the shapes neither
+  fits: two float32 sectors beyond N = 88, one float64 sector beyond
+  N = 108, two beyond N = 76 (the model routes those to K1b).
 - The SDW model builds the real copies of its kinetic factors once
   (``expK_real`` and ``expK_inv_real``, equal to the complex buffers' real
   parts) and hands them to K6.
@@ -206,12 +208,13 @@ def test_k5_plan_and_shared_memory(dtype, K):
     for N in range(max(K, 32), 129):                  # h = 128 ... 512
         h = 4 * N
         rest = 16 * N * c + c // 2 * (N * 3 * 9 + N) + 16 * N
-        assert sdw_delayed.smem_bytes(N, dtype, K, False) == rest
-        assert sdw_delayed.smem_bytes(N, dtype, K, True) == \
-            2 * 4 * K * h * c + rest
+        for buffers in (0, 1, 2):
+            assert sdw_delayed.smem_bytes(N, dtype, K, buffers) == \
+                buffers * 4 * K * h * c + rest
         residence, tile = sdw_delayed.plan(N, dtype, K)
-        assert residence == ("shared" if 2 * 4 * K * h * c + rest <= budget
-                             else "global")
+        assert residence == (
+            "shared" if 2 * 4 * K * h * c + rest <= budget
+            else "rows" if 4 * K * h * c + rest <= budget else "global")
         assert tile == ((4, 4) if dtype == torch.complex64 else (2, 4))
         assert rest <= budget           # the global residence always fits
     for bad in (dict(N=129, K=K), dict(N=K - 1, K=K)):
@@ -222,37 +225,45 @@ def test_k5_plan_and_shared_memory(dtype, K):
 
 def test_k5_main_path_plans():
     # sdw_l8 (complex64, h = 256, K = 8): the slots in shared memory, one
-    # CTA per walker; complex128 there and complex64 at h = 512: global
+    # CTA per walker; complex128 there and complex64 at h = 512: R there,
+    # C in the global scratch; complex128 at h = 512: both in the scratch
     assert sdw_delayed.plan(64, torch.complex64, 8) == ("shared", (4, 4))
-    assert sdw_delayed.smem_bytes(64, torch.complex64, 8, True) == 147456
-    assert sdw_delayed.plan(64, torch.complex128, 8)[0] == "global"
-    assert sdw_delayed.plan(128, torch.complex64, 8)[0] == "global"
+    assert sdw_delayed.smem_bytes(64, torch.complex64, 8, 2) == 147456
+    assert sdw_delayed.plan(64, torch.complex128, 8)[0] == "rows"
+    assert sdw_delayed.plan(128, torch.complex64, 8)[0] == "rows"
+    assert sdw_delayed.plan(128, torch.complex128, 8)[0] == "global"
     assert sdw_delayed.plan(16, torch.complex128, 8)[0] == "shared"
     assert sdw_delayed.PROBE_PHASES == ("gather", "decision", "slot write",
                                         "barriers", "flush", "set-up")
 
 
-# K1's plan at the shapes users run: (C, N, dtype) -> (plan, threads)
-K1_PLANS = {(1, 64, "float32"): ((4, 4, "registers"), 256),
-            (2, 64, "float32"): ((4, 4, "registers"), 512),
-            (1, 64, "float64"): ((4, 4, "registers"), 256),
-            (2, 64, "float64"): ((4, 4, "registers"), 512),
-            (1, 100, "float32"): ((4, 8, "registers"), 352),
-            (2, 100, "float64"): ((4, 8, "shared"), 672),
-            (1, 128, "float32"): ((4, 8, "registers"), 512),
-            (2, 128, "float32"): ((4, 8, "shared"), 1024),
-            (1, 128, "float64"): ((4, 4, "shared"), 1024),
-            (2, 116, "float64"): ((4, 8, "shared"), 896)}
+# K1's plan at the shapes users run: (C, N, dtype) -> (plan, threads), or
+# None where no register tile fits and the model takes K1b
+K1_PLANS = {(1, 64, "float32"): ((4, 4), 256),
+            (2, 64, "float32"): ((4, 4), 512),
+            (1, 64, "float64"): ((4, 4), 256),
+            (2, 64, "float64"): ((4, 4), 512),
+            (1, 100, "float32"): ((4, 8), 352),
+            (2, 100, "float64"): None,
+            (1, 128, "float32"): ((4, 8), 512),
+            (2, 128, "float32"): None,
+            (1, 128, "float64"): None,
+            (2, 116, "float64"): None}
 
 
 @pytest.mark.parametrize("C,N,dtype", sorted(K1_PLANS))
 def test_k1_plan(C, N, dtype):
     dt = getattr(torch, dtype)
+    if K1_PLANS[C, N, dtype] is None:
+        assert not su.fits(C, N, dt)
+        with pytest.raises(ValueError, match="fits no K1 plan"):
+            su.plan(C, N, dt)
+        return
     plan, threads = K1_PLANS[C, N, dtype]
     assert su.plan(C, N, dt) == plan
     assert su.threads(C, N, plan) == threads
     assert threads <= su.max_threads(plan, dt) <= 1024
-    assert su.smem_bytes(C, N, dt, plan[2]) <= _kernels.MAX_SMEM_BYTES - 1024
+    assert su.smem_bytes(C, N, dt) <= _kernels.MAX_SMEM_BYTES - 1024
     # every plan before the chosen one does not fit
     for p in su.PLANS[:su.PLANS.index(plan)]:
         assert not su.plan_fits(C, N, dt, p)
@@ -260,28 +271,28 @@ def test_k1_plan(C, N, dtype):
 
 def test_k1_limits_and_routes():
     # the CTA sizes the register instances are compiled for
-    assert su.max_threads((4, 4, "registers"), torch.float32) == 576
-    assert su.max_threads((4, 8, "registers"), torch.float32) == 512
-    assert su.max_threads((4, 4, "registers"), torch.float64) == 512
-    assert su.max_threads((4, 8, "registers"), torch.float64) == 384
-    assert su.max_threads((4, 8, "shared"), torch.float64) == 1024
-    # every N <= 128 fits in float32 and with one sector in float64; two
-    # float64 sectors stop at N = 117 (G, 214 KB, and the publish buffers)
+    assert su.max_threads((4, 4), torch.float32) == 576
+    assert su.max_threads((4, 8), torch.float32) == 512
+    assert su.max_threads((4, 4), torch.float64) == 512
+    assert su.max_threads((4, 8), torch.float64) == 384
+    # one float32 sector fits every N <= 128; two stop at N = 88 (4 x 8
+    # tiles: 484 of 512 threads), one float64 sector at 108 (378 of 384),
+    # two at 76 (380 of 384)
+    last = {(1, torch.float32): 128, (2, torch.float32): 88,
+            (1, torch.float64): 108, (2, torch.float64): 76}
     for N in range(1, 129):
-        for C in (1, 2):
-            assert su.fits(C, N, torch.float32)
-        assert su.fits(1, N, torch.float64)
-        assert su.fits(2, N, torch.float64) == (N <= 117)
+        for (C, dt), n_max in last.items():
+            assert su.fits(C, N, dt) == (N <= n_max)
     assert not su.fits(1, 129, torch.float32)
     with pytest.raises(ValueError):
-        su.plan(2, 118, torch.float64)
+        su.plan(2, 77, torch.float64)
     assert su.PROBE_PHASES == ("decision", "publish", "barriers", "update",
                                "loads and stores")
-    # the model's route follows: K1 at L = 10 in float64 with two sectors
-    # (N = 100), K1b beyond K1's plans
-    f64 = HubbardConfig(L=10, m=8, s=4, dtype="float64", ph_symmetry="off")
+    # the model's route follows: K1 at L = 8 in float64 with two sectors
+    # (N = 64), K1b beyond K1's plans (L = 9, N = 81)
+    f64 = HubbardConfig(L=8, m=8, s=4, dtype="float64", ph_symmetry="off")
     assert HubbardModel.routes(f64, "cuda") == {"update": "slice_update",
                                                 "chunk": 1}
-    f64 = HubbardConfig(L=11, m=8, s=4, dtype="float64", ph_symmetry="off")
+    f64 = HubbardConfig(L=9, m=8, s=4, dtype="float64", ph_symmetry="off")
     assert HubbardModel.routes(f64, "cuda")["update"] == \
         "slice_update_delayed"
