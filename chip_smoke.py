@@ -8,10 +8,10 @@ Phases (any failure raises, and the script exits non-zero):
 1. build  — nvcc compiles detqmc_tpu_torch/csrc/*.cu for sm_90a; then
    one FP64 tensor-core product (mma.sync m8n8k4, the fragments K8 and
    K9 are written in) against torch.matmul;
-2. kernels — K1 slice_update, K2 qr, K3 solve_inner, each against its
-   plain PyTorch version on the same CUDA tensors at the main-path shapes
-   (W = 256, N = 64, C = 1), with stated tolerances, and timed (CUDA
-   events, median of repeated single calls);
+2. kernels — K1 slice_update, K2 qr, K3 solve_inner (with its CTAs per
+   SM), each against its plain PyTorch version on the same CUDA tensors
+   at the main-path shapes (W = 256, N = 64, C = 1), with stated
+   tolerances, and timed (CUDA events, median of repeated single calls);
 3. path parity — a tiny float64 config (L=4, m=8, s=4, W=4, both
    particle-hole modes) swept on the card (kernels) and on the CPU (plain
    versions) from the same field and the same uniforms: identical fields
@@ -58,7 +58,8 @@ Phases (any failure raises, and the script exits non-zero):
 13. SDW L=8 profile — as phase 9, with the groups K5, K6, K7, K8, K9;
 14. the unequal-time (dynamics) slice, after the main path of each model:
    - K3r solve_inner_rhs (float64, n = 64, B = 2688: the forward and
-     swapped anchor solves of examples/hubbard_dynamics.conf, W = 64),
+     swapped anchor solves of examples/hubbard_dynamics.conf, W = 64;
+     with its CTAs per SM),
      K3c-rhs (complex128, n = 64, B = 128 x 11, sdw_l4; with its CTAs
      per SM) and K8-rhs + K9
      (complex128, n = 256, B = 128 x 6, sdw_l8), each on the inner
@@ -370,15 +371,19 @@ def kernel_phase(model, state, gen):
 
 def big_plans(inner, rhs=False) -> str:
     """', K8 plan (b, tc, nbuf) x CTAs/SM, K9 plan x CTAs/SM' of a K8 route
-    (the CUDA occupancy calculator's count); ', x CTAs/SM' of K3c-rhs
-    (``rhs``, complex128); else ''."""
+    (the CUDA occupancy calculator's count); ', x CTAs/SM' of the float64
+    one-CTA kernels K3 and K3r (``rhs``) and of K3c-rhs (``rhs``,
+    complex128); else ''."""
     import torch
 
     from detqmc_tpu_torch.linalg import _kernels, green_solve, trinv
 
     B, n, _ = inner.shape
     if not green_solve.kernel_for(n, inner.dtype).endswith("_big"):
-        if rhs and inner.dtype == torch.complex128:
+        if inner.dtype == torch.float64:
+            return (f", {green_solve.f64_blocks_per_sm(n, rhs, inner.device)}"
+                    " CTAs/SM")
+        if rhs:
             return (f", {green_solve.rhs_blocks_per_sm(n, inner.device)} "
                     "CTAs/SM")
         return ""
@@ -578,9 +583,13 @@ def main_path_phase(device, card, cfg_kw=MAIN_CFG, W=W_MAIN,
     return model, state, gen, counts, 1e3 * dt / N_TIMED_PAIRS
 
 
+# the float64 one-CTA solves have names of their own (K3
+# solve_inner_f64_tc_kernel, K3r solve_inner_rhs_f64_tc_kernel), neither
+# a substring of K3c's solve_inner_kernel nor of K3c-rhs's
+# solve_inner_rhs_tc_kernel
 HUBBARD_GROUPS = (("slice_update_kernel", "K1 slice_update"),
                   ("qr_kernel", "K2 qr"),
-                  ("solve_inner_kernel", "K3 solve_inner"))
+                  ("solve_inner_f64_tc_kernel", "K3 solve_inner"))
 SDW_GROUPS = (("sdw_update_kernel", "K4 sdw_update"),
               ("qr_kernel", "K2c qr"),
               ("solve_inner_kernel", "K3c solve_inner"))
@@ -595,10 +604,10 @@ L16_GROUPS = (("slice_update_delayed_kernel", "K1b slice_update_delayed"),
               ("qr_big_kernel", "K7 qr_big"),
               ("solve_inner_big_kernel", "K8 solve_inner_big"),
               ("trinv_big_kernel", "K9 trinv_big"))
-DYN_GROUPS = (("solve_inner_rhs_kernel", "K3r"),
+DYN_GROUPS = (("solve_inner_rhs_f64_tc_kernel", "K3r"),
               ("solve_inner_rhs_tc_kernel", "K3c-rhs"),
               ("solve_inner_big_rhs_kernel", "K8-rhs"),
-              ("solve_inner_kernel", "K3 solve_inner"),
+              ("solve_inner_f64_tc_kernel", "K3 solve_inner"),
               ("qr_kernel", "K2/K2c qr"),
               ("qr_big_kernel", "K7 qr_complex_big"),
               ("line_pass_kernel", "K6 sdw_apply"),

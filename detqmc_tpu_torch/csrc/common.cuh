@@ -203,14 +203,8 @@ struct Probe {
 // column, lanes striding the rows; the rank-1 updates go one thread per
 // element, a row's columns on neighbouring threads. Row stride ld = n+1
 // keeps the column walks free of shared-memory bank conflicts.
-// The phase probe's phases of householder_apply and of the one-CTA solves
-// (green_solve.cu): v and its norm, the reflector's application (A and
-// the companion together: their loops interleave), the back-substitution,
-// the barriers, the loads and stores.
-enum { kHhPanel, kHhApply, kHhBacksub, kHhBarrier, kHhLoadStore, kHhPhases };
-
-template <typename S, typename PR>
-__device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld, PR& probe) {
+template <typename S>
+__device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
     using R = typename real_of<S>::type;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     __shared__ S alpha_s;
@@ -218,9 +212,7 @@ __device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld, PR& pro
     for (int j = 0; j < n; ++j) {
         for (int k = tid; k < n; k += kThreads)
             v[k] = k >= j ? A[k * ld + j] : from_real<S>(R(0));
-        probe.lap(kHhPanel);
         __syncthreads();
-        probe.lap(kHhBarrier);
         if (warp == 0) {
             R p = 0;
             for (int k = j + lane; k < n; k += 32) p += abs2(v[k]);
@@ -239,9 +231,7 @@ __device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld, PR& pro
                 beta_s = R(2) / (vtv == R(0) ? R(1) : vtv);
             }
         }
-        probe.lap(kHhPanel);
         __syncthreads();
-        probe.lap(kHhBarrier);
         const R beta = beta_s;
         const int na = n - j - 1;          // trailing columns of A
         for (int col = warp; col < na + n; col += kWarps) {
@@ -252,9 +242,7 @@ __device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld, PR& pro
             p = warp_sum(p);
             if (lane == 0) s[col] = beta * p;
         }
-        probe.lap(kHhApply);
         __syncthreads();
-        probe.lap(kHhBarrier);
         const int width = na + n, rows = n - j;
         for (int idx = tid; idx < rows * width; idx += kThreads) {
             const int k = j + idx / width, col = idx % width;
@@ -262,16 +250,8 @@ __device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld, PR& pro
             else          C[k * ld + col - na] -= v[k] * s[col];
         }
         if (tid == 0) A[j * ld + j] = alpha_s;
-        probe.lap(kHhApply);
         __syncthreads();
-        probe.lap(kHhBarrier);
     }
-}
-
-template <typename S>
-__device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
-    Probe<false, 1> none;
-    householder_apply(A, C, v, s, n, ld, none);
 }
 
 // Launch `kernel` on `grid` CTAs of `block` threads with `smem` bytes of

@@ -67,11 +67,13 @@ _SIGNATURES = {
     # device, inner, rhs, out, batch, n, stream
     "dq_solve_inner_rhs_f64": [_I, _P, _P, _P, _I, _I, _P],
     "dq_solve_inner_rhs_c128": [_I, _P, _P, _P, _I, _I, _P],
-    # the same, then the phase probe's record (batch x 7 / 8 int64)
+    # the same, then the phase probe's record (batch x 8 int64)
     "dq_solve_inner_rhs_probe_f64": [_I, _P, _P, _P, _I, _I, _P, _P],
     "dq_solve_inner_rhs_probe_c128": [_I, _P, _P, _P, _I, _I, _P, _P],
     # CTAs per SM of the complex128 dense-RHS kernel (no launch): device, n
     "dq_solve_inner_rhs_c128_blocks_per_sm": [_I, _I],
+    # the same for the float64 one-CTA kernels: device, n, rhs (K3r)
+    "dq_solve_inner_f64_blocks_per_sm": [_I, _I, _I],
     # device, G, phi, phi_new, lhs, delta, nb, G_out, phi_out, acc_out,
     # W, N, opdim, dtau, c_det, stream
     "dq_sdw_update_c64": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P],

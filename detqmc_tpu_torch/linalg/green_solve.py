@@ -26,8 +26,14 @@ n and dtype is the same. The complex128 one-CTA dense-RHS solve (K3c-rhs,
 the unequal-time anchors of sdw_l4) is its own kernel since its redesign:
 A in shared memory, the RHS in registers as FP64 tensor-core fragments,
 two CTAs per SM up to n = 64 (``rhs_smem_bytes``, ``rhs_blocks_per_sm``).
-The real n > 128 dense-RHS solve has no Pallas kernel (the JAX package
-runs XLA there, udv.green_tau_zero); K8's real ``_rhs`` entry takes it.
+The float64 one-CTA solves, K3 (diag(r1), the Hubbard sweep) and K3r (a
+dense RHS, the Hubbard unequal-time anchors), run its float64 twin: M in
+registers (built from r1 for K3), a panel at one barrier a column, three
+CTAs per SM up to n = 64 (``f64_smem_bytes``, ``f64_blocks_per_sm``).
+The complex128 diag(r1) solve (K3c) keeps the first design, A and M in
+shared memory. The real n > 128 dense-RHS solve has no Pallas kernel
+(the JAX package runs XLA there, udv.green_tau_zero); K8's real ``_rhs``
+entry takes it.
 
 The TPU kernels work in df32 — (hi, lo) f32 pairs emulating ~48-bit
 mantissas, four planes for a complex matrix — because the chip has no f64
@@ -96,7 +102,10 @@ def solve_inner_rhs_plain(inner, rhs):
 
 
 def smem_bytes(n: int, dtype=torch.float64) -> int:
-    """Dynamic shared memory of the kernel (csrc/green_solve.cu)."""
+    """Dynamic shared memory of the first one-CTA design, A and M in
+    shared memory (csrc/green_solve.cu solve_resident, K3c's kernel);
+    ``kernel_for`` routes both dtypes by it, so the float64 one-CTA route
+    still ends at n = 119."""
     item = torch.empty((), dtype=dtype).element_size()
     return item * (2 * n * (n + 1) + 3 * n)
 
@@ -140,12 +149,11 @@ def kernel_for(n: int, dtype) -> str:
                      f"budget of K3 / K3c and n > {MAX_N_BIG} (K8)")
 
 
-# the phase probes' phases of the one-CTA dense-RHS solves, in the order
-# of their per-CTA records (each record ends with the CTA's total cycles
-# and ns): K3r (green_solve.cu solve_resident) and K3c-rhs
-# (solve_inner_rhs_tc_kernel, whose probe instance is compiled at np = 64)
-RESIDENT_PROBE_PHASES = ("panel", "apply (A and M)", "back-substitution",
-                         "barriers", "loads and stores")
+# the phase probe's phases of the one-CTA dense-RHS solves on the tensor
+# cores, K3r and K3c-rhs (green_solve.cu solve_f64_tc and
+# solve_inner_rhs_tc_kernel, whose probe instances are compiled at np = 64),
+# in the order of their per-CTA records (each record ends with the CTA's
+# total cycles and ns)
 TC_RHS_PROBE_PHASES = ("panel", "apply to A", "apply to M",
                        "back-substitution", "barriers", "loads and stores")
 
@@ -158,10 +166,25 @@ def rhs_smem_bytes(n: int) -> int:
     return 16 * (np_ * (np_ + 1) + np_ * 9 + 2 * 8 * 9 + 3 * 8) + 8 * 8
 
 
+def f64_smem_bytes(n: int) -> int:
+    """Dynamic shared memory of the float64 kernels K3 and K3r
+    (green_solve.cu f64_tc_smem_bytes): A at np x (np + 4), the side
+    buffer np x 9, T and V^T V 8 x 9 each, alpha, v's heads and beta."""
+    np_ = -(-n // 8) * 8
+    return 8 * (np_ * (np_ + 4) + np_ * 9 + 2 * 8 * 9 + 3 * 8)
+
+
 def rhs_blocks_per_sm(n: int, device="cuda") -> int:
     """CTAs of the complex128 dense-RHS kernel one SM of ``device`` holds
     at this n, as the CUDA occupancy calculator reports it."""
     return _kernels.query("dq_solve_inner_rhs_c128_blocks_per_sm", device, n)
+
+
+def f64_blocks_per_sm(n: int, rhs: bool = False, device="cuda") -> int:
+    """CTAs of K3 (``rhs``: K3r) one SM of ``device`` holds at this n, as
+    the CUDA occupancy calculator reports it."""
+    return _kernels.query("dq_solve_inner_f64_blocks_per_sm", device, n,
+                          int(rhs))
 
 
 def rhs_probe_phases(n: int, dtype):
@@ -169,9 +192,7 @@ def rhs_probe_phases(n: int, dtype):
     n and dtype to, if it has a phase probe at this n, else None."""
     if kernel_for(n, dtype).endswith("_big"):
         return None
-    if dtype == torch.complex128:
-        return TC_RHS_PROBE_PHASES if -(-n // 8) == 8 else None
-    return RESIDENT_PROBE_PHASES
+    return TC_RHS_PROBE_PHASES if -(-n // 8) == 8 else None
 
 
 def _solve(inner, M, rhs: bool, plan=None, plan9=None, probe=False):

@@ -13,10 +13,13 @@ Rows of the k1b group: K1b float32 W=128 N=256 k=16 on slice 1 of a
 wrapped Hubbard L=16 G (chip_smoke.py's main-path shape) and K1b float64
 C=2 N=144 k=5 (two spin sectors, a ragged tail chunk); of the k3 group:
 K3c-rhs complex128 B=1408 n=64 (sdw_l4's unequal-time anchors), K3r
-float64 B=2688 n=64 (the control that must not move), and for reference
-K8-rhs + K9 called directly at complex128 n=64 (routing never sends n=64
-there). Where the checkout's package has the kernel's phase probe, each
-K1b / K3c-rhs / K3r row also prints its split: the probe instance's
+float64 B=2688 n=64 (the Hubbard dynamics anchors), K3 float64 B=256 n=64
+with diag(r1) (the Hubbard L=8 sweep's solve), and for reference K8-rhs +
+K9 called directly at complex128 n=64 (routing never sends n=64 there).
+Where the checkout's package has the kernel's phase probe, each K1b /
+K3c-rhs / K3r / K3 row also prints its split (K3's from the dense-RHS
+probe instance on diag(r1)), and the float64 rows their CTAs per SM where
+the package reports them: the probe instance's
 clock64() cycles per phase, averaged over the CTAs, and the same in us
 at the clock the run had (each CTA's cycles over its global-timer ns).
 
@@ -321,33 +324,46 @@ def k1_rows(emit, gen, device, reps):
 
 
 def k3_rows(emit, gen, device, reps, lib_reps):
-    """K3c-rhs c128 B=1408 and K3r f64 B=2688 at n=64 (graded inner
-    matrices at cond 1e11, a random dense RHS) beside torch.linalg.solve,
-    with the probe's split where the package has it; then K8-rhs + K9
-    called directly at c128 n=64, for reference."""
+    """K3c-rhs c128 B=1408, K3r f64 B=2688 (a random dense RHS) and K3
+    f64 B=256 (diag(r1), r1 in [0.1, 1.1)) at n=64, on graded inner
+    matrices at cond 1e11, beside torch.linalg.solve, with the probe's
+    split where the package has it (K3's row: the dense-RHS probe
+    instance on diag(r1), the same kernel body); then K8-rhs + K9 called
+    directly at c128 n=64, for reference."""
     import torch
 
     from detqmc_tpu_torch.linalg import _kernels, green_solve, trinv
 
     n = 64
-    for name, dtype, B in (("K3c-rhs", torch.complex128, 1408),
-                           ("K3r", torch.float64, 2688)):
+    for name, dtype, B, rhs in (("K3c-rhs", torch.complex128, 1408, True),
+                                ("K3r", torch.float64, 2688, True),
+                                ("K3", torch.float64, 256, False)):
         inner = graded_inner(B, n, dtype, gen, device)
-        M = torch.randn((B, n, n), generator=gen, dtype=dtype, device=device)
-        X = green_solve._solve(inner, M, True)
+        if rhs:
+            M = torch.randn((B, n, n), generator=gen, dtype=dtype,
+                            device=device)
+            full = M
+        else:
+            M = torch.rand((B, n), generator=gen, dtype=torch.float64,
+                           device=device) + 0.1
+            full = torch.diag_embed(M).to(dtype)
+        X = green_solve._solve(inner, M, rhs)
         torch.cuda.synchronize()
-        err = backward(inner, X, M)
+        err = backward(inner, X, full)
         if err > BACKWARD_TOL:
             raise AssertionError(f"{name}: backward error {err:.3e}")
-        ms = time_ms(lambda: green_solve._solve(inner, M, True), reps)
-        lms = time_ms(lambda: torch.linalg.solve(inner, M), lib_reps)
+        ms = time_ms(lambda: green_solve._solve(inner, M, rhs), reps)
+        lms = time_ms(lambda: torch.linalg.solve(inner, full), lib_reps)
         row = dict(kernel=name, dtype=str(dtype)[6:], B=B, n=n, ms=ms,
                    library_ms=lms, library="torch.linalg.solve",
                    backward=err)
+        if dtype == torch.float64 and hasattr(green_solve,
+                                              "f64_blocks_per_sm"):
+            row["ctas_per_sm"] = green_solve.f64_blocks_per_sm(n, rhs, device)
         names = (green_solve.rhs_probe_phases(n, dtype)
                  if hasattr(green_solve, "rhs_probe_phases") else None)
         if names:
-            rec = green_solve._solve(inner, M, True, probe=True)[1]
+            rec = green_solve._solve(inner, full, True, probe=True)[1]
             row["probe"] = split(rec, names)
         emit(row)
         if dtype == torch.complex128:
@@ -368,7 +384,7 @@ def k3_rows(emit, gen, device, reps, lib_reps):
                       n=n, k8_plan=plan, ms=time_ms(k8, reps),
                       backward=backward(inner, X8, M)))
             del X8
-        del inner, M, X
+        del inner, M, full, X
         torch.cuda.empty_cache()
 
 

@@ -103,6 +103,12 @@ Tolerances (same inputs, same card):
   1e11: the K3 criteria (at n >= 8; n = 1 is a scalar division), one
   launch; two CTAs per SM up to n = 64; its probe instance (n = 64) gives
   the same outputs.
+- K3 and K3r redesigned (the float64 solves on the tensor cores, diag(r1)
+  and a dense RHS) at n = 1, 8, 16, 37, 64, 100 and 119 (the routing
+  limit), batches of 3 and 300, on graded inner matrices at cond 1e11
+  (U diag(s) P and U diag(s) V^T): the K3 criteria (the forward bound at
+  n >= 8), one launch under the unchanged key; three CTAs per SM up to
+  n = 64; K3r's probe instance (n = 64) gives the same outputs.
 """
 
 import numpy as np
@@ -1050,6 +1056,51 @@ def test_k3c_rhs_redesign_matches_plain(cuda_device, n, batch):
     if n <= 64:
         assert green_solve.rhs_blocks_per_sm(n, cuda_device) >= 2
     if green_solve.rhs_probe_phases(n, torch.complex128):
+        xq, rec = green_solve._solve(inner, M, True, probe=True)
+        torch.cuda.synchronize()
+        assert torch.equal(xq, xk)
+        assert rec.shape == (batch, len(green_solve.TC_RHS_PROBE_PHASES) + 2)
+        assert bool((rec[:, -2] > 0).all())
+
+
+@pytest.mark.parametrize("kind", ["perm", "usv"])
+@pytest.mark.parametrize("rhs", [False, True], ids=["diag", "rhs"])
+@pytest.mark.parametrize("batch", [3, 300])
+@pytest.mark.parametrize("n", [1, 8, 16, 37, 64, 100, 119])
+def test_k3_f64_redesign_matches_plain(cuda_device, n, batch, rhs, kind):
+    dt = torch.float64
+    inner, gen = _graded_inner(batch, n, dt, cuda_device, n + batch)
+    if kind == "usv":   # a dense V^T in place of the signed permutation
+        V = torch.linalg.qr(torch.randn((batch, n, n), generator=gen,
+                                        dtype=dt, device=cuda_device)).Q
+        inner = (inner @ V.mT).contiguous()
+    if rhs:
+        M = torch.randn((batch, n, n), generator=gen, dtype=dt,
+                        device=cuda_device)
+        full = M
+    else:
+        M = torch.rand((batch, n), generator=gen, dtype=dt,
+                       device=cuda_device) + 0.1
+        full = torch.diag_embed(M)
+    assert green_solve.kernel_for(n, dt) == "solve_inner"
+    _kernels.reset_launch_counts()
+    xk = (green_solve.solve_inner_rhs(inner, M) if rhs
+          else green_solve.solve_inner(inner, M))
+    torch.cuda.synchronize()
+    expect = dict.fromkeys(_kernels.LAUNCHES, 0)
+    expect["solve_inner_rhs" if rhs else "solve_inner"] = 1
+    assert _kernels.LAUNCHES == expect
+    xp = (green_solve.solve_inner_rhs_plain(inner, M) if rhs
+          else green_solve.solve_inner_plain(inner, M))
+    amax = lambda X: X.abs().amax((1, 2))                       # noqa: E731
+    res = amax(inner @ xk - full) / (n * amax(inner) * amax(xk))
+    assert float(res.max()) < 1e-13
+    if n >= 8:
+        bound = n * torch.finfo(dt).eps * 1e11
+        assert bool((amax(xk - xp) / amax(xp) <= bound).all())
+    if n <= 64:
+        assert green_solve.f64_blocks_per_sm(n, rhs, cuda_device) >= 3
+    if rhs and green_solve.rhs_probe_phases(n, dt):
         xq, rec = green_solve._solve(inner, M, True, probe=True)
         torch.cuda.synchronize()
         assert torch.equal(xq, xk)

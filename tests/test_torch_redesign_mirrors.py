@@ -12,6 +12,11 @@ versions on the card in tests/test_torch_kernels_gpu.py).
   that ``kernel_for`` sends to the one-CTA complex route (n <= 83, the
   routing limit, unchanged): its shared memory, mirrored by
   ``rhs_smem_bytes``, fits one block there and two per SM up to n = 64.
+- K3 and K3r (csrc/green_solve.cu solve_f64_tc, the float64 twin of
+  K3c-rhs) take every n that ``kernel_for`` sends to the one-CTA float64
+  route (n <= 119, the routing limit, unchanged): their shared memory,
+  mirrored by ``f64_smem_bytes``, fits one block there and three per SM
+  up to n = 64; K3r's probe instance is compiled at np = 64.
 - K7 (csrc/qr_big.cu on tc_blocked.cuh householder_tc) takes every n from
   129 to MAX_N_BIG = 512 in all four dtypes: ``big_plan`` names a plan
   that csrc/qr_big.cu compiles, its shared memory (``tc_smem_bytes``, the
@@ -94,7 +99,36 @@ def test_k3c_rhs_routing_limit_unchanged():
         "solve_inner_complex_big"
     assert green_solve.rhs_probe_phases(84, torch.complex128) is None
     assert green_solve.rhs_probe_phases(64, torch.float64) == \
-        green_solve.RESIDENT_PROBE_PHASES
+        green_solve.TC_RHS_PROBE_PHASES
+
+
+@pytest.mark.parametrize("n", [1, 8, 16, 37, 57, 64, 65, 100, 119])
+def test_k3_f64_shared_memory_and_routing(n):
+    np_ = -(-n // 8) * 8
+    smem = green_solve.f64_smem_bytes(n)
+    assert smem == 8 * (np_ * (np_ + 4) + 9 * np_ + 2 * 8 * 9 + 24)
+    assert (np_ + 4) % 8 == 4         # A's row stride, 8-byte elements
+    assert green_solve.kernel_for(n, torch.float64) == "solve_inner"
+    for rhs, key in ((False, "solve_inner"), (True, "solve_inner_rhs")):
+        assert green_solve.entry("solve_inner", rhs)[0] == key
+    assert np_ <= 120       # the instances green_solve.cu compiles, rf <= 15
+    assert smem <= _kernels.MAX_SMEM_BYTES - 1024
+    # three CTAs per SM (each with its 1 KB) fit the SM's 228 KB to n = 64
+    if n <= 64:
+        assert 3 * (smem + 1024) <= 228 * 1024
+    assert (green_solve.rhs_probe_phases(n, torch.float64)
+            == (green_solve.TC_RHS_PROBE_PHASES if np_ == 64 else None))
+
+
+@pytest.mark.parametrize("n,route", [(119, "solve_inner"),
+                                     (120, "solve_inner_big")])
+def test_k3_f64_routing_limit_unchanged(n, route):
+    """kernel_for keeps its float64 limit: n = 119 goes to K3 / K3r, n =
+    120 to K8 + K9 (no n between the two kernels is left without one)."""
+    assert green_solve.kernel_for(n, torch.float64) == route
+    assert green_solve.smem_bytes(n, torch.float64) == 8 * (
+        2 * n * (n + 1) + 3 * n)
+    assert green_solve.rhs_probe_phases(n, torch.float64) is None
 
 
 # the (b, tc) instances csrc/qr_big.cu compiles (qr_plan_ok)
