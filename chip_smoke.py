@@ -8,8 +8,8 @@ Phases (any failure raises, and the script exits non-zero):
 1. build  — nvcc compiles detqmc_tpu_torch/csrc/*.cu for sm_90a; then
    one FP64 tensor-core product (mma.sync m8n8k4, the fragments K8 and
    K9 are written in) against torch.matmul;
-2. kernels — K1 slice_update, K2 qr, K3 solve_inner (with its CTAs per
-   SM), each against its plain PyTorch version on the same CUDA tensors
+2. kernels — K1 slice_update, K2 qr, K3 solve_inner (each with its CTAs
+   per SM), each against its plain PyTorch version on the same CUDA tensors
    at the main-path shapes (W = 256, N = 64, C = 1), with stated
    tolerances, and timed (CUDA events, median of repeated single calls);
 3. path parity — a tiny float64 config (L=4, m=8, s=4, W=4, both
@@ -25,8 +25,8 @@ Phases (any failure raises, and the script exits non-zero):
    (K1, K2, K3, cuBLAS f32/f64 gemm, other) and the device's busy
    share of a timed pair's wall time;
 6. SDW kernels — K4 sdw_update (complex64 and complex128), K2c qr
-   (complex64 and complex128) and K3c solve_inner (complex128), each
-   against its plain PyTorch version at the SDW main-path shapes (W = 128,
+   (complex64 and complex128) and K3c solve_inner (complex128; both with
+   their CTAs per SM), each against its plain PyTorch version at the SDW main-path shapes (W = 128,
    h = 64, N = 16) on a wrapped G, a refactor block and a mid-chain inner
    matrix, timed like phase 2;
 7. SDW path parity — SDWConfig(L=2, m=8, s=4, float64), W = 4, swept on
@@ -353,7 +353,8 @@ def kernel_phase(model, state, gen):
         ms = time_ms(lambda: qr.qr(Ad))
         pms = time_ms(lambda: qr.qr_plain(Ad))
         lms = time_ms(lambda: torch.linalg.qr(Ad))
-        print(f"K2 qr {dname} (B={A.shape[0]}, n={N}): err={err:.3e} "
+        print(f"K2 qr {dname} (B={A.shape[0]}, n={N}, "
+              f"{qr.blocks_per_sm(N, dt, Ad.device)} CTAs/SM): err={err:.3e} "
               f"(tol {K2_TOL[dname]}), |QR-A|/|A|={recon:.3e}, kernel "
               f"{ms:.4f} ms, plain {pms:.4f} ms, torch.linalg.qr "
               f"{lms:.4f} ms")
@@ -371,22 +372,18 @@ def kernel_phase(model, state, gen):
 
 def big_plans(inner, rhs=False) -> str:
     """', K8 plan (b, tc, nbuf) x CTAs/SM, K9 plan x CTAs/SM' of a K8 route
-    (the CUDA occupancy calculator's count); ', x CTAs/SM' of the float64
-    one-CTA kernels K3 and K3r (``rhs``) and of K3c-rhs (``rhs``,
-    complex128); else ''."""
+    (the CUDA occupancy calculator's count); ', x CTAs/SM' of the one-CTA
+    kernels K3 and K3r (``rhs``, float64), K3c and K3c-rhs (``rhs``,
+    complex128)."""
     import torch
 
     from detqmc_tpu_torch.linalg import _kernels, green_solve, trinv
 
     B, n, _ = inner.shape
     if not green_solve.kernel_for(n, inner.dtype).endswith("_big"):
-        if inner.dtype == torch.float64:
-            return (f", {green_solve.f64_blocks_per_sm(n, rhs, inner.device)}"
-                    " CTAs/SM")
-        if rhs:
-            return (f", {green_solve.rhs_blocks_per_sm(n, inner.device)} "
-                    "CTAs/SM")
-        return ""
+        per_sm = (green_solve.f64_blocks_per_sm if inner.dtype == torch.float64
+                  else green_solve.c128_blocks_per_sm)
+        return f", {per_sm(n, rhs, inner.device)} CTAs/SM"
     sms = _kernels.sm_count(inner.device)
     p8 = green_solve.big_plan(n, inner.dtype, B, sms)
     p9 = trinv.plan(n, inner.dtype, B, sms)
@@ -583,16 +580,16 @@ def main_path_phase(device, card, cfg_kw=MAIN_CFG, W=W_MAIN,
     return model, state, gen, counts, 1e3 * dt / N_TIMED_PAIRS
 
 
-# the float64 one-CTA solves have names of their own (K3
-# solve_inner_f64_tc_kernel, K3r solve_inner_rhs_f64_tc_kernel), neither
-# a substring of K3c's solve_inner_kernel nor of K3c-rhs's
-# solve_inner_rhs_tc_kernel
+# the one-CTA kernels have names of their own, none a substring of
+# another's: K2 in float64 qr_f64_tc_kernel (qr_kernel is float32 and K2c),
+# K3 solve_inner_f64_tc_kernel, K3r solve_inner_rhs_f64_tc_kernel, K3c
+# solve_inner_c128_tc_kernel, K3c-rhs solve_inner_rhs_tc_kernel
 HUBBARD_GROUPS = (("slice_update_kernel", "K1 slice_update"),
-                  ("qr_kernel", "K2 qr"),
+                  ("qr_f64_tc_kernel", "K2 qr"),
                   ("solve_inner_f64_tc_kernel", "K3 solve_inner"))
 SDW_GROUPS = (("sdw_update_kernel", "K4 sdw_update"),
               ("qr_kernel", "K2c qr"),
-              ("solve_inner_kernel", "K3c solve_inner"))
+              ("solve_inner_c128_tc_kernel", "K3c solve_inner"))
 # K5's G -= C R flushes run in its own body (no "gemm c64" of them is
 # left in the profile)
 SDW8_GROUPS = (("sdw_delayed_kernel", "K5 sdw_delayed + flush"),
@@ -608,7 +605,8 @@ DYN_GROUPS = (("solve_inner_rhs_f64_tc_kernel", "K3r"),
               ("solve_inner_rhs_tc_kernel", "K3c-rhs"),
               ("solve_inner_big_rhs_kernel", "K8-rhs"),
               ("solve_inner_f64_tc_kernel", "K3 solve_inner"),
-              ("qr_kernel", "K2/K2c qr"),
+              ("qr_f64_tc_kernel", "K2 qr"),
+              ("qr_kernel", "K2c qr"),
               ("qr_big_kernel", "K7 qr_complex_big"),
               ("line_pass_kernel", "K6 sdw_apply"),
               ("trinv_big_kernel", "K9 trinv_big"))
@@ -807,7 +805,8 @@ def sdw_kernel_phase(model, state, gen):
         ms = time_ms(lambda: qr.qr(A))
         pms = time_ms(lambda: qr.qr_plain(A))
         lms = time_ms(lambda: torch.linalg.qr(A))
-        print(f"K2c qr {cname} (B={A.shape[0]}, n={h}): err={err:.3e} "
+        print(f"K2c qr {cname} (B={A.shape[0]}, n={h}, "
+              f"{qr.blocks_per_sm(h, cdt, A.device)} CTAs/SM): err={err:.3e} "
               f"(tol {tol}), |QR-A|/|A|={recon:.3e}, kernel {ms:.4f} ms, "
               f"plain {pms:.4f} ms, torch.linalg.qr {lms:.4f} ms")
         rec[cname] = record(err, ms, pms, lms, bound(

@@ -5,18 +5,33 @@
 // kernel body _kernel), the refactor QR of udv_decompose, and
 // pallas_cqr_lanes.py (cqr_lanes, the complex refactor QR of the SDW
 // chain, cudv.py:54-67). There 128 matrices ride the vector lanes in VMEM,
-// the complex ones as (re, im) f32 planes; here one CTA keeps A and Q^H in
-// shared memory in the native type (2 n (n+1) values: 33 KB at n=64 in
-// f32 or complex64, 66 KB in f64, 133 KB in complex128) and runs the n
-// reflector steps of householder_apply (common.cuh), applying each
-// reflector to Q^H (started as I) as it goes. On exit R = triu(A) with its
-// strict lower triangle exactly zero, and Q = (Q^H)^H. R's diagonal is
-// -sign(x_j)||x|| (real) or -(x_j/|x_j|)||x|| (complex, not real, unlike
-// LAPACK's); udv_decompose folds the phase into U.
-// What bounds it: n dependent steps with three __syncthreads each; per
-// step 2n dot products (one warp each) and a rank-1 update of the active
-// rows of A and Q^H in shared memory.
-#include "common.cuh"
+// the complex ones as (re, im) f32 planes. Here two designs:
+//   - float64 (K2 on the Hubbard chains, whose stack is float64 in every
+//     model dtype): qr_f64_tc_kernel, the float64 tensor-core body that K3
+//     and K3r run (f64_tc.cuh solve_f64_tc) with the companion M = I built
+//     in registers, so it ends as Q^T; no back-substitution. Panels of 8
+//     columns at one barrier a column, the compact-WY application to A's
+//     strips and Q^T's on the FP64 tensor cores (mma.sync m8n8k4), 40 KB of
+//     shared memory at n = 64 and three CTAs per SM up to n = 64: B = 256
+//     (the Hubbard L = 8 refactor) is one wave. It replaced qr_kernel in
+//     float64, which took ~378 us per CTA at n = 64 (0.378 ms at B = 256,
+//     NVIDIA H100 80GB HBM3, 700 W): n dependent reflector steps of three
+//     barriers each, warp 0 alone forming each norm, and both operands of
+//     every multiply-add of the rank-1 updates read from shared memory;
+//     the same algorithm inside K3's parent spent 74-75 % of its CTA
+//     applying the reflectors (its clock64() probe);
+//   - float32, complex64 (K2c) and complex128: qr_kernel below, A and Q^H
+//     in shared memory in the native type (2 n (n+1) values: 33 KB at
+//     n = 64 in f32 or complex64, 133 KB in complex128), the n reflector
+//     steps of householder_apply (common.cuh) applied to Q^H (started as
+//     I) as it goes. What bounds it: n dependent steps with three
+//     __syncthreads each; per step 2n dot products (one warp each) and a
+//     rank-1 update of the active rows of A and Q^H in shared memory.
+// On exit R = triu(A) with its strict lower triangle exactly zero, and
+// Q = (Q^H)^H. R's diagonal is -sign(x_j)||x|| (real) or -(x_j/|x_j|)||x||
+// (complex, not real, unlike LAPACK's); udv_decompose folds the phase into
+// U. A zero column (v = 0) leaves everything unchanged in both designs.
+#include "f64_tc.cuh"
 
 namespace dq {
 
@@ -47,13 +62,52 @@ qr_kernel(const S* __restrict__ A_in, S* __restrict__ Q_out,
     }
 }
 
+// mirrored by linalg/qr.py smem_bytes
+template <typename S>
+size_t qr_smem_bytes(int n) {
+    return sizeof(S) * (2 * size_t(n) * (n + 1) + 3 * size_t(n));
+}
+
 template <typename S>
 int qr(int device, const void* A, void* Q, void* R, int batch, int n,
        void* stream) {
-    const size_t smem = sizeof(S) * (2 * size_t(n) * (n + 1) + 3 * size_t(n));
-    return launch_smem(device, qr_kernel<S>, batch, smem, stream,
+    return launch_smem(device, qr_kernel<S>, batch, qr_smem_bytes<S>(n), stream,
                        static_cast<const S*>(A), static_cast<S*>(Q),
                        static_cast<S*>(R), n);
+}
+
+// its own name, so a profile tells K2 in float64 from qr_kernel (float32,
+// K2c) and from K3 / K3r
+template <int RF, bool PROBE>
+__global__ void __launch_bounds__(kThreads, RF <= 8 ? 3 : 1)
+qr_f64_tc_kernel(const double* __restrict__ A, double* __restrict__ Q,
+                 double* __restrict__ R, int n, long long* probe_out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    solve_f64_tc<RF, kIdentityM, PROBE>(smem_raw, A, nullptr, Q, R, n, probe_out);
+}
+
+// the instance of this n, then f(kernel); the probe instance is compiled
+// at np = 64, the Hubbard L = 8 shape
+template <bool PROBE, typename F>
+int with_qr_f64(int n, int missing, F f) {
+    if constexpr (PROBE) {
+        return round_up(n, 8) == 64 ? f(qr_f64_tc_kernel<8, true>) : missing;
+    } else {
+        return with_f64_rf(round_up(n, 8) / 8, missing, [&](auto R) {
+            constexpr int rf = decltype(R)::value;
+            return f(qr_f64_tc_kernel<rf, false>);
+        });
+    }
+}
+
+template <bool PROBE>
+int qr_f64(int device, const void* A, void* Q, void* R, int batch, int n, void* stream,
+           long long* probe) {
+    return with_qr_f64<PROBE>(n, static_cast<int>(cudaErrorInvalidValue), [&](auto kernel) {
+        return launch_tc(device, kernel, batch, f64_tc_smem_bytes(n), stream,
+                         static_cast<const double*>(A), static_cast<double*>(Q),
+                         static_cast<double*>(R), n, probe);
+    });
 }
 
 }  // namespace dq
@@ -67,7 +121,7 @@ int dq_qr_f32(int device, const void* A, void* Q, void* R, int batch, int n,
 
 int dq_qr_f64(int device, const void* A, void* Q, void* R, int batch, int n,
               void* stream) {
-    return dq::qr<double>(device, A, Q, R, batch, n, stream);
+    return dq::qr_f64<false>(device, A, Q, R, batch, n, stream, nullptr);
 }
 
 int dq_qr_c64(int device, const void* A, void* Q, void* R, int batch, int n,
@@ -78,6 +132,36 @@ int dq_qr_c64(int device, const void* A, void* Q, void* R, int batch, int n,
 int dq_qr_c128(int device, const void* A, void* Q, void* R, int batch, int n,
                void* stream) {
     return dq::qr<dq::cplx<double>>(device, A, Q, R, batch, n, stream);
+}
+
+// the float64 QR with the phase probe on (n = 57..64 only): probe (batch x
+// 8 int64) gets each CTA's cycles per phase (panel, application to A, to
+// Q^T, back-substitution (none), barriers, loads and stores), total cycles
+// and ns
+int dq_qr_probe_f64(int device, const void* A, void* Q, void* R, int batch, int n,
+                    void* probe, void* stream) {
+    return dq::qr_f64<true>(device, A, Q, R, batch, n, stream,
+                            static_cast<long long*>(probe));
+}
+
+// CTAs of the one-CTA QR one SM holds at this n, dtype code 0..3 (float32,
+// float64, complex64, complex128; the occupancy calculator), or
+// -(cudaError)
+int dq_qr_blocks_per_sm(int device, int dtype, int n) {
+    switch (dtype) {
+        case 0: return dq::blocks_per_sm(device, dq::qr_kernel<float>,
+                                         dq::qr_smem_bytes<float>(n));
+        case 1:
+            return dq::with_qr_f64<false>(
+                n, -static_cast<int>(cudaErrorInvalidValue), [&](auto kernel) {
+                    return dq::blocks_per_sm(device, kernel, dq::f64_tc_smem_bytes(n));
+                });
+        case 2: return dq::blocks_per_sm(device, dq::qr_kernel<dq::cplx<float>>,
+                                         dq::qr_smem_bytes<dq::cplx<float>>(n));
+        case 3: return dq::blocks_per_sm(device, dq::qr_kernel<dq::cplx<double>>,
+                                         dq::qr_smem_bytes<dq::cplx<double>>(n));
+        default: return -static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 }  // extern "C"

@@ -61,6 +61,10 @@ _SIGNATURES = {
     "dq_qr_f64": [_I, _P, _P, _P, _I, _I, _P],
     "dq_qr_c64": [_I, _P, _P, _P, _I, _I, _P],
     "dq_qr_c128": [_I, _P, _P, _P, _I, _I, _P],
+    # the same, then the phase probe's record (batch x 8 int64)
+    "dq_qr_probe_f64": [_I, _P, _P, _P, _I, _I, _P, _P],
+    # CTAs per SM of the one-CTA QR (no launch): device, dtype code, n
+    "dq_qr_blocks_per_sm": [_I, _I, _I],
     # device, inner, r1, mid, batch, n, stream
     "dq_solve_inner_f64": [_I, _P, _P, _P, _I, _I, _P],
     "dq_solve_inner_c128": [_I, _P, _P, _P, _I, _I, _P],
@@ -70,9 +74,9 @@ _SIGNATURES = {
     # the same, then the phase probe's record (batch x 8 int64)
     "dq_solve_inner_rhs_probe_f64": [_I, _P, _P, _P, _I, _I, _P, _P],
     "dq_solve_inner_rhs_probe_c128": [_I, _P, _P, _P, _I, _I, _P, _P],
-    # CTAs per SM of the complex128 dense-RHS kernel (no launch): device, n
-    "dq_solve_inner_rhs_c128_blocks_per_sm": [_I, _I],
-    # the same for the float64 one-CTA kernels: device, n, rhs (K3r)
+    # CTAs per SM of the one-CTA solves (no launch): device, n, rhs (K3r,
+    # K3c-rhs)
+    "dq_solve_inner_c128_blocks_per_sm": [_I, _I, _I],
     "dq_solve_inner_f64_blocks_per_sm": [_I, _I, _I],
     # device, G, phi, phi_new, lhs, delta, nb, G_out, phi_out, acc_out,
     # W, N, opdim, dtau, c_det, stream

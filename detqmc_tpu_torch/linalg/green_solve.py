@@ -22,18 +22,17 @@ launches. The dense-RHS twins of these TPU kernels,
 ``solve_inner_complex_big_rhs``, are the ``_rhs`` entries of the same two
 sources (``solve_inner_rhs`` below): the reflectors are applied to the
 given RHS instead of diag(r1), the rest is unchanged, and the routing by
-n and dtype is the same. The complex128 one-CTA dense-RHS solve (K3c-rhs,
-the unequal-time anchors of sdw_l4) is its own kernel since its redesign:
-A in shared memory, the RHS in registers as FP64 tensor-core fragments,
-two CTAs per SM up to n = 64 (``rhs_smem_bytes``, ``rhs_blocks_per_sm``).
-The float64 one-CTA solves, K3 (diag(r1), the Hubbard sweep) and K3r (a
-dense RHS, the Hubbard unequal-time anchors), run its float64 twin: M in
-registers (built from r1 for K3), a panel at one barrier a column, three
-CTAs per SM up to n = 64 (``f64_smem_bytes``, ``f64_blocks_per_sm``).
-The complex128 diag(r1) solve (K3c) keeps the first design, A and M in
-shared memory. The real n > 128 dense-RHS solve has no Pallas kernel
-(the JAX package runs XLA there, udv.green_tau_zero); K8's real ``_rhs``
-entry takes it.
+n and dtype is the same. The one-CTA solves run on the FP64 tensor
+cores with M in registers (built from r1 for the diag(r1) solves): the
+complex128 ones, K3c (diag(r1), sdw_l4's sweep) and K3c-rhs (a dense RHS,
+its unequal-time anchors), two CTAs per SM up to n = 64
+(``rhs_smem_bytes``, ``c128_blocks_per_sm``); the float64 ones, K3
+(diag(r1), the Hubbard sweep) and K3r (a dense RHS, the Hubbard
+unequal-time anchors), their float64 twin with a panel at one barrier a
+column, three CTAs per SM up to n = 64 (``f64_smem_bytes``,
+``f64_blocks_per_sm``; the body K2 runs in float64). The real n > 128
+dense-RHS solve has no Pallas kernel (the JAX package runs XLA there,
+udv.green_tau_zero); K8's real ``_rhs`` entry takes it.
 
 The TPU kernels work in df32 — (hi, lo) f32 pairs emulating ~48-bit
 mantissas, four planes for a complex matrix — because the chip has no f64
@@ -58,7 +57,8 @@ from __future__ import annotations
 import torch
 
 from detqmc_tpu_torch.linalg import _kernels, trinv
-from detqmc_tpu_torch.linalg.qr import MAX_N_BIG, tc_smem_bytes
+from detqmc_tpu_torch.linalg.qr import (MAX_N_BIG, TC_PROBE_PHASES,
+                                        f64_smem_bytes, tc_smem_bytes)
 
 MAX_N = 128
 # K8's plans (panel width b, tile width tc, tile buffers nbuf), widest
@@ -103,9 +103,9 @@ def solve_inner_rhs_plain(inner, rhs):
 
 def smem_bytes(n: int, dtype=torch.float64) -> int:
     """Dynamic shared memory of the first one-CTA design, A and M in
-    shared memory (csrc/green_solve.cu solve_resident, K3c's kernel);
-    ``kernel_for`` routes both dtypes by it, so the float64 one-CTA route
-    still ends at n = 119."""
+    shared memory, which no kernel keeps: ``kernel_for`` routes both
+    dtypes by it, so the one-CTA routes keep their limits (n <= 119 in
+    float64, n <= 83 in complex128)."""
     item = torch.empty((), dtype=dtype).element_size()
     return item * (2 * n * (n + 1) + 3 * n)
 
@@ -137,8 +137,8 @@ def blocks_per_sm(n: int, dtype, plan, rhs: bool = False, device="cuda") -> int:
 
 def kernel_for(n: int, dtype) -> str:
     """The kernel a CUDA tensor of this size and dtype goes to:
-    "solve_inner"/"solve_inner_complex" (K3/K3c, one CTA in shared
-    memory) when it fits, else "solve_inner_big"/"solve_inner_complex_big"
+    "solve_inner"/"solve_inner_complex" (K3/K3c, one CTA per matrix) when
+    it fits, else "solve_inner_big"/"solve_inner_complex_big"
     (K8) up to qr.MAX_N_BIG; raises beyond."""
     kernel = _KERNELS[dtype]
     if n <= MAX_N and smem_bytes(n, dtype) <= _kernels.MAX_SMEM_BYTES - 1024:
@@ -150,34 +150,27 @@ def kernel_for(n: int, dtype) -> str:
 
 
 # the phase probe's phases of the one-CTA dense-RHS solves on the tensor
-# cores, K3r and K3c-rhs (green_solve.cu solve_f64_tc and
-# solve_inner_rhs_tc_kernel, whose probe instances are compiled at np = 64),
-# in the order of their per-CTA records (each record ends with the CTA's
-# total cycles and ns)
-TC_RHS_PROBE_PHASES = ("panel", "apply to A", "apply to M",
-                       "back-substitution", "barriers", "loads and stores")
+# cores, K3r and K3c-rhs (f64_tc.cuh solve_f64_tc and green_solve.cu
+# solve_c128_tc, whose probe instances are compiled at np = 64), in the
+# order of their per-CTA records (each record ends with the CTA's total
+# cycles and ns)
+TC_RHS_PROBE_PHASES = TC_PROBE_PHASES
 
 
 def rhs_smem_bytes(n: int) -> int:
-    """Dynamic shared memory of the complex128 dense-RHS kernel
+    """Dynamic shared memory of the complex128 kernels K3c and K3c-rhs
     (green_solve.cu rhs_tc_smem_bytes): A at np x (np + 1), the side
-    buffer np x 9, T and V^H V 8 x 9 each, three vectors of 8 and beta."""
+    buffer np x 9, T and V^H V 8 x 9 each, alpha and v's heads (8 each)
+    and beta."""
     np_ = -(-n // 8) * 8
-    return 16 * (np_ * (np_ + 1) + np_ * 9 + 2 * 8 * 9 + 3 * 8) + 8 * 8
+    return 16 * (np_ * (np_ + 1) + np_ * 9 + 2 * 8 * 9 + 2 * 8) + 8 * 8
 
 
-def f64_smem_bytes(n: int) -> int:
-    """Dynamic shared memory of the float64 kernels K3 and K3r
-    (green_solve.cu f64_tc_smem_bytes): A at np x (np + 4), the side
-    buffer np x 9, T and V^T V 8 x 9 each, alpha, v's heads and beta."""
-    np_ = -(-n // 8) * 8
-    return 8 * (np_ * (np_ + 4) + np_ * 9 + 2 * 8 * 9 + 3 * 8)
-
-
-def rhs_blocks_per_sm(n: int, device="cuda") -> int:
-    """CTAs of the complex128 dense-RHS kernel one SM of ``device`` holds
-    at this n, as the CUDA occupancy calculator reports it."""
-    return _kernels.query("dq_solve_inner_rhs_c128_blocks_per_sm", device, n)
+def c128_blocks_per_sm(n: int, rhs: bool = False, device="cuda") -> int:
+    """CTAs of K3c (``rhs``: K3c-rhs) one SM of ``device`` holds at this
+    n, as the CUDA occupancy calculator reports it."""
+    return _kernels.query("dq_solve_inner_c128_blocks_per_sm", device, n,
+                          int(rhs))
 
 
 def f64_blocks_per_sm(n: int, rhs: bool = False, device="cuda") -> int:

@@ -3,19 +3,24 @@ plain version, for real (K2, K7) and complex (K2c, K7) matrices.
 
 Replaces detqmc_tpu/linalg/pallas_qr_lanes.py (``qr_lanes``, Pallas
 kernel ``_kernel``) and, for the complex SDW chain,
-pallas_cqr_lanes.py (``cqr_lanes``) on the card with ``csrc/qr.cu``: one
-CTA per matrix, A and Q^H in shared memory (see the source's note for
-what bounds it). Matrices beyond that kernel's shared memory (n > 128 in
-float32, n > 119 in float64 and complex64, n > 83 in complex128) go to
-K7, ``csrc/qr_big.cu``, the counterpart of pallas_qr_wy.py (``qr_wy``)
-and pallas_qr_big.py (``qr_big``) for real matrices and of
-pallas_cqr_wy.py (``cqr_wy``) and pallas_cqr.py (``cqr_big``) for complex
-ones: K8's blocked Householder QR (``csrc/tc_blocked.cuh``
-householder_tc), the matrices in global memory, the products on the FP64
-tensor cores (float64, complex128) or register-tiled on the FP32 pipe
-(float32, complex64), then Q formed from the panels' reflectors in
-reverse order; ``big_plan`` picks the panel width b,
-the tile width tc and the tile buffers nbuf. ``qr_plain`` is
+pallas_cqr_lanes.py (``cqr_lanes``) on the card with ``csrc/qr.cu``, one
+CTA per matrix (see the source's note for what bounds each design): in
+float64 (K2 on the Hubbard chains) the tensor-core body of K3 and K3r
+(``csrc/f64_tc.cuh``) with the companion Q^T in registers, three CTAs
+per SM up to n = 64 (``f64_smem_bytes``, ``blocks_per_sm``); in float32
+and the complex dtypes (K2c) A and Q^H in shared memory
+(``smem_bytes``). ``kernel_for`` routes every dtype by ``smem_bytes``,
+so the float64 one-CTA route still ends at n = 119. Matrices beyond it
+(n > 128 in float32, n > 119 in float64 and complex64, n > 83 in
+complex128) go to K7, ``csrc/qr_big.cu``, the counterpart of
+pallas_qr_wy.py (``qr_wy``) and pallas_qr_big.py (``qr_big``) for real
+matrices and of pallas_cqr_wy.py (``cqr_wy``) and pallas_cqr.py
+(``cqr_big``) for complex ones: K8's blocked Householder QR
+(``csrc/tc_blocked.cuh`` householder_tc), the matrices in global memory,
+the products on the FP64 tensor cores (float64, complex128) or
+register-tiled on the FP32 pipe (float32, complex64), then Q formed from
+the panels' reflectors in reverse order; ``big_plan`` picks the panel
+width b, the tile width tc and the tile buffers nbuf. ``qr_plain`` is
 ``torch.linalg.qr``, what a CPU tensor runs.
 
 Contract: qr(A (B, n, n)) -> (Q, R), A = Q R, Q unitary, R upper
@@ -59,9 +64,27 @@ def qr_plain(A):
 
 
 def smem_bytes(n: int, dtype) -> int:
-    """Dynamic shared memory of the kernel (csrc/qr.cu)."""
+    """Dynamic shared memory of csrc/qr.cu qr_kernel (float32, complex64,
+    complex128: A and Q^H in shared memory); ``kernel_for`` routes float64
+    by it too, so its one-CTA route keeps its limit (n <= 119)."""
     item = torch.empty((), dtype=dtype).element_size()
     return item * (2 * n * (n + 1) + 3 * n)
+
+
+def f64_smem_bytes(n: int) -> int:
+    """Dynamic shared memory of the float64 tensor-core body of K2, K3 and
+    K3r (csrc/f64_tc.cuh f64_tc_smem_bytes): A at np x (np + 4), the side
+    buffer np x 9, T and V^T V 8 x 9 each, alpha, v's heads and beta."""
+    np_ = -(-n // 8) * 8
+    return 8 * (np_ * (np_ + 4) + np_ * 9 + 2 * 8 * 9 + 3 * 8)
+
+
+def blocks_per_sm(n: int, dtype, device="cuda") -> int:
+    """CTAs of the one-CTA QR (K2 in float64, qr_kernel otherwise) one SM
+    of ``device`` holds at this n, as the CUDA occupancy calculator
+    reports it."""
+    return _kernels.query("dq_qr_blocks_per_sm", device, _DTYPE_CODES[dtype],
+                          n)
 
 
 def on_tensor_cores(dtype) -> bool:
@@ -136,15 +159,31 @@ BIG_PROBE_PHASES = ("panel", "T", "update of A", "update of Q",
                     "loads and stores")
 _BIG_PROBE_ENTRIES = {torch.float64: "dq_qr_big_probe_f64",
                       torch.complex64: "dq_qr_big_probe_c64"}
+# those of the one-CTA tensor-core bodies (f64_tc.cuh: K2 in float64, K3r;
+# green_solve.cu: K3c-rhs); K2's "apply to M" is the update of Q^T and its
+# back-substitution stays 0. K2's probe instance is compiled at np = 64.
+TC_PROBE_PHASES = ("panel", "apply to A", "apply to M",
+                   "back-substitution", "barriers", "loads and stores")
+
+
+def probe_phases(n: int, dtype):
+    """The phase names of the probe instance of the kernel ``kernel_for``
+    routes this n and dtype to, if it has one at this n (K7's only at its
+    one-CTA plan), else None."""
+    if kernel_for(n, dtype).endswith("_big"):
+        return BIG_PROBE_PHASES if dtype in _BIG_PROBE_ENTRIES else None
+    return (TC_PROBE_PHASES if dtype == torch.float64 and -(-n // 8) == 8
+            else None)
 
 
 def qr(A, probe: bool = False):
     """K2 (float32/float64), K2c (complex64/complex128) or K7 (all four):
     CPU tensors run ``qr_plain``; CUDA tensors launch the kernel
     ``kernel_for`` names (contiguous (B, n, n)) or raise. With ``probe``
-    (K7, float64 or complex64) the kernel's instance with clock64() stamps
-    runs instead, and the result gains a (B, len(BIG_PROBE_PHASES) + 2)
-    int64 record per CTA: cycles per phase, total cycles, total ns."""
+    (K7 in float64 or complex64, K2 in float64 at n = 57..64) the kernel's
+    instance with clock64() stamps runs instead, and the result gains a
+    (B, len(phases) + 2) int64 record per CTA (``probe_phases``): cycles
+    per phase, total cycles, total ns."""
     if A.device.type == "cpu":
         if probe:
             raise ValueError("qr: the probe needs a CUDA tensor")
@@ -156,17 +195,21 @@ def qr(A, probe: bool = False):
     kernel = kernel_for(n, A.dtype)
     plan = (big_plan(n, A.dtype, B, _kernels.sm_count(A.device))
             if kernel.endswith("_big") else None)
-    if probe and (A.dtype not in _BIG_PROBE_ENTRIES or plan is None
-                  or plan[0] != 32):
+    if probe and (probe_phases(n, A.dtype) is None
+                  or plan is not None and plan[0] != 32):
         raise ValueError(f"qr: no phase probe for n={n} {A.dtype} at plan "
                          f"{plan}")
     Q = torch.empty_like(A)
     R = torch.empty_like(A)
     if probe:
-        rec = torch.zeros((B, len(BIG_PROBE_PHASES) + 2), dtype=torch.int64,
+        phases = probe_phases(n, A.dtype)
+        rec = torch.zeros((B, len(phases) + 2), dtype=torch.int64,
                           device=A.device)
-        _kernels.launch(kernel, _BIG_PROBE_ENTRIES[A.dtype], A, Q, R, B, n,
-                        *plan, rec)
+        if plan:
+            _kernels.launch(kernel, _BIG_PROBE_ENTRIES[A.dtype], A, Q, R, B,
+                            n, *plan, rec)
+        else:
+            _kernels.launch(kernel, "dq_qr_probe_f64", A, Q, R, B, n, rec)
         return Q, R, rec
     if plan:
         _kernels.launch(kernel, _BIG_ENTRIES[A.dtype], A, Q, R, B, n, *plan)

@@ -1,13 +1,13 @@
 """Time the port's n > 128 inner solve (K8 + K9), K9 alone, the delayed
-Hubbard update K1b and the one-CTA dense-RHS solves K3c-rhs and K3r on
-one CUDA card, at the shapes of the main paths, beside the library's
-calls:
+Hubbard update K1b, the one-CTA solves K3c-rhs, K3r, K3 and K3c and the
+float64 refactor QR K2 on one CUDA card, at the shapes of the main
+paths, beside the library's calls:
 
     python3 solve_timing.py                  # this checkout's kernels
     python3 solve_timing.py --tree OTHER     # the package of another checkout
     python3 solve_timing.py --plans          # also K8's and K9's other plans
     python3 solve_timing.py --rows k1b,k3    # only these groups (k8, k1b,
-                                             # k3, k7, k6, k5, k1)
+                                             # k3, k2, k7, k6, k5, k1)
 
 Rows of the k1b group: K1b float32 W=128 N=256 k=16 on slice 1 of a
 wrapped Hubbard L=16 G (chip_smoke.py's main-path shape) and K1b float64
@@ -22,6 +22,13 @@ probe instance on diag(r1)), and the float64 rows their CTAs per SM where
 the package reports them: the probe instance's
 clock64() cycles per phase, averaged over the CTAs, and the same in us
 at the clock the run had (each CTA's cycles over its global-timer ns).
+
+Rows of the k2 group: K2 float64 B=256 n=64 on the Hubbard L=8 main
+path's refactor blocks (chip_smoke.py's K2 shape) beside torch.linalg.qr,
+and K3c complex128 B=128 n=64 with diag(r1) on graded inner matrices at
+cond 1e11 (sdw_l4's sweep shape) beside torch.linalg.solve; each with its
+CTAs per SM and its phase split where the package has them (K3c's: the
+K3c-rhs probe instance on diag(r1), where K3c runs that body).
 
 Rows of the k5 group: the delayed SDW update K5 on slice 1 of a wrapped
 G, one whole slice (every chunk with its flush), complex64 W=128 h=256
@@ -46,8 +53,9 @@ Haar-random U, V and s graded from 1 to 1e-11 (the mid-chain condition),
 made on the card from --seed; the timed work does not depend on the
 values. Each call: CUDA events, one warm-up, the median of --reps calls
 (torch.linalg.solve and solve_triangular at least five), the backward
-error checked against 1e-13; the K5 and K1 rows also time 20 calls back
-to back (``batched``: the wrapper's host work then overlaps the card's). With --tree the package is imported from
+error checked against 1e-13; the K5, K1, k3 and k2 rows also time 20
+calls back to back (``batched``: the wrapper's host work then overlaps
+the card's). With --tree the package is imported from
 that directory (an unpacked parent commit, say), so two versions can be
 timed in one session on one card: parent, change, change, parent. Each
 row prints as one JSON line with the card's name and power limit.
@@ -355,6 +363,8 @@ def k3_rows(emit, gen, device, reps, lib_reps):
         ms = time_ms(lambda: green_solve._solve(inner, M, rhs), reps)
         lms = time_ms(lambda: torch.linalg.solve(inner, full), lib_reps)
         row = dict(kernel=name, dtype=str(dtype)[6:], B=B, n=n, ms=ms,
+                   batched_ms=time_ms_batched(
+                       lambda: green_solve._solve(inner, M, rhs)),
                    library_ms=lms, library="torch.linalg.solve",
                    backward=err)
         if dtype == torch.float64 and hasattr(green_solve,
@@ -386,6 +396,68 @@ def k3_rows(emit, gen, device, reps, lib_reps):
             del X8
         del inner, M, full, X
         torch.cuda.empty_cache()
+
+
+def k2_rows(emit, gen, device, reps, lib_reps):
+    """K2 float64 B=256 n=64 on refactor blocks of the Hubbard L=8 chain
+    and K3c complex128 B=128 n=64 (diag(r1), graded inner matrices),
+    beside torch.linalg.qr / torch.linalg.solve, with CTAs per SM and the
+    probe's split where the package has them."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import bchain, green_solve, qr
+    from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
+
+    hub = HubbardModel(HubbardConfig(L=8, U=4.0, beta=8.0, m=80, s=4,
+                                     dtype="float32"), device=device)
+    st = hub.init_state(256, gen)
+    block = st.stack.U[:, 1]
+    for l in range(1, hub.cfg.s + 1):
+        block = bchain.b_mult_left(hub.prop_chain,
+                                   hub.exp_v_chain(st.field[:, l - 1]), block)
+    n = hub.cfg.n_sites
+    A = block.reshape(-1, n, n).to(torch.float64).contiguous()
+    del hub, st, block
+    Q, R = qr.qr(A)
+    torch.cuda.synchronize()
+    recon = float((Q @ R - A).abs().max() / A.abs().max())
+    row = dict(kernel="K2", dtype="float64", B=A.shape[0], n=n,
+               ms=time_ms(lambda: qr.qr(A), reps),
+               batched_ms=time_ms_batched(lambda: qr.qr(A)),
+               library_ms=time_ms(lambda: torch.linalg.qr(A), lib_reps),
+               library="torch.linalg.qr", qr_minus_a=recon)
+    if hasattr(qr, "blocks_per_sm"):
+        row["ctas_per_sm"] = qr.blocks_per_sm(n, torch.float64, device)
+    if hasattr(qr, "probe_phases") and qr.probe_phases(n, torch.float64):
+        rec = qr.qr(A, probe=True)[-1]
+        row["probe"] = split(rec, qr.probe_phases(n, torch.float64))
+    emit(row)
+    del A, Q, R
+    B, dtype = 128, torch.complex128
+    inner = graded_inner(B, n, dtype, gen, device)
+    r1 = torch.rand((B, n), generator=gen, dtype=torch.float64,
+                    device=device) + 0.1
+    full = torch.diag_embed(r1).to(dtype)
+    X = green_solve.solve_inner(inner, r1)
+    torch.cuda.synchronize()
+    err = backward(inner, X, full)
+    if err > BACKWARD_TOL:
+        raise AssertionError(f"K3c: backward error {err:.3e}")
+    row = dict(kernel="K3c", dtype="complex128", B=B, n=n,
+               ms=time_ms(lambda: green_solve.solve_inner(inner, r1), reps),
+               batched_ms=time_ms_batched(
+                   lambda: green_solve.solve_inner(inner, r1)),
+               library_ms=time_ms(lambda: torch.linalg.solve(inner, full),
+                                  lib_reps),
+               library="torch.linalg.solve", backward=err)
+    if hasattr(green_solve, "c128_blocks_per_sm"):
+        # the package whose K3c runs K3c-rhs's body: its probe on diag(r1)
+        row["ctas_per_sm"] = green_solve.c128_blocks_per_sm(n, False, device)
+        rec = green_solve._solve(inner, full, True, probe=True)[1]
+        row["probe"] = split(rec, green_solve.TC_RHS_PROBE_PHASES)
+    emit(row)
+    del inner, r1, full, X
+    torch.cuda.empty_cache()
 
 
 def k7_rows(emit, gen, device, reps, lib_reps):
@@ -492,9 +564,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=256)
     ap.add_argument("--plans", action="store_true",
                     help="also time K8's and K9's other plans")
-    ap.add_argument("--rows", default="k8,k1b,k3,k7,k6,k5,k1",
-                    help="comma-separated groups: k8, k1b, k3, k7, k6, k5, "
-                    "k1")
+    ap.add_argument("--rows", default="k8,k1b,k3,k2,k7,k6,k5,k1",
+                    help="comma-separated groups: k8, k1b, k3, k2, k7, k6, "
+                    "k5, k1")
     args = ap.parse_args(argv)
     groups = set(args.rows.split(","))
     import torch
@@ -531,6 +603,8 @@ def main(argv=None) -> int:
         k1b_rows(emit, gen, device, args.reps)
     if "k3" in groups:
         k3_rows(emit, gen, device, args.reps, lib_reps)
+    if "k2" in groups:
+        k2_rows(emit, gen, device, args.reps, lib_reps)
     cases = (("K8+K9", torch.float64, 128, False),
              ("K8-rhs+K9", torch.float64, 5376, True),
              ("K8+K9", torch.complex128, 128, False),

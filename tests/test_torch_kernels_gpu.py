@@ -109,15 +109,26 @@ Tolerances (same inputs, same card):
   (U diag(s) P and U diag(s) V^T): the K3 criteria (the forward bound at
   n >= 8), one launch under the unchanged key; three CTAs per SM up to
   n = 64; K3r's probe instance (n = 64) gives the same outputs.
+- K2 in float64 redesigned (the float64 tensor-core body of K3 with the
+  companion Q^T in registers) at every n = 1 ... 119 (the routing limit),
+  batches of 3 and 300, on random, column-graded (1 ... 1e-11) and
+  zero-column matrices, and on the Hubbard chain's own refactor blocks
+  (n = 16, 36, 64): one launch under the unchanged key, R's strict lower
+  triangle exactly zero, Q^T Q - I and (Q R - A) / |A| within 1e-10, the
+  sign-fixed factors within 1e-10 of qr_plain's; three CTAs per SM up to
+  n = 64; its probe instance (n = 64) gives the same outputs.
+- K3c redesigned (complex128 diag(r1) on K3c-rhs's body) at every n = 1
+  ... 83, batches of 3 and 267: the K3 criteria, one launch, two CTAs per
+  SM up to n = 64.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from detqmc_tpu_torch.linalg import (_kernels, green_solve, qr, sdw_delayed,
-                                    sdw_update, sdw_wrap, slice_update,
-                                    trinv)
+from detqmc_tpu_torch.linalg import (_kernels, bchain, green_solve, qr,
+                                    sdw_delayed, sdw_update, sdw_wrap,
+                                    slice_update, trinv)
 from detqmc_tpu_torch.linalg.udv import (UDV, _sign_fix, green_inner,
                                          tau_zero_operands, udv_refactor)
 from detqmc_tpu_torch.models.hubbard import (HubbardConfig, HubbardModel,
@@ -1054,7 +1065,7 @@ def test_k3c_rhs_redesign_matches_plain(cuda_device, n, batch):
         bound = n * torch.finfo(torch.float64).eps * 1e11
         assert bool((amax(xk - xp) / amax(xp) <= bound).all())
     if n <= 64:
-        assert green_solve.rhs_blocks_per_sm(n, cuda_device) >= 2
+        assert green_solve.c128_blocks_per_sm(n, True, cuda_device) >= 2
     if green_solve.rhs_probe_phases(n, torch.complex128):
         xq, rec = green_solve._solve(inner, M, True, probe=True)
         torch.cuda.synchronize()
@@ -1108,6 +1119,105 @@ def test_k3_f64_redesign_matches_plain(cuda_device, n, batch, rhs, kind):
         assert bool((rec[:, -2] > 0).all())
 
 
+def _check_k2_f64(A, tol=1e-10):
+    """K2 in float64 on A (B, n, n): one launch under the key "qr", R's
+    strict lower triangle exactly zero, Q^T Q = I and Q R = A within tol,
+    and the sign-fixed factors within tol of qr_plain's (relative to each
+    factor's largest entry). Returns (Q, R)."""
+    B, n, _ = A.shape
+    assert qr.kernel_for(n, torch.float64) == "qr"
+    _kernels.reset_launch_counts()
+    Qk, Rk = qr.qr(A)
+    torch.cuda.synchronize()
+    expect = dict.fromkeys(_kernels.LAUNCHES, 0)
+    expect["qr"] = 1
+    assert _kernels.LAUNCHES == expect
+    assert bool((torch.tril(Rk, -1) == 0).all())
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    assert float((Qk.mT @ Qk - eye).abs().max()) <= tol
+    assert float((Qk @ Rk - A).abs().max()) <= tol * float(A.abs().max())
+    fk, fp = _sign_fix(Qk, Rk), _sign_fix(*qr.qr_plain(A))
+    for a, b in zip(fk, fp):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+    return Qk, Rk
+
+
+@pytest.mark.parametrize("kind", ["random", "graded", "zero-column"])
+@pytest.mark.parametrize("batch", [3, 300])
+def test_k2_f64_redesign_matches_plain(cuda_device, batch, kind):
+    """Every n the float64 one-CTA route takes (1 ... 119): a random
+    matrix, a column-graded one (the refactor's M diag(d), d from 1 to
+    1e-11 in the decreasing order of its pre-pivoting: Householder QR is
+    column-scaling invariant) and one with an exactly zero column (v = 0:
+    the reflector leaves everything unchanged, R_jj = 0)."""
+    dt = torch.float64
+    gen = torch.Generator(cuda_device).manual_seed(batch + len(kind))
+    for n in range(1, 120):
+        A = torch.randn((batch, n, n), generator=gen, dtype=dt,
+                        device=cuda_device)
+        if kind == "graded":
+            A = A * torch.logspace(0, -11, n, dtype=dt, device=cuda_device)
+        elif kind == "zero-column":
+            A[:, :, n // 2] = 0.0
+        Qk, Rk = _check_k2_f64(A.contiguous())
+        if kind == "zero-column":
+            assert bool((Rk[:, :, n // 2] == 0).all())
+        if n <= 64:
+            assert qr.blocks_per_sm(n, dt, cuda_device) >= 3
+
+
+@pytest.mark.parametrize("L", [4, 6, 8])
+def test_k2_f64_on_refactor_blocks(cuda_device, L):
+    """The Hubbard chain's own refactor blocks (s B's onto the orthogonal
+    stack factor, the sweep's lazy U; n = L^2); at n = 64 the probe
+    instance gives the production instance's outputs."""
+    model, state, _ = _model_state(cuda_device, "off", "float64", L=L, W=3)
+    block = state.stack.U[:, 1]
+    for l in range(1, model.cfg.s + 1):
+        block = bchain.b_mult_left(model.prop_chain,
+                                   model.exp_v_chain(state.field[:, l - 1]),
+                                   block)
+    n = model.cfg.n_sites
+    A = block.reshape(-1, n, n).to(torch.float64).contiguous()
+    Qk, Rk = _check_k2_f64(A)
+    if qr.probe_phases(n, torch.float64):
+        Qp, Rp, rec = qr.qr(A, probe=True)
+        torch.cuda.synchronize()
+        assert torch.equal(Qp, Qk) and torch.equal(Rp, Rk)
+        assert rec.shape == (A.shape[0], len(qr.TC_PROBE_PHASES) + 2)
+        assert bool((rec >= 0).all()) and bool((rec[:, -2] > 0).all())
+
+
+@pytest.mark.parametrize("batch", [3, 267])
+def test_k3c_redesign_matches_plain(cuda_device, batch):
+    """K3c (complex128, diag(r1), on K3c-rhs's tensor-core body) at every
+    n of the one-CTA route (1 ... 83) on graded inner matrices at cond
+    1e11: the K3 criteria (the forward bound at n >= 8), one launch under
+    the unchanged key, two CTAs per SM up to n = 64."""
+    dt = torch.complex128
+    for n in range(1, 84):
+        inner, gen = _graded_inner(batch, n, dt, cuda_device, n + batch)
+        r1 = torch.rand((batch, n), generator=gen, dtype=torch.float64,
+                        device=cuda_device) + 0.1
+        assert green_solve.kernel_for(n, dt) == "solve_inner_complex"
+        _kernels.reset_launch_counts()
+        xk = green_solve.solve_inner(inner, r1)
+        torch.cuda.synchronize()
+        expect = dict.fromkeys(_kernels.LAUNCHES, 0)
+        expect["solve_inner_complex"] = 1
+        assert _kernels.LAUNCHES == expect
+        xp = green_solve.solve_inner_plain(inner, r1)
+        amax = lambda X: X.abs().amax((1, 2))                   # noqa: E731
+        res = amax(inner @ xk - torch.diag_embed(r1).to(dt)) / (
+            n * amax(inner) * amax(xk))
+        assert float(res.max()) < 1e-13
+        if n >= 8:
+            bound = n * torch.finfo(torch.float64).eps * 1e11
+            assert bool((amax(xk - xp) / amax(xp) <= bound).all())
+        if n <= 64:
+            assert green_solve.c128_blocks_per_sm(n, False, cuda_device) >= 2
+
+
 K7_TOL = {torch.float32: 1e-4, torch.float64: 1e-10, torch.complex64: 1e-4,
           torch.complex128: 1e-10}
 
@@ -1135,7 +1245,7 @@ def test_k7_redesign_matches_plain(cuda_device, n, dtype, batch):
     tol = K7_TOL[dtype]
     eye = torch.eye(n, dtype=dtype, device=cuda_device)
     assert float((Qk.mH @ Qk - eye).abs().max()) <= tol
-    assert float((Qk @ Rk - A).abs().max() / A.abs().max()) <= tol
+    assert float((Qk @ Rk - A).abs().max()) <= tol * float(A.abs().max())
     fk, fp = _sign_fix(Qk, Rk), _sign_fix(*qr.qr_plain(A))
     for a, b in zip(fk, fp):
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())

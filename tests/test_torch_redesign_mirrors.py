@@ -17,6 +17,17 @@ versions on the card in tests/test_torch_kernels_gpu.py).
   route (n <= 119, the routing limit, unchanged): their shared memory,
   mirrored by ``f64_smem_bytes``, fits one block there and three per SM
   up to n = 64; K3r's probe instance is compiled at np = 64.
+- K2 in float64 (csrc/qr.cu qr_f64_tc_kernel on f64_tc.cuh, K3's body with
+  the companion Q^T) takes every n that ``qr.kernel_for`` sends to the
+  one-CTA float64 route (n <= 119, the routing limit, unchanged: float32
+  and the complex dtypes keep qr_kernel and their limits): its shared
+  memory, mirrored by ``qr.f64_smem_bytes`` (K3's layout), fits one block
+  there and three per SM up to n = 64, every Hubbard lattice up to L = 10
+  included; its probe instance is compiled at np = 64.
+- K3c (csrc/green_solve.cu solve_inner_c128_tc_kernel, K3c-rhs's body with
+  M = diag(r1)) takes every n the complex one-CTA route takes (n <= 83,
+  unchanged; every SDW dim up to L = 4): K3c-rhs's shared memory, one
+  block there, two per SM up to n = 64.
 - K7 (csrc/qr_big.cu on tc_blocked.cuh householder_tc) takes every n from
   129 to MAX_N_BIG = 512 in all four dtypes: ``big_plan`` names a plan
   that csrc/qr_big.cu compiles, its shared memory (``tc_smem_bytes``, the
@@ -79,7 +90,9 @@ def test_k1b_default_chunk_unchanged(N, C, dtype):
 def test_k3c_rhs_shared_memory_and_routing(n):
     np_ = -(-n // 8) * 8
     smem = green_solve.rhs_smem_bytes(n)
-    assert smem == 16 * (np_ * (np_ + 1) + 9 * np_ + 2 * 8 * 9 + 24) + 64
+    # A, the side buffer, T and V^H V, alpha and v's heads (complex128),
+    # beta (float64)
+    assert smem == 16 * (np_ * (np_ + 1) + 9 * np_ + 2 * 8 * 9 + 16) + 64
     assert green_solve.kernel_for(n, torch.complex128) == \
         "solve_inner_complex"
     assert green_solve.entry("solve_inner_complex", True) == (
@@ -129,6 +142,88 @@ def test_k3_f64_routing_limit_unchanged(n, route):
     assert green_solve.smem_bytes(n, torch.float64) == 8 * (
         2 * n * (n + 1) + 3 * n)
     assert green_solve.rhs_probe_phases(n, torch.float64) is None
+
+
+@pytest.mark.parametrize("n", [1, 8, 16, 36, 57, 64, 65, 100, 119])
+def test_k2_f64_shared_memory_and_routing(n):
+    np_ = -(-n // 8) * 8
+    smem = qr.f64_smem_bytes(n)
+    assert smem == 8 * (np_ * (np_ + 4) + 9 * np_ + 2 * 8 * 9 + 24)
+    assert smem == green_solve.f64_smem_bytes(n)     # one body with K3's
+    assert qr.kernel_for(n, torch.float64) == "qr"
+    assert np_ <= 120       # the instances qr.cu compiles, rf <= 15
+    assert smem <= _kernels.MAX_SMEM_BYTES - 1024
+    if n <= 64:
+        assert 3 * (smem + 1024) <= 228 * 1024
+    assert (qr.probe_phases(n, torch.float64)
+            == (qr.TC_PROBE_PHASES if np_ == 64 else None))
+    assert qr.TC_PROBE_PHASES == green_solve.TC_RHS_PROBE_PHASES
+
+
+@pytest.mark.parametrize("dtype,last", [(torch.float32, 128),
+                                        (torch.float64, 119),
+                                        (torch.complex64, 119),
+                                        (torch.complex128, 83)])
+def test_k2_routing_limits_unchanged(dtype, last):
+    """qr.kernel_for keeps its limits: the last n of the one-CTA route
+    (K2 / K2c) and the first of K7; the routing memory stays qr_kernel's
+    layout in every dtype."""
+    one = "qr_complex" if dtype.is_complex else "qr"
+    assert qr.kernel_for(last, dtype) == one
+    assert qr.kernel_for(last + 1, dtype) == one + "_big"
+    item = dtype.itemsize
+    assert qr.smem_bytes(last, dtype) == item * (2 * last * (last + 1)
+                                                 + 3 * last)
+    # the probes: K2's in float64 at np = 64, K7's beyond the route
+    assert (qr.probe_phases(64, dtype) is None) == (dtype != torch.float64)
+    assert qr.probe_phases(last + 1, dtype) == (
+        qr.BIG_PROBE_PHASES if dtype in (torch.float64, torch.complex64)
+        else None)
+
+
+def test_k2_f64_takes_every_hubbard_lattice():
+    """Every Hubbard lattice whose n = L^2 the float64 one-CTA route takes
+    (L <= 10) fits one block of K2, three per SM up to L = 8 (the L = 8
+    main path: B = 256 in one wave on 132 SMs); L = 11 goes to K7."""
+    for L in range(1, 11):
+        n = L * L
+        assert qr.kernel_for(n, torch.float64) == "qr"
+        smem = qr.f64_smem_bytes(n)
+        assert smem <= _kernels.MAX_SMEM_BYTES - 1024
+        if n <= 64:
+            assert 3 * (smem + 1024) <= 228 * 1024
+    assert 256 <= 3 * _kernels.H100_SMS
+    assert qr.kernel_for(121, torch.float64) == "qr_big"
+
+
+@pytest.mark.parametrize("n", [1, 4, 16, 36, 64, 65, 83])
+def test_k3c_shared_memory_and_routing(n):
+    np_ = -(-n // 8) * 8
+    assert green_solve.kernel_for(n, torch.complex128) == \
+        "solve_inner_complex"
+    assert green_solve.entry("solve_inner_complex", False) == (
+        "solve_inner_complex", "dq_solve_inner_c128")
+    assert np_ <= 88        # the instances green_solve.cu compiles
+    smem = green_solve.rhs_smem_bytes(n)
+    assert smem <= _kernels.MAX_SMEM_BYTES - 1024
+    assert (smem <= _kernels.TWO_CTA_SMEM_BYTES) == (np_ <= 72)
+
+
+def test_k3c_takes_every_sdw_dim():
+    """Every SDW dim (4 L^2) the complex one-CTA route takes (L <= 4, the
+    sdw_l4 main path's h = 64 included) is a K3c shape; L = 5 (h = 100)
+    goes to K8 + K9, and the route's limit stays n = 83."""
+    for L in range(1, 5):
+        h = SDWConfig(L=L, m=8, s=4).dim
+        assert h == 4 * L * L
+        assert green_solve.kernel_for(h, torch.complex128) == \
+            "solve_inner_complex"
+    assert green_solve.kernel_for(SDWConfig(L=5, m=8, s=4).dim,
+                                  torch.complex128) == "solve_inner_complex_big"
+    assert green_solve.kernel_for(83, torch.complex128) == \
+        "solve_inner_complex"
+    assert green_solve.kernel_for(84, torch.complex128) == \
+        "solve_inner_complex_big"
 
 
 # the (b, tc) instances csrc/qr_big.cu compiles (qr_plan_ok)
