@@ -55,10 +55,6 @@ namespace dq {
 
 constexpr int kLdV = 9;        // side buffer stride: V, then R's block inverses
 
-// the phase probe's phases of the one-CTA tensor-core bodies (K3r, K2 and
-// K3c-rhs), in the order of their per-CTA records
-enum { kTcPanel, kTcApplyA, kTcApplyM, kTcBacksub, kTcBarrier, kTcLoadStore, kTcPhases };
-
 // the companion M of the float64 body
 enum F64Mode { kDiagM, kDenseM, kIdentityM };
 

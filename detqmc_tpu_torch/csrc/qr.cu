@@ -35,10 +35,10 @@
 
 namespace dq {
 
-template <typename S>
+template <typename S, bool PROBE = false>
 __global__ void __launch_bounds__(kThreads)
 qr_kernel(const S* __restrict__ A_in, S* __restrict__ Q_out,
-          S* __restrict__ R_out, int n) {
+          S* __restrict__ R_out, int n, long long* probe_out) {
     using R = typename real_of<S>::type;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int ld = n + 1;
@@ -46,6 +46,8 @@ qr_kernel(const S* __restrict__ A_in, S* __restrict__ Q_out,
     S* Qh = A + n * ld;                      // n x ld
     S* v = Qh + n * ld;                      // n
     S* s = v + n;                            // 2n
+    Probe<PROBE, kTcPhases> probe;
+    probe.start();
     const int tid = threadIdx.x;
     const size_t off = size_t(blockIdx.x) * n * n;
     for (int idx = tid; idx < n * n; idx += kThreads) {
@@ -53,13 +55,17 @@ qr_kernel(const S* __restrict__ A_in, S* __restrict__ Q_out,
         A[r * ld + c] = A_in[off + idx];
         Qh[r * ld + c] = from_real<S>(r == c ? R(1) : R(0));
     }
+    probe.lap(kTcLoadStore);
     __syncthreads();
-    householder_apply(A, Qh, v, s, n, ld);
+    probe.lap(kTcBarrier);
+    householder_apply(A, Qh, v, s, n, ld, probe);
     for (int idx = tid; idx < n * n; idx += kThreads) {
         const int r = idx / n, c = idx - r * n;
         R_out[off + idx] = c >= r ? A[r * ld + c] : from_real<S>(R(0));
         Q_out[off + idx] = conj_(Qh[c * ld + r]);
     }
+    probe.lap(kTcLoadStore);
+    probe.store(probe_out);
 }
 
 // mirrored by linalg/qr.py smem_bytes
@@ -68,12 +74,12 @@ size_t qr_smem_bytes(int n) {
     return sizeof(S) * (2 * size_t(n) * (n + 1) + 3 * size_t(n));
 }
 
-template <typename S>
+template <typename S, bool PROBE = false>
 int qr(int device, const void* A, void* Q, void* R, int batch, int n,
-       void* stream) {
-    return launch_smem(device, qr_kernel<S>, batch, qr_smem_bytes<S>(n), stream,
+       void* stream, long long* probe = nullptr) {
+    return launch_smem(device, qr_kernel<S, PROBE>, batch, qr_smem_bytes<S>(n), stream,
                        static_cast<const S*>(A), static_cast<S*>(Q),
-                       static_cast<S*>(R), n);
+                       static_cast<S*>(R), n, probe);
 }
 
 // its own name, so a profile tells K2 in float64 from qr_kernel (float32,
@@ -142,6 +148,16 @@ int dq_qr_probe_f64(int device, const void* A, void* Q, void* R, int batch, int 
                     void* probe, void* stream) {
     return dq::qr_f64<true>(device, A, Q, R, batch, n, stream,
                             static_cast<long long*>(probe));
+}
+
+// K2c in complex64 with the phase probe on (any n qr_kernel takes): probe
+// (batch x 8 int64) gets each CTA's cycles per phase (norms and reflector
+// formation, application to A, to Q^H, back-substitution (none),
+// barriers, loads and stores), total cycles and ns
+int dq_qr_probe_c64(int device, const void* A, void* Q, void* R, int batch, int n,
+                    void* probe, void* stream) {
+    return dq::qr<dq::cplx<float>, true>(device, A, Q, R, batch, n, stream,
+                                         static_cast<long long*>(probe));
 }
 
 // CTAs of the one-CTA QR one SM holds at this n, dtype code 0..3 (float32,

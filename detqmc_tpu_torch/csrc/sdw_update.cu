@@ -29,13 +29,20 @@
 
 namespace dq {
 
-template <typename T>
+// the phase probe's phases (Probe, common.cuh), mirrored by
+// linalg/sdw_update.py PROBE_PHASES: the site's scalar chain (live term,
+// decision, T), the barriers, the staging of the site's columns and rows,
+// the combined columns, the rank-4 update, the loads and stores
+enum { kChain, kBarrier, kStage, kComb, kUpdate, kLoadStore, kPhases };
+
+template <typename T, bool PROBE = false>
 __global__ void __launch_bounds__(kThreads)
 sdw_update_kernel(const cplx<T>* __restrict__ G_in, const T* __restrict__ phi_in,
                   const T* __restrict__ phin_in, const T* __restrict__ lhs_in,
                   const cplx<T>* __restrict__ delta_in, const int* __restrict__ nb,
                   cplx<T>* __restrict__ G_out, T* __restrict__ phi_out,
-                  T* __restrict__ acc_out, int N, int opdim, T dtau, T c_det) {
+                  T* __restrict__ acc_out, int N, int opdim, T dtau, T c_det,
+                  long long* probe_out) {
     using S = cplx<T>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int h = 4 * N, ld = h + 1;
@@ -48,6 +55,8 @@ sdw_update_kernel(const cplx<T>* __restrict__ G_in, const T* __restrict__ phi_in
     __shared__ int accept_s;
     __shared__ T acc_s;
 
+    Probe<PROBE, kPhases> probe;
+    probe.start();
     const int tid = threadIdx.x;
     const size_t wk = blockIdx.x;
     const S* Gw = G_in + wk * h * h;
@@ -59,7 +68,9 @@ sdw_update_kernel(const cplx<T>* __restrict__ G_in, const T* __restrict__ phi_in
     const T* phin = phin_in + wk * N * opdim;
     for (int idx = tid; idx < N * opdim; idx += kThreads) phi[idx] = phi0[idx];
     if (tid == 0) acc_s = T(0);
+    probe.lap(kLoadStore);
     __syncthreads();
+    probe.lap(kBarrier);
 
     for (int i = 0; i < N; ++i) {
         if (tid == 0) {
@@ -77,7 +88,9 @@ sdw_update_kernel(const cplx<T>* __restrict__ G_in, const T* __restrict__ phi_in
                 acc_s = add_rn(acc_s, T(1));
             }
         }
+        probe.lap(kChain);
         __syncthreads();
+        probe.lap(kBarrier);
         if (accept_s) {   // block-uniform
             for (int idx = tid; idx < 4 * h; idx += kThreads) {
                 const int b = idx / h, r = idx - b * h, j = b * N + i;
@@ -85,7 +98,9 @@ sdw_update_kernel(const cplx<T>* __restrict__ G_in, const T* __restrict__ phi_in
                 const S g = G[j * ld + r];
                 rows[idx] = mk(sub_rn(r == j ? T(1) : T(0), g.re), -g.im);
             }
+            probe.lap(kStage);
             __syncthreads();
+            probe.lap(kBarrier);
             for (int idx = tid; idx < 4 * h; idx += kThreads) {
                 const int b = idx / h, r = idx - b * h;
                 S acc = cmul_rn(cols[r], Tm[b]);
@@ -93,7 +108,9 @@ sdw_update_kernel(const cplx<T>* __restrict__ G_in, const T* __restrict__ phi_in
                     acc = cadd_rn(acc, cmul_rn(cols[a * h + r], Tm[4 * a + b]));
                 comb[idx] = acc;
             }
+            probe.lap(kComb);
             __syncthreads();
+            probe.lap(kBarrier);
             for (int idx = tid; idx < h * h; idx += kThreads) {
                 const int r = idx / h, c = idx - r * h;
                 S u = cmul_rn(comb[r], rows[c]);
@@ -101,8 +118,10 @@ sdw_update_kernel(const cplx<T>* __restrict__ G_in, const T* __restrict__ phi_in
                     u = cadd_rn(u, cmul_rn(comb[b * h + r], rows[b * h + c]));
                 G[r * ld + c] = csub_rn(G[r * ld + c], u);
             }
+            probe.lap(kUpdate);
         }
         __syncthreads();
+        probe.lap(kBarrier);
     }
 
     S* Go = G_out + wk * h * h;
@@ -113,23 +132,25 @@ sdw_update_kernel(const cplx<T>* __restrict__ G_in, const T* __restrict__ phi_in
     for (int idx = tid; idx < N * opdim; idx += kThreads)
         phi_out[wk * N * opdim + idx] = phi[idx];
     if (tid == 0) acc_out[wk] = acc_s;
+    probe.lap(kLoadStore);
+    probe.store(probe_out);
 }
 
-template <typename T>
+template <typename T, bool PROBE = false>
 int sdw_update(int device, const void* G, const void* phi, const void* phin,
                const void* lhs, const void* delta, const void* nb, void* G_out,
                void* phi_out, void* acc_out, int W, int N, int opdim,
-               double dtau, double c_det, void* stream) {
+               double dtau, double c_det, void* stream, long long* probe = nullptr) {
     const size_t h = 4 * size_t(N);
     const size_t smem = sizeof(cplx<T>) * (h * (h + 1) + 12 * h)
                         + sizeof(T) * size_t(N) * opdim;
-    return launch_smem(device, sdw_update_kernel<T>, W, smem, stream,
+    return launch_smem(device, sdw_update_kernel<T, PROBE>, W, smem, stream,
                        static_cast<const cplx<T>*>(G), static_cast<const T*>(phi),
                        static_cast<const T*>(phin), static_cast<const T*>(lhs),
                        static_cast<const cplx<T>*>(delta), static_cast<const int*>(nb),
                        static_cast<cplx<T>*>(G_out), static_cast<T*>(phi_out),
                        static_cast<T*>(acc_out), N, opdim, static_cast<T>(dtau),
-                       static_cast<T>(c_det));
+                       static_cast<T>(c_det), probe);
 }
 
 }  // namespace dq
@@ -154,6 +175,18 @@ int dq_sdw_update_c128(int device, const void* G, const void* phi,
     return dq::sdw_update<double>(device, G, phi, phin, lhs, delta, nb, G_out,
                                   phi_out, acc_out, W, N, opdim, dtau, c_det,
                                   stream);
+}
+
+// the complex64 update with the phase probe on: probe (W x 8 int64) gets
+// each CTA's cycles per phase (PROBE_PHASES), its total cycles and ns
+int dq_sdw_update_probe_c64(int device, const void* G, const void* phi,
+                            const void* phin, const void* lhs, const void* delta,
+                            const void* nb, void* G_out, void* phi_out, void* acc_out,
+                            int W, int N, int opdim, double dtau, double c_det,
+                            void* probe, void* stream) {
+    return dq::sdw_update<float, true>(device, G, phi, phin, lhs, delta, nb, G_out,
+                                       phi_out, acc_out, W, N, opdim, dtau, c_det,
+                                       stream, static_cast<long long*>(probe));
 }
 
 }  // extern "C"

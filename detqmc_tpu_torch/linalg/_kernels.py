@@ -63,6 +63,7 @@ _SIGNATURES = {
     "dq_qr_c128": [_I, _P, _P, _P, _I, _I, _P],
     # the same, then the phase probe's record (batch x 8 int64)
     "dq_qr_probe_f64": [_I, _P, _P, _P, _I, _I, _P, _P],
+    "dq_qr_probe_c64": [_I, _P, _P, _P, _I, _I, _P, _P],
     # CTAs per SM of the one-CTA QR (no launch): device, dtype code, n
     "dq_qr_blocks_per_sm": [_I, _I, _I],
     # device, inner, r1, mid, batch, n, stream
@@ -82,6 +83,8 @@ _SIGNATURES = {
     # W, N, opdim, dtau, c_det, stream
     "dq_sdw_update_c64": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P],
     "dq_sdw_update_c128": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P],
+    # the same, then the phase probe's record (W x 8 int64)
+    "dq_sdw_update_probe_c64": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P, _P],
     # device, G, G_out, phi, phi_new, lhs, delta, nb, phi_out, acc_out,
     # slots, W, N, opdim, K, resident, dtau, c_det, stream
     "dq_sdw_delayed_c64": [_I] + [_P] * 10 + [_I] * 5 + [_D, _D, _P],

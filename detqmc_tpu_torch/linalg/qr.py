@@ -164,26 +164,37 @@ _BIG_PROBE_ENTRIES = {torch.float64: "dq_qr_big_probe_f64",
 # back-substitution stays 0. K2's probe instance is compiled at np = 64.
 TC_PROBE_PHASES = ("panel", "apply to A", "apply to M",
                    "back-substitution", "barriers", "loads and stores")
+_PROBE_ENTRIES = {torch.float64: "dq_qr_probe_f64",
+                  torch.complex64: "dq_qr_probe_c64"}
 
 
 def probe_phases(n: int, dtype):
     """The phase names of the probe instance of the kernel ``kernel_for``
     routes this n and dtype to, if it has one at this n (K7's only at its
-    one-CTA plan), else None."""
+    one-CTA plan), else None; K2c's is ``complex_probe_phases``."""
     if kernel_for(n, dtype).endswith("_big"):
         return BIG_PROBE_PHASES if dtype in _BIG_PROBE_ENTRIES else None
     return (TC_PROBE_PHASES if dtype == torch.float64 and -(-n // 8) == 8
             else None)
 
 
+def complex_probe_phases(n: int, dtype):
+    """The phase names of K2c's probe instance (complex64 on the one-CTA
+    route, any n), else None."""
+    return (TC_PROBE_PHASES if dtype == torch.complex64
+            and kernel_for(n, dtype) == "qr_complex" else None)
+
+
 def qr(A, probe: bool = False):
     """K2 (float32/float64), K2c (complex64/complex128) or K7 (all four):
     CPU tensors run ``qr_plain``; CUDA tensors launch the kernel
     ``kernel_for`` names (contiguous (B, n, n)) or raise. With ``probe``
-    (K7 in float64 or complex64, K2 in float64 at n = 57..64) the kernel's
+    (K7 in float64 or complex64, K2 in float64 at n = 57..64, K2c in
+    complex64) the kernel's
     instance with clock64() stamps runs instead, and the result gains a
-    (B, len(phases) + 2) int64 record per CTA (``probe_phases``): cycles
-    per phase, total cycles, total ns."""
+    (B, len(phases) + 2) int64 record per CTA (``probe_phases``,
+    ``complex_probe_phases``): cycles per phase, total cycles, total
+    ns."""
     if A.device.type == "cpu":
         if probe:
             raise ValueError("qr: the probe needs a CUDA tensor")
@@ -195,21 +206,21 @@ def qr(A, probe: bool = False):
     kernel = kernel_for(n, A.dtype)
     plan = (big_plan(n, A.dtype, B, _kernels.sm_count(A.device))
             if kernel.endswith("_big") else None)
-    if probe and (probe_phases(n, A.dtype) is None
-                  or plan is not None and plan[0] != 32):
+    phases = probe_phases(n, A.dtype) or complex_probe_phases(n, A.dtype)
+    if probe and (phases is None or plan is not None and plan[0] != 32):
         raise ValueError(f"qr: no phase probe for n={n} {A.dtype} at plan "
                          f"{plan}")
     Q = torch.empty_like(A)
     R = torch.empty_like(A)
     if probe:
-        phases = probe_phases(n, A.dtype)
         rec = torch.zeros((B, len(phases) + 2), dtype=torch.int64,
                           device=A.device)
         if plan:
             _kernels.launch(kernel, _BIG_PROBE_ENTRIES[A.dtype], A, Q, R, B,
                             n, *plan, rec)
         else:
-            _kernels.launch(kernel, "dq_qr_probe_f64", A, Q, R, B, n, rec)
+            _kernels.launch(kernel, _PROBE_ENTRIES[A.dtype], A, Q, R, B, n,
+                            rec)
         return Q, R, rec
     if plan:
         _kernels.launch(kernel, _BIG_ENTRIES[A.dtype], A, Q, R, B, n, *plan)

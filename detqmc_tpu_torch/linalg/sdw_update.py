@@ -43,6 +43,11 @@ from detqmc_tpu_torch.linalg import _kernels
 
 _ENTRIES = {torch.complex64: "dq_sdw_update_c64",
             torch.complex128: "dq_sdw_update_c128"}
+# the phase probe's phases (csrc/sdw_update.cu), in the order of its
+# per-CTA record; the record ends with the CTA's total cycles and ns. The
+# probe instance is compiled for complex64.
+PROBE_PHASES = ("chain", "barriers", "staging", "combined columns",
+                "rank-4 update", "loads and stores")
 # 2x2 minors: s_k of rows (0, 1) and c_k of rows (2, 3) over these column
 # pairs; minors = (s_0..s_5, c_0..c_5)
 _PAIR_A = [0, 0, 0, 1, 1, 2]
@@ -185,12 +190,18 @@ def smem_bytes(N: int, opdim: int, dtype) -> int:
     return item * (h * (h + 1) + 12 * h) + item // 2 * N * opdim
 
 
-def sdw_update(G, phi_l, phi_new, lhs, delta, nb, dtau: float, c_det: float):
+def sdw_update(G, phi_l, phi_new, lhs, delta, nb, dtau: float, c_det: float,
+               probe: bool = False):
     """K4: CPU tensors run ``sdw_update_plain``; CUDA tensors launch the
     kernel (complex64 or complex128, contiguous, h = 4 N within the
     shared-memory budget: h <= 160 in complex64, h <= 112 in complex128)
-    or raise."""
+    or raise. With ``probe`` (complex64) the kernel's instance with
+    clock64() stamps runs instead, and the result gains a (W, 8) int64
+    record per CTA: cycles per phase (``PROBE_PHASES``), total cycles,
+    total ns."""
     if G.device.type == "cpu":
+        if probe:
+            raise ValueError("sdw_update: the probe needs a CUDA tensor")
         return sdw_update_plain(G, phi_l, phi_new, lhs, delta, nb, dtau,
                                 c_det)
     _kernels.check_cuda_tensor("G", G, tuple(_ENTRIES), 3)
@@ -213,10 +224,17 @@ def sdw_update(G, phi_l, phi_new, lhs, delta, nb, dtau: float, c_det: float):
     if smem_bytes(N, opdim, G.dtype) > _kernels.MAX_SMEM_BYTES - 1024:
         raise ValueError(f"sdw_update: h={h} {G.dtype} exceeds the "
                          "shared-memory budget")
+    if probe and G.dtype != torch.complex64:
+        raise ValueError("sdw_update: the probe instance is complex64")
     G_out = torch.empty_like(G)
     phi_out = torch.empty_like(phi_l)
     acc = torch.empty(W, dtype=rdt, device=G.device)
-    _kernels.launch("sdw_update", _ENTRIES[G.dtype], G, phi_l, phi_new, lhs,
-                    delta, nb, G_out, phi_out, acc, W, N, opdim, float(dtau),
-                    float(c_det))
+    args = (G, phi_l, phi_new, lhs, delta, nb, G_out, phi_out, acc, W, N,
+            opdim, float(dtau), float(c_det))
+    if probe:
+        rec = torch.zeros((W, len(PROBE_PHASES) + 2), dtype=torch.int64,
+                          device=G.device)
+        _kernels.launch("sdw_update", "dq_sdw_update_probe_c64", *args, rec)
+        return G_out, phi_out, acc, rec
+    _kernels.launch("sdw_update", _ENTRIES[G.dtype], *args)
     return G_out, phi_out, acc

@@ -7,7 +7,8 @@ paths, beside the library's calls:
     python3 solve_timing.py --tree OTHER     # the package of another checkout
     python3 solve_timing.py --plans          # also K8's and K9's other plans
     python3 solve_timing.py --rows k1b,k3    # only these groups (k8, k1b,
-                                             # k3, k2, k7, k6, k5, k1)
+                                             # k3, k2, k7, k6, k5, k1,
+                                             # k2c, k4)
 
 Rows of the k1b group: K1b float32 W=128 N=256 k=16 on slice 1 of a
 wrapped Hubbard L=16 G (chip_smoke.py's main-path shape) and K1b float64
@@ -29,6 +30,13 @@ and K3c complex128 B=128 n=64 with diag(r1) on graded inner matrices at
 cond 1e11 (sdw_l4's sweep shape) beside torch.linalg.solve; each with its
 CTAs per SM and its phase split where the package has them (K3c's: the
 K3c-rhs probe instance on diag(r1), where K3c runs that body).
+
+Rows of the k2c group: K2c complex64 and complex128 B=128 n=64 on
+refactor blocks of the sdw_l4 chain beside torch.linalg.qr; of the k4
+group: K4 complex64 and complex128 W=128 h=64 on slice 1 of the sdw_l4
+chain (its wrapped G, proposal and lhs), 20 calls back to back beside
+each; each with its CTAs per SM and its phase split (complex64) where the
+package has them.
 
 Rows of the k5 group: the delayed SDW update K5 on slice 1 of a wrapped
 G, one whole slice (every chunk with its flush), complex64 W=128 h=256
@@ -71,6 +79,8 @@ import sys
 from pathlib import Path
 
 BACKWARD_TOL = 1e-13
+# chip_smoke.py's SDW_CFG: the sdw_l4 chain
+SDW4 = dict(L=4, opdim=3, r=0.5, beta=4.0, m=40, s=4, dtype="float32")
 # chip_smoke.py's L16_CFG and SDW8_CFG: the Hubbard L=16 and sdw_l8 chains
 L16 = dict(L=16, U=4.0, mu=0.0, beta=8.0, m=80, s=4, checkerboard=True,
            delay=16, dtype="float32")
@@ -460,6 +470,92 @@ def k2_rows(emit, gen, device, reps, lib_reps):
     torch.cuda.empty_cache()
 
 
+def sdw4_model(device, gen, W=128):
+    """The sdw_l4 main path's model (chip_smoke.py SDW_CFG) and a state of
+    W walkers."""
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    model = SDWModel(SDWConfig(**SDW4), device=device)
+    return model, model.init_state(W, gen)
+
+
+def k2c_rows(emit, gen, device, reps, lib_reps):
+    """K2c complex64 and complex128 B=128 n=64 on refactor blocks of the
+    sdw_l4 chain (s B's onto the stack's unitary factor, chip_smoke.py's
+    K2c shape) beside torch.linalg.qr, with CTAs per SM and the probe's
+    split (complex64) where the package has them."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import qr
+
+    model, st = sdw4_model(device, gen)
+    block = st.stack_U[:, 1]
+    for l in range(1, model.cfg.s + 1):
+        block = model.b_mult_left(model.exp_v_blocks(st.phi[:, l - 1]), block)
+    del model, st
+    for cdt in (torch.complex64, torch.complex128):
+        A = block.to(cdt).contiguous()
+        B, n = A.shape[0], A.shape[-1]
+        Q, R = qr.qr(A)
+        torch.cuda.synchronize()
+        recon = float((Q @ R - A).abs().max() / A.abs().max())
+        row = dict(kernel="K2c", dtype=str(cdt)[6:], B=B, n=n,
+                   ms=time_ms(lambda: qr.qr(A), reps),
+                   batched_ms=time_ms_batched(lambda: qr.qr(A)),
+                   library_ms=time_ms(lambda: torch.linalg.qr(A), lib_reps),
+                   library="torch.linalg.qr", qr_minus_a=recon,
+                   ctas_per_sm=qr.blocks_per_sm(n, cdt, device))
+        names = (qr.complex_probe_phases(n, cdt)
+                 if hasattr(qr, "complex_probe_phases") else None)
+        if names:
+            row["probe"] = split(qr.qr(A, probe=True)[-1], names)
+        emit(row)
+        del A, Q, R
+    del block
+    torch.cuda.empty_cache()
+
+
+def k4_rows(emit, gen, device, reps):
+    """K4 complex64 and complex128 W=128 h=64 on slice 1 of the sdw_l4
+    chain (the wrapped G, proposal and lhs as SDWModel.update_slice builds
+    them; chip_smoke.py's K4 shape), with CTAs per SM and the probe's split
+    (complex64) where the package has them."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import sdw_update
+
+    model, st = sdw4_model(device, gen)
+    phi, W = st.phi, st.phi.shape[0]
+    G = model.wrap_up(st.G, model.exp_v_blocks(phi[:, 0]),
+                      model.exp_v_blocks(phi[:, 0], 1.0))
+    u01, rnd = model._draw_proposal_randoms(W, gen)
+    phi_new, jac = model._propose_all(phi[:, 0], tuple(x[:, 0] for x in rnd),
+                                      st.box_width, st.sweeps_done % 2)
+    lhs = torch.log(u01[:, 0]) - jac + model._ds_static(
+        phi[:, 0], phi_new, phi[:, 1], phi[:, -1], st.r)
+    delta = model.exp_v_blocks(phi_new, -1.0) @ model.exp_v_blocks(
+        phi[:, 0], 1.0) - torch.eye(4, dtype=model.cdtype, device=device)
+    extra = (model.nb, model.cfg.dtau, model.c_det)
+    N, h = model.cfg.n_sites, model.dim
+    for cdt in (torch.complex64, torch.complex128):
+        args = [x.to(cdt if x.is_complex() else cdt.to_real()).contiguous()
+                for x in (G, phi[:, 0], phi_new, lhs, delta)]
+        run = lambda: sdw_update.sdw_update(*args, *extra)   # noqa: E731
+        acc = float(run()[2].sum())
+        row = dict(kernel="K4", dtype=str(cdt)[6:], W=W, h=h, N=N,
+                   ms=time_ms(run, reps), batched_ms=time_ms_batched(run),
+                   acceptance=acc / (W * N))
+        if hasattr(sdw_update, "blocks_per_sm"):
+            row["ctas_per_sm"] = sdw_update.blocks_per_sm(N, cdt, device)
+        if hasattr(sdw_update, "PROBE_PHASES") and cdt == torch.complex64:
+            rec = sdw_update.sdw_update(*args, *extra, probe=True)[-1]
+            row["probe"] = split(rec, sdw_update.PROBE_PHASES)
+        emit(row)
+        del args
+    del model, st, G
+    torch.cuda.empty_cache()
+
+
 def k7_rows(emit, gen, device, reps, lib_reps):
     """K7 float64 B=128 n=256 on a refactor block of the Hubbard L=16
     chain and complex64 B=128 n=256 on an sdw_l8 block, beside
@@ -564,9 +660,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=256)
     ap.add_argument("--plans", action="store_true",
                     help="also time K8's and K9's other plans")
-    ap.add_argument("--rows", default="k8,k1b,k3,k2,k7,k6,k5,k1",
+    ap.add_argument("--rows", default="k8,k1b,k3,k2,k7,k6,k5,k1,k2c,k4",
                     help="comma-separated groups: k8, k1b, k3, k2, k7, k6, "
-                    "k5, k1")
+                    "k5, k1, k2c, k4")
     args = ap.parse_args(argv)
     groups = set(args.rows.split(","))
     import torch
@@ -605,6 +701,10 @@ def main(argv=None) -> int:
         k3_rows(emit, gen, device, args.reps, lib_reps)
     if "k2" in groups:
         k2_rows(emit, gen, device, args.reps, lib_reps)
+    if "k2c" in groups:
+        k2c_rows(emit, gen, device, args.reps, lib_reps)
+    if "k4" in groups:
+        k4_rows(emit, gen, device, args.reps)
     cases = (("K8+K9", torch.float64, 128, False),
              ("K8-rhs+K9", torch.float64, 5376, True),
              ("K8+K9", torch.complex128, 128, False),
