@@ -24,11 +24,12 @@ Phases (any failure raises, and the script exits non-zero):
 5. profile — one more pair under torch.profiler: device time by kernel
    (K1, K2, K3, cuBLAS f32/f64 gemm, other) and the device's busy
    share of a timed pair's wall time;
-6. SDW kernels — K4 sdw_update (complex64 and complex128), K2c qr
-   (complex64 and complex128) and K3c solve_inner (complex128; both with
-   their CTAs per SM), each against its plain PyTorch version at the SDW main-path shapes (W = 128,
-   h = 64, N = 16) on a wrapped G, a refactor block and a mid-chain inner
-   matrix, timed like phase 2;
+6. SDW kernels — K4 sdw_update (complex64 and complex128, bitwise in
+   complex128), K2c qr (complex64 and complex128) and K3c solve_inner
+   (complex128; all three with their CTAs per SM), each against its plain
+   PyTorch version at the SDW main-path shapes (W = 128, h = 64, N = 16)
+   on a wrapped G, a refactor block and a mid-chain inner matrix, timed
+   like phase 2;
 7. SDW path parity — SDWConfig(L=2, m=8, s=4, float64), W = 4, swept on
    the card and on the CPU with the same draws: identical fields, G within
    1e-10;
@@ -581,14 +582,16 @@ def main_path_phase(device, card, cfg_kw=MAIN_CFG, W=W_MAIN,
 
 
 # the one-CTA kernels have names of their own, none a substring of
-# another's: K2 in float64 qr_f64_tc_kernel (qr_kernel is float32 and K2c),
-# K3 solve_inner_f64_tc_kernel, K3r solve_inner_rhs_f64_tc_kernel, K3c
-# solve_inner_c128_tc_kernel, K3c-rhs solve_inner_rhs_tc_kernel
+# another's: K2 in float64 qr_f64_tc_kernel (qr_kernel is float32), K2c
+# qr_c64_tc_kernel and qr_c128_tc_kernel, K3 solve_inner_f64_tc_kernel,
+# K3r solve_inner_rhs_f64_tc_kernel, K3c solve_inner_c128_tc_kernel,
+# K3c-rhs solve_inner_rhs_tc_kernel
 HUBBARD_GROUPS = (("slice_update_kernel", "K1 slice_update"),
                   ("qr_f64_tc_kernel", "K2 qr"),
                   ("solve_inner_f64_tc_kernel", "K3 solve_inner"))
 SDW_GROUPS = (("sdw_update_kernel", "K4 sdw_update"),
-              ("qr_kernel", "K2c qr"),
+              ("qr_c64_tc_kernel", "K2c qr"),
+              ("qr_c128_tc_kernel", "K2c qr"),
               ("solve_inner_c128_tc_kernel", "K3c solve_inner"))
 # K5's G -= C R flushes run in its own body (no "gemm c64" of them is
 # left in the profile)
@@ -606,7 +609,8 @@ DYN_GROUPS = (("solve_inner_rhs_f64_tc_kernel", "K3r"),
               ("solve_inner_big_rhs_kernel", "K8-rhs"),
               ("solve_inner_f64_tc_kernel", "K3 solve_inner"),
               ("qr_f64_tc_kernel", "K2 qr"),
-              ("qr_kernel", "K2c qr"),
+              ("qr_c64_tc_kernel", "K2c qr"),
+              ("qr_c128_tc_kernel", "K2c qr"),
               ("qr_big_kernel", "K7 qr_complex_big"),
               ("line_pass_kernel", "K6 sdw_apply"),
               ("trinv_big_kernel", "K9 trinv_big"))
@@ -767,13 +771,18 @@ def sdw_kernel_phase(model, state, gen):
         err = float((Gk - Gp)[same].abs().max())
         check(torch.equal(ak[same], ap[same]), f"K4 {cname}: acceptance "
               "differs")
+        if cname == "complex128":
+            check(torch.equal(Gk, Gp) and torch.equal(pk, pp)
+                  and torch.equal(ak, ap), "K4 complex128: not bitwise "
+                  "equal to the plain version")
         check(err <= K4_TOL[cname], f"K4 {cname}: max|G_k - G_p| = "
               f"{err:.3e} > {K4_TOL[cname]}")
         ms = time_ms(lambda: sdw_update.sdw_update(*args, *extra))
         pms = time_ms(lambda: sdw_update.sdw_update_plain(*args, *extra),
                       reps=3)
-        print(f"K4 sdw_update {cname} (W={W}, h={h}, N={N}): max|dG|="
-              f"{err:.3e} (tol {K4_TOL[cname]}), accepted "
+        print(f"K4 sdw_update {cname} (W={W}, h={h}, N={N}, "
+              f"{sdw_update.blocks_per_sm(N, cdt, Gk.device)} CTAs/SM): "
+              f"max|dG|={err:.3e} (tol {K4_TOL[cname]}), accepted "
               f"{int(ak.sum())}/{W * N} sites, accept mismatches {n_mis}, "
               f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
         # a rank-4 complex update of G per accepted site

@@ -153,7 +153,6 @@ __device__ __forceinline__ cplx<T> warp_sum(cplx<T> v) {
 // carries no stamps.
 template <bool ON, int P>
 struct Probe {
-    static constexpr bool on = ON;
     long long t = 0, t0 = 0, ns0 = 0, acc[ON ? P : 1] = {};
     __device__ __forceinline__ static long long globaltimer() {
         long long ns = 0;
@@ -190,11 +189,6 @@ struct Probe {
     }
 };
 
-// the phases of the one-CTA Householder bodies' probes (K2c's qr_kernel
-// below; K2, K3r, K3c-rhs in f64_tc.cuh and green_solve.cu), in the order
-// of their per-CTA records (linalg/qr.py TC_PROBE_PHASES)
-enum { kTcPanel, kTcApplyA, kTcApplyM, kTcBacksub, kTcBarrier, kTcLoadStore, kTcPhases };
-
 // Householder QR of the n x n matrix A (shared memory, row stride ld),
 // applying every reflector H_j = I - beta v v^H from the left to the
 // companion matrix C (n x n, stride ld) as it goes:
@@ -209,12 +203,8 @@ enum { kTcPanel, kTcApplyA, kTcApplyM, kTcBacksub, kTcBarrier, kTcLoadStore, kTc
 // column, lanes striding the rows; the rank-1 updates go one thread per
 // element, a row's columns on neighbouring threads. Row stride ld = n+1
 // keeps the column walks free of shared-memory bank conflicts.
-// The probe (Probe, common.cuh) charges thread 0's cycles to v and the
-// norm (kTcPanel), the dot products and rank-1 updates of A's trailing
-// columns (kTcApplyA) and of C (kTcApplyM), and the barriers; its
-// instance updates A's and C's entries in two loops instead of one.
-template <typename S, typename PR>
-__device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld, PR& probe) {
+template <typename S>
+__device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
     using R = typename real_of<S>::type;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     __shared__ S alpha_s;
@@ -222,9 +212,7 @@ __device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld, PR& pro
     for (int j = 0; j < n; ++j) {
         for (int k = tid; k < n; k += kThreads)
             v[k] = k >= j ? A[k * ld + j] : from_real<S>(R(0));
-        probe.lap(kTcPanel);
         __syncthreads();
-        probe.lap(kTcBarrier);
         if (warp == 0) {
             R p = 0;
             for (int k = j + lane; k < n; k += 32) p += abs2(v[k]);
@@ -243,9 +231,7 @@ __device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld, PR& pro
                 beta_s = R(2) / (vtv == R(0) ? R(1) : vtv);
             }
         }
-        probe.lap(kTcPanel);
         __syncthreads();
-        probe.lap(kTcBarrier);
         const R beta = beta_s;
         const int na = n - j - 1;          // trailing columns of A
         for (int col = warp; col < na + n; col += kWarps) {
@@ -255,41 +241,17 @@ __device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld, PR& pro
             for (int k = j + lane; k < n; k += 32) p += conj_(v[k]) * M[k * ld + c];
             p = warp_sum(p);
             if (lane == 0) s[col] = beta * p;
-            if (col < na && col + kWarps >= na) probe.lap(kTcApplyA);
         }
-        probe.lap(kTcApplyM);
         __syncthreads();
-        probe.lap(kTcBarrier);
         const int width = na + n, rows = n - j;
-        if constexpr (PR::on) {
-            for (int idx = tid; idx < rows * na; idx += kThreads) {
-                const int k = j + idx / na, col = idx % na;
-                A[k * ld + j + 1 + col] -= v[k] * s[col];
-            }
-            probe.lap(kTcApplyA);
-            for (int idx = tid; idx < rows * n; idx += kThreads) {
-                const int k = j + idx / n, col = idx % n;
-                C[k * ld + col] -= v[k] * s[na + col];
-            }
-            probe.lap(kTcApplyM);
-        } else {
-            for (int idx = tid; idx < rows * width; idx += kThreads) {
-                const int k = j + idx / width, col = idx % width;
-                if (col < na) A[k * ld + j + 1 + col] -= v[k] * s[col];
-                else          C[k * ld + col - na] -= v[k] * s[col];
-            }
+        for (int idx = tid; idx < rows * width; idx += kThreads) {
+            const int k = j + idx / width, col = idx % width;
+            if (col < na) A[k * ld + j + 1 + col] -= v[k] * s[col];
+            else          C[k * ld + col - na] -= v[k] * s[col];
         }
         if (tid == 0) A[j * ld + j] = alpha_s;
-        probe.lap(kTcPanel);
         __syncthreads();
-        probe.lap(kTcBarrier);
     }
-}
-
-template <typename S>
-__device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
-    Probe<false, 1> none;
-    householder_apply(A, C, v, s, n, ld, none);
 }
 
 // Launch `kernel` on `grid` CTAs of `block` threads with `smem` bytes of

@@ -55,8 +55,12 @@ namespace dq {
 
 constexpr int kLdV = 9;        // side buffer stride: V, then R's block inverses
 
-// the companion M of the float64 body
-enum F64Mode { kDiagM, kDenseM, kIdentityM };
+// the phase probe's phases of the one-CTA bodies (K3r, K2, K3c-rhs, K2c),
+// in the order of their per-CTA records
+enum { kTcPanel, kTcApplyA, kTcApplyM, kTcBacksub, kTcBarrier, kTcLoadStore, kTcPhases };
+
+// the companion M of the one-CTA bodies (this one and cplx_tc.cuh)
+enum Companion { kDiagM, kDenseM, kIdentityM };
 
 // mirrored by linalg/qr.py f64_smem_bytes
 __host__ __device__ constexpr size_t f64_tc_smem_bytes(int n) {
@@ -69,7 +73,7 @@ __host__ __device__ constexpr size_t f64_tc_smem_bytes(int n) {
 // kDiagM: M holds r1 (B x n), out = inner^{-1} diag(r1); kDenseM: M is
 // B x n x n, out = inner^{-1} M; kIdentityM: M is unused, out = Q and
 // R_out = R of inner = Q R
-template <int RF, F64Mode MODE, bool PROBE>
+template <int RF, Companion MODE, bool PROBE>
 __device__ __forceinline__ void solve_f64_tc(unsigned char* smem, const double* __restrict__ inner,
                                              const double* __restrict__ M,
                                              double* __restrict__ out,

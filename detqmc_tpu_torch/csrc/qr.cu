@@ -5,7 +5,7 @@
 // kernel body _kernel), the refactor QR of udv_decompose, and
 // pallas_cqr_lanes.py (cqr_lanes, the complex refactor QR of the SDW
 // chain, cudv.py:54-67). There 128 matrices ride the vector lanes in VMEM,
-// the complex ones as (re, im) f32 planes. Here two designs:
+// the complex ones as (re, im) f32 planes. Here three designs:
 //   - float64 (K2 on the Hubbard chains, whose stack is float64 in every
 //     model dtype): qr_f64_tc_kernel, the float64 tensor-core body that K3
 //     and K3r run (f64_tc.cuh solve_f64_tc) with the companion M = I built
@@ -20,25 +20,37 @@
 //     every multiply-add of the rank-1 updates read from shared memory;
 //     the same algorithm inside K3's parent spent 74-75 % of its CTA
 //     applying the reflectors (its clock64() probe);
-//   - float32, complex64 (K2c) and complex128: qr_kernel below, A and Q^H
-//     in shared memory in the native type (2 n (n+1) values: 33 KB at
-//     n = 64 in f32 or complex64, 133 KB in complex128), the n reflector
-//     steps of householder_apply (common.cuh) applied to Q^H (started as
-//     I) as it goes. What bounds it: n dependent steps with three
-//     __syncthreads each; per step 2n dot products (one warp each) and a
-//     rank-1 update of the active rows of A and Q^H in shared memory.
+//   - complex64 and complex128 (K2c, the SDW refactor QR; the sdw_l4 path
+//     runs complex64): qr_c64_tc_kernel and qr_c128_tc_kernel, the identity
+//     companion instances (M = I, so it ends as Q^H) of the complex body of
+//     K3c and K3c-rhs (cplx_tc.cuh solve_cplx_tc): panels of 8 columns at
+//     one barrier a column, Q^H in registers, the compact-WY products on
+//     the FP64 tensor cores (complex128) or register-held on the FP32 pipe
+//     (complex64, no TF32); 39 KB of shared memory at n = 64 in complex64,
+//     77 KB in complex128. They replaced qr_kernel, which took 350 us a
+//     CTA at complex64 n = 64 (0.32 ms of device time at B = 128), 84 %
+//     of it applying the reflectors with both operands of every rank-1
+//     update in shared memory; this design takes 93 us, 63 % of it the
+//     panel (the probes, solve_timing.py, NVIDIA H100 80GB HBM3, 700 W);
+//   - float32: qr_kernel below, the last user of that design (no main path
+//     runs K2 in float32): A and Q^H in shared memory (2 n (n+1) values,
+//     33 KB at n = 64), the n reflector steps of householder_apply
+//     (common.cuh) applied to Q^H (started as I) as it goes. What bounds
+//     it: n dependent steps with three __syncthreads each; per step 2n dot
+//     products (one warp each) and a rank-1 update of the active rows of A
+//     and Q^H in shared memory.
 // On exit R = triu(A) with its strict lower triangle exactly zero, and
 // Q = (Q^H)^H. R's diagonal is -sign(x_j)||x|| (real) or -(x_j/|x_j|)||x||
 // (complex, not real, unlike LAPACK's); udv_decompose folds the phase into
-// U. A zero column (v = 0) leaves everything unchanged in both designs.
-#include "f64_tc.cuh"
+// U. A zero column (v = 0) leaves everything unchanged in every design.
+#include "cplx_tc.cuh"
 
 namespace dq {
 
-template <typename S, bool PROBE = false>
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
 qr_kernel(const S* __restrict__ A_in, S* __restrict__ Q_out,
-          S* __restrict__ R_out, int n, long long* probe_out) {
+          S* __restrict__ R_out, int n) {
     using R = typename real_of<S>::type;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int ld = n + 1;
@@ -46,8 +58,6 @@ qr_kernel(const S* __restrict__ A_in, S* __restrict__ Q_out,
     S* Qh = A + n * ld;                      // n x ld
     S* v = Qh + n * ld;                      // n
     S* s = v + n;                            // 2n
-    Probe<PROBE, kTcPhases> probe;
-    probe.start();
     const int tid = threadIdx.x;
     const size_t off = size_t(blockIdx.x) * n * n;
     for (int idx = tid; idx < n * n; idx += kThreads) {
@@ -55,17 +65,13 @@ qr_kernel(const S* __restrict__ A_in, S* __restrict__ Q_out,
         A[r * ld + c] = A_in[off + idx];
         Qh[r * ld + c] = from_real<S>(r == c ? R(1) : R(0));
     }
-    probe.lap(kTcLoadStore);
     __syncthreads();
-    probe.lap(kTcBarrier);
-    householder_apply(A, Qh, v, s, n, ld, probe);
+    householder_apply(A, Qh, v, s, n, ld);
     for (int idx = tid; idx < n * n; idx += kThreads) {
         const int r = idx / n, c = idx - r * n;
         R_out[off + idx] = c >= r ? A[r * ld + c] : from_real<S>(R(0));
         Q_out[off + idx] = conj_(Qh[c * ld + r]);
     }
-    probe.lap(kTcLoadStore);
-    probe.store(probe_out);
 }
 
 // mirrored by linalg/qr.py smem_bytes
@@ -74,12 +80,66 @@ size_t qr_smem_bytes(int n) {
     return sizeof(S) * (2 * size_t(n) * (n + 1) + 3 * size_t(n));
 }
 
-template <typename S, bool PROBE = false>
-int qr(int device, const void* A, void* Q, void* R, int batch, int n,
-       void* stream, long long* probe = nullptr) {
-    return launch_smem(device, qr_kernel<S, PROBE>, batch, qr_smem_bytes<S>(n), stream,
-                       static_cast<const S*>(A), static_cast<S*>(Q),
-                       static_cast<S*>(R), n, probe);
+int qr_f32(int device, const void* A, void* Q, void* R, int batch, int n, void* stream) {
+    return launch_smem(device, qr_kernel<float>, batch, qr_smem_bytes<float>(n), stream,
+                       static_cast<const float*>(A), static_cast<float*>(Q),
+                       static_cast<float*>(R), n);
+}
+
+// K2c: names of their own, so a profile tells them from qr_kernel, from K2
+// in float64 and from K3c / K3c-rhs
+template <int RF, int CFW, bool PROBE>
+__global__ void __launch_bounds__(kThreads, CFW == 1 ? 2 : 1)
+qr_c64_tc_kernel(const cplx<float>* __restrict__ A, cplx<float>* __restrict__ Q,
+                 cplx<float>* __restrict__ R, int n, long long* probe_out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    solve_cplx_tc<cplx<float>, RF, CFW, kIdentityM, PROBE>(smem_raw, A, nullptr, Q, R, n,
+                                                            probe_out);
+}
+
+template <int RF, int CFW>
+__global__ void __launch_bounds__(kThreads, CFW == 1 ? 2 : 1)
+qr_c128_tc_kernel(const cplx<double>* __restrict__ A, cplx<double>* __restrict__ Q,
+                  cplx<double>* __restrict__ R, int n, long long*) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    solve_cplx_tc<cplx<double>, RF, CFW, kIdentityM, false>(smem_raw, A, nullptr, Q, R, n,
+                                                             nullptr);
+}
+
+// f(kernel) for K2c's instance of this n and complex type (np = 8 rf up to
+// 120 in complex64, 88 in complex128: kernel_for sends n <= 119 and
+// n <= 83 here), `missing` if there is none; the probe instance is
+// complex64 at np = 64, the sdw_l4 shape
+template <typename S, bool PROBE, typename F>
+int with_qr_complex(int n, int missing, F f) {
+    constexpr bool c64 = std::is_same<S, cplx<float>>::value;
+    if constexpr (PROBE) {
+        if constexpr (c64)
+            return round_up(n, 8) == 64 ? f(qr_c64_tc_kernel<8, 1, true>) : missing;
+        else
+            return missing;
+    } else {
+        return with_f64_rf(round_up(n, 8) / 8, missing, [&](auto R) {
+            constexpr int rf = decltype(R)::value, cfw = rf > 8 ? 2 : 1;
+            if constexpr (c64)
+                return f(qr_c64_tc_kernel<rf, cfw, false>);
+            else if constexpr (rf > 11)
+                return missing;
+            else
+                return f(qr_c128_tc_kernel<rf, cfw>);
+        });
+    }
+}
+
+template <typename S, bool PROBE>
+int qr_complex(int device, const void* A, void* Q, void* R, int batch, int n, void* stream,
+               long long* probe) {
+    return with_qr_complex<S, PROBE>(n, static_cast<int>(cudaErrorInvalidValue),
+                                     [&](auto kernel) {
+        return launch_tc(device, kernel, batch, ctc_smem_bytes<S>(n), stream,
+                         static_cast<const S*>(A), static_cast<S*>(Q), static_cast<S*>(R), n,
+                         probe);
+    });
 }
 
 // its own name, so a profile tells K2 in float64 from qr_kernel (float32,
@@ -122,7 +182,7 @@ extern "C" {
 
 int dq_qr_f32(int device, const void* A, void* Q, void* R, int batch, int n,
               void* stream) {
-    return dq::qr<float>(device, A, Q, R, batch, n, stream);
+    return dq::qr_f32(device, A, Q, R, batch, n, stream);
 }
 
 int dq_qr_f64(int device, const void* A, void* Q, void* R, int batch, int n,
@@ -132,12 +192,12 @@ int dq_qr_f64(int device, const void* A, void* Q, void* R, int batch, int n,
 
 int dq_qr_c64(int device, const void* A, void* Q, void* R, int batch, int n,
               void* stream) {
-    return dq::qr<dq::cplx<float>>(device, A, Q, R, batch, n, stream);
+    return dq::qr_complex<dq::cplx<float>, false>(device, A, Q, R, batch, n, stream, nullptr);
 }
 
 int dq_qr_c128(int device, const void* A, void* Q, void* R, int batch, int n,
                void* stream) {
-    return dq::qr<dq::cplx<double>>(device, A, Q, R, batch, n, stream);
+    return dq::qr_complex<dq::cplx<double>, false>(device, A, Q, R, batch, n, stream, nullptr);
 }
 
 // the float64 QR with the phase probe on (n = 57..64 only): probe (batch x
@@ -150,14 +210,12 @@ int dq_qr_probe_f64(int device, const void* A, void* Q, void* R, int batch, int 
                             static_cast<long long*>(probe));
 }
 
-// K2c in complex64 with the phase probe on (any n qr_kernel takes): probe
-// (batch x 8 int64) gets each CTA's cycles per phase (norms and reflector
-// formation, application to A, to Q^H, back-substitution (none),
-// barriers, loads and stores), total cycles and ns
+// K2c in complex64 with the phase probe on (n = 57..64 only), with the
+// float64 probe's phases
 int dq_qr_probe_c64(int device, const void* A, void* Q, void* R, int batch, int n,
                     void* probe, void* stream) {
-    return dq::qr<dq::cplx<float>, true>(device, A, Q, R, batch, n, stream,
-                                         static_cast<long long*>(probe));
+    return dq::qr_complex<dq::cplx<float>, true>(device, A, Q, R, batch, n, stream,
+                                                 static_cast<long long*>(probe));
 }
 
 // CTAs of the one-CTA QR one SM holds at this n, dtype code 0..3 (float32,
@@ -172,10 +230,18 @@ int dq_qr_blocks_per_sm(int device, int dtype, int n) {
                 n, -static_cast<int>(cudaErrorInvalidValue), [&](auto kernel) {
                     return dq::blocks_per_sm(device, kernel, dq::f64_tc_smem_bytes(n));
                 });
-        case 2: return dq::blocks_per_sm(device, dq::qr_kernel<dq::cplx<float>>,
-                                         dq::qr_smem_bytes<dq::cplx<float>>(n));
-        case 3: return dq::blocks_per_sm(device, dq::qr_kernel<dq::cplx<double>>,
-                                         dq::qr_smem_bytes<dq::cplx<double>>(n));
+        case 2:
+            return dq::with_qr_complex<dq::cplx<float>, false>(
+                n, -static_cast<int>(cudaErrorInvalidValue), [&](auto kernel) {
+                    return dq::blocks_per_sm(device, kernel,
+                                             dq::ctc_smem_bytes<dq::cplx<float>>(n));
+                });
+        case 3:
+            return dq::with_qr_complex<dq::cplx<double>, false>(
+                n, -static_cast<int>(cudaErrorInvalidValue), [&](auto kernel) {
+                    return dq::blocks_per_sm(device, kernel,
+                                             dq::ctc_smem_bytes<dq::cplx<double>>(n));
+                });
         default: return -static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -1,9 +1,9 @@
 // The per-site scalar chain of the SDW slice updates K4 (sdw_update.cu) and
 // K5 (sdw_delayed.cu): the live gradient term, the closed-form 4x4
 // determinant / adjugate, the log-domain accept and the Woodbury factor T.
-// K4 runs it on one thread per site (site_step, ~1500 rounded operations);
-// K5 spreads it over 16 lanes of a warp, one 4x4 entry a lane
-// (site_step_warp: the same operations on each entry). Every product and sum
+// Both run it in every warp, 16 lanes a site, one 4x4 entry a lane
+// (site_step_warp: the plain version's operations on each entry, ~1500
+// rounded ones a site). Every product and sum
 // is explicitly rounded (cmul_rn ...) in the order of the plain PyTorch
 // versions (linalg/sdw_update.py, linalg/sdw_delayed.py), so for equal
 // inputs kernel and plain version agree bit for bit up to log().
@@ -27,29 +27,6 @@ static __constant__ int kAdjR[16] = {7, 3, 15, 11, 7, 3, 15, 11, 7, 3, 15, 11, 6
 static __constant__ int kAdjZ[16] = {9, 9, 3, 3, 7, 7, 1, 1, 6, 6, 0, 0, 6, 6, 0, 0};
 static __constant__ int kAdjNeg[16] = {0, 1, 0, 1, 1, 0, 1, 0, 0, 1, 0, 1, 1, 0, 1, 0};
 
-// det(A) and adj(A) of a complex 4x4 (A flat, row-major)
-template <typename T>
-__device__ cplx<T> det_adj4(const cplx<T>* A, cplx<T>* adj) {
-    cplx<T> m[12];
-    for (int k = 0; k < 6; ++k) {
-        const int a = kPairA[k], b = kPairB[k];
-        m[k] = csub_rn(cmul_rn(A[a], A[4 + b]), cmul_rn(A[b], A[4 + a]));
-        m[6 + k] = csub_rn(cmul_rn(A[8 + a], A[12 + b]),
-                           cmul_rn(A[8 + b], A[12 + a]));
-    }
-    cplx<T> p[6];
-    for (int k = 0; k < 6; ++k) p[k] = cmul_rn(m[k], m[11 - k]);
-    const cplx<T> det = cadd_rn(cadd_rn(csub_rn(p[0], p[1]), p[2]),
-                                cadd_rn(csub_rn(p[3], p[4]), p[5]));
-    for (int e = 0; e < 16; ++e) {
-        const cplx<T> t = cadd_rn(csub_rn(cmul_rn(A[kAdjP[e]], m[kAdjX[e]]),
-                                          cmul_rn(A[kAdjQ[e]], m[kAdjY[e]])),
-                                  cmul_rn(A[kAdjR[e]], m[kAdjZ[e]]));
-        adj[e] = kAdjNeg[e] ? -t : t;
-    }
-    return det;
-}
-
 // live spatial-gradient term of site i through the already-updated field
 // phi (N x opdim): dtau (phi_new_i - phi_old_i) . sum_d phi[nb_d]
 template <typename T>
@@ -64,45 +41,6 @@ __device__ T site_live(const T* phi, const T* phin_i, const T* phi0_i,
         dot = o == 0 ? mul_rn(d, snb) : add_rn(dot, mul_rn(d, snb));
     }
     return mul_rn(dtau, dot);
-}
-
-// Metropolis step of one site from the current G_II (4x4, row-major:
-// G_II[4 a + b] = G[a N + i, b N + i]) and Delta_i (4x4):
-//     A = 1 + Delta (1 - G_II);  accept = lhs < c_det log|det A|^2 + live
-// and on accept T = adj(A) Delta / det(A) into Tm (else Tm is untouched).
-template <typename T>
-__device__ bool site_step(const cplx<T>* GII, const cplx<T>* D, T lhs, T live,
-                          T c_det, cplx<T>* Tm) {
-    using S = cplx<T>;
-    S Mm[16], A[16], adj[16];
-    for (int a = 0; a < 4; ++a)
-        for (int b = 0; b < 4; ++b) {
-            const S g = GII[4 * a + b];
-            Mm[4 * a + b] = mk(sub_rn(a == b ? T(1) : T(0), g.re), -g.im);
-        }
-    for (int a = 0; a < 4; ++a)
-        for (int b = 0; b < 4; ++b) {
-            S acc = cmul_rn(D[4 * a], Mm[b]);
-            for (int k = 1; k < 4; ++k)
-                acc = cadd_rn(acc, cmul_rn(D[4 * a + k], Mm[4 * k + b]));
-            A[4 * a + b] = mk(add_rn(acc.re, a == b ? T(1) : T(0)), acc.im);
-        }
-    const S R = det_adj4(A, adj);
-    const T r2 = add_rn(mul_rn(R.re, R.re), mul_rn(R.im, R.im));
-    const T rhs = add_rn(mul_rn(c_det, log_t(r2)), live);
-    const bool acc = lhs < rhs;
-    if (acc) {
-        const T inv_den = div_rn(T(1), r2);
-        const S rinv = mk(mul_rn(R.re, inv_den), mul_rn(-R.im, inv_den));
-        for (int a = 0; a < 4; ++a)
-            for (int b = 0; b < 4; ++b) {
-                S t = cmul_rn(adj[4 * a], D[b]);
-                for (int k = 1; k < 4; ++k)
-                    t = cadd_rn(t, cmul_rn(adj[4 * a + k], D[4 * k + b]));
-                Tm[4 * a + b] = cmul_rn(t, rinv);
-            }
-    }
-    return acc;
 }
 
 // The lane tables of site_step_warp: lane e = lane & 15 computes entry e of
@@ -134,20 +72,43 @@ __device__ __forceinline__ cplx<T> shfl_c(cplx<T> v, int src) {
     return mk(__shfl_sync(0xffffffffu, v.re, src), __shfl_sync(0xffffffffu, v.im, src));
 }
 
-// site_step over a warp: lane e (and e + 16) holds g = G_II[e] (entry
-// 4 a + b); every lane gets the same decision and, on accept, all 16
-// entries of T in Tm. Each entry is formed by the operations site_step
+// the entries of Delta_i a lane of site_step_warp reads: its row a,
+// row[k] = D[4 a + k], and its column b, col[k] = D[4 k + b]
+template <typename T>
+struct SiteDelta {
+    cplx<T> row[4], col[4];
+};
+
+template <typename T>
+__device__ __forceinline__ SiteDelta<T> site_delta(const cplx<T>* D, const SiteLanes& L) {
+    SiteDelta<T> d;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        d.row[k] = D[4 * L.a + k];
+        d.col[k] = D[4 * k + L.b];
+    }
+    return d;
+}
+
+// The Metropolis step of one site over a warp, from the current G_II and
+// Delta_i:
+//     A = 1 + Delta (1 - G_II);  accept = lhs < c_det log|det A|^2 + live
+// and on accept T = adj(A) Delta / det(A) (else Te is untouched).
+// Lane e (and e + 16) holds g = G_II[e] (entry 4 a + b, G_II[4 a + b] =
+// G[a N + i, b N + i]) and its entries d of Delta_i; every lane gets the
+// same decision and, on accept, entry e of T in Te. Each entry is formed
+// by the operations the plain version (linalg/sdw_update.py site_step)
 // forms it with, in the same order, so both give the same bits. The whole
 // warp calls it (the shuffles need every lane).
 template <typename T>
-__device__ bool site_step_warp(cplx<T> g, const cplx<T>* D, T lhs, T live, T c_det,
-                               const SiteLanes& L, cplx<T>* Tm) {
+__device__ bool site_step_warp(cplx<T> g, const SiteDelta<T>& d, T lhs, T live, T c_det,
+                               const SiteLanes& L, cplx<T>& Te) {
     using S = cplx<T>;
     const S M = mk(sub_rn(L.a == L.b ? T(1) : T(0), g.re), -g.im);
-    S acc = cmul_rn(D[4 * L.a], shfl_c(M, L.b));
+    S acc = cmul_rn(d.row[0], shfl_c(M, L.b));
 #pragma unroll
     for (int k = 1; k < 4; ++k)
-        acc = cadd_rn(acc, cmul_rn(D[4 * L.a + k], shfl_c(M, 4 * k + L.b)));
+        acc = cadd_rn(acc, cmul_rn(d.row[k], shfl_c(M, 4 * k + L.b)));
     const S A = mk(add_rn(acc.re, L.a == L.b ? T(1) : T(0)), acc.im);
     // the twelve minors (lanes 0-11), their six products (lanes 0-5)
     const S m = csub_rn(cmul_rn(shfl_c(A, L.ro + L.pa), shfl_c(A, L.ro + 4 + L.pb)),
@@ -165,14 +126,25 @@ __device__ bool site_step_warp(cplx<T> g, const cplx<T>* D, T lhs, T live, T c_d
     if (accept) {                            // warp-uniform
         const T inv_den = div_rn(T(1), r2);
         const S rinv = mk(mul_rn(det.re, inv_den), mul_rn(-det.im, inv_den));
-        S u = cmul_rn(shfl_c(adj, 4 * L.a), D[L.b]);
+        S u = cmul_rn(shfl_c(adj, 4 * L.a), d.col[0]);
 #pragma unroll
         for (int k = 1; k < 4; ++k)
-            u = cadd_rn(u, cmul_rn(shfl_c(adj, 4 * L.a + k), D[4 * k + L.b]));
-        const S Te = cmul_rn(u, rinv);
+            u = cadd_rn(u, cmul_rn(shfl_c(adj, 4 * L.a + k), d.col[k]));
+        Te = cmul_rn(u, rinv);
+    }
+    return accept;
+}
+
+// the same with Delta_i (4x4, row-major) read from D, and on accept all 16
+// entries of T in Tm on every lane
+template <typename T>
+__device__ bool site_step_warp(cplx<T> g, const cplx<T>* D, T lhs, T live, T c_det,
+                               const SiteLanes& L, cplx<T>* Tm) {
+    cplx<T> Te;
+    const bool accept = site_step_warp(g, site_delta(D, L), lhs, live, c_det, L, Te);
+    if (accept)                              // warp-uniform
 #pragma unroll
         for (int f = 0; f < 16; ++f) Tm[f] = shfl_c(Te, f);
-    }
     return accept;
 }
 

@@ -4,28 +4,56 @@
 // Replaces the TPU kernel detqmc_tpu/linalg/pallas_sdw_update.py
 // (slice_update_sdw, kernel body _kernel), which keeps 128 walkers in the
 // vector lanes and G as (re, im) f32 planes in VMEM. Here one CTA holds
-// one walker's complex G (h x h, h = 4N, row stride h+1: 33 KB at h=64 in
-// complex64, 66 KB in complex128) in shared memory, with the live field
-// slice, and walks the N sites in order. Per site i (orbital-major
-// indices j_b = b N + i, pallas_sdw_update.py:197-331):
+// one walker's complex G (h x h, h = 4N) in shared memory and walks the N
+// sites in order. Per site i (orbital-major indices j_b = b N + i,
+// pallas_sdw_update.py:197-331):
 //     live  = dtau * (phi_new_i - phi_old_i) . sum_d phi[nb_d]   (live phi)
 //     M     = 1 - G[j_a, j_b];   A = 1 + Delta_i M     (4 x 4 complex)
-//     R, adj(A)  closed form from the 12 2x2 minors (det_adj4 below)
+//     R, adj(A)  closed form from the 12 2x2 minors (sdw_site.cuh)
 //     accept     = lhs_i < c_det log|R|^2 + live
 //     T     = adj(A) Delta_i / R
 //     G    -= sum_b (sum_a G[:, j_a] T_ab) (x) (e_{j_b} - G[j_b, :])
 //     phi_i = accept ? phi_new_i : phi_old_i
-// Thread 0 computes the scalar chain (sdw_site.cuh, ~700 flops); all
-// threads stage the four columns and rows, form the four combined columns
-// and apply the rank-4 update, one element per thread. A rejected site
-// skips the update. What bounds it: the N dependent site steps, four
-// __syncthreads each, the single-thread scalar chain, and the h^2
-// shared-memory read-modify-write of an accepted site.
+// The first design ran the scalar chain on thread 0 while 255 threads
+// waited, four __syncthreads a site (two on a rejected one), and staged
+// the site's columns, rows and combined columns through shared memory in
+// passes of their own: 49 us a CTA at complex64 h = 64, 72 % of it thread
+// 0's chain, 16 % the rank-4 update (its clock64() probe, solve_timing.py,
+// NVIDIA H100 80GB HBM3, 700 W). This design:
+//   - every warp runs the chain (sdw_site.cuh site_step_warp, 16 lanes, one
+//     4x4 entry a lane, the same bits as the plain version), so all warps
+//     decide alike and none waits for a broadcast: a rejected site takes
+//     no barrier (0.77 us a site). Each warp keeps its own copy of the live
+//     field (a fast warp's accept would race a slow warp's live term). The
+//     next site's entries of Delta are loaded while a site is decided;
+//   - every thread owns fixed entries of G: warp w the rows w + 8m, lane l
+//     the columns l + 32k. An accepted site takes two barriers: the owners
+//     of rows j_b stage e_{j_b} - G[j_b, :], the owners of columns j_a
+//     stage their warp's entries G[:, j_a], each warp forms the combined
+//     columns of its own rows (warp-synchronous), then barrier 1; every
+//     thread updates its own entries and writes those of the sites' 4x4
+//     blocks G_II to the table the chains read; then barrier 2 (the table
+//     and the staging buffers for the next site). The staged rows and
+//     columns are laid out [row][b], so an entry's four operands are one
+//     vector load each;
+//   - G stays in shared memory at every h. Its own entries in registers
+//     (16 a thread at h = 64) measured no faster: 46.6 against 45.0 us a
+//     launch at complex64 h = 64, 77.1 against 65.6 in complex128 (the
+//     compiler keeps entries that a runtime row index selects in local
+//     memory), and 16 warps slowed the chains (solve_timing.py, NVIDIA
+//     H100 80GB HBM3, 700 W).
+// What bounds it: the N dependent chains (~40 shuffles and ~60 dependent
+// rounded operations a site) and, per accepted site, the rank-4 update:
+// h^2 entries of 32 explicitly rounded FP32 (FP64) operations each, the
+// plain version's rounding (2.0 us a site at complex64 h = 64, four times
+// the FP32 pipe's bound). The slowest walker sets a launch's time: at
+// sdw_l4's acceptance (~0.25) the most accepted sites of 128 walkers.
 // Every product and sum is explicitly rounded (cmul_rn ...) in the plain
 // PyTorch version's order (linalg/sdw_update.py), so for equal inputs the
 // kernel reproduces it bit for bit up to log(), and the accept decisions
 // agree.
 #include "sdw_site.cuh"
+#include "tc_blocked.cuh"   // load4
 
 namespace dq {
 
@@ -35,103 +63,156 @@ namespace dq {
 // the combined columns, the rank-4 update, the loads and stores
 enum { kChain, kBarrier, kStage, kComb, kUpdate, kLoadStore, kPhases };
 
-template <typename T, bool PROBE = false>
-__global__ void __launch_bounds__(kThreads)
+// the largest h the kernel takes (linalg/sdw_update.py MAX_H): the
+// combined columns a lane forms are sized for it
+constexpr int kMaxH = 160;
+
+// shared memory of one CTA (linalg/sdw_update.py smem_bytes): G (h x h),
+// the staged rows, the staged columns / combined columns and the sites'
+// G_II (4 h complex values each), then phi_new, lhs and every warp's copy
+// of the live field (reals), and the neighbour table
+inline size_t update_smem(int N, int opdim, size_t cbytes) {
+    const size_t h = 4 * size_t(N), rbytes = cbytes / 2;
+    return cbytes * (h * h + 12 * h) + rbytes * (size_t(N) * opdim * (1 + kWarps) + N)
+           + sizeof(int) * 4 * size_t(N);
+}
+
+template <typename T, bool PROBE>
+__global__ void __launch_bounds__(kThreads, 1)
 sdw_update_kernel(const cplx<T>* __restrict__ G_in, const T* __restrict__ phi_in,
                   const T* __restrict__ phin_in, const T* __restrict__ lhs_in,
-                  const cplx<T>* __restrict__ delta_in, const int* __restrict__ nb,
+                  const cplx<T>* __restrict__ delta_in, const int* __restrict__ nb_in,
                   cplx<T>* __restrict__ G_out, T* __restrict__ phi_out,
                   T* __restrict__ acc_out, int N, int opdim, T dtau, T c_det,
                   long long* probe_out) {
     using S = cplx<T>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int h = 4 * N, ld = h + 1;
-    S* G = reinterpret_cast<S*>(smem_raw);   // h x ld
-    S* cols = G + h * ld;                    // 4 x h: G[:, j_b] (pre-update)
-    S* rows = cols + 4 * h;                  // 4 x h: e_{j_b} - G[j_b, :]
-    S* comb = rows + 4 * h;                  // 4 x h: sum_a cols_a T_ab
-    T* phi = reinterpret_cast<T*>(comb + 4 * h);   // N x opdim, live
-    __shared__ S Tm[16];
-    __shared__ int accept_s;
-    __shared__ T acc_s;
-
+    const int h = 4 * N, NO = N * opdim;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const size_t wk = blockIdx.x;
+    S* G = reinterpret_cast<S*>(smem_raw);              // h x h
+    S* rows = G + h * h;                                // h x 4: e_{j_b} - G[j_b, c]
+    S* cc = rows + 4 * h;                               // h x 4: G[r, j_a], then comb
+    S* gii = cc + 4 * h;                                // N x 16: every site's G_II
+    T* phin = reinterpret_cast<T*>(gii + 16 * N);       // N x opdim
+    T* lhs = phin + NO;                                 // N
+    T* phiw = lhs + N;                                  // kWarps x N x opdim
+    int* nb = reinterpret_cast<int*>(phiw + kWarps * NO);   // N x 4
     Probe<PROBE, kPhases> probe;
     probe.start();
-    const int tid = threadIdx.x;
-    const size_t wk = blockIdx.x;
-    const S* Gw = G_in + wk * h * h;
-    for (int idx = tid; idx < h * h; idx += kThreads) {
-        const int r = idx / h, c = idx - r * h;
-        G[r * ld + c] = Gw[idx];
+
+    const S* Gw = G_in + wk * size_t(h) * h;
+    for (int idx = tid; idx < h * h; idx += kThreads) G[idx] = Gw[idx];
+    for (int idx = tid; idx < 16 * N; idx += kThreads) {
+        const int i = idx >> 4, a = (idx >> 2) & 3, b = idx & 3;
+        gii[idx] = Gw[size_t(a * N + i) * h + b * N + i];
     }
-    const T* phi0 = phi_in + wk * N * opdim;
-    const T* phin = phin_in + wk * N * opdim;
-    for (int idx = tid; idx < N * opdim; idx += kThreads) phi[idx] = phi0[idx];
-    if (tid == 0) acc_s = T(0);
+    for (int idx = tid; idx < NO; idx += kThreads) {
+        phin[idx] = phin_in[wk * NO + idx];
+        const T p = phi_in[wk * NO + idx];
+        for (int w = 0; w < kWarps; ++w) phiw[w * NO + idx] = p;
+    }
+    for (int idx = tid; idx < N; idx += kThreads) lhs[idx] = lhs_in[wk * N + idx];
+    for (int idx = tid; idx < 4 * N; idx += kThreads) nb[idx] = nb_in[idx];
+    T* phi = phiw + warp * NO;               // this warp's live field
+    // the orbital b of an index j = b N + i < h
+    auto orb = [&](int j) { return (j >= N) + (j >= 2 * N) + (j >= 3 * N); };
+    // lanes e and e + 16 take G_II's entry e = 4 a + b and its row a and
+    // column b of Delta_i
+    const SiteLanes L;
+    const S* dw = delta_in + wk * 16 * size_t(N);
+    SiteDelta<T> dnext = site_delta(dw, L);
+    T n_acc = T(0);
     probe.lap(kLoadStore);
     __syncthreads();
     probe.lap(kBarrier);
 
     for (int i = 0; i < N; ++i) {
-        if (tid == 0) {
-            const T live = site_live(phi, phin + i * opdim, phi0 + i * opdim,
-                                     nb + 4 * i, opdim, dtau);
-            S GII[16];
-            for (int a = 0; a < 4; ++a)
-                for (int b = 0; b < 4; ++b)
-                    GII[4 * a + b] = G[(a * N + i) * ld + b * N + i];
-            const bool acc = site_step(GII, delta_in + (wk * N + i) * 16,
-                                       lhs_in[wk * N + i], live, c_det, Tm);
-            accept_s = acc;
-            if (acc) {
-                for (int o = 0; o < opdim; ++o) phi[i * opdim + o] = phin[i * opdim + o];
-                acc_s = add_rn(acc_s, T(1));
-            }
-        }
+        const SiteDelta<T> d = dnext;
+        if (i + 1 < N) dnext = site_delta(dw + 16 * (i + 1), L);
+        // every warp decides, on identical inputs (site i's own field is
+        // still the slice's: phi_i = phi_in_i)
+        const T live = site_live(phi, phin + i * opdim, phi + i * opdim, nb + 4 * i,
+                                 opdim, dtau);
+        S Te;                                // entry e of T (on accept)
+        const bool accept = site_step_warp(gii[16 * i + L.e], d, lhs[i], live, c_det, L, Te);
         probe.lap(kChain);
-        __syncthreads();
-        probe.lap(kBarrier);
-        if (accept_s) {   // block-uniform
-            for (int idx = tid; idx < 4 * h; idx += kThreads) {
-                const int b = idx / h, r = idx - b * h, j = b * N + i;
-                cols[idx] = G[r * ld + j];
-                const S g = G[j * ld + r];
-                rows[idx] = mk(sub_rn(r == j ? T(1) : T(0), g.re), -g.im);
-            }
-            probe.lap(kStage);
-            __syncthreads();
-            probe.lap(kBarrier);
-            for (int idx = tid; idx < 4 * h; idx += kThreads) {
-                const int b = idx / h, r = idx - b * h;
-                S acc = cmul_rn(cols[r], Tm[b]);
-                for (int a = 1; a < 4; ++a)
-                    acc = cadd_rn(acc, cmul_rn(cols[a * h + r], Tm[4 * a + b]));
-                comb[idx] = acc;
-            }
-            probe.lap(kComb);
-            __syncthreads();
-            probe.lap(kBarrier);
-            for (int idx = tid; idx < h * h; idx += kThreads) {
-                const int r = idx / h, c = idx - r * h;
-                S u = cmul_rn(comb[r], rows[c]);
-                for (int b = 1; b < 4; ++b)
-                    u = cadd_rn(u, cmul_rn(comb[b * h + r], rows[b * h + c]));
-                G[r * ld + c] = csub_rn(G[r * ld + c], u);
-            }
-            probe.lap(kUpdate);
+        if (!accept) continue;               // uniform: no barrier
+        n_acc = add_rn(n_acc, T(1));
+        if (lane == 0)
+            for (int o = 0; o < opdim; ++o) phi[i * opdim + o] = phin[i * opdim + o];
+        // the owners of rows j_b stage e_{j_b} - G[j_b, :] (rows[c][b]), the
+        // owners of columns j_a their warp's entries G[:, j_a] (cc[r][a])
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+            const int j = b * N + i;
+            if ((j & 7) == warp)             // warp-uniform
+                for (int c = lane; c < h; c += 32) {
+                    const S v = G[j * h + c];
+                    rows[4 * c + b] = mk(sub_rn(c == j ? T(1) : T(0), v.re), -v.im);
+                }
+            if (lane == (j & 31))
+                for (int r = warp; r < h; r += kWarps) cc[4 * r + b] = G[r * h + j];
         }
-        __syncthreads();
+        probe.lap(kStage);
+        __syncwarp();
+        // the combined columns of this warp's rows: lane l forms entry
+        // (row warp + 8 (l / 4 + 8 t), column l % 4), rows below h
+        const int bl = lane & 3;
+        S tcol[4];                           // column bl of T
+#pragma unroll
+        for (int a = 0; a < 4; ++a) tcol[a] = shfl_c(Te, 4 * a + bl);
+        constexpr int TQ = (4 * kMaxH / kWarps + 31) / 32;
+        S cb[TQ];
+#pragma unroll
+        for (int t = 0; t < TQ; ++t) {
+            if (64 * t >= h) break;          // uniform: no row of this t
+            S col[4];
+            load4(cc + 4 * min(warp + kWarps * ((lane >> 2) + 8 * t), h - 1), col);
+            cb[t] = cmul_rn(col[0], tcol[0]);
+#pragma unroll
+            for (int a = 1; a < 4; ++a) cb[t] = cadd_rn(cb[t], cmul_rn(col[a], tcol[a]));
+        }
+        __syncwarp();
+#pragma unroll
+        for (int t = 0; t < TQ; ++t) {
+            if (64 * t >= h) break;
+            const int r = warp + kWarps * ((lane >> 2) + 8 * t);
+            if (r < h) cc[4 * r + bl] = cb[t];
+        }
+        probe.lap(kComb);
+        __syncthreads();                     // the staged rows, this warp's comb
+        probe.lap(kBarrier);
+        // the rank-4 update of this thread's entries; their entries of the
+        // sites' G_II to the table
+        for (int c = lane; c < h; c += 32) {
+            S rw[4];
+            load4(rows + 4 * c, rw);
+            const int bc = orb(c), ic = c - bc * N;
+#pragma unroll 8
+            for (int r = warp; r < h; r += kWarps) {
+                S cm[4];
+                load4(cc + 4 * r, cm);
+                S u = cmul_rn(cm[0], rw[0]);
+#pragma unroll
+                for (int b = 1; b < 4; ++b) u = cadd_rn(u, cmul_rn(cm[b], rw[b]));
+                const S v = csub_rn(G[r * h + c], u);
+                G[r * h + c] = v;
+                const int ar = orb(r);
+                if (r - ar * N == ic) gii[16 * ic + 4 * ar + bc] = v;
+            }
+        }
+        probe.lap(kUpdate);
+        __syncthreads();                     // the table and the staging buffers
         probe.lap(kBarrier);
     }
 
-    S* Go = G_out + wk * h * h;
-    for (int idx = tid; idx < h * h; idx += kThreads) {
-        const int r = idx / h, c = idx - r * h;
-        Go[idx] = G[r * ld + c];
-    }
-    for (int idx = tid; idx < N * opdim; idx += kThreads)
-        phi_out[wk * N * opdim + idx] = phi[idx];
-    if (tid == 0) acc_out[wk] = acc_s;
+    __syncthreads();                         // every thread's last update
+    S* Go = G_out + wk * size_t(h) * h;
+    for (int idx = tid; idx < h * h; idx += kThreads) Go[idx] = G[idx];
+    // warp 0's field is every warp's
+    for (int idx = tid; idx < NO; idx += kThreads) phi_out[wk * NO + idx] = phiw[idx];
+    if (tid == 0) acc_out[wk] = n_acc;
     probe.lap(kLoadStore);
     probe.store(probe_out);
 }
@@ -141,10 +222,9 @@ int sdw_update(int device, const void* G, const void* phi, const void* phin,
                const void* lhs, const void* delta, const void* nb, void* G_out,
                void* phi_out, void* acc_out, int W, int N, int opdim,
                double dtau, double c_det, void* stream, long long* probe = nullptr) {
-    const size_t h = 4 * size_t(N);
-    const size_t smem = sizeof(cplx<T>) * (h * (h + 1) + 12 * h)
-                        + sizeof(T) * size_t(N) * opdim;
-    return launch_smem(device, sdw_update_kernel<T, PROBE>, W, smem, stream,
+    if (4 * N > kMaxH) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_smem(device, sdw_update_kernel<T, PROBE>, W,
+                       update_smem(N, opdim, sizeof(cplx<T>)), stream,
                        static_cast<const cplx<T>*>(G), static_cast<const T*>(phi),
                        static_cast<const T*>(phin), static_cast<const T*>(lhs),
                        static_cast<const cplx<T>*>(delta), static_cast<const int*>(nb),
@@ -163,8 +243,7 @@ int dq_sdw_update_c64(int device, const void* G, const void* phi,
                       int W, int N, int opdim, double dtau, double c_det,
                       void* stream) {
     return dq::sdw_update<float>(device, G, phi, phin, lhs, delta, nb, G_out,
-                                 phi_out, acc_out, W, N, opdim, dtau, c_det,
-                                 stream);
+                                 phi_out, acc_out, W, N, opdim, dtau, c_det, stream);
 }
 
 int dq_sdw_update_c128(int device, const void* G, const void* phi,
@@ -173,8 +252,7 @@ int dq_sdw_update_c128(int device, const void* G, const void* phi,
                        void* acc_out, int W, int N, int opdim, double dtau,
                        double c_det, void* stream) {
     return dq::sdw_update<double>(device, G, phi, phin, lhs, delta, nb, G_out,
-                                  phi_out, acc_out, W, N, opdim, dtau, c_det,
-                                  stream);
+                                  phi_out, acc_out, W, N, opdim, dtau, c_det, stream);
 }
 
 // the complex64 update with the phase probe on: probe (W x 8 int64) gets
@@ -187,6 +265,15 @@ int dq_sdw_update_probe_c64(int device, const void* G, const void* phi,
     return dq::sdw_update<float, true>(device, G, phi, phin, lhs, delta, nb, G_out,
                                        phi_out, acc_out, W, N, opdim, dtau, c_det,
                                        stream, static_cast<long long*>(probe));
+}
+
+// CTAs per SM (no launch)
+int dq_sdw_update_blocks_per_sm(int device, int complex128, int N, int opdim) {
+    const size_t c = complex128 ? sizeof(dq::cplx<double>) : sizeof(dq::cplx<float>);
+    return complex128 ? dq::blocks_per_sm(device, dq::sdw_update_kernel<double, false>,
+                                          dq::update_smem(N, opdim, c))
+                      : dq::blocks_per_sm(device, dq::sdw_update_kernel<float, false>,
+                                          dq::update_smem(N, opdim, c));
 }
 
 }  // extern "C"

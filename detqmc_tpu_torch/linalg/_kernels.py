@@ -140,6 +140,8 @@ _SIGNATURES = {
     "dq_sdw_wrap_blocks_per_sm": [_I] * 6,
     # device, complex128, N, opdim, K, resident
     "dq_sdw_delayed_blocks_per_sm": [_I] * 6,
+    # device, complex128, N, opdim
+    "dq_sdw_update_blocks_per_sm": [_I] * 4,
     # device, float64, C, N, tr, tc
     "dq_slice_update_blocks_per_sm": [_I] * 6,
 }

@@ -7,10 +7,14 @@ pallas_cqr_lanes.py (``cqr_lanes``) on the card with ``csrc/qr.cu``, one
 CTA per matrix (see the source's note for what bounds each design): in
 float64 (K2 on the Hubbard chains) the tensor-core body of K3 and K3r
 (``csrc/f64_tc.cuh``) with the companion Q^T in registers, three CTAs
-per SM up to n = 64 (``f64_smem_bytes``, ``blocks_per_sm``); in float32
-and the complex dtypes (K2c) A and Q^H in shared memory
-(``smem_bytes``). ``kernel_for`` routes every dtype by ``smem_bytes``,
-so the float64 one-CTA route still ends at n = 119. Matrices beyond it
+per SM up to n = 64 (``f64_smem_bytes``, ``blocks_per_sm``); in the
+complex dtypes (K2c) the complex body of K3c and K3c-rhs
+(``csrc/cplx_tc.cuh``) with Q^H in registers, its products on the FP64
+tensor cores (complex128) or the FP32 pipe (complex64)
+(``complex_smem_bytes``); in float32 A and Q^H in shared memory
+(qr_kernel, ``smem_bytes``). ``kernel_for`` routes every dtype by
+``smem_bytes``, so the one-CTA routes keep their limits (n <= 119 in
+float64 and complex64, n <= 83 in complex128). Matrices beyond it
 (n > 128 in float32, n > 119 in float64 and complex64, n > 83 in
 complex128) go to K7, ``csrc/qr_big.cu``, the counterpart of
 pallas_qr_wy.py (``qr_wy``) and pallas_qr_big.py (``qr_big``) for real
@@ -64,9 +68,10 @@ def qr_plain(A):
 
 
 def smem_bytes(n: int, dtype) -> int:
-    """Dynamic shared memory of csrc/qr.cu qr_kernel (float32, complex64,
-    complex128: A and Q^H in shared memory); ``kernel_for`` routes float64
-    by it too, so its one-CTA route keeps its limit (n <= 119)."""
+    """Dynamic shared memory of csrc/qr.cu qr_kernel (A and Q^H in shared
+    memory; float32 runs it); ``kernel_for`` routes every dtype by it, so
+    the one-CTA routes keep their limits (n <= 119 in float64 and
+    complex64, n <= 83 in complex128)."""
     item = torch.empty((), dtype=dtype).element_size()
     return item * (2 * n * (n + 1) + 3 * n)
 
@@ -79,10 +84,21 @@ def f64_smem_bytes(n: int) -> int:
     return 8 * (np_ * (np_ + 4) + np_ * 9 + 2 * 8 * 9 + 3 * 8)
 
 
+def complex_smem_bytes(n: int, dtype) -> int:
+    """Dynamic shared memory of K2c (csrc/cplx_tc.cuh ctc_smem_bytes, the
+    body of K3c and K3c-rhs): A at np x (np + pad), pad 2 in complex64 and
+    1 in complex128, the side buffer np x 9, T and V^H V 8 x 9 each, alpha
+    and v's heads (8 each), beta (8 reals)."""
+    np_ = -(-n // 8) * 8
+    pad = 2 if dtype == torch.complex64 else 1
+    return (dtype.itemsize * (np_ * (np_ + pad) + 9 * np_ + 2 * 8 * 9 + 16)
+            + dtype.to_real().itemsize * 8)
+
+
 def blocks_per_sm(n: int, dtype, device="cuda") -> int:
-    """CTAs of the one-CTA QR (K2 in float64, qr_kernel otherwise) one SM
-    of ``device`` holds at this n, as the CUDA occupancy calculator
-    reports it."""
+    """CTAs of the one-CTA QR (K2 in float64, K2c in the complex dtypes,
+    qr_kernel in float32) one SM of ``device`` holds at this n, as the CUDA
+    occupancy calculator reports it."""
     return _kernels.query("dq_qr_blocks_per_sm", device, _DTYPE_CODES[dtype],
                           n)
 
@@ -179,10 +195,10 @@ def probe_phases(n: int, dtype):
 
 
 def complex_probe_phases(n: int, dtype):
-    """The phase names of K2c's probe instance (complex64 on the one-CTA
-    route, any n), else None."""
-    return (TC_PROBE_PHASES if dtype == torch.complex64
-            and kernel_for(n, dtype) == "qr_complex" else None)
+    """The phase names of K2c's probe instance (complex64 at np = 64, the
+    sdw_l4 shape; back-substitution stays 0), else None."""
+    return (TC_PROBE_PHASES if dtype == torch.complex64 and -(-n // 8) == 8
+            else None)
 
 
 def qr(A, probe: bool = False):

@@ -4,7 +4,9 @@ wrapper and plain version.
 Replaces detqmc_tpu/linalg/pallas_sdw_update.py (``slice_update_sdw``,
 Pallas kernel ``_kernel``) on the card with ``csrc/sdw_update.cu``: one
 CTA per walker, the walker's complex G in shared memory, the N sequential
-site steps inside the block (see the source's note for what bounds it).
+site steps inside the block, the scalar chain in every warp and each
+thread owning fixed entries of G (``smem_bytes``; see the source's note
+for what bounds it).
 
 Per site i, with the orbital-major indices j_b = b N + i
 (pallas_sdw_update.py:197-331; models/sdw.py ``_site_indices``):
@@ -183,11 +185,29 @@ def sdw_update_plain(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
     return torch.complex(Gr, Gi), phi, acc
 
 
+# the largest h the kernel takes (csrc/sdw_update.cu kMaxH); the
+# shared-memory budget ends complex128 at h = 112
+MAX_H = 160
+_WARPS = 8
+
+
 def smem_bytes(N: int, opdim: int, dtype) -> int:
-    """Dynamic shared memory of the kernel (csrc/sdw_update.cu)."""
+    """Dynamic shared memory of the kernel (csrc/sdw_update.cu
+    update_smem): G (h x h), the staged rows, the staged columns /
+    combined columns and every site's G_II (4 h complex values each),
+    phi_new, lhs and each warp's copy of the live field (reals), the
+    neighbour table (4 N int32)."""
     item = torch.empty((), dtype=dtype).element_size()
     h = 4 * N
-    return item * (h * (h + 1) + 12 * h) + item // 2 * N * opdim
+    return (item * (h * h + 12 * h) + item // 2 * (N * opdim * (1 + _WARPS) + N)
+            + 4 * 4 * N)
+
+
+def blocks_per_sm(N: int, dtype, device="cuda", opdim: int = 3) -> int:
+    """CTAs of the kernel one SM of ``device`` holds at h = 4 N, as the
+    CUDA occupancy calculator reports it."""
+    return _kernels.query("dq_sdw_update_blocks_per_sm", device,
+                          int(dtype == torch.complex128), N, opdim)
 
 
 def sdw_update(G, phi_l, phi_new, lhs, delta, nb, dtau: float, c_det: float,
@@ -221,7 +241,8 @@ def sdw_update(G, phi_l, phi_new, lhs, delta, nb, dtau: float, c_det: float,
         if tuple(t.shape) != shape:
             raise ValueError(f"sdw_update: {name} shape "
                              f"{tuple(t.shape)} != {shape}")
-    if smem_bytes(N, opdim, G.dtype) > _kernels.MAX_SMEM_BYTES - 1024:
+    if h > MAX_H or smem_bytes(N, opdim, G.dtype) > \
+            _kernels.MAX_SMEM_BYTES - 1024:
         raise ValueError(f"sdw_update: h={h} {G.dtype} exceeds the "
                          "shared-memory budget")
     if probe and G.dtype != torch.complex64:

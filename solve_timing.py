@@ -34,9 +34,11 @@ K3c-rhs probe instance on diag(r1), where K3c runs that body).
 Rows of the k2c group: K2c complex64 and complex128 B=128 n=64 on
 refactor blocks of the sdw_l4 chain beside torch.linalg.qr; of the k4
 group: K4 complex64 and complex128 W=128 h=64 on slice 1 of the sdw_l4
-chain (its wrapped G, proposal and lhs), 20 calls back to back beside
-each; each with its CTAs per SM and its phase split (complex64) where the
-package has them.
+chain (its wrapped G, proposal and lhs). Beside one call: 20 calls back
+to back and the device time of one call (torch.profiler's kernel time
+over 20 calls: the host's per-call work, ~0.06 ms for K4, exceeds the
+kernel's); each with its CTAs per SM and its phase split (complex64)
+where the package has them.
 
 Rows of the k5 group: the delayed SDW update K5 on slice 1 of a wrapped
 G, one whole slice (every chunk with its flush), complex64 W=128 h=256
@@ -120,6 +122,25 @@ def time_ms_batched(fn, calls: int = 20) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / calls
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """The device time of one call of ``fn``: torch.profiler's kernel time
+    over ``calls`` calls, divided by ``calls`` (the kernels' own time,
+    whatever the host's per-call work)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA)
+    return total / 1e3 / calls
 
 
 def graded_inner(B: int, n: int, dtype, gen, device):
@@ -502,6 +523,7 @@ def k2c_rows(emit, gen, device, reps, lib_reps):
         row = dict(kernel="K2c", dtype=str(cdt)[6:], B=B, n=n,
                    ms=time_ms(lambda: qr.qr(A), reps),
                    batched_ms=time_ms_batched(lambda: qr.qr(A)),
+                   device_ms=device_ms(lambda: qr.qr(A)),
                    library_ms=time_ms(lambda: torch.linalg.qr(A), lib_reps),
                    library="torch.linalg.qr", qr_minus_a=recon,
                    ctas_per_sm=qr.blocks_per_sm(n, cdt, device))
@@ -544,7 +566,7 @@ def k4_rows(emit, gen, device, reps):
         acc = float(run()[2].sum())
         row = dict(kernel="K4", dtype=str(cdt)[6:], W=W, h=h, N=N,
                    ms=time_ms(run, reps), batched_ms=time_ms_batched(run),
-                   acceptance=acc / (W * N))
+                   device_ms=device_ms(run), acceptance=acc / (W * N))
         if hasattr(sdw_update, "blocks_per_sm"):
             row["ctas_per_sm"] = sdw_update.blocks_per_sm(N, cdt, device)
         if hasattr(sdw_update, "PROBE_PHASES") and cdt == torch.complex64:

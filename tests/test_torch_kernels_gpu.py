@@ -26,8 +26,9 @@ Tolerances (same inputs, same card):
   n eps_f64 cond(inner) per matrix;
 - a sweep pair on the card against the same pair on the CPU (f64):
   identical fields and signs, G within 1e-10.
-- K4 (SDW slice update): identical accept decisions and fields; G
-  bitwise equal in complex128 and within 1e-5 in complex64;
+- K4 (SDW slice update): G, fields and acceptance bitwise equal in
+  complex128; in complex64 identical decisions except at a near-tie and
+  G within 1e-5 (the K4 entry below);
 - K2c (complex QR): after the phase fix 1e-10 (complex128) / 1e-4
   (complex64) relative to each factor's largest entry;
 - K3c (complex inner solve): the K3 criteria in complex128;
@@ -120,6 +121,22 @@ Tolerances (same inputs, same card):
 - K3c redesigned (complex128 diag(r1) on K3c-rhs's body) at every n = 1
   ... 83, batches of 3 and 267: the K3 criteria, one launch, two CTAs per
   SM up to n = 64.
+- K2c redesigned (the complex body of K3c with the companion Q^H in
+  registers; complex64 products on the FP32 pipe) at every n = 1 ... 119
+  (complex64) and 1 ... 83 (complex128), batches of 3 and 300, on I +
+  noise, column-graded and zero-column matrices, and on the SDW chain's
+  own refactor blocks (n = 16, 36, 64): one launch under the unchanged
+  key, R's strict lower triangle exactly zero, Q^H Q - I and (Q R - A) /
+  |A| within 1e-4 (complex64) / 1e-10 (complex128), the phase-fixed
+  factors within the same of qr_plain's; two CTAs per SM up to n = 64;
+  the complex64 probe instance (n = 64) gives the same outputs.
+- K4 redesigned (the chain in every warp, G's entries owned by the
+  threads) at every SDW L = 1 ... 5 on the model's own operands and on
+  synthetic ones at h = 68 and at the limits (h = 160 complex64, 112
+  complex128): complex128 bitwise; complex64 identical decisions except
+  at a near-tie (|lhs - rhs| < 1e-4 at the first differing site) and G
+  within 1e-5 where they agree; the probe instance equal to the
+  production one.
 """
 
 import numpy as np
@@ -322,20 +339,98 @@ def _k4_operands(model, st, gen):
     return [x.contiguous() for x in (G, phi[:, 0], phi_new, lhs, delta)]
 
 
+def _k4_margin(model, args, w, i):
+    """|lhs - (c_det log|R|^2 + live)| at site i of walker w, from the
+    plain chain run up to site i (later sites made to reject), evaluated
+    in float64 with torch.linalg.det (chip_smoke.py k4_margin)."""
+    G, phi_l, phi_new, lhs, delta = [a[w:w + 1].clone() for a in args]
+    lhs_cut = lhs.clone()
+    lhs_cut[:, i:] = float("inf")
+    Gi, phi_i, _ = sdw_update.sdw_update_plain(
+        G, phi_l, phi_new, lhs_cut, delta, model.nb, model.cfg.dtau,
+        model.c_det)
+    N = phi_l.shape[1]
+    idx = [b * N + i for b in range(4)]
+    c128, f64 = torch.complex128, torch.float64
+    eye = torch.eye(4, dtype=c128, device=G.device)
+    A = eye + delta[0, i].to(c128) @ (eye - Gi[0][idx][:, idx].to(c128))
+    snb = sum(phi_i[0, j].to(f64) for j in model.nb.tolist()[i])
+    live = model.cfg.dtau * float(((phi_new[0, i] - phi_l[0, i]).to(f64)
+                                   * snb).sum())
+    rhs = model.c_det * float(torch.log(torch.linalg.det(A).abs() ** 2)) \
+        + live
+    return abs(float(lhs[0, i]) - rhs)
+
+
+def _check_k4(model, args, extra, near_tie=1e-4):
+    """K4 against sdw_update_plain on one slice: one launch; complex128
+    bitwise (G, phi, acc); complex64 identical decisions except at a
+    near-tie of the log-domain test (|lhs - rhs| < near_tie at a walker's
+    first differing site, in float64) and G within 1e-5 where they agree;
+    the probe instance (complex64) gives the production one's bits.
+    Returns the kernel's output."""
+    _kernels.reset_launch_counts()
+    k = sdw_update.sdw_update(*args, *extra)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["sdw_update"] == 1
+    p = sdw_update.sdw_update_plain(*args, *extra)
+    if args[0].dtype == torch.complex128:
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
+    else:
+        same = (k[1] == p[1]).flatten(1).all(dim=1)
+        for w in torch.nonzero(~same)[:, 0].tolist():
+            i = int(torch.nonzero((k[1][w] != p[1][w]).any(-1))[0, 0])
+            assert _k4_margin(model, args, w, i) < near_tie
+        assert torch.equal(k[2][same], p[2][same])
+        assert float((k[0] - p[0])[same].abs().max()) <= 1e-5
+    if args[0].dtype == torch.complex64:
+        q = sdw_update.sdw_update(*args, *extra, probe=True)
+        torch.cuda.synchronize()
+        for a, b in zip(q[:3], k):
+            assert torch.equal(a, b)
+        assert q[3].shape == (args[0].shape[0],
+                              len(sdw_update.PROBE_PHASES) + 2)
+        assert bool((q[3][:, -2] > 0).all())
+    return k
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("L", [2, 4])
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 5])
 def test_sdw_update_kernel_matches_plain(cuda_device, dtype, L):
+    """K4 on the SDW model's own slice-1 operands at every L the immediate
+    route takes (h = 4 ... 100), the _check_k4 criteria; one CTA per SM at
+    least."""
     model, st, gen = _sdw(cuda_device, L=L, dtype=dtype)
     args = _k4_operands(model, st, gen)
-    k = sdw_update.sdw_update(*args, model.nb, model.cfg.dtau, model.c_det)
-    p = sdw_update.sdw_update_plain(*args, model.nb, model.cfg.dtau,
-                                    model.c_det)
-    torch.cuda.synchronize()
-    assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
-    if dtype == "float64":
-        assert torch.equal(k[0], p[0])
-    else:
-        assert float((k[0] - p[0]).abs().max()) <= 1e-5
+    _check_k4(model, args, (model.nb, model.cfg.dtau, model.c_det))
+    assert sdw_update.blocks_per_sm(model.cfg.n_sites, model.cdtype,
+                                    cuda_device) >= 1
+
+
+class _RingModel:
+    """What _k4_margin reads of a model, for synthetic operands."""
+
+    def __init__(self, nb):
+        self.nb = nb
+        self.cfg = type("Cfg", (), {"dtau": 0.1})()
+        self.c_det = 1.0
+
+
+@pytest.mark.parametrize("dtype,N", [("complex64", 17), ("complex64", 40),
+                                     ("complex128", 17), ("complex128", 28)])
+def test_k4_at_the_shared_memory_limits(cuda_device, dtype, N):
+    """K4 on synthetic operands (W = 130, acceptance ~0.5) at h = 68 and
+    at the largest h each dtype takes (h = 160 in complex64, 112 in
+    complex128: the model's limits through smem_bytes): the _check_k4
+    criteria; h + 4 exceeds the budget."""
+    cdt = getattr(torch, dtype)
+    ops, nb = _k5_operands(cuda_device, N, cdt, 130, seed=N)
+    k = _check_k4(_RingModel(nb), ops, (nb, 0.1, 1.0))
+    assert 0 < float(k[2].sum()) < 130 * N
+    if N > 17:
+        assert sdw_update.smem_bytes(N + 1, 3, cdt) > \
+            _kernels.MAX_SMEM_BYTES - 1024
 
 
 @pytest.mark.parametrize("dtype,tol,sizes", [
@@ -1216,6 +1311,97 @@ def test_k3c_redesign_matches_plain(cuda_device, batch):
             assert bool((amax(xk - xp) / amax(xp) <= bound).all())
         if n <= 64:
             assert green_solve.c128_blocks_per_sm(n, False, cuda_device) >= 2
+
+
+K2C_TOL = {torch.complex64: 1e-4, torch.complex128: 1e-10}
+
+
+def _check_k2c(A, lead=None):
+    """K2c on A (B, n, n): one launch under the key "qr_complex", R's
+    strict lower triangle exactly zero, Q^H Q = I and Q R = A within the
+    dtype's tolerance (K2C_TOL), and the phase-fixed factors within it of
+    qr_plain's (relative to each factor's largest entry); with ``lead``
+    only the first ``lead`` columns of U, d and V (the columns a rank-
+    deficient A determines). Returns (Q, R)."""
+    B, n, _ = A.shape
+    tol = K2C_TOL[A.dtype]
+    assert qr.kernel_for(n, A.dtype) == "qr_complex"
+    _kernels.reset_launch_counts()
+    Qk, Rk = qr.qr(A)
+    torch.cuda.synchronize()
+    expect = dict.fromkeys(_kernels.LAUNCHES, 0)
+    expect["qr_complex"] = 1
+    assert _kernels.LAUNCHES == expect
+    assert bool((torch.tril(Rk, -1) == 0).all())
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    assert float((Qk.mH @ Qk - eye).abs().max()) <= tol
+    assert float((Qk @ Rk - A).abs().max()) <= tol * float(A.abs().max())
+    fk, fp = _sign_fix(Qk, Rk), _sign_fix(*qr.qr_plain(A))
+    j = n if lead is None else lead
+    for a, b in ((fk.U[..., :j], fp.U[..., :j]), (fk.d[..., :j], fp.d[..., :j]),
+                 (fk.V[..., :j, :j], fp.V[..., :j, :j])):
+        if j:
+            assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+    return Qk, Rk
+
+
+@pytest.mark.parametrize("kind", ["near-identity", "graded", "zero-column"])
+@pytest.mark.parametrize("batch", [3, 300])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_k2c_redesign_matches_plain(cuda_device, dtype, batch, kind):
+    """K2c (the complex body of K3c with the companion Q^H in registers)
+    at every n its route takes (1 ... 119 in complex64, 1 ... 83 in
+    complex128; n not a multiple of 8 pads with the identity): I + noise
+    (the refactor blocks' conditioning), the same column-graded from 1 to
+    1e-11 (Householder QR is column-scaling invariant), and one with an
+    exactly zero column j = n // 2 (v = 0: the reflector leaves everything
+    unchanged; R's column j exactly 0; the columns before j against the
+    plain version, the later ones are not unique); the _check_k2c
+    criteria; two CTAs per SM up to n = 64."""
+    last = 119 if dtype == torch.complex64 else 83
+    gen = torch.Generator(cuda_device).manual_seed(batch + len(kind))
+    rdt = dtype.to_real()
+    for n in range(1, last + 1):
+        noise = torch.complex(*(torch.randn((batch, n, n), generator=gen,
+                                            dtype=rdt, device=cuda_device)
+                                for _ in range(2)))
+        A = torch.eye(n, dtype=dtype, device=cuda_device) + 0.3 * noise / n ** 0.5
+        if kind == "graded":
+            A = A * torch.logspace(0, -11, n, dtype=rdt, device=cuda_device)
+        elif kind == "zero-column":
+            A[:, :, n // 2] = 0.0
+        lead = n // 2 if kind == "zero-column" else None
+        Qk, Rk = _check_k2c(A.contiguous(), lead)
+        if kind == "zero-column":
+            assert bool((Rk[:, :, n // 2] == 0).all())
+        if n <= 64:
+            assert qr.blocks_per_sm(n, dtype, cuda_device) >= 2
+
+
+@pytest.mark.parametrize("L", [2, 3, 4])
+def test_k2c_on_refactor_blocks(cuda_device, L):
+    """The SDW chain's own refactor blocks (s B's onto the stack's unitary
+    factor, the sweep's lazy U; n = 4 L^2) at the sdw_l4 path's time step
+    (beta = 4, m = 40: the blocks' conditioning, which sets the complex64
+    factors' distance to the plain version's) in both complex dtypes: the
+    _check_k2c criteria; at n = 64 the complex64 probe instance gives the
+    production instance's outputs."""
+    cfg = SDWConfig(L=L, opdim=3, r=0.5, beta=4.0, m=40, s=4, dtype="float64")
+    model = SDWModel(cfg, device=cuda_device)
+    st = model.init_state(3, torch.Generator(cuda_device).manual_seed(L))
+    block = st.stack_U[:, 1]
+    for l in range(1, model.cfg.s + 1):
+        block = model.b_mult_left(model.exp_v_blocks(st.phi[:, l - 1]), block)
+    for dtype in (torch.complex64, torch.complex128):
+        A = block.to(dtype).contiguous()
+        Qk, Rk = _check_k2c(A)
+        if qr.complex_probe_phases(A.shape[-1], dtype):
+            Qp, Rp, rec = qr.qr(A, probe=True)
+            torch.cuda.synchronize()
+            assert torch.equal(Qp, Qk) and torch.equal(Rp, Rk)
+            assert rec.shape == (A.shape[0], len(qr.TC_PROBE_PHASES) + 2)
+            assert bool((rec >= 0).all()) and bool((rec[:, -2] > 0).all())
+            assert bool((rec[:, 3] == 0).all())    # no back-substitution
 
 
 K7_TOL = {torch.float32: 1e-4, torch.float64: 1e-10, torch.complex64: 1e-4,

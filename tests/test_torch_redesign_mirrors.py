@@ -28,6 +28,19 @@ versions on the card in tests/test_torch_kernels_gpu.py).
   M = diag(r1)) takes every n the complex one-CTA route takes (n <= 83,
   unchanged; every SDW dim up to L = 4): K3c-rhs's shared memory, one
   block there, two per SM up to n = 64.
+- K2c (csrc/qr.cu qr_c64_tc_kernel and qr_c128_tc_kernel, the identity
+  companion instances of K3c's body in csrc/cplx_tc.cuh) takes every n
+  that ``qr.kernel_for`` sends to the complex one-CTA route (n <= 119 in
+  complex64, n <= 83 in complex128, the routing limits, unchanged): its
+  shared memory, mirrored by ``qr.complex_smem_bytes`` (K3c-rhs's layout
+  in complex128), fits one block there and two per SM up to n = 64; its
+  probe instance is compiled in complex64 at np = 64.
+- K4 (csrc/sdw_update.cu) keeps G in shared memory up to h = 160;
+  ``smem_bytes`` fits one block at every h where the first design's
+  layout did (no h that ran before is refused, at every opdim) and
+  refuses the same first h beyond it, so the SDW model takes every
+  L = 1 ... 5 on the immediate route and the forced route's limits stay
+  h = 160 (complex64) and h = 112 (complex128).
 - K7 (csrc/qr_big.cu on tc_blocked.cuh householder_tc) takes every n from
   129 to MAX_N_BIG = 512 in all four dtypes: ``big_plan`` names a plan
   that csrc/qr_big.cu compiles, its shared memory (``tc_smem_bytes``, the
@@ -60,7 +73,7 @@ import pytest
 import torch
 
 from detqmc_tpu_torch.linalg import (_kernels, green_solve, qr,
-                                    sdw_delayed, sdw_wrap)
+                                    sdw_delayed, sdw_update, sdw_wrap)
 from detqmc_tpu_torch.linalg import slice_update as su
 from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
 from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
@@ -224,6 +237,88 @@ def test_k3c_takes_every_sdw_dim():
         "solve_inner_complex"
     assert green_solve.kernel_for(84, torch.complex128) == \
         "solve_inner_complex_big"
+
+
+@pytest.mark.parametrize("dtype,last", [(torch.complex64, 119),
+                                        (torch.complex128, 83)])
+def test_k2c_shared_memory_and_routing(dtype, last):
+    budget = _kernels.MAX_SMEM_BYTES - 1024
+    c64 = dtype == torch.complex64
+    for n in range(1, last + 1):
+        np_ = -(-n // 8) * 8
+        assert qr.kernel_for(n, dtype) == "qr_complex"
+        smem = qr.complex_smem_bytes(n, dtype)
+        # A at np x (np + pad), the side buffer np x 9, T and V^H V 8 x 9,
+        # alpha and v's heads, beta (reals)
+        pad = 2 if c64 else 1
+        assert smem == dtype.itemsize * (np_ * (np_ + pad) + 9 * np_ + 144
+                                         + 16) + dtype.to_real().itemsize * 8
+        # A's row stride: 2 mod 8 for 8-byte elements, odd for 16-byte ones
+        assert (np_ + pad) % 8 == (2 if c64 else 1)
+        if not c64:
+            assert smem == green_solve.rhs_smem_bytes(n)   # K3c's body
+        assert np_ <= (120 if c64 else 88)   # the instances qr.cu compiles
+        assert smem <= budget
+        if n <= 64:
+            assert smem <= _kernels.TWO_CTA_SMEM_BYTES  # two CTAs per SM
+        assert qr.complex_probe_phases(n, dtype) == (
+            qr.TC_PROBE_PHASES if c64 and np_ == 64 else None)
+    # the sizes the kernels' note gives: 39 KB (n = 64) and 124 KB (n = 119)
+    # in complex64, 77 KB (n = 64) in complex128
+    assert qr.complex_smem_bytes(64, torch.complex64) == 39712
+    assert qr.complex_smem_bytes(119, torch.complex64) == 127072
+    assert qr.complex_smem_bytes(64, torch.complex128) == 78400
+    # float32 keeps qr_kernel (no main path runs it), which routes all
+    assert qr.complex_probe_phases(64, torch.float32) is None
+
+
+@pytest.mark.parametrize("opdim", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_k4_plan_at_every_sdw_dim(dtype, opdim):
+    budget = _kernels.MAX_SMEM_BYTES - 1024
+    item = dtype.itemsize
+
+    def first_design(N):       # G at stride h + 1, 12 h staged values
+        h = 4 * N
+        return item * (h * (h + 1) + 12 * h) + item // 2 * N * opdim
+
+    for N in range(1, 49):
+        h = 4 * N
+        smem = sdw_update.smem_bytes(N, opdim, dtype)
+        # G, the staged rows, columns and G_II (12 h), phi_new, lhs and 8
+        # warps' live fields (reals), the neighbour table
+        assert smem == item * (h * h + 12 * h) + item // 2 * (
+            N * opdim * 9 + N) + 16 * N
+        # no h that ran before is refused, and none beyond is taken
+        assert (smem <= budget) == (first_design(N) <= budget)
+        if smem <= budget:
+            assert h <= sdw_update.MAX_H
+    # the limits at opdim 3: h = 160 in complex64, h = 112 in complex128
+    last = 40 if dtype == torch.complex64 else 28
+    assert sdw_update.smem_bytes(last, 3, dtype) <= budget
+    assert sdw_update.smem_bytes(last + 1, 3, dtype) > budget
+    assert sdw_update.PROBE_PHASES == ("chain", "barriers", "staging",
+                                       "combined columns", "rank-4 update",
+                                       "loads and stores")
+
+
+def test_k4_takes_every_sdw_lattice():
+    """The SDW model's immediate route (dim < 128: L = 1 ... 5) passes its
+    kernel bounds in both dtypes; the forced route (update_kernel="pallas")
+    keeps its limits: L = 6 (h = 144) in complex64 only, L = 7 (h = 196)
+    in neither."""
+    for L in range(1, 6):
+        for dt in ("float32", "float64"):
+            cfg = SDWConfig(L=L, opdim=3, m=8, s=4, dtype=dt)
+            assert SDWModel.routes(cfg, "cuda")["update"] == "immediate"
+            SDWModel._check_kernel_bounds(cfg)
+    SDWModel._check_kernel_bounds(SDWConfig(L=6, opdim=3, m=8, s=4,
+                                            dtype="float32",
+                                            update_kernel="pallas"))
+    for L, dt in ((6, "float64"), (7, "float32")):
+        with pytest.raises(NotImplementedError):
+            SDWModel._check_kernel_bounds(SDWConfig(
+                L=L, opdim=3, m=8, s=4, dtype=dt, update_kernel="pallas"))
 
 
 # the (b, tc) instances csrc/qr_big.cu compiles (qr_plan_ok)
