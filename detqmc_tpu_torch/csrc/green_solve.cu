@@ -50,9 +50,6 @@ namespace dq {
 // NVIDIA H100 80GB HBM3, 700 W). This one: 77 KB of shared memory at
 // n = 64, two CTAs per SM (B = 128, sdw_l4's sweep, is one wave; B = 1408,
 // its unequal-time anchors, six).
-__host__ __device__ constexpr size_t rhs_tc_smem_bytes(int n) {
-    return ctc_smem_bytes<cplx<double>>(n);
-}
 
 // distinct names, so a profile tells K3c from K3c-rhs (K3c takes K3c-rhs's
 // arguments, its probe pointer unused, so one launch serves both)
@@ -101,7 +98,7 @@ int solve_c128(int device, const void* inner, const void* M, void* out, int batc
     return with_c128_tc<PROBE>(
         round_up(n, 8) / 8, rhs, static_cast<int>(cudaErrorInvalidValue), [&](auto kernel) {
             // M goes as raw pointer bytes: r1 (double) for K3c, complex128 for K3c-rhs
-            return launch_tc(device, kernel, batch, rhs_tc_smem_bytes(n), stream,
+            return launch_tc(device, kernel, batch, ctc_smem_bytes<cplx<double>>(n), stream,
                              static_cast<const cplx<double>*>(inner), M,
                              static_cast<cplx<double>*>(out), n, probe);
         });
@@ -217,7 +214,7 @@ int dq_solve_inner_c128_blocks_per_sm(int device, int n, int rhs) {
     return dq::with_c128_tc<false>(
         dq::round_up(n, 8) / 8, rhs != 0, -static_cast<int>(cudaErrorInvalidValue),
         [&](auto kernel) {
-            return dq::blocks_per_sm(device, kernel, dq::rhs_tc_smem_bytes(n));
+            return dq::blocks_per_sm(device, kernel, dq::ctc_smem_bytes<dq::cplx<double>>(n));
         });
 }
 

@@ -23,31 +23,25 @@
 //   - every warp runs the chain (sdw_site.cuh site_step_warp, 16 lanes, one
 //     4x4 entry a lane, the same bits as the plain version), so all warps
 //     decide alike and none waits for a broadcast: a rejected site takes
-//     no barrier (0.77 us a site). Each warp keeps its own copy of the live
-//     field (a fast warp's accept would race a slow warp's live term). The
-//     next site's entries of Delta are loaded while a site is decided;
+//     no barrier. Each warp keeps its own copy of the live field (a fast
+//     warp's accept would race a slow warp's live term). The next site's
+//     entries of Delta are loaded while a site is decided;
 //   - every thread owns fixed entries of G: warp w the rows w + 8m, lane l
-//     the columns l + 32k. An accepted site takes two barriers: the owners
-//     of rows j_b stage e_{j_b} - G[j_b, :], the owners of columns j_a
-//     stage their warp's entries G[:, j_a], each warp forms the combined
-//     columns of its own rows (warp-synchronous), then barrier 1; every
-//     thread updates its own entries and writes those of the sites' 4x4
-//     blocks G_II to the table the chains read; then barrier 2 (the table
-//     and the staging buffers for the next site). The staged rows and
-//     columns are laid out [row][b], so an entry's four operands are one
-//     vector load each;
-//   - G stays in shared memory at every h. Its own entries in registers
-//     (16 a thread at h = 64) measured no faster: 46.6 against 45.0 us a
-//     launch at complex64 h = 64, 77.1 against 65.6 in complex128 (the
-//     compiler keeps entries that a runtime row index selects in local
-//     memory), and 16 warps slowed the chains (solve_timing.py, NVIDIA
-//     H100 80GB HBM3, 700 W).
+//     the columns l + 32k. An accepted site takes two barriers: all
+//     threads stage the site's rows e_{j_b} - G[j_b, :] and each warp forms
+//     the combined columns of its own rows from G's columns j_a (nothing
+//     writes G before barrier 1); then every thread updates its own
+//     entries; barrier 2 makes G current for the next site's chains and
+//     frees the staged values. The staged rows and combined columns are
+//     laid out [row][b], one vector load an entry's four operands;
+//   - G stays in shared memory at every h: its entries in registers at
+//     h = 64 (16 a thread) and 16 warps were tried on the card and were
+//     not faster.
 // What bounds it: the N dependent chains (~40 shuffles and ~60 dependent
-// rounded operations a site) and, per accepted site, the rank-4 update:
-// h^2 entries of 32 explicitly rounded FP32 (FP64) operations each, the
-// plain version's rounding (2.0 us a site at complex64 h = 64, four times
-// the FP32 pipe's bound). The slowest walker sets a launch's time: at
-// sdw_l4's acceptance (~0.25) the most accepted sites of 128 walkers.
+// rounded operations a site) and, per accepted site, the rank-4 update's
+// h^2 x 32 explicitly rounded FP32 (FP64) operations, the plain version's
+// rounding. A launch lasts as long as its slowest walker: at sdw_l4's
+// acceptance (~0.25) the one of 128 that accepts the most sites.
 // Every product and sum is explicitly rounded (cmul_rn ...) in the plain
 // PyTorch version's order (linalg/sdw_update.py), so for equal inputs the
 // kernel reproduces it bit for bit up to log(), and the accept decisions
@@ -59,7 +53,7 @@ namespace dq {
 
 // the phase probe's phases (Probe, common.cuh), mirrored by
 // linalg/sdw_update.py PROBE_PHASES: the site's scalar chain (live term,
-// decision, T), the barriers, the staging of the site's columns and rows,
+// decision, T), the barriers, the staging of the site's rows,
 // the combined columns, the rank-4 update, the loads and stores
 enum { kChain, kBarrier, kStage, kComb, kUpdate, kLoadStore, kPhases };
 
@@ -68,12 +62,12 @@ enum { kChain, kBarrier, kStage, kComb, kUpdate, kLoadStore, kPhases };
 constexpr int kMaxH = 160;
 
 // shared memory of one CTA (linalg/sdw_update.py smem_bytes): G (h x h),
-// the staged rows, the staged columns / combined columns and the sites'
-// G_II (4 h complex values each), then phi_new, lhs and every warp's copy
-// of the live field (reals), and the neighbour table
+// the staged rows and the combined columns (4 h complex values each), then
+// phi_new, lhs and every warp's copy of the live field (reals), and the
+// neighbour table
 inline size_t update_smem(int N, int opdim, size_t cbytes) {
     const size_t h = 4 * size_t(N), rbytes = cbytes / 2;
-    return cbytes * (h * h + 12 * h) + rbytes * (size_t(N) * opdim * (1 + kWarps) + N)
+    return cbytes * (h * h + 8 * h) + rbytes * (size_t(N) * opdim * (1 + kWarps) + N)
            + sizeof(int) * 4 * size_t(N);
 }
 
@@ -92,9 +86,8 @@ sdw_update_kernel(const cplx<T>* __restrict__ G_in, const T* __restrict__ phi_in
     const size_t wk = blockIdx.x;
     S* G = reinterpret_cast<S*>(smem_raw);              // h x h
     S* rows = G + h * h;                                // h x 4: e_{j_b} - G[j_b, c]
-    S* cc = rows + 4 * h;                               // h x 4: G[r, j_a], then comb
-    S* gii = cc + 4 * h;                                // N x 16: every site's G_II
-    T* phin = reinterpret_cast<T*>(gii + 16 * N);       // N x opdim
+    S* cc = rows + 4 * h;                               // h x 4: the combined columns
+    T* phin = reinterpret_cast<T*>(cc + 4 * h);         // N x opdim
     T* lhs = phin + NO;                                 // N
     T* phiw = lhs + N;                                  // kWarps x N x opdim
     int* nb = reinterpret_cast<int*>(phiw + kWarps * NO);   // N x 4
@@ -103,10 +96,6 @@ sdw_update_kernel(const cplx<T>* __restrict__ G_in, const T* __restrict__ phi_in
 
     const S* Gw = G_in + wk * size_t(h) * h;
     for (int idx = tid; idx < h * h; idx += kThreads) G[idx] = Gw[idx];
-    for (int idx = tid; idx < 16 * N; idx += kThreads) {
-        const int i = idx >> 4, a = (idx >> 2) & 3, b = idx & 3;
-        gii[idx] = Gw[size_t(a * N + i) * h + b * N + i];
-    }
     for (int idx = tid; idx < NO; idx += kThreads) {
         phin[idx] = phin_in[wk * NO + idx];
         const T p = phi_in[wk * NO + idx];
@@ -115,80 +104,71 @@ sdw_update_kernel(const cplx<T>* __restrict__ G_in, const T* __restrict__ phi_in
     for (int idx = tid; idx < N; idx += kThreads) lhs[idx] = lhs_in[wk * N + idx];
     for (int idx = tid; idx < 4 * N; idx += kThreads) nb[idx] = nb_in[idx];
     T* phi = phiw + warp * NO;               // this warp's live field
-    // the orbital b of an index j = b N + i < h
-    auto orb = [&](int j) { return (j >= N) + (j >= 2 * N) + (j >= 3 * N); };
     // lanes e and e + 16 take G_II's entry e = 4 a + b and its row a and
     // column b of Delta_i
     const SiteLanes L;
     const S* dw = delta_in + wk * 16 * size_t(N);
     SiteDelta<T> dnext = site_delta(dw, L);
+    // lane e's G_II entry G[a N + i][b N + i] (its 16 entries share a bank:
+    // the next site's is loaded while a site is decided, again after an
+    // accepted one)
+    auto gii = [&](int i) { return G[(L.a * N + i) * h + L.b * N + i]; };
     T n_acc = T(0);
     probe.lap(kLoadStore);
     __syncthreads();
     probe.lap(kBarrier);
+    S gnext = gii(0);
 
     for (int i = 0; i < N; ++i) {
         const SiteDelta<T> d = dnext;
-        if (i + 1 < N) dnext = site_delta(dw + 16 * (i + 1), L);
+        const S g = gnext;
+        if (i + 1 < N) {
+            dnext = site_delta(dw + 16 * (i + 1), L);
+            gnext = gii(i + 1);
+        }
         // every warp decides, on identical inputs (site i's own field is
         // still the slice's: phi_i = phi_in_i)
         const T live = site_live(phi, phin + i * opdim, phi + i * opdim, nb + 4 * i,
                                  opdim, dtau);
         S Te;                                // entry e of T (on accept)
-        const bool accept = site_step_warp(gii[16 * i + L.e], d, lhs[i], live, c_det, L, Te);
+        const bool accept = site_step_warp(g, d, lhs[i], live, c_det, L, Te);
         probe.lap(kChain);
         if (!accept) continue;               // uniform: no barrier
         n_acc = add_rn(n_acc, T(1));
         if (lane == 0)
             for (int o = 0; o < opdim; ++o) phi[i * opdim + o] = phin[i * opdim + o];
-        // the owners of rows j_b stage e_{j_b} - G[j_b, :] (rows[c][b]), the
-        // owners of columns j_a their warp's entries G[:, j_a] (cc[r][a])
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-            const int j = b * N + i;
-            if ((j & 7) == warp)             // warp-uniform
-                for (int c = lane; c < h; c += 32) {
-                    const S v = G[j * h + c];
-                    rows[4 * c + b] = mk(sub_rn(c == j ? T(1) : T(0), v.re), -v.im);
-                }
-            if (lane == (j & 31))
-                for (int r = warp; r < h; r += kWarps) cc[4 * r + b] = G[r * h + j];
+        // the site's rows e_{j_b} - G[j_b, :] (rows[c][b]), staged by every
+        // thread (nothing writes G before barrier 1)
+        for (int idx = tid; idx < 4 * h; idx += kThreads) {
+            const int c = idx >> 2, j = (idx & 3) * N + i;
+            const S v = G[j * h + c];
+            rows[idx] = mk(sub_rn(c == j ? T(1) : T(0), v.re), -v.im);
         }
         probe.lap(kStage);
-        __syncwarp();
-        // the combined columns of this warp's rows: lane l forms entry
-        // (row warp + 8 (l / 4 + 8 t), column l % 4), rows below h
+        // the combined columns of this warp's rows, read from G's columns
+        // j_a: lane l forms entry (row warp + 8 (l / 4 + 8 t), column l % 4)
         const int bl = lane & 3;
         S tcol[4];                           // column bl of T
 #pragma unroll
         for (int a = 0; a < 4; ++a) tcol[a] = shfl_c(Te, 4 * a + bl);
         constexpr int TQ = (4 * kMaxH / kWarps + 31) / 32;
-        S cb[TQ];
 #pragma unroll
         for (int t = 0; t < TQ; ++t) {
-            if (64 * t >= h) break;          // uniform: no row of this t
-            S col[4];
-            load4(cc + 4 * min(warp + kWarps * ((lane >> 2) + 8 * t), h - 1), col);
-            cb[t] = cmul_rn(col[0], tcol[0]);
-#pragma unroll
-            for (int a = 1; a < 4; ++a) cb[t] = cadd_rn(cb[t], cmul_rn(col[a], tcol[a]));
-        }
-        __syncwarp();
-#pragma unroll
-        for (int t = 0; t < TQ; ++t) {
-            if (64 * t >= h) break;
             const int r = warp + kWarps * ((lane >> 2) + 8 * t);
-            if (r < h) cc[4 * r + bl] = cb[t];
+            if (64 * t >= h) break;          // uniform: no row of this t
+            const S* Gr = G + min(r, h - 1) * h + i;
+            S cb = cmul_rn(Gr[0], tcol[0]);
+#pragma unroll
+            for (int a = 1; a < 4; ++a) cb = cadd_rn(cb, cmul_rn(Gr[a * N], tcol[a]));
+            if (r < h) cc[4 * r + bl] = cb;
         }
         probe.lap(kComb);
         __syncthreads();                     // the staged rows, this warp's comb
         probe.lap(kBarrier);
-        // the rank-4 update of this thread's entries; their entries of the
-        // sites' G_II to the table
+        // the rank-4 update of this thread's entries
         for (int c = lane; c < h; c += 32) {
             S rw[4];
             load4(rows + 4 * c, rw);
-            const int bc = orb(c), ic = c - bc * N;
 #pragma unroll 8
             for (int r = warp; r < h; r += kWarps) {
                 S cm[4];
@@ -196,15 +176,13 @@ sdw_update_kernel(const cplx<T>* __restrict__ G_in, const T* __restrict__ phi_in
                 S u = cmul_rn(cm[0], rw[0]);
 #pragma unroll
                 for (int b = 1; b < 4; ++b) u = cadd_rn(u, cmul_rn(cm[b], rw[b]));
-                const S v = csub_rn(G[r * h + c], u);
-                G[r * h + c] = v;
-                const int ar = orb(r);
-                if (r - ar * N == ic) gii[16 * ic + 4 * ar + bc] = v;
+                G[r * h + c] = csub_rn(G[r * h + c], u);
             }
         }
         probe.lap(kUpdate);
-        __syncthreads();                     // the table and the staging buffers
+        __syncthreads();                     // G for the chains, the staged values
         probe.lap(kBarrier);
+        if (i + 1 < N) gnext = gii(i + 1);
     }
 
     __syncthreads();                         // every thread's last update

@@ -159,7 +159,7 @@ TC_RHS_PROBE_PHASES = TC_PROBE_PHASES
 
 def rhs_smem_bytes(n: int) -> int:
     """Dynamic shared memory of the complex128 kernels K3c and K3c-rhs
-    (green_solve.cu rhs_tc_smem_bytes): A at np x (np + 1), the side
+    (cplx_tc.cuh ctc_smem_bytes): A at np x (np + 1), the side
     buffer np x 9, T and V^H V 8 x 9 each, alpha and v's heads (8 each)
     and beta."""
     np_ = -(-n // 8) * 8

@@ -193,13 +193,12 @@ _WARPS = 8
 
 def smem_bytes(N: int, opdim: int, dtype) -> int:
     """Dynamic shared memory of the kernel (csrc/sdw_update.cu
-    update_smem): G (h x h), the staged rows, the staged columns /
-    combined columns and every site's G_II (4 h complex values each),
-    phi_new, lhs and each warp's copy of the live field (reals), the
-    neighbour table (4 N int32)."""
+    update_smem): G (h x h), the staged rows and the combined columns (4 h
+    complex values each), phi_new, lhs and each warp's copy of the live
+    field (reals), the neighbour table (4 N int32)."""
     item = torch.empty((), dtype=dtype).element_size()
     h = 4 * N
-    return (item * (h * h + 12 * h) + item // 2 * (N * opdim * (1 + _WARPS) + N)
+    return (item * (h * h + 8 * h) + item // 2 * (N * opdim * (1 + _WARPS) + N)
             + 4 * 4 * N)
 
 

@@ -390,9 +390,10 @@ class SDWModel(nn.Module):
         if dim > MAX_N_BIG:
             raise _unported(f"SDW at dim {dim} > {MAX_N_BIG} on a CUDA device",
                             "ROADMAP.md Queue 1 item 8")
-        if SDWModel.routes(cfg, "cuda")["update"] == "immediate" and \
-                sdw_update.smem_bytes(cfg.n_sites, cfg.opdim, cfg.cdtype) > \
-                _kernels.MAX_SMEM_BYTES - 1024:
+        if SDWModel.routes(cfg, "cuda")["update"] == "immediate" and (
+                dim > sdw_update.MAX_H or sdw_update.smem_bytes(
+                    cfg.n_sites, cfg.opdim, cfg.cdtype)
+                > _kernels.MAX_SMEM_BYTES - 1024):
             raise _unported(f"update_kernel={cfg.update_kernel!r} (K4, G in "
                             f"one block's shared memory) at dim {dim} on a "
                             "CUDA device (update_kernel='delayed' runs K5)",

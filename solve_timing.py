@@ -38,7 +38,10 @@ chain (its wrapped G, proposal and lhs). Beside one call: 20 calls back
 to back and the device time of one call (torch.profiler's kernel time
 over 20 calls: the host's per-call work, ~0.06 ms for K4, exceeds the
 kernel's); each with its CTAs per SM and its phase split (complex64)
-where the package has them.
+where the package has them. K4 also runs with every site rejected and
+with every site accepted (lhs = +inf, -inf): device time and split of
+each, and the slowest CTA's time (a launch lasts as long as its slowest
+walker).
 
 Rows of the k5 group: the delayed SDW update K5 on slice 1 of a wrapped
 G, one whole slice (every chunk with its flush), complex64 W=128 h=256
@@ -569,9 +572,20 @@ def k4_rows(emit, gen, device, reps):
                    device_ms=device_ms(run), acceptance=acc / (W * N))
         if hasattr(sdw_update, "blocks_per_sm"):
             row["ctas_per_sm"] = sdw_update.blocks_per_sm(N, cdt, device)
+        # every site rejected (lhs = +inf) and every site accepted (-inf):
+        # the chains alone, and the chains with every site's update
+        for name, bound in (("reject", float("inf")), ("accept", -float("inf"))):
+            cut = args[:3] + [torch.full_like(args[3], bound)] + args[4:]
+            row[f"device_ms_all_{name}"] = device_ms(
+                lambda: sdw_update.sdw_update(*cut, *extra))
+            if hasattr(sdw_update, "PROBE_PHASES") and cdt == torch.complex64:
+                rec = sdw_update.sdw_update(*cut, *extra, probe=True)[-1]
+                row[f"probe_all_{name}"] = split(rec, sdw_update.PROBE_PHASES)
         if hasattr(sdw_update, "PROBE_PHASES") and cdt == torch.complex64:
             rec = sdw_update.sdw_update(*args, *extra, probe=True)[-1]
             row["probe"] = split(rec, sdw_update.PROBE_PHASES)
+            row["probe_max_cta_us"] = round(float(
+                (rec[:, -1].double() / 1e3).max()), 3)
         emit(row)
         del args
     del model, st, G

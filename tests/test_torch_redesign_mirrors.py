@@ -285,18 +285,18 @@ def test_k4_plan_at_every_sdw_dim(dtype, opdim):
     for N in range(1, 49):
         h = 4 * N
         smem = sdw_update.smem_bytes(N, opdim, dtype)
-        # G, the staged rows, columns and G_II (12 h), phi_new, lhs and 8
-        # warps' live fields (reals), the neighbour table
-        assert smem == item * (h * h + 12 * h) + item // 2 * (
+        # G, the staged rows and combined columns (8 h), phi_new, lhs and
+        # 8 warps' live fields (reals), the neighbour table
+        assert smem == item * (h * h + 8 * h) + item // 2 * (
             N * opdim * 9 + N) + 16 * N
         # no h that ran before is refused, and none beyond is taken
-        assert (smem <= budget) == (first_design(N) <= budget)
-        if smem <= budget:
-            assert h <= sdw_update.MAX_H
+        taken = smem <= budget and h <= sdw_update.MAX_H
+        assert taken == (first_design(N) <= budget)
     # the limits at opdim 3: h = 160 in complex64, h = 112 in complex128
     last = 40 if dtype == torch.complex64 else 28
     assert sdw_update.smem_bytes(last, 3, dtype) <= budget
-    assert sdw_update.smem_bytes(last + 1, 3, dtype) > budget
+    assert (sdw_update.smem_bytes(last + 1, 3, dtype) > budget
+            or 4 * (last + 1) > sdw_update.MAX_H)
     assert sdw_update.PROBE_PHASES == ("chain", "barriers", "staging",
                                        "combined columns", "rank-4 update",
                                        "loads and stores")
