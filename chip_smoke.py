@@ -108,7 +108,35 @@ Phases (any failure raises, and the script exits non-zero):
      with 16 walkers, 4 measurements uninterrupted against 2 saved and 2
      resumed by a second CLI run (the CUDA generator's state through
      checkpoint.py): fields, signs, counters and generator state
-     identical, results within 1e-8.
+     identical, results within 1e-8;
+16. the SDW global moves and the SDW CLI (examples/sdw_o3_l8.conf):
+   - log-det: udv.clog_abs_det_one_plus_udv on every walker's whole-chain
+     UdV of an sdw_l4 state (n = 64: K2c) and of a state of the conf
+     (n = 256, W = 64: K7), its QR in complex64 and in complex128: one
+     launch a call, against the same formula with qr_plain on the same
+     card tensors (complex128 within 1e-9) and complex64 within 2e-3 of
+     complex128; the QR of its operand timed with the plain QR and
+     torch.linalg.qr, and the whole call;
+   - global-move parity: SDWConfig(L=2, m=8, s=4, float64), W = 4, the
+     global shift, Wolff and Wolff + shift moves on the card and on the
+     CPU with the same injected draws: identical clusters, decisions and
+     fields, G within 1e-10, and the card's refresh from the log-dets'
+     stacks bitwise equal to refresh_from_field;
+   - CLI: detqmc_tpu_torch.cli.main_sdw.main in-process on the conf with
+     thermalization=10 sweeps=10 jkBlocks=2 (its keys otherwise
+     unchanged: L=8, 64 walkers, globalShift and wolffClusterShiftUpdate
+     every 10 sweeps): exit 0, the JAX CLI's files, finite results,
+     median green_dev < 1e-4, phase exactly 1, both moves fired at least
+     twice in thermalization and in measurement, the launch counts against
+     the code's formulas (K7 2K + 2 a move, the log-det's two counted at
+     its call site); then timed direct calls on the conf's model: a sweep
+     pair, a global shift and a Wolff + shift move (median wall of three
+     rounds), their acceptances and the mean cluster size, and one call of
+     each under torch.profiler (device time by kernel, busy share);
+   - CLI resume on the card: the conf at L=4 in float64 with 8 walkers and
+     the moves after every pair, 4 measurements uninterrupted against 2
+     saved and 2 resumed: the saved state (phi, phase, box_width, r,
+     counters) and the generator state identical, results within 1e-8.
 
 The second-to-last line is {"kernels": [...]} (every number measured in
 this run; bound_ms is the larger of the kernel's bytes over the HBM rate
@@ -180,6 +208,20 @@ L16_RESUME = ["model=hubbard", "L=16", "U=4.0", "mu=0.0", "beta=8.0",
               "dtau=0.1", "s=4", "checkerboard=true", "updateMethod=delayed",
               "delay=16", "walkers=16", "thermalization=2", "jkBlocks=2",
               "blockMeas=2", "saveInterval=2", "dtype=float64", "rngSeed=7"]
+# phase 16: examples/sdw_o3_l8.conf through the port's SDW CLI, its keys
+# unchanged (L=8 opdim 3 r=0.5 beta=4 m=40 s=4 checkerboard, globalShift,
+# wolffClusterShiftUpdate, globalUpdateInterval=10, 64 walkers, float32)
+SDW_CONF = Path(__file__).resolve().parent / "examples" / "sdw_o3_l8.conf"
+SDW_CLI = ["thermalization=10", "sweeps=10", "jkBlocks=2"]
+# the log-det's QR dtype against a complex128 evaluation, and complex128's
+# kernel against its plain version
+LOGDET_TOL = {"complex64": 2e-3, "complex128": 1e-9}
+N_MOVE_ROUNDS = 3          # timed pair / shift / Wolff + shift rounds
+# the SDW resume on the card: the conf at L=4 in float64, 8 walkers, the
+# moves after every pair, a checkpoint every 2 measurements
+SDW_RESUME = ["L=4", "dtype=float64", "walkers=8", "thermalization=2",
+              "jkBlocks=2", "blockMeas=2", "saveInterval=2",
+              "globalUpdateInterval=2", "rngSeed=7"]
 # K1b bitwise in float64 with two spin sectors and a ragged tail chunk
 # (144 = 28 x 5 + 4)
 K1B_F64_CFG = dict(L=12, U=4.0, beta=2.0, m=8, s=4, dtype="float64",
@@ -1625,6 +1667,441 @@ def cli_resume_check() -> None:
           f"within {worst:.3e} (tol 1e-8); three CLI runs {wall:.2f} s")
 
 
+# ---- phase 16: the SDW global moves and the SDW CLI --------------------
+def logdet_phase(title, model, state):
+    """udv.clog_abs_det_one_plus_udv on the whole-chain UdV of every
+    walker (the right stack's entry 0), with its QR in complex64 and in
+    complex128: one launch of the kernel qr.kernel_for routes it to per
+    call; the same formula with qr_plain on the same card tensors (within
+    LOGDET_TOL[complex128] of the kernel's, complex128) and the complex64
+    log-det within LOGDET_TOL[complex64] of the complex128 one; the kernel,
+    the plain QR and torch.linalg.qr timed on the operand M, and the whole
+    call. Returns {dtype: record}."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import _kernels, qr
+    from detqmc_tpu_torch.linalg.udv import (UDV, clog_abs_det_one_plus_udv,
+                                             clog_operand, log_abs_diag)
+
+    W, n = state.phi.shape[0], model.dim
+    full = UDV(state.stack_U[:, 0], state.stack_d[:, 0], state.stack_V[:, 0])
+    lds, rec = {}, {}
+    for cname, cdt in (("complex64", torch.complex64),
+                       ("complex128", torch.complex128)):
+        f = UDV(full.U.to(cdt), full.d, full.V)
+        route = qr.kernel_for(n, cdt)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        ld = clog_abs_det_one_plus_udv(f)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        check(launched == {route: 1}, f"{title} {cname}: launches "
+              f"{launched}, not one {route}")
+        M, log_dmax = clog_operand(f)
+        Qk, Rk = qr.qr(M)
+        ld_plain = log_dmax + log_abs_diag(qr.qr_plain(M)[1])
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(ld).all()), f"{title}: non-finite log-det")
+        err = float((ld - ld_plain).abs().max())
+        lds[cname] = (ld, err)
+        ms = time_ms(lambda: qr.qr(M))
+        pms = time_ms(lambda: qr.qr_plain(M), reps=3)
+        lms = time_ms(lambda: torch.linalg.qr(M), reps=3)
+        call_ms = time_ms(lambda: clog_abs_det_one_plus_udv(f))
+        print(f"{title} {cname} (W={W}, n={n}, QR by {route}, one launch a "
+              f"call): log|det(1 + B_m..B_1)| {float(ld.min()):.4f}.."
+              f"{float(ld.max()):.4f}, max|kernel - plain| {err:.3e}; QR of "
+              f"M: kernel {ms:.4f} ms, plain {pms:.4f} ms, torch.linalg.qr "
+              f"{lms:.4f} ms; the whole call {call_ms:.4f} ms")
+        rec[cname] = record(err, ms, pms, lms, bound(
+            nbytes(M, Qk, Rk), qr_flops(W, n, True)))
+    exact = lds["complex128"][1]
+    check(exact <= LOGDET_TOL["complex128"], f"{title}: complex128 kernel "
+          f"vs plain {exact:.3e} > {LOGDET_TOL['complex128']}")
+    drift = float((lds["complex64"][0] - lds["complex128"][0]).abs().max())
+    print(f"  complex64 against complex128: max {drift:.3e} (tol "
+          f"{LOGDET_TOL['complex64']}); complex128 kernel against plain "
+          f"{exact:.3e} (tol {LOGDET_TOL['complex128']})")
+    check(drift <= LOGDET_TOL["complex64"], f"{title}: complex64 log-det "
+          f"off the complex128 one by {drift:.3e}")
+    return rec
+
+
+def global_draws(model, W, gen, kind):
+    """One move's injected draws for W walkers, from a CPU generator (the
+    Wolff bonds pre-drawn for m N iterations, the most a cluster can
+    take)."""
+    import torch
+
+    cfg = model.cfg
+    m, N, op, dt = cfg.m, cfg.n_sites, cfg.opdim, model.rdtype
+    if kind == "shift":
+        return (torch.randn((W, op), generator=gen, dtype=dt),
+                torch.rand(W, generator=gen, dtype=dt))
+    head = (torch.randn((W, op), generator=gen, dtype=dt),
+            torch.stack([torch.randint(k, (W,), generator=gen)
+                         for k in (m, N)], dim=1),
+            torch.rand((m * N, W, 6, m, N), generator=gen, dtype=dt))
+    tail = (torch.randn((W, op), generator=gen, dtype=dt),) \
+        if kind == "wolff_shift" else ()
+    return head + tail + (torch.rand(W, generator=gen, dtype=dt),)
+
+
+def global_parity_phase(device):
+    """The three global moves on the card and on the CPU, SDWConfig(L=2,
+    m=8, s=4, float64), W = 4, from the same state and the same injected
+    draws: identical clusters (and reflected fields), decisions, fields
+    and cluster sizes, G within PARITY_G_TOL; and on the card the refresh
+    from the log-dets' stacks bitwise equal to refresh_from_field."""
+    import torch
+
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel, SDWState
+
+    W = 4
+    cfg = SDWConfig(L=2, opdim=3, r=0.5, beta=1.0, m=8, s=4, box_width=0.1,
+                    dtype="float64", globalShift=True,
+                    wolffClusterUpdate=True, wolffClusterShiftUpdate=True)
+    cpu, gpu = SDWModel(cfg, device="cpu"), SDWModel(cfg, device=device)
+    gen = torch.Generator().manual_seed(16)
+    sc = cpu.init_state(W, gen)
+    sg = SDWState(*[x.to(device) for x in sc])
+    accepted = []
+    for kind, method in (("shift", "attempt_global_shift"),
+                         ("wolff", "attempt_wolff_update"),
+                         ("wolff_shift", "attempt_wolff_shift_update")):
+        draws = global_draws(cpu, W, gen, kind)
+        to_dev = tuple(x.to(device) for x in draws)
+        if kind != "shift":
+            axis, seed, bonds = draws[:3]
+            e = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+            cc, rc, _ = cpu._grow_wolff_cluster(sc.phi, e, seed, bonds)
+            cg, rg, _ = gpu._grow_wolff_cluster(sg.phi, *(
+                x.to(device) for x in (e, seed, bonds)))
+            check(torch.equal(cg.cpu(), cc) and torch.equal(rg.cpu(), rc),
+                  f"global parity {kind}: clusters or reflections differ")
+        oc = getattr(cpu, method)(sc, draws=draws)
+        og = getattr(gpu, method)(sg, draws=to_dev)
+        sc, sg = oc[0], og[0]
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(og[1:], oc[1:])),
+              f"global parity {kind}: decisions or cluster sizes differ")
+        check(torch.equal(sg.phi.cpu(), sc.phi),
+              f"global parity {kind}: fields differ")
+        gerr = float((sg.G.cpu() - sc.G).abs().max())
+        check(gerr <= PARITY_G_TOL, f"global parity {kind}: G err {gerr:.3e}")
+        fresh = gpu.refresh_from_field(sg)
+        check(all(torch.equal(getattr(fresh, k), getattr(sg, k)) for k in (
+            "G", "stack_U", "stack_d", "stack_V")), f"global parity {kind}: "
+              "the refresh from the log-dets' stacks is not bitwise "
+              "refresh_from_field's")
+        accepted.append(f"{kind} {int(oc[1].sum())}/{W} accepted"
+                        + (f", cluster sizes {oc[2].tolist()}"
+                           if len(oc) > 2 else "") + f", max|dG| {gerr:.3e}")
+    print(f"SDW global-move parity (L=2 m=8 s=4 W={W} f64, card vs CPU, the "
+          f"same draws): clusters, decisions, fields identical, G within "
+          f"{PARITY_G_TOL}, the card's stack-reuse refresh bitwise "
+          f"refresh_from_field's; " + "; ".join(accepted))
+
+
+class LogdetLaunches:
+    """While open, the launches made inside the SDW model's log-det
+    (models/sdw.py's clog_abs_det_one_plus_udv) are added to ``counts``,
+    kernel by kernel; the model itself is not changed."""
+
+    def __init__(self):
+        self.counts = {}
+
+    def __enter__(self):
+        from detqmc_tpu_torch.linalg import _kernels
+        from detqmc_tpu_torch.models import sdw as sdw_mod
+
+        self._mod, self._orig = sdw_mod, sdw_mod.clog_abs_det_one_plus_udv
+
+        def counted(f):
+            before = dict(_kernels.LAUNCHES)
+            out = self._orig(f)
+            for k, v in _kernels.LAUNCHES.items():
+                if v != before[k]:
+                    self.counts[k] = self.counts.get(k, 0) + v - before[k]
+            return out
+
+        sdw_mod.clog_abs_det_one_plus_udv = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.clog_abs_det_one_plus_udv = self._orig
+
+
+class MoveLog:
+    """While open, every call of the SDW model's global moves in
+    ``methods`` is recorded as (method, walker 0's sweeps_done)."""
+
+    def __init__(self, methods):
+        self.methods, self.calls = methods, []
+
+    def __enter__(self):
+        from detqmc_tpu_torch.models.sdw import SDWModel
+
+        self._orig = {m: getattr(SDWModel, m) for m in self.methods}
+        for name, fn in self._orig.items():
+            def logged(model, state, *a, _fn=fn, _name=name, **kw):
+                self.calls.append((_name, int(state.sweeps_done[0])))
+                return _fn(model, state, *a, **kw)
+            setattr(SDWModel, name, logged)
+        return self
+
+    def __exit__(self, *exc):
+        from detqmc_tpu_torch.models.sdw import SDWModel
+
+        for name, fn in self._orig.items():
+            setattr(SDWModel, name, fn)
+
+
+def conf_model(device, *overrides):
+    """The SDW model of examples/sdw_o3_l8.conf (with ``overrides``), as the
+    port's CLI builds it, and its walker count."""
+    from detqmc_tpu_torch.config import (_SDW_KEYS, build_sdw_config,
+                                         build_sdw_driver_config, parse_args,
+                                         split_params)
+    from detqmc_tpu_torch.models.sdw import SDWModel
+
+    model_p, driver_p, _ = split_params(
+        parse_args(["--conf", str(SDW_CONF), *overrides]), _SDW_KEYS)
+    return (SDWModel(build_sdw_config(model_p), device=device),
+            build_sdw_driver_config(driver_p, model_p).n_walkers)
+
+
+def sdw_cli_phase(device):
+    """examples/sdw_o3_l8.conf through detqmc_tpu_torch.cli.main_sdw.main
+    in-process (SDW_CLI's run lengths, the conf's keys otherwise): exit 0,
+    the JAX CLI's files, finite results, median green_dev under the gate,
+    phase exactly 1; both moves fired twice in each phase; the launch
+    counts of the run against the formulas of the code (the kernels the
+    model routes its dim to), the log-det's QR counted at its call site.
+    Then timed direct calls on the conf's model: a sweep pair, a global
+    shift and a Wolff + shift move, their acceptances and the mean cluster
+    size. Returns the run's launch counts and the log-det's QR launches."""
+    import math
+    import os
+    import tempfile
+
+    import torch
+
+    from detqmc_tpu_torch.cli.main_sdw import main as cli_main
+    from detqmc_tpu_torch.io.series import load_results
+    from detqmc_tpu_torch.linalg import _kernels, green_solve, qr
+    from detqmc_tpu_torch.metadata import string_to_metadata
+
+    methods = ("attempt_global_shift", "attempt_wolff_shift_update")
+    with tempfile.TemporaryDirectory() as outdir:
+        argv = ["--conf", str(SDW_CONF), *SDW_CLI, f"outdir={outdir}"]
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with LogdetLaunches() as ld_count, MoveLog(methods) as moves:
+            rc = cli_main(argv)
+        wall = time.perf_counter() - t0
+        counts = dict(_kernels.LAUNCHES)
+        check(rc == 0, f"SDW CLI exited {rc}")
+        files = set(os.listdir(outdir))
+        want = {"info.dat", "results.values", "greendev.series", "sv.series",
+                "phiSquared.series", "phase.series", "acceptance.series",
+                "sdwSusceptibility.series", "results-phiCorrelation.values",
+                "state.npz", "state.json"}
+        check(want <= files, f"SDW CLI: missing {sorted(want - files)}")
+        res = load_results(os.path.join(outdir, "results.values"))
+        with open(os.path.join(outdir, "info.dat")) as f:
+            info = string_to_metadata(f.read())
+    check(res and all(math.isfinite(v) for pair in res.values()
+                      for v in pair), f"SDW CLI: non-finite results {res}")
+    dev = float(info["greenDevMedian"])
+    check(dev < SDW_GREEN_DEV_GATE, f"SDW CLI: median green_dev {dev:.3e}")
+    check(res["phase"][0] == 1.0, f"SDW CLI: phase {res['phase']}")
+    model, W = conf_model(device)
+    cfg = model.cfg
+    K, m = cfg.n_stack, cfg.m
+    therm = 2 * int(info["thermalization"])
+    fired = {p: [c for c in moves.calls if (c[1] <= therm) == (p == "therm")]
+             for p in ("therm", "meas")}
+    print(f"SDW CLI detqmc_tpu_torch.cli.main_sdw --conf {SDW_CONF.name} "
+          f"{' '.join(SDW_CLI)} (W={W}, dim {model.dim}, K={K}): exit 0 in "
+          f"{wall:.2f} s, {len(files)} files, {len(res)} finite results; "
+          f"green_dev median {dev:.4e} (gate {SDW_GREEN_DEV_GATE}), phase "
+          f"{res['phase']}, phiSquared {res['phiSquared'][0]:.6f}, "
+          f"acceptance {res['acceptance'][0]:.6f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; moves "
+          f"(method, sweeps_done) {moves.calls}")
+    for p, calls in fired.items():
+        for name in methods:
+            n = sum(c[0] == name for c in calls)
+            check(n >= 2, f"SDW CLI: {name} fired {n} times in {p}")
+    # the counts follow from the code: init K refactors, one G and m B^H
+    # applies; each pair 2K refactors, 2K G solves, 2m slices (K5), 2m
+    # wraps and 2m applies; each move two stacks (2K refactors, 2m
+    # applies), two log-det QRs and one G from the stack it keeps
+    pairs = int(info["thermalization"]) + int(info["sweeps"])
+    n_moves = len(moves.calls)
+    route = model.routes(cfg, "cuda")
+    qk = qr.kernel_for(model.dim, model.cdtype)
+    sk = green_solve.kernel_for(model.dim, torch.complex128)
+    solves = 1 + 2 * K * pairs + n_moves
+    expect = dict.fromkeys(counts, 0)
+    expect.update({qk: K + 2 * K * pairs + (2 * K + 2) * n_moves, sk: solves})
+    if sk.endswith("_big"):
+        expect["trinv_big"] = solves
+    expect["sdw_delayed" if route["update"] == "delayed" else "sdw_update"] \
+        = 2 * m * pairs
+    if route["wrap"] == "fused":
+        expect.update({"sdw_wrap": 2 * m * pairs,
+                       "sdw_apply": m + 2 * m * pairs + 2 * m * n_moves})
+    print(f"  launches {({k: v for k, v in counts.items() if v})} (expected "
+          f"{({k: v for k, v in expect.items() if v})}); K7 a move 2K + 2 "
+          f"= {2 * K + 2} (the stacks of both log-dets reused for the "
+          f"refresh; 3K + 2 = {3 * K + 2} in the JAX model's order of "
+          f"work), {n_moves} moves; the log-det's own launches "
+          f"{ld_count.counts} (2 a move)")
+    check(counts == expect, f"SDW CLI: launch counts {counts} != {expect}")
+    check(ld_count.counts == {qk: 2 * n_moves},
+          f"SDW CLI: log-det launches {ld_count.counts}")
+
+    # timed direct calls on the conf's model
+    gen = torch.Generator(device=device).manual_seed(1613)
+    state = model.init_state(W, gen)
+    state, _ = model.sweep_pair(state, measure=False, generator=gen)
+    torch.cuda.synchronize()
+    calls = {"sweep pair": lambda st: model.sweep_pair(
+                 st, measure=False, generator=gen),
+             "global shift": lambda st: model.attempt_global_shift(st, gen),
+             "Wolff + shift": lambda st: model.attempt_wolff_shift_update(
+                 st, gen)}
+    walls = {name: [] for name in calls}
+    acc = {"global shift": [], "Wolff + shift": []}
+    sizes = []
+    for _ in range(N_MOVE_ROUNDS):
+        for name, fn in calls.items():
+            t0 = time.perf_counter()
+            out = fn(state)
+            torch.cuda.synchronize()
+            walls[name].append(1e3 * (time.perf_counter() - t0))
+            state = out[0]
+            if name in acc:
+                acc[name].append(out[1].double().mean())
+            if name == "Wolff + shift":
+                sizes.append(out[2].double().mean())
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"  direct calls (W={W}, {N_MOVE_ROUNDS} rounds, median wall): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
+          + f"; a shift {med['global shift'] / med['sweep pair']:.2f} "
+          f"pairs, a Wolff + shift "
+          f"{med['Wolff + shift'] / med['sweep pair']:.2f} pairs; "
+          "acceptance " + ", ".join(
+              f"{k} {float(torch.stack(v).mean()):.4f}"
+              for k, v in acc.items())
+          + f"; mean cluster size {float(torch.stack(sizes).mean()):.2f} of "
+          f"{m * cfg.n_sites} sites")
+    check(bool(torch.isfinite(state.G).all()), "SDW moves: non-finite G")
+    fresh = model.refresh_from_field(state)
+    check(all(torch.equal(getattr(fresh, k), getattr(state, k)) for k in (
+        "G", "stack_U", "stack_d", "stack_V")), "sdw_o3_l8: the refresh from "
+          "the log-dets' stacks is not bitwise refresh_from_field's")
+    print("  the last move's refresh from the log-dets' stacks: bitwise "
+          "refresh_from_field's (K7, K8 + K9 at dim 256)")
+    for name, fn in calls.items():
+        profile_phase(lambda: fn(state), med[name], SDW8_GROUPS,
+                      "sdw_o3_l8 profile", name)
+    del model, state
+    torch.cuda.empty_cache()
+    return counts, ld_count.counts[qk]
+
+
+def sdw_cli_resume_check() -> dict:
+    """The SDW CLI on the card (the conf with SDW_RESUME's keys: L=4
+    float64, the moves after every pair) saved at measurement 2 and
+    resumed by a second run ends where the uninterrupted run ends: fields,
+    phases, widths, counters and the generator state identical, results
+    within 1e-8 (relative). Returns the log-det's launches of the
+    uninterrupted run (K2c at dim 64)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from detqmc_tpu_torch.checkpoint import load_checkpoint
+    from detqmc_tpu_torch.cli.main_sdw import main as cli_main
+    from detqmc_tpu_torch.io.series import load_results
+
+    base = ["--conf", str(SDW_CONF), *SDW_RESUME]
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, split = os.path.join(tmp, "whole"), os.path.join(tmp, "split")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            with LogdetLaunches() as ld_count:
+                rcs = [cli_main(base + ["sweeps=4", f"outdir={whole}"])]
+            rcs.append(cli_main(base + ["sweeps=2", f"outdir={split}"]))
+            saved = load_checkpoint(os.path.join(split, "state"))
+            rcs.append(cli_main(base + ["sweeps=4", f"outdir={split}"]))
+        wall = time.perf_counter() - t0
+        check(rcs == [0, 0, 0], f"SDW CLI resume: exit codes {rcs}")
+        check(saved is not None and saved[2]["measurements_done"] == 2,
+              "SDW CLI resume: no checkpoint at measurement 2")
+        (sw, _, mw, gw), (ss, _, ms, gs) = (
+            load_checkpoint(os.path.join(d, "state")) for d in (whole, split))
+        rw, rs = (load_results(os.path.join(d, "results.values"))
+                  for d in (whole, split))
+    check(mw["measurements_done"] == ms["measurements_done"] == 4,
+          "SDW CLI resume: measurements differ")
+    check(sw.keys() == ss.keys() and all(
+        (sw[k] == ss[k]).all() for k in sw), "SDW CLI resume: the resumed "
+          "run's state differs from the uninterrupted run's: "
+          f"{[k for k in sw if not (sw[k] == ss[k]).all()]}")
+    check(gw is not None and bool((gw == gs).all()),
+          "SDW CLI resume: generator states differ")
+    check(rw.keys() == rs.keys(), "SDW CLI resume: result names differ")
+    worst = max(abs(a - b) / max(abs(a), 1e-300)
+                for k in rw for a, b in zip(rw[k], rs[k]) if a != b) \
+        if rw != rs else 0.0
+    check(worst <= 1e-8, f"SDW CLI resume: results differ by {worst:.3e}")
+    check(set(ld_count.counts) == {"qr_complex"}, "SDW CLI resume: the "
+          f"log-det's launches {ld_count.counts} are not K2c's")
+    print(f"SDW CLI resume on the card ({' '.join(SDW_RESUME)}, global moves "
+          f"after every pair): 4 measurements uninterrupted vs saved at 2 "
+          f"and resumed: {sorted(sw)} and the generator state identical, "
+          f"{len(rw)} results within {worst:.3e} (tol 1e-8); the "
+          f"uninterrupted run's log-det launches {ld_count.counts}; three "
+          f"CLI runs {wall:.2f} s")
+    return ld_count.counts
+
+
+def sdw_global_phase(device):
+    """Phase 16 (see the module docstring). Returns (kernel records, launch
+    counts) of the log-det rows."""
+    import torch
+
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    kern = {}
+    sdw = SDWModel(SDWConfig(**SDW_CFG), device=device)
+    gen = torch.Generator(device=device).manual_seed(4316)
+    kern["qr_complex_logdet"] = logdet_phase(
+        "log-det sdw_l4", sdw, sdw.init_state(W_SDW, gen))
+    del sdw
+    l8, W = conf_model(device)
+    kern["qr_complex_big_logdet"] = logdet_phase(
+        "log-det sdw_o3_l8", l8, l8.init_state(W, gen))
+    del l8
+    torch.cuda.empty_cache()
+    lap("log-det kernels")
+    global_parity_phase(device)
+    lap("global-move parity")
+    counts, ld_big = sdw_cli_phase(device)
+    lap("SDW CLI")
+    ld_small = sdw_cli_resume_check()
+    lap("SDW CLI resume")
+    return kern, {"qr_complex_logdet": ld_small["qr_complex"],
+                  "qr_complex_big_logdet": ld_big}
+
+
 def main() -> int:
     import torch
 
@@ -1782,6 +2259,9 @@ def main() -> int:
     lap("L=16 main path and profile")
     counts["solve_inner_big_rhs"] = cli_phase()["solve_inner_big_rhs"]
     lap("CLI")
+    ld_kern, ld_counts = sdw_global_phase(device)
+    kern.update(ld_kern)
+    counts.update(ld_counts)
 
     meta = {"slice_update": ("detqmc_tpu_torch/csrc/slice_update.cu",
                              "detqmc_tpu/linalg/pallas_update_lanes.py:185",
@@ -1839,7 +2319,16 @@ def main() -> int:
             # no Pallas kernel: the JAX package runs XLA there
             "solve_inner_big_rhs": (
                 "detqmc_tpu_torch/csrc/green_solve_big.cu",
-                "detqmc_tpu/linalg/udv.py:379", "float64")}
+                "detqmc_tpu/linalg/udv.py:379", "float64"),
+            # the global moves' log-det (cudv.clog_abs_det_one_plus_udv):
+            # its QR at dim 64 (the card's resume run, complex128) and at
+            # dim 256 (the sdw_o3_l8 CLI run, complex64)
+            "qr_complex_logdet": ("detqmc_tpu_torch/csrc/qr.cu",
+                                  "detqmc_tpu/linalg/pallas_cqr_lanes.py:180",
+                                  "complex128"),
+            "qr_complex_big_logdet": (
+                "detqmc_tpu_torch/csrc/qr_big.cu",
+                "detqmc_tpu/linalg/pallas_cqr_wy.py:266", "complex64")}
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": repl,
              "launches": counts[name], **kern[name][dname]}
             for name, (src, repl, dname) in meta.items()]

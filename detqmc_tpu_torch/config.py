@@ -1,9 +1,11 @@
 """Config system: `key = value` files + CLI flags -> validated dataclasses.
 
-The port's copy of detqmc_tpu/config.py, for the Hubbard CLI: the same
-keys, parsing and validation, building the port's DriverConfig and
-HubbardConfig (the SDW and parallel-tempering keys come with their CLIs,
-ROADMAP.md Queue 1 items 10-11).
+The port's copy of detqmc_tpu/config.py, for the Hubbard and SDW CLIs:
+the same keys, parsing and validation, building the port's DriverConfig,
+HubbardConfig and SDWConfig (the parallel-tempering keys come with their
+CLIs, ROADMAP.md Queue 1 item 10). One divergence: the SDW key
+``accRatio``, which the JAX config drops, becomes the driver's
+``target_acc_ratio`` (``build_sdw_driver_config``).
 
 Reference parity: SURVEY.md §3 row "Config/flag system"
 (boost::program_options: CLI flags + --conf file; parameter structs with
@@ -23,6 +25,7 @@ walltimeSecs, rngSeed, outdir, walkers.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 from detqmc_tpu_torch.driver import DriverConfig
@@ -134,6 +137,23 @@ _HUBBARD_KEYS = {
     "staggerH": float,
 }
 
+_SDW_KEYS = {
+    "L": int, "r": float, "lambda": float, "u": float, "c": float,
+    "txhor": float, "txver": float, "tyhor": float, "tyver": float,
+    "mu": float, "opdim": int,
+    "beta": float, "m": int, "dtau": float, "s": int,
+    "checkerboard": _to_bool,
+    "updateMethod": str, "delay": int, "dtype": str,
+    "globalShift": _to_bool, "wolffClusterUpdate": _to_bool,
+    "wolffClusterShiftUpdate": _to_bool,
+    "globalUpdateInterval": int, "turnoffFermions": _to_bool,
+    "boxLength": float, "accRatio": float,
+    "spinProposalMethod": str,
+    "fermionRepr": str, "updateKernel": str, "greenKernel": str,
+    "greenRefineIters": int, "ozakiChainLimbs": int, "cbApply": str,
+    "wrapPrec": str, "wrapKernel": str,
+}
+
 def resolve_time_grid(params: Dict[str, Any]) -> Tuple[float, int]:
     """Two-of-three (beta, m, dtau) rule (reference: DetQMCParams.check)."""
     beta = params.get("beta")
@@ -234,3 +254,58 @@ def build_hubbard_config(model_params: Dict[str, str]):
         return HubbardConfig(beta=beta, m=m, delay=delay, **typed)
     except ValueError as e:
         raise ConfigurationError(str(e))
+
+
+def build_sdw_config(model_params: Dict[str, str]):
+    from detqmc_tpu_torch.models.sdw import SDWConfig
+
+    typed = _convert(model_params, _SDW_KEYS, "sdw")
+    beta, m = resolve_time_grid({
+        "beta": typed.pop("beta", None),
+        "m": typed.pop("m", None),
+        "dtau": typed.pop("dtau", None),
+    })
+    if "lambda" in typed:
+        typed["lam"] = typed.pop("lambda")
+    if "boxLength" in typed:
+        typed["box_width"] = typed.pop("boxLength")
+    # accRatio is the driver's (build_sdw_driver_config)
+    typed.pop("accRatio", None)
+    if "spinProposalMethod" in typed:
+        typed["spinProposalMethod"] = typed["spinProposalMethod"].lower()
+    upd = typed.pop("updateMethod", "iterative")
+    if upd not in ("iterative", "delayed"):
+        raise ConfigurationError(
+            f"updateMethod must be iterative|delayed, got {upd!r}")
+    if upd == "iterative":
+        typed["delay"] = 0
+    elif "delay" not in typed:
+        typed["delay"] = 16  # reference-style default delaySteps
+    for conf_key, field in (("fermionRepr", "fermion_repr"),
+                            ("updateKernel", "update_kernel"),
+                            ("greenKernel", "green_kernel"),
+                            ("greenRefineIters", "green_refine_iters"),
+                            ("ozakiChainLimbs", "ozaki_chain_limbs"),
+                            ("cbApply", "cb_apply"),
+                            ("wrapPrec", "wrap_prec"),
+                            ("wrapKernel", "wrap_kernel")):
+        if conf_key in typed:
+            typed[field] = typed.pop(conf_key)
+    try:
+        return SDWConfig(beta=beta, m=m, **typed)
+    except (TypeError, ValueError) as e:
+        raise ConfigurationError(str(e))
+
+
+def build_sdw_driver_config(driver_params: Dict[str, str],
+                            model_params: Dict[str, str]) -> DriverConfig:
+    """build_driver_config, with the SDW key ``accRatio`` (if given) as
+    ``target_acc_ratio``: the proposal-width tuning's target. The JAX
+    config drops the key, so there a conf's value never reaches the
+    tuning; its default, 0.5, is examples/sdw_o3_l8.conf's value."""
+    drv = build_driver_config(driver_params)
+    if "accRatio" in model_params:
+        acc = _convert({"accRatio": model_params["accRatio"]}, _SDW_KEYS,
+                       "sdw")["accRatio"]
+        drv = dataclasses.replace(drv, target_acc_ratio=acc)
+    return drv

@@ -16,11 +16,22 @@ checkpoints, wall-time checks; the unequal-time measurements
 block; ``ConsistencyLogger``, ``auto_stabilize`` and the save interval
 behave as in the JAX driver, and the output files are the same.
 
+The SDW parts of the JAX driver, as there: the model's global moves fire
+after each sweep pair that crosses a ``globalUpdateInterval`` boundary
+(``global_fire_flags``; thermalization counts 2 sweeps a pair, the
+measurements 2 ``measure_interval`` sweeps a measurement, after its
+measured pair, so the observables come before the move); after each
+thermalization block every walker's ``box_width`` is multiplied by
+clip(acceptance / target_acc_ratio, 0.5, 2) (``tuned_box_width``, the
+walker's mean sweep acceptance over the block); ``dump_config_stream``
+appends the field to ``phi.binarystream`` after each measurement block.
+A resume restores every saved leaf after ``refresh_from_field``, so it
+serves both models.
+
 Not ported (each raises or is left out, as noted): ``mesh_devices > 1``
 (walkers over several cards, ROADMAP.md Queue 1 item 10) raises
-NotImplementedError; the SDW-only parts of the JAX driver — global moves,
-proposal-width tuning, phi stream dumps — come with the SDW CLI (Queue 1
-item 11); the compilation cache has no counterpart (Queue 1 item 12).
+NotImplementedError; the compilation cache has no counterpart (Queue 1
+item 12).
 ``profile_dir`` records a torch.profiler trace of the first measurement
 block (``trace.json``) where the JAX driver records a jax.profiler one.
 """
@@ -37,6 +48,7 @@ import numpy as np
 import torch
 
 from detqmc_tpu_torch import checkpoint as ckpt_mod
+from detqmc_tpu_torch.io.binarystream import BinaryStreamWriter
 from detqmc_tpu_torch.io.series import SeriesWriter
 from detqmc_tpu_torch.metadata import Metadata, write_metadata
 from detqmc_tpu_torch.observables import ObservableHandler
@@ -74,7 +86,9 @@ class DriverConfig:
     current_correlators: bool = False
     # walkers over several cards: not ported (ROADMAP.md Queue 1 item 10)
     mesh_devices: int = 0
-    # proposal-width tuning and phi dumps of the SDW model: echoed only
+    # proposal-width tuning toward target_acc_ratio after each
+    # thermalization block, and phi dumps to phi.binarystream after each
+    # measurement block (models with box_width / phi: SDW)
     target_acc_ratio: float = 0.5
     tune_proposals: bool = True
     dump_config_stream: bool = False
@@ -140,6 +154,27 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def global_fire_flags(start_sweeps: int, n_units: int, sweeps_per_unit: int,
+                      interval: int) -> list:
+    """fire[t] is True iff unit t of a block (sweeps_per_unit sweeps from
+    start_sweeps + t sweeps_per_unit) crosses a multiple of ``interval``
+    sweeps: the global moves are attempted every ``interval`` sweeps
+    (detqmc_tpu/driver.py _global_fire_flags); none for interval <= 0."""
+    if interval <= 0:
+        return [False] * n_units
+    s0 = start_sweeps + sweeps_per_unit * np.arange(n_units)
+    return ((s0 + sweeps_per_unit) // interval > s0 // interval).tolist()
+
+
+def tuned_box_width(box_width: torch.Tensor, acceptance: torch.Tensor,
+                    target: float) -> torch.Tensor:
+    """Each walker's proposal width times clip(acceptance / target, 0.5,
+    2), acceptance (W,) its mean sweep acceptance over a thermalization
+    block (detqmc_tpu/driver.py's tuning between device blocks)."""
+    factor = torch.clamp(acceptance / target, 0.5, 2.0)
+    return (box_width * factor).to(box_width.dtype)
+
+
 class DetQMC:
     """Owns model + walker states + generator + observable handler
     (reference: DetQMC owns model, RNG, handlers)."""
@@ -169,6 +204,7 @@ class DetQMC:
         self.therm_done = 0
         self._t_start = time.time()
         self._stopped_early = False
+        self._phi_stream = None
         self._consistency = ConsistencyLogger(params.outdir, self.meta)
         self.states = None
 
@@ -207,10 +243,11 @@ class DetQMC:
             self.p.n_walkers,
             torch.Generator(self.model.device).manual_seed(self.p.seed))
         restored = ckpt_mod.restore_state(blank, arrays)
-        # the checkpointed sign was tracked exactly through accepted-ratio
-        # signs, so the saved value wins over the refresh's
+        # every saved leaf wins over the refresh's: Hubbard's sign was
+        # tracked exactly through accepted-ratio signs, and SDW's
+        # box_width, r and phase are not functions of the field
         self.states = self.model.refresh_from_field(restored)._replace(
-            sign=restored.sign)
+            **{name: getattr(restored, name) for name in arrays})
         if rng is not None:
             self.generator.set_state(rng)
         self.handler.load_state_dict(handler_arrays)
@@ -223,20 +260,51 @@ class DetQMC:
             self.states, measure=measure, generator=self.generator)
         return obs
 
-    def _therm_block(self, n: int) -> None:
-        for _ in range(n):
-            self._pair(False)
+    def _fire_flags(self, start_sweeps: int, n_units: int,
+                    sweeps_per_unit: int) -> list:
+        interval = (getattr(self.model.cfg, "globalUpdateInterval", 0)
+                    if getattr(self.model, "has_global_moves", False) else 0)
+        return global_fire_flags(start_sweeps, n_units, sweeps_per_unit,
+                                 interval)
+
+    def _maybe_global(self, fire: bool) -> None:
+        if fire:
+            self.states = self.model.global_moves(self.states,
+                                                  generator=self.generator)
+
+    def _therm_block(self, n: int) -> torch.Tensor:
+        """n sweep pairs; returns each walker's mean sweep acceptance over
+        them (W,)."""
+        acc = 0.0
+        for fire in self._fire_flags(2 * self.therm_done, n, 2):
+            acc = acc + self._pair(False).acceptance
+            self._maybe_global(fire)
+        return acc / n
 
     def _meas_block(self, n: int) -> Dict[str, np.ndarray]:
         """n measurements, each measure_interval sweep pairs (the last one
-        measured); {name: (n, W, ...)}."""
+        measured, the global moves after it); {name: (n, W, ...)}."""
         obs = []
-        for _ in range(n):
+        unit = 2 * self.p.measure_interval
+        for fire in self._fire_flags(unit * self.measurements_done, n, unit):
             for _ in range(self.p.measure_interval - 1):
                 self._pair(False)
             obs.append(self._pair(True))
+            self._maybe_global(fire)
         return {name: _numpy(torch.stack([getattr(o, name) for o in obs]))
                 for name in obs[0]._fields}
+
+    def _dump_phi(self) -> None:
+        """Append every walker's field to phi.binarystream (one float64
+        record per walker, (m, N, opdim))."""
+        if not (self.p.dump_config_stream and self.p.outdir
+                and hasattr(self.states, "phi")):
+            return
+        phi = _numpy(self.states.phi)
+        if self._phi_stream is None:
+            self._phi_stream = BinaryStreamWriter(
+                f"{self.p.outdir}/phi.binarystream", phi.shape[1:])
+        self._phi_stream.append(phi)
 
     def _block_measurements(self, batch: Dict[str, np.ndarray]) -> None:
         """The once-per-block unequal-time measurements, one sample each."""
@@ -327,8 +395,11 @@ class DetQMC:
         while self.therm_done < self.p.thermalization:
             n = min(block, self.p.thermalization - self.therm_done)
             with timing("thermalization", block_on=self.model.expK):
-                self._therm_block(n)
+                acc = self._therm_block(n)
             self.therm_done += n
+            if self.p.tune_proposals and hasattr(self.states, "box_width"):
+                self.states = self.states._replace(box_width=tuned_box_width(
+                    self.states.box_width, acc, self.p.target_acc_ratio))
             self._maybe_auto_stabilize()
             if self._out_of_time(margin=(t_block or 0.0)):
                 self.save()
@@ -358,6 +429,7 @@ class DetQMC:
             t_block = time.time() - t0
             self._block_measurements(batch)
             self.handler.insert_batch(batch)
+            self._dump_phi()
             self._consistency.log(self.states)
             self.measurements_done += n_new
             if (self.p.save_interval and self.measurements_done %

@@ -61,10 +61,24 @@ as in the JAX model), and ``measure_time_displaced`` and
 ``pair_susceptibilities`` reduce them. Walkers lead, then the anchor (or
 slice) axis.
 
+Global moves (``global_moves``, fired by the driver every
+globalUpdateInterval sweeps): the global shift, the Wolff cluster
+reflection and the Wolff reflection plus a perpendicular shift, batched
+over walkers, with injected draws (``draws``) or a ``torch.Generator``.
+Each accepts on ld_new - ld_old (- dS) with ld = ``_chain_logdet``, the
+inverse-free log|det(1 + B_m ... B_1)| of the whole chain
+(udv.clog_abs_det_one_plus_udv: K2c or K7 on the card), and refreshes
+every walker from the stack of the field it keeps (the two stacks the
+log-dets were read from, selected per walker: bitwise the stack
+refresh_from_field builds). The Wolff clusters grow in plain PyTorch on
+the model's device, as the JAX model grows them in a lax.while_loop
+outside any kernel; their dot products are summed in index order so the
+card and the CPU give the same bits.
+
 Not ported yet (each raises NotImplementedError naming ROADMAP.md, Queue
 1 item 8 and Queue 2): opdim 1 and 2 (the reduced sectors), the real
-embedding, the refine green route, sparse checkerboard applies, global
-shift and Wolff moves, ``turnoffFermions``, ``sweep_simple``, the
+embedding, the refine green route, sparse checkerboard applies,
+``turnoffFermions``, ``sweep_simple``, the
 parallel-tempering hooks, dims above 512 (L >= 12) on a CUDA device, and
 ``update_kernel="pallas"`` / ``"scan"`` (K4) at a dim whose G exceeds K4's
 shared memory on a CUDA device.
@@ -84,8 +98,9 @@ from detqmc_tpu_torch.lattice import kinetic_exponentials
 from detqmc_tpu_torch.linalg import _kernels, sdw_delayed, sdw_update
 from detqmc_tpu_torch.linalg import sdw_wrap
 from detqmc_tpu_torch.linalg.qr import MAX_N_BIG
-from detqmc_tpu_torch.linalg.udv import (UDV, green_from_two_udv,
-                                         green_tau_zero, udv_refactor)
+from detqmc_tpu_torch.linalg.udv import (UDV, clog_abs_det_one_plus_udv,
+                                         green_from_two_udv, green_tau_zero,
+                                         udv_refactor)
 from detqmc_tpu_torch.models.unequal_time import (trapezoid_weights,
                                                   wrap_between_anchors)
 from detqmc_tpu_torch.precision import mm
@@ -254,6 +269,16 @@ def _pauli_stack(opdim: int) -> np.ndarray:
     return np.stack([sx, sy, sz][:opdim])
 
 
+def _dot_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_i a[..., i] b[..., i] over the (short) last axis, added in index
+    order one rounded operation at a time: the same bits on the card and
+    on the CPU (a reduction kernel may order the terms otherwise)."""
+    out = a[..., 0] * b[..., 0]
+    for i in range(1, a.shape[-1]):
+        out = out + a[..., i] * b[..., i]
+    return out
+
+
 def _cb_dense_product(partner: np.ndarray, cosh_og: np.ndarray,
                       sinh_og: np.ndarray, gamma: float):
     """Exact dense product matrices (E, E^{-1}) of the checkerboard
@@ -360,9 +385,6 @@ class SDWModel(nn.Module):
         if cfg.checkerboard and cfg.cb_apply == "sparse":
             raise _unported("cb_apply='sparse' (the dense checkerboard "
                             "product is ported)")
-        if cfg.globalShift or cfg.wolffClusterUpdate \
-                or cfg.wolffClusterShiftUpdate:
-            raise _unported("global shift and Wolff moves")
         if cfg.turnoffFermions:
             raise _unported("turnoffFermions")
 
@@ -827,7 +849,12 @@ class SDWModel(nn.Module):
 
     def refresh_from_field(self, state: SDWState) -> SDWState:
         """Recompute the right stack and G(0) from the field alone."""
-        stack = self._build_stack(state.phi, transposed=True)
+        return self._refresh_from_stack(
+            state, self._build_stack(state.phi, transposed=True))
+
+    def _refresh_from_stack(self, state: SDWState, stack: UDV) -> SDWState:
+        """refresh_from_field's second half: G(0) from the right stack
+        ``stack`` of ``state.phi`` (entry 0 is the whole chain)."""
         full_t = UDV(stack.U[:, 0], stack.d[:, 0], stack.V[:, 0])
         G = green_from_two_udv(self._eye_mixed(state.phi.shape[0]), full_t)
         return state._replace(G=G, stack_U=stack.U, stack_d=stack.d,
@@ -981,19 +1008,212 @@ class SDWModel(nn.Module):
             return (gk, dev) + self.pair_susceptibilities(G_tau)
         return (gk, dev) if per_slice else gk
 
+    # ---- global moves ------------------------------------------------------
+    @property
+    def has_global_moves(self) -> bool:
+        cfg = self.cfg
+        return (cfg.globalShift or cfg.wolffClusterUpdate
+                or cfg.wolffClusterShiftUpdate)
+
+    def global_moves(self, state: SDWState, generator=None, draws=None
+                     ) -> SDWState:
+        """The configured global moves in the JAX model's order (shift,
+        Wolff, Wolff + shift); the driver fires this every
+        globalUpdateInterval sweeps. ``draws``: None (draw from
+        ``generator``) or a dict with the draws of each configured move
+        under "shift", "wolff" and "wolff_shift" (see the attempt_*
+        methods)."""
+        cfg, draws = self.cfg, draws or {}
+        if cfg.globalShift:
+            state, _ = self.attempt_global_shift(
+                state, generator, draws.get("shift"))
+        if cfg.wolffClusterUpdate:
+            state, _, _ = self.attempt_wolff_update(
+                state, generator, draws.get("wolff"))
+        if cfg.wolffClusterShiftUpdate:
+            state, _, _ = self.attempt_wolff_shift_update(
+                state, generator, draws.get("wolff_shift"))
+        return state
+
+    def _chain_logdet(self, phi) -> torch.Tensor:
+        """log|det(1 + B_m ... B_1)| per walker (W,), float64: the whole
+        chain from the right stack's entry 0, through
+        udv.clog_abs_det_one_plus_udv. The global moves accept on
+        ld_new - ld_old of this, which is the JAX model's
+        logdet_fac x its _chain_logdet (0.5 x 2 clog on the native route,
+        1 x log|det| on the complex one)."""
+        return self._logdet_and_stack(phi)[0]
+
+    def _logdet_and_stack(self, phi):
+        stack = self._build_stack(phi, transposed=True)
+        return (clog_abs_det_one_plus_udv(UDV(stack.U[:, 0], stack.d[:, 0],
+                                              stack.V[:, 0])), stack)
+
+    def _metropolis(self, state: SDWState, phi_new, d_action, u):
+        """Accept phi_new per walker when log u < ld_new - ld_old - dS
+        (``d_action`` None: dS = 0), then refresh every walker. The
+        refresh reuses the right stacks the two log-dets were read from,
+        selected per walker: the stack of the field each walker keeps is
+        bitwise the one refresh_from_field would build. Returns (state,
+        accept (W,) bool)."""
+        ld_old, st_old = self._logdet_and_stack(state.phi)
+        ld_new, st_new = self._logdet_and_stack(phi_new)
+        log_ratio = ld_new - ld_old
+        if d_action is not None:
+            log_ratio = log_ratio - d_action.to(log_ratio.dtype)
+        accept = torch.log(u).to(log_ratio.dtype) < log_ratio
+
+        def pick(new, old):
+            return torch.where(accept.view(-1, *[1] * (new.ndim - 1)),
+                               new, old)
+
+        stack = UDV(*[pick(a, b) for a, b in zip(st_new, st_old)])
+        state = state._replace(phi=pick(phi_new, state.phi))
+        return self._refresh_from_stack(state, stack), accept
+
+    def _normal(self, shape, generator):
+        return torch.randn(shape, generator=generator, dtype=self.rdtype,
+                           device=self.device)
+
+    def _uniform(self, shape, generator):
+        return torch.rand(shape, generator=generator, dtype=self.rdtype,
+                          device=self.device)
+
+    def _wolff_draws(self, W: int, generator):
+        """(axis (W, opdim) normal, seed (W, 2) int64 (slice, site), None:
+        the growth draws its bond uniforms from ``generator``)."""
+        cfg = self.cfg
+        axis = self._normal((W, cfg.opdim), generator)
+        seed = torch.stack([
+            torch.randint(n, (W,), generator=generator, device=self.device)
+            for n in (cfg.m, cfg.n_sites)], dim=1)
+        return axis, seed, None
+
+    def attempt_global_shift(self, state: SDWState, generator=None,
+                             draws=None):
+        """phi -> phi + delta on every slice and site, delta = box_width x
+        a normal (opdim,) per walker; Metropolis on the full stabilized
+        determinant recompute and the boson action (the JAX model's
+        attempt_global_shift). ``draws``: (normal (W, opdim), uniform (W,))
+        or None to draw them from ``generator``. Returns (state, accept
+        (W,))."""
+        W = state.phi.shape[0]
+        if draws is None:
+            draws = (self._normal((W, self.cfg.opdim), generator),
+                     self._uniform((W,), generator))
+        normal, u = draws
+        delta = normal * state.box_width[:, None]
+        phi_new = state.phi + delta[:, None, None, :]
+        d_action = (self.boson_action(phi_new, state.r)
+                    - self.boson_action(state.phi, state.r))
+        return self._metropolis(state, phi_new, d_action, u)
+
+    def _grow_wolff_cluster(self, phi, e, seed, bonds=None, generator=None):
+        """Wolff clusters on the (m, N) space-time lattice of each walker
+        for the unit reflection axis e (W, opdim), grown from seed (W, 2)
+        (the JAX model's _grow_wolff_cluster, batched): bonds activate with
+        p = 1 - exp(min(0, -2 K s_i s_j)), s = phi . e, K = dtau on the
+        four spatial bonds and 1/(c^2 dtau) on the two tau bonds. Each
+        iteration takes every frontier bond at once with one (W, 6, m, N)
+        uniform draw, ``bonds[t]`` or from ``generator``, and the loop runs
+        while any walker's frontier is non-empty (a walker whose frontier
+        is empty adds nothing). Plain PyTorch on the model's device: the
+        JAX package grows it in a lax.while_loop, outside any kernel.
+        Returns (in_cluster (W, m, N) bool, the reflected field
+        phi - 2 (phi . e) e inside the cluster, iterations)."""
+        cfg = self.cfg
+        W, m, N = phi.shape[0], cfg.m, cfg.n_sites
+        nb = self.nb_idx
+        s = _dot_last(phi, e[:, None, None, :])
+
+        def neighbours(x):
+            return torch.stack([x[:, :, nb[:, d]] for d in range(4)]
+                               + [torch.roll(x, 1, dims=1),
+                                  torch.roll(x, -1, dims=1)], dim=1)
+
+        k_bond = torch.tensor([cfg.dtau] * 4 + [1.0 / (cfg.c ** 2 * cfg.dtau)]
+                              * 2, dtype=s.dtype, device=s.device)
+        p = 1.0 - torch.exp(torch.clamp(
+            -2.0 * k_bond[None, :, None, None] * s[:, None] * neighbours(s),
+            max=0.0))
+        in_c = torch.zeros((W, m, N), dtype=torch.bool, device=phi.device)
+        in_c[torch.arange(W, device=phi.device), seed[:, 0], seed[:, 1]] = True
+        frontier, t = in_c, 0
+        while bool(frontier.any()):
+            if bonds is None:
+                u = self._uniform((W, 6, m, N), generator)
+            elif t < bonds.shape[0]:
+                u = bonds[t]
+            else:
+                raise ValueError(f"Wolff growth needs more than the "
+                                 f"{bonds.shape[0]} injected iterations")
+            frontier = (neighbours(frontier) & (u < p)).any(dim=1) & ~in_c
+            in_c = in_c | frontier
+            t += 1
+        refl = phi - 2.0 * s[..., None] * e[:, None, None, :]
+        return in_c, torch.where(in_c[..., None], refl, phi), t
+
+    def attempt_wolff_update(self, state: SDWState, generator=None,
+                             draws=None):
+        """Embedded O(n) Wolff cluster reflection (the JAX model's
+        attempt_wolff_update): the cluster construction balances the
+        gradient and tau terms and the r/u terms are reflection-invariant,
+        so only the fermion determinant enters the accept. ``draws``: (axis
+        normal (W, opdim), seed (W, 2) int64 (slice, site), bond uniforms
+        (T, W, 6, m, N) or None, accept uniform (W,)), or None to draw all
+        from ``generator``. Returns (state, accept (W,), cluster sizes
+        (W,))."""
+        W = state.phi.shape[0]
+        if draws is None:
+            draws = (*self._wolff_draws(W, generator),
+                     self._uniform((W,), generator))
+        axis, seed, bonds, u = draws
+        e = axis / torch.sqrt(_dot_last(axis, axis))[:, None]
+        in_c, phi_new, _ = self._grow_wolff_cluster(state.phi, e, seed,
+                                                    bonds, generator)
+        state, accept = self._metropolis(state, phi_new, None, u)
+        return state, accept, in_c.sum(dim=(1, 2))
+
+    def attempt_wolff_shift_update(self, state: SDWState, generator=None,
+                                   draws=None):
+        """Cluster reflection plus a global shift perpendicular to the
+        reflection axis (the JAX model's attempt_wolff_shift_update): s =
+        phi . e is shift-invariant, so the cluster stays balanced, and
+        reflection and shift commute; the accept carries the r/u potential
+        difference and the fermion determinant ratio. ``draws``: (axis,
+        seed, bonds, shift normal (W, opdim), accept uniform (W,)) as in
+        attempt_wolff_update, or None. Returns (state, accept (W,), cluster
+        sizes (W,))."""
+        cfg = self.cfg
+        W = state.phi.shape[0]
+        if draws is None:
+            draws = (*self._wolff_draws(W, generator),
+                     self._normal((W, cfg.opdim), generator),
+                     self._uniform((W,), generator))
+        axis, seed, bonds, normal, u = draws
+        e = axis / torch.sqrt(_dot_last(axis, axis))[:, None]
+        g = normal * state.box_width[:, None]
+        delta = g - _dot_last(g, e)[:, None] * e
+        in_c, phi_refl, _ = self._grow_wolff_cluster(state.phi, e, seed,
+                                                     bonds, generator)
+        phi_new = phi_refl + delta[:, None, None, :]
+
+        def s_pot(phi):
+            phi2 = torch.sum(phi ** 2, dim=-1)
+            return cfg.dtau * (0.5 * state.r * torch.sum(phi2, dim=(1, 2))
+                               + 0.25 * cfg.u * torch.sum(phi2 ** 2,
+                                                          dim=(1, 2)))
+
+        state, accept = self._metropolis(state, phi_new,
+                                         s_pot(phi_new) - s_pot(state.phi), u)
+        return state, accept, in_c.sum(dim=(1, 2))
+
     # ---- not ported yet -------------------------------------------------------------
     def sweep_simple(self, *args, **kwargs):
         raise _unported("sweep_simple (the naive cross-check sweep)")
 
     def green_at_slice(self, *args, **kwargs):
         raise _unported("green_at_slice (the sweep_simple primitive)")
-
-    def global_moves(self, *args, **kwargs):
-        raise _unported("global shift and Wolff moves")
-
-    attempt_global_shift = global_moves
-    attempt_wolff_update = global_moves
-    attempt_wolff_shift_update = global_moves
 
     def log_weight(self, *args, **kwargs):
         raise _unported("the parallel-tempering hooks (log_weight, with_r, "

@@ -9,6 +9,9 @@ the JAX package's (all on the CPU, f64, the delayed update):
   ends where the uninterrupted run ends: fields and signs identical, G
   and every accumulated observable sample within 1e-8 (the resumed G is
   rebuilt from the field, the reference's contract), counters restored;
+  the same for the SDW model with its global moves and the proposal-width
+  tuning on (phi, phase, box_width, r, counters and the generator state
+  identical);
 - the port's own copy of ``statistics`` gives the JAX package's numbers,
   bit for bit, on the same numpy samples;
 - configuration errors exit 2, ``meshDevices > 1`` is refused, and
@@ -30,6 +33,8 @@ from detqmc_tpu_torch import statistics as tstat
 from detqmc_tpu_torch.cli.main_hubbard import main as port_main
 from detqmc_tpu_torch.driver import DetQMC, DriverConfig
 from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
+from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+from tests.test_torch_hubbard import one_torch_thread  # noqa: F401
 
 KEYS = ["L=2", "m=4", "beta=1.0", "s=2", "walkers=2",
         "updateMethod=delayed", "delay=3", "sweeps=6", "thermalization=2",
@@ -93,6 +98,43 @@ def test_resumed_run_equals_the_uninterrupted_one(tmp_path):
     assert torch.equal(resumed.states.field, whole.states.field)
     assert torch.equal(resumed.states.sign, whole.states.sign)
     assert torch.equal(resumed.states.sweeps_done, whole.states.sweeps_done)
+    assert float((resumed.states.G - whole.states.G).abs().max()) <= 1e-8
+    a, b = resumed.handler.state_dict(), whole.handler.state_dict()
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-8,
+                                   err_msg=k)
+
+
+def _sdw_model():
+    return SDWModel(SDWConfig(L=2, opdim=3, r=0.5, beta=1.0, m=8, s=4,
+                              dtype="float64", box_width=0.2,
+                              globalShift=True, wolffClusterShiftUpdate=True,
+                              globalUpdateInterval=2), device="cpu")
+
+
+def test_sdw_resumed_run_equals_the_uninterrupted_one(tmp_path):
+    """The same contract for the SDW model with its global moves on: the
+    saved leaves (phi, phase, box_width, r, counters) and the generator
+    state carry the chain, so the moves' draws, the proposal-width tuning
+    and the fields are those of the uninterrupted run."""
+    whole = DetQMC(_sdw_model(), _params(tmp_path / "whole", 4))
+    whole.run()
+    first = DetQMC(_sdw_model(), _params(tmp_path / "split", 2))
+    first.run()
+    resumed = DetQMC(_sdw_model(), _params(tmp_path / "split", 4))
+    resumed.init(resume=True)
+    assert (resumed.therm_done, resumed.measurements_done) == (2, 2)
+    for name in ("phi", "phase", "box_width", "r", "sweeps_done"):
+        assert torch.equal(getattr(resumed.states, name),
+                           getattr(first.states, name)), name
+    resumed.run()
+    assert torch.equal(resumed.generator.get_state(),
+                       whole.generator.get_state())
+    for name in ("phi", "phase", "box_width", "r", "sweeps_done",
+                 "next_dir"):
+        assert torch.equal(getattr(resumed.states, name),
+                           getattr(whole.states, name)), name
     assert float((resumed.states.G - whole.states.G).abs().max()) <= 1e-8
     a, b = resumed.handler.state_dict(), whole.handler.state_dict()
     assert a.keys() == b.keys()

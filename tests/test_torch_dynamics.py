@@ -32,6 +32,7 @@ from detqmc_tpu.models import sdw as js
 from detqmc_tpu_torch.convert import sdw_state_from_jax, state_from_jax
 from detqmc_tpu_torch.models import hubbard as th
 from detqmc_tpu_torch.models import sdw as ts
+from tests.test_torch_hubbard import one_torch_thread  # noqa: F401
 
 W = 2
 TOL = 1e-10

@@ -43,6 +43,7 @@ from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
 from detqmc_tpu.models.sdw import SDWConfig, SDWModel
 from detqmc_tpu_torch.linalg import _kernels, green_solve
 from detqmc_tpu_torch.linalg import udv as tudv
+from tests.test_torch_hubbard import one_torch_thread  # noqa: F401
 
 HUB = dict(L=4, U=4.0, beta=6.0, m=24, s=4, dtype="float64",
            ph_symmetry="off")

@@ -29,6 +29,7 @@ from detqmc_tpu.linalg.pallas_green import solve_inner as pallas_solve
 from detqmc_tpu.models.hubbard import HubbardConfig, HubbardModel
 from detqmc_tpu_torch.linalg import green_solve
 from detqmc_tpu_torch.linalg import udv as tudv
+from tests.test_torch_hubbard import one_torch_thread  # noqa: F401
 
 CFG = dict(L=4, U=4.0, m=24, s=4, dtype="float64", ph_symmetry="off")
 

@@ -35,6 +35,20 @@ REPO = Path(__file__).resolve().parent.parent
 W = 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tests run torch on one intra-op thread (every port
+    test module imports this fixture). Their tensors are small, and
+    pytest-xdist's workers, each spreading its torch work over every core,
+    crowd each other out: a float32 sweep pair at L=6 took 4 s on one
+    thread and 36 s on eight beside six busy processes. Elementwise
+    results do not depend on the thread count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _uniforms(keys, m, n):
     """JAX's per-sweep draw (hubbard.py _sweep): split, then uniform."""
     def draw(key):

@@ -37,6 +37,7 @@ from detqmc_tpu.linalg.pallas_qr_big import qr_big
 from detqmc_tpu.linalg.pallas_qr_wy import qr_wy
 from detqmc_tpu_torch.linalg import _kernels, green_solve, qr, trinv
 from detqmc_tpu_torch.linalg.udv import _sign_fix
+from tests.test_torch_hubbard import one_torch_thread  # noqa: F401
 
 N_BIG = 136    # > 128 and a multiple of 8: the Pallas kernels' big layouts
 N_COL = 20     # not a multiple of 8: pallas_green.solve_inner's column kernel

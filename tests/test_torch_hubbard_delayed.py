@@ -38,6 +38,7 @@ from detqmc_tpu.models import hubbard as jh
 from detqmc_tpu_torch.convert import state_from_jax
 from detqmc_tpu_torch.linalg import slice_update as su
 from detqmc_tpu_torch.models import hubbard as th
+from tests.test_torch_hubbard import one_torch_thread  # noqa: F401
 
 W, L = 3, 4
 N = L * L

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from detqmc_tpu_torch.linalg import _kernels, qr, sdw_wrap, udv
+from tests.test_torch_hubbard import one_torch_thread  # noqa: F401
 
 K6_N = [32, 49, 64, 100, 128]
 K6_MODES = ["wrap_up", "wrap_down", "apply", "apply_herm"]

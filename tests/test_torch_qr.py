@@ -30,6 +30,7 @@ from detqmc_tpu.linalg import udv as judv
 from detqmc_tpu.linalg.pallas_qr_lanes import qr_lanes
 from detqmc_tpu_torch.linalg import qr as tqr
 from detqmc_tpu_torch.linalg import udv as tudv
+from tests.test_torch_hubbard import one_torch_thread  # noqa: F401
 
 B, n = 5, 16
 

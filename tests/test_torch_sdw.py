@@ -23,6 +23,8 @@ The float32 smoke run is the main-path configuration (bench.py sdw_l4)
 cut to m=8: complex64 G, complex128 V, everything finite, phase 1.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +35,7 @@ from detqmc_tpu.models import sdw as js
 from detqmc_tpu_torch.convert import sdw_state_from_jax
 from detqmc_tpu_torch.linalg import sdw_wrap
 from detqmc_tpu_torch.models import sdw as ts
+from tests.test_torch_hubbard import one_torch_thread  # noqa: F401
 
 W = 2
 KW = dict(opdim=3, r=0.5, beta=1.0, m=8, s=4, dtype="float64")
@@ -44,25 +47,31 @@ def _models(**kw):
             ts.SDWModel(ts.SDWConfig(**kw), device="cpu"))
 
 
-def _sweep_draws(cfg, keys, up):
-    """JAX's draws for one sweep of each walker, in the port's layout
-    (slice axis indexed by l - 1); returns the advanced keys too."""
-    N, m, op = cfg.n_sites, cfg.m, cfg.opdim
-
-    @jax.jit
+@functools.lru_cache(maxsize=None)
+def _slice_draws(N, op, method):
+    """One slice's draws of every walker, jitted once per shape and
+    proposal method (as SDWModel._draw_proposal_randoms draws them)."""
     def one_slice(key):
         key, k_prop, k_acc = jax.random.split(key, 3)
         u01 = jax.random.uniform(k_acc, (N,), dtype=jnp.float64)
-        if cfg.spinProposalMethod == "box":
+        if method == "box":
             return key, (u01, jax.random.uniform(
                 k_prop, (N, op), dtype=jnp.float64, minval=-1.0, maxval=1.0))
         k_dir, k_r = jax.random.split(k_prop)
         return key, (u01, jax.random.normal(k_dir, (N, op), jnp.float64),
                      jax.random.normal(k_r, (N,), jnp.float64))
 
+    return jax.jit(jax.vmap(one_slice))
+
+
+def _sweep_draws(cfg, keys, up):
+    """JAX's draws for one sweep of each walker, in the port's layout
+    (slice axis indexed by l - 1); returns the advanced keys too."""
+    m = cfg.m
+    draw = _slice_draws(cfg.n_sites, cfg.opdim, cfg.spinProposalMethod)
     per_slice = []
     for _ in range(m):
-        keys, d = jax.vmap(one_slice)(keys)
+        keys, d = draw(keys)
         per_slice.append([np.asarray(x) for x in d])
     if not up:
         per_slice = per_slice[::-1]
@@ -182,8 +191,7 @@ def test_f32_main_path_config_cut_to_m8():
 @pytest.mark.parametrize("kw", [
     dict(opdim=2), dict(opdim=1), dict(fermion_repr="real_embed"),
     dict(green_kernel="refine"), dict(checkerboard=True, cb_apply="sparse"),
-    dict(globalShift=True), dict(wolffClusterUpdate=True),
-    dict(wolffClusterShiftUpdate=True), dict(turnoffFermions=True)],
+    dict(turnoffFermions=True)],
     ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_knobs_raise(kw):
     cfg = ts.SDWConfig(**dict(dict(L=2, opdim=3, m=4, s=2), **kw))
@@ -218,7 +226,7 @@ def test_unported_methods_raise_and_mapped_knobs_build():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.SDWModel._check_kernel_bounds(ts.SDWConfig(**dict(base, L=12)))
     model = ts.SDWModel(ts.SDWConfig(**base), device="cpu")
-    for name in ("sweep_simple", "global_moves", "attempt_wolff_update",
-                 "log_weight", "with_r"):
+    for name in ("sweep_simple", "green_at_slice", "log_weight", "with_r",
+                 "exchange_action"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(model, name)()

@@ -31,6 +31,7 @@ from detqmc_tpu.models import sdw as js
 from detqmc_tpu_torch.linalg import udv as tudv
 from detqmc_tpu_torch.linalg.sdw_update import det_adj4, sdw_update_plain
 from detqmc_tpu_torch.models import sdw as ts
+from tests.test_torch_hubbard import one_torch_thread  # noqa: F401
 
 KW = dict(opdim=3, r=0.5, beta=4.0, m=8, s=4)
 

@@ -29,6 +29,7 @@ from detqmc_tpu_torch.convert import sdw_state_from_jax
 from detqmc_tpu_torch.linalg import sdw_delayed
 from detqmc_tpu_torch.models import sdw as ts
 from tests.test_torch_sdw import _jax_init, _sweep_draws
+from tests.test_torch_hubbard import one_torch_thread  # noqa: F401
 
 W = 2
 KW = dict(L=2, opdim=3, r=0.5, beta=1.0, m=8, s=4, dtype="float64")

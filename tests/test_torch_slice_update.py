@@ -24,6 +24,7 @@ from detqmc_tpu.models.hubbard import HubbardConfig as JConfig
 from detqmc_tpu.models.hubbard import HubbardModel as JModel
 from detqmc_tpu_torch.linalg import slice_update as su
 from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
+from tests.test_torch_hubbard import one_torch_thread  # noqa: F401
 
 W, L = 3, 4
 N = L * L
