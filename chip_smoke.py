@@ -138,6 +138,32 @@ Phases (any failure raises, and the script exits non-zero):
      saved and 2 resumed: the saved state (phi, phase, box_width, r,
      counters) and the generator state identical, results within 1e-8.
 
+17. the reduced two-sector chains' kernels: the q = 2 instances of K4
+   (sdw_update, on the README quick start's configuration L=4 opdim 2
+   r=1 beta=4 m=40 s=2 and its opdim-1 twin: complex64 / float32, W=128,
+   h=32), K5 (sdw_delayed, K=8) and K6 (sdw_wrap / sdw_apply, the four
+   modes) on bench.py sdw_l8's settings at opdim 2 and 1 (W=128, h=128),
+   each against its plain version on the model's own slice-1 operands:
+   the single precision the paths run (identical decisions but at
+   near-ties, G within 1e-5; K6 1e-5 x max|G|) and double precision
+   (K4, K5 bitwise; K6 1e-12 x max|G|), timed with CTAs per SM and plans;
+18. reduced path parity: SDWConfig(L=2, m=8, s=4, float64) at opdim 2 and
+   1, immediate and delayed/fused, swept on the card and on the CPU with
+   the same draws: identical fields and acceptance, G within 1e-10, only
+   q = 2 instances launched;
+19. the reduced main paths at W=128 (as phase 8): the quick start's
+   configuration and its opdim-1 twin (K4 q=2, K2c / K2, K3c / K3), and
+   sdw_l8's at opdim 2 and 1 (K5 q=2, K6 q=2, K7 c64 / K2 f32, K8 + K9
+   c128 / f64; K4 never), launch counts against the routes' formulas,
+   median green_dev < 1e-4, phase exactly 1, a profiled pair of each
+   path;
+20. the README's O(2) SDW quick start through
+   detqmc_tpu_torch.cli.main_sdw.main in-process, its keys unchanged but
+   sweeps=40 thermalization=10 (the listed cut; one walker): exit 0,
+   finite results, median green_dev < 1e-4, phase exactly 1, both moves
+   fired, the launch counts against the code's formulas, the wall time
+   per sweep.
+
 The second-to-last line is {"kernels": [...]} (every number measured in
 this run; bound_ms is the larger of the kernel's bytes over the HBM rate
 and its operations over the peak rate, from this run's shapes), and the
@@ -222,6 +248,47 @@ N_MOVE_ROUNDS = 3          # timed pair / shift / Wolff + shift rounds
 SDW_RESUME = ["L=4", "dtype=float64", "walkers=8", "thermalization=2",
               "jkBlocks=2", "blockMeas=2", "saveInterval=2",
               "globalUpdateInterval=2", "rngSeed=7"]
+# phases 17-20: the reduced two-sector chains. README.md's O(2) SDW quick
+# start, its keys unchanged (L=4 opdim 2 r=1 beta=4 m=40 s=2, globalShift,
+# wolffClusterUpdate; float32), bench.py sdw_l8's settings at opdim 2, and
+# the same two at opdim 1 (box proposals), at the SDW cells' 128 walkers
+QUICKSTART = ["L=4", "opdim=2", "r=1.0", "beta=4", "m=40", "s=2",
+              "sweeps=1000", "thermalization=300", "globalShift=true",
+              "wolffClusterUpdate=true"]
+QUICKSTART_CUT = {"sweeps": "40", "thermalization": "10"}   # phase 20's
+SDW_O2_L4_CFG = dict(L=4, opdim=2, r=1.0, beta=4.0, m=40, s=2,
+                     globalShift=True, wolffClusterUpdate=True,
+                     dtype="float32")
+SDW_O1_L4_CFG = dict(SDW_O2_L4_CFG, opdim=1)
+SDW_O2_L8_CFG = dict(SDW8_CFG, opdim=2)
+SDW_O1_L8_CFG = dict(SDW8_CFG, opdim=1)
+# the reduced sectors' q = 2 instances (phases 17-19): the kernel line's
+# source, the TPU kernel's line and the row's dtype
+REDUCED_META = {
+    "sdw_update_q2": ("detqmc_tpu_torch/csrc/sdw_update.cu",
+                      "detqmc_tpu/linalg/pallas_sdw_update.py:258",
+                      "complex64"),
+    "sdw_update_q2_real": (
+        "detqmc_tpu_torch/csrc/sdw_update.cu",
+        "detqmc_tpu/linalg/pallas_sdw_update.py:537", "float32"),
+    "sdw_delayed_q2": ("detqmc_tpu_torch/csrc/sdw_delayed.cu",
+                       "detqmc_tpu/linalg/pallas_sdw_delayed.py:167",
+                       "complex64"),
+    "sdw_delayed_q2_real": (
+        "detqmc_tpu_torch/csrc/sdw_delayed.cu",
+        "detqmc_tpu/linalg/pallas_sdw_delayed.py:255", "float32"),
+    "sdw_wrap_q2": ("detqmc_tpu_torch/csrc/sdw_wrap.cu",
+                    "detqmc_tpu/linalg/pallas_sdw_wrap.py:168",
+                    "complex64"),
+    "sdw_wrap_q2_real": ("detqmc_tpu_torch/csrc/sdw_wrap.cu",
+                         "detqmc_tpu/linalg/pallas_sdw_wrap.py:51",
+                         "float32"),
+    "sdw_apply_q2": ("detqmc_tpu_torch/csrc/sdw_wrap.cu",
+                     "detqmc_tpu/linalg/pallas_sdw_wrap.py:256",
+                     "complex64"),
+    "sdw_apply_q2_real": ("detqmc_tpu_torch/csrc/sdw_wrap.cu",
+                          "detqmc_tpu/linalg/pallas_sdw_wrap.py:51",
+                          "float32")}
 # K1b bitwise in float64 with two spin sectors and a ragged tail chunk
 # (144 = 28 x 5 + 4)
 K1B_F64_CFG = dict(L=12, U=4.0, beta=2.0, m=8, s=4, dtype="float64",
@@ -656,6 +723,13 @@ DYN_GROUPS = (("solve_inner_rhs_f64_tc_kernel", "K3r"),
               ("qr_big_kernel", "K7 qr_complex_big"),
               ("line_pass_kernel", "K6 sdw_apply"),
               ("trinv_big_kernel", "K9 trinv_big"))
+# the groups of the reduced paths' profiles: SDW8_GROUPS, then the real
+# one-block QR (K2 float32) and the reduced L=4 routes
+REDUCED_GROUPS = SDW8_GROUPS + (("sdw_update_kernel", "K4 sdw_update q=2"),
+                                ("qr_kernel", "K2 qr f32"),
+                                ("qr_c64_tc_kernel", "K2c qr"),
+                                ("solve_inner_c128_tc_kernel", "K3c"),
+                                ("solve_inner_f64_tc_kernel", "K3"))
 
 
 def profile_phase(run, wall_ms_per_pair, layers=HUBBARD_GROUPS,
@@ -740,9 +814,8 @@ def k4_operands(model, state, gen):
                                       state.box_width, state.sweeps_done % 2)
     lhs = torch.log(u01[:, 0]) - jac + model._ds_static(
         phi[:, 0], phi_new, phi[:, 1], phi[:, -1], state.r)
-    eye4 = torch.eye(4, dtype=model.cdtype, device=G.device)
     delta = model.exp_v_blocks(phi_new, -1.0) @ model.exp_v_blocks(
-        phi[:, 0], 1.0) - eye4
+        phi[:, 0], 1.0) - model._eye_q
     return [x.contiguous() for x in (G, phi[:, 0], phi_new, lhs, delta)]
 
 
@@ -760,12 +833,12 @@ def k4_margin(model, args, w, i):
     Gi, phi_i, _ = sdw_update.sdw_update_plain(
         G, phi_l, phi_new, lhs_cut, delta, model.nb, model.cfg.dtau,
         model.c_det)
-    N = model.cfg.n_sites
-    idx = [b * N + i for b in range(4)]
+    N, q = model.cfg.n_sites, model.n_orb
+    idx = [b * N + i for b in range(q)]
     c128, f64 = torch.complex128, torch.float64
-    M = torch.eye(4, dtype=c128, device=G.device) \
+    M = torch.eye(q, dtype=c128, device=G.device) \
         - Gi[0][idx][:, idx].to(c128)
-    A = torch.eye(4, dtype=c128, device=G.device) + delta[0, i].to(c128) @ M
+    A = torch.eye(q, dtype=c128, device=G.device) + delta[0, i].to(c128) @ M
     nb = model.nb.tolist()[i]
     snb = sum(phi_i[0, j].to(f64) for j in nb)
     live = model.cfg.dtau * float(((phi_new[0, i] - phi_l[0, i]).to(f64)
@@ -1083,15 +1156,17 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
     return out
 
 
-def sdw_path_parity_phase(device, **kw):
+def sdw_path_parity_phase(device, opdim=3, **kw):
     """The same tiny f64 SDW chain on the card (kernels) and on the CPU;
-    ``kw``: extra SDWConfig knobs (the delayed/fused routes)."""
+    ``kw``: extra SDWConfig knobs (the delayed/fused routes). Returns the
+    card's launch counts (the kernels that ran)."""
     import torch
 
+    from detqmc_tpu_torch.linalg import _kernels
     from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel, SDWState
 
     W = 4
-    cfg = SDWConfig(L=2, opdim=3, r=0.5, beta=1.0, m=8, s=4,
+    cfg = SDWConfig(L=2, opdim=opdim, r=0.5, beta=1.0, m=8, s=4,
                     dtype="float64", **kw)
     cpu = SDWModel(cfg, device="cpu")
     gpu = SDWModel(cfg, device=device)
@@ -1102,11 +1177,13 @@ def sdw_path_parity_phase(device, **kw):
     def to_dev(d):
         return d[0].to(device), tuple(x.to(device) for x in d[1])
 
+    _kernels.reset_launch_counts()
     for _ in range(2):
         d = tuple(cpu._draw_proposal_randoms(W, gen) for _ in range(2))
         sc, oc = cpu.sweep_pair(sc, measure=True, draws=d)
         sg, og = gpu.sweep_pair(sg, measure=True, draws=tuple(map(to_dev, d)))
     torch.cuda.synchronize()
+    ran = {k: v for k, v in _kernels.LAUNCHES.items() if v}
     check(torch.equal(sg.phi.cpu(), sc.phi), "SDW path parity: fields differ")
     check(torch.equal(og.acceptance.cpu(), oc.acceptance),
           "SDW path parity: acceptance differs")
@@ -1114,12 +1191,16 @@ def sdw_path_parity_phase(device, **kw):
     oerr = max(float((a.cpu() - b).abs().max()) for a, b in zip(og, oc))
     check(gerr <= PARITY_G_TOL, f"SDW path parity: G err {gerr:.3e}")
     knobs = "".join(f" {k}={v}" for k, v in kw.items())
-    print(f"SDW path parity (L=2 m=8 s=4 W={W} f64{knobs}, 2 pairs): "
-          f"fields identical, acceptance identical, max|dG|={gerr:.3e} (tol "
-          f"{PARITY_G_TOL}), max|d obs|={oerr:.3e}")
+    print(f"SDW path parity (L=2 opdim={opdim} m=8 s=4 W={W} f64{knobs}, 2 "
+          f"pairs): fields identical, acceptance identical, max|dG|="
+          f"{gerr:.3e} (tol {PARITY_G_TOL}), max|d obs|={oerr:.3e}; card "
+          f"launches {ran}")
+    return ran
 
 
 def sdw_main_path_phase(device, card, cfg_kw=SDW_CFG, kernels=SDW_KERNELS):
+    """An SDW configuration's main path at W_SDW walkers (``kernels``: the
+    kernels that must launch; None: those the model's routes take)."""
     import torch
 
     from detqmc_tpu_torch.linalg import _kernels
@@ -1142,29 +1223,21 @@ def sdw_main_path_phase(device, card, cfg_kw=SDW_CFG, kernels=SDW_KERNELS):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(_kernels.LAUNCHES)
+    if kernels is None:
+        kernels = tuple(path_launches(model, 1))
     sweeps_per_s = W_SDW * N_TIMED_PAIRS * 2 / dt
     dev_med = float(state.green_dev.double().quantile(0.5))
     phi2 = float(torch.stack(phi2s).mean())
     acc = float(torch.stack(accs).mean())
     K, n_pairs = cfg.n_stack, 1 + N_TIMED_PAIRS
+    # the update kernel once per slice; K6 once per wrap and per square
+    # apply (init_state's right stack: m B^H applies); the refactor QR once
+    # per refactor, the inner solve (and K8's K9) once per G evaluation
     expect = dict.fromkeys(counts, 0)
-    if "sdw_delayed" in kernels:
-        # K5 once per slice; K6 once per wrap and per square apply
-        # (init_state's right stack: m B^H applies); K7 once per
-        # refactor, K8 and K9 once per G evaluation
-        expect.update({"sdw_delayed": 2 * cfg.m * n_pairs,
-                       "sdw_wrap": 2 * cfg.m * n_pairs,
-                       "sdw_apply": cfg.m + 2 * cfg.m * n_pairs,
-                       "qr_complex_big": K + 2 * K * n_pairs,
-                       "solve_inner_complex_big": 1 + 2 * K * n_pairs,
-                       "trinv_big": 1 + 2 * K * n_pairs})
-    else:
-        expect.update({"sdw_update": 2 * cfg.m * n_pairs,
-                       "qr_complex": K + 2 * K * n_pairs,
-                       "solve_inner_complex": 1 + 2 * K * n_pairs})
+    expect.update(path_launches(model, n_pairs))
     cfg_s = " ".join(f"{k}={v}" for k, v in cfg_kw.items())
     ratio = (f", {sweeps_per_s / SDW8_CPP:.1f}x the C++ {SDW8_CPP}"
-             if cfg.L == 8 else "")
+             if cfg.L == 8 and cfg.opdim == 3 else "")
     print(f"SDW main path {cfg_s} W={W_SDW}: {sweeps_per_s:.2f} sweeps/s "
           f"({N_TIMED_PAIRS} pairs in {dt:.4f} s{ratio}) on {card}")
     print(f"  green_dev median {dev_med:.4e} (gate {SDW_GREEN_DEV_GATE}), "
@@ -1184,6 +1257,32 @@ def sdw_main_path_phase(device, card, cfg_kw=SDW_CFG, kernels=SDW_KERNELS):
           "SDW phase is not exactly 1")
     check(dev_med < SDW_GREEN_DEV_GATE, f"SDW median green_dev {dev_med:.3e}")
     return model, state, gen, counts, 1e3 * dt / N_TIMED_PAIRS
+
+
+def path_launches(model, n_pairs, inits=1):
+    """The kernel launches of ``inits`` init_state calls and ``n_pairs``
+    sweep pairs of an SDW model on the card, by the routes its config
+    and dim take: {kernel: count}."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import (green_solve, qr, sdw_delayed,
+                                        sdw_update, sdw_wrap)
+
+    cfg, q, cdt = model.cfg, model.n_orb, model.cdtype
+    K, m = cfg.n_stack, cfg.m
+    route = model.routes(cfg, "cuda")
+    upd = sdw_delayed if route["update"] == "delayed" else sdw_update
+    sk = green_solve.kernel_for(model.dim, torch.complex128 if cdt.is_complex
+                                else torch.float64)
+    out = {upd.launch_name(cdt, q): 2 * m * n_pairs,
+           qr.kernel_for(model.dim, cdt): K * inits + 2 * K * n_pairs,
+           sk: inits + 2 * K * n_pairs}
+    if sk.endswith("_big"):
+        out["trinv_big"] = inits + 2 * K * n_pairs
+    if route["wrap"] == "fused":
+        out[sdw_wrap.launch_name(cdt, q)] = 2 * m * n_pairs
+        out[sdw_wrap.launch_name(cdt, q, True)] = m * inits + 2 * m * n_pairs
+    return out
 
 
 # ---- the unequal-time (dynamics) slice ----------------------------------
@@ -1430,22 +1529,23 @@ def k1b_ops(field_in, field_out, k, C, N):
         * N * N
 
 
-def k5_ops(phi_in, phi_out, K, h):
+def k5_ops(phi_in, phi_out, K, h, q=4, cplx=True):
     """The real operations K5's data needs over one slice (this run's
-    accepted sites, 8 per complex multiply-add): every site's 16 G_II
-    entries corrected by the slots accepted before it in its chunk; every
-    accepted site's 4 columns and 4 rows (h entries each) corrected the
-    same way and its 4 C slots formed (16 h); every chunk's flush, h^2
-    per accepted slot."""
+    accepted sites, 8 per complex multiply-add, 2 per real one): every
+    site's q^2 G_II entries corrected by the slots accepted before it in
+    its chunk; every accepted site's q columns and q rows (h entries each)
+    corrected the same way and its q C slots formed (q^2 h); every chunk's
+    flush, h^2 per accepted slot."""
     import torch
 
     acc = (phi_out != phi_in).any(-1).double()                 # (W, N)
     pad = (-acc.shape[1]) % K
     chunks = torch.nn.functional.pad(acc, (0, pad)).view(acc.shape[0], -1, K)
-    slots = 4 * (chunks.cumsum(-1) - chunks)      # slots before each site
-    cmacs = (16 * slots.sum() + ((8 * h * slots + 16 * h) * chunks).sum()
-             + h * h * 4 * chunks.sum())
-    return 8 * float(cmacs)
+    slots = q * (chunks.cumsum(-1) - chunks)      # slots before each site
+    macs = (q * q * slots.sum()
+            + ((2 * q * h * slots + q * q * h) * chunks).sum()
+            + h * h * q * chunks.sum())
+    return (8 if cplx else 2) * float(macs)
 
 
 def l16_kernel_phase(model, state, gen, device):
@@ -2102,6 +2202,285 @@ def sdw_global_phase(device):
                   "qr_complex_big_logdet": ld_big}
 
 
+# ---- phases 17-20: the reduced two-sector chains ------------------------
+def q2_update_check(title, model, args, kernel, plain, K=None):
+    """An update kernel's q = 2 instance (K4 or, with K, K5) against its
+    plain version on ``args``: in the path's single precision identical
+    decisions but at near-ties of the log-domain test and G within 1e-5;
+    then in double precision (the same operands cast) bitwise. Timed.
+    Returns (record, kernel output) of the single-precision run."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import sdw_delayed, sdw_update
+
+    extra = (model.nb, model.cfg.dtau, model.c_det) + (
+        () if K is None else (K,))
+    single = args[0].dtype
+    rec = None
+    for dt in (single, torch.complex128 if single.is_complex
+               else torch.float64):
+        rdt = dt.to_real()
+        a = [x.to(dt if i in (0, 4) else rdt).contiguous()
+             for i, x in enumerate(args)]
+        Gk, pk, ak = kernel(*a, *extra)
+        Gp, pp, ap = plain(*a, *extra)
+        torch.cuda.synchronize()
+        same = (pk == pp).flatten(1).all(dim=1)
+        n_mis = int((~same).sum())
+        if dt == single:
+            for w in torch.nonzero(~same)[:, 0].tolist():
+                i = int(torch.nonzero((pk[w] != pp[w]).any(-1))[0, 0])
+                margin, rhs = k4_margin(model, a, w, i)
+                print(f"  {title} {dt}: accept mismatch at walker {w} site "
+                      f"{i}, |lhs - rhs| = {margin:.3e} (rhs {rhs:.6f})")
+                check(margin < K4_NEAR_TIE, f"{title}: mismatch at walker "
+                      f"{w} site {i} is not a near-tie ({margin:.3e})")
+            err = float((Gk - Gp)[same].abs().max())
+            check(err <= K4_TOL["complex64"], f"{title} {dt}: max|dG| "
+                  f"{err:.3e} > {K4_TOL['complex64']}")
+            ms = time_ms(lambda: kernel(*a, *extra))
+            pms = time_ms(lambda: plain(*a, *extra), reps=1)
+            W, h = a[0].shape[:2]
+            N, q, cplx = model.cfg.n_sites, 2, dt.is_complex
+            if K is None:
+                ops = float(ak.sum()) * (8 if cplx else 2) * q * h * h
+                bps = sdw_update.blocks_per_sm(N, dt, a[0].device,
+                                               model.cfg.opdim, q)
+                plan = f"{bps} CTAs/SM"
+            else:
+                ops = k5_ops(a[1], pk, K, h, q, cplx)
+                plan = (f"plan {sdw_delayed.plan(N, dt, K, model.cfg.opdim, q)}"
+                        f" x {sdw_delayed.blocks_per_sm(N, dt, K, a[0].device, model.cfg.opdim, q)} CTAs/SM")
+            print(f"{title} {dt} (W={W}, h={h}, N={N}{'' if K is None else f', K={K}'}"
+                  f", {plan}): max|dG|={err:.3e} (tol {K4_TOL['complex64']}), "
+                  f"accepted {int(ak.sum())}/{W * N} sites, accept mismatches "
+                  f"{n_mis}, kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            rec = record(err, ms, pms, None, bound(
+                nbytes(*a, model.nb, Gk, pk, ak), ops))
+            out = (Gk, pk, ak)
+        else:
+            check(n_mis == 0 and torch.equal(Gk, Gp) and torch.equal(pk, pp)
+                  and torch.equal(ak, ap), f"{title} {dt}: not bitwise equal "
+                  "to the plain version")
+            print(f"  {title} {dt}: bitwise equal to the plain version "
+                  f"(accepted {int(ak.sum())} sites)")
+    return rec, out
+
+
+def q2_wrap_check(model, state):
+    """K6's q = 2 instance of ``model`` (wrap up / down, apply, apply-H) on
+    its stabilized G and slice 1's blocks, in the path's single precision
+    and in double precision, against the plain applies; timed with the
+    dense einsum / bmm. Returns the wrap's and the apply's records."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import _kernels, sdw_wrap
+
+    single = model.cdtype
+    W, h = state.G.shape[:2]
+    N, q, cplx = model.cfg.n_sites, 2, single.is_complex
+    D0 = model.exp_v_blocks(state.phi[:, 0])
+    Di0 = model.exp_v_blocks(state.phi[:, 0], 1.0)
+    recs = {}
+    for dt in (single, torch.complex128 if cplx else torch.float64):
+        rdt = dt.to_real()
+        G, D, Di = [x.to(dt).contiguous() for x in (state.G, D0, Di0)]
+        Er, Eir = (model.expK_real.to(rdt).contiguous(),
+                   model.expK_inv_real.to(rdt).contiguous())
+        tol = K6_TOL["complex64" if rdt == torch.float32 else "complex128"]
+        scale = float(G.abs().max())
+        errs = {}
+        for mode, kf, pf in (
+                ("up", lambda: sdw_wrap.wrap(G, Er, Eir, D, Di, True),
+                 lambda: sdw_wrap.wrap_plain(G, Er.to(dt), Eir.to(dt), D, Di,
+                                             True)),
+                ("down", lambda: sdw_wrap.wrap(G, Er, Eir, D, Di, False),
+                 lambda: sdw_wrap.wrap_plain(G, Er.to(dt), Eir.to(dt), D, Di,
+                                             False)),
+                ("apply", lambda: sdw_wrap.apply(G, Er, D, False),
+                 lambda: sdw_wrap.apply_plain(G, Er.to(dt), D, False)),
+                ("apply-H", lambda: sdw_wrap.apply(G, Er, D, True),
+                 lambda: sdw_wrap.apply_plain(G, Er.to(dt), D, True))):
+            k, p_ = kf(), pf()
+            torch.cuda.synchronize()
+            errs[mode] = float((k - p_).abs().max())
+            check(errs[mode] <= tol * scale, f"K6 q=2 {dt} {mode}: max|d| "
+                  f"{errs[mode]:.3e} > {tol} x max|G| {scale:.3e}")
+        if dt != single:
+            print(f"  K6 q=2 {dt}: max|d| " + ", ".join(
+                f"{m} {e:.3e}" for m, e in errs.items())
+                + f" (tol {tol} x max|G| {scale:.3e})")
+            continue
+        E, Ei = Er.to(dt), Eir.to(dt)
+        wms = time_ms(lambda: sdw_wrap.wrap(G, Er, Eir, D, Di, True))
+        wpms = time_ms(lambda: sdw_wrap.wrap_plain(G, E, Ei, D, Di, True))
+        ams = time_ms(lambda: sdw_wrap.apply(G, Er, D, False))
+        apms = time_ms(lambda: sdw_wrap.apply_plain(G, E, D, False))
+        eye = torch.eye(h, dtype=dt, device=G.device).expand(W, h, h)
+        Bd = sdw_wrap.apply_plain(eye, E, D, False)
+        Bi = sdw_wrap.kin_left(Ei, sdw_wrap.dv_left(Di, eye))
+        wlms = time_ms(lambda: torch.einsum("wij,wjk,wkl->wil", Bd, G, Bi))
+        alms = time_ms(lambda: torch.bmm(Bd, G))
+        p6 = sdw_wrap.plan(N, dt, W, _kernels.sm_count(G.device), q)
+        print(f"K6 sdw_wrap/sdw_apply q=2 {dt} (W={W}, h={h}, plan (TL, og, "
+              f"nb, tiles per CTA) {p6} x "
+              f"{sdw_wrap.blocks_per_sm(N, dt, p6, G.device, q)}/SM): max|d| "
+              + ", ".join(f"{m} {e:.3e}" for m, e in errs.items())
+              + f" (tol {tol} x max|G| {scale:.3e}); wrap kernel "
+              f"{wms:.4f} ms, plain {wpms:.4f} ms, dense einsum "
+              f"{wlms:.4f} ms; apply kernel {ams:.4f} ms, plain "
+              f"{apms:.4f} ms, dense bmm {alms:.4f} ms")
+        # per side the block-diagonal real E (h^2 N mul-adds of a real and
+        # an S: 4 operations complex, 2 real) and the q x q D blocks (q h^2
+        # mul-adds of two S: 8 operations complex, 2 real)
+        side = W * (h * h * N * (4 if cplx else 2)
+                    + q * h * h * (8 if cplx else 2))
+        io = nbytes(G, Er, D)
+        recs["wrap"] = record(max(errs["up"], errs["down"]), wms, wpms, wlms,
+                              bound(io + nbytes(G, Eir, Di), 2 * side))
+        recs["apply"] = record(max(errs["apply"], errs["apply-H"]), ams, apms,
+                               alms, bound(io + nbytes(G), side))
+    return recs
+
+
+def reduced_kernel_phase(device):
+    """Phase 17: the q = 2 instances of K4 (sdw_o2_quickstart, sdw_o1_l4:
+    h = 32), K5 and K6 (sdw_o2_l8, sdw_o1_l8: h = 128) against their plain
+    versions at the slice's shapes (W = 128), single precision as the
+    paths run them and double precision bitwise (K4, K5), timed, with CTAs
+    per SM and plans. Returns the kernel line's records."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import sdw_delayed, sdw_update
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(1717)
+    for suffix, cfg_kw in (("", SDW_O2_L4_CFG), ("_real", SDW_O1_L4_CFG)):
+        model = SDWModel(SDWConfig(**cfg_kw), device=device)
+        state = model.init_state(W_SDW, gen)
+        args = k4_operands(model, state, gen)
+        rec, _ = q2_update_check(f"K4 sdw_update q=2 (opdim {model.cfg.opdim})",
+                                 model, args, sdw_update.sdw_update,
+                                 sdw_update.sdw_update_plain)
+        out["sdw_update_q2" + suffix] = {str(model.cdtype)[6:]: rec}
+    for suffix, cfg_kw in (("", SDW_O2_L8_CFG), ("_real", SDW_O1_L8_CFG)):
+        model = SDWModel(SDWConfig(**cfg_kw), device=device)
+        state = model.init_state(W_SDW, gen)
+        args = k4_operands(model, state, gen)
+        rec, _ = q2_update_check(
+            f"K5 sdw_delayed q=2 (opdim {model.cfg.opdim})", model, args,
+            sdw_delayed.sdw_delayed, sdw_delayed.sdw_delayed_plain,
+            K=model._delay_k)
+        dname = str(model.cdtype)[6:]
+        out["sdw_delayed_q2" + suffix] = {dname: rec}
+        recs = q2_wrap_check(model, state)
+        out["sdw_wrap_q2" + suffix] = {dname: recs["wrap"]}
+        out["sdw_apply_q2" + suffix] = {dname: recs["apply"]}
+        del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduced_paths_phase(device, card):
+    """Phases 18 and 19: card-vs-CPU parity of the reduced chains (L = 2,
+    float64, opdim 2 and 1, immediate and delayed/fused), then the four
+    reduced configurations' main paths at W = 128, each with a profiled
+    pair. Returns the launch counts of the q = 2 instances on their main
+    paths."""
+    for opdim in (2, 1):
+        for kw in ({}, dict(update_kernel="delayed", delay=3,
+                            wrap_kernel="fused")):
+            ran = sdw_path_parity_phase(device, opdim, **kw)
+            check(all("q2" in k for k in ran if k.startswith("sdw_")),
+                  f"reduced parity: a q = 4 instance ran {ran}")
+            check(any(k.startswith("sdw_") for k in ran),
+                  f"reduced parity: no update kernel ran {ran}")
+    lap("reduced path parity (phase 18)")
+    counts = {}
+    for title, cfg_kw in (("sdw_o2_quickstart", SDW_O2_L4_CFG),
+                          ("sdw_o1_l4", SDW_O1_L4_CFG),
+                          ("sdw_o2_l8", SDW_O2_L8_CFG),
+                          ("sdw_o1_l8", SDW_O1_L8_CFG)):
+        print(f"-- {title}")
+        model, state, gen, c, wall_ms = sdw_main_path_phase(
+            device, card, cfg_kw, None)
+        if cfg_kw["L"] == 8:
+            check(not any(v for k, v in c.items() if k.startswith(
+                "sdw_update")), f"{title}: K4 launched {c}")
+        profile_phase(lambda: model.sweep_pair(state, measure=True,
+                                               generator=gen),
+                      wall_ms, REDUCED_GROUPS, f"{title} profile")
+        counts.update({k: v for k, v in c.items() if "q2" in k and v})
+        del model, state
+        lap(f"{title} main path (phase 19)")
+    return counts
+
+
+def quickstart_cli_phase():
+    """Phase 20: README.md's O(2) SDW quick start through
+    detqmc_tpu_torch.cli.main_sdw.main in-process, its keys unchanged but
+    sweeps and thermalization cut (QUICKSTART_CUT; one walker, the CLI's
+    default): exit 0, finite results, median green_dev under the gate,
+    phase exactly 1, the global moves fired; the launch counts against the
+    code's formulas, the wall time per sweep."""
+    import math
+    import os
+    import tempfile
+
+    import torch
+
+    from detqmc_tpu_torch.cli.main_sdw import main as cli_main
+    from detqmc_tpu_torch.io.series import load_results
+    from detqmc_tpu_torch.linalg import _kernels, green_solve, qr
+    from detqmc_tpu_torch.metadata import string_to_metadata
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    keys = [k if k.split("=")[0] not in QUICKSTART_CUT else
+            f"{k.split('=')[0]}={QUICKSTART_CUT[k.split('=')[0]]}"
+            for k in QUICKSTART]
+    methods = ("attempt_global_shift", "attempt_wolff_update")
+    with tempfile.TemporaryDirectory() as outdir:
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with MoveLog(methods) as moves:
+            rc = cli_main(keys + [f"outdir={outdir}"])
+        wall = time.perf_counter() - t0
+        counts = dict(_kernels.LAUNCHES)
+        check(rc == 0, f"quick start CLI exited {rc}")
+        res = load_results(os.path.join(outdir, "results.values"))
+        with open(os.path.join(outdir, "info.dat")) as f:
+            info = string_to_metadata(f.read())
+    check(res and all(math.isfinite(v) for pair in res.values()
+                      for v in pair), f"quick start: non-finite results {res}")
+    dev = float(info["greenDevMedian"])
+    check(dev < SDW_GREEN_DEV_GATE, f"quick start: median green_dev {dev:.3e}")
+    check(res["phase"][0] == 1.0, f"quick start: phase {res['phase']}")
+    model = SDWModel(SDWConfig(**SDW_O2_L4_CFG), device="cpu")
+    cfg, K = model.cfg, model.cfg.n_stack
+    pairs = int(info["thermalization"]) + int(info["sweeps"])
+    n_moves = len(moves.calls)
+    check({c[0] for c in moves.calls} == set(methods),
+          f"quick start: moves fired {moves.calls}")
+    qk = qr.kernel_for(model.dim, model.cdtype)
+    sk = green_solve.kernel_for(model.dim, torch.complex128)
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"sdw_update_q2": 2 * cfg.m * pairs,
+                   qk: K + 2 * K * pairs + (2 * K + 2) * n_moves,
+                   sk: 1 + 2 * K * pairs + n_moves})
+    print(f"quick start detqmc_tpu_torch.cli.main_sdw {' '.join(keys)} (cut "
+          f"from sweeps=1000 thermalization=300): exit 0 in {wall:.2f} s, "
+          f"{1e3 * wall / (2 * pairs):.3f} ms per sweep ({2 * pairs} sweeps "
+          f"in {pairs} pairs, {n_moves} global moves, the CLI's one walker); "
+          f"green_dev median {dev:.4e}, phase {res['phase']}, phiSquared "
+          f"{res['phiSquared'][0]:.6f}, acceptance {res['acceptance'][0]:.6f}"
+          f"; launches {({k: v for k, v in counts.items() if v})} (expected "
+          f"{({k: v for k, v in expect.items() if v})})")
+    check(counts == expect, f"quick start: launch counts {counts} != {expect}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2263,6 +2642,13 @@ def main() -> int:
     kern.update(ld_kern)
     counts.update(ld_counts)
 
+    # phases 17-20: the reduced two-sector chains (opdim 2 and 1)
+    kern.update(reduced_kernel_phase(device))
+    lap("reduced kernels (phase 17)")
+    counts.update(reduced_paths_phase(device, card))
+    quickstart_cli_phase()
+    lap("quick start CLI (phase 20)")
+
     meta = {"slice_update": ("detqmc_tpu_torch/csrc/slice_update.cu",
                              "detqmc_tpu/linalg/pallas_update_lanes.py:185",
                              "float32"),
@@ -2328,7 +2714,8 @@ def main() -> int:
                                   "complex128"),
             "qr_complex_big_logdet": (
                 "detqmc_tpu_torch/csrc/qr_big.cu",
-                "detqmc_tpu/linalg/pallas_cqr_wy.py:266", "complex64")}
+                "detqmc_tpu/linalg/pallas_cqr_wy.py:266", "complex64"),
+            **REDUCED_META}
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": repl,
              "launches": counts[name], **kern[name][dname]}
             for name, (src, repl, dname) in meta.items()]

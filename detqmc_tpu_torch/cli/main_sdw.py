@@ -1,10 +1,11 @@
-"""detqmc-sdw-torch — O(3) SDW-model DQMC simulation binary of the port.
+"""detqmc-sdw-torch — O(n) SDW-model DQMC simulation binary of the port.
 
 The port's counterpart of detqmc_tpu/cli/main_sdw.py (reference parity:
 SURVEY.md §3 "CLI mains", maindetqmcsdwopdim.cpp): the same keys, config
-files and output files, run by the port's driver on one CUDA card,
-global moves (globalShift, wolffClusterUpdate, wolffClusterShiftUpdate)
-included. One key more: ``device`` (default ``cuda``) names the torch
+files and output files, run by the port's driver on one CUDA card, at
+opdim 3 (the full fermion matrix) and opdim 2 and 1 (the reduced
+two-sector chains), global moves (globalShift, wolffClusterUpdate,
+wolffClusterShiftUpdate) and turnoffFermions included. One key more: ``device`` (default ``cuda``) names the torch
 device, e.g. ``device=cpu`` to run the plain PyTorch versions on the CPU.
 It is not echoed into info.dat, so a run's files carry the JAX CLI's
 keys. ``accRatio`` sets the driver's proposal-width target (the JAX CLI
@@ -13,6 +14,8 @@ stopped early by the wall-time budget (state saved; the same command
 resumes).
 Usage:
     detqmc-sdw-torch --conf examples/sdw_o3_l8.conf [--key value ...]
+    detqmc-sdw-torch L=4 opdim=2 r=1.0 beta=4 m=40 s=2 sweeps=1000 \
+        thermalization=300 globalShift=true wolffClusterUpdate=true
     python -m detqmc_tpu_torch.cli.main_sdw --conf sim.conf sweeps=100 ...
 """
 

@@ -2,7 +2,8 @@
 
 ``state_from_jax`` takes a ``detqmc_tpu.models.hubbard.WalkerState`` and
 ``sdw_state_from_jax`` a ``detqmc_tpu.models.sdw.SDWState`` (of the
-``fermion_repr="complex"`` chain) — vmapped over walkers (leading axis)
+``fermion_repr="complex"`` chain: full or reduced, complex or, at opdim 1,
+real) — vmapped over walkers (leading axis)
 or a single walker — or any object with the same leaf names whose leaves
 ``np.asarray`` accepts, and return the port's state on ``device``. JAX's
 PRNG ``key`` is dropped: the port draws from a ``torch.Generator`` held by
@@ -37,8 +38,13 @@ def state_from_jax(jstate, device=None) -> WalkerState:
 
 
 def sdw_state_from_jax(jstate, device=None) -> SDWState:
-    t = _leaf_reader(np.asarray(jstate.phi).ndim == 4, device)
-    if not np.iscomplexobj(np.asarray(jstate.G)):
+    phi = np.asarray(jstate.phi)
+    t = _leaf_reader(phi.ndim == 4, device)
+    G = np.asarray(jstate.G)
+    # the real embedding and the native pair planes hold real G at
+    # opdim >= 2 (or an extra plane axis)
+    if G.ndim != phi.ndim - 1 or (not np.iscomplexobj(G)
+                                  and phi.shape[-1] != 1):
         raise ValueError("sdw_state_from_jax needs the complex chain "
                          "(fermion_repr='complex'), not pair planes or the "
                          "real embedding")

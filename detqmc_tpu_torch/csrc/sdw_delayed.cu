@@ -1,5 +1,10 @@
 // K5: the delayed SDW slice update, one launch per slice, one CTA per
-// walker, the flushes G -= C R in the kernel's own body.
+// walker, the flushes G -= C R in the kernel's own body. Instances: q = 4
+// complex (the full opdim-3 model), q = 2 complex (the opdim-2 reduced
+// sector) and q = 2 real (opdim 1), in single and double precision; the
+// notes below are written for q = 4, and the q = 2 instances are the same
+// program with q orbitals a site (2 x 2 flush tiles, h = 2 N need not be a
+// multiple of 4), not tuned.
 //
 // Replaces the TPU kernel detqmc_tpu/linalg/pallas_sdw_delayed.py
 // (slice_update_sdw_delayed, kernel body _kernel) in its default
@@ -78,9 +83,8 @@ namespace dq {
 // the barriers, the flush, the staging of the slice's operands
 enum { kGather, kDecide, kSlot, kBarrier, kFlush, kSetup, kPhases };
 
-constexpr int kFlushCols = 4;   // complex entries per flush tile row
-
-// M consecutive complex values at src (16-byte aligned) into v, and back
+// M consecutive complex values at src (16-byte aligned) into v, and back;
+// real values one at a time
 template <int M>
 __device__ __forceinline__ void load_c(cplx<float> (&v)[M], const cplx<float>* src) {
     static_assert(M % 2 == 0, "complex64 loads go in pairs");
@@ -99,6 +103,16 @@ __device__ __forceinline__ void load_c(cplx<double> (&v)[M], const cplx<double>*
         v[q] = mk(x.x, x.y);
     }
 }
+template <int M, typename T>
+__device__ __forceinline__ void load_c(T (&v)[M], const T* src) {
+#pragma unroll
+    for (int q = 0; q < M; ++q) v[q] = src[q];
+}
+template <int M, typename T>
+__device__ __forceinline__ void store_c(T* dst, const T (&v)[M]) {
+#pragma unroll
+    for (int q = 0; q < M; ++q) dst[q] = v[q];
+}
 template <int M>
 __device__ __forceinline__ void store_c(cplx<float>* dst, const cplx<float> (&v)[M]) {
 #pragma unroll
@@ -115,20 +129,18 @@ __device__ __forceinline__ void store_c(cplx<double>* dst, const cplx<double> (&
 
 // Gd = Gs - sum_{s < ns} C[:, s] R[s, :] (C stored slot-major: Cs[s h + r]),
 // slot by slot in ascending s, each entry rounded as the plain version
-// rounds it. Thread t takes the tiles t, t + kThreads, ... of TR x 4
+// rounds it. Thread t takes the tiles t, t + kThreads, ... of TR x TC
 // entries, the tiles of a row band on neighbouring threads (coalesced G
 // rows, one C read for the band); the next tile's G loads are issued
 // before the current tile's products. Where the slots live in the global
 // scratch (RES < 2: C; RES == 0: R too) their entries are loaded kRing
 // slots ahead of their products: from L2 a load waits longer than one
 // slot's products take (PERF.md); from shared memory the ring cost
-// more than it hid. ns = 0 copies. h % 4 == 0.
+// more than it hid. ns = 0 copies. h % TR == 0 and h % TC == 0.
 constexpr int kRing = 4;
-template <typename T, int TR, int RES>
-__device__ __forceinline__ void flush(const cplx<T>* Gs, cplx<T>* Gd, const cplx<T>* Cs,
-                                      const cplx<T>* Rs, int h, int ns) {
-    using S = cplx<T>;
-    constexpr int TC = kFlushCols;
+template <typename S, int TR, int TC, int RES>
+__device__ __forceinline__ void flush(const S* Gs, S* Gd, const S* Cs, const S* Rs, int h,
+                                      int ns) {
     constexpr bool RING_C = RES < 2, RING_R = RES == 0;
     constexpr int D = RING_C ? kRing : 1;   // slots a pass of the inner loop
     const int tcn = h / TC, tiles = (h / TR) * tcn;
@@ -200,35 +212,40 @@ __device__ __forceinline__ void flush(const cplx<T>* Gs, cplx<T>* Gd, const cplx
 }
 
 // shared memory of one CTA (linalg/sdw_delayed.py smem_bytes): the slot
-// buffers it holds (RES of C and R: 2 both, 1 R), the slice's delta blocks
-// (16 N complex), then phi_new and lhs, every warp's copy of the live
-// field, and the neighbour table
-inline size_t delayed_smem(int N, int opdim, int K, size_t cbytes, int res) {
-    const size_t h = 4 * size_t(N), rbytes = cbytes / 2;
-    return res * 4 * size_t(K) * h * cbytes + 16 * size_t(N) * cbytes +
+// buffers it holds (RES of C and R: 2 both, 1 R; each q K x h, h = q N),
+// the slice's delta blocks (q^2 N), then phi_new and lhs, every warp's copy
+// of the live field, and the neighbour table
+inline size_t delayed_smem(int N, int opdim, int K, int q, size_t sbytes, size_t rbytes,
+                           int res) {
+    const size_t h = size_t(q) * N;
+    return res * size_t(q) * K * h * sbytes + size_t(q) * q * N * sbytes +
            rbytes * (size_t(N) * opdim * (1 + kWarps) + N) + sizeof(int) * 4 * size_t(N);
 }
 
 // EPT: entries of a site's columns and rows per thread (h <= EPT kThreads);
-// TR: flush tile rows; RES: the slot buffers in shared memory (2: C and R;
-// 1: R, C in the global scratch `slots`, 4 K x h per walker; 0: neither,
-// both in the scratch, 2 x 4 K x h per walker)
-template <typename T, int EPT, int TR, int RES, bool PROBE>
+// TR x TC: the flush tile; RES: the slot buffers in shared memory (2: C and
+// R; 1: R, C in the global scratch `slots`, q K x h per walker; 0: neither,
+// both in the scratch, 2 x q K x h per walker)
+template <typename S, int Q, int EPT, int TR, int TC, int RES, bool PROBE>
 __global__ void __launch_bounds__(kThreads, 1)
-sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
-                   const T* __restrict__ phi_in, const T* __restrict__ phin_in,
-                   const T* __restrict__ lhs_in, const cplx<T>* __restrict__ delta_in,
-                   const int* __restrict__ nb_in, T* __restrict__ phi_out,
-                   T* __restrict__ acc_out, cplx<T>* slots, int N, int opdim, int K,
-                   T dtau, T c_det, long long* probe_out) {
-    using S = cplx<T>;
+sdw_delayed_kernel(const S* __restrict__ G_in, S* G_out,
+                   const typename real_of<S>::type* __restrict__ phi_in,
+                   const typename real_of<S>::type* __restrict__ phin_in,
+                   const typename real_of<S>::type* __restrict__ lhs_in,
+                   const S* __restrict__ delta_in, const int* __restrict__ nb_in,
+                   typename real_of<S>::type* __restrict__ phi_out,
+                   typename real_of<S>::type* __restrict__ acc_out, S* slots, int N,
+                   int opdim, int K, typename real_of<S>::type dtau,
+                   typename real_of<S>::type c_det, long long* probe_out) {
+    using T = typename real_of<S>::type;
+    constexpr int QQ = Q * Q;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int h = 4 * N, Kq = 4 * K, NO = N * opdim;
+    const int h = Q * N, Kq = Q * K, NO = N * opdim;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const size_t wk = blockIdx.x;
     S* Cs;                                   // Kq x h: Cs[s h + r] = C[r][s]
     S* Rs;                                   // Kq x h: Rs[s h + c] = R[s][c]
-    S* dl;                                   // 16 N: the delta blocks
+    S* dl;                                   // q^2 N: the delta blocks
     S* sm = reinterpret_cast<S*>(smem_raw);
     if constexpr (RES == 2) {
         Cs = sm;
@@ -243,14 +260,14 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
         Rs = Cs + size_t(Kq) * h;
         dl = sm;
     }
-    T* phin = reinterpret_cast<T*>(dl + 16 * N);   // N x opdim
+    T* phin = reinterpret_cast<T*>(dl + QQ * N);   // N x opdim
     T* lhs = phin + NO;                            // N
     T* phiw = lhs + N;                             // kWarps x N x opdim
     int* nb = reinterpret_cast<int*>(phiw + kWarps * NO);   // N x 4
     Probe<PROBE, kPhases> probe;
     probe.start();
 
-    for (int idx = tid; idx < 16 * N; idx += kThreads) dl[idx] = delta_in[wk * 16 * N + idx];
+    for (int idx = tid; idx < QQ * N; idx += kThreads) dl[idx] = delta_in[wk * QQ * N + idx];
     for (int idx = tid; idx < NO; idx += kThreads) {
         phin[idx] = phin_in[wk * NO + idx];
         const T p = phi_in[wk * NO + idx];
@@ -262,8 +279,8 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
 
     const S* Gw = G_in + wk * size_t(h) * h;
     S* G = G_out + wk * size_t(h) * h;
-    // lanes e and e + 16 hold G_II's entry e = 4 a + b: G_cur[j_a][j_b]
-    const SiteLanes L;
+    // lanes e, e + q^2, ... hold G_II's entry e = q a + b: G_cur[j_a][j_b]
+    const SiteLanes<Q> L;
     T n_acc = T(0);
     probe.lap(kSetup);
     __syncthreads();
@@ -277,7 +294,7 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
         // the sites' loads of G and reads of the slots must have landed
         __syncthreads();
         probe.lap(kBarrier);
-        flush<T, TR, RES>(Gs, G, Cs, Rs, h, 4 * nk);
+        flush<S, TR, TC, RES>(Gs, G, Cs, Rs, h, Q * nk);
         probe.lap(kFlush);
         __syncthreads();
         probe.lap(kBarrier);
@@ -295,7 +312,7 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
         }
         S x = gnext;
         if (i + 1 < N) gnext = gii_of(i + 1);
-        const int ns = 4 * nk;
+        const int ns = Q * nk;
         // lane e's G_II[a][b] = col_b[j_a], corrected slot by slot
         const int ja = L.a * N + i, jb = L.b * N + i;
 #pragma unroll 4
@@ -306,8 +323,8 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
         // is still the slice's: phi_i = phi_in_i)
         const T live = site_live(phi, phin + i * opdim, phi + i * opdim, nb + 4 * i,
                                  opdim, dtau);
-        S Tm[16];
-        const bool accept = site_step_warp(x, dl + 16 * i, lhs[i], live, c_det, L, Tm);
+        S Tm[QQ];
+        const bool accept = site_step_warp<S, Q>(x, dl + QQ * i, lhs[i], live, c_det, L, Tm);
         probe.lap(kDecide);
         if (!accept) continue;           // uniform: no barrier
         n_acc = add_rn(n_acc, T(1));
@@ -320,9 +337,9 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
         for (int m = 0; m < EPT; ++m) {
             const int r = tid + m * kThreads;
             if (r >= h) continue;
-            S col[4], row[4];
+            S col[Q], row[Q];
 #pragma unroll
-            for (int b = 0; b < 4; ++b) {
+            for (int b = 0; b < Q; ++b) {
                 col[b] = Gs[size_t(r) * h + b * N + i];
                 row[b] = Gs[size_t(b * N + i) * h + r];
             }
@@ -331,19 +348,18 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
                 const S* Rr = Rs + size_t(s) * h;
                 const S cr = Cr[r], rr = Rr[r];
 #pragma unroll
-                for (int b = 0; b < 4; ++b) {
+                for (int b = 0; b < Q; ++b) {
                     col[b] = csub_rn(col[b], cmul_rn(cr, Rr[b * N + i]));
                     row[b] = csub_rn(row[b], cmul_rn(Cr[b * N + i], rr));
                 }
             }
 #pragma unroll
-            for (int b = 0; b < 4; ++b) {
+            for (int b = 0; b < Q; ++b) {
                 S c = cmul_rn(col[0], Tm[b]);
 #pragma unroll
-                for (int a = 1; a < 4; ++a) c = cadd_rn(c, cmul_rn(col[a], Tm[4 * a + b]));
+                for (int a = 1; a < Q; ++a) c = cadd_rn(c, cmul_rn(col[a], Tm[Q * a + b]));
                 Cs[size_t(ns + b) * h + r] = c;
-                Rs[size_t(ns + b) * h + r] =
-                    mk(sub_rn(r == b * N + i ? T(1) : T(0), row[b].re), -row[b].im);
+                Rs[size_t(ns + b) * h + r] = rsub_rn(r == b * N + i ? T(1) : T(0), row[b]);
             }
         }
         ++nk;
@@ -359,97 +375,114 @@ sdw_delayed_kernel(const cplx<T>* __restrict__ G_in, cplx<T>* G_out,
     probe.store(probe_out);
 }
 
-// the instance for h = 4 N (EPT = 1 up to h = 256, else 2) and the slots'
-// residence res (RES); nullptr where h is beyond 512 or res is not 0-2
-template <typename T, int EPT, bool PROBE>
+// the instance for h = q N (EPT = 1 up to h = 256, else 2) and the slots'
+// residence res (RES); nullptr where h is beyond 512 or res is not 0-2.
+// Flush tiles: 4 x 4 complex64 or 2 x 4 complex128 entries at q = 4, 2 x 2
+// at q = 2
+template <typename S, int Q, int EPT, bool PROBE>
 auto delayed_instance(int res) {
-    constexpr int TR = sizeof(T) == 4 ? 4 : 2;
-    using Fn = decltype(&sdw_delayed_kernel<T, EPT, TR, 2, PROBE>);
+    constexpr int TR = Q == 2 ? 2 : (sizeof(S) == 8 ? 4 : 2);
+    constexpr int TC = Q == 2 ? 2 : 4;
+    using Fn = decltype(&sdw_delayed_kernel<S, Q, EPT, TR, TC, 2, PROBE>);
     Fn fn = nullptr;
-    if (res == 2) fn = sdw_delayed_kernel<T, EPT, TR, 2, PROBE>;
-    else if (res == 1) fn = sdw_delayed_kernel<T, EPT, TR, 1, PROBE>;
-    else if (res == 0) fn = sdw_delayed_kernel<T, EPT, TR, 0, PROBE>;
+    if (res == 2) fn = sdw_delayed_kernel<S, Q, EPT, TR, TC, 2, PROBE>;
+    else if (res == 1) fn = sdw_delayed_kernel<S, Q, EPT, TR, TC, 1, PROBE>;
+    else if (res == 0) fn = sdw_delayed_kernel<S, Q, EPT, TR, TC, 0, PROBE>;
     return fn;
 }
 
-template <typename T, bool PROBE>
+template <typename S, int Q, bool PROBE>
 auto delayed_kernel(int N, int res) {
-    const int h = 4 * N;
-    return h <= kThreads ? delayed_instance<T, 1, PROBE>(res)
-           : h <= 2 * kThreads ? delayed_instance<T, 2, PROBE>(res)
+    const int h = Q * N;
+    return h <= kThreads ? delayed_instance<S, Q, 1, PROBE>(res)
+           : h <= 2 * kThreads ? delayed_instance<S, Q, 2, PROBE>(res)
                                : nullptr;
 }
 
-template <typename T, bool PROBE>
+template <typename S, int Q, bool PROBE = false>
 int sdw_delayed(int device, const void* G, void* G_out, const void* phi, const void* phin,
                 const void* lhs, const void* delta, const void* nb, void* phi_out,
                 void* acc_out, void* slots, int W, int N, int opdim, int K, int resident,
                 double dtau, double c_det, void* stream, long long* probe = nullptr) {
-    auto fn = delayed_kernel<T, PROBE>(N, resident);
+    using T = typename real_of<S>::type;
+    auto fn = delayed_kernel<S, Q, PROBE>(N, resident);
     if (!fn || K < 1 || K > N) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = delayed_smem(N, opdim, K, sizeof(cplx<T>), resident);
-    return launch_smem(device, fn, W, smem, stream, static_cast<const cplx<T>*>(G),
-                       static_cast<cplx<T>*>(G_out), static_cast<const T*>(phi),
+    const size_t smem = delayed_smem(N, opdim, K, Q, sizeof(S), sizeof(T), resident);
+    return launch_smem(device, fn, W, smem, stream, static_cast<const S*>(G),
+                       static_cast<S*>(G_out), static_cast<const T*>(phi),
                        static_cast<const T*>(phin), static_cast<const T*>(lhs),
-                       static_cast<const cplx<T>*>(delta), static_cast<const int*>(nb),
+                       static_cast<const S*>(delta), static_cast<const int*>(nb),
                        static_cast<T*>(phi_out), static_cast<T*>(acc_out),
-                       static_cast<cplx<T>*>(slots), N, opdim, K, static_cast<T>(dtau),
+                       static_cast<S*>(slots), N, opdim, K, static_cast<T>(dtau),
                        static_cast<T>(c_det), probe);
 }
 
-template <typename T>
+template <typename S, int Q>
 int delayed_blocks(int device, int N, int opdim, int K, int resident) {
-    auto fn = delayed_kernel<T, false>(N, resident);
+    using T = typename real_of<S>::type;
+    auto fn = delayed_kernel<S, Q, false>(N, resident);
     if (!fn) return -static_cast<int>(cudaErrorInvalidValue);
-    return blocks_per_sm(device, fn, delayed_smem(N, opdim, K, sizeof(cplx<T>), resident));
+    return blocks_per_sm(device, fn,
+                         delayed_smem(N, opdim, K, Q, sizeof(S), sizeof(T), resident));
 }
 
 }  // namespace dq
 
-extern "C" {
-
 // G -> G_out over one slice, slots of K accepted sites; resident: the slot
 // buffers in shared memory (2: C and R, 1: R, 0: none); slots: the global
-// scratch for the others (W x (2 - resident) x 4 K x 4 N complex)
+// scratch for the others (W x (2 - resident) x q K x q N of G's scalar)
 // (linalg/sdw_delayed.py plan)
-int dq_sdw_delayed_c64(int device, const void* G, void* G_out, const void* phi,
-                       const void* phin, const void* lhs, const void* delta,
-                       const void* nb, void* phi_out, void* acc_out, void* slots, int W,
-                       int N, int opdim, int K, int resident, double dtau, double c_det,
-                       void* stream) {
-    return dq::sdw_delayed<float, false>(device, G, G_out, phi, phin, lhs, delta, nb,
-                                         phi_out, acc_out, slots, W, N, opdim, K, resident,
-                                         dtau, c_det, stream);
-}
+#define DQ_SDW_DELAYED_ENTRY(NAME, S, Q)                                               \
+    extern "C" int NAME(int device, const void* G, void* G_out, const void* phi,       \
+                        const void* phin, const void* lhs, const void* delta,          \
+                        const void* nb, void* phi_out, void* acc_out, void* slots,     \
+                        int W, int N, int opdim, int K, int resident, double dtau,     \
+                        double c_det, void* stream) {                                  \
+        return dq::sdw_delayed<S, Q>(device, G, G_out, phi, phin, lhs, delta, nb,      \
+                                     phi_out, acc_out, slots, W, N, opdim, K,          \
+                                     resident, dtau, c_det, stream);                   \
+    }
 
-int dq_sdw_delayed_c128(int device, const void* G, void* G_out, const void* phi,
-                        const void* phin, const void* lhs, const void* delta,
-                        const void* nb, void* phi_out, void* acc_out, void* slots, int W,
-                        int N, int opdim, int K, int resident, double dtau, double c_det,
-                        void* stream) {
-    return dq::sdw_delayed<double, false>(device, G, G_out, phi, phin, lhs, delta, nb,
-                                          phi_out, acc_out, slots, W, N, opdim, K,
-                                          resident, dtau, c_det, stream);
-}
+DQ_SDW_DELAYED_ENTRY(dq_sdw_delayed_c64, dq::cplx<float>, 4)
+DQ_SDW_DELAYED_ENTRY(dq_sdw_delayed_c128, dq::cplx<double>, 4)
+DQ_SDW_DELAYED_ENTRY(dq_sdw_delayed_q2_c64, dq::cplx<float>, 2)
+DQ_SDW_DELAYED_ENTRY(dq_sdw_delayed_q2_c128, dq::cplx<double>, 2)
+DQ_SDW_DELAYED_ENTRY(dq_sdw_delayed_q2_f32, float, 2)
+DQ_SDW_DELAYED_ENTRY(dq_sdw_delayed_q2_f64, double, 2)
 
-// the same with the phase probe on (complex64): probe (W x 8 int64) gets
-// each CTA's cycles per phase (PROBE_PHASES), its total cycles and its
+extern "C" {
+
+// the same with the phase probe on (complex64, q = 4): probe (W x 8 int64)
+// gets each CTA's cycles per phase (PROBE_PHASES), its total cycles and its
 // total ns
 int dq_sdw_delayed_probe_c64(int device, const void* G, void* G_out, const void* phi,
                              const void* phin, const void* lhs, const void* delta,
                              const void* nb, void* phi_out, void* acc_out, void* slots,
                              int W, int N, int opdim, int K, int resident, double dtau,
                              double c_det, void* probe, void* stream) {
-    return dq::sdw_delayed<float, true>(device, G, G_out, phi, phin, lhs, delta, nb,
-                                        phi_out, acc_out, slots, W, N, opdim, K, resident,
-                                        dtau, c_det, stream, static_cast<long long*>(probe));
+    return dq::sdw_delayed<dq::cplx<float>, 4, true>(
+        device, G, G_out, phi, phin, lhs, delta, nb, phi_out, acc_out, slots, W, N, opdim,
+        K, resident, dtau, c_det, stream, static_cast<long long*>(probe));
 }
 
 // CTAs per SM of the production instance (no launch)
 int dq_sdw_delayed_blocks_per_sm(int device, int complex128, int N, int opdim, int K,
                                  int resident) {
-    return complex128 ? dq::delayed_blocks<double>(device, N, opdim, K, resident)
-                      : dq::delayed_blocks<float>(device, N, opdim, K, resident);
+    return complex128 ? dq::delayed_blocks<dq::cplx<double>, 4>(device, N, opdim, K, resident)
+                      : dq::delayed_blocks<dq::cplx<float>, 4>(device, N, opdim, K, resident);
+}
+
+// the q = 2 instances' (dtype: 0 float32, 1 float64, 2 complex64, 3
+// complex128)
+int dq_sdw_delayed_q2_blocks_per_sm(int device, int dtype, int N, int opdim, int K,
+                                    int resident) {
+    switch (dtype) {
+        case 0: return dq::delayed_blocks<float, 2>(device, N, opdim, K, resident);
+        case 1: return dq::delayed_blocks<double, 2>(device, N, opdim, K, resident);
+        case 2: return dq::delayed_blocks<dq::cplx<float>, 2>(device, N, opdim, K, resident);
+        case 3: return dq::delayed_blocks<dq::cplx<double>, 2>(device, N, opdim, K, resident);
+    }
+    return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -1,4 +1,9 @@
-// K6: fused SDW wrap and one-sided B apply, complex64 / complex128.
+// K6: fused SDW wrap and one-sided B apply. Instances: q = 4 complex (the
+// full opdim-3 model), q = 2 complex (the opdim-2 reduced sector) and q = 2
+// real (opdim 1), in single and double precision (the TPU kernel's real
+// single-plane variant, pallas_sdw_wrap.py:29-30); the notes below are
+// written for q = 4 complex, and the q = 2 instances are the same program
+// with q orbitals (the real ones on real lines), not tuned.
 //
 // Replaces the TPU kernels detqmc_tpu/linalg/pallas_sdw_wrap.py
 // (fused_wrap, kernel body _kernel; fused_apply_left, kernel body
@@ -68,23 +73,36 @@ struct PassFlags {
 // linalg/sdw_wrap.py PROBE_PHASES
 enum { kStageF, kKinetic, kDStep, kLines, kPhases };
 
-// row strides (elements): lines TL + lpad (none at TL = 4, the fallback
-// plans' width), F rows round_up(N, 4) + fpad; both keep rows 16-byte
-// aligned. Mirrored by linalg/sdw_wrap.py smem_bytes.
+// row strides (elements): lines TL + lpad, lpad 16 bytes of S (none at
+// TL = 4, the fallback plans' width), F rows round_up(N, 4) + fpad; both
+// keep rows 16-byte aligned. Mirrored by linalg/sdw_wrap.py smem_bytes.
 template <typename T> struct k6_pad;
-template <> struct k6_pad<float> { static constexpr int lines = 2, f = 4; };
-template <> struct k6_pad<double> { static constexpr int lines = 1, f = 2; };
+template <> struct k6_pad<float> { static constexpr int f = 4; };
+template <> struct k6_pad<double> { static constexpr int f = 2; };
+// S values per 16 bytes: the line pad, the left lines' copy width
+template <typename S>
+__host__ __device__ constexpr int k6_ch() { return 16 / sizeof(S); }
 
-template <typename T>
-__host__ __device__ inline int k6_ldt(int TL) { return TL + (TL >= 8 ? k6_pad<T>::lines : 0); }
+template <typename S>
+__host__ __device__ inline int k6_ldt(int TL) { return TL + (TL >= 8 ? k6_ch<S>() : 0); }
 template <typename T>
 __host__ __device__ inline int k6_ldf(int N) { return round_up(N, 4) + k6_pad<T>::f; }
 
-// nb line buffers of h x ldt, D's blocks (16 N), og orbitals of F
-template <typename T>
+// nb line buffers of h x ldt (h = q N), D's blocks (q^2 N), og orbitals
+// of F
+template <typename S, int Q>
 size_t k6_smem_bytes(int N, int TL, int og, int nb) {
-    return sizeof(cplx<T>) * (size_t(nb) * 4 * N * k6_ldt<T>(TL) + 16 * size_t(N))
+    using T = typename real_of<S>::type;
+    return sizeof(S) * (size_t(nb) * Q * N * k6_ldt<S>(TL) + Q * Q * size_t(N))
            + sizeof(T) * size_t(og) * N * k6_ldf<T>(N);
+}
+
+// acc + x f for a real f, one fused multiply-add a part
+__device__ __forceinline__ float fma_s(float x, float f, float acc) { return fmaf(x, f, acc); }
+__device__ __forceinline__ double fma_s(double x, double f, double acc) { return fma(x, f, acc); }
+template <typename T>
+__device__ __forceinline__ cplx<T> fma_s(cplx<T> x, T f, cplx<T> acc) {
+    return mk(fma_s(x.re, f, acc.re), fma_s(x.im, f, acc.im));
 }
 
 // F_o[m][n] (m < N, n < round_up(N, 4), zero beyond N) for the og orbitals
@@ -117,25 +135,26 @@ __host__ __device__ constexpr int k6_rt() { return sizeof(T) == 4 ? 4 : 2; }
 // out[o N + n][t] = sum_m in[o N + m][t] F_o[m][n] for the og orbitals
 // from o0 (F of orbital o at Fs + (o - o0) N ldf): an RT x 4 block of
 // (t, n) per thread
-template <typename T>
-__device__ void kin_block(const cplx<T>* in, cplx<T>* out, const T* Fs, int N, int TL,
-                          int o0, int og) {
+template <typename S>
+__device__ void kin_block(const S* in, S* out, const typename real_of<S>::type* Fs, int N,
+                          int TL, int o0, int og) {
+    using T = typename real_of<S>::type;
     constexpr int RT = k6_rt<T>();
-    const int NG = round_up(N, 4) / 4, TG = TL / RT, ldt = k6_ldt<T>(TL), ldf = k6_ldf<T>(N);
+    const int NG = round_up(N, 4) / 4, TG = TL / RT, ldt = k6_ldt<S>(TL), ldf = k6_ldf<T>(N);
     for (int p = threadIdx.x; p < og * NG * TG; p += kThreads) {
         const int ng = p % NG, rest = p / NG, tg = rest % TG, oo = rest / TG;
         const int n0 = 4 * ng, t0 = RT * tg, o = o0 + oo;
         const T* F = Fs + size_t(oo) * N * ldf + n0;
-        const cplx<T>* src = in + size_t(o) * N * ldt + t0;
-        cplx<T> acc[RT][4];
+        const S* src = in + size_t(o) * N * ldt + t0;
+        S acc[RT][4];
 #pragma unroll
         for (int r = 0; r < RT; ++r)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[r][j] = mk(T(0), T(0));
+            for (int j = 0; j < 4; ++j) acc[r][j] = from_real<S>(T(0));
 #pragma unroll 2
         for (int m = 0; m < N; ++m) {
             T f[4];
-            cplx<T> x[RT];
+            S x[RT];
             load4(F + m * ldf, f);
             if constexpr (RT == 4) {
                 load4(src + m * ldt, x);
@@ -146,28 +165,26 @@ __device__ void kin_block(const cplx<T>* in, cplx<T>* out, const T* Fs, int N, i
 #pragma unroll
             for (int r = 0; r < RT; ++r)
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    acc[r][j].re = fma(x[r].re, f[j], acc[r][j].re);
-                    acc[r][j].im = fma(x[r].im, f[j], acc[r][j].im);
-                }
+                for (int j = 0; j < 4; ++j) acc[r][j] = fma_s(x[r], f[j], acc[r][j]);
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             if (n0 + j >= N) break;
-            cplx<T>* dst = out + (size_t(o) * N + n0 + j) * ldt + t0;
+            S* dst = out + (size_t(o) * N + n0 + j) * ldt + t0;
 #pragma unroll
             for (int r = 0; r < RT; ++r) dst[r] = acc[r][j];
         }
     }
 }
 
-// the kinetic step of all four orbitals: F staged per group of og
-// orbitals when og < 4 (og == 4: staged once per CTA); ends with a barrier
-template <typename T, typename PR>
-__device__ void kin_step(const cplx<T>* in, cplx<T>* out, T* Fs, const T* E, int N, int TL,
-                         int og, int e_trans, PR& probe) {
-    for (int o0 = 0; o0 < 4; o0 += og) {
-        if (og < 4) {
+// the kinetic step of all q orbitals: F staged per group of og orbitals
+// when og < q (og == q: staged once per CTA); ends with a barrier
+template <typename S, int Q, typename PR>
+__device__ void kin_step(const S* in, S* out, typename real_of<S>::type* Fs,
+                         const typename real_of<S>::type* E, int N, int TL, int og,
+                         int e_trans, PR& probe) {
+    for (int o0 = 0; o0 < Q; o0 += og) {
+        if (og < Q) {
             if (o0 > 0) __syncthreads();   // the last group is done with Fs
             stage_f(Fs, E, N, o0, og, e_trans);
             __syncthreads();
@@ -179,23 +196,22 @@ __device__ void kin_step(const cplx<T>* in, cplx<T>* out, T* Fs, const T* E, int
     probe.lap(kKinetic);
 }
 
-// out[b N + i][t] = sum_a in[a N + i][t] Dm_i[a][b]: the four b of a site
+// out[b N + i][t] = sum_a in[a N + i][t] Dm_i[a][b]: the q b of a site
 // and line per thread (TL = 1 << tl_shift)
-template <typename T>
-__device__ void dv_step(const cplx<T>* in, cplx<T>* out, const cplx<T>* Ds, int N,
-                        int TL, int tl_shift) {
-    const int ldt = k6_ldt<T>(TL);
+template <typename S, int Q>
+__device__ void dv_step(const S* in, S* out, const S* Ds, int N, int TL, int tl_shift) {
+    const int ldt = k6_ldt<S>(TL);
     for (int p = threadIdx.x; p < N * TL; p += kThreads) {
         const int t = p & (TL - 1), i = p >> tl_shift;
-        cplx<T> x[4];
+        S x[Q];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) x[a] = in[(size_t(a) * N + i) * ldt + t];
-        const cplx<T>* d = Ds + i * 16;
+        for (int a = 0; a < Q; ++a) x[a] = in[(size_t(a) * N + i) * ldt + t];
+        const S* d = Ds + i * Q * Q;
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-            cplx<T> acc = x[0] * d[b];
+        for (int b = 0; b < Q; ++b) {
+            S acc = x[0] * d[b];
 #pragma unroll
-            for (int a = 1; a < 4; ++a) acc += x[a] * d[4 * a + b];
+            for (int a = 1; a < Q; ++a) acc += x[a] * d[Q * a + b];
             out[(size_t(b) * N + i) * ldt + t] = acc;
         }
     }
@@ -203,18 +219,28 @@ __device__ void dv_step(const cplx<T>* in, cplx<T>* out, const cplx<T>* Ds, int 
 
 // Lines l0 .. l0 + TL of X (W's walker at X) into dst[k][t] by cp.async,
 // zero beyond h (TL = 1 << tl_shift): columns of X (left) as 16-byte pieces
-// of a row, rows of X (right) a warp per line along k (coalesced)
-template <typename T>
-__device__ void load_lines(cplx<T>* dst, const cplx<T>* X, int h, int ldt, int l0,
-                           int TL, int tl_shift, int left) {
-    constexpr int CH = 16 / sizeof(cplx<T>);    // elements per 16 bytes
-    const cplx<T> zero = mk(T(0), T(0));
+// of a row (one value at a time where a row of h values is no whole number
+// of pieces: real float32 lines at odd N), rows of X (right) a warp per
+// line along k (coalesced)
+template <typename S>
+__device__ void load_lines(S* dst, const S* X, int h, int ldt, int l0, int TL, int tl_shift,
+                           int left) {
+    using T = typename real_of<S>::type;
+    constexpr int CH = k6_ch<S>();              // elements per 16 bytes
+    const S zero = from_real<S>(T(0));
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (left) {
-        const int cshift = tl_shift - (CH == 2 ? 1 : 0), cmask = (1 << cshift) - 1;
+    if (left && h % CH != 0) {
+        for (int idx = threadIdx.x; idx < h << tl_shift; idx += kThreads) {
+            const int k = idx >> tl_shift, t = idx & (TL - 1);
+            S* d = dst + k * ldt + t;
+            if (l0 + t < h) cp_async(d, X + size_t(k) * h + l0 + t);
+            else *d = zero;
+        }
+    } else if (left) {
+        const int cshift = tl_shift - CH / 2, cmask = (1 << cshift) - 1;
         for (int idx = threadIdx.x; idx < h << cshift; idx += kThreads) {
             const int k = idx >> cshift, t = (idx & cmask) * CH;
-            cplx<T>* d = dst + k * ldt + t;
+            S* d = dst + k * ldt + t;
             if (l0 + t < h) {
                 cp_async16(d, X + size_t(k) * h + l0 + t);
             } else {
@@ -226,7 +252,7 @@ __device__ void load_lines(cplx<T>* dst, const cplx<T>* X, int h, int ldt, int l
         for (int t = warp; t < TL; t += kWarps) {
             const int l = l0 + t;
             for (int k = lane; k < h; k += 32) {
-                cplx<T>* d = dst + k * ldt + t;
+                S* d = dst + k * ldt + t;
                 if (l < h) cp_async(d, X + size_t(l) * h + k);
                 else *d = zero;
             }
@@ -237,13 +263,18 @@ __device__ void load_lines(cplx<T>* dst, const cplx<T>* X, int h, int ldt, int l
 
 // src[k][t] back to lines l0 .. l0 + TL of X (those below h), as
 // load_lines reads them
-template <typename T>
-__device__ void store_lines(const cplx<T>* src, cplx<T>* X, int h, int ldt, int l0,
-                            int TL, int tl_shift, int left) {
-    constexpr int CH = 16 / sizeof(cplx<T>);
+template <typename S>
+__device__ void store_lines(const S* src, S* X, int h, int ldt, int l0, int TL, int tl_shift,
+                            int left) {
+    constexpr int CH = k6_ch<S>();
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (left) {
-        const int cshift = tl_shift - (CH == 2 ? 1 : 0), cmask = (1 << cshift) - 1;
+    if (left && h % CH != 0) {
+        for (int idx = threadIdx.x; idx < h << tl_shift; idx += kThreads) {
+            const int k = idx >> tl_shift, t = idx & (TL - 1);
+            if (l0 + t < h) X[size_t(k) * h + l0 + t] = src[k * ldt + t];
+        }
+    } else if (left) {
+        const int cshift = tl_shift - CH / 2, cmask = (1 << cshift) - 1;
         for (int idx = threadIdx.x; idx < h << cshift; idx += kThreads) {
             const int k = idx >> cshift, t = (idx & cmask) * CH;
             if (l0 + t < h)
@@ -262,16 +293,17 @@ __device__ void store_lines(const cplx<T>* src, cplx<T>* X, int h, int ldt, int 
 // A CTA takes tiles [t_begin, t_end) of walker w: og == 4 stages F once;
 // the next tile's lines are copied by cp.async while the current one is
 // computed when there are three line buffers (nb == 3).
-template <typename T, bool PROBE>
+template <typename S, int Q, bool PROBE>
 __global__ void __launch_bounds__(kThreads, 1)
-line_pass_kernel(const cplx<T>* X_in, cplx<T>* X_out, const T* __restrict__ E,
-                 const cplx<T>* __restrict__ D, int N, int TL, int og, int nb, int tpc,
+line_pass_kernel(const S* X_in, S* X_out, const typename real_of<S>::type* __restrict__ E,
+                 const S* __restrict__ D, int N, int TL, int og, int nb, int tpc,
                  PassFlags fl, long long* probe_out) {
-    using S = cplx<T>;
+    using T = typename real_of<S>::type;
+    constexpr int QQ = Q * Q;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     Probe<PROBE, kPhases> probe;
     probe.start();
-    const int tid = threadIdx.x, h = 4 * N, ldt = k6_ldt<T>(TL), tl_shift = __ffs(TL) - 1;
+    const int tid = threadIdx.x, h = Q * N, ldt = k6_ldt<S>(TL), tl_shift = __ffs(TL) - 1;
     const int tiles = (h + TL - 1) / TL, per_w = (tiles + tpc - 1) / tpc;
     const size_t w = blockIdx.x / per_w;
     const int t_begin = int(blockIdx.x - w * per_w) * tpc;
@@ -280,19 +312,19 @@ line_pass_kernel(const cplx<T>* X_in, cplx<T>* X_out, const T* __restrict__ E,
     const S* Xw = X_in + w * size_t(h) * h;
     S* Yw = X_out + w * size_t(h) * h;
     S* lines = reinterpret_cast<S*>(smem_raw);    // nb x h x ldt
-    S* Ds = lines + nb * buf_elems;               // N x 16: Dm_i[a][b]
-    T* Fs = reinterpret_cast<T*>(Ds + 16 * N);    // og x N x ldf
+    S* Ds = lines + nb * buf_elems;               // N x q^2: Dm_i[a][b]
+    T* Fs = reinterpret_cast<T*>(Ds + QQ * N);    // og x N x ldf
 
     if (t_begin < t_end) load_lines(lines, Xw, h, ldt, t_begin * TL, TL, tl_shift, fl.left);
-    const S* Dw = D + w * size_t(N) * 16;
-    for (int idx = tid; idx < 16 * N; idx += kThreads) {
-        const int i = idx >> 4, a = (idx >> 2) & 3, b = idx & 3;
-        S d = fl.d_trans ? Dw[i * 16 + 4 * b + a] : Dw[idx];
+    const S* Dw = D + w * size_t(N) * QQ;
+    for (int idx = tid; idx < QQ * N; idx += kThreads) {
+        const int i = idx / QQ, a = (idx / Q) % Q, b = idx % Q;
+        S d = fl.d_trans ? Dw[i * QQ + Q * b + a] : Dw[idx];
         if (fl.d_conj) d = conj_(d);
         Ds[idx] = d;
     }
     probe.lap(kLines);
-    if (og == 4) stage_f(Fs, E, N, 0, 4, fl.e_trans);
+    if (og == Q) stage_f(Fs, E, N, 0, Q, fl.e_trans);
     probe.lap(kStageF);
     S* cur = lines;
     S* nxt = lines + 2 * buf_elems;
@@ -304,15 +336,15 @@ line_pass_kernel(const cplx<T>* X_in, cplx<T>* X_out, const T* __restrict__ E,
             load_lines(nxt, Xw, h, ldt, (tile + 1) * TL, TL, tl_shift, fl.left);
         probe.lap(kLines);
         if (fl.kin_first) {
-            kin_step(cur, tmp, Fs, E, N, TL, og, fl.e_trans, probe);
-            dv_step(tmp, cur, Ds, N, TL, tl_shift);
+            kin_step<S, Q>(cur, tmp, Fs, E, N, TL, og, fl.e_trans, probe);
+            dv_step<S, Q>(tmp, cur, Ds, N, TL, tl_shift);
             __syncthreads();
             probe.lap(kDStep);
         } else {
-            dv_step(cur, tmp, Ds, N, TL, tl_shift);
+            dv_step<S, Q>(cur, tmp, Ds, N, TL, tl_shift);
             __syncthreads();
             probe.lap(kDStep);
-            kin_step(tmp, cur, Fs, E, N, TL, og, fl.e_trans, probe);
+            kin_step<S, Q>(tmp, cur, Fs, E, N, TL, og, fl.e_trans, probe);
         }
         // the result is in cur
         store_lines(cur, Yw, h, ldt, tile * TL, TL, tl_shift, fl.left);
@@ -329,118 +361,127 @@ line_pass_kernel(const cplx<T>* X_in, cplx<T>* X_out, const T* __restrict__ E,
     probe.store(probe_out);
 }
 
-template <typename T>
+template <typename S, int Q>
 int line_pass(int device, const void* X_in, void* X_out, const void* E, const void* D,
               int W, int N, int TL, int og, int nb, int tpc, PassFlags fl, void* stream,
               long long* probe) {
-    const size_t smem = k6_smem_bytes<T>(N, TL, og, nb);
-    const int tiles = (4 * N + TL - 1) / TL, per_w = (tiles + tpc - 1) / tpc;
+    using T = typename real_of<S>::type;
+    const size_t smem = k6_smem_bytes<S, Q>(N, TL, og, nb);
+    const int tiles = (Q * N + TL - 1) / TL, per_w = (tiles + tpc - 1) / tpc;
     const auto args = [&](auto kernel) {
         return launch_smem(device, kernel, W * per_w, smem, stream,
-                           static_cast<const cplx<T>*>(X_in), static_cast<cplx<T>*>(X_out),
-                           static_cast<const T*>(E), static_cast<const cplx<T>*>(D), N, TL,
-                           og, nb, tpc, fl, probe);
+                           static_cast<const S*>(X_in), static_cast<S*>(X_out),
+                           static_cast<const T*>(E), static_cast<const S*>(D), N, TL, og, nb,
+                           tpc, fl, probe);
     };
-    return probe ? args(line_pass_kernel<T, true>) : args(line_pass_kernel<T, false>);
+    return probe ? args(line_pass_kernel<S, Q, true>) : args(line_pass_kernel<S, Q, false>);
 }
 
-inline bool k6_plan_ok(int N, int TL, int og, int nb, int tpc) {
-    return N > 0 && TL >= 4 && TL % 4 == 0 && (og == 1 || og == 2 || og == 4) &&
+inline bool k6_plan_ok(int N, int q, int TL, int og, int nb, int tpc) {
+    return N > 0 && TL >= 4 && TL % 4 == 0 && (og == 1 || og == 2 || og == 4) && og <= q &&
            (nb == 2 || nb == 3) && tpc >= 1;
 }
 
-template <typename T>
+template <typename S, int Q>
 int sdw_wrap(int device, const void* G, void* Tmp, void* G_out, const void* E,
              const void* Einv, const void* D, const void* Dinv, int W, int N, int up,
              int TL, int og, int nb, int tpc, void* stream, long long* probe = nullptr) {
-    if (!k6_plan_ok(N, TL, og, nb, tpc)) return static_cast<int>(cudaErrorInvalidValue);
+    if (!k6_plan_ok(N, Q, TL, og, nb, tpc)) return static_cast<int>(cudaErrorInvalidValue);
     // right pass on rows into Tmp, then left pass on columns into G_out; the
     // probe's records: the right pass's CTAs, then the left pass's
     const PassFlags right{0, up, 0, 0, 0}, left{1, up, 1, 1, 0};
-    const int tiles = (4 * N + TL - 1) / TL;
+    const int tiles = (Q * N + TL - 1) / TL;
     const size_t ctas = size_t(W) * ((tiles + tpc - 1) / tpc);
-    int err = line_pass<T>(device, G, Tmp, up ? Einv : E, up ? Dinv : D, W, N, TL, og,
-                           nb, tpc, right, stream, probe);
+    int err = line_pass<S, Q>(device, G, Tmp, up ? Einv : E, up ? Dinv : D, W, N, TL, og,
+                              nb, tpc, right, stream, probe);
     if (err) return err;
-    return line_pass<T>(device, Tmp, G_out, up ? E : Einv, up ? D : Dinv, W, N, TL, og,
-                        nb, tpc, left, stream,
-                        probe ? probe + ctas * (kPhases + 2) : nullptr);
+    return line_pass<S, Q>(device, Tmp, G_out, up ? E : Einv, up ? D : Dinv, W, N, TL, og,
+                           nb, tpc, left, stream,
+                           probe ? probe + ctas * (kPhases + 2) : nullptr);
 }
 
-template <typename T>
+template <typename S, int Q>
 int sdw_apply(int device, const void* X, void* X_out, const void* E, const void* D,
               int W, int N, int herm, int TL, int og, int nb, int tpc, void* stream,
               long long* probe = nullptr) {
-    if (!k6_plan_ok(N, TL, og, nb, tpc)) return static_cast<int>(cudaErrorInvalidValue);
+    if (!k6_plan_ok(N, Q, TL, og, nb, tpc)) return static_cast<int>(cudaErrorInvalidValue);
     // B X: E @ X then D . ;  B^H X: D^H . X then E^T @
     const PassFlags fl = herm ? PassFlags{1, 0, 0, 0, 1} : PassFlags{1, 1, 1, 1, 0};
-    return line_pass<T>(device, X, X_out, E, D, W, N, TL, og, nb, tpc, fl, stream,
-                        probe);
+    return line_pass<S, Q>(device, X, X_out, E, D, W, N, TL, og, nb, tpc, fl, stream,
+                           probe);
 }
 
-template <typename T>
+template <typename S, int Q>
 int line_pass_blocks(int device, int N, int TL, int og, int nb) {
-    if (!k6_plan_ok(N, TL, og, nb, 1)) return -static_cast<int>(cudaErrorInvalidValue);
-    return blocks_per_sm(device, line_pass_kernel<T, false>, k6_smem_bytes<T>(N, TL, og, nb));
+    if (!k6_plan_ok(N, Q, TL, og, nb, 1)) return -static_cast<int>(cudaErrorInvalidValue);
+    return blocks_per_sm(device, line_pass_kernel<S, Q, false>,
+                         k6_smem_bytes<S, Q>(N, TL, og, nb));
 }
 
 }  // namespace dq
 
+// E, Einv: the real kinetic factors (float32 / float64); D, Dinv and G of
+// the instance's scalar; TL, og, nb, tpc: the plan (linalg/sdw_wrap.py plan)
+#define DQ_SDW_WRAP_ENTRIES(WRAP, APPLY, S, Q)                                          \
+    extern "C" int WRAP(int device, const void* G, void* Tmp, void* G_out,              \
+                        const void* E, const void* Einv, const void* D, const void* Dinv, \
+                        int W, int N, int up, int TL, int og, int nb, int tpc,          \
+                        void* stream) {                                                 \
+        return dq::sdw_wrap<S, Q>(device, G, Tmp, G_out, E, Einv, D, Dinv, W, N, up,    \
+                                  TL, og, nb, tpc, stream);                             \
+    }                                                                                   \
+    extern "C" int APPLY(int device, const void* X, void* X_out, const void* E,         \
+                         const void* D, int W, int N, int herm, int TL, int og, int nb, \
+                         int tpc, void* stream) {                                       \
+        return dq::sdw_apply<S, Q>(device, X, X_out, E, D, W, N, herm, TL, og, nb, tpc, \
+                                   stream);                                             \
+    }
+
+DQ_SDW_WRAP_ENTRIES(dq_sdw_wrap_c64, dq_sdw_apply_c64, dq::cplx<float>, 4)
+DQ_SDW_WRAP_ENTRIES(dq_sdw_wrap_c128, dq_sdw_apply_c128, dq::cplx<double>, 4)
+DQ_SDW_WRAP_ENTRIES(dq_sdw_wrap_q2_c64, dq_sdw_apply_q2_c64, dq::cplx<float>, 2)
+DQ_SDW_WRAP_ENTRIES(dq_sdw_wrap_q2_c128, dq_sdw_apply_q2_c128, dq::cplx<double>, 2)
+DQ_SDW_WRAP_ENTRIES(dq_sdw_wrap_q2_f32, dq_sdw_apply_q2_f32, float, 2)
+DQ_SDW_WRAP_ENTRIES(dq_sdw_wrap_q2_f64, dq_sdw_apply_q2_f64, double, 2)
+
 extern "C" {
 
-// E, Einv: the real kinetic factors (float32 / float64); TL, og, nb, tpc:
-// the plan (linalg/sdw_wrap.py plan)
-int dq_sdw_wrap_c64(int device, const void* G, void* Tmp, void* G_out, const void* E,
-                    const void* Einv, const void* D, const void* Dinv, int W, int N,
-                    int up, int TL, int og, int nb, int tpc, void* stream) {
-    return dq::sdw_wrap<float>(device, G, Tmp, G_out, E, Einv, D, Dinv, W, N, up, TL,
-                               og, nb, tpc, stream);
-}
-
-int dq_sdw_wrap_c128(int device, const void* G, void* Tmp, void* G_out, const void* E,
-                     const void* Einv, const void* D, const void* Dinv, int W, int N,
-                     int up, int TL, int og, int nb, int tpc, void* stream) {
-    return dq::sdw_wrap<double>(device, G, Tmp, G_out, E, Einv, D, Dinv, W, N, up, TL,
-                                og, nb, tpc, stream);
-}
-
-int dq_sdw_apply_c64(int device, const void* X, void* X_out, const void* E,
-                     const void* D, int W, int N, int herm, int TL, int og, int nb,
-                     int tpc, void* stream) {
-    return dq::sdw_apply<float>(device, X, X_out, E, D, W, N, herm, TL, og, nb, tpc,
-                                stream);
-}
-
-int dq_sdw_apply_c128(int device, const void* X, void* X_out, const void* E,
-                      const void* D, int W, int N, int herm, int TL, int og, int nb,
-                      int tpc, void* stream) {
-    return dq::sdw_apply<double>(device, X, X_out, E, D, W, N, herm, TL, og, nb, tpc,
-                                 stream);
-}
-
-// the same with the phase probe on (complex64, the main path's dtype): probe
-// gets each CTA's cycles per phase, total cycles and total ns (a wrap: the
-// right pass's CTAs, then the left pass's)
+// the same with the phase probe on (complex64, q = 4, the sdw_l8 path's
+// dtype): probe gets each CTA's cycles per phase, total cycles and total
+// ns (a wrap: the right pass's CTAs, then the left pass's)
 int dq_sdw_wrap_probe_c64(int device, const void* G, void* Tmp, void* G_out,
                           const void* E, const void* Einv, const void* D,
                           const void* Dinv, int W, int N, int up, int TL, int og, int nb,
                           int tpc, void* probe, void* stream) {
-    return dq::sdw_wrap<float>(device, G, Tmp, G_out, E, Einv, D, Dinv, W, N, up, TL,
-                               og, nb, tpc, stream, static_cast<long long*>(probe));
+    return dq::sdw_wrap<dq::cplx<float>, 4>(device, G, Tmp, G_out, E, Einv, D, Dinv, W, N,
+                                            up, TL, og, nb, tpc, stream,
+                                            static_cast<long long*>(probe));
 }
 
 int dq_sdw_apply_probe_c64(int device, const void* X, void* X_out, const void* E,
                            const void* D, int W, int N, int herm, int TL, int og,
                            int nb, int tpc, void* probe, void* stream) {
-    return dq::sdw_apply<float>(device, X, X_out, E, D, W, N, herm, TL, og, nb, tpc,
-                                stream, static_cast<long long*>(probe));
+    return dq::sdw_apply<dq::cplx<float>, 4>(device, X, X_out, E, D, W, N, herm, TL, og,
+                                             nb, tpc, stream, static_cast<long long*>(probe));
 }
 
 // CTAs of a K6 line pass per SM at this plan (complex: complex128, else
 // complex64), or -(cudaError)
 int dq_sdw_wrap_blocks_per_sm(int device, int complex128, int N, int TL, int og, int nb) {
-    return complex128 ? dq::line_pass_blocks<double>(device, N, TL, og, nb)
-                      : dq::line_pass_blocks<float>(device, N, TL, og, nb);
+    return complex128 ? dq::line_pass_blocks<dq::cplx<double>, 4>(device, N, TL, og, nb)
+                      : dq::line_pass_blocks<dq::cplx<float>, 4>(device, N, TL, og, nb);
+}
+
+// the q = 2 instances' (dtype: 0 float32, 1 float64, 2 complex64, 3
+// complex128)
+int dq_sdw_wrap_q2_blocks_per_sm(int device, int dtype, int N, int TL, int og, int nb) {
+    switch (dtype) {
+        case 0: return dq::line_pass_blocks<float, 2>(device, N, TL, og, nb);
+        case 1: return dq::line_pass_blocks<double, 2>(device, N, TL, og, nb);
+        case 2: return dq::line_pass_blocks<dq::cplx<float>, 2>(device, N, TL, og, nb);
+        case 3: return dq::line_pass_blocks<dq::cplx<double>, 2>(device, N, TL, og, nb);
+    }
+    return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

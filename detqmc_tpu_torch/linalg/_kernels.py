@@ -142,6 +142,20 @@ _SIGNATURES = {
     "dq_sdw_delayed_blocks_per_sm": [_I] * 6,
     # device, complex128, N, opdim
     "dq_sdw_update_blocks_per_sm": [_I] * 4,
+    # the reduced sector's q = 2 instances of K4, K5 and K6 (signatures as
+    # their q = 4 ones) and their CTAs per SM (the complex128 flag replaced
+    # by a dtype code: 0 float32, 1 float64, 2 complex64, 3 complex128)
+    **{f"dq_sdw_update_q2_{t}": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P]
+       for t in ("c64", "c128", "f32", "f64")},
+    **{f"dq_sdw_delayed_q2_{t}": [_I] + [_P] * 10 + [_I] * 5 + [_D, _D, _P]
+       for t in ("c64", "c128", "f32", "f64")},
+    **{f"dq_sdw_wrap_q2_{t}": [_I] + [_P] * 7 + [_I] * 7 + [_P]
+       for t in ("c64", "c128", "f32", "f64")},
+    **{f"dq_sdw_apply_q2_{t}": [_I] + [_P] * 4 + [_I] * 7 + [_P]
+       for t in ("c64", "c128", "f32", "f64")},
+    "dq_sdw_update_q2_blocks_per_sm": [_I] * 4,
+    "dq_sdw_delayed_q2_blocks_per_sm": [_I] * 6,
+    "dq_sdw_wrap_q2_blocks_per_sm": [_I] * 6,
     # device, float64, C, N, tr, tc
     "dq_slice_update_blocks_per_sm": [_I] * 6,
 }
@@ -153,7 +167,11 @@ LAUNCHES = {"slice_update": 0, "qr": 0, "solve_inner": 0, "sdw_update": 0,
             "solve_inner_rhs": 0, "solve_inner_complex_rhs": 0,
             "solve_inner_complex_big_rhs": 0, "slice_update_delayed": 0,
             "qr_big": 0, "solve_inner_big": 0, "solve_inner_big_rhs": 0,
-            "mma884": 0}
+            "mma884": 0,
+            # the q = 2 instances of K4, K5 and K6: complex, real
+            **{f"{k}_q2{r}": 0 for k in ("sdw_update", "sdw_delayed",
+                                         "sdw_wrap", "sdw_apply")
+               for r in ("", "_real")}}
 
 _lib = None
 build_log = ""          # nvcc's output (-Xptxas -v: registers, smem)

@@ -1,11 +1,13 @@
-"""K5: the delayed SDW slice update — wrapper and plain version.
+"""K5: the delayed SDW slice update (q x q site blocks, as K4: q = 4
+complex for the full opdim-3 model, q = 2 complex or real for the reduced
+sector) — wrapper and plain version.
 
 Replaces detqmc_tpu/linalg/pallas_sdw_delayed.py
 (``slice_update_sdw_delayed``, Pallas kernel ``_kernel``) on the card with
 ``csrc/sdw_delayed.cu``, in the JAX package's default flush-each scheme
 (pallas_sdw_delayed.py:292-306, 376-434). The slice's N sites go in
 chunks of K (the last one ragged); for each chunk the sites emit C
-(h x Kq) and R (Kq x h), Kq = 4 K, in site-major slot order, slot
+(h x Kq) and R (Kq x h), Kq = q K, in site-major slot order, slot
 k = j q + b for orbital b of the chunk's j-th site, and G is flushed,
 G -= C @ R, before the next chunk reads it. One launch of K5 runs the
 whole slice, the flushes in its own body (one CTA per walker, G in global
@@ -39,9 +41,10 @@ slots; its C slots in the plain version are exact zeros, which change no
 sum. So kernel and plain version agree bit for bit up to log().
 
 Contract (walkers leading, as linalg/sdw_update.sdw_update):
-    sdw_delayed(G (W, h, h) complex, phi_l, phi_new (W, N, opdim), lhs
-                (W, N), delta (W, N, 4, 4) complex, nb (N, 4) int32, dtau,
-                c_det, K) -> (G', phi_l', acc (W,))
+    sdw_delayed(G (W, h, h), phi_l, phi_new (W, N, opdim), lhs (W, N),
+                delta (W, N, q, q), nb (N, 4) int32, dtau, c_det, K)
+        -> (G', phi_l', acc (W,))
+with h = q N; G and delta complex (q = 4 or 2) or real (q = 2).
 """
 
 from __future__ import annotations
@@ -49,12 +52,20 @@ from __future__ import annotations
 import torch
 
 from detqmc_tpu_torch.linalg import _kernels
-from detqmc_tpu_torch.linalg.sdw_update import _cmul, site_step
+from detqmc_tpu_torch.linalg.sdw_update import (_DTYPE_CODES, _cmul, _map,
+                                                from_planes, planes,
+                                                site_step)
 
-Q = 4   # orbitals per site (the full opdim-3 model)
-MAX_DIM = 512   # h = 4 N: a site's columns and rows at <= 2 entries a thread
-_ENTRIES = {torch.complex64: "dq_sdw_delayed_c64",
-            torch.complex128: "dq_sdw_delayed_c128"}
+Q = 4   # orbitals per site of the full opdim-3 model (the default q)
+MAX_DIM = 512   # h = q N: a site's columns and rows at <= 2 entries a thread
+# (G dtype, q) -> (launch count, C entry), as linalg/sdw_update.py
+_ENTRIES = {
+    (torch.complex64, 4): ("sdw_delayed", "dq_sdw_delayed_c64"),
+    (torch.complex128, 4): ("sdw_delayed", "dq_sdw_delayed_c128"),
+    (torch.complex64, 2): ("sdw_delayed_q2", "dq_sdw_delayed_q2_c64"),
+    (torch.complex128, 2): ("sdw_delayed_q2", "dq_sdw_delayed_q2_c128"),
+    (torch.float32, 2): ("sdw_delayed_q2_real", "dq_sdw_delayed_q2_f32"),
+    (torch.float64, 2): ("sdw_delayed_q2_real", "dq_sdw_delayed_q2_f64")}
 _WARPS = 8      # warps of a K5 CTA, each with its copy of the live field
 # the phase probe's phases of K5 (sdw_delayed.cu), in the order of its
 # per-CTA record; the record ends with the CTA's total cycles and ns
@@ -62,15 +73,15 @@ PROBE_PHASES = ("gather", "decision", "slot write", "barriers", "flush",
                 "set-up")
 
 
-def panels(G, i0: int, Kc: int):
+def panels(G, i0: int, Kc: int, q: int = Q):
     """(colT, rowp), both (W, Kc q, h) contiguous: colT[k, r] = G[r, j_b]
     and rowp[k, c] = G[j_b, c] for slot k = j q + b, j_b = b N + i0 + j."""
     W, h, _ = G.shape
-    N = h // Q
-    cols = G.reshape(W, h, Q, N)[:, :, :, i0:i0 + Kc]       # (W, h, q, Kc)
-    colT = cols.permute(0, 3, 2, 1).reshape(W, Kc * Q, h)
-    rows = G.reshape(W, Q, N, h)[:, :, i0:i0 + Kc]           # (W, q, Kc, h)
-    rowp = rows.transpose(1, 2).reshape(W, Kc * Q, h)
+    N = h // q
+    cols = G.reshape(W, h, q, N)[:, :, :, i0:i0 + Kc]       # (W, h, q, Kc)
+    colT = cols.permute(0, 3, 2, 1).reshape(W, Kc * q, h)
+    rows = G.reshape(W, q, N, h)[:, :, i0:i0 + Kc]           # (W, q, Kc, h)
+    rowp = rows.transpose(1, 2).reshape(W, Kc * q, h)
     # (a reshape may return a strided view, e.g. at Kc = 1)
     return colT.contiguous(), rowp.contiguous()
 
@@ -81,30 +92,36 @@ def chunk_plain(colT, rowp, phi, phi_new, lhs, delta, nb, i0: int, Kc: int,
     (CT (W, Kq, h), R (W, Kq, h), phi', acc (W,)) with CT[k] = C[:, k]."""
     W, Kq, h = colT.shape
     N, opdim = phi.shape[1], phi.shape[2]
+    q = delta.shape[-1]
     rdt, dev = phi.dtype, colT.device
-    Cr = torch.zeros(W, Kq, h, dtype=rdt, device=dev)
-    Ci = torch.zeros_like(Cr)
-    Rr, Ri = torch.zeros_like(Cr), torch.zeros_like(Cr)
+    cplx = colT.is_complex()
+
+    def zeros():
+        z = torch.zeros(W, Kq, h, dtype=rdt, device=dev)
+        return z, torch.zeros_like(z) if cplx else None
+
+    C, R = zeros(), zeros()
     phi = phi.clone()
     acc = torch.zeros(W, dtype=rdt, device=dev)
     tensor = lambda x: torch.tensor(x, dtype=rdt, device=dev)  # noqa: E731
     dtau_t, cdet_t = tensor(dtau), tensor(c_det)
     eye_h = torch.eye(h, dtype=rdt, device=dev)
+    Dp = planes(delta)
     nbs = nb.tolist()
     for j in range(Kc):
         i = i0 + j
-        sl = slice(Q * j, Q * j + Q)
-        jj = [b * N + i for b in range(Q)]
-        cc = colT[:, sl].real.clone(), colT[:, sl].imag.clone()  # (W, q, h)
-        cr = rowp[:, sl].real.clone(), rowp[:, sl].imag.clone()
-        for k in range(Q * j):
+        sl = slice(q * j, q * j + q)
+        jj = [b * N + i for b in range(q)]
+        cc = _map(lambda x: x[:, sl].clone(), planes(colT))   # (W, q, h)
+        cr = _map(lambda x: x[:, sl].clone(), planes(rowp))
+        for k in range(q * j):
             # C[:, k] R[k, j_b] over (r, b); C[j_b, k] R[k, :] over (b, c)
-            pc = _cmul((Cr[:, k, None, :], Ci[:, k, None, :]),
-                       (Rr[:, k, jj, None], Ri[:, k, jj, None]))
-            pr = _cmul((Cr[:, k, jj, None], Ci[:, k, jj, None]),
-                       (Rr[:, k, None, :], Ri[:, k, None, :]))
-            cc = cc[0] - pc[0], cc[1] - pc[1]
-            cr = cr[0] - pr[0], cr[1] - pr[1]
+            pc = _cmul(_map(lambda x: x[:, k, None, :], C),
+                       _map(lambda x: x[:, k, jj, None], R))
+            pr = _cmul(_map(lambda x: x[:, k, jj, None], C),
+                       _map(lambda x: x[:, k, None, :], R))
+            cc = cc[0] - pc[0], None if cc[1] is None else cc[1] - pc[1]
+            cr = (cr[0] - pr[0], None if cr[1] is None else cr[1] - pr[1])
         n0, n1, n2, n3 = nbs[i]
         snb = ((phi[:, n0] + phi[:, n1]) + phi[:, n2]) + phi[:, n3]
         prod = (phi_new[:, i] - phi[:, i]) * snb
@@ -113,35 +130,36 @@ def chunk_plain(colT, rowp, phi, phi_new, lhs, delta, nb, i0: int, Kc: int,
             dot = dot + prod[:, o]
         live = dtau_t * dot
         # G_II[a, b] = G_cur[j_a, j_b] = col_b[j_a]
-        gii = cc[0][:, :, jj].transpose(1, 2), cc[1][:, :, jj].transpose(1, 2)
-        accept, T = site_step(gii, (delta.real[:, i], delta.imag[:, i]),
-                              lhs[:, i], live, cdet_t)
-        comb = _cmul((cc[0][:, 0, None, :], cc[1][:, 0, None, :]),
-                     (T[0][:, 0, :, None], T[1][:, 0, :, None]))
-        for a in range(1, Q):
-            t = _cmul((cc[0][:, a, None, :], cc[1][:, a, None, :]),
-                      (T[0][:, a, :, None], T[1][:, a, :, None]))
-            comb = comb[0] + t[0], comb[1] + t[1]
+        gii = _map(lambda x: x[:, :, jj].transpose(1, 2), cc)
+        accept, T = site_step(gii, _map(lambda x: x[:, i], Dp), lhs[:, i],
+                              live, cdet_t)
+        comb = _cmul(_map(lambda x: x[:, 0, None, :], cc),
+                     _map(lambda x: x[:, 0, :, None], T))
+        for a in range(1, q):
+            t = _cmul(_map(lambda x: x[:, a, None, :], cc),
+                      _map(lambda x: x[:, a, :, None], T))
+            comb = comb[0] + t[0], None if comb[1] is None else comb[1] + t[1]
         gate = accept[:, None, None]
-        Cr[:, sl] = torch.where(gate, comb[0], 0.0)
-        Ci[:, sl] = torch.where(gate, comb[1], 0.0)
-        Rr[:, sl] = eye_h[jj] - cr[0]
-        Ri[:, sl] = -cr[1]
+        C[0][:, sl] = torch.where(gate, comb[0], 0.0)
+        R[0][:, sl] = eye_h[jj] - cr[0]
+        if cplx:
+            C[1][:, sl] = torch.where(gate, comb[1], 0.0)
+            R[1][:, sl] = -cr[1]
         phi[:, i] = torch.where(accept[:, None], phi_new[:, i], phi[:, i])
         acc = acc + accept.to(rdt)
-    return torch.complex(Cr, Ci), torch.complex(Rr, Ri), phi, acc
+    return from_planes(C), from_planes(R), phi, acc
 
 
 def flush_plain(G, CT, R):
     """G - C @ R with C = CT^T, slot by slot in ascending k, each complex
     product and difference rounded once (the kernel's flush order)."""
-    Gr, Gi = G.real.clone(), G.imag.clone()
-    Cr, Ci, Rr, Ri = CT.real, CT.imag, R.real, R.imag
+    Gp = _map(lambda x: x.clone(), planes(G))
+    Cp, Rp = planes(CT), planes(R)
     for k in range(CT.shape[1]):
-        p = _cmul((Cr[:, k, :, None], Ci[:, k, :, None]),
-                  (Rr[:, k, None, :], Ri[:, k, None, :]))
-        Gr, Gi = Gr - p[0], Gi - p[1]
-    return torch.complex(Gr, Gi)
+        p = _cmul(_map(lambda x: x[:, k, :, None], Cp),
+                  _map(lambda x: x[:, k, None, :], Rp))
+        Gp = Gp[0] - p[0], None if Gp[1] is None else Gp[1] - p[1]
+    return from_planes(Gp)
 
 
 def sdw_delayed_plain(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
@@ -149,12 +167,13 @@ def sdw_delayed_plain(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
     """The slice in PyTorch on any device: chunks of K sites (the last
     one ragged), G flushed after each."""
     N = phi_l.shape[1]
+    q = delta.shape[-1]
     K = max(1, min(K, N))
     phi = phi_l.contiguous()
     acc = torch.zeros(G.shape[0], dtype=phi_l.dtype, device=G.device)
     for i0 in range(0, N, K):
         Kc = min(K, N - i0)
-        colT, rowp = panels(G, i0, Kc)
+        colT, rowp = panels(G, i0, Kc, q)
         CT, R, phi, a = chunk_plain(colT, rowp, phi, phi_new, lhs, delta, nb,
                                     i0, Kc, dtau, c_det)
         G = flush_plain(G, CT, R)
@@ -162,79 +181,106 @@ def sdw_delayed_plain(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
     return G, phi, acc
 
 
-# K5's slot residences: the slot buffers (4 K x 4 N complex each) it keeps
-# in shared memory, C and R, R alone (C in a global scratch), or neither
+# K5's slot residences: the slot buffers (q K x q N each) it keeps in
+# shared memory, C and R, R alone (C in a global scratch), or neither
 RESIDENCES = {"shared": 2, "rows": 1, "global": 0}
 
 
-def smem_bytes(N: int, dtype, K: int, buffers: int, opdim: int = 3) -> int:
+def smem_bytes(N: int, dtype, K: int, buffers: int, opdim: int = 3,
+               q: int = Q) -> int:
     """Dynamic shared memory of K5 (csrc/sdw_delayed.cu delayed_smem): the
-    slot buffers it holds (``buffers`` of C and R, each 4 K x 4 N
-    complex), the slice's delta blocks (16 N complex), phi_new and lhs,
-    every warp's copy of the live field, the neighbour table."""
+    slot buffers it holds (``buffers`` of C and R, each q K x q N), the
+    slice's delta blocks (q^2 N), phi_new and lhs, every warp's copy of
+    the live field, the neighbour table."""
     c = dtype.itemsize
-    h = Q * N
-    return (buffers * Q * K * h * c + 16 * N * c
-            + c // 2 * (N * opdim * (1 + _WARPS) + N) + 4 * 4 * N)
+    r = dtype.to_real().itemsize
+    h = q * N
+    return (buffers * q * K * h * c + q * q * N * c
+            + r * (N * opdim * (1 + _WARPS) + N) + 4 * 4 * N)
 
 
-def plan(N: int, dtype, K: int, opdim: int = 3):
-    """(residence, flush tile) of K5 at h = 4 N: the C and R slots in
+def flush_tile(dtype, q: int = Q):
+    """(rows, columns) of a thread's K5 flush tile: 4 x 4 complex64 or
+    2 x 4 complex128 entries at q = 4; 2 x 2 at q = 2, where h = 2 N need
+    not be a multiple of 4."""
+    if q == 2:
+        return 2, 2
+    return (4 if dtype == torch.complex64 else 2), 4
+
+
+def plan(N: int, dtype, K: int, opdim: int = 3, q: int = Q):
+    """(residence, flush tile) of K5 at h = q N: the C and R slots in
     shared memory ("shared") where both fit one block, else R there and C
     in a global scratch ("rows": the flush reads R at a column per thread,
     C at a row band per warp) where R fits, else both in the scratch
-    ("global"); flush tiles of 4 x 4 complex64 or 2 x 4 complex128
-    entries a thread. Raises beyond h = 512 (K is never changed)."""
-    if Q * N > MAX_DIM or not 1 <= K <= N or dtype not in _ENTRIES:
-        raise ValueError(f"sdw_delayed: N={N} K={K} {dtype}: needs h = 4 N "
-                         f"<= {MAX_DIM}, 1 <= K <= N, complex64 or "
-                         "complex128")
+    ("global"); ``flush_tile``. Raises beyond h = 512 (K is never
+    changed)."""
+    if q * N > MAX_DIM or not 1 <= K <= N or (dtype, q) not in _ENTRIES:
+        raise ValueError(f"sdw_delayed: N={N} K={K} {dtype} q={q}: needs "
+                         f"h = q N <= {MAX_DIM}, 1 <= K <= N, complex64 or "
+                         "complex128 (q = 4), or those and float32, "
+                         "float64 (q = 2)")
     budget = _kernels.MAX_SMEM_BYTES - 1024
     residence = next(r for r, b in RESIDENCES.items()
-                     if smem_bytes(N, dtype, K, b, opdim) <= budget)
-    tile = (4 if dtype == torch.complex64 else 2, 4)
-    return residence, tile
+                     if smem_bytes(N, dtype, K, b, opdim, q) <= budget)
+    return residence, flush_tile(dtype, q)
 
 
-def blocks_per_sm(N: int, dtype, K: int, device="cuda", opdim: int = 3) -> int:
+def blocks_per_sm(N: int, dtype, K: int, device="cuda", opdim: int = 3,
+                  q: int = Q) -> int:
     """CTAs of K5 one SM of ``device`` holds at its plan, as the CUDA
     occupancy calculator reports it."""
-    buffers = RESIDENCES[plan(N, dtype, K, opdim)[0]]
-    return _kernels.query("dq_sdw_delayed_blocks_per_sm", device,
-                          int(dtype == torch.complex128), N, opdim, K,
-                          buffers)
+    buffers = RESIDENCES[plan(N, dtype, K, opdim, q)[0]]
+    if q == Q:
+        return _kernels.query("dq_sdw_delayed_blocks_per_sm", device,
+                              int(dtype == torch.complex128), N, opdim, K,
+                              buffers)
+    return _kernels.query("dq_sdw_delayed_q2_blocks_per_sm", device,
+                          _DTYPE_CODES[dtype], N, opdim, K, buffers)
+
+
+def launch_name(dtype, q: int) -> str:
+    """The launch count (``_kernels.LAUNCHES``) of the instance for G of
+    ``dtype`` and q x q site blocks."""
+    return _ENTRIES[(dtype, q)][0]
 
 
 def sdw_delayed(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
                 c_det: float, K: int, probe: bool = False):
     """The slice in chunks of K sites (see the module docstring): one
-    launch of K5 on CUDA tensors (complex64 or complex128, contiguous,
-    h = 4 N <= 512) or a raise; ``sdw_delayed_plain`` on CPU tensors.
-    With ``probe`` (complex64) the kernel's instance with clock64() stamps
-    runs instead, and the result gains a (W, len(PROBE_PHASES) + 2) int64
-    record per CTA: cycles per phase, total cycles, total ns."""
+    launch of K5 on CUDA tensors (q = 4: complex64 or complex128; q = 2:
+    those and float32, float64; contiguous, h = q N <= 512) or a raise;
+    ``sdw_delayed_plain`` on CPU tensors. With ``probe`` (complex64,
+    q = 4) the kernel's instance with clock64() stamps runs instead, and
+    the result gains a (W, len(PROBE_PHASES) + 2) int64 record per CTA:
+    cycles per phase, total cycles, total ns."""
     if G.device.type == "cpu":
         if probe:
             raise ValueError("sdw_delayed: the probe needs a CUDA tensor")
         return sdw_delayed_plain(G, phi_l, phi_new, lhs, delta, nb, dtau,
                                  c_det, K)
     cdt = G.dtype
-    _kernels.check_cuda_tensor("G", G, tuple(_ENTRIES), 3)
-    if probe and cdt != torch.complex64:
-        raise ValueError(f"sdw_delayed: no phase probe for {cdt}")
+    q = delta.shape[-1]
+    if (cdt, q) not in _ENTRIES:
+        raise NotImplementedError(
+            f"sdw_delayed: no K5 instance for {cdt} at q = {q} (the real "
+            "full opdim-1 chain is not ported yet: ROADMAP.md Queue 1 item 8)")
+    _kernels.check_cuda_tensor("G", G, (cdt,), 3)
+    if probe and (cdt, q) != (torch.complex64, Q):
+        raise ValueError(f"sdw_delayed: no phase probe for {cdt} q={q}")
     W, h, h2 = G.shape
     N, opdim = phi_l.shape[1], phi_l.shape[2]
     rdt = cdt.to_real()
-    if h2 != h or h != Q * N:
-        raise ValueError(f"sdw_delayed: G {tuple(G.shape)} needs h = 4 N "
-                         f"= {Q * N}")
+    if h2 != h or h != q * N:
+        raise ValueError(f"sdw_delayed: G {tuple(G.shape)} needs h = q N "
+                         f"= {q * N}")
     K = max(1, min(K, N))
-    residence, _ = plan(N, cdt, K, opdim)
+    residence, _ = plan(N, cdt, K, opdim, q)
     for name, t, dts, shape in (
             ("phi_l", phi_l, (rdt,), (W, N, opdim)),
             ("phi_new", phi_new, (rdt,), (W, N, opdim)),
             ("lhs", lhs, (rdt,), (W, N)),
-            ("delta", delta, (cdt,), (W, N, Q, Q)),
+            ("delta", delta, (cdt,), (W, N, q, q)),
             ("nb", nb, (torch.int32,), (N, 4))):
         _kernels.check_cuda_tensor(name, t, dts, len(shape))
         if tuple(t.shape) != shape:
@@ -244,7 +290,7 @@ def sdw_delayed(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
     phi_out = torch.empty_like(phi_l)
     acc = torch.empty(W, dtype=rdt, device=G.device)
     buffers = RESIDENCES[residence]
-    slots = torch.empty((W, 2 - buffers, Q * K, h), dtype=cdt,
+    slots = torch.empty((W, 2 - buffers, q * K, h), dtype=cdt,
                         device=G.device)
     args = (G, G_out, phi_l, phi_new, lhs, delta, nb, phi_out, acc, slots, W,
             N, opdim, K, buffers, float(dtau), float(c_det))
@@ -253,5 +299,5 @@ def sdw_delayed(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
                           device=G.device)
         _kernels.launch("sdw_delayed", "dq_sdw_delayed_probe_c64", *args, rec)
         return G_out, phi_out, acc, rec
-    _kernels.launch("sdw_delayed", _ENTRIES[cdt], *args)
+    _kernels.launch(*_ENTRIES[(cdt, q)], *args)
     return G_out, phi_out, acc

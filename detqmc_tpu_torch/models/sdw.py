@@ -1,11 +1,22 @@
-"""O(3) spin-density-wave metal, BSS determinantal QMC — PyTorch port.
+"""O(n) spin-density-wave metal, BSS determinantal QMC — PyTorch port.
 
-Port of detqmc_tpu.models.sdw (the reference) for the full opdim-3 model:
-an O(3) order-parameter field phi(i, l) Yukawa-coupled to two fermion
-bands, B_l = exp(-dtau V(phi_l)) exp(-dtau K) on the (4N, 4N) complex
-fermion matrix in orbital-major order (x_up, x_dn, y_up, y_dn), box or
-rotate/scale proposals, exact 4x4 determinant ratios with rank-4 Woodbury
-updates of G, and the UdV-stabilized sweep of models/hubbard.py.
+Port of detqmc_tpu.models.sdw (the reference): an O(opdim) order-parameter
+field phi(i, l) Yukawa-coupled to two fermion bands, B_l =
+exp(-dtau V(phi_l)) exp(-dtau K), box or rotate/scale proposals, exact
+q x q determinant ratios with rank-q Woodbury updates of G, and the
+UdV-stabilized sweep of models/hubbard.py. Two fermion matrices, as in the
+JAX model (``fermion_matrix``):
+- full: the (4N, 4N) complex matrix in orbital-major order (x_up, x_dn,
+  y_up, y_dn), q = 4; opdim 3 always, opdim 2 with ``fermion_matrix=
+  "full"``;
+- reduced (opdim <= 2, the default there): phi_z = 0 decouples the
+  4-orbital matrix into sector A = (x_up, y_dn) and sector B = conj(A),
+  so the chain carries A alone, (2N, 2N), q = 2: complex at opdim 2, real
+  at opdim 1 (sdw.py:377-416 and ``_assemble_reduced`` of the JAX model).
+  The physical weight is |det M_A|^2: the accept uses c_det = 1, the
+  log-weight twice sector A's log-det, and the measurements rebuild the
+  physical 4-orbital G from A (B = conj(A), no cross-sector blocks) and
+  count occupancy and kinetic energy twice.
 
 From JAX to PyTorch (as in models/hubbard.py):
 - walkers lead every state tensor (W, ...); ``lax.scan`` is a Python
@@ -16,7 +27,8 @@ From JAX to PyTorch (as in models/hubbard.py):
 
 Representation: native complex. G and the stack's U are complex64
 (``dtype="float32"``) or complex128; the stack's d is float64 and its V
-complex128. None of the TPU's representations is ported: no (re, im) pair
+complex128. The real opdim-1 chain keeps G and U in float32 or float64, d
+and V in float64. None of the TPU's representations is ported: no (re, im) pair
 planes, no real rho-embedding, no df32, no Ozaki limbs (ROADMAP.md Queue 1
 item 12). So ``fermion_repr`` "auto", "complex" and "native_pair" all mean
 native complex, and ``green_kernel`` "auto", "xla", "df32" and "pallas"
@@ -28,13 +40,18 @@ The slice update follows the JAX model's kernel route
 (``_update_slice_pallas``): proposals, the Delta blocks and the static
 action difference are built for all sites of a slice at once, then a
 kernel walks the sites with a log-domain accept
-lhs < c_det log|R|^2 + live, c_det = 1/2: K4 (linalg/sdw_update.py, the
-immediate update) or K5 (linalg/sdw_delayed.py, chunks of ``delay`` sites,
-8 by default, one launch per slice with its flushes). The weight is
-phase-free (R is real and non-negative by the model's antiunitary
-symmetry), so ``phase`` stays exactly 1. The JAX CPU route
-(``fermion_repr="complex"``) accepts on u < |R| e^{jac - dS} and tracks
-the phase: the same weight.
+lhs < c_det log|R|^2 + live, c_det = 1/2 (full) or 1 (reduced): K4
+(linalg/sdw_update.py, the immediate update) or K5
+(linalg/sdw_delayed.py, chunks of ``delay`` sites, 8 by default, one
+launch per slice with its flushes), each with instances for q = 4 complex
+and q = 2 complex and real. The weight is phase-free (R is real and
+non-negative by the model's antiunitary symmetry; the reduced weight is
+|R_A|^2), so ``phase`` stays exactly 1. The JAX CPU route
+(``fermion_repr="complex"``) accepts on u < |R| e^{jac - dS} (reduced:
+|R_A|^2 e^{jac - dS}) and tracks the phase: the same weight. With
+``turnoffFermions`` the update is the bosonic Metropolis step alone,
+u < e^{jac - dS} site by site with G untouched, in plain PyTorch (no
+kernel: the JAX model's scan route, sdw.py:1309-1313).
 
 Routes, as the JAX model dispatches them (``SDWModel.routes``):
 - update: K5 if ``update_kernel="delayed"`` or ``delay > 0``, or
@@ -43,9 +60,9 @@ Routes, as the JAX model dispatches them (``SDWModel.routes``):
 - wraps and the square B / B^H applies: K6 (linalg/sdw_wrap.py) if
   ``wrap_kernel="fused"``, or ``"auto"`` at dim >= 128 on a CUDA device
   (sdw.py:526-536); else the einsum/matmul applies;
-- refactor QR: K2c within one block's shared memory, else K7; inner
-  solve: K3c, else K8 and K9 (linalg/qr.py, linalg/green_solve.py,
-  linalg/trinv.py).
+- refactor QR: K2c (K2 on the real chain) within one block's shared
+  memory, else K7; inner solve: K3c (K3), else K8 and K9 (linalg/qr.py,
+  linalg/green_solve.py, linalg/trinv.py).
 Kernel versus plain version is decided by the device of the tensors:
 the kernels on a CUDA tensor, their plain PyTorch versions on a CPU
 tensor.
@@ -66,8 +83,9 @@ globalUpdateInterval sweeps): the global shift, the Wolff cluster
 reflection and the Wolff reflection plus a perpendicular shift, batched
 over walkers, with injected draws (``draws``) or a ``torch.Generator``.
 Each accepts on ld_new - ld_old (- dS) with ld = ``_chain_logdet``, the
-inverse-free log|det(1 + B_m ... B_1)| of the whole chain
-(udv.clog_abs_det_one_plus_udv: K2c or K7 on the card), and refreshes
+physical log-weight from the inverse-free log|det(1 + B_m ... B_1)| of
+the whole chain (udv.clog_abs_det_one_plus_udv: K2c, K2 or K7 on the
+card; twice sector A's on the reduced chain), and refreshes
 every walker from the stack of the field it keeps (the two stacks the
 log-dets were read from, selected per walker: bitwise the stack
 refresh_from_field builds). The Wolff clusters grow in plain PyTorch on
@@ -76,10 +94,10 @@ outside any kernel; their dot products are summed in index order so the
 card and the CPU give the same bits.
 
 Not ported yet (each raises NotImplementedError naming ROADMAP.md, Queue
-1 item 8 and Queue 2): opdim 1 and 2 (the reduced sectors), the real
-embedding, the refine green route, sparse checkerboard applies,
-``turnoffFermions``, ``sweep_simple``, the
-parallel-tempering hooks, dims above 512 (L >= 12) on a CUDA device, and
+1 item 8 and Queue 2): the full (4N, 4N) matrix at opdim 1 (a real q = 4
+chain), the real embedding, the refine green route, sparse checkerboard
+applies, ``sweep_simple``, the parallel-tempering hooks, dims above 512
+(L >= 12 full, L >= 17 reduced) on a CUDA device, and
 ``update_kernel="pallas"`` / ``"scan"`` (K4) at a dim whose G exceeds K4's
 shared memory on a CUDA device.
 """
@@ -105,7 +123,7 @@ from detqmc_tpu_torch.models.unequal_time import (trapezoid_weights,
                                                   wrap_between_anchors)
 from detqmc_tpu_torch.precision import mm
 
-N_ORB = 4  # (band x, band y) x (spin up, spin dn)
+N_ORB = 4  # physical orbitals: (band x, band y) x (spin up, spin dn)
 _DTYPES = {"float32": (torch.float32, torch.complex64),
            "float64": (torch.float64, torch.complex128)}
 _ROADMAP = "ROADMAP.md Queue 1 item 8"
@@ -196,8 +214,21 @@ class SDWConfig:
         return self.L * self.L
 
     @property
+    def reduced(self) -> bool:
+        """The two-sector chain (sector A alone): the default at opdim <= 2
+        (JAX sdw.py:406-413)."""
+        if self.fermion_matrix == "auto":
+            return self.opdim <= 2
+        return self.fermion_matrix == "reduced"
+
+    @property
+    def n_orb(self) -> int:
+        """Orbitals of the chain's matrix: q of its site blocks."""
+        return 2 if self.reduced else N_ORB
+
+    @property
     def dim(self) -> int:
-        return N_ORB * self.n_sites
+        return self.n_orb * self.n_sites
 
     @property
     def n_stack(self) -> int:
@@ -212,9 +243,10 @@ class SDWConfig:
 
     @property
     def cdtype(self) -> torch.dtype:
-        """Fermion-matrix dtype (complex: sigma_y enters at opdim >= 2)."""
+        """Fermion-matrix dtype: complex for opdim >= 2 (sigma_y), real for
+        the Ising case."""
         self.torch_dtype  # validates
-        return _DTYPES[self.dtype][1]
+        return _DTYPES[self.dtype][0 if self.opdim == 1 else 1]
 
 
 class SDWState(NamedTuple):
@@ -225,7 +257,8 @@ class SDWState(NamedTuple):
     G: torch.Tensor            # (W, dim, dim) equal-time G at the sweep edge
     stack_U: torch.Tensor      # (W, K+1, dim, dim) cdtype
     stack_d: torch.Tensor      # (W, K+1, dim) float64
-    stack_V: torch.Tensor      # (W, K+1, dim, dim) complex128
+    stack_V: torch.Tensor      # (W, K+1, dim, dim) complex128 (float64 at
+    #                            opdim 1)
     phase: torch.Tensor        # (W,) cdtype, exactly 1 (phase-free weight)
     box_width: torch.Tensor    # (W,) proposal width
     r: torch.Tensor            # (W,) control parameter
@@ -311,7 +344,12 @@ class SDWModel(nn.Module):
         self.lat = lattice_mod.SquareLattice(cfg.L)
         self.rdtype, self.cdtype = cfg.torch_dtype, cfg.cdtype
         self.dim = cfg.dim
-        self.c_det = 0.5        # full 4x4 block: weight |R| = (|R|^2)^(1/2)
+        self.n_orb = q = cfg.n_orb
+        # the weight: |R| = (|R|^2)^(1/2) of the full block, |R_A|^2 of the
+        # reduced one (sector B contributes conj(R_A)); the log-weight's
+        # factor on sector A's log-det likewise (JAX logdet_fac)
+        self.c_det = 1.0 if cfg.reduced else 0.5
+        self.logdet_fac = 2.0 if cfg.reduced else 1.0
         N = cfg.n_sites
         # the card unless the caller names another device: on a machine
         # without one, torch's own error, never a silent CPU run
@@ -326,14 +364,19 @@ class SDWModel(nn.Module):
         Ky = self.lat.hopping_matrix(1.0, tx=cfg.tyhor, ty=cfg.tyver)
         expKx, expKx_inv = kinetic_exponentials(Kx, cfg.dtau, cfg.mu)
         expKy, expKy_inv = kinetic_exponentials(Ky, cfg.dtau, cfg.mu)
-        ek = np.stack([expKx, expKx, expKy, expKy])
-        eki = np.stack([expKx_inv, expKx_inv, expKy_inv, expKy_inv])
+        # the orbitals' bands: (x_up, x_dn, y_up, y_dn), or sector A
+        # (x_up, y_dn)
+        bands = ["x", "y"] if cfg.reduced else ["x", "x", "y", "y"]
+        per = {"x": (expKx, expKx_inv, Kx, cfg.txhor, cfg.txver),
+               "y": (expKy, expKy_inv, Ky, cfg.tyhor, cfg.tyver)}
+        ek = np.stack([per[b][0] for b in bands])
+        eki = np.stack([per[b][1] for b in bands])
         if cfg.checkerboard:
             # per-orbital group coefficients: groups (0, 1) horizontal
             # bonds, (2, 3) vertical; applied as the exact dense product
             partner = self.lat.checkerboard_groups()
-            th = np.array([cfg.txhor, cfg.txhor, cfg.tyhor, cfg.tyhor])
-            tv = np.array([cfg.txver, cfg.txver, cfg.tyver, cfg.tyver])
+            th = np.array([per[b][3] for b in bands])
+            tv = np.array([per[b][4] for b in bands])
             tg = np.stack([th, th, tv, tv], axis=1)           # (n_orb, 4)
             ek, eki = _cb_dense_product(
                 partner, np.cosh(cfg.dtau * tg), np.sinh(cfg.dtau * tg),
@@ -344,7 +387,7 @@ class SDWModel(nn.Module):
                 np.asarray(a), dtype=dtype, device=dev))
 
         cdt, rdt = self.cdtype, self.rdtype
-        buf("expK", ek, cdt)                                   # (4, N, N)
+        buf("expK", ek, cdt)                                   # (q, N, N)
         buf("expK_inv", eki, cdt)
         # K6 reads the kinetic factors as real matrices: their real copies,
         # built once here (not saved: they follow from the config)
@@ -352,8 +395,11 @@ class SDWModel(nn.Module):
                              persistent=False)
         self.register_buffer("expK_inv_real", self.expK_inv.real.contiguous(),
                              persistent=False)
-        buf("K_orb", np.stack([Kx, Kx, Ky, Ky]), cdt)
-        buf("paulis", _pauli_stack(cfg.opdim), cdt)            # (3, 2, 2)
+        buf("K_orb", np.stack([per[b][2] for b in bands]), cdt)
+        if not cfg.reduced:
+            buf("paulis", _pauli_stack(cfg.opdim), cdt)        # (3, 2, 2)
+        self.register_buffer("_eye_q", torch.eye(q, dtype=cdt, device=dev),
+                             persistent=False)
         nb = self.lat.neighbors()                              # (N, 4)
         buf("nb", nb, torch.int32)       # K4's table
         buf("nb_idx", nb, torch.int64)   # gathers
@@ -369,11 +415,14 @@ class SDWModel(nn.Module):
 
     @staticmethod
     def _check_ported(cfg: SDWConfig) -> None:
-        if cfg.opdim != 3 or cfg.fermion_matrix == "reduced":
-            raise _unported(f"opdim={cfg.opdim} (the reduced two-sector "
-                            "and real opdim-1 chains)")
-        if cfg.fermion_matrix not in ("auto", "full"):
+        if cfg.fermion_matrix not in ("auto", "full", "reduced"):
             raise ValueError(f"bad fermion_matrix {cfg.fermion_matrix!r}")
+        if cfg.fermion_matrix == "reduced" and cfg.opdim == 3:
+            raise ValueError("opdim=3 has no two-sector reduction (phi_z "
+                             "couples the sectors)")
+        if cfg.opdim == 1 and not cfg.reduced:
+            raise _unported("fermion_matrix='full' at opdim=1 (a real "
+                            "4x4-block chain)")
         if cfg.fermion_repr == "real_embed":
             raise _unported("fermion_repr='real_embed' (a TPU device, not "
                             "to be ported)", "ROADMAP.md Queue 1 item 12")
@@ -385,36 +434,49 @@ class SDWModel(nn.Module):
         if cfg.checkerboard and cfg.cb_apply == "sparse":
             raise _unported("cb_apply='sparse' (the dense checkerboard "
                             "product is ported)")
-        if cfg.turnoffFermions:
-            raise _unported("turnoffFermions")
+        if cfg.turnoffFermions and cfg.update_kernel in ("pallas",
+                                                          "delayed"):
+            raise ValueError(f"update_kernel={cfg.update_kernel!r} is a "
+                             "fermionic update path (turnoffFermions is "
+                             "set)")
 
     @staticmethod
     def routes(cfg: SDWConfig, device_type: str) -> dict:
-        """{"update": "delayed" (K5) | "immediate" (K4), "wrap": "fused"
-        (K6) | "plain"} for a model on a device of this type (see the
-        module docstring)."""
+        """{"update": "delayed" (K5) | "immediate" (K4) | "bosonic" (no
+        kernel: turnoffFermions), "wrap": "fused" (K6) | "plain"} for a
+        model on a device of this type (see the module docstring)."""
         big = cfg.dim >= BIG_DIM
         delayed = (cfg.update_kernel == "delayed" or cfg.delay > 0
                    or (cfg.update_kernel == "auto" and big))
         fused = (cfg.wrap_kernel == "fused"
                  or (cfg.wrap_kernel == "auto" and big
                      and device_type == "cuda"))
-        return {"update": "delayed" if delayed else "immediate",
-                "wrap": "fused" if fused else "plain"}
+        update = ("bosonic" if cfg.turnoffFermions
+                  else "delayed" if delayed else "immediate")
+        return {"update": update, "wrap": "fused" if fused else "plain"}
 
     @staticmethod
     def _check_kernel_bounds(cfg: SDWConfig) -> None:
         """On a CUDA device the dim must be within the blocked kernels'
-        bound (qr.MAX_N_BIG: K5-K9 all fit their shared memory up to it),
-        and the immediate update K4 needs G in one block's shared
-        memory."""
+        bound (qr.MAX_N_BIG: K5 and K7-K9 all fit their shared memory up
+        to it), K6 needs a plan (one orbital's kinetic factor in one
+        block's shared memory: at q = 2 N <= 219 in complex64, 149 in
+        complex128, 228 in float32, 158 in float64), and the immediate
+        update K4 needs G in one block's shared memory."""
         dim = cfg.dim
         if dim > MAX_N_BIG:
             raise _unported(f"SDW at dim {dim} > {MAX_N_BIG} on a CUDA device",
                             "ROADMAP.md Queue 1 item 8")
+        if SDWModel.routes(cfg, "cuda")["wrap"] == "fused":
+            try:
+                sdw_wrap.plan(cfg.n_sites, cfg.cdtype, q=cfg.n_orb)
+            except ValueError:
+                raise _unported(f"the fused wrap K6 at N = {cfg.n_sites} "
+                                f"({cfg.cdtype}, q = {cfg.n_orb}) on a CUDA "
+                                "device", "ROADMAP.md Queue 2") from None
         if SDWModel.routes(cfg, "cuda")["update"] == "immediate" and (
                 dim > sdw_update.MAX_H or sdw_update.smem_bytes(
-                    cfg.n_sites, cfg.opdim, cfg.cdtype)
+                    cfg.n_sites, cfg.opdim, cfg.cdtype, cfg.n_orb)
                 > _kernels.MAX_SMEM_BYTES - 1024):
             raise _unported(f"update_kernel={cfg.update_kernel!r} (K4, G in "
                             f"one block's shared memory) at dim {dim} on a "
@@ -428,13 +490,16 @@ class SDWModel(nn.Module):
     # ---- potential factor ---------------------------------------------------
     def exp_v_blocks(self, phi_slice: torch.Tensor, sign: float = -1.0
                      ) -> torch.Tensor:
-        """exp(sign dtau V(phi)) as per-site 4x4 blocks: (..., N, 4, 4)
+        """exp(sign dtau V(phi)) as per-site q x q blocks: (..., N, q, q)
         from (..., N, opdim), closed form via V^2 = (lam |phi|)^2."""
         cfg, cdt = self.cfg, self.cdtype
         nrm = torch.sqrt(torch.sum(phi_slice ** 2, dim=-1))
         a = cfg.dtau * cfg.lam * nrm
         sh_over = torch.where(nrm > 0, torch.sinh(a) / torch.clamp(
             nrm, min=1e-30), torch.full_like(nrm, cfg.dtau * cfg.lam))
+        if cfg.reduced:
+            return self._assemble_reduced(phi_slice, torch.cosh(a),
+                                          sign * sh_over)
         ch = torch.cosh(a).to(cdt)[..., None, None]
         Phi = torch.einsum("...o,oab->...ab", phi_slice.to(cdt), self.paulis)
         coef = (sign * sh_over).to(cdt)[..., None, None]
@@ -443,8 +508,22 @@ class SDWModel(nn.Module):
         row2 = torch.cat([coef * Phi.mH, ch * eye2], dim=-1)
         return torch.cat([row1, row2], dim=-2)
 
+    def _assemble_reduced(self, phi, ch, s):
+        """Sector A's block exp(sign dtau V_A), V_A = lam [[0, p], [p*, 0]],
+        p = phi_x - i phi_y (the JAX model's _assemble_reduced): cosh(a) 1
+        + s V_A / lam with s = sign sinh(a) / |phi|; (..., 2, 2), real at
+        opdim 1, complex at opdim 2."""
+        off_re = s * phi[..., 0]
+        if self.cfg.opdim == 1:
+            return torch.stack([torch.stack([ch, off_re], -1),
+                                torch.stack([off_re, ch], -1)], -2)
+        off = torch.complex(off_re, -s * phi[..., 1])
+        chc = ch.to(self.cdtype)
+        return torch.stack([torch.stack([chc, off], -1),
+                            torch.stack([off.conj(), chc], -1)], -2)
+
     def _exp_v_single(self, phi_i: torch.Tensor, sign: float) -> torch.Tensor:
-        """exp(sign dtau V) for single sites: (..., 4, 4) from (..., opdim)."""
+        """exp(sign dtau V) for single sites: (..., q, q) from (..., opdim)."""
         return self.exp_v_blocks(phi_i, sign)
 
     # ---- B applies (X: (W, dim, dim)); the factors live in linalg/sdw_wrap.py
@@ -560,7 +639,8 @@ class SDWModel(nn.Module):
         kernel route, _update_slice_pallas): G (W, dim, dim), phi
         (W, m, N, opdim), u01 (W, N) and rnd this slice's draws. K5
         (delayed) or K4 on a CUDA tensor, their plain versions on a CPU
-        tensor. Returns (G, phi, acc_rate (W,))."""
+        tensor; with turnoffFermions the bosonic step alone
+        (``_update_slice_bosonic``). Returns (G, phi, acc_rate (W,))."""
         cfg = self.cfg
         m, N = cfg.m, cfg.n_sites
         l_idx = l_1based - 1
@@ -568,12 +648,17 @@ class SDWModel(nn.Module):
         phi_lm = phi[:, (l_idx - 1) % m]
         phi_l0 = phi[:, l_idx]
         phi_new, jac = self._propose_all(phi_l0, rnd, box_w, alt)
+        if cfg.turnoffFermions:
+            phi_l, acc = self._update_slice_bosonic(
+                phi_l0, phi_new, jac, phi_lp, phi_lm, u01, r)
+            phi = phi.clone()
+            phi[:, l_idx] = phi_l
+            return G, phi, acc / N
         lhs = (torch.log(u01) - jac
                + self._ds_static(phi_l0, phi_new, phi_lp, phi_lm, r))
         en = self.exp_v_blocks(phi_new, -1.0)
         eo_inv = self.exp_v_blocks(phi_l0, +1.0)
-        eye4 = torch.eye(N_ORB, dtype=self.cdtype, device=G.device)
-        delta = mm(en, eo_inv) - eye4
+        delta = mm(en, eo_inv) - self._eye_q
         args = (G.contiguous(), phi_l0.contiguous(), phi_new.contiguous(),
                 lhs.contiguous(), delta.contiguous(), self.nb, cfg.dtau,
                 self.c_det)
@@ -584,6 +669,39 @@ class SDWModel(nn.Module):
         phi = phi.clone()
         phi[:, l_idx] = phi_l
         return G, phi, acc / N
+
+    def _update_slice_bosonic(self, phi_l0, phi_new, jac, phi_lp, phi_lm,
+                              u01, r):
+        """The turnoffFermions site scan (the JAX model's update_slice
+        with turnoffFermions, sdw.py:1290-1313): site by site, accept on
+        u < exp(jac - dS) with dS the difference of the site's local
+        boson action at the proposal and at the current value, the live
+        field's neighbours included; G is not touched. Plain PyTorch,
+        batched over walkers. Returns (phi_l (W, N, opdim), accepted
+        sites (W,))."""
+        cfg = self.cfg
+        dtau = cfg.dtau
+        phi_l = phi_l0.clone()
+        acc = torch.zeros_like(jac[:, 0])
+        nbs = self.nb_idx.tolist()
+
+        def local(i, p):
+            tau_t = (torch.sum((p - phi_lp[:, i]) ** 2, -1)
+                     + torch.sum((p - phi_lm[:, i]) ** 2, -1)) \
+                / (2.0 * cfg.c ** 2 * dtau ** 2)
+            grad = 0.5 * torch.sum((p[:, None, :] - phi_l[:, nbs[i]]) ** 2,
+                                   dim=(-2, -1))
+            phi2 = torch.sum(p ** 2, -1)
+            pot = 0.5 * r * phi2 + 0.25 * cfg.u * phi2 ** 2
+            return dtau * (tau_t + grad + pot)
+
+        for i in range(cfg.n_sites):
+            old, new = phi_l[:, i].clone(), phi_new[:, i]
+            d_s = local(i, new) - local(i, old)
+            accept = u01[:, i] < torch.exp(jac[:, i] - d_s)
+            phi_l[:, i] = torch.where(accept[:, None], new, old)
+            acc = acc + accept.to(acc.dtype)
+        return phi_l, acc
 
     # ---- wraps ----------------------------------------------------------------
     def _wrap(self, G, blocks, blocks_inv, up: bool):
@@ -604,10 +722,30 @@ class SDWModel(nn.Module):
     # ---- measurement ------------------------------------------------------------
     def _phys_green_parts(self, G):
         """(re, im) of the physical 4-orbital Green blocks, (W, 4, 4, N, N)
-        in the basis (x_up, x_dn, y_up, y_dn)."""
-        N = self.cfg.n_sites
-        g = G.reshape(-1, N_ORB, N, N_ORB, N).permute(0, 1, 3, 2, 4)
-        return g.real, g.imag
+        in the basis (x_up, x_dn, y_up, y_dn). The reduced chain carries
+        sector A = (x_up, y_dn); sector B = (x_dn, y_up) is its conjugate
+        and the cross-sector blocks are zero (the JAX model's
+        _phys_green_parts, sdw.py:1509-1555)."""
+        N, q = self.cfg.n_sites, self.n_orb
+        g = G.reshape(-1, q, N, q, N).permute(0, 1, 3, 2, 4)
+        a, b = (g.real, g.imag) if g.is_complex() else (g, torch.zeros_like(g))
+        if not self.cfg.reduced:
+            return a, b
+        z = torch.zeros_like(a[:, 0, 0])
+
+        def blocks(rows):
+            return torch.stack([torch.stack([z if e is None else e
+                                             for e in r], 1) for r in rows], 1)
+
+        re4 = blocks([[a[:, 0, 0], None, None, a[:, 0, 1]],
+                      [None, a[:, 0, 0], a[:, 0, 1], None],
+                      [None, a[:, 1, 0], a[:, 1, 1], None],
+                      [a[:, 1, 0], None, None, a[:, 1, 1]]])
+        im4 = blocks([[b[:, 0, 0], None, None, b[:, 0, 1]],
+                      [None, -b[:, 0, 0], -b[:, 0, 1], None],
+                      [None, -b[:, 1, 0], -b[:, 1, 1], None],
+                      [b[:, 1, 0], None, None, b[:, 1, 1]]])
+        return re4, im4
 
     def _translation_average(self, X):
         """(W, N, N) -> (W, N): c(d) = mean_i X[i, i + d]."""
@@ -685,10 +823,14 @@ class SDWModel(nn.Module):
         phi2 = torch.sum(phi ** 2, dim=-1)                     # (W, m, N)
         phibar = phi.mean(dim=(1, 2))                          # (W, opdim)
         chi = cfg.beta * N * torch.sum(phibar ** 2, dim=-1)
-        occ = N_ORB - torch.diagonal(G, dim1=-2, dim2=-1).sum(-1).real / N
-        Gorb = G.reshape(-1, N_ORB, N, N_ORB, N)
-        e_kin = -sum(torch.sum(self.K_orb[o].T * Gorb[:, o, :, o, :],
-                               dim=(-2, -1)) for o in range(N_ORB)).real / N
+        # sector B contributes as much as sector A to every real trace
+        sector = 2.0 if cfg.reduced else 1.0
+        q = self.n_orb
+        occ = N_ORB - sector * torch.diagonal(
+            G, dim1=-2, dim2=-1).sum(-1).real / N
+        Gorb = G.reshape(-1, q, N, q, N)
+        e_kin = -sector * sum(torch.sum(self.K_orb[o].T * Gorb[:, o, :, o, :],
+                                        dim=(-2, -1)) for o in range(q)).real / N
         phicorr, phisf = self._phi_correlations(phi)
         return SDWObservables(
             phiSquared=phi2.mean(dim=(1, 2)),
@@ -707,14 +849,19 @@ class SDWModel(nn.Module):
             **self._fermion_correlations(G))
 
     # ---- sweeps -------------------------------------------------------------------
+    @property
+    def vdtype(self) -> torch.dtype:
+        """The stack's V dtype: complex128, float64 on the real chain."""
+        return torch.complex128 if self.cdtype.is_complex else torch.float64
+
     def _eye_mixed(self, W: int) -> UDV:
-        """Identity UdV per walker: U in cdtype, d float64, V complex128
+        """Identity UdV per walker: U in cdtype, d float64, V in vdtype
         (the stack layout)."""
         dim, dev = self.dim, self.device
         return UDV(torch.eye(dim, dtype=self.cdtype, device=dev).expand(
                        W, dim, dim),
                    torch.ones(W, dim, dtype=torch.float64, device=dev),
-                   torch.eye(dim, dtype=torch.complex128,
+                   torch.eye(dim, dtype=self.vdtype,
                              device=dev).expand(W, dim, dim))
 
     def _sweep(self, state: SDWState, up: bool, measure: bool, draws=None,
@@ -878,7 +1025,7 @@ class SDWModel(nn.Module):
                                 device=dev),
             stack_d=torch.zeros(W, K + 1, dim, dtype=torch.float64,
                                 device=dev),
-            stack_V=torch.zeros(W, K + 1, dim, dim, dtype=torch.complex128,
+            stack_V=torch.zeros(W, K + 1, dim, dim, dtype=self.vdtype,
                                 device=dev),
             phase=torch.ones(W, dtype=self.cdtype, device=dev),
             box_width=torch.full((W,), cfg.box_width, dtype=rdt, device=dev),
@@ -908,7 +1055,7 @@ class SDWModel(nn.Module):
 
     def _per_slice(self, anchors, phi, step):
         """Wrap anchors (W, K+1, dim, dim) to every slice with
-        ``step(G (W, K, dim, dim), blocks (W, K, N, 4, 4))`` applied with
+        ``step(G (W, K, dim, dim), phi (W, K, N, opdim))`` applied with
         slice k s + j + 1's blocks (``phi`` -> blocks is the caller's)."""
         cfg = self.cfg
         W = phi.shape[0]
@@ -1036,26 +1183,38 @@ class SDWModel(nn.Module):
         return state
 
     def _chain_logdet(self, phi) -> torch.Tensor:
-        """log|det(1 + B_m ... B_1)| per walker (W,), float64: the whole
-        chain from the right stack's entry 0, through
-        udv.clog_abs_det_one_plus_udv. The global moves accept on
-        ld_new - ld_old of this, which is the JAX model's
-        logdet_fac x its _chain_logdet (0.5 x 2 clog on the native route,
-        1 x log|det| on the complex one)."""
+        """The physical fermionic log-weight per walker (W,), float64:
+        logdet_fac x log|det(1 + B_m ... B_1)| of the chain's matrix, the
+        whole chain from the right stack's entry 0, through the
+        inverse-free udv.clog_abs_det_one_plus_udv (its QR K2c, K2 or K7 on
+        the card; also on the real opdim-1 chain, where the JAX model takes
+        an LU: log_det_one_plus_udv). logdet_fac is 2 on the reduced chain
+        (log|det M_A|^2) and 1 on the full one. The global moves accept on
+        ld_new - ld_old of this, which is the JAX model's logdet_fac x its
+        _chain_logdet (0.5 x 2 clog on the native route, 1 x log|det| on
+        the complex one, 2 x log|det M_A| reduced)."""
         return self._logdet_and_stack(phi)[0]
 
     def _logdet_and_stack(self, phi):
         stack = self._build_stack(phi, transposed=True)
-        return (clog_abs_det_one_plus_udv(UDV(stack.U[:, 0], stack.d[:, 0],
-                                              stack.V[:, 0])), stack)
+        return (self.logdet_fac * clog_abs_det_one_plus_udv(
+            UDV(stack.U[:, 0], stack.d[:, 0], stack.V[:, 0])), stack)
 
     def _metropolis(self, state: SDWState, phi_new, d_action, u):
         """Accept phi_new per walker when log u < ld_new - ld_old - dS
         (``d_action`` None: dS = 0), then refresh every walker. The
         refresh reuses the right stacks the two log-dets were read from,
         selected per walker: the stack of the field each walker keeps is
-        bitwise the one refresh_from_field would build. Returns (state,
-        accept (W,) bool)."""
+        bitwise the one refresh_from_field would build. With
+        turnoffFermions the accept is log u < -dS alone (``d_action`` None:
+        always) and the refresh builds the kept field's stack (the JAX
+        model's fermion-free branches, sdw.py:1868, 1952, 1996). Returns
+        (state, accept (W,) bool)."""
+        if self.cfg.turnoffFermions:
+            accept = (torch.ones_like(u, dtype=torch.bool) if d_action is None
+                      else torch.log(u) < -d_action)
+            phi = torch.where(accept.view(-1, 1, 1, 1), phi_new, state.phi)
+            return self.refresh_from_field(state._replace(phi=phi)), accept
         ld_old, st_old = self._logdet_and_stack(state.phi)
         ld_new, st_new = self._logdet_and_stack(phi_new)
         log_ratio = ld_new - ld_old

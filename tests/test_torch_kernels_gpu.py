@@ -135,6 +135,17 @@ Tolerances (same inputs, same card):
   complex128): identical decisions, fields and acceptance, G bitwise in
   complex128 and within 1e-5 in complex64; the probe instance equal to
   the production one.
+- the q = 2 instances of K4, K5 and K6 (the reduced SDW sectors: complex
+  at opdim 2, real at opdim 1): K4 on the reduced model's own operands at
+  L = 2, 3, 4, 6 and K5 on synthetic ones at N = 9 ... 256 (odd N, every
+  slot residence), K = 1, 3, 8, W = 3 and 130: one launch under the
+  instance's own count, identical decisions, fields and acceptance, G
+  bitwise in complex128 / float64 and within 1e-5 in complex64 / float32;
+  K6 (FMA accumulation, as its q = 4 instance) within 1e-5 / 1e-12 of
+  max|G| at L = 2, 3, 4, 8, 12; reduced sweep pairs on the card against
+  the CPU (f64, immediate and delayed/fused): identical fields, G within
+  1e-10, only q = 2 instances launched; the refusals (no real q = 4
+  instance, K6 beyond its plans, the full matrix at opdim 1).
 """
 
 import numpy as np
@@ -331,9 +342,8 @@ def _k4_operands(model, st, gen):
                                       st.box_width, st.sweeps_done % 2)
     lhs = torch.log(u01[:, 0]) - jac + model._ds_static(
         phi[:, 0], phi_new, phi[:, 1], phi[:, -1], st.r)
-    eye4 = torch.eye(4, dtype=model.cdtype, device=G.device)
     delta = model.exp_v_blocks(phi_new, -1.0) @ model.exp_v_blocks(
-        phi[:, 0], 1.0) - eye4
+        phi[:, 0], 1.0) - model._eye_q
     return [x.contiguous() for x in (G, phi[:, 0], phi_new, lhs, delta)]
 
 
@@ -1480,3 +1490,192 @@ def test_k6_refuses_what_it_cannot_take(cuda_device):
         sdw_wrap.apply(G, E.real.double(), D, False)
     with pytest.raises(ValueError):     # beyond every plan
         sdw_wrap.plan(140, torch.complex128)
+
+
+# ---- the reduced sector's q = 2 instances of K4, K5 and K6 ---------------
+def _sdw_reduced(device, opdim, L=4, dtype="float64", W=3, seed=0, **kw):
+    cfg = SDWConfig(L=L, opdim=opdim, r=0.5, beta=4.0, m=8, s=4, dtype=dtype,
+                    **kw)
+    model = SDWModel(cfg, device=device)
+    gen = torch.Generator(device).manual_seed(seed)
+    return model, model.init_state(W, gen), gen
+
+
+def _check_q2(kern, plain, dtype, n_launch, name):
+    """Identical accept decisions, fields and acceptance; G bitwise in
+    complex128 / float64, within 1e-5 in single precision."""
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[name] == n_launch
+    assert torch.equal(kern[1], plain[1]) and torch.equal(kern[2], plain[2])
+    if dtype in (torch.complex128, torch.float64):
+        assert torch.equal(kern[0], plain[0])
+    else:
+        assert float((kern[0] - plain[0]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("opdim", [1, 2])
+@pytest.mark.parametrize("L", [2, 3, 4, 6])
+def test_sdw_update_q2_kernel_matches_plain(cuda_device, dtype, opdim, L):
+    """K4's q = 2 instances (complex at opdim 2, real at opdim 1) on the
+    reduced model's own slice-1 operands (h = 8 ... 72): one launch under
+    its own count, identical decisions, G bitwise in double precision."""
+    model, st, gen = _sdw_reduced(cuda_device, opdim, L=L, dtype=dtype)
+    args = _k4_operands(model, st, gen)
+    extra = (model.nb, model.cfg.dtau, model.c_det)
+    name = sdw_update.launch_name(model.cdtype, 2)
+    _kernels.reset_launch_counts()
+    kern = sdw_update.sdw_update(*args, *extra)
+    _check_q2(kern, sdw_update.sdw_update_plain(*args, *extra), model.cdtype,
+              1, name)
+    assert 0 < float(kern[2].sum()) < 3 * model.cfg.n_sites
+    assert sdw_update.blocks_per_sm(model.cfg.n_sites, model.cdtype,
+                                    cuda_device, opdim, 2) >= 1
+
+
+def _q2_synthetic(device, N, dtype, W, seed, opdim):
+    """Synthetic operands of one q = 2 slice at any N (h = 2 N)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    rdt, h = dtype.to_real(), 2 * N
+
+    def rnd(*shape):
+        x = torch.randn(shape, generator=gen, dtype=rdt, device=device)
+        if dtype.is_complex:
+            x = torch.complex(x, torch.randn(shape, generator=gen, dtype=rdt,
+                                             device=device))
+        return x
+
+    G = 0.5 * torch.eye(h, dtype=dtype, device=device) + rnd(W, h, h) * (
+        0.5 / h ** 0.5)
+    phi = torch.randn((W, N, opdim), generator=gen, dtype=rdt, device=device)
+    phi_new = phi + 0.5 * torch.randn((W, N, opdim), generator=gen,
+                                      dtype=rdt, device=device)
+    lhs = torch.log(torch.rand((W, N), generator=gen, dtype=rdt,
+                               device=device))
+    delta = 0.3 * rnd(W, N, 2, 2)
+    i = torch.arange(N)
+    nb = torch.stack([(i + 1) % N, (i - 1) % N, (i + 2) % N, (i - 2) % N],
+                     dim=1).to(torch.int32).to(device)
+    return [x.contiguous() for x in (G, phi, phi_new, lhs, delta)], nb
+
+
+@pytest.mark.parametrize("W", [3, 130])
+@pytest.mark.parametrize("N", [9, 16, 64, 128, 256])
+@pytest.mark.parametrize("K", [1, 3, 8])
+@pytest.mark.parametrize("dtype", ["complex64", "complex128", "float32",
+                                   "float64"])
+def test_sdw_delayed_q2_kernel_matches_plain(cuda_device, dtype, K, N, W):
+    """K5's q = 2 instances over one slice (h = 18 ... 512: odd N, the
+    slots in shared memory, R there and C in the scratch, or both in the
+    scratch as the plan says): one launch; double precision bitwise,
+    single precision identical decisions and G within 1e-5; and the
+    immediate K4 where it fits, the same decisions."""
+    dt = getattr(torch, dtype)
+    opdim = 1 if not dt.is_complex else 2
+    ops, nb = _q2_synthetic(cuda_device, N, dt, W, N + K + W, opdim)
+    extra = (nb, 0.1, 1.0)
+    name = sdw_delayed.launch_name(dt, 2)
+    _kernels.reset_launch_counts()
+    kern = sdw_delayed.sdw_delayed(*ops, *extra, K)
+    _check_q2(kern, sdw_delayed.sdw_delayed_plain(*ops, *extra, K), dt, 1,
+              name)
+    assert 0 < float(kern[2].sum()) < W * N
+    if 2 * N <= sdw_update.MAX_H and sdw_update.smem_bytes(
+            N, opdim, dt, 2) <= _kernels.MAX_SMEM_BYTES - 1024:
+        imm = sdw_update.sdw_update(*ops, *extra)
+        assert torch.equal(imm[1], kern[1]) and torch.equal(imm[2], kern[2])
+    assert sdw_delayed.blocks_per_sm(N, dt, K, cuda_device, opdim, 2) >= 1
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-12)])
+@pytest.mark.parametrize("opdim", [1, 2])
+@pytest.mark.parametrize("L,cb", [(2, False), (3, False), (4, True),
+                                  (8, True), (12, True)])
+def test_sdw_wrap_q2_kernel_matches_plain(cuda_device, dtype, tol, opdim, L,
+                                          cb):
+    """K6's q = 2 instances (wrap up / down, apply, apply-H) on the reduced
+    model's G and slice-1 blocks (h = 8 ... 288: odd N, real float32 lines
+    of an odd number of 16-byte pieces): relative to max|G_plain|."""
+    model, st, _ = _sdw_reduced(cuda_device, opdim, L=L, dtype=dtype,
+                                checkerboard=cb)
+    G = st.G.contiguous()
+    D = model.exp_v_blocks(st.phi[:, 0])
+    Dinv = model.exp_v_blocks(st.phi[:, 0], 1.0)
+    E, Einv = model.expK_real, model.expK_inv_real
+    _kernels.reset_launch_counts()
+    pairs = [(sdw_wrap.wrap(G, E, Einv, D, Dinv, up),
+              sdw_wrap.wrap_plain(G, model.expK, model.expK_inv, D, Dinv, up))
+             for up in (True, False)]
+    pairs += [(sdw_wrap.apply(G, E, D, herm),
+               sdw_wrap.apply_plain(G, model.expK, D, herm))
+              for herm in (False, True)]
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[sdw_wrap.launch_name(G.dtype, 2)] == 2
+    assert _kernels.LAUNCHES[sdw_wrap.launch_name(G.dtype, 2, True)] == 2
+    for k, p in pairs:
+        assert k.dtype == G.dtype
+        assert float((k - p).abs().max()) <= tol * float(p.abs().max())
+    p6 = sdw_wrap.plan(model.cfg.n_sites, G.dtype, 3,
+                       _kernels.sm_count(cuda_device), 2)
+    assert sdw_wrap.blocks_per_sm(model.cfg.n_sites, G.dtype, p6,
+                                  cuda_device, 2) >= 1
+
+
+@pytest.mark.parametrize("opdim", [1, 2])
+@pytest.mark.parametrize("kw", [
+    dict(), dict(update_kernel="delayed", delay=3, wrap_kernel="fused")],
+    ids=["immediate", "delayed-fused"])
+def test_sdw_reduced_sweep_on_card_matches_cpu(cuda_device, opdim, kw):
+    """A reduced sweep pair (L = 2, f64) on the card against the CPU from
+    one state and one set of draws: identical fields and acceptance, G
+    within 1e-10, the launch counts of the sweep structure (the q = 2
+    instances; the q = 4 ones never)."""
+    cfg = SDWConfig(L=2, opdim=opdim, r=0.5, beta=1.0, m=8, s=4,
+                    dtype="float64", **kw)
+    cpu = SDWModel(cfg, device="cpu")
+    gpu = SDWModel(cfg, device=cuda_device)
+    W = 2
+    gen = torch.Generator().manual_seed(7 + opdim)
+    sc = cpu.init_state(W, gen)
+    sg = SDWState(*[x.to(cuda_device) for x in sc])
+    d = tuple(cpu._draw_proposal_randoms(W, gen) for _ in range(2))
+    to_dev = lambda t: (t[0].to(cuda_device),                 # noqa: E731
+                        tuple(x.to(cuda_device) for x in t[1]))
+    _kernels.reset_launch_counts()
+    sc, oc = cpu.sweep_pair(sc, measure=True, draws=d)
+    sg, og = gpu.sweep_pair(sg, measure=True, draws=tuple(map(to_dev, d)))
+    torch.cuda.synchronize()
+    cdt, vdt = cpu.cdtype, cpu.vdtype
+    route = SDWModel.routes(cfg, "cuda")
+    upd = (sdw_delayed if route["update"] == "delayed" else sdw_update)
+    expect = dict.fromkeys(_kernels.LAUNCHES, 0)
+    expect.update({upd.launch_name(cdt, 2): 2 * cfg.m,
+                   qr.kernel_for(cfg.dim, cdt): 2 * cfg.n_stack,
+                   green_solve.kernel_for(cfg.dim, vdt): 2 * cfg.n_stack})
+    if route["wrap"] == "fused":
+        expect[sdw_wrap.launch_name(cdt, 2)] = 2 * cfg.m
+        expect[sdw_wrap.launch_name(cdt, 2, True)] = 2 * cfg.m
+    assert _kernels.LAUNCHES == expect
+    assert torch.equal(sg.phi.cpu(), sc.phi)
+    assert torch.equal(og.acceptance.cpu(), oc.acceptance)
+    assert float((sg.G.cpu() - sc.G).abs().max()) <= 1e-10
+    for a, b in zip(og, oc):
+        assert float((a.cpu() - b).abs().max()) <= 1e-10
+
+
+def test_sdw_reduced_refuses_what_it_lacks(cuda_device):
+    """No q = 4 real instance (the full opdim-1 chain is not ported), and
+    the fused wrap's limit at q = 2 in complex128 (N = 196)."""
+    model, st, gen = _sdw_reduced(cuda_device, 1, L=2)
+    G = st.G.contiguous()
+    D = torch.zeros((3, 4, 4, 4), dtype=G.dtype, device=cuda_device)
+    E4 = torch.zeros((4, 2, 2), dtype=G.dtype, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sdw_wrap.apply(torch.zeros((3, 8, 8), dtype=G.dtype,
+                                   device=cuda_device), E4, D, False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SDWModel(SDWConfig(L=14, opdim=2, m=8, s=4, dtype="float64"),
+                 device=cuda_device)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SDWModel(SDWConfig(L=2, opdim=1, m=8, s=4, fermion_matrix="full"),
+                 device=cuda_device)

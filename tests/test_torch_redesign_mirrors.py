@@ -227,11 +227,11 @@ def test_k3c_takes_every_sdw_dim():
     sdw_l4 main path's h = 64 included) is a K3c shape; L = 5 (h = 100)
     goes to K8 + K9, and the route's limit stays n = 83."""
     for L in range(1, 5):
-        h = SDWConfig(L=L, m=8, s=4).dim
+        h = SDWConfig(L=L, opdim=3, m=8, s=4).dim
         assert h == 4 * L * L
         assert green_solve.kernel_for(h, torch.complex128) == \
             "solve_inner_complex"
-    assert green_solve.kernel_for(SDWConfig(L=5, m=8, s=4).dim,
+    assert green_solve.kernel_for(SDWConfig(L=5, opdim=3, m=8, s=4).dim,
                                   torch.complex128) == "solve_inner_complex_big"
     assert green_solve.kernel_for(83, torch.complex128) == \
         "solve_inner_complex"
@@ -520,3 +520,71 @@ def test_k1_limits_and_routes():
     f64 = HubbardConfig(L=9, m=8, s=4, dtype="float64", ph_symmetry="off")
     assert HubbardModel.routes(f64, "cuda")["update"] == \
         "slice_update_delayed"
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128,
+                                   torch.float32, torch.float64])
+def test_q2_instances_shared_memory_and_plans(dtype):
+    """The reduced sector's q = 2 instances of K4, K5 and K6: their
+    shared-memory mirrors (csrc/sdw_update.cu update_smem,
+    csrc/sdw_delayed.cu delayed_smem, csrc/sdw_wrap.cu k6_smem_bytes at
+    q = 2), K5's 2 x 2 flush tile at every h = 2 N <= 512, and K6's plans
+    (og <= 2) within the budget wherever one orbital's F fits."""
+    budget = _kernels.MAX_SMEM_BYTES - 1024
+    item, ritem = dtype.itemsize, dtype.to_real().itemsize
+    for N in range(1, 81):
+        h = 2 * N
+        assert sdw_update.smem_bytes(N, 2, dtype, 2) == (
+            item * (h * h + 4 * h) + ritem * (N * 2 * 9 + N) + 16 * N)
+    # the quick start (L = 4, h = 32) fits K4 in every dtype
+    assert sdw_update.smem_bytes(16, 2, dtype, 2) <= budget
+    for N in (4, 9, 16, 64, 100, 256):
+        for K in (1, min(8, N)):
+            res, tile = sdw_delayed.plan(N, dtype, K, 2, 2)
+            assert tile == (2, 2)
+            b = sdw_delayed.RESIDENCES[res]
+            assert sdw_delayed.smem_bytes(N, dtype, K, b, 2, 2) == (
+                b * 2 * K * 2 * N * item + 4 * N * item
+                + ritem * (N * 2 * 9 + N) + 16 * N) <= budget
+    with pytest.raises(ValueError):
+        sdw_delayed.plan(257, dtype, 8, 2, 2)
+    assert all(og <= 2 for _, og, _ in sdw_wrap.plans(2))
+    for N in (4, 9, 16, 64, 100, 144):
+        TL, og, nb, tpc = sdw_wrap.plan(N, dtype, 128, 132, 2)
+        assert sdw_wrap.smem_bytes(N, dtype, TL, og, nb, q=2) <= budget
+        assert sdw_wrap.ctas(N, 128, TL, tpc, q=2) >= 128
+    # one orbital's F and the narrowest lines: N <= 219 in complex64, 149
+    # in complex128, 228 in float32, 158 in float64
+    last = {torch.complex64: 219, torch.complex128: 149,
+            torch.float32: 228, torch.float64: 158}[dtype]
+    sdw_wrap.plan(last, dtype, 1, 132, 2)
+    with pytest.raises(ValueError):
+        sdw_wrap.plan(last + 1, dtype, 1, 132, 2)
+
+
+def test_reduced_routes_and_bounds_on_the_card():
+    """The reduced chains' routes (K4 and the plain wraps at dim < 128,
+    K5 and K6 at dim >= 128, as the full model's) and the bounds a CUDA
+    device puts on them: K6's plan (complex64 up to L = 14, complex128 up
+    to L = 12, float32 up to L = 15, float64 up to L = 12), the full
+    matrix at opdim 1 not ported."""
+    for opdim in (1, 2):
+        for L, route in ((4, {"update": "immediate", "wrap": "plain"}),
+                         (8, {"update": "delayed", "wrap": "fused"})):
+            cfg = SDWConfig(L=L, opdim=opdim, m=8, s=4)
+            assert cfg.reduced and cfg.dim == 2 * L * L
+            assert SDWModel.routes(cfg, "cuda") == route
+            SDWModel._check_kernel_bounds(cfg)
+        for dt, last in (("float32", 14 if opdim == 2 else 15),
+                         ("float64", 12)):
+            SDWModel._check_kernel_bounds(SDWConfig(L=last, opdim=opdim,
+                                                    m=8, s=4, dtype=dt))
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                SDWModel._check_kernel_bounds(SDWConfig(
+                    L=last + 1, opdim=opdim, m=8, s=4, dtype=dt))
+    cfg = SDWConfig(L=4, opdim=2, m=8, s=4, fermion_matrix="full")
+    assert not cfg.reduced and cfg.dim == 64
+    assert SDWConfig(L=4, opdim=1, m=8, s=4).cdtype == torch.float32
+    assert SDWModel.routes(SDWConfig(L=8, opdim=2, m=8, s=4,
+                                     turnoffFermions=True),
+                           "cuda")["update"] == "bosonic"

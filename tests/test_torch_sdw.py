@@ -189,9 +189,11 @@ def test_f32_main_path_config_cut_to_m8():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(opdim=2), dict(opdim=1), dict(fermion_repr="real_embed"),
-    dict(green_kernel="refine"), dict(checkerboard=True, cb_apply="sparse"),
-    dict(turnoffFermions=True)],
+    dict(opdim=1, fermion_matrix="full"),
+    dict(opdim=2, checkerboard=True, cb_apply="sparse"),
+    dict(fermion_repr="real_embed"), dict(green_kernel="refine"),
+    dict(checkerboard=True, cb_apply="sparse"),
+    dict(opdim=2, green_kernel="refine")],
     ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_knobs_raise(kw):
     cfg = ts.SDWConfig(**dict(dict(L=2, opdim=3, m=4, s=2), **kw))
