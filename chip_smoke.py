@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's main paths once on one CUDA card: the
 Hubbard model and the O(3) SDW model, their sweeps and their unequal-time
-measurements.
+measurements, the reduced SDW chains and parallel tempering.
 
     python3 chip_smoke.py      # one card; exits 0 only if every phase passed
 
@@ -162,7 +162,40 @@ Phases (any failure raises, and the script exits non-zero):
    sweeps=40 thermalization=10 (the listed cut; one walker): exit 0,
    finite results, median green_dev < 1e-4, phase exactly 1, both moves
    fired, the launch counts against the code's formulas, the wall time
-   per sweep.
+   per sweep;
+21. parallel tempering (parallel/pt.py, pt_driver.py, det_pt.py and the
+   PT CLIs):
+   - parity, card against CPU (float64; SDW L=2 opdim 2, Hubbard L=4 in
+     both particle-hole modes): one label-swap measurement round
+     (DetQMCPT.round, E=2 systems of R=4 replicas, exchange_interval 2)
+     from the same walkers, draws and exchange uniforms — fields, tags,
+     labels and counters identical, G within 1e-10 — and two det-PT
+     exchanges on a beta grid of three values — log-weights within 1e-10
+     relative, decisions identical, every refreshed position bitwise
+     refresh_from_field's;
+   - examples/pt_sdw_r_grid.conf through detqmc_tpu_torch.cli.main_pt_sdw
+     in-process, its keys unchanged but thermalization=20 sweeps=20 (64
+     walkers): exit 0, p0 ... p7 with the JAX CLI's files,
+     exchange-rates.dat with the DEO attempt counts and a swap accepted,
+     finite results, median green_dev < 1e-4, phase exactly 1, the
+     launches of K4 q=2, K2c and K3c against the routes' formulas; the
+     wall of a round, walker-sweeps/s and a profiled round;
+   - the headline Hubbard model over stagger_h = 0, 0.05, 0.1, 0.2 with
+     64 systems (256 walkers) through cli.main_pt, thermalization=4
+     sweeps=8: exit 0, green_dev under 6e-3, |occupancy - 1| < 1e-3 at
+     h = 0, K1, K2 and K3 launches against the formulas, a round's wall;
+   - the conf over beta = 3.0, 3.5, 4.0 (det-coupled swaps, three models
+     of 8 walkers), thermalization=4 sweeps=8: exit 0, green_dev under
+     1e-4, phase exactly 1, the launches with the log-weights' QR counted
+     at its call site, the wall of a round's sweeps and of an exchange,
+     and a profiled exchange;
+   - a resume on the card: the conf in float64 with E=2, R=4, 4
+     measurements uninterrupted against 2 saved and 2 resumed by a
+     second CLI run: phi, labels, counters and generator state identical,
+     results within 1e-8.
+Phase 19 also times K2's float32 instance (qr_kernel) on the opdim-1
+paths' refactor blocks (n = 32 and 128) beside the plain QR and
+torch.linalg.qr, with its launches on those paths.
 
 The second-to-last line is {"kernels": [...]} (every number measured in
 this run; bound_ms is the larger of the kernel's bytes over the HBM rate
@@ -288,7 +321,34 @@ REDUCED_META = {
                      "complex64"),
     "sdw_apply_q2_real": ("detqmc_tpu_torch/csrc/sdw_wrap.cu",
                           "detqmc_tpu/linalg/pallas_sdw_wrap.py:51",
-                          "float32")}
+                          "float32"),
+    # K2's float32 instance (qr_kernel) on the opdim-1 paths' refactor
+    # blocks: n = 32 (sdw_o1_l4) and n = 128 (sdw_o1_l8)
+    "qr_f32_o1_l4": ("detqmc_tpu_torch/csrc/qr.cu",
+                     "detqmc_tpu/linalg/pallas_qr_lanes.py:149", "float32"),
+    "qr_f32_o1_l8": ("detqmc_tpu_torch/csrc/qr.cu",
+                     "detqmc_tpu/linalg/pallas_qr_lanes.py:149", "float32")}
+# phase 21: parallel tempering. examples/pt_sdw_r_grid.conf through the
+# port's PT CLI, its keys unchanged but cut to 20 + 20 rounds (SDW L=4
+# opdim 2 beta=4 m=40 s=4, 8 r values x 8 systems: 64 walkers,
+# exchangeInterval 2, float32); the headline Hubbard model over a
+# stagger_h grid at the headline's 256 walkers; the conf over a beta grid
+# (det-coupled swaps, m = 40 kept); a resume of the conf in float64 with
+# E = 2 systems of R = 4 replicas
+PT_CONF = Path(__file__).resolve().parent / "examples" / "pt_sdw_r_grid.conf"
+PT_SDW_CUT = ["thermalization=20", "sweeps=20"]
+PT_HUBBARD = ["model=hubbard", "L=8", "U=4.0", "beta=8.0", "m=80", "s=4",
+              "dtype=float32", "controlParameter=stagger_h",
+              "values=0,0.05,0.1,0.2", "ptEnsembles=64", "thermalization=4",
+              "sweeps=8"]
+DETPT_SDW = ["controlParameter=beta", "values=3.0,3.5,4.0",
+             "thermalization=4", "sweeps=8"]
+PT_RESUME = ["dtype=float64", "ptEnsembles=2", "values=0.0,0.5,1.0,1.5",
+             "thermalization=2", "blockMeas=2", "saveInterval=2",
+             "jkBlocks=2", "rngSeed=7"]
+PT_PARITY_TOL = 1e-10      # card vs CPU G after a PT round, float64
+PT_LOGW_TOL = 1e-10        # card vs CPU det-PT log-weights, relative
+N_PT_TIMED = 3             # timed rounds (median wall)
 # K1b bitwise in float64 with two spin sectors and a ragged tail chunk
 # (144 = 28 x 5 + 4)
 K1B_F64_CFG = dict(L=12, U=4.0, beta=2.0, m=8, s=4, dtype="float64",
@@ -395,6 +455,45 @@ def chain_inputs(model, state, k_mid):
     return block, f, right
 
 
+def real_qr_check(title, Ad):
+    """K2 on the real matrices Ad (B, n, n) against qr_plain (both
+    sign-normalized: R's diagonal made positive) within K2_TOL, R's strict
+    lower triangle exactly zero, timed with the plain QR and
+    torch.linalg.qr. Returns the kernel line's record."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import qr
+
+    dname, (B, N) = str(Ad.dtype)[6:], Ad.shape[:2]
+    Qk, Rk = qr.qr(Ad)
+    Qp, Rp = qr.qr_plain(Ad)
+    torch.cuda.synchronize()
+    check(bool((torch.tril(Rk, -1) == 0).all()),
+          f"{title}: R's strict lower triangle is not exactly zero")
+
+    def norm(Q, R):
+        sg = torch.where(torch.diagonal(R, dim1=-2, dim2=-1) >= 0,
+                         1.0, -1.0).to(Ad.dtype)
+        return Q * sg[:, None, :], R * sg[:, :, None]
+
+    (Qk, Rk), (Qp, Rp) = norm(Qk, Rk), norm(Qp, Rp)
+    err = max(float((Qk - Qp).abs().max()),
+              float(((Rk - Rp).abs().amax((1, 2))
+                     / Rp.abs().amax((1, 2))).max()))
+    recon = float((Qk @ Rk - Ad).abs().max() / Ad.abs().max())
+    check(err <= K2_TOL[dname], f"{title}: err {err:.3e} > {K2_TOL[dname]}")
+    check(recon <= K2_TOL[dname], f"{title}: |QR - A| {recon:.3e}")
+    ms = time_ms(lambda: qr.qr(Ad))
+    pms = time_ms(lambda: qr.qr_plain(Ad))
+    lms = time_ms(lambda: torch.linalg.qr(Ad))
+    print(f"{title} (B={B}, n={N}, {qr.blocks_per_sm(N, Ad.dtype, Ad.device)}"
+          f" CTAs/SM): err={err:.3e} (tol {K2_TOL[dname]}), |QR-A|/|A|="
+          f"{recon:.3e}, kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"torch.linalg.qr {lms:.4f} ms")
+    return record(err, ms, pms, lms, bound(nbytes(Ad, Qk, Rk),
+                                           qr_flops(B, N, False)))
+
+
 def kernel_phase(model, state, gen):
     """K1/K2/K3 against their plain versions at the main-path shapes."""
     import torch
@@ -438,39 +537,9 @@ def kernel_phase(model, state, gen):
 
     # K2: QR of the refactor blocks
     A = block.reshape(-1, N, N).contiguous()
-    rec = {}
-    for dname, dt in (("float32", torch.float32), ("float64", torch.float64)):
-        Ad = A.to(dt)
-        Qk, Rk = qr.qr(Ad)
-        Qp, Rp = qr.qr_plain(Ad)
-        torch.cuda.synchronize()
-        check(bool((torch.tril(Rk, -1) == 0).all()),
-              "K2: R's strict lower triangle is not exactly zero")
-
-        def norm(Q, R):
-            sg = torch.where(torch.diagonal(R, dim1=-2, dim2=-1) >= 0,
-                             1.0, -1.0).to(dt)
-            return Q * sg[:, None, :], R * sg[:, :, None]
-
-        (Qk, Rk), (Qp, Rp) = norm(Qk, Rk), norm(Qp, Rp)
-        err = max(float((Qk - Qp).abs().max()),
-                  float(((Rk - Rp).abs().amax((1, 2))
-                         / Rp.abs().amax((1, 2))).max()))
-        recon = float((Qk @ Rk - Ad).abs().max() / Ad.abs().max())
-        check(err <= K2_TOL[dname], f"K2 {dname}: err {err:.3e} > "
-              f"{K2_TOL[dname]}")
-        check(recon <= K2_TOL[dname], f"K2 {dname}: |QR - A| {recon:.3e}")
-        ms = time_ms(lambda: qr.qr(Ad))
-        pms = time_ms(lambda: qr.qr_plain(Ad))
-        lms = time_ms(lambda: torch.linalg.qr(Ad))
-        print(f"K2 qr {dname} (B={A.shape[0]}, n={N}, "
-              f"{qr.blocks_per_sm(N, dt, Ad.device)} CTAs/SM): err={err:.3e} "
-              f"(tol {K2_TOL[dname]}), |QR-A|/|A|={recon:.3e}, kernel "
-              f"{ms:.4f} ms, plain {pms:.4f} ms, torch.linalg.qr "
-              f"{lms:.4f} ms")
-        rec[dname] = record(err, ms, pms, lms, bound(
-            nbytes(Ad, Qk, Rk), qr_flops(A.shape[0], N, False)))
-    out["qr"] = rec
+    out["qr"] = {dname: real_qr_check(f"K2 qr {dname}", A.to(dt))
+                 for dname, dt in (("float32", torch.float32),
+                                   ("float64", torch.float64))}
 
     # K3: inner solve at mid-chain conditioning
     inner, r1, _ = green_inner(left, right)
@@ -2397,7 +2466,7 @@ def reduced_paths_phase(device, card):
             check(any(k.startswith("sdw_") for k in ran),
                   f"reduced parity: no update kernel ran {ran}")
     lap("reduced path parity (phase 18)")
-    counts = {}
+    counts, kern = {}, {}
     for title, cfg_kw in (("sdw_o2_quickstart", SDW_O2_L4_CFG),
                           ("sdw_o1_l4", SDW_O1_L4_CFG),
                           ("sdw_o2_l8", SDW_O2_L8_CFG),
@@ -2412,9 +2481,16 @@ def reduced_paths_phase(device, card):
                                                generator=gen),
                       wall_ms, REDUCED_GROUPS, f"{title} profile")
         counts.update({k: v for k, v in c.items() if "q2" in k and v})
+        if cfg_kw["opdim"] == 1:
+            # K2 in float32 (qr_kernel) on the path's refactor block
+            name = "qr_f32" + title[len("sdw"):]
+            block = sdw_chain_inputs(model, state, 0)[0].contiguous()
+            kern[name] = {"float32": real_qr_check(
+                f"K2 qr float32 ({title})", block)}
+            counts[name] = c["qr"]
         del model, state
         lap(f"{title} main path (phase 19)")
-    return counts
+    return counts, kern
 
 
 def quickstart_cli_phase():
@@ -2478,6 +2554,492 @@ def quickstart_cli_phase():
           f"; launches {({k: v for k, v in counts.items() if v})} (expected "
           f"{({k: v for k, v in expect.items() if v})})")
     check(counts == expect, f"quick start: launch counts {counts} != {expect}")
+    return counts
+
+
+# ---- phase 21: parallel tempering ---------------------------------------
+def _to(tree, device):
+    """Nested tuples and NamedTuples of tensors (a walker state, draws) on
+    ``device``."""
+    items = [_to(x, device) if isinstance(x, tuple) else x.to(device)
+             for x in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
+def _pt_model(model_name, device, **kw):
+    """The parity phases' small float64 models: SDW L=2 opdim 2 (reduced,
+    complex) or Hubbard L=4 (``kw``: ph_symmetry, beta)."""
+    if model_name == "sdw":
+        from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+        return SDWModel(SDWConfig(**dict(dict(
+            L=2, opdim=2, r=0.5, beta=1.0, m=8, s=4, dtype="float64"),
+            **kw)), device=device)
+    from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
+
+    return HubbardModel(HubbardConfig(**dict(dict(
+        L=4, U=4.0, beta=2.0, m=8, s=4, dtype="float64"), **kw)),
+        device=device)
+
+
+def pt_round_parity(device, model_name, **kw):
+    """One label-swap measurement round (E = 2 systems of R = 4 replicas,
+    exchange_interval 2: an unmeasured pair, a measured one, the tag, the
+    exchange, the relabel) through DetQMCPT.round on ``device`` and on the
+    CPU from the same walkers, the same sweep draws and the same exchange
+    uniforms: fields, tags, labels and counters identical, G within
+    PT_PARITY_TOL. Returns (max|dG|, accepted swaps, the launches on
+    ``device``)."""
+    import torch
+
+    from detqmc_tpu_torch.driver import DriverConfig
+    from detqmc_tpu_torch.linalg import _kernels
+    from detqmc_tpu_torch.parallel.pt import PTState
+    from detqmc_tpu_torch.parallel.pt_driver import DetQMCPT, PTConfig
+
+    E, R, ei = 2, 4, 2
+    sdw = model_name == "sdw"
+    grid = [0.0, 0.5, 1.0, 1.5] if sdw else [0.0, 0.02, 0.04, 0.06]
+    ptp = PTConfig(exchange_interval=ei, n_ensembles=E,
+                   control_parameter="r" if sdw else "stagger_h")
+    cpu, card = (DetQMCPT(_pt_model(model_name, dev, **kw), grid,
+                          DriverConfig(n_walkers=1, seed=21), ptp)
+                 for dev in ("cpu", device))
+    cpu.init()
+    card.states = _to(cpu.states, device)
+    card.pt_state = PTState(*[t.to(device) for t in cpu.pt_state])
+    gen = torch.Generator().manual_seed(2121)
+    W, cfg = E * R, cpu.model.cfg
+    draws = []
+    for _ in range(ei):
+        if sdw:
+            draws.append({"draws": tuple(cpu.model._draw_proposal_randoms(
+                W, gen) for _ in range(2))})
+        else:
+            draws.append({"u01": tuple(torch.rand(
+                (W, cfg.m, cfg.n_sites), generator=gen, dtype=torch.float64)
+                for _ in range(2))})
+    draws_dev = [{k: _to(v, device) for k, v in d.items()} for d in draws]
+    u = torch.rand((E, R), generator=gen, dtype=torch.float32)
+    _kernels.reset_launch_counts()
+    _, tag_c = cpu.round(True, draws, u)
+    _, tag_g = card.round(True, draws_dev, u.to(device))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ran = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    leaf = "phi" if sdw else "field"
+    check(torch.equal(getattr(card.states, leaf).cpu(),
+                      getattr(cpu.states, leaf)),
+          f"PT round parity ({model_name}): fields differ")
+    check(torch.equal(tag_g.cpu(), tag_c), "PT round parity: tags differ")
+    check(all(torch.equal(a.cpu(), b) for a, b in
+              zip(card.pt_state, cpu.pt_state)),
+          "PT round parity: labels or counters differ")
+    param = "r" if sdw else "h"
+    check(torch.equal(getattr(card.states, param).cpu(),
+                      getattr(cpu.states, param)),
+          f"PT round parity: the relabelled {param} differ")
+    gerr = float((card.states.G.cpu() - cpu.states.G).abs().max())
+    check(gerr <= PT_PARITY_TOL, f"PT round parity: G err {gerr:.3e}")
+    n_acc = int(cpu.pt_state.n_accepted.sum())
+    check(n_acc > 0, "PT round parity: no swap accepted")
+    return gerr, n_acc, ran
+
+
+def det_pt_exchange_parity(device, model_name, **kw):
+    """Two det-PT exchanges (both parities; E = 4 lanes, a beta grid of
+    three values) on ``device`` and on the CPU from the same walkers and
+    uniforms: every position's log-weight within PT_LOGW_TOL relative,
+    decisions identical, the fields identical after each exchange, and
+    every position's G and stack bitwise refresh_from_field's on its own
+    device. Returns (max relative log-weight difference, accepted swaps,
+    attempts)."""
+    import torch
+
+    from detqmc_tpu_torch.driver import DriverConfig
+    from detqmc_tpu_torch.parallel.det_pt import (DetPTConfig, DetQMCPTDet,
+                                                  config_leaf)
+
+    betas = [1.6, 2.0, 2.4]
+    cpu, card = (DetQMCPTDet([_pt_model(model_name, dev, beta=b, **kw)
+                              for b in betas], betas,
+                             DriverConfig(n_walkers=1, seed=22),
+                             DetPTConfig(n_ensembles=4))
+                 for dev in ("cpu", device))
+    cpu.init()
+    card.states = [_to(st, device) for st in cpu.states]
+    leaf = config_leaf(cpu.states[0])
+    gen = torch.Generator().manual_seed(2222)
+    worst = 0.0
+    for _ in range(2):
+        for mc, mg, st in zip(cpu.models, card.models, cpu.states):
+            f = getattr(st, leaf)
+            a, b = mc.log_weight(f), mg.log_weight(f.to(device)).cpu()
+            worst = max(worst, float(((a - b).abs()
+                                      / a.abs().clamp(min=1.0)).max()))
+        u = torch.rand((2, 4), generator=gen, dtype=torch.float32)
+        out_c = cpu.exchange(u)
+        out_g = card.exchange(u.to(device))
+        check(all(torch.equal(out_g[g][1].cpu(), out_c[g][1])
+                  for g in out_c), "det-PT parity: decisions differ")
+        check(all(torch.equal(getattr(a, leaf).cpu(), getattr(b, leaf))
+                  for a, b in zip(card.states, cpu.states)),
+              "det-PT parity: fields differ after the exchange")
+        for g in {p + i for p in out_g for i in (0, 1)}:
+            st = card.states[g]
+            fresh = card.models[g].refresh_from_field(st)
+            check(all(torch.equal(x, y) for x, y in zip(_leaves(fresh),
+                                                        _leaves(st))),
+                f"det-PT parity: position {g} is not refresh_from_field's")
+    check(worst <= PT_LOGW_TOL, f"det-PT parity: log-weights differ by "
+          f"{worst:.3e}")
+    n_acc, n_att = int(cpu.n_accepted.sum()), int(cpu.n_attempted.sum())
+    check(torch.equal(card.n_accepted.cpu(), cpu.n_accepted),
+          "det-PT parity: counters differ")
+    return worst, n_acc, n_att
+
+
+def _leaves(state):
+    """Every tensor of a (nested) walker state, in order."""
+    out = []
+    for x in state:
+        out.extend(_leaves(x) if isinstance(x, tuple) else [x])
+    return out
+
+
+def pt_parity_phase(device):
+    """Phase 21's card-vs-CPU parity: a label-swap round (SDW L=2 opdim 2
+    and Hubbard L=4 in both particle-hole modes) and two det-PT
+    exchanges on a beta grid (the same models), float64."""
+    for name, kw in (("sdw", {}), ("hubbard", dict(ph_symmetry="on")),
+                     ("hubbard", dict(ph_symmetry="off", mu=-0.3))):
+        gerr, n_acc, ran = pt_round_parity(device, name, **kw)
+        knobs = "".join(f" {k}={v}" for k, v in kw.items())
+        print(f"PT round parity ({name}{knobs}, E=2 R=4, exchange_interval "
+              f"2, f64): fields, tags, labels, counters identical, "
+              f"{n_acc} swaps accepted, max|dG|={gerr:.3e} (tol "
+              f"{PT_PARITY_TOL}); card launches {ran}")
+        worst, n_acc, n_att = det_pt_exchange_parity(device, name, **kw)
+        print(f"det-PT exchange parity ({name}{knobs}, beta 1.6/2.0/2.4, "
+              f"E=4, two exchanges): log-weights within {worst:.3e} "
+              f"relative (tol {PT_LOGW_TOL}), decisions identical "
+              f"({n_acc} of {n_att} accepted), every refreshed position "
+              "bitwise refresh_from_field's")
+
+
+class RunCapture:
+    """While open, every instance of ``cls`` whose run() is called is
+    kept in ``runs`` (the CLI's driver, for its state after the run)."""
+
+    def __init__(self, cls):
+        self.cls, self.runs = cls, []
+
+    def __enter__(self):
+        self._orig = self.cls.run
+
+        def run(inst, *a, **kw):
+            self.runs.append(inst)
+            return self._orig(inst, *a, **kw)
+
+        self.cls.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self._orig
+
+
+def pt_cli_run(main, argv, drivers):
+    """``main(argv + [outdir])`` in-process on the card with the launch
+    counts reset: (rc, the driver instance, {file: text of the run's
+    top-level info.dat, exchange-rates.dat}, {k: p{k}'s results},
+    {k: p{k}'s file names}, launches, the log-det's launches, wall s)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from detqmc_tpu_torch.io.series import load_results
+    from detqmc_tpu_torch.linalg import _kernels
+    from detqmc_tpu_torch.metadata import string_to_metadata
+
+    with tempfile.TemporaryDirectory() as outdir:
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with LogdetLaunches() as ld, RunCapture(drivers) as cap:
+            rc = main(argv + [f"outdir={outdir}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_kernels.LAUNCHES)
+        with open(os.path.join(outdir, "info.dat")) as f:
+            info = string_to_metadata(f.read())
+        with open(os.path.join(outdir, "exchange-rates.dat")) as f:
+            rates = [[int(x) for x in line.split()[:3]]
+                     for line in f.read().splitlines()[1:]]
+        subs = sorted(d for d in os.listdir(outdir) if d.startswith("p"))
+        res = {int(d[1:]): load_results(os.path.join(outdir, d,
+                                                      "results.values"))
+               for d in subs}
+        files = {int(d[1:]): set(os.listdir(os.path.join(outdir, d)))
+                 for d in subs}
+    return rc, cap.runs[0], info, rates, res, files, counts, ld.counts, wall
+
+
+def deo_attempts(n_rounds: int, R: int, E: int) -> list:
+    """Attempts per adjacent pair after ``n_rounds`` DEO exchanges from
+    parity 0: pair i is tried at the rounds of parity i % 2."""
+    return [E * ((n_rounds + 1 - i % 2) // 2) for i in range(R - 1)]
+
+
+def time_rounds(fn, n=N_PT_TIMED):
+    """Median wall (ms, synchronized) of ``n`` calls of ``fn`` (warm: after
+    a CLI run of the same driver)."""
+    import torch
+
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(walls)
+
+
+def pt_sdw_phase(card):
+    """examples/pt_sdw_r_grid.conf through detqmc_tpu_torch.cli.main_pt_sdw
+    in-process, its keys unchanged but PT_SDW_CUT: exit 0, every p{k}
+    with the JAX CLI's files, exchange-rates.dat with the DEO attempt
+    counts and a swap accepted, finite results, median green_dev under the
+    gate, phase exactly 1, the launches against the routes' formulas; then
+    the wall of a round (median of N_PT_TIMED) and a profiled round.
+    Returns the run's launch counts."""
+    import math
+
+    from detqmc_tpu_torch.cli.main_pt_sdw import main as cli_main
+    from detqmc_tpu_torch.parallel.pt_driver import DetQMCPT
+
+    argv = ["--conf", str(PT_CONF), *PT_SDW_CUT]
+    rc, qmc, info, rates, res, files, counts, ld, wall = pt_cli_run(
+        cli_main, argv, DetQMCPT)
+    check(rc == 0, f"pt_sdw_r_grid CLI exited {rc}")
+    R, E, ei = qmc.R, qmc.E, qmc.ptp.exchange_interval
+    want = {"info.dat", "results.values", "phiSquared.series",
+            "phase.series", "results-phiCorrelation.values"}
+    check(sorted(files) == list(range(R)) and all(
+        want <= f for f in files.values()),
+        f"pt_sdw_r_grid: p0..p{R - 1} or their files missing {files}")
+    n_rounds = max(1, qmc.p.thermalization // ei) + qmc.p.n_measurements
+    att = [r[1] for r in rates]
+    check(len(rates) == R - 1 and att == deo_attempts(n_rounds, R, E),
+          f"pt_sdw_r_grid: attempts {att} != "
+          f"{deo_attempts(n_rounds, R, E)}")
+    n_acc = sum(r[2] for r in rates)
+    check(n_acc > 0, "pt_sdw_r_grid: no swap accepted")
+    check(all(math.isfinite(v) for r in res.values() for pair in r.values()
+              for v in pair), "pt_sdw_r_grid: non-finite results")
+    dev = float(info["greenDevMedian"])
+    check(dev < SDW_GREEN_DEV_GATE, f"pt_sdw_r_grid: median green_dev "
+          f"{dev:.3e}")
+    check(all(r["phase"][0] == 1.0 for r in res.values()),
+          "pt_sdw_r_grid: phase is not exactly 1")
+    pairs = n_rounds * ei
+    expect = dict.fromkeys(counts, 0)
+    expect.update(path_launches(qmc.model, pairs))
+    check(counts == expect, f"pt_sdw_r_grid: launch counts {counts} != "
+          f"{expect}")
+    check(not ld, f"pt_sdw_r_grid: a log-det ran {ld}")
+    W = R * E
+    print(f"pt_sdw_r_grid detqmc_tpu_torch.cli.main_pt_sdw --conf "
+          f"{PT_CONF.name} {' '.join(PT_SDW_CUT)} (W={W}: R={R} x E={E}, "
+          f"dim {qmc.model.dim}, {n_rounds} rounds of {ei} pairs): exit 0 "
+          f"in {wall:.2f} s, {R} value directories; green_dev median "
+          f"{dev:.4e} (gate {SDW_GREEN_DEV_GATE}), phase 1, phiSquared "
+          + ", ".join(f"{res[k]['phiSquared'][0]:.4f}" for k in range(R))
+          + f" (r = {info['controlParameterValues']}); exchange-rates "
+          + ", ".join(f"{a}/{b}" for _, b, a in rates)
+          + f" accepted/attempted; launches "
+          f"{({k: v for k, v in counts.items() if v})} (expected "
+          f"{({k: v for k, v in expect.items() if v})})")
+    ms = time_rounds(lambda: qmc.round(measure=True))
+    print(f"  a measurement round ({ei} pairs, exchange, relabel; W={W}): "
+          f"{ms:.2f} ms wall (median of {N_PT_TIMED}), "
+          f"{W * 2 * ei / ms * 1e3:.1f} walker-sweeps/s on {card}")
+    profile_phase(lambda: qmc.round(measure=True), ms, REDUCED_GROUPS,
+                  "pt_sdw_r_grid profile", "one round")
+    return counts
+
+
+def pt_hubbard_phase(card):
+    """PT_HUBBARD (the headline model over a stagger_h grid, 64 systems:
+    256 walkers) through detqmc_tpu_torch.cli.main_pt in-process: exit 0,
+    median green_dev under the gate, |occupancy - 1| < OCC_GATE at h = 0,
+    the DEO attempts, K1, K2 and K3 launches against the formulas; the
+    wall of a round."""
+    from detqmc_tpu_torch.cli.main_pt import main as cli_main
+    from detqmc_tpu_torch.parallel.pt_driver import DetQMCPT
+
+    rc, qmc, info, rates, res, files, counts, _, wall = pt_cli_run(
+        cli_main, list(PT_HUBBARD), DetQMCPT)
+    check(rc == 0, f"pt_hubbard_h_l8 CLI exited {rc}")
+    R, E, ei, cfg = qmc.R, qmc.E, qmc.ptp.exchange_interval, qmc.model.cfg
+    n_rounds = max(1, qmc.p.thermalization // ei) + qmc.p.n_measurements
+    att = [r[1] for r in rates]
+    check(att == deo_attempts(n_rounds, R, E),
+          f"pt_hubbard_h_l8: attempts {att}")
+    dev = float(info["greenDevMedian"])
+    check(dev < GREEN_DEV_GATE, f"pt_hubbard_h_l8: green_dev {dev:.3e}")
+    occ = res[0]["occupancy"][0]
+    check(abs(occ - 1.0) < OCC_GATE, f"pt_hubbard_h_l8: occupancy {occ}")
+    pairs, K = n_rounds * ei, cfg.n_stack
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"slice_update": 2 * cfg.m * pairs,
+                   "qr": K + 2 * K * pairs, "solve_inner": 1 + 2 * K * pairs})
+    check(counts == expect, f"pt_hubbard_h_l8: launch counts {counts} != "
+          f"{expect}")
+    W = R * E
+    ms = time_rounds(lambda: qmc.round(measure=True))
+    print(f"pt_hubbard_h_l8 detqmc_tpu_torch.cli.main_pt "
+          f"{' '.join(PT_HUBBARD)} (W={W}): exit 0 in {wall:.2f} s; "
+          f"green_dev median {dev:.4e} (gate {GREEN_DEV_GATE}), occupancy "
+          f"at h=0 {occ:.8f}, doubleOccupancy "
+          + ", ".join(f"{res[k]['doubleOccupancy'][0]:.4f}"
+                      for k in range(R))
+          + "; exchange-rates " + ", ".join(f"{a}/{b}" for _, b, a in rates)
+          + f"; launches {({k: v for k, v in counts.items() if v})} "
+          f"(expected); a measurement round {ms:.2f} ms wall, "
+          f"{W * 2 * ei / ms * 1e3:.1f} walker-sweeps/s on {card}")
+    return counts
+
+
+def detpt_sdw_phase(card):
+    """DETPT_SDW (pt_sdw_r_grid.conf over a beta grid: three models of E
+    walkers, det-coupled swaps) through detqmc_tpu_torch.cli.main_pt_sdw
+    in-process: exit 0, median green_dev under the gate, phase exactly 1,
+    the DEO attempts, the launches against the formulas with the
+    log-weight's QR counted at its call site; the wall of a round and of
+    an exchange."""
+    import torch
+
+    from detqmc_tpu_torch.cli.main_pt_sdw import main as cli_main
+    from detqmc_tpu_torch.linalg import green_solve, qr
+    from detqmc_tpu_torch.parallel.det_pt import DetQMCPTDet
+
+    argv = ["--conf", str(PT_CONF), *DETPT_SDW]
+    rc, qmc, info, rates, res, files, counts, ld, wall = pt_cli_run(
+        cli_main, argv, DetQMCPTDet)
+    check(rc == 0, f"detpt_sdw_beta CLI exited {rc}")
+    G, E, ei = qmc.G, qmc.E, qmc.ptp.exchange_interval
+    model, K = qmc.models[0], qmc.models[0].cfg.n_stack
+    n_rounds = max(1, qmc.p.thermalization // ei) + qmc.p.n_measurements
+    att = [r[1] for r in rates]
+    check(att == deo_attempts(n_rounds, G, E), f"detpt_sdw_beta: attempts "
+          f"{att} != {deo_attempts(n_rounds, G, E)}")
+    dev = max(float(st.green_dev.double().median()) for st in qmc.states)
+    check(dev < SDW_GREEN_DEV_GATE, f"detpt_sdw_beta: green_dev {dev:.3e}")
+    check(all(r["phase"][0] == 1.0 for r in res.values()) and all(
+        torch.equal(st.phase, torch.ones_like(st.phase))
+        for st in qmc.states), "detpt_sdw_beta: phase is not exactly 1")
+    # per exchange: the pairs of its parity, four log-weights each (a
+    # stack of K refactors and the log-det's QR), two refreshes (one G)
+    logw = sum(4 * len(range(r % 2, G - 1, 2)) for r in range(n_rounds))
+    refreshes = logw // 2
+    pairs = n_rounds * ei * G
+    expect = dict.fromkeys(counts, 0)
+    expect.update(path_launches(model, pairs, inits=G))
+    qk = qr.kernel_for(model.dim, model.cdtype)
+    sk = green_solve.kernel_for(model.dim, torch.complex128)
+    expect[qk] += logw * (K + 1)
+    expect[sk] += refreshes
+    check(counts == expect, f"detpt_sdw_beta: launch counts {counts} != "
+          f"{expect}")
+    check(ld == {qk: logw}, f"detpt_sdw_beta: log-det launches {ld}")
+
+    def one_round():
+        for g in range(G):
+            qmc._sweep(g, ei)
+
+    sweep_ms = time_rounds(one_round, 1)
+    ex_ms = time_rounds(qmc.exchange)
+    print(f"detpt_sdw_beta detqmc_tpu_torch.cli.main_pt_sdw --conf "
+          f"{PT_CONF.name} {' '.join(DETPT_SDW)} ({G} models x E={E}, dim "
+          f"{model.dim}): exit 0 in {wall:.2f} s; green_dev median (worst "
+          f"model) {dev:.4e}, phase 1, phiSquared "
+          + ", ".join(f"{res[k]['phiSquared'][0]:.4f}" for k in range(G))
+          + "; exchange-rates " + ", ".join(f"{a}/{b}" for _, b, a in rates)
+          + f"; launches {({k: v for k, v in counts.items() if v})} "
+          f"(expected), the log-weights' own QR {ld}; the sweeps of a round "
+          f"({G} x {ei} pairs) {sweep_ms:.2f} ms, an exchange "
+          f"{ex_ms:.2f} ms ({100 * ex_ms / (sweep_ms + ex_ms):.1f} % of a "
+          f"round) on {card}")
+    profile_phase(qmc.exchange, ex_ms, REDUCED_GROUPS,
+                  "detpt_sdw_beta exchange profile", "one exchange")
+    return counts, ld
+
+
+def pt_resume_check():
+    """The label-swap L=4 float64 configuration (PT_RESUME: E = 2, R = 4)
+    through the CLI on the card: 4 measurements uninterrupted against 2
+    saved and 2 resumed by a second CLI run: phi, the labels, the
+    counters and the generator state identical, the results of every
+    value within 1e-8 (relative)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from detqmc_tpu_torch.cli.main_pt_sdw import main as cli_main
+    from detqmc_tpu_torch.io.series import load_results
+
+    argv = ["--conf", str(PT_CONF), *PT_RESUME]
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, split = os.path.join(tmp, "whole"), os.path.join(tmp, "split")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rcs = [cli_main(argv + ["sweeps=4", f"outdir={whole}"]),
+                   cli_main(argv + ["sweeps=2", f"outdir={split}"]),
+                   cli_main(argv + ["sweeps=4", f"outdir={split}"])]
+        wall = time.perf_counter() - t0
+        check(rcs == [0, 0, 0], f"PT resume: exit codes {rcs}")
+        zw, zs = (dict(np.load(os.path.join(d, "state.npz")))
+                  for d in (whole, split))
+        R = len([d for d in os.listdir(whole) if d.startswith("p")])
+        rw, rs = ([load_results(os.path.join(d, f"p{k}", "results.values"))
+                   for k in range(R)] for d in (whole, split))
+    exact = [k for k in zw if not k.startswith("obs/p")]
+    check(zw.keys() == zs.keys() and all(
+        np.array_equal(zw[k], zs[k]) for k in exact),
+        "PT resume: phi, labels, counters or the generator differ: "
+        f"{[k for k in exact if not np.array_equal(zw[k], zs[k])]}")
+    worst = max([float(np.max(np.abs(zw[k] - zs[k]) / np.maximum(
+        np.abs(zw[k]), 1e-300))) for k in zw if k.startswith("obs/p")]
+        + [abs(a - b) / max(abs(a), 1e-300) for w, s in zip(rw, rs)
+           for n in w for a, b in zip(w[n], s[n])])
+    check(worst <= 1e-8, f"PT resume: results differ by {worst:.3e}")
+    print(f"PT resume on the card (--conf {PT_CONF.name} "
+          f"{' '.join(PT_RESUME)}): 4 measurements uninterrupted vs saved at "
+          f"2 and resumed: phi, labels, counters and generator state "
+          f"identical ({len(exact)} arrays), {R} values' results within "
+          f"{worst:.3e} (tol 1e-8); three CLI runs {wall:.2f} s")
+
+
+def pt_phase(device, card):
+    """Phase 21: parallel tempering — card-vs-CPU parity, the three PT
+    configurations through the CLIs, a resume. Returns the launches of
+    the main paths."""
+    pt_parity_phase(device)
+    lap("PT parity (phase 21)")
+    counts = pt_sdw_phase(card)
+    lap("pt_sdw_r_grid (phase 21)")
+    pt_hubbard_phase(card)
+    lap("pt_hubbard_h_l8 (phase 21)")
+    detpt_sdw_phase(card)
+    lap("detpt_sdw_beta (phase 21)")
+    pt_resume_check()
+    lap("PT resume (phase 21)")
     return counts
 
 
@@ -2645,9 +3207,13 @@ def main() -> int:
     # phases 17-20: the reduced two-sector chains (opdim 2 and 1)
     kern.update(reduced_kernel_phase(device))
     lap("reduced kernels (phase 17)")
-    counts.update(reduced_paths_phase(device, card))
+    c, k = reduced_paths_phase(device, card)
+    counts.update(c)
+    kern.update(k)
     quickstart_cli_phase()
     lap("quick start CLI (phase 20)")
+    # phase 21: parallel tempering
+    pt_phase(device, card)
 
     meta = {"slice_update": ("detqmc_tpu_torch/csrc/slice_update.cu",
                              "detqmc_tpu/linalg/pallas_update_lanes.py:185",

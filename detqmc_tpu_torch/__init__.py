@@ -8,9 +8,10 @@ sequential factorizations and per-site updates: the slice updates (K1,
 its delayed form K1b, K4, K5), the fused SDW wrap and apply (K6), the
 refactor QRs (K2, K2c, K7), the stabilized inner solves with a diagonal
 or a dense right-hand side (K3, K3c, K8, their ``_rhs`` entries) and the
-blocked triangular inverse (K9). The Hubbard model runs through the
-port's own driver and CLI (``driver.py``, ``cli/main_hubbard.py``), which
-write the JAX package's output files.
+blocked triangular inverse (K9). Both models run through the port's
+own driver and CLIs (``driver.py``, ``cli/main_hubbard.py``,
+``cli/main_sdw.py``) and through its parallel tempering (``parallel/``,
+``cli/main_pt.py``), which write the JAX package's output files.
 
 Which one runs is decided by the device of the tensors: a CPU tensor goes
 through the kernel's plain PyTorch version, a CUDA tensor through the

@@ -1,9 +1,9 @@
 """Config system: `key = value` files + CLI flags -> validated dataclasses.
 
-The port's copy of detqmc_tpu/config.py, for the Hubbard and SDW CLIs:
-the same keys, parsing and validation, building the port's DriverConfig,
-HubbardConfig and SDWConfig (the parallel-tempering keys come with their
-CLIs, ROADMAP.md Queue 1 item 10). One divergence: the SDW key
+The port's copy of detqmc_tpu/config.py, for the Hubbard, SDW and
+parallel-tempering CLIs: the same keys, parsing and validation, building
+the port's DriverConfig, HubbardConfig and SDWConfig, and the PT keys
+(``_PT_KEYS``, ``pt_params``). One divergence: the SDW key
 ``accRatio``, which the JAX config drops, becomes the driver's
 ``target_acc_ratio`` (``build_sdw_driver_config``).
 
@@ -153,6 +153,14 @@ _SDW_KEYS = {
     "greenRefineIters": int, "ozakiChainLimbs": int, "cbApply": str,
     "wrapPrec": str, "wrapKernel": str,
 }
+
+_PT_KEYS = {
+    "exchangeInterval": int,
+    "values": str,          # comma-separated control-parameter grid
+    "controlParameter": str,
+    "ptEnsembles": int,     # independent PT systems batched together
+}
+
 
 def resolve_time_grid(params: Dict[str, Any]) -> Tuple[float, int]:
     """Two-of-three (beta, m, dtau) rule (reference: DetQMCParams.check)."""
@@ -309,3 +317,11 @@ def build_sdw_driver_config(driver_params: Dict[str, str],
                        "sdw")["accRatio"]
         drv = dataclasses.replace(drv, target_acc_ratio=acc)
     return drv
+
+
+def pt_params(extra: Dict[str, str]) -> Dict[str, Any]:
+    typed = _convert(extra, _PT_KEYS, "parallel tempering")
+    if "values" in typed:
+        typed["values"] = [float(x) for x in
+                           str(typed["values"]).split(",") if x.strip()]
+    return typed

@@ -108,6 +108,14 @@ def udv_refactor(M: torch.Tensor, d: torch.Tensor, V: torch.Tensor) -> UDV:
     return UDV(U=g.U, d=d_new, V=mm(Vb, V.to(cdt)))
 
 
+def udv_multiply_left(B: torch.Tensor, f: UDV) -> UDV:
+    """UdV of (B @ U d V): refactor (B U) d, accumulate V — the
+    stack-advance step, a new block of B matrices on the left of a factored
+    partial product (for the transposed right stack pass B^H). Port of
+    detqmc_tpu.linalg.udv.udv_multiply_left."""
+    return udv_refactor(mm(B, f.U), f.d, f.V)
+
+
 def udv_eye(n: int, dtype, batch_shape=(), device=None) -> UDV:
     """Identity UdV; d is real (float32 for complex64, float64 for
     complex128)."""
@@ -153,6 +161,15 @@ def green_from_two_udv(left: UDV, right_t: UDV) -> torch.Tensor:
     cdt = inner.dtype
     G = mm(scale_cols(right_t.U.to(cdt), r2), mm(mid, _H(left.U.to(cdt))))
     return G.to(left.U.dtype)
+
+
+def green_from_udv(f: UDV) -> torch.Tensor:
+    """Stable G = (1 + U d V)^{-1} of a straight whole-chain factorization:
+    the pair formula with an identity other half (port of
+    detqmc_tpu.linalg.udv.green_from_udv)."""
+    eye_t = udv_eye(f.U.shape[-1], f.U.dtype, batch_shape=f.d.shape[:-1],
+                    device=f.U.device)
+    return green_from_two_udv(f, eye_t)
 
 
 def tau_zero_operands(left: UDV, right_t: UDV):
@@ -252,3 +269,11 @@ def log_abs_diag(R: torch.Tensor) -> torch.Tensor:
     absr = torch.diagonal(R, dim1=-2, dim2=-1).abs().to(F64)
     tiny = torch.finfo(R.real.dtype).tiny
     return torch.log(torch.clamp(absr, min=tiny)).sum(-1)
+
+
+def singular_value_range(f: UDV) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log10 max d, log10 min d) over the last axis: the conditioning
+    monitor of the reference's logSV instrumentation (port of
+    detqmc_tpu.linalg.udv.singular_value_range)."""
+    logd = torch.log10(torch.clamp(f.d, min=torch.finfo(f.d.dtype).tiny))
+    return logd.amax(-1), logd.amin(-1)

@@ -46,9 +46,16 @@ the ``_all`` variants wrap between anchors to every slice, and
 ``measure_current_correlators`` reduce them. Walkers lead, then the
 anchor (or slice) axis, then the spin component.
 
-Not ported yet: log_weight (ROADMAP.md Queue 1 item 10, with parallel
-tempering), the naive sweep_simple cross-check (item 4's cross-checks);
-host_chain_sign is not ported (item 12).
+The parallel-tempering hooks (JAX hubbard.py:704-769): the tempered
+parameter is the staggered HS bias h (``control_parameter =
+"stagger_h"``; ``with_r`` keeps the JAX name), ``exchange_action`` its
+conjugate -sum eta s, and ``log_weight`` the whole configuration's
+log|w| from entry 0 of the transposed stack, the one refresh_from_field
+builds (``log_weight_and_stack`` returns that stack too, so det-coupled PT
+refreshes a walker from it).
+
+Not ported yet: the naive sweep_simple cross-check (ROADMAP.md Queue 1
+item 1, item 4's cross-checks); host_chain_sign is not ported (item 12).
 """
 
 from __future__ import annotations
@@ -525,6 +532,50 @@ class HubbardModel(nn.Module):
         return state, Observables(*[0.5 * (a + b)
                                     for a, b in zip(obs1, obs2)])
 
+    # -- parallel tempering hooks ------------------------------------------------
+    # h is linear in the bosonic action, so label swaps need no determinant
+    # (the same protocol as SDW's r); h = 0 samples the physical model
+    control_parameter = "stagger_h"
+
+    def exchange_action(self, state: WalkerState) -> torch.Tensor:
+        """The h-conjugate action piece a = -sum_{l,i} eta_i s_{l,i} per
+        walker (W,): the weight carries e^{-h a}."""
+        return -torch.sum(self.stagger * state.field, dim=(1, 2))
+
+    def with_r(self, state: WalkerState, h) -> WalkerState:
+        """Set every walker's h ((W,) or a scalar); G and the stack stay
+        valid, h never enters the determinant. The name is SDW's: the PT
+        driver is parameter-agnostic."""
+        return state._replace(h=torch.as_tensor(
+            h, dtype=self.dtype, device=self.device).expand_as(
+                state.h).contiguous())
+
+    def log_weight(self, field: torch.Tensor, h=None) -> torch.Tensor:
+        """log|w(s)| of each walker's configuration (W,), float64, up to an
+        s-independent constant: sum_sigma log|det(1 + B_sigma-chain)| +
+        h sum eta s; in particle-hole mode 2 log|det M_up| - alpha sum s
+        (det M_up det M_dn = e^{-alpha sum s} det M_up^2). ``h``: None
+        (cfg.stagger_h), a number or (W,). Det-coupled parallel tempering
+        swaps configurations on it."""
+        return self.log_weight_and_stack(field, h)[0]
+
+    def log_weight_and_stack(self, field: torch.Tensor, h=None):
+        """(log_weight, the transposed stack it was read from): the stack
+        refresh_from_field builds for this field."""
+        cfg = self.cfg
+        stack = self._build_stack(field, transposed=True)
+        lds, _ = log_det_one_plus_udv(
+            UDV(stack.U[:, 0], stack.d[:, 0], stack.V[:, 0]))
+        s = field.to(torch.float64)
+        if cfg.ph_on:
+            ld = 2.0 * lds[:, 0] - cfg.alpha * s.sum(dim=(1, 2))
+        else:
+            ld = lds.sum(-1)
+        h = cfg.stagger_h if h is None else torch.as_tensor(h).to(
+            device=field.device, dtype=torch.float64)
+        stag = torch.sum(self.stagger.to(torch.float64) * s, dim=(1, 2))
+        return ld + h * stag, stack
+
     # -- unequal-time measurements ----------------------------------------------
     def _td_stacks(self, field: torch.Tensor):
         """Both half-chain stacks, built fresh from the field: left entries
@@ -779,7 +830,14 @@ class HubbardModel(nn.Module):
 
     def refresh_from_field(self, state: WalkerState) -> WalkerState:
         """Recompute the right stack and G(0) from the field alone."""
-        stack = Stack(*self._build_stack(state.field, transposed=True))
+        return self.refresh_from_stack(
+            state, self._build_stack(state.field, transposed=True))
+
+    def refresh_from_stack(self, state: WalkerState, stack) -> WalkerState:
+        """refresh_from_field's second half: G(0) and the sign from the
+        transposed stack ``stack`` of ``state.field`` (entry 0 is the
+        whole chain)."""
+        stack = Stack(*stack)
         full_t = UDV(stack.U[:, 0], stack.d[:, 0], stack.V[:, 0])
         G = green_from_two_udv(self._eye_mixed(state.field.shape[0]),
                                full_t).to(self.dtype)

@@ -93,10 +93,16 @@ the model's device, as the JAX model grows them in a lax.while_loop
 outside any kernel; their dot products are summed in index order so the
 card and the CPU give the same bits.
 
+The parallel-tempering hooks (JAX sdw.py:2045-2071): ``control_parameter
+= "r"``, ``exchange_action`` = dtau/2 sum phi^2 (the r-conjugate piece of
+S_B), ``with_r`` and ``log_weight`` = ``_chain_logdet`` - S_B in float64
+(``log_weight_and_stack`` returns the stack the log-det was read from, as
+the global moves reuse theirs).
+
 Not ported yet (each raises NotImplementedError naming ROADMAP.md, Queue
 1 item 8 and Queue 2): the full (4N, 4N) matrix at opdim 1 (a real q = 4
 chain), the real embedding, the refine green route, sparse checkerboard
-applies, ``sweep_simple``, the parallel-tempering hooks, dims above 512
+applies, ``sweep_simple``, dims above 512
 (L >= 12 full, L >= 17 reduced) on a CUDA device, and
 ``update_kernel="pallas"`` / ``"scan"`` (K4) at a dim whose G exceeds K4's
 shared memory on a CUDA device.
@@ -333,7 +339,16 @@ def _cb_dense_product(partner: np.ndarray, cosh_og: np.ndarray,
 
 
 class SDWModel(nn.Module):
-    """Config + device constants (registered buffers) + the sweep."""
+    """Config + device constants (registered buffers) + the sweep.
+
+    ``vector_observables`` declares which observable names are vectors
+    (the drivers register them with their observable handlers)."""
+
+    vector_observables = ("phiCorrelation", "phiStructureFactor",
+                          "chargeCorrelation", "chargeStructureFactor",
+                          "spinZCorrelation", "spinZStructureFactor",
+                          "pairingCorrelation", "kOccupationX",
+                          "kOccupationY", "greenKTauVector")
 
     def __init__(self, cfg: SDWConfig, device=None):
         super().__init__()
@@ -996,10 +1011,10 @@ class SDWModel(nn.Module):
 
     def refresh_from_field(self, state: SDWState) -> SDWState:
         """Recompute the right stack and G(0) from the field alone."""
-        return self._refresh_from_stack(
+        return self.refresh_from_stack(
             state, self._build_stack(state.phi, transposed=True))
 
-    def _refresh_from_stack(self, state: SDWState, stack: UDV) -> SDWState:
+    def refresh_from_stack(self, state: SDWState, stack: UDV) -> SDWState:
         """refresh_from_field's second half: G(0) from the right stack
         ``stack`` of ``state.phi`` (entry 0 is the whole chain)."""
         full_t = UDV(stack.U[:, 0], stack.d[:, 0], stack.V[:, 0])
@@ -1200,6 +1215,38 @@ class SDWModel(nn.Module):
         return (self.logdet_fac * clog_abs_det_one_plus_udv(
             UDV(stack.U[:, 0], stack.d[:, 0], stack.V[:, 0])), stack)
 
+    # ---- parallel tempering hooks -------------------------------------------
+    # the parameter the label-swap exchange swaps: r enters S_B linearly and
+    # the determinant not at all
+    control_parameter = "r"
+
+    def exchange_action(self, state: SDWState) -> torch.Tensor:
+        """The r-conjugate action piece a = dS_B/dr = dtau/2 sum phi^2 per
+        walker (W,)."""
+        return 0.5 * self.cfg.dtau * torch.sum(state.phi ** 2, dim=(1, 2, 3))
+
+    def with_r(self, state: SDWState, r) -> SDWState:
+        """Set every walker's r ((W,) or a scalar); G and the stack stay
+        valid."""
+        return state._replace(r=torch.as_tensor(
+            r, dtype=self.rdtype, device=self.device).expand_as(
+                state.r).contiguous())
+
+    def log_weight(self, phi, r=None) -> torch.Tensor:
+        """The configuration's log-weight log w(phi) = ``_chain_logdet`` -
+        S_B[phi] per walker (W,), float64 (S_B evaluated in float64), up to
+        a phi-independent constant; ``r``: None (cfg.r) or (W,).
+        Det-coupled parallel tempering swaps configurations on it."""
+        return self.log_weight_and_stack(phi, r)[0]
+
+    def log_weight_and_stack(self, phi, r=None):
+        """(log_weight, the transposed stack its log-det was read from):
+        the stack refresh_from_field builds for this field."""
+        ld, stack = self._logdet_and_stack(phi)
+        if r is not None:
+            r = torch.as_tensor(r).to(device=phi.device, dtype=torch.float64)
+        return ld - self.boson_action(phi.to(torch.float64), r), stack
+
     def _metropolis(self, state: SDWState, phi_new, d_action, u):
         """Accept phi_new per walker when log u < ld_new - ld_old - dS
         (``d_action`` None: dS = 0), then refresh every walker. The
@@ -1228,7 +1275,7 @@ class SDWModel(nn.Module):
 
         stack = UDV(*[pick(a, b) for a, b in zip(st_new, st_old)])
         state = state._replace(phi=pick(phi_new, state.phi))
-        return self._refresh_from_stack(state, stack), accept
+        return self.refresh_from_stack(state, stack), accept
 
     def _normal(self, shape, generator):
         return torch.randn(shape, generator=generator, dtype=self.rdtype,
@@ -1373,10 +1420,3 @@ class SDWModel(nn.Module):
 
     def green_at_slice(self, *args, **kwargs):
         raise _unported("green_at_slice (the sweep_simple primitive)")
-
-    def log_weight(self, *args, **kwargs):
-        raise _unported("the parallel-tempering hooks (log_weight, with_r, "
-                        "exchange_action)", "ROADMAP.md Queue 1 items 8, 10")
-
-    with_r = log_weight
-    exchange_action = log_weight

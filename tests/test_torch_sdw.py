@@ -228,7 +228,11 @@ def test_unported_methods_raise_and_mapped_knobs_build():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.SDWModel._check_kernel_bounds(ts.SDWConfig(**dict(base, L=12)))
     model = ts.SDWModel(ts.SDWConfig(**base), device="cpu")
-    for name in ("sweep_simple", "green_at_slice", "log_weight", "with_r",
-                 "exchange_action"):
+    for name in ("sweep_simple", "green_at_slice"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(model, name)()
+    # the parallel-tempering hooks are ported (tests/test_torch_pt.py)
+    st = model.init_state(2, torch.Generator().manual_seed(0))
+    assert model.exchange_action(st).shape == (2,)
+    assert model.with_r(st, 1.5).r.tolist() == [1.5, 1.5]
+    assert torch.isfinite(model.log_weight(st.phi)).all()
