@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's main paths once on one CUDA card: the
 Hubbard model and the O(3) SDW model, their sweeps and their unequal-time
-measurements, the reduced SDW chains and parallel tempering.
+measurements, the reduced SDW chains, parallel tempering and the full real
+opdim-1 SDW chain.
 
     python3 chip_smoke.py      # one card; exits 0 only if every phase passed
 
@@ -193,6 +194,25 @@ Phases (any failure raises, and the script exits non-zero):
      measurements uninterrupted against 2 saved and 2 resumed by a
      second CLI run: phi, labels, counters and generator state identical,
      results within 1e-8.
+22. the full real opdim-1 chain (fermion_matrix="full" at opdim 1: the
+   (4N, 4N) real matrix, q = 4) and the naive cross-check:
+   - the real q = 4 instances of K4 (sdw_update_real, on bench.py
+     sdw_l4's settings at opdim 1 full: float32, W=128, h=64) and K5
+     (sdw_delayed_real, K=8, on sdw_l8's: h=256) against their plain
+     versions on the models' own slice-1 operands: float32 identical
+     decisions but at near-ties and G within 1e-5, float64 bitwise;
+     timed with CTAs per SM and K5's plan;
+   - card-vs-CPU parity of the chain (L=4, float64, immediate and
+     delay=3): identical fields and acceptance, G within 1e-10, only the
+     real q = 4 update instance launched;
+   - the sdw_o1_full_l4 and sdw_o1_full_l8 main paths at W=128 (K4 real
+     q=4, K2 f32, K3; K5 real q=4, real K7, K8 + K9; the plain wraps,
+     never K6), launch counts against the routes' formulas, median
+     green_dev < 1e-4, phiSquared finite, phase exactly 1, a profiled
+     pair of each;
+   - sweep_simple against sweep_up on the card (the full real SDW chain
+     and Hubbard, L=4, float64): identical fields, G and observables
+     within 1e-8.
 Phase 19 also times K2's float32 instance (qr_kernel) on the opdim-1
 paths' refactor blocks (n = 32 and 128) beside the plain QR and
 torch.linalg.qr, with its launches on those paths.
@@ -328,6 +348,27 @@ REDUCED_META = {
                      "detqmc_tpu/linalg/pallas_qr_lanes.py:149", "float32"),
     "qr_f32_o1_l8": ("detqmc_tpu_torch/csrc/qr.cu",
                      "detqmc_tpu/linalg/pallas_qr_lanes.py:149", "float32")}
+# phase 22: the full real opdim-1 chain (fermion_matrix="full" at opdim 1:
+# the (4N, 4N) real matrix, q = 4): bench.py sdw_l4's and sdw_l8's settings
+# at opdim 1 (box proposals), at the SDW cells' 128 walkers
+SDW_O1_FULL_L4_CFG = dict(SDW_CFG, opdim=1, fermion_matrix="full")
+SDW_O1_FULL_L8_CFG = dict(SDW8_CFG, opdim=1, fermion_matrix="full")
+# the real q = 4 instances of K4 and K5: the kernel line's source, the TPU
+# kernel's line (the real variant's update) and the row's dtype
+FULL_REAL_META = {
+    "sdw_update_real": ("detqmc_tpu_torch/csrc/sdw_update.cu",
+                        "detqmc_tpu/linalg/pallas_sdw_update.py:497",
+                        "float32"),
+    "sdw_delayed_real": ("detqmc_tpu_torch/csrc/sdw_delayed.cu",
+                         "detqmc_tpu/linalg/pallas_sdw_delayed.py:477",
+                         "float32")}
+# the naive cross-check on the card: sweep_simple against sweep_up from one
+# state and one set of draws (float64, W = 4)
+SIMPLE_SDW_CFG = dict(L=4, opdim=1, fermion_matrix="full", r=0.5, beta=1.0,
+                      m=8, s=4, dtype="float64")
+SIMPLE_HUBBARD_CFG = dict(L=4, U=4.0, beta=1.2, m=8, s=4, dtype="float64",
+                          ph_symmetry="off")
+SIMPLE_TOL = 1e-8          # the reference's stabilized-G gate
 # phase 21: parallel tempering. examples/pt_sdw_r_grid.conf through the
 # port's PT CLI, its keys unchanged but cut to 20 + 20 rounds (SDW L=4
 # opdim 2 beta=4 m=40 s=4, 8 r values x 8 systems: 64 walkers,
@@ -801,6 +842,17 @@ REDUCED_GROUPS = SDW8_GROUPS + (("sdw_update_kernel", "K4 sdw_update q=2"),
                                 ("solve_inner_f64_tc_kernel", "K3"))
 
 
+# the full real chain's (phase 22): the real q = 4 K4 / K5, K2 float32 and
+# K3 at L = 4, real K7, K8 and K9 at L = 8
+FULL_REAL_GROUPS = (("sdw_update_kernel", "K4 sdw_update real q=4"),
+                    ("sdw_delayed_kernel", "K5 sdw_delayed real q=4"),
+                    ("qr_big_kernel", "K7 qr_big"),
+                    ("solve_inner_big_kernel", "K8 solve_inner_big"),
+                    ("trinv_big_kernel", "K9 trinv_big"),
+                    ("qr_kernel", "K2 qr f32"),
+                    ("solve_inner_f64_tc_kernel", "K3"))
+
+
 def profile_phase(run, wall_ms_per_pair, layers=HUBBARD_GROUPS,
                   title="profile", what="one pair"):
     """Device time of one call of ``run`` (a sweep pair, or a measurement)
@@ -1225,17 +1277,17 @@ def sdw8_kernel_phase(model, state, gen, model4, state4):
     return out
 
 
-def sdw_path_parity_phase(device, opdim=3, **kw):
+def sdw_path_parity_phase(device, opdim=3, L=2, **kw):
     """The same tiny f64 SDW chain on the card (kernels) and on the CPU;
-    ``kw``: extra SDWConfig knobs (the delayed/fused routes). Returns the
-    card's launch counts (the kernels that ran)."""
+    ``kw``: extra SDWConfig knobs (the delayed/fused routes, the full
+    matrix). Returns the card's launch counts (the kernels that ran)."""
     import torch
 
     from detqmc_tpu_torch.linalg import _kernels
     from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel, SDWState
 
     W = 4
-    cfg = SDWConfig(L=2, opdim=opdim, r=0.5, beta=1.0, m=8, s=4,
+    cfg = SDWConfig(L=L, opdim=opdim, r=0.5, beta=1.0, m=8, s=4,
                     dtype="float64", **kw)
     cpu = SDWModel(cfg, device="cpu")
     gpu = SDWModel(cfg, device=device)
@@ -1260,7 +1312,7 @@ def sdw_path_parity_phase(device, opdim=3, **kw):
     oerr = max(float((a.cpu() - b).abs().max()) for a, b in zip(og, oc))
     check(gerr <= PARITY_G_TOL, f"SDW path parity: G err {gerr:.3e}")
     knobs = "".join(f" {k}={v}" for k, v in kw.items())
-    print(f"SDW path parity (L=2 opdim={opdim} m=8 s=4 W={W} f64{knobs}, 2 "
+    print(f"SDW path parity (L={L} opdim={opdim} m=8 s=4 W={W} f64{knobs}, 2 "
           f"pairs): fields identical, acceptance identical, max|dG|="
           f"{gerr:.3e} (tol {PARITY_G_TOL}), max|d obs|={oerr:.3e}; card "
           f"launches {ran}")
@@ -2272,9 +2324,10 @@ def sdw_global_phase(device):
 
 
 # ---- phases 17-20: the reduced two-sector chains ------------------------
-def q2_update_check(title, model, args, kernel, plain, K=None):
-    """An update kernel's q = 2 instance (K4 or, with K, K5) against its
-    plain version on ``args``: in the path's single precision identical
+def update_instance_check(title, model, args, kernel, plain, K=None):
+    """An update kernel's instance for ``model``'s chain (K4 or, with K,
+    K5; q = 2 reduced or real q = 4) against its plain version on
+    ``args``: in the path's single precision identical
     decisions but at near-ties of the log-domain test and G within 1e-5;
     then in double precision (the same operands cast) bitwise. Timed.
     Returns (record, kernel output) of the single-precision run."""
@@ -2310,7 +2363,7 @@ def q2_update_check(title, model, args, kernel, plain, K=None):
             ms = time_ms(lambda: kernel(*a, *extra))
             pms = time_ms(lambda: plain(*a, *extra), reps=1)
             W, h = a[0].shape[:2]
-            N, q, cplx = model.cfg.n_sites, 2, dt.is_complex
+            N, q, cplx = model.cfg.n_sites, model.n_orb, dt.is_complex
             if K is None:
                 ops = float(ak.sum()) * (8 if cplx else 2) * q * h * h
                 bps = sdw_update.blocks_per_sm(N, dt, a[0].device,
@@ -2429,15 +2482,15 @@ def reduced_kernel_phase(device):
         model = SDWModel(SDWConfig(**cfg_kw), device=device)
         state = model.init_state(W_SDW, gen)
         args = k4_operands(model, state, gen)
-        rec, _ = q2_update_check(f"K4 sdw_update q=2 (opdim {model.cfg.opdim})",
-                                 model, args, sdw_update.sdw_update,
-                                 sdw_update.sdw_update_plain)
+        rec, _ = update_instance_check(
+            f"K4 sdw_update q=2 (opdim {model.cfg.opdim})", model, args,
+            sdw_update.sdw_update, sdw_update.sdw_update_plain)
         out["sdw_update_q2" + suffix] = {str(model.cdtype)[6:]: rec}
     for suffix, cfg_kw in (("", SDW_O2_L8_CFG), ("_real", SDW_O1_L8_CFG)):
         model = SDWModel(SDWConfig(**cfg_kw), device=device)
         state = model.init_state(W_SDW, gen)
         args = k4_operands(model, state, gen)
-        rec, _ = q2_update_check(
+        rec, _ = update_instance_check(
             f"K5 sdw_delayed q=2 (opdim {model.cfg.opdim})", model, args,
             sdw_delayed.sdw_delayed, sdw_delayed.sdw_delayed_plain,
             K=model._delay_k)
@@ -2490,6 +2543,130 @@ def reduced_paths_phase(device, card):
             counts[name] = c["qr"]
         del model, state
         lap(f"{title} main path (phase 19)")
+    return counts, kern
+
+
+def sweep_simple_phase(device):
+    """Phase 22's naive cross-check on the card: sweep_simple against
+    sweep_up from one state and one set of draws (the full real SDW chain
+    and Hubbard, float64): identical fields (and signs), sweep_up's G
+    against green_at_slice(m) of the naive sweep's field and the
+    observables within SIMPLE_TOL; the naive sweep's launches and wall."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import _kernels
+    from detqmc_tpu_torch.models.hubbard import HubbardConfig, HubbardModel
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    W = 4
+    gen = torch.Generator(device=device).manual_seed(2323)
+    for title, model in (
+            ("SDW", SDWModel(SDWConfig(**SIMPLE_SDW_CFG), device=device)),
+            ("Hubbard", HubbardModel(HubbardConfig(**SIMPLE_HUBBARD_CFG),
+                                     device=device))):
+        st = model.init_state(W, gen)
+        sdw = title == "SDW"
+        if sdw:
+            kw = dict(draws=model._draw_proposal_randoms(W, gen))
+        else:
+            kw = dict(u01=torch.rand((W, model.cfg.m, model.cfg.n_sites),
+                                     generator=gen, dtype=torch.float64,
+                                     device=device))
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        naive, no = model.sweep_simple(st, measure=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ran = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        fast, fo = model.sweep_up(st, measure=True, **kw)
+        field = "phi" if sdw else "field"
+        check(torch.equal(getattr(fast, field), getattr(naive, field)),
+              f"sweep_simple ({title}): fields differ from sweep_up's")
+        if not sdw:
+            check(torch.equal(fast.sign, naive.sign),
+                  "sweep_simple (Hubbard): signs differ from sweep_up's")
+        gerr = float((fast.G - model.green_at_slice(
+            getattr(naive, field), model.cfg.m)).abs().max())
+        oerr = max(float((a - b).abs().max()) for a, b in zip(fo, no))
+        check(gerr <= SIMPLE_TOL and oerr <= SIMPLE_TOL,
+              f"sweep_simple ({title}): G err {gerr:.3e}, obs err "
+              f"{oerr:.3e} > {SIMPLE_TOL}")
+        check(all(bool(torch.isfinite(x).all()) for x in no),
+              f"sweep_simple ({title}): non-finite observables")
+        cfg_s = " ".join(f"{k}={v}" for k, v in (
+            SIMPLE_SDW_CFG if sdw else SIMPLE_HUBBARD_CFG).items())
+        print(f"sweep_simple {title} {cfg_s} W={W} on the card: fields "
+              f"identical to sweep_up's, max|G_up - green_at_slice(m)|="
+              f"{gerr:.3e}, max|d obs|={oerr:.3e} (tol {SIMPLE_TOL}), "
+              f"acceptance {float(no.acceptance.mean()):.4f}; the naive "
+              f"sweep {1e3 * wall:.1f} ms, launches {ran}")
+
+
+def full_real_phase(device, card):
+    """Phase 22: the full real opdim-1 chain. The real q = 4 instances of
+    K4 (sdw_o1_full_l4, h = 64) and K5 (sdw_o1_full_l8, h = 256, K = 8)
+    against their plain versions on the models' own slice-1 operands
+    (W = 128; float32 as the paths run them, identical decisions but at
+    near-ties and G within 1e-5; float64 bitwise), timed with CTAs per SM
+    and the plan; card-vs-CPU parity of the chain (L = 4, float64,
+    immediate and delay = 3: identical fields and acceptance, G within
+    1e-10); the sdw_o1_full_l4 and sdw_o1_full_l8 main paths (launch
+    counts against the routes' formulas, the plain wraps, the SDW gates)
+    with a profiled pair of each; sweep_simple against sweep_up on the
+    card. Returns (the real instances' launches on their main paths, the
+    kernel line's records)."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import sdw_delayed, sdw_update
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    kern, counts = {}, {}
+    gen = torch.Generator(device=device).manual_seed(2222)
+    for name, cfg_kw, kernel, plain, delayed in (
+            ("sdw_update_real", SDW_O1_FULL_L4_CFG, sdw_update.sdw_update,
+             sdw_update.sdw_update_plain, False),
+            ("sdw_delayed_real", SDW_O1_FULL_L8_CFG, sdw_delayed.sdw_delayed,
+             sdw_delayed.sdw_delayed_plain, True)):
+        model = SDWModel(SDWConfig(**cfg_kw), device=device)
+        check(model.cdtype == torch.float32 and model.n_orb == 4,
+              f"{name}: the full opdim-1 chain is not real q = 4")
+        state = model.init_state(W_SDW, gen)
+        args = k4_operands(model, state, gen)
+        rec, _ = update_instance_check(
+            f"K{5 if delayed else 4} {name} q=4", model, args, kernel, plain,
+            model._delay_k if delayed else None)
+        kern[name] = {"float32": rec}
+        del model, state, args
+    torch.cuda.empty_cache()
+    lap("full real kernels (phase 22)")
+    for kw, name in (({}, "sdw_update_real"),
+                     (dict(delay=3), "sdw_delayed_real")):
+        ran = sdw_path_parity_phase(device, 1, L=4, fermion_matrix="full",
+                                    **kw)
+        check(ran.get(name, 0) > 0 and not any(
+            k.startswith("sdw_") and k != name for k in ran),
+            f"full real parity: launches {ran}, want {name} alone")
+    lap("full real path parity (phase 22)")
+    for title, cfg_kw in (("sdw_o1_full_l4", SDW_O1_FULL_L4_CFG),
+                          ("sdw_o1_full_l8", SDW_O1_FULL_L8_CFG)):
+        print(f"-- {title}")
+        model, state, pgen, c, wall_ms = sdw_main_path_phase(
+            device, card, cfg_kw, None)
+        k6 = [k for k, v in c.items()
+              if v and k.startswith(("sdw_wrap", "sdw_apply"))]
+        check(model.routes(model.cfg, "cuda")["wrap"] == "plain" and not k6,
+              f"{title}: K6 launched {c}")
+        profile_phase(lambda: model.sweep_pair(state, measure=True,
+                                               generator=pgen),
+                      wall_ms, FULL_REAL_GROUPS, f"{title} profile")
+        counts.update({k: v for k, v in c.items() if k in FULL_REAL_META
+                       and v})
+        del model, state
+        torch.cuda.empty_cache()
+        lap(f"{title} main path (phase 22)")
+    sweep_simple_phase(device)
+    lap("sweep_simple (phase 22)")
     return counts, kern
 
 
@@ -3214,6 +3391,10 @@ def main() -> int:
     lap("quick start CLI (phase 20)")
     # phase 21: parallel tempering
     pt_phase(device, card)
+    # phase 22: the full real opdim-1 chain and the naive cross-check
+    c, k = full_real_phase(device, card)
+    counts.update(c)
+    kern.update(k)
 
     meta = {"slice_update": ("detqmc_tpu_torch/csrc/slice_update.cu",
                              "detqmc_tpu/linalg/pallas_update_lanes.py:185",
@@ -3281,7 +3462,7 @@ def main() -> int:
             "qr_complex_big_logdet": (
                 "detqmc_tpu_torch/csrc/qr_big.cu",
                 "detqmc_tpu/linalg/pallas_cqr_wy.py:266", "complex64"),
-            **REDUCED_META}
+            **REDUCED_META, **FULL_REAL_META}
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": repl,
              "launches": counts[name], **kern[name][dname]}
             for name, (src, repl, dname) in meta.items()]

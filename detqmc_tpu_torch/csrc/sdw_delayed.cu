@@ -1,10 +1,12 @@
 // K5: the delayed SDW slice update, one launch per slice, one CTA per
 // walker, the flushes G -= C R in the kernel's own body. Instances: q = 4
-// complex (the full opdim-3 model), q = 2 complex (the opdim-2 reduced
-// sector) and q = 2 real (opdim 1), in single and double precision; the
-// notes below are written for q = 4, and the q = 2 instances are the same
-// program with q orbitals a site (2 x 2 flush tiles, h = 2 N need not be a
-// multiple of 4), not tuned.
+// complex (the full opdim-3 model), q = 4 real (the full opdim-1 chain),
+// q = 2 complex (the opdim-2 reduced sector) and q = 2 real (opdim 1), in
+// single and double precision; the notes below are written for complex
+// q = 4. The real q = 4 instances are the same program with real scalars
+// (4 x 4 flush tiles), the q = 2 instances the same program with q
+// orbitals a site (2 x 2 flush tiles, h = 2 N need not be a multiple of
+// 4); neither is tuned.
 //
 // Replaces the TPU kernel detqmc_tpu/linalg/pallas_sdw_delayed.py
 // (slice_update_sdw_delayed, kernel body _kernel) in its default
@@ -377,11 +379,11 @@ sdw_delayed_kernel(const S* __restrict__ G_in, S* G_out,
 
 // the instance for h = q N (EPT = 1 up to h = 256, else 2) and the slots'
 // residence res (RES); nullptr where h is beyond 512 or res is not 0-2.
-// Flush tiles: 4 x 4 complex64 or 2 x 4 complex128 entries at q = 4, 2 x 2
-// at q = 2
+// Flush tiles (linalg/sdw_delayed.py flush_tile): 2 x 4 complex128
+// entries, 4 x 4 of the other scalars at q = 4; 2 x 2 at q = 2
 template <typename S, int Q, int EPT, bool PROBE>
 auto delayed_instance(int res) {
-    constexpr int TR = Q == 2 ? 2 : (sizeof(S) == 8 ? 4 : 2);
+    constexpr int TR = Q == 2 ? 2 : (sizeof(S) == 16 ? 2 : 4);
     constexpr int TC = Q == 2 ? 2 : 4;
     using Fn = decltype(&sdw_delayed_kernel<S, Q, EPT, TR, TC, 2, PROBE>);
     Fn fn = nullptr;
@@ -426,6 +428,19 @@ int delayed_blocks(int device, int N, int opdim, int K, int resident) {
                          delayed_smem(N, opdim, K, Q, sizeof(S), sizeof(T), resident));
 }
 
+// CTAs per SM of the q = 4 and the q = 2 instances (dtype: 0 float32,
+// 1 float64, 2 complex64, 3 complex128)
+template <int Q>
+int delayed_blocks_of(int device, int dtype, int N, int opdim, int K, int resident) {
+    switch (dtype) {
+        case 0: return delayed_blocks<float, Q>(device, N, opdim, K, resident);
+        case 1: return delayed_blocks<double, Q>(device, N, opdim, K, resident);
+        case 2: return delayed_blocks<cplx<float>, Q>(device, N, opdim, K, resident);
+        case 3: return delayed_blocks<cplx<double>, Q>(device, N, opdim, K, resident);
+    }
+    return -static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace dq
 
 // G -> G_out over one slice, slots of K accepted sites; resident: the slot
@@ -445,6 +460,8 @@ int delayed_blocks(int device, int N, int opdim, int K, int resident) {
 
 DQ_SDW_DELAYED_ENTRY(dq_sdw_delayed_c64, dq::cplx<float>, 4)
 DQ_SDW_DELAYED_ENTRY(dq_sdw_delayed_c128, dq::cplx<double>, 4)
+DQ_SDW_DELAYED_ENTRY(dq_sdw_delayed_f32, float, 4)
+DQ_SDW_DELAYED_ENTRY(dq_sdw_delayed_f64, double, 4)
 DQ_SDW_DELAYED_ENTRY(dq_sdw_delayed_q2_c64, dq::cplx<float>, 2)
 DQ_SDW_DELAYED_ENTRY(dq_sdw_delayed_q2_c128, dq::cplx<double>, 2)
 DQ_SDW_DELAYED_ENTRY(dq_sdw_delayed_q2_f32, float, 2)
@@ -465,24 +482,16 @@ int dq_sdw_delayed_probe_c64(int device, const void* G, void* G_out, const void*
         K, resident, dtau, c_det, stream, static_cast<long long*>(probe));
 }
 
-// CTAs per SM of the production instance (no launch)
-int dq_sdw_delayed_blocks_per_sm(int device, int complex128, int N, int opdim, int K,
+// CTAs per SM of the production instances (no launch; dtype as
+// dq::delayed_blocks_of)
+int dq_sdw_delayed_blocks_per_sm(int device, int dtype, int N, int opdim, int K,
                                  int resident) {
-    return complex128 ? dq::delayed_blocks<dq::cplx<double>, 4>(device, N, opdim, K, resident)
-                      : dq::delayed_blocks<dq::cplx<float>, 4>(device, N, opdim, K, resident);
+    return dq::delayed_blocks_of<4>(device, dtype, N, opdim, K, resident);
 }
 
-// the q = 2 instances' (dtype: 0 float32, 1 float64, 2 complex64, 3
-// complex128)
 int dq_sdw_delayed_q2_blocks_per_sm(int device, int dtype, int N, int opdim, int K,
                                     int resident) {
-    switch (dtype) {
-        case 0: return dq::delayed_blocks<float, 2>(device, N, opdim, K, resident);
-        case 1: return dq::delayed_blocks<double, 2>(device, N, opdim, K, resident);
-        case 2: return dq::delayed_blocks<dq::cplx<float>, 2>(device, N, opdim, K, resident);
-        case 3: return dq::delayed_blocks<dq::cplx<double>, 2>(device, N, opdim, K, resident);
-    }
-    return -static_cast<int>(cudaErrorInvalidValue);
+    return dq::delayed_blocks_of<2>(device, dtype, N, opdim, K, resident);
 }
 
 }  // extern "C"

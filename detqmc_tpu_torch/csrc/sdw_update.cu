@@ -5,8 +5,9 @@
 // complex), which keeps 128 walkers in the vector lanes and G as (re, im)
 // f32 planes in VMEM. Here one CTA holds one walker's G (h x h, h = q N)
 // in shared memory and walks the N sites in order. Instances: q = 4
-// complex (the full opdim-3 model), q = 2 complex (the opdim-2 reduced
-// sector) and q = 2 real (opdim 1), in single and double precision. Per
+// complex (the full opdim-3 model), q = 4 real (the full opdim-1 chain),
+// q = 2 complex (the opdim-2 reduced sector) and q = 2 real (opdim 1), in
+// single and double precision. Per
 // site i (orbital-major indices j_b = b N + i, pallas_sdw_update.py:197-331):
 //     live  = dtau * (phi_new_i - phi_old_i) . sum_d phi[nb_d]   (live phi)
 //     M     = 1 - G[j_a, j_b];   A = 1 + Delta_i M     (q x q)
@@ -40,7 +41,7 @@
 //     not faster.
 // The q = 2 instances are the same program at q = 2 (4 lanes a chain, the
 // staged rows and combined columns [row][b] of two entries), the real ones
-// with real scalars throughout; they are not tuned.
+// (q = 4 and q = 2) with real scalars throughout; they are not tuned.
 // What bounds it: the N dependent chains (~40 shuffles and ~60 dependent
 // rounded operations a site) and, per accepted site, the rank-q update's
 // h^2 x 8 q explicitly rounded FP32 (FP64) operations (h^2 x 2 q real),
@@ -226,6 +227,19 @@ int update_blocks(int device, int N, int opdim) {
                          update_smem(N, opdim, Q, sizeof(S), sizeof(T)));
 }
 
+// CTAs per SM (no launch) of the q = 4 and the q = 2 instances (dtype: 0
+// float32, 1 float64, 2 complex64, 3 complex128)
+template <int Q>
+int update_blocks_of(int device, int dtype, int N, int opdim) {
+    switch (dtype) {
+        case 0: return update_blocks<float, Q>(device, N, opdim);
+        case 1: return update_blocks<double, Q>(device, N, opdim);
+        case 2: return update_blocks<cplx<float>, Q>(device, N, opdim);
+        case 3: return update_blocks<cplx<double>, Q>(device, N, opdim);
+    }
+    return -static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace dq
 
 // the C entries: G and delta of the instance's scalar (complex64 / 128 or
@@ -242,6 +256,8 @@ int update_blocks(int device, int N, int opdim) {
 
 DQ_SDW_UPDATE_ENTRY(dq_sdw_update_c64, dq::cplx<float>, 4)
 DQ_SDW_UPDATE_ENTRY(dq_sdw_update_c128, dq::cplx<double>, 4)
+DQ_SDW_UPDATE_ENTRY(dq_sdw_update_f32, float, 4)
+DQ_SDW_UPDATE_ENTRY(dq_sdw_update_f64, double, 4)
 DQ_SDW_UPDATE_ENTRY(dq_sdw_update_q2_c64, dq::cplx<float>, 2)
 DQ_SDW_UPDATE_ENTRY(dq_sdw_update_q2_c128, dq::cplx<double>, 2)
 DQ_SDW_UPDATE_ENTRY(dq_sdw_update_q2_f32, float, 2)
@@ -261,22 +277,13 @@ int dq_sdw_update_probe_c64(int device, const void* G, const void* phi,
         c_det, stream, static_cast<long long*>(probe));
 }
 
-// CTAs per SM (no launch)
-int dq_sdw_update_blocks_per_sm(int device, int complex128, int N, int opdim) {
-    return complex128 ? dq::update_blocks<dq::cplx<double>, 4>(device, N, opdim)
-                      : dq::update_blocks<dq::cplx<float>, 4>(device, N, opdim);
+// CTAs per SM (no launch; dtype as dq::update_blocks_of)
+int dq_sdw_update_blocks_per_sm(int device, int dtype, int N, int opdim) {
+    return dq::update_blocks_of<4>(device, dtype, N, opdim);
 }
 
-// the q = 2 instances' (dtype: 0 float32, 1 float64, 2 complex64, 3
-// complex128)
 int dq_sdw_update_q2_blocks_per_sm(int device, int dtype, int N, int opdim) {
-    switch (dtype) {
-        case 0: return dq::update_blocks<float, 2>(device, N, opdim);
-        case 1: return dq::update_blocks<double, 2>(device, N, opdim);
-        case 2: return dq::update_blocks<dq::cplx<float>, 2>(device, N, opdim);
-        case 3: return dq::update_blocks<dq::cplx<double>, 2>(device, N, opdim);
-    }
-    return -static_cast<int>(cudaErrorInvalidValue);
+    return dq::update_blocks_of<2>(device, dtype, N, opdim);
 }
 
 }  // extern "C"

@@ -81,14 +81,14 @@ _SIGNATURES = {
     "dq_solve_inner_f64_blocks_per_sm": [_I, _I, _I],
     # device, G, phi, phi_new, lhs, delta, nb, G_out, phi_out, acc_out,
     # W, N, opdim, dtau, c_det, stream
-    "dq_sdw_update_c64": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P],
-    "dq_sdw_update_c128": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P],
+    **{f"dq_sdw_update_{t}": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P]
+       for t in ("c64", "c128", "f32", "f64")},
     # the same, then the phase probe's record (W x 8 int64)
     "dq_sdw_update_probe_c64": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P, _P],
     # device, G, G_out, phi, phi_new, lhs, delta, nb, phi_out, acc_out,
     # slots, W, N, opdim, K, resident, dtau, c_det, stream
-    "dq_sdw_delayed_c64": [_I] + [_P] * 10 + [_I] * 5 + [_D, _D, _P],
-    "dq_sdw_delayed_c128": [_I] + [_P] * 10 + [_I] * 5 + [_D, _D, _P],
+    **{f"dq_sdw_delayed_{t}": [_I] + [_P] * 10 + [_I] * 5 + [_D, _D, _P]
+       for t in ("c64", "c128", "f32", "f64")},
     # the same, then the phase probe's record (W x 8 int64)
     "dq_sdw_delayed_probe_c64": [_I] + [_P] * 10 + [_I] * 5 + [_D, _D, _P, _P],
     # device, G, tmp, G_out, E, Einv, D, Dinv, W, N, up, TL, og, nb, tpc,
@@ -138,13 +138,14 @@ _SIGNATURES = {
     "dq_qr_big_blocks_per_sm": [_I] * 6,
     # device, complex128, N, TL, og, nb
     "dq_sdw_wrap_blocks_per_sm": [_I] * 6,
-    # device, complex128, N, opdim, K, resident
+    # device, dtype code (0 float32, 1 float64, 2 complex64, 3 complex128),
+    # N, opdim, K, resident
     "dq_sdw_delayed_blocks_per_sm": [_I] * 6,
-    # device, complex128, N, opdim
+    # device, dtype code, N, opdim
     "dq_sdw_update_blocks_per_sm": [_I] * 4,
     # the reduced sector's q = 2 instances of K4, K5 and K6 (signatures as
-    # their q = 4 ones) and their CTAs per SM (the complex128 flag replaced
-    # by a dtype code: 0 float32, 1 float64, 2 complex64, 3 complex128)
+    # their q = 4 ones) and their CTAs per SM (K6's complex128 flag
+    # replaced by the dtype code)
     **{f"dq_sdw_update_q2_{t}": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P]
        for t in ("c64", "c128", "f32", "f64")},
     **{f"dq_sdw_delayed_q2_{t}": [_I] + [_P] * 10 + [_I] * 5 + [_D, _D, _P]
@@ -167,7 +168,7 @@ LAUNCHES = {"slice_update": 0, "qr": 0, "solve_inner": 0, "sdw_update": 0,
             "solve_inner_rhs": 0, "solve_inner_complex_rhs": 0,
             "solve_inner_complex_big_rhs": 0, "slice_update_delayed": 0,
             "qr_big": 0, "solve_inner_big": 0, "solve_inner_big_rhs": 0,
-            "mma884": 0,
+            "mma884": 0, "sdw_update_real": 0, "sdw_delayed_real": 0,
             # the q = 2 instances of K4, K5 and K6: complex, real
             **{f"{k}_q2{r}": 0 for k in ("sdw_update", "sdw_delayed",
                                          "sdw_wrap", "sdw_apply")

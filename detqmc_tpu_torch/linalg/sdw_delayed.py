@@ -1,6 +1,6 @@
 """K5: the delayed SDW slice update (q x q site blocks, as K4: q = 4
-complex for the full opdim-3 model, q = 2 complex or real for the reduced
-sector) — wrapper and plain version.
+complex or real for the full model, q = 2 complex or real for the
+reduced sector) — wrapper and plain version.
 
 Replaces detqmc_tpu/linalg/pallas_sdw_delayed.py
 (``slice_update_sdw_delayed``, Pallas kernel ``_kernel``) on the card with
@@ -44,7 +44,7 @@ Contract (walkers leading, as linalg/sdw_update.sdw_update):
     sdw_delayed(G (W, h, h), phi_l, phi_new (W, N, opdim), lhs (W, N),
                 delta (W, N, q, q), nb (N, 4) int32, dtau, c_det, K)
         -> (G', phi_l', acc (W,))
-with h = q N; G and delta complex (q = 4 or 2) or real (q = 2).
+with h = q N; G and delta complex or real (q = 4 or 2).
 """
 
 from __future__ import annotations
@@ -62,6 +62,8 @@ MAX_DIM = 512   # h = q N: a site's columns and rows at <= 2 entries a thread
 _ENTRIES = {
     (torch.complex64, 4): ("sdw_delayed", "dq_sdw_delayed_c64"),
     (torch.complex128, 4): ("sdw_delayed", "dq_sdw_delayed_c128"),
+    (torch.float32, 4): ("sdw_delayed_real", "dq_sdw_delayed_f32"),
+    (torch.float64, 4): ("sdw_delayed_real", "dq_sdw_delayed_f64"),
     (torch.complex64, 2): ("sdw_delayed_q2", "dq_sdw_delayed_q2_c64"),
     (torch.complex128, 2): ("sdw_delayed_q2", "dq_sdw_delayed_q2_c128"),
     (torch.float32, 2): ("sdw_delayed_q2_real", "dq_sdw_delayed_q2_f32"),
@@ -200,12 +202,12 @@ def smem_bytes(N: int, dtype, K: int, buffers: int, opdim: int = 3,
 
 
 def flush_tile(dtype, q: int = Q):
-    """(rows, columns) of a thread's K5 flush tile: 4 x 4 complex64 or
-    2 x 4 complex128 entries at q = 4; 2 x 2 at q = 2, where h = 2 N need
-    not be a multiple of 4."""
+    """(rows, columns) of a thread's K5 flush tile: 2 x 4 complex128
+    entries, 4 x 4 of the other dtypes at q = 4; 2 x 2 at q = 2, where
+    h = 2 N need not be a multiple of 4."""
     if q == 2:
         return 2, 2
-    return (4 if dtype == torch.complex64 else 2), 4
+    return (2 if dtype == torch.complex128 else 4), 4
 
 
 def plan(N: int, dtype, K: int, opdim: int = 3, q: int = Q):
@@ -217,9 +219,8 @@ def plan(N: int, dtype, K: int, opdim: int = 3, q: int = Q):
     changed)."""
     if q * N > MAX_DIM or not 1 <= K <= N or (dtype, q) not in _ENTRIES:
         raise ValueError(f"sdw_delayed: N={N} K={K} {dtype} q={q}: needs "
-                         f"h = q N <= {MAX_DIM}, 1 <= K <= N, complex64 or "
-                         "complex128 (q = 4), or those and float32, "
-                         "float64 (q = 2)")
+                         f"h = q N <= {MAX_DIM}, 1 <= K <= N, q = 4 or 2 "
+                         "and complex64, complex128, float32 or float64")
     budget = _kernels.MAX_SMEM_BYTES - 1024
     residence = next(r for r, b in RESIDENCES.items()
                      if smem_bytes(N, dtype, K, b, opdim, q) <= budget)
@@ -231,12 +232,10 @@ def blocks_per_sm(N: int, dtype, K: int, device="cuda", opdim: int = 3,
     """CTAs of K5 one SM of ``device`` holds at its plan, as the CUDA
     occupancy calculator reports it."""
     buffers = RESIDENCES[plan(N, dtype, K, opdim, q)[0]]
-    if q == Q:
-        return _kernels.query("dq_sdw_delayed_blocks_per_sm", device,
-                              int(dtype == torch.complex128), N, opdim, K,
-                              buffers)
-    return _kernels.query("dq_sdw_delayed_q2_blocks_per_sm", device,
-                          _DTYPE_CODES[dtype], N, opdim, K, buffers)
+    entry = ("dq_sdw_delayed_blocks_per_sm" if q == Q
+             else "dq_sdw_delayed_q2_blocks_per_sm")
+    return _kernels.query(entry, device, _DTYPE_CODES[dtype], N, opdim, K,
+                          buffers)
 
 
 def launch_name(dtype, q: int) -> str:
@@ -248,8 +247,8 @@ def launch_name(dtype, q: int) -> str:
 def sdw_delayed(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
                 c_det: float, K: int, probe: bool = False):
     """The slice in chunks of K sites (see the module docstring): one
-    launch of K5 on CUDA tensors (q = 4: complex64 or complex128; q = 2:
-    those and float32, float64; contiguous, h = q N <= 512) or a raise;
+    launch of K5 on CUDA tensors (q = 4 or 2: complex64, complex128,
+    float32 or float64; contiguous, h = q N <= 512) or a raise;
     ``sdw_delayed_plain`` on CPU tensors. With ``probe`` (complex64,
     q = 4) the kernel's instance with clock64() stamps runs instead, and
     the result gains a (W, len(PROBE_PHASES) + 2) int64 record per CTA:
@@ -262,9 +261,8 @@ def sdw_delayed(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
     cdt = G.dtype
     q = delta.shape[-1]
     if (cdt, q) not in _ENTRIES:
-        raise NotImplementedError(
-            f"sdw_delayed: no K5 instance for {cdt} at q = {q} (the real "
-            "full opdim-1 chain is not ported yet: ROADMAP.md Queue 1 item 8)")
+        raise NotImplementedError(f"sdw_delayed: no K5 instance for {cdt} "
+                                  f"at q = {q} (q is 4 or 2)")
     _kernels.check_cuda_tensor("G", G, (cdt,), 3)
     if probe and (cdt, q) != (torch.complex64, Q):
         raise ValueError(f"sdw_delayed: no phase probe for {cdt} q={q}")

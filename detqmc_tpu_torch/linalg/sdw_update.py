@@ -1,6 +1,6 @@
-"""K4: the SDW slice update (q x q site blocks: the full opdim-3 model's
-4 x 4 complex blocks, the reduced sector's 2 x 2 complex (opdim 2) or
-real (opdim 1) blocks) — wrapper and plain version.
+"""K4: the SDW slice update (q x q site blocks: the full model's 4 x 4
+complex (opdim 2, 3) or real (opdim 1) blocks, the reduced sector's 2 x 2
+complex (opdim 2) or real (opdim 1) blocks) — wrapper and plain version.
 
 Replaces detqmc_tpu/linalg/pallas_sdw_update.py (``slice_update_sdw``,
 Pallas kernel ``_kernel``, generic over q and over real / complex) on the
@@ -37,8 +37,8 @@ Contract (walkers leading):
                lhs (W, N), delta (W, N, q, q), nb (N, 4) int32, dtau,
                c_det)
         -> (G', phi_l', acc (W,))   acc = number of accepted sites
-with h = q N; G and delta complex (q = 4 or 2) or real (q = 2), the real
-tensors in G's real dtype.
+with h = q N; G and delta complex or real (q = 4 or 2), the real tensors
+in G's real dtype.
 """
 
 from __future__ import annotations
@@ -48,11 +48,14 @@ import torch
 from detqmc_tpu_torch.linalg import _kernels
 
 # (G dtype, q) -> (launch count, C entry); the count of the full model's
-# instances is "sdw_update", of the reduced sector's "sdw_update_q2"
-# (complex) and "sdw_update_q2_real"
+# instances is "sdw_update" (complex) and "sdw_update_real" (the opdim-1
+# chain), of the reduced sector's "sdw_update_q2" (complex) and
+# "sdw_update_q2_real"
 _ENTRIES = {
     (torch.complex64, 4): ("sdw_update", "dq_sdw_update_c64"),
     (torch.complex128, 4): ("sdw_update", "dq_sdw_update_c128"),
+    (torch.float32, 4): ("sdw_update_real", "dq_sdw_update_f32"),
+    (torch.float64, 4): ("sdw_update_real", "dq_sdw_update_f64"),
     (torch.complex64, 2): ("sdw_update_q2", "dq_sdw_update_q2_c64"),
     (torch.complex128, 2): ("sdw_update_q2", "dq_sdw_update_q2_c128"),
     (torch.float32, 2): ("sdw_update_q2_real", "dq_sdw_update_q2_f32"),
@@ -267,11 +270,9 @@ def blocks_per_sm(N: int, dtype, device="cuda", opdim: int = 3,
                   q: int = 4) -> int:
     """CTAs of the kernel one SM of ``device`` holds at h = q N, as the
     CUDA occupancy calculator reports it."""
-    if q == 4:
-        return _kernels.query("dq_sdw_update_blocks_per_sm", device,
-                              int(dtype == torch.complex128), N, opdim)
-    return _kernels.query("dq_sdw_update_q2_blocks_per_sm", device,
-                          _DTYPE_CODES[dtype], N, opdim)
+    entry = ("dq_sdw_update_blocks_per_sm" if q == 4
+             else "dq_sdw_update_q2_blocks_per_sm")
+    return _kernels.query(entry, device, _DTYPE_CODES[dtype], N, opdim)
 
 
 def launch_name(dtype, q: int) -> str:
@@ -283,9 +284,9 @@ def launch_name(dtype, q: int) -> str:
 def sdw_update(G, phi_l, phi_new, lhs, delta, nb, dtau: float, c_det: float,
                probe: bool = False):
     """K4: CPU tensors run ``sdw_update_plain``; CUDA tensors launch the
-    kernel (q = 4: complex64 or complex128; q = 2: those and float32,
-    float64; contiguous, h = q N within the shared-memory budget: h <= 160
-    and ``smem_bytes``) or raise. With ``probe`` (complex64, q = 4) the
+    kernel (q = 4 or 2: complex64, complex128, float32 or float64;
+    contiguous, h = q N within the shared-memory budget: h <= 160 and
+    ``smem_bytes``) or raise. With ``probe`` (complex64, q = 4) the
     kernel's instance with clock64() stamps runs instead, and the result
     gains a (W, 8) int64 record per CTA: cycles per phase
     (``PROBE_PHASES``), total cycles, total ns."""
@@ -296,9 +297,8 @@ def sdw_update(G, phi_l, phi_new, lhs, delta, nb, dtau: float, c_det: float,
                                 c_det)
     q = delta.shape[-1]
     if (G.dtype, q) not in _ENTRIES:
-        raise NotImplementedError(
-            f"sdw_update: no K4 instance for {G.dtype} at q = {q} (the real "
-            "full opdim-1 chain is not ported yet: ROADMAP.md Queue 1 item 8)")
+        raise NotImplementedError(f"sdw_update: no K4 instance for "
+                                  f"{G.dtype} at q = {q} (q is 4 or 2)")
     _kernels.check_cuda_tensor("G", G, (G.dtype,), 3)
     W, h, h2 = G.shape
     N, opdim = phi_l.shape[1], phi_l.shape[2]

@@ -15,7 +15,9 @@ orbitals for the full opdim-3 model, 2 for the reduced sector); E, Einv
 real opdim-1 chain) or its real copies ``expK_real`` /
 ``expK_inv_real``, which it builds once and hands to the kernel; D, Dinv
 (W, N, q, q) the per-site potential blocks, in G's dtype. The kernel has
-instances for complex G at q = 4 and q = 2 and for real G at q = 2.
+instances for complex G at q = 4 and q = 2 and for real G at q = 2; the
+real q = 4 chain (the full opdim-1 model) runs the plain versions, as the
+JAX model fuses its wrap only on the native-pair chain.
 
     wrap(G, E, Einv, D, Dinv, up=True)   G' = D . (E @ ((G @ Einv) . Dinv))
     wrap(G, E, Einv, D, Dinv, up=False)  G' = Einv @ (Dinv . ((G . D) @ E))
@@ -130,6 +132,11 @@ def kinetic_blocks(N: int, dtype, TL: int, og: int) -> int:
     return og * -(-N // 4) * (TL // lines_per_thread(dtype))
 
 
+def has_instance(dtype, q: int = Q) -> bool:
+    """Whether K6 has an instance for G of ``dtype`` at q orbitals."""
+    return (dtype, q) in _WRAP
+
+
 def plan(N: int, dtype, W: int = 1, sms: int = _kernels.H100_SMS,
          q: int = Q):
     """(TL, og, nb, tpc) of K6: the first of ``plans(q)`` within the
@@ -190,7 +197,7 @@ def _check(X, E, D, extra=()):
     if (X.dtype, q) not in _WRAP:
         raise NotImplementedError(
             f"sdw_wrap: no K6 instance for {X.dtype} at q = {q} (the real "
-            "full opdim-1 chain is not ported yet: ROADMAP.md Queue 1 item 8)")
+            "q = 4 chain runs the plain wraps, as the JAX model does)")
     _kernels.check_cuda_tensor("X", X, (X.dtype,), 3)
     W, h, h2 = X.shape
     N = h // q

@@ -54,8 +54,13 @@ log|w| from entry 0 of the transposed stack, the one refresh_from_field
 builds (``log_weight_and_stack`` returns that stack too, so det-coupled PT
 refreshes a walker from it).
 
-Not ported yet: the naive sweep_simple cross-check (ROADMAP.md Queue 1
-item 1, item 4's cross-checks); host_chain_sign is not ported (item 12).
+The naive cross-check (JAX hubbard.py:770-830): ``green_at_slice``
+rebuilds G(l) from the field with a refactor at every slice, and
+``sweep_simple`` runs the sweep's site updates on such a G at every slice
+with the same uniforms as ``sweep_up`` (the staggered bias folded in as
+``_sweep`` folds it), so both walk the same chain.
+
+Not ported: host_chain_sign (ROADMAP.md Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -531,6 +536,69 @@ class HubbardModel(nn.Module):
         state, obs2 = self._sweep(state, False, measure, u_dn, generator)
         return state, Observables(*[0.5 * (a + b)
                                     for a, b in zip(obs1, obs2)])
+
+    # -- naive cross-check sweep ---------------------------------------------
+    def green_at_slice(self, field: torch.Tensor, l: int) -> torch.Tensor:
+        """Stabilized G(l) (W, C, N, N) rebuilt from the field alone with a
+        refactor at every slice: the naive recompute behind sweep_simple
+        (the JAX model's green_at_slice; the stack's f64 block products).
+        ``l`` in 0..m."""
+        cb = self.cb_sparse
+        left = right = self._eye_mixed(field.shape[0])
+        for j in range(1, l + 1):
+            left = udv_refactor(bchain.b_mult_left(
+                self.prop_chain, self.exp_v_chain(field[:, j - 1]), left.U,
+                checkerboard=cb), left.d, left.V)
+        for j in range(self.cfg.m, l, -1):
+            right = udv_refactor(bchain.bT_mult_left(
+                self.prop_chain, self.exp_v_chain(field[:, j - 1]), right.U,
+                checkerboard=cb), right.d, right.V)
+        return green_from_two_udv(left, right).to(self.dtype)
+
+    def sweep_simple(self, state: WalkerState, measure: bool = False,
+                     u01=None, generator=None):
+        """Naive up sweep (the JAX model's sweep_simple): G(l) from
+        ``green_at_slice`` at every slice, then the same site updates as
+        ``sweep_up`` on the same uniforms (``u01`` (W, m, N) or drawn from
+        ``generator``), so both walk the same chain and a disagreement
+        indicts the wraps and the stack. The staggered bias is folded into
+        the uniforms as ``_sweep`` folds it (the JAX sweep_simple leaves it
+        out, so it leaves sweep_up's chain at stagger_h != 0). Measures
+        after the update of every s-th slice; the state is refreshed from
+        the field and keeps the tracked sign. O(m^2) refactors: a
+        cross-check, not a production path."""
+        cfg = self.cfg
+        field, sign = state.field.clone(), state.sign
+        W = field.shape[0]
+        if u01 is None:
+            if generator is None:
+                raise ValueError("sweep_simple needs u01 or a "
+                                 "torch.Generator")
+            u01 = torch.rand((W, cfg.m, cfg.n_sites), generator=generator,
+                             dtype=self.dtype, device=self.device)
+        u01 = u01 * torch.exp((2.0 * state.h)[:, None, None]
+                              * self.stagger[None, None, :] * field)
+        acc_sum = torch.zeros(W, dtype=self.dtype, device=self.device)
+        obs_sum = None
+        for l in range(1, cfg.m + 1):
+            G = self.green_at_slice(field, l)       # fresh, pre-update
+            G, fl_new, sign, acc = self.update_slice(
+                G, field[:, l - 1], u01[:, l - 1], sign)
+            field[:, l - 1] = fl_new
+            acc_sum = acc_sum + acc
+            if measure and l % cfg.s == 0:
+                obs = self.measure_equal_time(G, torch.zeros_like(sign),
+                                              sign)
+                obs_sum = obs if obs_sum is None else Observables(
+                    *[a + b for a, b in zip(obs_sum, obs)])
+        new_state = self.refresh_from_field(state._replace(field=field))
+        new_state = new_state._replace(sign=sign,
+                                       sweeps_done=state.sweeps_done + 1)
+        if obs_sum is None:
+            zero = self.measure_equal_time(new_state.G, acc_sum, sign)
+            obs_sum = Observables(*[torch.zeros_like(a) for a in zero])
+        obs_mean = Observables(*[a / cfg.n_stack for a in obs_sum])
+        return new_state, obs_mean._replace(acceptance=acc_sum / cfg.m)
 
     # -- parallel tempering hooks ------------------------------------------------
     # h is linear in the bosonic action, so label swaps need no determinant

@@ -6,9 +6,10 @@ exp(-dtau V(phi_l)) exp(-dtau K), box or rotate/scale proposals, exact
 q x q determinant ratios with rank-q Woodbury updates of G, and the
 UdV-stabilized sweep of models/hubbard.py. Two fermion matrices, as in the
 JAX model (``fermion_matrix``):
-- full: the (4N, 4N) complex matrix in orbital-major order (x_up, x_dn,
-  y_up, y_dn), q = 4; opdim 3 always, opdim 2 with ``fermion_matrix=
-  "full"``;
+- full: the (4N, 4N) matrix in orbital-major order (x_up, x_dn, y_up,
+  y_dn), q = 4; opdim 3 always, opdim 2 and 1 with ``fermion_matrix=
+  "full"``; complex at opdim >= 2, real at opdim 1 (the Ising field
+  couples through sigma_x alone);
 - reduced (opdim <= 2, the default there): phi_z = 0 decouples the
   4-orbital matrix into sector A = (x_up, y_dn) and sector B = conj(A),
   so the chain carries A alone, (2N, 2N), q = 2: complex at opdim 2, real
@@ -27,14 +28,15 @@ From JAX to PyTorch (as in models/hubbard.py):
 
 Representation: native complex. G and the stack's U are complex64
 (``dtype="float32"``) or complex128; the stack's d is float64 and its V
-complex128. The real opdim-1 chain keeps G and U in float32 or float64, d
-and V in float64. None of the TPU's representations is ported: no (re, im) pair
-planes, no real rho-embedding, no df32, no Ozaki limbs (ROADMAP.md Queue 1
-item 12). So ``fermion_repr`` "auto", "complex" and "native_pair" all mean
-native complex, and ``green_kernel`` "auto", "xla", "df32" and "pallas"
-all mean K3c; ``green_refine_iters``, ``ozaki_chain_limbs``,
-``stab_dtype`` and ``wrap_prec`` are accepted and not read (wraps always
-run at full precision).
+complex128. The real opdim-1 chains (full and reduced) keep G and U in
+float32 or float64, d and V in float64. None of the TPU's representations
+is ported: no (re, im) pair planes, no real rho-embedding, no df32, no
+Ozaki limbs (ROADMAP.md Queue 1 item 12). So ``fermion_repr`` "auto",
+"complex" and "native_pair" all mean native complex, and
+``green_kernel`` "auto", "xla", "df32" and "pallas" all mean K3c;
+``green_refine_iters``, ``ozaki_chain_limbs``, ``stab_dtype`` and
+``wrap_prec`` are accepted and not read (wraps always run at full
+precision).
 
 The slice update follows the JAX model's kernel route
 (``_update_slice_pallas``): proposals, the Delta blocks and the static
@@ -43,8 +45,8 @@ kernel walks the sites with a log-domain accept
 lhs < c_det log|R|^2 + live, c_det = 1/2 (full) or 1 (reduced): K4
 (linalg/sdw_update.py, the immediate update) or K5
 (linalg/sdw_delayed.py, chunks of ``delay`` sites, 8 by default, one
-launch per slice with its flushes), each with instances for q = 4 complex
-and q = 2 complex and real. The weight is phase-free (R is real and
+launch per slice with its flushes), each with instances for q = 4 and
+q = 2, complex and real. The weight is phase-free (R is real and
 non-negative by the model's antiunitary symmetry; the reduced weight is
 |R_A|^2), so ``phase`` stays exactly 1. The JAX CPU route
 (``fermion_repr="complex"``) accepts on u < |R| e^{jac - dS} (reduced:
@@ -59,7 +61,10 @@ Routes, as the JAX model dispatches them (``SDWModel.routes``):
   model); else K4;
 - wraps and the square B / B^H applies: K6 (linalg/sdw_wrap.py) if
   ``wrap_kernel="fused"``, or ``"auto"`` at dim >= 128 on a CUDA device
-  (sdw.py:526-536); else the einsum/matmul applies;
+  where K6 has an instance (complex at q = 4 and 2, real at q = 2) and a
+  plan for N (sdw.py:526-536); else the plain applies (einsum/matmul, or
+  with ``cb_apply="sparse"`` the checkerboard's bond-group passes, which
+  K6 never takes, as the JAX model fuses only dense factors);
 - refactor QR: K2c (K2 on the real chain) within one block's shared
   memory, else K7; inner solve: K3c (K3), else K8 and K9 (linalg/qr.py,
   linalg/green_solve.py, linalg/trinv.py).
@@ -99,13 +104,18 @@ S_B), ``with_r`` and ``log_weight`` = ``_chain_logdet`` - S_B in float64
 (``log_weight_and_stack`` returns the stack the log-det was read from, as
 the global moves reuse theirs).
 
-Not ported yet (each raises NotImplementedError naming ROADMAP.md, Queue
-1 item 8 and Queue 2): the full (4N, 4N) matrix at opdim 1 (a real q = 4
-chain), the real embedding, the refine green route, sparse checkerboard
-applies, ``sweep_simple``, dims above 512
-(L >= 12 full, L >= 17 reduced) on a CUDA device, and
-``update_kernel="pallas"`` / ``"scan"`` (K4) at a dim whose G exceeds K4's
-shared memory on a CUDA device.
+The naive cross-check (JAX sdw.py:1804-1857): ``green_at_slice`` rebuilds
+G(l) from the field with a refactor at every slice, and ``sweep_simple``
+runs the sweep's site updates on such a G at every slice with the same
+draws as ``sweep_up``, so both walk the same chain.
+
+Not ported (each raises NotImplementedError naming ROADMAP.md): the real
+embedding (Queue 1 item 12, a TPU device), the refine green route (item
+9), dims above 512 (L >= 12 full, L >= 17 reduced) on a CUDA device, and
+there ``update_kernel="pallas"`` / ``"scan"`` (K4) at a dim whose G
+exceeds K4's shared memory. An explicit ``wrap_kernel="fused"`` where K6
+has no instance or no plan raises ValueError on a CUDA device, as the JAX
+model refuses a fused wrap outside its native-pair chain.
 """
 
 from __future__ import annotations
@@ -122,6 +132,7 @@ from detqmc_tpu_torch.lattice import kinetic_exponentials
 from detqmc_tpu_torch.linalg import _kernels, sdw_delayed, sdw_update
 from detqmc_tpu_torch.linalg import sdw_wrap
 from detqmc_tpu_torch.linalg.qr import MAX_N_BIG
+from detqmc_tpu_torch.linalg.slice_update import _rate
 from detqmc_tpu_torch.linalg.udv import (UDV, clog_abs_det_one_plus_udv,
                                          green_from_two_udv, green_tau_zero,
                                          udv_refactor)
@@ -374,6 +385,7 @@ class SDWModel(nn.Module):
         route = self.routes(cfg, dev.type)
         self._delayed = route["update"] == "delayed"
         self._fused = route["wrap"] == "fused"
+        self.cb_sparse = cfg.checkerboard and cfg.cb_apply == "sparse"
         self._delay_k = cfg.delay if cfg.delay > 0 else 8
         Kx = self.lat.hopping_matrix(1.0, tx=cfg.txhor, ty=cfg.txver)
         Ky = self.lat.hopping_matrix(1.0, tx=cfg.tyhor, ty=cfg.tyver)
@@ -386,22 +398,28 @@ class SDWModel(nn.Module):
                "y": (expKy, expKy_inv, Ky, cfg.tyhor, cfg.tyver)}
         ek = np.stack([per[b][0] for b in bands])
         eki = np.stack([per[b][1] for b in bands])
-        if cfg.checkerboard:
-            # per-orbital group coefficients: groups (0, 1) horizontal
-            # bonds, (2, 3) vertical; applied as the exact dense product
-            partner = self.lat.checkerboard_groups()
-            th = np.array([per[b][3] for b in bands])
-            tv = np.array([per[b][4] for b in bands])
-            tg = np.stack([th, th, tv, tv], axis=1)           # (n_orb, 4)
-            ek, eki = _cb_dense_product(
-                partner, np.cosh(cfg.dtau * tg), np.sinh(cfg.dtau * tg),
-                float(np.exp(cfg.dtau * cfg.mu)))
 
         def buf(name, a, dtype):
             self.register_buffer(name, torch.as_tensor(
                 np.asarray(a), dtype=dtype, device=dev))
 
         cdt, rdt = self.cdtype, self.rdtype
+        if cfg.checkerboard:
+            # per-orbital group coefficients: groups (0, 1) horizontal
+            # bonds, (2, 3) vertical; applied as the exact dense product,
+            # or with cb_apply="sparse" group by group (_kinetic_cb_left)
+            partner = self.lat.checkerboard_groups()
+            th = np.array([per[b][3] for b in bands])
+            tv = np.array([per[b][4] for b in bands])
+            tg = np.stack([th, th, tv, tv], axis=1)           # (n_orb, 4)
+            self.cb_gamma = float(np.exp(cfg.dtau * cfg.mu))
+            ek, eki = _cb_dense_product(
+                partner, np.cosh(cfg.dtau * tg), np.sinh(cfg.dtau * tg),
+                self.cb_gamma)
+            if self.cb_sparse:
+                buf("cb_partner", partner, torch.int64)        # (4, N)
+                buf("cb_cosh", np.cosh(cfg.dtau * tg), rdt)    # (n_orb, 4)
+                buf("cb_sinh", np.sinh(cfg.dtau * tg), rdt)
         buf("expK", ek, cdt)                                   # (q, N, N)
         buf("expK_inv", eki, cdt)
         # K6 reads the kinetic factors as real matrices: their real copies,
@@ -412,7 +430,9 @@ class SDWModel(nn.Module):
                              persistent=False)
         buf("K_orb", np.stack([per[b][2] for b in bands]), cdt)
         if not cfg.reduced:
-            buf("paulis", _pauli_stack(cfg.opdim), cdt)        # (3, 2, 2)
+            # (opdim, 2, 2); sigma_x alone, real, on the opdim-1 chain
+            paulis = _pauli_stack(cfg.opdim)
+            buf("paulis", paulis if cdt.is_complex else paulis.real, cdt)
         self.register_buffer("_eye_q", torch.eye(q, dtype=cdt, device=dev),
                              persistent=False)
         nb = self.lat.neighbors()                              # (N, 4)
@@ -435,9 +455,6 @@ class SDWModel(nn.Module):
         if cfg.fermion_matrix == "reduced" and cfg.opdim == 3:
             raise ValueError("opdim=3 has no two-sector reduction (phi_z "
                              "couples the sectors)")
-        if cfg.opdim == 1 and not cfg.reduced:
-            raise _unported("fermion_matrix='full' at opdim=1 (a real "
-                            "4x4-block chain)")
         if cfg.fermion_repr == "real_embed":
             raise _unported("fermion_repr='real_embed' (a TPU device, not "
                             "to be ported)", "ROADMAP.md Queue 1 item 12")
@@ -446,14 +463,28 @@ class SDWModel(nn.Module):
         if cfg.green_kernel == "refine":
             raise _unported("green_kernel='refine'",
                             "ROADMAP.md Queue 1 item 9")
-        if cfg.checkerboard and cfg.cb_apply == "sparse":
-            raise _unported("cb_apply='sparse' (the dense checkerboard "
-                            "product is ported)")
+        if cfg.checkerboard and cfg.cb_apply == "sparse" and \
+                cfg.wrap_kernel == "fused":
+            raise ValueError("wrap_kernel='fused' needs the dense kinetic "
+                             "factors (cb_apply='sparse' applies the bond "
+                             "groups)")
         if cfg.turnoffFermions and cfg.update_kernel in ("pallas",
                                                           "delayed"):
             raise ValueError(f"update_kernel={cfg.update_kernel!r} is a "
                              "fermionic update path (turnoffFermions is "
                              "set)")
+
+    @staticmethod
+    def _k6_fits(cfg: SDWConfig) -> bool:
+        """K6 has an instance for the chain's (cdtype, q) and a plan for
+        N (one orbital's kinetic factor in one block's shared memory)."""
+        if not sdw_wrap.has_instance(cfg.cdtype, cfg.n_orb):
+            return False
+        try:
+            sdw_wrap.plan(cfg.n_sites, cfg.cdtype, q=cfg.n_orb)
+        except ValueError:
+            return False
+        return True
 
     @staticmethod
     def routes(cfg: SDWConfig, device_type: str) -> dict:
@@ -463,9 +494,10 @@ class SDWModel(nn.Module):
         big = cfg.dim >= BIG_DIM
         delayed = (cfg.update_kernel == "delayed" or cfg.delay > 0
                    or (cfg.update_kernel == "auto" and big))
+        sparse = cfg.checkerboard and cfg.cb_apply == "sparse"
         fused = (cfg.wrap_kernel == "fused"
-                 or (cfg.wrap_kernel == "auto" and big
-                     and device_type == "cuda"))
+                 or (cfg.wrap_kernel == "auto" and big and not sparse
+                     and device_type == "cuda" and SDWModel._k6_fits(cfg)))
         update = ("bosonic" if cfg.turnoffFermions
                   else "delayed" if delayed else "immediate")
         return {"update": update, "wrap": "fused" if fused else "plain"}
@@ -474,21 +506,22 @@ class SDWModel(nn.Module):
     def _check_kernel_bounds(cfg: SDWConfig) -> None:
         """On a CUDA device the dim must be within the blocked kernels'
         bound (qr.MAX_N_BIG: K5 and K7-K9 all fit their shared memory up
-        to it), K6 needs a plan (one orbital's kinetic factor in one
-        block's shared memory: at q = 2 N <= 219 in complex64, 149 in
-        complex128, 228 in float32, 158 in float64), and the immediate
-        update K4 needs G in one block's shared memory."""
+        to it), an explicit ``wrap_kernel="fused"`` needs K6's instance
+        and a plan (one orbital's kinetic factor in one block's shared
+        memory: at q = 2 N <= 219 in complex64, 149 in complex128, 228 in
+        float32, 158 in float64; else ValueError, where "auto" takes the
+        plain wraps), and the immediate update K4 needs G in one block's
+        shared memory."""
         dim = cfg.dim
         if dim > MAX_N_BIG:
             raise _unported(f"SDW at dim {dim} > {MAX_N_BIG} on a CUDA device",
                             "ROADMAP.md Queue 1 item 8")
-        if SDWModel.routes(cfg, "cuda")["wrap"] == "fused":
-            try:
-                sdw_wrap.plan(cfg.n_sites, cfg.cdtype, q=cfg.n_orb)
-            except ValueError:
-                raise _unported(f"the fused wrap K6 at N = {cfg.n_sites} "
-                                f"({cfg.cdtype}, q = {cfg.n_orb}) on a CUDA "
-                                "device", "ROADMAP.md Queue 2") from None
+        if SDWModel.routes(cfg, "cuda")["wrap"] == "fused" and \
+                not SDWModel._k6_fits(cfg):
+            raise ValueError(f"wrap_kernel='fused': K6 has no instance or "
+                             f"no plan at N = {cfg.n_sites} ({cfg.cdtype}, "
+                             f"q = {cfg.n_orb}; wrap_kernel='auto' runs the "
+                             "plain wraps there)")
         if SDWModel.routes(cfg, "cuda")["update"] == "immediate" and (
                 dim > sdw_update.MAX_H or sdw_update.smem_bytes(
                     cfg.n_sites, cfg.opdim, cfg.cdtype, cfg.n_orb)
@@ -541,13 +574,64 @@ class SDWModel(nn.Module):
         """exp(sign dtau V) for single sites: (..., q, q) from (..., opdim)."""
         return self.exp_v_blocks(phi_i, sign)
 
+    # ---- kinetic applies ---------------------------------------------------
+    def _kin_left(self, X, inv: bool = False, transpose: bool = False):
+        """blockdiag(E) @ X for E = expK, its inverse or its transpose (X
+        (..., dim, k)): the dense factor, or the sparse checkerboard's
+        bond groups."""
+        if self.cb_sparse:
+            return self._kinetic_cb_left(X, inv, transpose)
+        E = self.expK_inv if inv else self.expK
+        return sdw_wrap.kin_left(E.transpose(-1, -2) if transpose else E, X)
+
+    def _kin_right(self, X, inv: bool = False):
+        """X @ blockdiag(E) for E = expK or its inverse (X (..., k, dim))."""
+        if self.cb_sparse:
+            return self._kinetic_cb_right(X, inv)
+        return sdw_wrap.kin_right(X, self.expK_inv if inv else self.expK)
+
+    def _kinetic_cb_left(self, X, inv: bool, transpose: bool):
+        """The checkerboard E @ X group by group (the JAX model's
+        _kinetic_cb_left): E = gamma F_0 F_1 F_2 F_3, every F symmetric
+        with det 1 per bond, so E^T reverses the group order and E^{-1}
+        flips the sinh sign; one gather and axpy per group."""
+        N = self.cfg.n_sites
+        Xo = X.reshape(*X.shape[:-2], self.n_orb, N, X.shape[-1])
+        groups = range(3, -1, -1) if transpose == inv else range(4)
+        sgn = -1.0 if inv else 1.0
+        for g in groups:
+            c = self.cb_cosh[:, g, None, None]
+            sh = sgn * self.cb_sinh[:, g, None, None]
+            Xo = c * Xo + sh * Xo.index_select(-2, self.cb_partner[g])
+        if self.cfg.mu != 0.0:
+            Xo = Xo * (1.0 / self.cb_gamma if inv else self.cb_gamma)
+        return Xo.reshape(X.shape)
+
+    def _kinetic_cb_right(self, X, inv: bool):
+        """X @ E (or E^{-1}) group by group (the JAX model's
+        _kinetic_cb_right)."""
+        N = self.cfg.n_sites
+        Xo = X.reshape(*X.shape[:-1], self.n_orb, N)
+        groups = range(3, -1, -1) if inv else range(4)
+        sgn = -1.0 if inv else 1.0
+        for g in groups:
+            c = self.cb_cosh[:, g, None]
+            sh = sgn * self.cb_sinh[:, g, None]
+            Xo = c * Xo + sh * Xo.index_select(-1, self.cb_partner[g])
+        if self.cfg.mu != 0.0:
+            Xo = Xo * (1.0 / self.cb_gamma if inv else self.cb_gamma)
+        return Xo.reshape(X.shape)
+
     # ---- B applies (X: (W, dim, dim)); the factors live in linalg/sdw_wrap.py
     def _apply(self, blocks, X, herm: bool):
         # the sweep applies B only to the square lazy U; K6 raises on any
         # other operand of a CUDA tensor
         if self._fused:
             return sdw_wrap.apply(X.contiguous(), self.expK_real, blocks, herm)
-        return sdw_wrap.apply_plain(X, self.expK, blocks, herm)
+        if herm:
+            return self._kin_left(sdw_wrap.dv_left(blocks.mH, X),
+                                  transpose=True)
+        return sdw_wrap.dv_left(blocks, self._kin_left(X))
 
     # B = D_V expK (potential leftmost, as in Hubbard)
     def b_mult_left(self, blocks, X):
@@ -556,8 +640,7 @@ class SDWModel(nn.Module):
     def b_inv_mult_right(self, X, blocks_inv):
         """X @ B^{-1} = (X expK^{-1}) D_V^{-1}, plain applies (as in the
         JAX model, no fused kernel takes it)."""
-        return sdw_wrap.dv_right(sdw_wrap.kin_right(X, self.expK_inv),
-                                 blocks_inv)
+        return sdw_wrap.dv_right(self._kin_right(X, inv=True), blocks_inv)
 
     def bT_mult_left(self, blocks, X):
         """B^H @ X = expK^H (D_V^H X), for the conj-transposed right stack
@@ -668,7 +751,7 @@ class SDWModel(nn.Module):
                 phi_l0, phi_new, jac, phi_lp, phi_lm, u01, r)
             phi = phi.clone()
             phi[:, l_idx] = phi_l
-            return G, phi, acc / N
+            return G, phi, _rate(acc, N)
         lhs = (torch.log(u01) - jac
                + self._ds_static(phi_l0, phi_new, phi_lp, phi_lm, r))
         en = self.exp_v_blocks(phi_new, -1.0)
@@ -683,7 +766,7 @@ class SDWModel(nn.Module):
             G, phi_l, acc = sdw_update.sdw_update(*args)
         phi = phi.clone()
         phi[:, l_idx] = phi_l
-        return G, phi, acc / N
+        return G, phi, _rate(acc, N)
 
     def _update_slice_bosonic(self, phi_l0, phi_new, jac, phi_lp, phi_lm,
                               u01, r):
@@ -723,8 +806,13 @@ class SDWModel(nn.Module):
         if self._fused:
             return sdw_wrap.wrap(G.contiguous(), self.expK_real,
                                  self.expK_inv_real, blocks, blocks_inv, up)
-        return sdw_wrap.wrap_plain(G, self.expK, self.expK_inv, blocks,
-                                   blocks_inv, up)
+        # the plain wraps (sdw_wrap.wrap_plain's compositions)
+        dvl, dvr = sdw_wrap.dv_left, sdw_wrap.dv_right
+        if up:
+            return dvl(blocks, self._kin_left(dvr(self._kin_right(
+                G, inv=True), blocks_inv)))
+        return self._kin_left(dvl(blocks_inv, self._kin_right(dvr(
+            G, blocks))), inv=True)
 
     def wrap_up(self, G, blocks, blocks_inv):
         """G(l) = B_l G(l-1) B_l^{-1}."""
@@ -961,7 +1049,7 @@ class SDWModel(nn.Module):
             obs_sum = SDWObservables(*[torch.zeros_like(a) for a in zero])
         obs_mean = SDWObservables(*[a / K for a in obs_sum])
         obs_mean = obs_mean._replace(
-            acceptance=acc_sum / cfg.m,
+            acceptance=_rate(acc_sum, cfg.m),
             # one configuration (the sweep's final field), not an average
             exchangeAction=0.5 * cfg.dtau * torch.sum(phi ** 2,
                                                       dim=(1, 2, 3)))
@@ -1414,9 +1502,59 @@ class SDWModel(nn.Module):
                                          s_pot(phi_new) - s_pot(state.phi), u)
         return state, accept, in_c.sum(dim=(1, 2))
 
-    # ---- not ported yet -------------------------------------------------------------
-    def sweep_simple(self, *args, **kwargs):
-        raise _unported("sweep_simple (the naive cross-check sweep)")
+    # ---- naive cross-check sweep -------------------------------------------
+    def green_at_slice(self, phi, l: int) -> torch.Tensor:
+        """Stabilized G(l) (W, dim, dim) rebuilt from the field alone with
+        a refactor at every slice: the naive recompute behind sweep_simple
+        (the JAX model's green_at_slice). ``l`` in 0..m."""
+        left = right = self._eye_mixed(phi.shape[0])
+        for j in range(1, l + 1):
+            left = udv_refactor(self.b_mult_left(
+                self.exp_v_blocks(phi[:, j - 1]), left.U), left.d, left.V)
+        for j in range(self.cfg.m, l, -1):
+            right = udv_refactor(self.bT_mult_left(
+                self.exp_v_blocks(phi[:, j - 1]), right.U), right.d, right.V)
+        return green_from_two_udv(left, right)
 
-    def green_at_slice(self, *args, **kwargs):
-        raise _unported("green_at_slice (the sweep_simple primitive)")
+    def sweep_simple(self, state: SDWState, measure: bool = False,
+                     draws=None, generator=None):
+        """Naive up sweep (the JAX model's sweep_simple): G(l) from
+        ``green_at_slice`` at every slice, then the same site updates as
+        ``sweep_up`` on the same draws (``draws`` as ``_sweep`` takes
+        them), so both walk the same chain and a disagreement indicts the
+        wraps and the stack. Measures after the update of every s-th
+        slice; the state is refreshed from the field. O(m^2) refactors: a
+        cross-check, not a production path."""
+        cfg = self.cfg
+        phi = state.phi
+        W = phi.shape[0]
+        if draws is None:
+            if generator is None:
+                raise ValueError("sweep_simple needs draws or a "
+                                 "torch.Generator")
+            draws = self._draw_proposal_randoms(W, generator)
+        u01, rnd = draws
+        alt = state.sweeps_done % 2
+        acc_sum = torch.zeros(W, dtype=self.rdtype, device=self.device)
+        obs_sum = None
+        for l in range(1, cfg.m + 1):
+            G = self.green_at_slice(phi, l)         # fresh, pre-update
+            G, phi, acc = self.update_slice(
+                G, phi, l, u01[:, l - 1], tuple(x[:, l - 1] for x in rnd),
+                state.box_width, state.r, alt)
+            acc_sum = acc_sum + acc
+            if measure and l % cfg.s == 0:
+                obs = self.measure(G, phi, state.phase,
+                                   torch.zeros_like(acc_sum))
+                obs_sum = obs if obs_sum is None else SDWObservables(
+                    *[a + b for a, b in zip(obs_sum, obs)])
+        new_state = self.refresh_from_field(state._replace(phi=phi))._replace(
+            sweeps_done=state.sweeps_done + 1)
+        if obs_sum is None:
+            zero = self.measure(new_state.G, phi, state.phase, acc_sum)
+            obs_sum = SDWObservables(*[torch.zeros_like(a) for a in zero])
+        obs_mean = SDWObservables(*[a / cfg.n_stack for a in obs_sum])
+        return new_state, obs_mean._replace(
+            acceptance=_rate(acc_sum, cfg.m),
+            exchangeAction=0.5 * cfg.dtau * torch.sum(phi ** 2,
+                                                      dim=(1, 2, 3)))

@@ -144,8 +144,23 @@ Tolerances (same inputs, same card):
   K6 (FMA accumulation, as its q = 4 instance) within 1e-5 / 1e-12 of
   max|G| at L = 2, 3, 4, 8, 12; reduced sweep pairs on the card against
   the CPU (f64, immediate and delayed/fused): identical fields, G within
-  1e-10, only q = 2 instances launched; the refusals (no real q = 4
-  instance, K6 beyond its plans, the full matrix at opdim 1).
+  1e-10, only q = 2 instances launched; K6 has no real q = 4 instance,
+  and beyond its plans wrap_kernel="auto" takes the plain wraps (an
+  explicit "fused" raises);
+- the real q = 4 instances of K4 and K5 (the full real opdim-1 chain): K4
+  on the model's own operands at L = 1 ... 5 and on synthetic ones at
+  every h = 4 ... 160, K5 on synthetic ones at N = 4 ... 128 (the
+  models' N = L^2, every slot residence, an odd N at h = 508), K = 1, 2,
+  3, 5, 8, 16, W = 3 and 130, and
+  on the L = 8 model's slice 1: one
+  launch under "sdw_update_real" / "sdw_delayed_real", identical
+  decisions, fields and acceptance, G bitwise in float64 and within 1e-5
+  in float32; full real sweep pairs on the card against the CPU (f64, L =
+  2 immediate and delay 3, L = 6 with K5 / K7 / K8 / K9, L = 4 with the
+  sparse checkerboard): identical fields, G and observables within 1e-10,
+  the plain wraps; the repaired wrap route at opdim 2, L = 15, float32
+  (no K6 plan): a sweep pair on the card against the CPU with identical
+  fields and G within 1e-4 of max|G|.
 """
 
 import numpy as np
@@ -1533,10 +1548,11 @@ def test_sdw_update_q2_kernel_matches_plain(cuda_device, dtype, opdim, L):
                                     cuda_device, opdim, 2) >= 1
 
 
-def _q2_synthetic(device, N, dtype, W, seed, opdim):
-    """Synthetic operands of one q = 2 slice at any N (h = 2 N)."""
+def _q2_synthetic(device, N, dtype, W, seed, opdim, q=2):
+    """Synthetic operands of one slice of q x q site blocks at any N
+    (h = q N)."""
     gen = torch.Generator(device).manual_seed(seed)
-    rdt, h = dtype.to_real(), 2 * N
+    rdt, h = dtype.to_real(), q * N
 
     def rnd(*shape):
         x = torch.randn(shape, generator=gen, dtype=rdt, device=device)
@@ -1552,7 +1568,7 @@ def _q2_synthetic(device, N, dtype, W, seed, opdim):
                                       dtype=rdt, device=device)
     lhs = torch.log(torch.rand((W, N), generator=gen, dtype=rdt,
                                device=device))
-    delta = 0.3 * rnd(W, N, 2, 2)
+    delta = 0.3 * rnd(W, N, q, q)
     i = torch.arange(N)
     nb = torch.stack([(i + 1) % N, (i - 1) % N, (i + 2) % N, (i - 2) % N],
                      dim=1).to(torch.int32).to(device)
@@ -1664,18 +1680,178 @@ def test_sdw_reduced_sweep_on_card_matches_cpu(cuda_device, opdim, kw):
 
 
 def test_sdw_reduced_refuses_what_it_lacks(cuda_device):
-    """No q = 4 real instance (the full opdim-1 chain is not ported), and
-    the fused wrap's limit at q = 2 in complex128 (N = 196)."""
+    """K6 has no real q = 4 instance (the full opdim-1 chain runs the plain
+    wraps, as the JAX model); beyond K6's plan at q = 2 (complex128 at
+    N = 196) wrap_kernel="auto" takes the plain wraps and an explicit
+    "fused" raises."""
     model, st, gen = _sdw_reduced(cuda_device, 1, L=2)
     G = st.G.contiguous()
     D = torch.zeros((3, 4, 4, 4), dtype=G.dtype, device=cuda_device)
     E4 = torch.zeros((4, 2, 2), dtype=G.dtype, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="plain wraps"):
         sdw_wrap.apply(torch.zeros((3, 8, 8), dtype=G.dtype,
                                    device=cuda_device), E4, D, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SDWModel(SDWConfig(L=14, opdim=2, m=8, s=4, dtype="float64"),
-                 device=cuda_device)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SDWModel(SDWConfig(L=2, opdim=1, m=8, s=4, fermion_matrix="full"),
-                 device=cuda_device)
+    with pytest.raises(ValueError, match="wrap_kernel='auto'"):
+        SDWModel(SDWConfig(L=14, opdim=2, m=8, s=4, dtype="float64",
+                           wrap_kernel="fused"), device=cuda_device)
+    for cfg in (SDWConfig(L=14, opdim=2, m=8, s=4, dtype="float64"),
+                SDWConfig(L=8, opdim=1, m=8, s=4, fermion_matrix="full")):
+        assert not SDWModel(cfg, device=cuda_device)._fused
+
+
+# ---- the full real opdim-1 chain's q = 4 instances of K4 and K5 -----------
+def _sdw_full_real(device, L=4, dtype="float64", W=3, seed=0, **kw):
+    return _sdw_reduced(device, 1, L=L, dtype=dtype, W=W, seed=seed,
+                        fermion_matrix="full", **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 5])
+def test_sdw_update_real_q4_kernel_matches_plain(cuda_device, dtype, L):
+    """K4's real q = 4 instances on the full real chain's own slice-1
+    operands (h = 4 ... 100) and on synthetic ones at h = 160 (the limit):
+    one launch under "sdw_update_real", identical decisions, fields and
+    acceptance, G bitwise in float64 and within 1e-5 in float32."""
+    model, st, gen = _sdw_full_real(cuda_device, L=L, dtype=dtype)
+    args = _k4_operands(model, st, gen)
+    extra = (model.nb, model.cfg.dtau, model.c_det)
+    assert model.c_det == 0.5 and args[0].dtype == getattr(torch, dtype)
+    _kernels.reset_launch_counts()
+    kern = sdw_update.sdw_update(*args, *extra)
+    _check_q2(kern, sdw_update.sdw_update_plain(*args, *extra), model.cdtype,
+              1, "sdw_update_real")
+    if L > 1:
+        assert 0 < float(kern[2].sum()) < 3 * model.cfg.n_sites
+    ops, nb = _q2_synthetic(cuda_device, 40, model.cdtype, 130, L, 1, q=4)
+    _kernels.reset_launch_counts()
+    kern = sdw_update.sdw_update(*ops, nb, 0.1, 0.5)
+    _check_q2(kern, sdw_update.sdw_update_plain(*ops, nb, 0.1, 0.5),
+              model.cdtype, 1, "sdw_update_real")
+    assert 0 < float(kern[2].sum()) < 130 * 40
+    assert sdw_update.blocks_per_sm(40, model.cdtype, cuda_device, 1) >= 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("N", range(1, 41))
+def test_sdw_update_real_q4_at_every_h(cuda_device, dtype, N):
+    """K4's real q = 4 instances on synthetic operands at every h = 4 N up
+    to its limit, 160 (W = 130): one launch, identical decisions, fields
+    and acceptance, G bitwise in float64 and within 1e-5 in float32."""
+    dt = getattr(torch, dtype)
+    ops, nb = _q2_synthetic(cuda_device, N, dt, 130, 7 * N, 1, q=4)
+    _kernels.reset_launch_counts()
+    kern = sdw_update.sdw_update(*ops, nb, 0.1, 0.5)
+    _check_q2(kern, sdw_update.sdw_update_plain(*ops, nb, 0.1, 0.5), dt, 1,
+              "sdw_update_real")
+    assert 0 < float(kern[2].sum()) < 130 * N
+
+
+@pytest.mark.parametrize("W", [3, 130])
+@pytest.mark.parametrize("N", [4, 9, 16, 25, 36, 49, 64, 81, 100, 121, 127,
+                               128])
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sdw_delayed_real_q4_kernel_matches_plain(cuda_device, dtype, K, N,
+                                                  W):
+    """K5's real q = 4 instances over one slice (h = 16 ... 512, every slot
+    residence the plan takes, ragged last chunks, K above N): one launch,
+    identical decisions and fields, G bitwise in float64 and within 1e-5
+    in float32; the immediate K4 where it fits, the same decisions; and
+    the full real L = 8 model's own slice 1 (h = 256), bitwise in
+    float64."""
+    dt = getattr(torch, dtype)
+    ops, nb = _q2_synthetic(cuda_device, N, dt, W, N + K + W, 1, q=4)
+    extra = (nb, 0.1, 0.5)
+    _kernels.reset_launch_counts()
+    kern = sdw_delayed.sdw_delayed(*ops, *extra, K)
+    _check_q2(kern, sdw_delayed.sdw_delayed_plain(*ops, *extra, K), dt, 1,
+              "sdw_delayed_real")
+    # both outcomes occur (with three walkers every site may accept)
+    assert 0 < float(kern[2].sum()) and (W == 3 or float(kern[2].sum())
+                                         < W * N)
+    if 4 * N <= sdw_update.MAX_H:
+        imm = sdw_update.sdw_update(*ops, *extra)
+        assert torch.equal(imm[1], kern[1]) and torch.equal(imm[2], kern[2])
+    assert sdw_delayed.blocks_per_sm(N, dt, min(K, N), cuda_device, 1,
+                                     4) >= 1
+    if N == 64 and W == 3:
+        model, st, gen = _sdw_full_real(cuda_device, L=8, dtype=dtype,
+                                        seed=K)
+        args = _k4_operands(model, st, gen)
+        mx = (model.nb, model.cfg.dtau, model.c_det)
+        _kernels.reset_launch_counts()
+        out = sdw_delayed.sdw_delayed(*args, *mx, K)
+        _check_q2(out, sdw_delayed.sdw_delayed_plain(*args, *mx, K), dt, 1,
+                  "sdw_delayed_real")
+
+
+@pytest.mark.parametrize("L,kw", [(2, {}), (2, dict(delay=3)), (6, {}),
+                                  (4, dict(checkerboard=True,
+                                           cb_apply="sparse"))],
+                         ids=["L2", "L2-delay3", "L6", "L4-cb-sparse"])
+def test_sdw_full_real_sweep_on_card_matches_cpu(cuda_device, L, kw):
+    """A full real opdim-1 sweep pair (f64) on the card against the CPU
+    from one state and one set of draws: identical fields and acceptance,
+    G and the observables within 1e-10, the launch counts of the sweep
+    structure (the real q = 4 instances; no K6)."""
+    cfg = SDWConfig(L=L, opdim=1, fermion_matrix="full", r=0.5, beta=1.0,
+                    m=8, s=4, dtype="float64", **kw)
+    cpu = SDWModel(cfg, device="cpu")
+    gpu = SDWModel(cfg, device=cuda_device)
+    W = 2
+    gen = torch.Generator().manual_seed(5 + L)
+    sc = cpu.init_state(W, gen)
+    sg = SDWState(*[x.to(cuda_device) for x in sc])
+    d = tuple(cpu._draw_proposal_randoms(W, gen) for _ in range(2))
+    to_dev = lambda t: (t[0].to(cuda_device),                 # noqa: E731
+                        tuple(x.to(cuda_device) for x in t[1]))
+    _kernels.reset_launch_counts()
+    sc, oc = cpu.sweep_pair(sc, measure=True, draws=d)
+    sg, og = gpu.sweep_pair(sg, measure=True, draws=tuple(map(to_dev, d)))
+    torch.cuda.synchronize()
+    route = SDWModel.routes(cfg, "cuda")
+    assert route["wrap"] == "plain"
+    upd = sdw_delayed if route["update"] == "delayed" else sdw_update
+    expect = dict.fromkeys(_kernels.LAUNCHES, 0)
+    expect.update({upd.launch_name(torch.float64, 4): 2 * cfg.m,
+                   qr.kernel_for(cfg.dim, torch.float64): 2 * cfg.n_stack,
+                   green_solve.kernel_for(cfg.dim, torch.float64):
+                   2 * cfg.n_stack})
+    if expect["solve_inner_big"]:
+        expect["trinv_big"] = 2 * cfg.n_stack      # K8's back-substitution
+    assert _kernels.LAUNCHES == expect
+    assert torch.equal(sg.phi.cpu(), sc.phi)
+    assert torch.equal(og.acceptance.cpu(), oc.acceptance)
+    assert float((sg.G.cpu() - sc.G).abs().max()) <= 1e-10
+    for a, b in zip(og, oc):
+        assert float((a.cpu() - b).abs().max()) <= 1e-10
+
+
+def test_sdw_reduced_l15_sweep_on_card_matches_cpu(cuda_device):
+    """The repaired wrap route: opdim 2, reduced, L = 15 in float32 (no K6
+    plan at N = 225 in complex64) builds on the card with the plain wraps
+    and K5, and a sweep pair there follows the CPU's: identical fields
+    and acceptance, G within 1e-4 of max|G|."""
+    cfg = SDWConfig(L=15, opdim=2, r=0.5, beta=1.0, m=4, s=2,
+                    dtype="float32")
+    assert SDWModel.routes(cfg, "cuda") == {"update": "delayed",
+                                            "wrap": "plain"}
+    cpu = SDWModel(cfg, device="cpu")
+    gpu = SDWModel(cfg, device=cuda_device)
+    W = 2
+    gen = torch.Generator().manual_seed(15)
+    sc = cpu.init_state(W, gen)
+    sg = SDWState(*[x.to(cuda_device) for x in sc])
+    d = tuple(cpu._draw_proposal_randoms(W, gen) for _ in range(2))
+    to_dev = lambda t: (t[0].to(cuda_device),                 # noqa: E731
+                        tuple(x.to(cuda_device) for x in t[1]))
+    _kernels.reset_launch_counts()
+    sc, oc = cpu.sweep_pair(sc, measure=True, draws=d)
+    sg, og = gpu.sweep_pair(sg, measure=True, draws=tuple(map(to_dev, d)))
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["sdw_delayed_q2"] == 2 * cfg.m
+    assert _kernels.LAUNCHES["sdw_wrap_q2"] == 0
+    assert torch.equal(sg.phi.cpu(), sc.phi)
+    assert torch.equal(og.acceptance.cpu(), oc.acceptance)
+    assert float((sg.G.cpu() - sc.G).abs().max()) <= 1e-4 * float(
+        sc.G.abs().max())

@@ -69,6 +69,8 @@ versions on the card in tests/test_torch_kernels_gpu.py).
   parts) and hands them to K6.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -522,6 +524,35 @@ def test_k1_limits_and_routes():
         "slice_update_delayed"
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_real_q4_instances_shared_memory_and_plans(dtype):
+    """The full real opdim-1 chain's q = 4 instances of K4 and K5: their
+    shared-memory mirrors (csrc/sdw_update.cu update_smem,
+    csrc/sdw_delayed.cu delayed_smem at real q = 4), K4 up to h = 160 (the
+    main path's L = 4, h = 64, in both dtypes), K5's 4 x 4 flush tile and
+    its plans at every h = 4 N <= 512 (the main path's L = 8: the slots in
+    shared memory)."""
+    budget = _kernels.MAX_SMEM_BYTES - 1024
+    item = dtype.itemsize
+    for N in range(1, 41):
+        h = 4 * N
+        assert sdw_update.smem_bytes(N, 1, dtype) == (
+            item * (h * h + 8 * h) + item * (N * 9 + N) + 16 * N) <= budget
+    for N in range(1, 129):
+        for K in (1, min(8, N)):
+            res, tile = sdw_delayed.plan(N, dtype, K, 1)
+            assert tile == sdw_delayed.flush_tile(dtype) == (4, 4)
+            b = sdw_delayed.RESIDENCES[res]
+            assert sdw_delayed.smem_bytes(N, dtype, K, b, 1) == (
+                b * 4 * K * 4 * N * item + 16 * N * item
+                + item * (N * 9 + N) + 16 * N) <= budget
+    assert sdw_delayed.plan(64, dtype, 8, 1)[0] == "shared"
+    assert sdw_delayed.flush_tile(torch.complex128) == (2, 4)
+    assert sdw_delayed.flush_tile(torch.complex64) == (4, 4)
+    with pytest.raises(ValueError):
+        sdw_delayed.plan(129, dtype, 8, 1)
+
+
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128,
                                    torch.float32, torch.float64])
 def test_q2_instances_shared_memory_and_plans(dtype):
@@ -566,8 +597,9 @@ def test_reduced_routes_and_bounds_on_the_card():
     """The reduced chains' routes (K4 and the plain wraps at dim < 128,
     K5 and K6 at dim >= 128, as the full model's) and the bounds a CUDA
     device puts on them: K6's plan (complex64 up to L = 14, complex128 up
-    to L = 12, float32 up to L = 15, float64 up to L = 12), the full
-    matrix at opdim 1 not ported."""
+    to L = 12, float32 up to L = 15, float64 up to L = 12), beyond which
+    the plain wraps run (an explicit wrap_kernel="fused" raises there);
+    the full matrix at opdim 1 runs the plain wraps at every dim."""
     for opdim in (1, 2):
         for L, route in ((4, {"update": "immediate", "wrap": "plain"}),
                          (8, {"update": "delayed", "wrap": "fused"})):
@@ -577,13 +609,23 @@ def test_reduced_routes_and_bounds_on_the_card():
             SDWModel._check_kernel_bounds(cfg)
         for dt, last in (("float32", 14 if opdim == 2 else 15),
                          ("float64", 12)):
-            SDWModel._check_kernel_bounds(SDWConfig(L=last, opdim=opdim,
-                                                    m=8, s=4, dtype=dt))
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                SDWModel._check_kernel_bounds(SDWConfig(
-                    L=last + 1, opdim=opdim, m=8, s=4, dtype=dt))
+            cfg = SDWConfig(L=last, opdim=opdim, m=8, s=4, dtype=dt)
+            SDWModel._check_kernel_bounds(cfg)
+            assert SDWModel.routes(cfg, "cuda")["wrap"] == "fused"
+            cfg = SDWConfig(L=last + 1, opdim=opdim, m=8, s=4, dtype=dt)
+            SDWModel._check_kernel_bounds(cfg)
+            assert SDWModel.routes(cfg, "cuda") == {"update": "delayed",
+                                                    "wrap": "plain"}
+            with pytest.raises(ValueError, match="wrap_kernel='auto'"):
+                SDWModel._check_kernel_bounds(dataclasses.replace(
+                    cfg, wrap_kernel="fused"))
     cfg = SDWConfig(L=4, opdim=2, m=8, s=4, fermion_matrix="full")
     assert not cfg.reduced and cfg.dim == 64
+    for L, update in ((4, "immediate"), (8, "delayed")):
+        cfg = SDWConfig(L=L, opdim=1, m=8, s=4, fermion_matrix="full")
+        assert cfg.cdtype == torch.float32 and cfg.dim == 4 * L * L
+        assert SDWModel.routes(cfg, "cuda") == {"update": update,
+                                                "wrap": "plain"}
     assert SDWConfig(L=4, opdim=1, m=8, s=4).cdtype == torch.float32
     assert SDWModel.routes(SDWConfig(L=8, opdim=2, m=8, s=4,
                                      turnoffFermions=True),

@@ -189,16 +189,35 @@ def test_f32_main_path_config_cut_to_m8():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(opdim=1, fermion_matrix="full"),
-    dict(opdim=2, checkerboard=True, cb_apply="sparse"),
     dict(fermion_repr="real_embed"), dict(green_kernel="refine"),
-    dict(checkerboard=True, cb_apply="sparse"),
     dict(opdim=2, green_kernel="refine")],
     ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_knobs_raise(kw):
     cfg = ts.SDWConfig(**dict(dict(L=2, opdim=3, m=4, s=2), **kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.SDWModel(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(opdim=1, fermion_matrix="full"),
+    dict(opdim=2, checkerboard=True, cb_apply="sparse"),
+    dict(checkerboard=True, cb_apply="sparse")],
+    ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_ported_knobs_sweep(kw):
+    """The knobs the port refused before they were ported (the full real
+    opdim-1 chain, the sparse checkerboard) build and run a sweep pair:
+    finite G and observables, phase 1 (tests/test_torch_sdw_full_real.py
+    holds them against the JAX package)."""
+    cfg = ts.SDWConfig(**dict(dict(L=2, opdim=3, m=4, s=2,
+                                   dtype="float64"), **kw))
+    model = ts.SDWModel(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    state, obs = model.sweep_pair(model.init_state(W, gen), measure=True,
+                                  generator=gen)
+    assert bool(torch.isfinite(state.G).all())
+    assert all(bool(torch.isfinite(x).all()) for x in obs)
+    assert torch.equal(state.phase, torch.ones_like(state.phase))
+    assert (state.green_dev < 1e-8).all()
 
 
 @pytest.mark.parametrize("kw,route", [
@@ -228,11 +247,13 @@ def test_unported_methods_raise_and_mapped_knobs_build():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.SDWModel._check_kernel_bounds(ts.SDWConfig(**dict(base, L=12)))
     model = ts.SDWModel(ts.SDWConfig(**base), device="cpu")
-    for name in ("sweep_simple", "green_at_slice"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(model, name)()
-    # the parallel-tempering hooks are ported (tests/test_torch_pt.py)
+    # the naive cross-check is ported (tests/test_torch_sweep_simple.py)
     st = model.init_state(2, torch.Generator().manual_seed(0))
+    assert model.green_at_slice(st.phi, 2).shape == st.G.shape
+    naive, _ = model.sweep_simple(
+        st, generator=torch.Generator().manual_seed(1))
+    assert naive.sweeps_done.tolist() == [1, 1]
+    # the parallel-tempering hooks are ported (tests/test_torch_pt.py)
     assert model.exchange_action(st).shape == (2,)
     assert model.with_r(st, 1.5).r.tolist() == [1.5, 1.5]
     assert torch.isfinite(model.log_weight(st.phi)).all()

@@ -338,5 +338,5 @@ def test_sdw_cli_refusals():
     assert port_main(["--conf", CONF, "updateMethod=sometimes",
                       "device=cpu"]) == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_main(["--conf", CONF, "L=2", "m=8", "cbApply=sparse",
+        port_main(["--conf", CONF, "L=2", "m=8", "greenKernel=refine",
                    "device=cpu"])
