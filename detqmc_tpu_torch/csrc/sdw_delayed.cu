@@ -482,16 +482,13 @@ int dq_sdw_delayed_probe_c64(int device, const void* G, void* G_out, const void*
         K, resident, dtau, c_det, stream, static_cast<long long*>(probe));
 }
 
-// CTAs per SM of the production instances (no launch; dtype as
-// dq::delayed_blocks_of)
-int dq_sdw_delayed_blocks_per_sm(int device, int dtype, int N, int opdim, int K,
+// CTAs per SM of the production instance at q = 4 or 2 (no launch; dtype
+// as dq::delayed_blocks_of)
+int dq_sdw_delayed_blocks_per_sm(int device, int dtype, int q, int N, int opdim, int K,
                                  int resident) {
-    return dq::delayed_blocks_of<4>(device, dtype, N, opdim, K, resident);
-}
-
-int dq_sdw_delayed_q2_blocks_per_sm(int device, int dtype, int N, int opdim, int K,
-                                    int resident) {
-    return dq::delayed_blocks_of<2>(device, dtype, N, opdim, K, resident);
+    if (q == 4) return dq::delayed_blocks_of<4>(device, dtype, N, opdim, K, resident);
+    if (q == 2) return dq::delayed_blocks_of<2>(device, dtype, N, opdim, K, resident);
+    return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

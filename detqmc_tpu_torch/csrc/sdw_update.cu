@@ -277,13 +277,12 @@ int dq_sdw_update_probe_c64(int device, const void* G, const void* phi,
         c_det, stream, static_cast<long long*>(probe));
 }
 
-// CTAs per SM (no launch; dtype as dq::update_blocks_of)
-int dq_sdw_update_blocks_per_sm(int device, int dtype, int N, int opdim) {
-    return dq::update_blocks_of<4>(device, dtype, N, opdim);
-}
-
-int dq_sdw_update_q2_blocks_per_sm(int device, int dtype, int N, int opdim) {
-    return dq::update_blocks_of<2>(device, dtype, N, opdim);
+// CTAs per SM (no launch) of the instance at q = 4 or 2 (dtype as
+// dq::update_blocks_of)
+int dq_sdw_update_blocks_per_sm(int device, int dtype, int q, int N, int opdim) {
+    if (q == 4) return dq::update_blocks_of<4>(device, dtype, N, opdim);
+    if (q == 2) return dq::update_blocks_of<2>(device, dtype, N, opdim);
+    return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

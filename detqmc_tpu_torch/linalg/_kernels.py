@@ -139,13 +139,13 @@ _SIGNATURES = {
     # device, complex128, N, TL, og, nb
     "dq_sdw_wrap_blocks_per_sm": [_I] * 6,
     # device, dtype code (0 float32, 1 float64, 2 complex64, 3 complex128),
-    # N, opdim, K, resident
-    "dq_sdw_delayed_blocks_per_sm": [_I] * 6,
-    # device, dtype code, N, opdim
-    "dq_sdw_update_blocks_per_sm": [_I] * 4,
+    # q, N, opdim, K, resident
+    "dq_sdw_delayed_blocks_per_sm": [_I] * 7,
+    # device, dtype code, q, N, opdim
+    "dq_sdw_update_blocks_per_sm": [_I] * 5,
     # the reduced sector's q = 2 instances of K4, K5 and K6 (signatures as
-    # their q = 4 ones) and their CTAs per SM (K6's complex128 flag
-    # replaced by the dtype code)
+    # their q = 4 ones) and K6's CTAs per SM (its complex128 flag replaced
+    # by the dtype code)
     **{f"dq_sdw_update_q2_{t}": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P]
        for t in ("c64", "c128", "f32", "f64")},
     **{f"dq_sdw_delayed_q2_{t}": [_I] + [_P] * 10 + [_I] * 5 + [_D, _D, _P]
@@ -154,8 +154,6 @@ _SIGNATURES = {
        for t in ("c64", "c128", "f32", "f64")},
     **{f"dq_sdw_apply_q2_{t}": [_I] + [_P] * 4 + [_I] * 7 + [_P]
        for t in ("c64", "c128", "f32", "f64")},
-    "dq_sdw_update_q2_blocks_per_sm": [_I] * 4,
-    "dq_sdw_delayed_q2_blocks_per_sm": [_I] * 6,
     "dq_sdw_wrap_q2_blocks_per_sm": [_I] * 6,
     # device, float64, C, N, tr, tc
     "dq_slice_update_blocks_per_sm": [_I] * 6,
@@ -300,6 +298,13 @@ def sm_count(device) -> int:
     import torch
 
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def accept_rate(acc_n, N: int):
+    """accepted / N rounded once, as the kernels and JAX's mean divide (a
+    CUDA tensor divided by a Python number is multiplied by its rounded
+    reciprocal instead)."""
+    return acc_n / acc_n.new_full(acc_n.shape, N)
 
 
 def check_cuda_tensor(name: str, t, dtypes, ndim: int) -> None:

@@ -232,10 +232,8 @@ def blocks_per_sm(N: int, dtype, K: int, device="cuda", opdim: int = 3,
     """CTAs of K5 one SM of ``device`` holds at its plan, as the CUDA
     occupancy calculator reports it."""
     buffers = RESIDENCES[plan(N, dtype, K, opdim, q)[0]]
-    entry = ("dq_sdw_delayed_blocks_per_sm" if q == Q
-             else "dq_sdw_delayed_q2_blocks_per_sm")
-    return _kernels.query(entry, device, _DTYPE_CODES[dtype], N, opdim, K,
-                          buffers)
+    return _kernels.query("dq_sdw_delayed_blocks_per_sm", device,
+                          _DTYPE_CODES[dtype], q, N, opdim, K, buffers)
 
 
 def launch_name(dtype, q: int) -> str:

@@ -270,9 +270,8 @@ def blocks_per_sm(N: int, dtype, device="cuda", opdim: int = 3,
                   q: int = 4) -> int:
     """CTAs of the kernel one SM of ``device`` holds at h = q N, as the
     CUDA occupancy calculator reports it."""
-    entry = ("dq_sdw_update_blocks_per_sm" if q == 4
-             else "dq_sdw_update_q2_blocks_per_sm")
-    return _kernels.query(entry, device, _DTYPE_CODES[dtype], N, opdim)
+    return _kernels.query("dq_sdw_update_blocks_per_sm", device,
+                          _DTYPE_CODES[dtype], q, N, opdim)
 
 
 def launch_name(dtype, q: int) -> str:

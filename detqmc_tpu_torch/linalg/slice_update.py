@@ -38,13 +38,6 @@ MAX_N = 128
 MAX_CHUNK = 32      # pallas_update.MAX_DELAY: the default chunk's cap
 
 
-def _rate(acc_n, N: int):
-    """accepted / N rounded once, as the kernels and JAX's mean divide (a
-    CUDA tensor divided by a Python number is multiplied by its rounded
-    reciprocal instead)."""
-    return acc_n / torch.full_like(acc_n, N)
-
-
 def slice_update_plain(G, field_l, u01, sign, alpha: float):
     """Sequential single-site Metropolis with Sherman-Morrison rank-1
     updates, batched over W (port of detqmc_tpu HubbardModel._update_slice;
@@ -72,7 +65,7 @@ def slice_update_plain(G, field_l, u01, sign, alpha: float):
         field_l[:, i] = torch.where(accept, -s_i, s_i)
         sign = torch.where(accept, sign * torch.sign(Rtot), sign)
         acc_n = acc_n + accept.to(G.dtype)
-    return G, field_l, sign, _rate(acc_n, N)
+    return G, field_l, sign, _kernels.accept_rate(acc_n, N)
 
 
 # K1's plans (csrc/slice_update.cu): a TR x TC tile of G in registers per
@@ -231,7 +224,7 @@ def slice_update_delayed_plain(G, field_l, u01, sign, alpha: float, k: int):
                 acc_n = acc_n + accept.to(G.dtype)
         for q in range(k):
             G = G + U[:, :, :, q, None] * Wb[:, :, q, None, :]
-    return G, field_l, sign, _rate(acc_n, N)
+    return G, field_l, sign, _kernels.accept_rate(acc_n, N)
 
 
 def delayed_smem_bytes(C: int, N: int, k: int, dtype) -> int:

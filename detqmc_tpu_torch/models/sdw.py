@@ -36,7 +36,8 @@ Ozaki limbs (ROADMAP.md Queue 1 item 12). So ``fermion_repr`` "auto",
 ``green_kernel`` "auto", "xla", "df32" and "pallas" all mean K3c;
 ``green_refine_iters``, ``ozaki_chain_limbs``, ``stab_dtype`` and
 ``wrap_prec`` are accepted and not read (wraps always run at full
-precision).
+precision). ``cb_apply="sparse"`` runs the dense checkerboard product,
+the operator the JAX model's bond-group passes apply.
 
 The slice update follows the JAX model's kernel route
 (``_update_slice_pallas``): proposals, the Delta blocks and the static
@@ -62,9 +63,7 @@ Routes, as the JAX model dispatches them (``SDWModel.routes``):
 - wraps and the square B / B^H applies: K6 (linalg/sdw_wrap.py) if
   ``wrap_kernel="fused"``, or ``"auto"`` at dim >= 128 on a CUDA device
   where K6 has an instance (complex at q = 4 and 2, real at q = 2) and a
-  plan for N (sdw.py:526-536); else the plain applies (einsum/matmul, or
-  with ``cb_apply="sparse"`` the checkerboard's bond-group passes, which
-  K6 never takes, as the JAX model fuses only dense factors);
+  plan for N (sdw.py:526-536); else the plain applies (einsum/matmul);
 - refactor QR: K2c (K2 on the real chain) within one block's shared
   memory, else K7; inner solve: K3c (K3), else K8 and K9 (linalg/qr.py,
   linalg/green_solve.py, linalg/trinv.py).
@@ -132,7 +131,6 @@ from detqmc_tpu_torch.lattice import kinetic_exponentials
 from detqmc_tpu_torch.linalg import _kernels, sdw_delayed, sdw_update
 from detqmc_tpu_torch.linalg import sdw_wrap
 from detqmc_tpu_torch.linalg.qr import MAX_N_BIG
-from detqmc_tpu_torch.linalg.slice_update import _rate
 from detqmc_tpu_torch.linalg.udv import (UDV, clog_abs_det_one_plus_udv,
                                          green_from_two_udv, green_tau_zero,
                                          udv_refactor)
@@ -385,7 +383,6 @@ class SDWModel(nn.Module):
         route = self.routes(cfg, dev.type)
         self._delayed = route["update"] == "delayed"
         self._fused = route["wrap"] == "fused"
-        self.cb_sparse = cfg.checkerboard and cfg.cb_apply == "sparse"
         self._delay_k = cfg.delay if cfg.delay > 0 else 8
         Kx = self.lat.hopping_matrix(1.0, tx=cfg.txhor, ty=cfg.txver)
         Ky = self.lat.hopping_matrix(1.0, tx=cfg.tyhor, ty=cfg.tyver)
@@ -399,27 +396,23 @@ class SDWModel(nn.Module):
         ek = np.stack([per[b][0] for b in bands])
         eki = np.stack([per[b][1] for b in bands])
 
+        if cfg.checkerboard:
+            # per-orbital group coefficients: groups (0, 1) horizontal
+            # bonds, (2, 3) vertical; applied as the exact dense product
+            # (also under cb_apply="sparse": the same operator)
+            partner = self.lat.checkerboard_groups()
+            th = np.array([per[b][3] for b in bands])
+            tv = np.array([per[b][4] for b in bands])
+            tg = np.stack([th, th, tv, tv], axis=1)           # (n_orb, 4)
+            ek, eki = _cb_dense_product(
+                partner, np.cosh(cfg.dtau * tg), np.sinh(cfg.dtau * tg),
+                float(np.exp(cfg.dtau * cfg.mu)))
+
         def buf(name, a, dtype):
             self.register_buffer(name, torch.as_tensor(
                 np.asarray(a), dtype=dtype, device=dev))
 
         cdt, rdt = self.cdtype, self.rdtype
-        if cfg.checkerboard:
-            # per-orbital group coefficients: groups (0, 1) horizontal
-            # bonds, (2, 3) vertical; applied as the exact dense product,
-            # or with cb_apply="sparse" group by group (_kinetic_cb_left)
-            partner = self.lat.checkerboard_groups()
-            th = np.array([per[b][3] for b in bands])
-            tv = np.array([per[b][4] for b in bands])
-            tg = np.stack([th, th, tv, tv], axis=1)           # (n_orb, 4)
-            self.cb_gamma = float(np.exp(cfg.dtau * cfg.mu))
-            ek, eki = _cb_dense_product(
-                partner, np.cosh(cfg.dtau * tg), np.sinh(cfg.dtau * tg),
-                self.cb_gamma)
-            if self.cb_sparse:
-                buf("cb_partner", partner, torch.int64)        # (4, N)
-                buf("cb_cosh", np.cosh(cfg.dtau * tg), rdt)    # (n_orb, 4)
-                buf("cb_sinh", np.sinh(cfg.dtau * tg), rdt)
         buf("expK", ek, cdt)                                   # (q, N, N)
         buf("expK_inv", eki, cdt)
         # K6 reads the kinetic factors as real matrices: their real copies,
@@ -463,11 +456,6 @@ class SDWModel(nn.Module):
         if cfg.green_kernel == "refine":
             raise _unported("green_kernel='refine'",
                             "ROADMAP.md Queue 1 item 9")
-        if cfg.checkerboard and cfg.cb_apply == "sparse" and \
-                cfg.wrap_kernel == "fused":
-            raise ValueError("wrap_kernel='fused' needs the dense kinetic "
-                             "factors (cb_apply='sparse' applies the bond "
-                             "groups)")
         if cfg.turnoffFermions and cfg.update_kernel in ("pallas",
                                                           "delayed"):
             raise ValueError(f"update_kernel={cfg.update_kernel!r} is a "
@@ -494,9 +482,8 @@ class SDWModel(nn.Module):
         big = cfg.dim >= BIG_DIM
         delayed = (cfg.update_kernel == "delayed" or cfg.delay > 0
                    or (cfg.update_kernel == "auto" and big))
-        sparse = cfg.checkerboard and cfg.cb_apply == "sparse"
         fused = (cfg.wrap_kernel == "fused"
-                 or (cfg.wrap_kernel == "auto" and big and not sparse
+                 or (cfg.wrap_kernel == "auto" and big
                      and device_type == "cuda" and SDWModel._k6_fits(cfg)))
         update = ("bosonic" if cfg.turnoffFermions
                   else "delayed" if delayed else "immediate")
@@ -574,64 +561,13 @@ class SDWModel(nn.Module):
         """exp(sign dtau V) for single sites: (..., q, q) from (..., opdim)."""
         return self.exp_v_blocks(phi_i, sign)
 
-    # ---- kinetic applies ---------------------------------------------------
-    def _kin_left(self, X, inv: bool = False, transpose: bool = False):
-        """blockdiag(E) @ X for E = expK, its inverse or its transpose (X
-        (..., dim, k)): the dense factor, or the sparse checkerboard's
-        bond groups."""
-        if self.cb_sparse:
-            return self._kinetic_cb_left(X, inv, transpose)
-        E = self.expK_inv if inv else self.expK
-        return sdw_wrap.kin_left(E.transpose(-1, -2) if transpose else E, X)
-
-    def _kin_right(self, X, inv: bool = False):
-        """X @ blockdiag(E) for E = expK or its inverse (X (..., k, dim))."""
-        if self.cb_sparse:
-            return self._kinetic_cb_right(X, inv)
-        return sdw_wrap.kin_right(X, self.expK_inv if inv else self.expK)
-
-    def _kinetic_cb_left(self, X, inv: bool, transpose: bool):
-        """The checkerboard E @ X group by group (the JAX model's
-        _kinetic_cb_left): E = gamma F_0 F_1 F_2 F_3, every F symmetric
-        with det 1 per bond, so E^T reverses the group order and E^{-1}
-        flips the sinh sign; one gather and axpy per group."""
-        N = self.cfg.n_sites
-        Xo = X.reshape(*X.shape[:-2], self.n_orb, N, X.shape[-1])
-        groups = range(3, -1, -1) if transpose == inv else range(4)
-        sgn = -1.0 if inv else 1.0
-        for g in groups:
-            c = self.cb_cosh[:, g, None, None]
-            sh = sgn * self.cb_sinh[:, g, None, None]
-            Xo = c * Xo + sh * Xo.index_select(-2, self.cb_partner[g])
-        if self.cfg.mu != 0.0:
-            Xo = Xo * (1.0 / self.cb_gamma if inv else self.cb_gamma)
-        return Xo.reshape(X.shape)
-
-    def _kinetic_cb_right(self, X, inv: bool):
-        """X @ E (or E^{-1}) group by group (the JAX model's
-        _kinetic_cb_right)."""
-        N = self.cfg.n_sites
-        Xo = X.reshape(*X.shape[:-1], self.n_orb, N)
-        groups = range(3, -1, -1) if inv else range(4)
-        sgn = -1.0 if inv else 1.0
-        for g in groups:
-            c = self.cb_cosh[:, g, None]
-            sh = sgn * self.cb_sinh[:, g, None]
-            Xo = c * Xo + sh * Xo.index_select(-1, self.cb_partner[g])
-        if self.cfg.mu != 0.0:
-            Xo = Xo * (1.0 / self.cb_gamma if inv else self.cb_gamma)
-        return Xo.reshape(X.shape)
-
     # ---- B applies (X: (W, dim, dim)); the factors live in linalg/sdw_wrap.py
     def _apply(self, blocks, X, herm: bool):
         # the sweep applies B only to the square lazy U; K6 raises on any
         # other operand of a CUDA tensor
         if self._fused:
             return sdw_wrap.apply(X.contiguous(), self.expK_real, blocks, herm)
-        if herm:
-            return self._kin_left(sdw_wrap.dv_left(blocks.mH, X),
-                                  transpose=True)
-        return sdw_wrap.dv_left(blocks, self._kin_left(X))
+        return sdw_wrap.apply_plain(X, self.expK, blocks, herm)
 
     # B = D_V expK (potential leftmost, as in Hubbard)
     def b_mult_left(self, blocks, X):
@@ -640,7 +576,8 @@ class SDWModel(nn.Module):
     def b_inv_mult_right(self, X, blocks_inv):
         """X @ B^{-1} = (X expK^{-1}) D_V^{-1}, plain applies (as in the
         JAX model, no fused kernel takes it)."""
-        return sdw_wrap.dv_right(self._kin_right(X, inv=True), blocks_inv)
+        return sdw_wrap.dv_right(sdw_wrap.kin_right(X, self.expK_inv),
+                                 blocks_inv)
 
     def bT_mult_left(self, blocks, X):
         """B^H @ X = expK^H (D_V^H X), for the conj-transposed right stack
@@ -751,7 +688,7 @@ class SDWModel(nn.Module):
                 phi_l0, phi_new, jac, phi_lp, phi_lm, u01, r)
             phi = phi.clone()
             phi[:, l_idx] = phi_l
-            return G, phi, _rate(acc, N)
+            return G, phi, _kernels.accept_rate(acc, N)
         lhs = (torch.log(u01) - jac
                + self._ds_static(phi_l0, phi_new, phi_lp, phi_lm, r))
         en = self.exp_v_blocks(phi_new, -1.0)
@@ -766,7 +703,7 @@ class SDWModel(nn.Module):
             G, phi_l, acc = sdw_update.sdw_update(*args)
         phi = phi.clone()
         phi[:, l_idx] = phi_l
-        return G, phi, _rate(acc, N)
+        return G, phi, _kernels.accept_rate(acc, N)
 
     def _update_slice_bosonic(self, phi_l0, phi_new, jac, phi_lp, phi_lm,
                               u01, r):
@@ -806,13 +743,8 @@ class SDWModel(nn.Module):
         if self._fused:
             return sdw_wrap.wrap(G.contiguous(), self.expK_real,
                                  self.expK_inv_real, blocks, blocks_inv, up)
-        # the plain wraps (sdw_wrap.wrap_plain's compositions)
-        dvl, dvr = sdw_wrap.dv_left, sdw_wrap.dv_right
-        if up:
-            return dvl(blocks, self._kin_left(dvr(self._kin_right(
-                G, inv=True), blocks_inv)))
-        return self._kin_left(dvl(blocks_inv, self._kin_right(dvr(
-            G, blocks))), inv=True)
+        return sdw_wrap.wrap_plain(G, self.expK, self.expK_inv, blocks,
+                                   blocks_inv, up)
 
     def wrap_up(self, G, blocks, blocks_inv):
         """G(l) = B_l G(l-1) B_l^{-1}."""
@@ -1049,7 +981,7 @@ class SDWModel(nn.Module):
             obs_sum = SDWObservables(*[torch.zeros_like(a) for a in zero])
         obs_mean = SDWObservables(*[a / K for a in obs_sum])
         obs_mean = obs_mean._replace(
-            acceptance=_rate(acc_sum, cfg.m),
+            acceptance=_kernels.accept_rate(acc_sum, cfg.m),
             # one configuration (the sweep's final field), not an average
             exchangeAction=0.5 * cfg.dtau * torch.sum(phi ** 2,
                                                       dim=(1, 2, 3)))
@@ -1555,6 +1487,6 @@ class SDWModel(nn.Module):
             obs_sum = SDWObservables(*[torch.zeros_like(a) for a in zero])
         obs_mean = SDWObservables(*[a / cfg.n_stack for a in obs_sum])
         return new_state, obs_mean._replace(
-            acceptance=_rate(acc_sum, cfg.m),
+            acceptance=_kernels.accept_rate(acc_sum, cfg.m),
             exchangeAction=0.5 * cfg.dtau * torch.sum(phi ** 2,
                                                       dim=(1, 2, 3)))

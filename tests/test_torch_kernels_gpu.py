@@ -148,17 +148,16 @@ Tolerances (same inputs, same card):
   and beyond its plans wrap_kernel="auto" takes the plain wraps (an
   explicit "fused" raises);
 - the real q = 4 instances of K4 and K5 (the full real opdim-1 chain): K4
-  on the model's own operands at L = 1 ... 5 and on synthetic ones at
-  every h = 4 ... 160, K5 on synthetic ones at N = 4 ... 128 (the
-  models' N = L^2, every slot residence, an odd N at h = 508), K = 1, 2,
-  3, 5, 8, 16, W = 3 and 130, and
-  on the L = 8 model's slice 1: one
-  launch under "sdw_update_real" / "sdw_delayed_real", identical
-  decisions, fields and acceptance, G bitwise in float64 and within 1e-5
-  in float32; full real sweep pairs on the card against the CPU (f64, L =
-  2 immediate and delay 3, L = 6 with K5 / K7 / K8 / K9, L = 4 with the
-  sparse checkerboard): identical fields, G and observables within 1e-10,
-  the plain wraps; the repaired wrap route at opdim 2, L = 15, float32
+  on the model's own operands at L = 1 ... 5 and on synthetic ones from
+  h = 4 to 160, K5 on synthetic ones at N = 4 ... 128 (every slot
+  residence, an odd N at h = 508), K = 1, 3, 8, 16, W = 3 and 130, and
+  on the L = 8 model's slice 1: one launch under "sdw_update_real" /
+  "sdw_delayed_real", identical decisions, fields and acceptance, G
+  bitwise in float64 and within 1e-5 in float32; full real sweep pairs
+  on the card against the CPU (f64, L = 2 immediate and delay 3, L = 6
+  with K5 / K7 / K8 / K9, L = 4 with cb_apply="sparse", the dense
+  product): identical fields, G and observables within 1e-10, the plain
+  wraps; the repaired wrap route at opdim 2, L = 15, float32
   (no K6 plan): a sweep pair on the card against the CPU with identical
   fields and G within 1e-4 of max|G|.
 """
@@ -1516,16 +1515,18 @@ def _sdw_reduced(device, opdim, L=4, dtype="float64", W=3, seed=0, **kw):
     return model, model.init_state(W, gen), gen
 
 
-def _check_q2(kern, plain, dtype, n_launch, name):
+def _check_q2(kern, plain, dtype, n_launch, name, at=""):
     """Identical accept decisions, fields and acceptance; G bitwise in
-    complex128 / float64, within 1e-5 in single precision."""
+    complex128 / float64, within 1e-5 in single precision (``at`` names
+    the shape in a loop's failure)."""
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES[name] == n_launch
-    assert torch.equal(kern[1], plain[1]) and torch.equal(kern[2], plain[2])
+    assert _kernels.LAUNCHES[name] == n_launch, at
+    assert torch.equal(kern[1], plain[1]) and torch.equal(kern[2],
+                                                          plain[2]), at
     if dtype in (torch.complex128, torch.float64):
-        assert torch.equal(kern[0], plain[0])
+        assert torch.equal(kern[0], plain[0]), at
     else:
-        assert float((kern[0] - plain[0]).abs().max()) <= 1e-5
+        assert float((kern[0] - plain[0]).abs().max()) <= 1e-5, at
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -1575,32 +1576,36 @@ def _q2_synthetic(device, N, dtype, W, seed, opdim, q=2):
     return [x.contiguous() for x in (G, phi, phi_new, lhs, delta)], nb
 
 
-@pytest.mark.parametrize("W", [3, 130])
 @pytest.mark.parametrize("N", [9, 16, 64, 128, 256])
-@pytest.mark.parametrize("K", [1, 3, 8])
 @pytest.mark.parametrize("dtype", ["complex64", "complex128", "float32",
                                    "float64"])
-def test_sdw_delayed_q2_kernel_matches_plain(cuda_device, dtype, K, N, W):
+def test_sdw_delayed_q2_kernel_matches_plain(cuda_device, dtype, N):
     """K5's q = 2 instances over one slice (h = 18 ... 512: odd N, the
     slots in shared memory, R there and C in the scratch, or both in the
-    scratch as the plan says): one launch; double precision bitwise,
-    single precision identical decisions and G within 1e-5; and the
-    immediate K4 where it fits, the same decisions."""
+    scratch as the plan says) at K = 1, 3, 8 and W = 3, 130: one launch;
+    double precision bitwise, single precision identical decisions and G
+    within 1e-5; and the immediate K4 where it fits, the same
+    decisions."""
     dt = getattr(torch, dtype)
     opdim = 1 if not dt.is_complex else 2
-    ops, nb = _q2_synthetic(cuda_device, N, dt, W, N + K + W, opdim)
-    extra = (nb, 0.1, 1.0)
     name = sdw_delayed.launch_name(dt, 2)
-    _kernels.reset_launch_counts()
-    kern = sdw_delayed.sdw_delayed(*ops, *extra, K)
-    _check_q2(kern, sdw_delayed.sdw_delayed_plain(*ops, *extra, K), dt, 1,
-              name)
-    assert 0 < float(kern[2].sum()) < W * N
-    if 2 * N <= sdw_update.MAX_H and sdw_update.smem_bytes(
-            N, opdim, dt, 2) <= _kernels.MAX_SMEM_BYTES - 1024:
-        imm = sdw_update.sdw_update(*ops, *extra)
-        assert torch.equal(imm[1], kern[1]) and torch.equal(imm[2], kern[2])
-    assert sdw_delayed.blocks_per_sm(N, dt, K, cuda_device, opdim, 2) >= 1
+    for K in (1, 3, 8):
+        for W in (3, 130):
+            at = f"K={K} W={W}"
+            ops, nb = _q2_synthetic(cuda_device, N, dt, W, N + K + W, opdim)
+            extra = (nb, 0.1, 1.0)
+            _kernels.reset_launch_counts()
+            kern = sdw_delayed.sdw_delayed(*ops, *extra, K)
+            _check_q2(kern, sdw_delayed.sdw_delayed_plain(*ops, *extra, K),
+                      dt, 1, name, at)
+            assert 0 < float(kern[2].sum()) < W * N, at
+            if 2 * N <= sdw_update.MAX_H and sdw_update.smem_bytes(
+                    N, opdim, dt, 2) <= _kernels.MAX_SMEM_BYTES - 1024:
+                imm = sdw_update.sdw_update(*ops, *extra)
+                assert torch.equal(imm[1], kern[1]) and torch.equal(
+                    imm[2], kern[2]), at
+            assert sdw_delayed.blocks_per_sm(N, dt, K, cuda_device, opdim,
+                                             2) >= 1
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-12)])
@@ -1706,23 +1711,24 @@ def _sdw_full_real(device, L=4, dtype="float64", W=3, seed=0, **kw):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("L", [1, 2, 3, 4, 5])
-def test_sdw_update_real_q4_kernel_matches_plain(cuda_device, dtype, L):
+def test_sdw_update_real_q4_kernel_matches_plain(cuda_device, dtype):
     """K4's real q = 4 instances on the full real chain's own slice-1
-    operands (h = 4 ... 100) and on synthetic ones at h = 160 (the limit):
-    one launch under "sdw_update_real", identical decisions, fields and
-    acceptance, G bitwise in float64 and within 1e-5 in float32."""
-    model, st, gen = _sdw_full_real(cuda_device, L=L, dtype=dtype)
-    args = _k4_operands(model, st, gen)
-    extra = (model.nb, model.cfg.dtau, model.c_det)
-    assert model.c_det == 0.5 and args[0].dtype == getattr(torch, dtype)
-    _kernels.reset_launch_counts()
-    kern = sdw_update.sdw_update(*args, *extra)
-    _check_q2(kern, sdw_update.sdw_update_plain(*args, *extra), model.cdtype,
-              1, "sdw_update_real")
-    if L > 1:
-        assert 0 < float(kern[2].sum()) < 3 * model.cfg.n_sites
-    ops, nb = _q2_synthetic(cuda_device, 40, model.cdtype, 130, L, 1, q=4)
+    operands at L = 1 ... 5 (h = 4 ... 100) and on synthetic ones at
+    h = 160 (the limit): one launch under "sdw_update_real", identical
+    decisions, fields and acceptance, G bitwise in float64 and within
+    1e-5 in float32."""
+    for L in range(1, 6):
+        model, st, gen = _sdw_full_real(cuda_device, L=L, dtype=dtype)
+        args = _k4_operands(model, st, gen)
+        extra = (model.nb, model.cfg.dtau, model.c_det)
+        assert model.c_det == 0.5 and args[0].dtype == getattr(torch, dtype)
+        _kernels.reset_launch_counts()
+        kern = sdw_update.sdw_update(*args, *extra)
+        _check_q2(kern, sdw_update.sdw_update_plain(*args, *extra),
+                  model.cdtype, 1, "sdw_update_real", f"L={L}")
+        if L > 1:
+            assert 0 < float(kern[2].sum()) < 3 * model.cfg.n_sites, L
+    ops, nb = _q2_synthetic(cuda_device, 40, model.cdtype, 130, 5, 1, q=4)
     _kernels.reset_launch_counts()
     kern = sdw_update.sdw_update(*ops, nb, 0.1, 0.5)
     _check_q2(kern, sdw_update.sdw_update_plain(*ops, nb, 0.1, 0.5),
@@ -1732,57 +1738,59 @@ def test_sdw_update_real_q4_kernel_matches_plain(cuda_device, dtype, L):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("N", range(1, 41))
-def test_sdw_update_real_q4_at_every_h(cuda_device, dtype, N):
-    """K4's real q = 4 instances on synthetic operands at every h = 4 N up
-    to its limit, 160 (W = 130): one launch, identical decisions, fields
-    and acceptance, G bitwise in float64 and within 1e-5 in float32."""
+def test_sdw_update_real_q4_across_h(cuda_device, dtype):
+    """K4's real q = 4 instances on synthetic operands from h = 4 to its
+    limit, 160 (W = 130; the models' N = L^2 and the odd N between): one
+    launch, identical decisions, fields and acceptance, G bitwise in
+    float64 and within 1e-5 in float32."""
     dt = getattr(torch, dtype)
-    ops, nb = _q2_synthetic(cuda_device, N, dt, 130, 7 * N, 1, q=4)
-    _kernels.reset_launch_counts()
-    kern = sdw_update.sdw_update(*ops, nb, 0.1, 0.5)
-    _check_q2(kern, sdw_update.sdw_update_plain(*ops, nb, 0.1, 0.5), dt, 1,
-              "sdw_update_real")
-    assert 0 < float(kern[2].sum()) < 130 * N
+    for N in (1, 2, 3, 5, 8, 16, 25, 33, 40):
+        ops, nb = _q2_synthetic(cuda_device, N, dt, 130, 7 * N, 1, q=4)
+        _kernels.reset_launch_counts()
+        kern = sdw_update.sdw_update(*ops, nb, 0.1, 0.5)
+        _check_q2(kern, sdw_update.sdw_update_plain(*ops, nb, 0.1, 0.5), dt,
+                  1, "sdw_update_real", f"N={N}")
+        assert 0 < float(kern[2].sum()) < 130 * N, N
 
 
-@pytest.mark.parametrize("W", [3, 130])
-@pytest.mark.parametrize("N", [4, 9, 16, 25, 36, 49, 64, 81, 100, 121, 127,
-                               128])
-@pytest.mark.parametrize("K", [1, 2, 3, 5, 8, 16])
+@pytest.mark.parametrize("N", [4, 9, 64, 121, 127, 128])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_sdw_delayed_real_q4_kernel_matches_plain(cuda_device, dtype, K, N,
-                                                  W):
-    """K5's real q = 4 instances over one slice (h = 16 ... 512, every slot
-    residence the plan takes, ragged last chunks, K above N): one launch,
+def test_sdw_delayed_real_q4_kernel_matches_plain(cuda_device, dtype, N):
+    """K5's real q = 4 instances over one slice (h = 16 ... 512) at K = 1,
+    3, 8, 16 and W = 3, 130 (the slot residences "shared", "rows" and
+    "global" all occur, ragged last chunks, K above N): one launch,
     identical decisions and fields, G bitwise in float64 and within 1e-5
     in float32; the immediate K4 where it fits, the same decisions; and
     the full real L = 8 model's own slice 1 (h = 256), bitwise in
     float64."""
     dt = getattr(torch, dtype)
-    ops, nb = _q2_synthetic(cuda_device, N, dt, W, N + K + W, 1, q=4)
-    extra = (nb, 0.1, 0.5)
-    _kernels.reset_launch_counts()
-    kern = sdw_delayed.sdw_delayed(*ops, *extra, K)
-    _check_q2(kern, sdw_delayed.sdw_delayed_plain(*ops, *extra, K), dt, 1,
-              "sdw_delayed_real")
-    # both outcomes occur (with three walkers every site may accept)
-    assert 0 < float(kern[2].sum()) and (W == 3 or float(kern[2].sum())
-                                         < W * N)
-    if 4 * N <= sdw_update.MAX_H:
-        imm = sdw_update.sdw_update(*ops, *extra)
-        assert torch.equal(imm[1], kern[1]) and torch.equal(imm[2], kern[2])
-    assert sdw_delayed.blocks_per_sm(N, dt, min(K, N), cuda_device, 1,
-                                     4) >= 1
-    if N == 64 and W == 3:
-        model, st, gen = _sdw_full_real(cuda_device, L=8, dtype=dtype,
-                                        seed=K)
-        args = _k4_operands(model, st, gen)
-        mx = (model.nb, model.cfg.dtau, model.c_det)
-        _kernels.reset_launch_counts()
-        out = sdw_delayed.sdw_delayed(*args, *mx, K)
-        _check_q2(out, sdw_delayed.sdw_delayed_plain(*args, *mx, K), dt, 1,
-                  "sdw_delayed_real")
+    for K in (1, 3, 8, 16):
+        for W in (3, 130):
+            at = f"K={K} W={W}"
+            ops, nb = _q2_synthetic(cuda_device, N, dt, W, N + K + W, 1, q=4)
+            extra = (nb, 0.1, 0.5)
+            _kernels.reset_launch_counts()
+            kern = sdw_delayed.sdw_delayed(*ops, *extra, K)
+            _check_q2(kern, sdw_delayed.sdw_delayed_plain(*ops, *extra, K),
+                      dt, 1, "sdw_delayed_real", at)
+            # both outcomes occur (with three walkers every site may accept)
+            assert 0 < float(kern[2].sum()) and (
+                W == 3 or float(kern[2].sum()) < W * N), at
+            if 4 * N <= sdw_update.MAX_H:
+                imm = sdw_update.sdw_update(*ops, *extra)
+                assert torch.equal(imm[1], kern[1]) and torch.equal(
+                    imm[2], kern[2]), at
+            assert sdw_delayed.blocks_per_sm(N, dt, min(K, N), cuda_device,
+                                             1, 4) >= 1
+        if N == 64:
+            model, st, gen = _sdw_full_real(cuda_device, L=8, dtype=dtype,
+                                            seed=K)
+            args = _k4_operands(model, st, gen)
+            mx = (model.nb, model.cfg.dtau, model.c_det)
+            _kernels.reset_launch_counts()
+            out = sdw_delayed.sdw_delayed(*args, *mx, K)
+            _check_q2(out, sdw_delayed.sdw_delayed_plain(*args, *mx, K), dt,
+                      1, "sdw_delayed_real", f"L=8 K={K}")
 
 
 @pytest.mark.parametrize("L,kw", [(2, {}), (2, dict(delay=3)), (6, {}),

@@ -1,19 +1,21 @@
 """The full real opdim-1 SDW chain of the PyTorch port (the (4N, 4N) real
-matrix, q = 4: ``fermion_matrix="full"`` at opdim 1), the sparse
-checkerboard applies and the wrap route's repair, against the JAX package
-and against the port's own reduced chain.
+matrix, q = 4: ``fermion_matrix="full"`` at opdim 1), ``cb_apply="sparse"``
+and the wrap route's repair, against the JAX package and against the
+port's own reduced chain.
 
 The chains start from the JAX package's own init_state
 (``fermion_repr="complex"``, convert.sdw_state_from_jax) and get JAX's own
 draws, re-derived from the key chain (tests/test_torch_sdw.py). L = 2,
-m = 8, s = 4. Tolerances:
+m = 8, s = 4. One JAX chain (delay 3, the sparse checkerboard) is compiled
+once per process and shared by the tests that read it. Tolerances:
 - the real q = 4 plain versions of K4, K5 (float32) against the Pallas
   kernels ``slice_update_sdw`` / ``slice_update_sdw_delayed(gre, None,
   ..., c_det=0.5)`` in interpret mode on the same operands (h = 16):
   identical accept counts, G and phi within 2e-5 (the tolerance of
   tests/test_pallas_sdw_update.py);
-- two sweep_pair(measure=True) in float64 (immediate; delay = 3 with the
-  sparse checkerboard): identical fields and acceptance, G and every
+- two sweep_pair(measure=True) in float64 against the JAX chain (the
+  port's immediate update with the dense checkerboard, and its delay = 3
+  with cb_apply="sparse"): identical fields and acceptance, G and every
   observable within 1e-8, the port's phase exactly 1;
 - the unequal-time measurement and the log-weight: within 1e-8 / 1e-9 of
   JAX's (the port's QR log-det, the JAX model's LU); the global shift's
@@ -21,14 +23,17 @@ m = 8, s = 4. Tolerances:
 - the full chain against the port's reduced opdim-1 chain from one field
   and one set of draws: identical fields, the log-weight (1 x the full
   log-det, 2 x sector A's) within 1e-9, observables within 1e-9;
-- the sparse checkerboard's kinetic applies against the dense product's
-  and against the JAX model's ``_kinetic_cb_left`` / ``_kinetic_cb_right``
-  (full complex, reduced complex, full real): 1e-12;
+- cb_apply="sparse" runs the dense checkerboard product: its kinetic
+  applies against the JAX model's bond-group passes ``_kinetic_cb_left``
+  / ``_kinetic_cb_right`` (full complex, reduced complex, full real):
+  1e-12;
 - the routes on a CUDA device (static, no card): K6 only where it has an
   instance and a plan, the plain wraps elsewhere under wrap_kernel="auto"
   at every reduced L <= 16 in both dtypes; an explicit "fused" still
   raises there.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +54,9 @@ from tests.test_torch_sdw_reduced import _check_update, _jax_draws
 W = 2
 FULL = dict(L=2, opdim=1, fermion_matrix="full", r=0.5, beta=1.0, m=8, s=4,
             dtype="float64")
+# the shared JAX chain's config
+CB = dict(checkerboard=True, box_width=0.5)
+JFULL = dict(FULL, delay=3, cb_apply="sparse", **CB)
 
 
 def _models(**kw):
@@ -120,22 +128,37 @@ def test_k5_real_q4_plain_matches_pallas_interpret_f32():
 
 
 # ---- the chain against the JAX model -----------------------------------
+@functools.lru_cache(maxsize=None)
+def _jax_chain():
+    """The JAX model of JFULL, its initial state and two sweep pairs from
+    it: [(draws of the pair in the port's layout, state, observables)]."""
+    jm = js.SDWModel(js.SDWConfig(fermion_repr="complex", **JFULL))
+    jst0 = jst = _jax_init(jm, seed=6)
+    step = jax.jit(jax.vmap(lambda s: jm.sweep_pair(s, measure=True)))
+    pairs = []
+    for _ in range(2):
+        keys, d_up = _sweep_draws(jm.cfg, jst.key, up=True)
+        _, d_dn = _sweep_draws(jm.cfg, keys, up=False)
+        jst, jo = step(jst)
+        pairs.append(((d_up, d_dn), jst, jo))
+    return jm, jst0, pairs
+
+
 @pytest.mark.parametrize("kw", [
-    dict(), dict(delay=3, checkerboard=True, cb_apply="sparse")],
-    ids=["immediate", "delay3-cb-sparse"])
+    dict(cb_apply="dense"), dict(delay=3, cb_apply="sparse")],
+    ids=["immediate-cb-dense", "delay3-cb-sparse"])
 def test_full_real_sweep_pairs_match_jax(kw):
-    jm, tm = _models(**kw)
+    """The port's immediate and delayed updates, the dense and "sparse"
+    checkerboard, against one JAX chain (its delayed update and bond-group
+    passes): the same decisions, so the same fields."""
+    jm, jst0, pairs = _jax_chain()
+    tm = ts.SDWModel(ts.SDWConfig(**dict(FULL, **CB, **kw)), device="cpu")
     assert not jm.reduced and jm.dim == tm.dim == 16
     assert tm.cdtype == torch.float64 and tm.c_det == 0.5
-    jst = _jax_init(jm, seed=6)
-    st = sdw_state_from_jax(jst)
+    st = sdw_state_from_jax(jst0)
     assert st.G.dtype == st.phase.dtype == torch.float64
-    step = jax.jit(jax.vmap(lambda s: jm.sweep_pair(s, measure=True)))
-    for _ in range(2):
-        keys, d_up = _sweep_draws(tm.cfg, jst.key, up=True)
-        _, d_dn = _sweep_draws(tm.cfg, keys, up=False)
-        jst, jo = step(jst)
-        st, to = tm.sweep_pair(st, measure=True, draws=(d_up, d_dn))
+    for draws, jst, jo in pairs:
+        st, to = tm.sweep_pair(st, measure=True, draws=draws)
         np.testing.assert_array_equal(st.phi.numpy(), np.asarray(jst.phi))
         np.testing.assert_array_equal(to.acceptance.numpy(),
                                       np.asarray(jo.acceptance))
@@ -147,8 +170,8 @@ def test_full_real_sweep_pairs_match_jax(kw):
 
 
 def test_full_real_logdet_moves_and_unequal_time_match_jax():
-    jm, tm = _models(box_width=0.5, globalShift=True)
-    jst = _jax_init(jm, seed=9, n=4)
+    jm, jst, _ = _jax_chain()
+    tm = ts.SDWModel(ts.SDWConfig(**JFULL), device="cpu")
     st = sdw_state_from_jax(jst)
     assert jm.logdet_fac == tm.logdet_fac == 1.0
     want = np.asarray(jax.jit(jax.vmap(
@@ -195,15 +218,23 @@ def test_full_real_matches_reduced_chain():
     assert float(orr.acceptance.min()) > 0
 
 
-# ---- the sparse checkerboard -----------------------------------------------
+# ---- cb_apply="sparse": the dense checkerboard product -------------------
 @pytest.mark.parametrize("kw", [
     dict(opdim=3, fermion_matrix="auto"), dict(opdim=2, fermion_matrix="auto"),
     dict()], ids=["o3-full", "o2-reduced", "o1-full"])
 def test_sparse_cb_applies_match_dense_and_jax(kw):
+    """The port applies the checkerboard as its exact dense product under
+    either key: the same buffers, the same routes (K6 takes it), and its
+    applies match the JAX model's bond-group passes."""
     cfg = dict(FULL, L=4, checkerboard=True, **kw)
     jm, sparse = _models(cb_apply="sparse", **cfg)
-    dense = ts.SDWModel(ts.SDWConfig(**dict(FULL, **cfg)), device="cpu")
-    assert sparse.cb_sparse and not dense.cb_sparse and jm.cb_sparse
+    dense = ts.SDWModel(ts.SDWConfig(**dict(cfg, cb_apply="dense")),
+                        device="cpu")
+    assert jm.cb_sparse
+    for name in ("expK", "expK_inv"):
+        assert torch.equal(getattr(sparse, name), getattr(dense, name))
+    assert ts.SDWModel.routes(sparse.cfg, "cuda") == ts.SDWModel.routes(
+        dense.cfg, "cuda")
     rng = np.random.default_rng(5)
     dim = sparse.dim
     X = rng.standard_normal((W, dim, dim))
@@ -212,27 +243,19 @@ def test_sparse_cb_applies_match_dense_and_jax(kw):
     Xt, Xj = torch.as_tensor(X).to(sparse.cdtype), jnp.asarray(X)
     vj = jax.vmap
     for inv in (False, True):
+        E = sparse.expK_inv if inv else sparse.expK
         for tr in (False, True):
-            got = sparse._kin_left(Xt, inv, tr)
-            _close(got.numpy(), dense._kin_left(Xt, inv, tr).numpy(), 1e-12)
+            got = sdw_wrap.kin_left(E.transpose(-1, -2) if tr else E, Xt)
             _close(got.numpy(), vj(lambda x: jm._kinetic_cb_left(
                 x, inv, tr))(Xj), 1e-12, f"left {inv} {tr}")
-        got = sparse._kin_right(Xt, inv)
-        _close(got.numpy(), dense._kin_right(Xt, inv).numpy(), 1e-12)
-        _close(got.numpy(), vj(lambda x: jm._kinetic_cb_right(x, inv))(Xj),
-               1e-12, f"right {inv}")
-    phi = torch.as_tensor(rng.standard_normal((W, 16, cfg["opdim"])))
-    D, Dinv = sparse.exp_v_blocks(phi), sparse.exp_v_blocks(phi, 1.0)
-    for a, b in ((sparse.wrap_up(Xt, D, Dinv), dense.wrap_up(Xt, D, Dinv)),
-                 (sparse.wrap_down(Xt, D, Dinv),
-                  dense.wrap_down(Xt, D, Dinv)),
-                 (sparse.bT_mult_left(D, Xt), dense.bT_mult_left(D, Xt)),
-                 (sparse.b_inv_mult_right(Xt, Dinv),
-                  dense.b_inv_mult_right(Xt, Dinv))):
-        _close(a.numpy(), b.numpy(), 1e-12)
-    with pytest.raises(ValueError, match="dense kinetic"):
-        ts.SDWModel(ts.SDWConfig(**dict(FULL, **cfg, cb_apply="sparse",
-                                        wrap_kernel="fused")), device="cpu")
+        _close(sdw_wrap.kin_right(Xt, E).numpy(),
+               vj(lambda x: jm._kinetic_cb_right(x, inv))(Xj), 1e-12,
+               f"right {inv}")
+    # a fused wrap takes it (the JAX model fuses only dense factors)
+    fused = ts.SDWModel(ts.SDWConfig(**dict(cfg, cb_apply="sparse",
+                                            wrap_kernel="fused")),
+                        device="cpu")
+    assert fused.routes(fused.cfg, "cpu")["wrap"] == "fused"
 
 
 # ---- the wrap route (static, no card) ---------------------------------------
