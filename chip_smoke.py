@@ -213,9 +213,13 @@ Phases (any failure raises, and the script exits non-zero):
    - sweep_simple against sweep_up on the card (the full real SDW chain
      and Hubbard, L=4, float64): identical fields, G and observables
      within 1e-8.
-Phase 19 also times K2's float32 instance (qr_kernel) on the opdim-1
-paths' refactor blocks (n = 32 and 128) beside the plain QR and
-torch.linalg.qr, with its launches on those paths.
+Phase 19 also times K2's float32 instance (qr_f32_tc_kernel, K2c's body
+on real floats) on the opdim-1 paths' refactor blocks (n = 32 and 128)
+beside the plain QR and torch.linalg.qr, with its device time a launch,
+CTAs per SM, the probe's split at n = 128 and its launches on those
+paths; phase 22 checks it the same way at n = 64 on sdw_o1_full_l4's
+blocks. Phase 17 prints K6 q = 2's plans, CTAs per SM and the device time
+a launch of its wrap and apply beside one call of each.
 
 The second-to-last line is {"kernels": [...]} (every number measured in
 this run; bound_ms is the larger of the kernel's bytes over the HBM rate
@@ -342,8 +346,8 @@ REDUCED_META = {
     "sdw_apply_q2_real": ("detqmc_tpu_torch/csrc/sdw_wrap.cu",
                           "detqmc_tpu/linalg/pallas_sdw_wrap.py:51",
                           "float32"),
-    # K2's float32 instance (qr_kernel) on the opdim-1 paths' refactor
-    # blocks: n = 32 (sdw_o1_l4) and n = 128 (sdw_o1_l8)
+    # K2's float32 instance (qr_f32_tc_kernel) on the opdim-1 paths'
+    # refactor blocks: n = 32 (sdw_o1_l4) and n = 128 (sdw_o1_l8)
     "qr_f32_o1_l4": ("detqmc_tpu_torch/csrc/qr.cu",
                      "detqmc_tpu/linalg/pallas_qr_lanes.py:149", "float32"),
     "qr_f32_o1_l8": ("detqmc_tpu_torch/csrc/qr.cu",
@@ -361,7 +365,11 @@ FULL_REAL_META = {
                         "float32"),
     "sdw_delayed_real": ("detqmc_tpu_torch/csrc/sdw_delayed.cu",
                          "detqmc_tpu/linalg/pallas_sdw_delayed.py:477",
-                         "float32")}
+                         "float32"),
+    # K2 in float32 on sdw_o1_full_l4's refactor blocks (n = 64)
+    "qr_f32_o1_full_l4": ("detqmc_tpu_torch/csrc/qr.cu",
+                          "detqmc_tpu/linalg/pallas_qr_lanes.py:149",
+                          "float32")}
 # the naive cross-check on the card: sweep_simple against sweep_up from one
 # state and one set of draws (float64, W = 4)
 SIMPLE_SDW_CFG = dict(L=4, opdim=1, fermion_matrix="full", r=0.5, beta=1.0,
@@ -473,6 +481,38 @@ def time_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 20) -> float:
+    """The device time of one call of ``fn``: CUDA events around ``calls``
+    calls queued behind a sleeping kernel (torch.cuda._sleep), so that the
+    card runs them back to back whatever the host's per-call work, over
+    ``calls``; NaN where torch has no sleeping kernel."""
+    import torch
+
+    if not hasattr(torch.cuda, "_sleep"):
+        return float("nan")
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4_000_000)   # ~2 ms at the H100's clock: the queue fills
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def probe_split(rec, names) -> str:
+    """A phase probe's per-CTA record (cycles per phase, total cycles,
+    total ns) as 'phase us, ...' averaged over the CTAs, at the clock each
+    CTA ran."""
+    rec = rec.double()
+    us = (rec[:, :-1] * (rec[:, -1] / rec[:, -2] / 1e3)[:, None]).mean(0)
+    return ", ".join(f"{n} {float(u):.3f}" for n, u in
+                     zip(list(names) + ["CTA total"], us)) + " us"
+
+
 def chain_inputs(model, state, k_mid):
     """Realistic main-path operands: a refactor block (s B's onto the
     orthogonal stack factor, as the sweep's lazy U) and the factored left
@@ -527,10 +567,16 @@ def real_qr_check(title, Ad):
     ms = time_ms(lambda: qr.qr(Ad))
     pms = time_ms(lambda: qr.qr_plain(Ad))
     lms = time_ms(lambda: torch.linalg.qr(Ad))
+    dms = device_ms(lambda: qr.qr(Ad))
+    names = qr.probe_phases(N, Ad.dtype)
+    split = (f"; probe {probe_split(qr.qr(Ad, probe=True)[-1], names)}"
+             if names and not qr.kernel_for(N, Ad.dtype).endswith("_big")
+             else "")
     print(f"{title} (B={B}, n={N}, {qr.blocks_per_sm(N, Ad.dtype, Ad.device)}"
           f" CTAs/SM): err={err:.3e} (tol {K2_TOL[dname]}), |QR-A|/|A|="
-          f"{recon:.3e}, kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-          f"torch.linalg.qr {lms:.4f} ms")
+          f"{recon:.3e}, kernel {ms:.4f} ms (device {dms:.4f} ms a "
+          f"launch), plain {pms:.4f} ms, torch.linalg.qr {lms:.4f} ms"
+          f"{split}")
     return record(err, ms, pms, lms, bound(nbytes(Ad, Qk, Rk),
                                            qr_flops(B, N, False)))
 
@@ -801,7 +847,7 @@ def main_path_phase(device, card, cfg_kw=MAIN_CFG, W=W_MAIN,
 
 
 # the one-CTA kernels have names of their own, none a substring of
-# another's: K2 in float64 qr_f64_tc_kernel (qr_kernel is float32), K2c
+# another's: K2 in float64 qr_f64_tc_kernel (float32: qr_f32_tc_kernel), K2c
 # qr_c64_tc_kernel and qr_c128_tc_kernel, K3 solve_inner_f64_tc_kernel,
 # K3r solve_inner_rhs_f64_tc_kernel, K3c solve_inner_c128_tc_kernel,
 # K3c-rhs solve_inner_rhs_tc_kernel
@@ -836,7 +882,7 @@ DYN_GROUPS = (("solve_inner_rhs_f64_tc_kernel", "K3r"),
 # the groups of the reduced paths' profiles: SDW8_GROUPS, then the real
 # one-block QR (K2 float32) and the reduced L=4 routes
 REDUCED_GROUPS = SDW8_GROUPS + (("sdw_update_kernel", "K4 sdw_update q=2"),
-                                ("qr_kernel", "K2 qr f32"),
+                                ("qr_f32_tc_kernel", "K2 qr f32"),
                                 ("qr_c64_tc_kernel", "K2c qr"),
                                 ("solve_inner_c128_tc_kernel", "K3c"),
                                 ("solve_inner_f64_tc_kernel", "K3"))
@@ -849,7 +895,7 @@ FULL_REAL_GROUPS = (("sdw_update_kernel", "K4 sdw_update real q=4"),
                     ("qr_big_kernel", "K7 qr_big"),
                     ("solve_inner_big_kernel", "K8 solve_inner_big"),
                     ("trinv_big_kernel", "K9 trinv_big"),
-                    ("qr_kernel", "K2 qr f32"),
+                    ("qr_f32_tc_kernel", "K2 qr f32"),
                     ("solve_inner_f64_tc_kernel", "K3"))
 
 
@@ -2443,15 +2489,29 @@ def q2_wrap_check(model, state):
         Bi = sdw_wrap.kin_left(Ei, sdw_wrap.dv_left(Di, eye))
         wlms = time_ms(lambda: torch.einsum("wij,wjk,wkl->wil", Bd, G, Bi))
         alms = time_ms(lambda: torch.bmm(Bd, G))
+        wdms = device_ms(lambda: sdw_wrap.wrap(G, Er, Eir, D, Di, True))
+        adms = device_ms(lambda: sdw_wrap.apply(G, Er, D, False))
+        bdms = device_ms(lambda: torch.bmm(Bd, G))
         p6 = sdw_wrap.plan(N, dt, W, _kernels.sm_count(G.device), q)
         print(f"K6 sdw_wrap/sdw_apply q=2 {dt} (W={W}, h={h}, plan (TL, og, "
-              f"nb, tiles per CTA) {p6} x "
+              f"nb, tiles per CTA) {p6}, "
+              f"{sdw_wrap.ctas(N, W, p6[0], p6[3], q)} CTAs a pass x "
               f"{sdw_wrap.blocks_per_sm(N, dt, p6, G.device, q)}/SM): max|d| "
               + ", ".join(f"{m} {e:.3e}" for m, e in errs.items())
               + f" (tol {tol} x max|G| {scale:.3e}); wrap kernel "
-              f"{wms:.4f} ms, plain {wpms:.4f} ms, dense einsum "
-              f"{wlms:.4f} ms; apply kernel {ams:.4f} ms, plain "
-              f"{apms:.4f} ms, dense bmm {alms:.4f} ms")
+              f"{wms:.4f} ms (device {wdms:.4f} ms a call, two launches), "
+              f"plain {wpms:.4f} ms, dense einsum {wlms:.4f} ms; apply kernel "
+              f"{ams:.4f} ms (device {adms:.4f} ms a call), plain "
+              f"{apms:.4f} ms, dense bmm {alms:.4f} ms (device {bdms:.4f} "
+              "ms)")
+        if sdw_wrap.has_probe(dt, q):
+            for mode, rec in (
+                    ("wrap", sdw_wrap.wrap(G, Er, Eir, D, Di, True,
+                                           probe=True)[1]),
+                    ("apply", sdw_wrap.apply(G, Er, D, False,
+                                             probe=True)[1])):
+                print(f"  K6 q=2 {dt} {mode} probe (a CTA, {rec.shape[0]} "
+                      f"CTAs): {probe_split(rec, sdw_wrap.PROBE_PHASES)}")
         # per side the block-diagonal real E (h^2 N mul-adds of a real and
         # an S: 4 operations complex, 2 real) and the q x q D blocks (q h^2
         # mul-adds of two S: 8 operations complex, 2 real)
@@ -2535,7 +2595,8 @@ def reduced_paths_phase(device, card):
                       wall_ms, REDUCED_GROUPS, f"{title} profile")
         counts.update({k: v for k, v in c.items() if "q2" in k and v})
         if cfg_kw["opdim"] == 1:
-            # K2 in float32 (qr_kernel) on the path's refactor block
+            # K2 in float32 (qr_f32_tc_kernel) on the path's refactor
+            # block
             name = "qr_f32" + title[len("sdw"):]
             block = sdw_chain_inputs(model, state, 0)[0].contiguous()
             kern[name] = {"float32": real_qr_check(
@@ -2662,6 +2723,14 @@ def full_real_phase(device, card):
                       wall_ms, FULL_REAL_GROUPS, f"{title} profile")
         counts.update({k: v for k, v in c.items() if k in FULL_REAL_META
                        and v})
+        if model.dim <= 128:
+            # K2 in float32 (qr_f32_tc_kernel) on the path's refactor
+            # block (n = 64)
+            name = "qr_f32" + title[len("sdw"):]
+            block = sdw_chain_inputs(model, state, 0)[0].contiguous()
+            kern[name] = {"float32": real_qr_check(
+                f"K2 qr float32 ({title})", block)}
+            counts[name] = c["qr"]
         del model, state
         torch.cuda.empty_cache()
         lap(f"{title} main path (phase 22)")

@@ -8,8 +8,8 @@
 //
 // Scalars: the real kernels run on float / double, the complex ones on
 // cplx<float> / cplx<double>, laid out as PyTorch's complex64 / complex128
-// (re, im). The Householder step is written once over both through the
-// small overload set below (abs2, conj_, householder_alpha, ...).
+// (re, im). The one-CTA Householder bodies are written once over both
+// through the small overload set below (abs2, conj_, householder_alpha, ...).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -144,6 +144,17 @@ __device__ __forceinline__ cplx<T> warp_sum(cplx<T> v) {
     return mk(warp_sum(v.re), warp_sum(v.im));
 }
 
+// v += v of lane (lane ^ o), each part: one butterfly step
+template <typename T>
+__device__ __forceinline__ void add_xor(T& v, int o) {
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+}
+template <typename T>
+__device__ __forceinline__ void add_xor(cplx<T>& v, int o) {
+    add_xor(v.re, o);
+    add_xor(v.im, o);
+}
+
 // ---- the phase probe ------------------------------------------------------
 // A kernel instantiated with a probe on (ON = true) sums clock64() deltas
 // per phase as thread 0 of each CTA sees them and writes, per CTA, the P
@@ -188,71 +199,6 @@ struct Probe {
         }
     }
 };
-
-// Householder QR of the n x n matrix A (shared memory, row stride ld),
-// applying every reflector H_j = I - beta v v^H from the left to the
-// companion matrix C (n x n, stride ld) as it goes:
-//     on exit  triu(A) = R  (R_jj = alpha_j, see householder_alpha),
-//              C       = H_{n-1} ... H_0 C_in = Q^H C_in.
-// Strictly-lower A entries are left stale (callers read triu only).
-// v (n) and s (2n) are shared scratch. All threads of the CTA call it.
-// S is float, double, cplx<float> or cplx<double>; beta is real.
-//
-// Per step: warp 0 forms v and beta; the dot products v^H A[:, c] (the
-// trailing columns c > j) and v^H C[:, c] (all columns) go one warp per
-// column, lanes striding the rows; the rank-1 updates go one thread per
-// element, a row's columns on neighbouring threads. Row stride ld = n+1
-// keeps the column walks free of shared-memory bank conflicts.
-template <typename S>
-__device__ void householder_apply(S* A, S* C, S* v, S* s, int n, int ld) {
-    using R = typename real_of<S>::type;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    __shared__ S alpha_s;
-    __shared__ R beta_s;
-    for (int j = 0; j < n; ++j) {
-        for (int k = tid; k < n; k += kThreads)
-            v[k] = k >= j ? A[k * ld + j] : from_real<S>(R(0));
-        __syncthreads();
-        if (warp == 0) {
-            R p = 0;
-            for (int k = j + lane; k < n; k += 32) p += abs2(v[k]);
-            const R norm = sqrt_t(warp_sum(p));
-            const S x0 = v[j];
-            const S alpha = householder_alpha(x0, norm);
-            __syncwarp();
-            if (lane == 0) v[j] = x0 - alpha;
-            __syncwarp();
-            R q = 0;
-            for (int k = j + lane; k < n; k += 32) q += abs2(v[k]);
-            const R vtv = warp_sum(q);
-            if (lane == 0) {
-                alpha_s = alpha;
-                // a zero column (v == 0) leaves everything unchanged
-                beta_s = R(2) / (vtv == R(0) ? R(1) : vtv);
-            }
-        }
-        __syncthreads();
-        const R beta = beta_s;
-        const int na = n - j - 1;          // trailing columns of A
-        for (int col = warp; col < na + n; col += kWarps) {
-            const S* M = col < na ? A : C;
-            const int c = col < na ? j + 1 + col : col - na;
-            S p = from_real<S>(R(0));
-            for (int k = j + lane; k < n; k += 32) p += conj_(v[k]) * M[k * ld + c];
-            p = warp_sum(p);
-            if (lane == 0) s[col] = beta * p;
-        }
-        __syncthreads();
-        const int width = na + n, rows = n - j;
-        for (int idx = tid; idx < rows * width; idx += kThreads) {
-            const int k = j + idx / width, col = idx % width;
-            if (col < na) A[k * ld + j + 1 + col] -= v[k] * s[col];
-            else          C[k * ld + col - na] -= v[k] * s[col];
-        }
-        if (tid == 0) A[j * ld + j] = alpha_s;
-        __syncthreads();
-    }
-}
 
 // Launch `kernel` on `grid` CTAs of `block` threads with `smem` bytes of
 // dynamic shared memory on `stream` of `device`, raising the kernel's

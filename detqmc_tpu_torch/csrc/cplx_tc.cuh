@@ -1,13 +1,17 @@
 // The complex one-CTA Householder body, shared by K3c and K3c-rhs
 // (green_solve.cu, the complex128 inner solves) and K2c (qr.cu, the complex
 // refactor QR in complex64 and complex128): the complex twin of f64_tc.cuh.
-// One CTA per n x n matrix (np = n rounded up to 8; the matrix is padded
-// with the identity and the companion M with zeros, which changes no entry
-// of the top-left n x n block):
+// Its FP32-pipe instance also runs on real float (K2 in float32, qr.cu: the
+// opdim-1 SDW refactor QR), where each complex operation below is the real
+// one. One CTA per n x n matrix (np = n rounded up to 8; the matrix is
+// padded with the identity and the companion M with zeros, which changes no
+// entry of the top-left n x n block):
 //   - A in shared memory at row stride np + pad (complex128, 16-byte
 //     elements: np + 1, odd, every fragment pattern below free of bank
 //     conflicts; complex64, 8-byte elements: np + 2, so that the fragment
-//     rows 2q + s of a half-warp fall on distinct banks), M in registers:
+//     rows 2q + s of a half-warp fall on distinct banks; float32, 4-byte
+//     elements: np + 4, 4 or 12 mod 16, so that the rows 2q + s of a warp
+//     start 8 banks apart), M in registers:
 //     warp w owns M's column strips w, w + 8, held transposed, lane (g, q)
 //     the entries M[8 rf + 2q + j][8 cf + g] (the mma accumulators'
 //     layout). With the row index of a k-slice taken in the order 2q + s
@@ -27,28 +31,32 @@
 //   - per panel, each warp applies I - V T^H V^H to its M strips and to
 //     one trailing column strip of A (wy_strip, the one step that differs
 //     between the types): complex128 as mma.sync m8n8k4 products on the
-//     FP64 tensor cores (four real ones a complex one), complex64 on the
-//     FP32 pipe, fused multiply-adds with no TF32 (the H100 SXM's FP32
-//     FMA peak equals its FP64 tensor-core peak, ~67 TFLOP/s);
+//     FP64 tensor cores (four real ones a complex one), complex64 and
+//     float32 on the FP32 pipe, fused multiply-adds with no TF32 (the H100
+//     SXM's FP32 FMA peak equals its FP64 tensor-core peak, ~67 TFLOP/s;
+//     TF32's 10-bit mantissa would break the float32 tolerances);
 //   - the companion and the epilogue by mode (Companion, f64_tc.cuh):
 //       kDiagM (K3c): M = diag(r1), built in registers from r1;
 //       kDenseM (K3c-rhs): M read from global memory;
-//       kIdentityM (K2c): M = I, so M ends as Q^H; the epilogue writes
-//         R = triu(A) (R_jj = alpha_j, the strict lower triangle exactly 0)
-//         and Q = (Q^H)^H from the fragments, with no back-substitution;
+//       kIdentityM (K2c, K2 in float32): M = I, so M ends as Q^H; the
+//         epilogue writes
+//         R = triu(A) (R_jj = alpha_j, the strict lower triangle exactly
+//         0) and Q = (Q^H)^H from the fragments, with no
+//         back-substitution;
 //     the solves then invert R's 8 x 8 diagonal blocks into the side
 //     buffer and run the blocked back-substitution in registers (X_b^T =
 //     Z_b^T Dinv_b^T, Z_c^T -= X_b^T R_cb^T) on the tensor cores;
 //   - complex128: 77 KB of shared memory at n = 64, two CTAs per SM;
 //     complex64: 39 KB at n = 64, 124 KB at n = 119 (the one-CTA route's
-//     limit).
+//     limit); float32: 20 KB at n = 64, 71 KB at n = 128 (its limit, RF =
+//     16: Q^T's 16 strips, two a warp, in 64 registers a thread).
 // What bounds it: the panel's chain (np dependent reflectors, each a warp
 // reduction, a square root, a division and a barrier): 58 of K2c's 93 us
 // a CTA in complex64 at n = 64, its products 29 (the probe,
 // solve_timing.py, NVIDIA H100 80GB HBM3, 700 W). Reflectors, alpha and
 // beta are householder_tc's
-// and householder_apply's up to rounding: R_jj = -(x_j/|x_j|) ||x||, and a
-// zero column (v = 0) leaves everything unchanged.
+// up to rounding: R_jj = -(x_j/|x_j|) ||x|| (complex) or -sign(x_j) ||x||
+// (real), and a zero column (v = 0) leaves everything unchanged.
 #pragma once
 
 #include "f64_tc.cuh"
@@ -57,10 +65,12 @@ namespace dq {
 
 // A's row stride is np + ctc_pad<S>() (the note above)
 template <typename S>
-__host__ __device__ constexpr int ctc_pad() { return sizeof(S) == 16 ? 1 : 2; }
+__host__ __device__ constexpr int ctc_pad() {
+    return sizeof(S) == 16 ? 1 : sizeof(S) == 8 ? 2 : 4;
+}
 
 // mirrored by linalg/green_solve.py rhs_smem_bytes (complex128) and
-// linalg/qr.py complex_smem_bytes
+// linalg/qr.py complex_smem_bytes (complex64, complex128 and float32)
 template <typename S>
 __host__ __device__ constexpr size_t ctc_smem_bytes(int n) {
     // A np x (np + pad), the side buffer np x 9, T and V^H V 8 x 9 each,
@@ -76,7 +86,8 @@ __host__ __device__ constexpr size_t ctc_smem_bytes(int n) {
 // above its panel's rows, T upper triangular).
 //   complex128, on the FP64 tensor cores: W^T = X^T conj(V), Y^T = W^T
 //     conj(T), X^T -= Y^T V^T (mma.sync m8n8k4);
-//   complex64, on the FP32 pipe: each lane forms its column's w = V^H x
+//   complex64 and float32, on the FP32 pipe: each lane forms its column's
+//     w = V^H x
 //     over its own rows, the column's four lanes sum them in two butterfly
 //     steps (each lane gets the same bits), then y = T^H w and x -= V y.
 template <int RF, typename S, typename Get, typename Set>
@@ -125,10 +136,7 @@ __device__ __forceinline__ void wy_strip(int p, const S* V, const S* T, Get get,
 #pragma unroll
         for (int o = 1; o < 4; o <<= 1)
 #pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                w[i].re += __shfl_xor_sync(0xffffffffu, w[i].re, o);
-                w[i].im += __shfl_xor_sync(0xffffffffu, w[i].im, o);
-            }
+            for (int i = 0; i < 8; ++i) add_xor(w[i], o);
         // -y = -T^H w (T upper triangular)
         S y[8];
 #pragma unroll
@@ -155,7 +163,7 @@ __device__ __forceinline__ void wy_strip(int p, const S* V, const S* T, Get get,
 // kDiagM: M holds r1 (B x n reals), out = inner^{-1} diag(r1); kDenseM: M
 // is B x n x n of S, out = inner^{-1} M; kIdentityM: M is unused, out = Q
 // and R_out = R of inner = Q R. The solves are complex128 only (their
-// back-substitution runs on the tensor cores).
+// back-substitution runs on the tensor cores); S = float runs kIdentityM.
 template <typename S, int RF, int CFW, Companion MODE, bool PROBE>
 __device__ __forceinline__ void solve_cplx_tc(unsigned char* smem_raw,
                                               const S* __restrict__ inner,
@@ -239,9 +247,8 @@ __device__ __forceinline__ void solve_cplx_tc(unsigned char* smem_raw,
                 const S x0 = V[jr * kLdV + jj], xc = V[jr * kLdV + cw];
 #pragma unroll
                 for (int o = 16; o > 0; o >>= 1) {
-                    nrm += __shfl_xor_sync(0xffffffffu, nrm, o);
-                    dot.re += __shfl_xor_sync(0xffffffffu, dot.re, o);
-                    dot.im += __shfl_xor_sync(0xffffffffu, dot.im, o);
+                    add_xor(nrm, o);
+                    add_xor(dot, o);
                 }
                 const R norm = sqrt_t(nrm);
                 const S alpha = householder_alpha(x0, norm);

@@ -375,16 +375,16 @@ __device__ __forceinline__ void solve_f64_tc(unsigned char* smem, const double* 
     probe.store(probe_out);
 }
 
-// f(std::integral_constant<int, rf>) for rf = 1..15 (np = 8 rf up to
-// 120: kernel_for sends float64 n <= 119 to the one-CTA routes), `missing`
-// otherwise
-template <int RF = 1, typename F>
-int with_f64_rf(int rf, int missing, F f) {
-    if constexpr (RF > 15) {
+// f(std::integral_constant<int, rf>) for rf = 1..LAST (np = 8 rf up to
+// 120 by default: kernel_for sends float64 n <= 119 to the one-CTA routes;
+// K2 in float32 takes LAST = 16, np = 128), `missing` otherwise
+template <int LAST = 15, int RF = 1, typename F>
+int with_rf(int rf, int missing, F f) {
+    if constexpr (RF > LAST) {
         return missing;
     } else {
         return rf == RF ? f(std::integral_constant<int, RF>{})
-                        : with_f64_rf<RF + 1>(rf, missing, f);
+                        : with_rf<LAST, RF + 1>(rf, missing, f);
     }
 }
 

@@ -81,7 +81,7 @@ int with_c128_tc(int rf, bool rhs, int missing, F f) {
     if constexpr (PROBE) {
         return rhs && rf == 8 ? f(solve_inner_rhs_tc_kernel<8, 1, true>) : missing;
     } else {
-        return with_f64_rf(rf, missing, [&](auto R) {
+        return with_rf(rf, missing, [&](auto R) {
             constexpr int r = decltype(R)::value, cfw = r > 8 ? 2 : 1;
             if constexpr (r > 11)
                 return missing;
@@ -140,7 +140,7 @@ int with_f64_tc(int n, bool rhs, int missing, F f) {
         return rhs && round_up(n, 8) == 64 ? f(solve_inner_rhs_f64_tc_kernel<8, true>)
                                            : missing;
     } else {
-        return with_f64_rf(round_up(n, 8) / 8, missing, [&](auto R) {
+        return with_rf(round_up(n, 8) / 8, missing, [&](auto R) {
             constexpr int rf = decltype(R)::value;
             return rhs ? f(solve_inner_rhs_f64_tc_kernel<rf, false>)
                        : f(solve_inner_f64_tc_kernel<rf>);

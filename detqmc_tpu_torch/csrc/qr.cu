@@ -32,13 +32,24 @@
 //     of it applying the reflectors with both operands of every rank-1
 //     update in shared memory; this design takes 93 us, 63 % of it the
 //     panel (the probes, solve_timing.py, NVIDIA H100 80GB HBM3, 700 W);
-//   - float32: qr_kernel below, the last user of that design (no main path
-//     runs K2 in float32): A and Q^H in shared memory (2 n (n+1) values,
-//     33 KB at n = 64), the n reflector steps of householder_apply
-//     (common.cuh) applied to Q^H (started as I) as it goes. What bounds
-//     it: n dependent steps with three __syncthreads each; per step 2n dot
-//     products (one warp each) and a rank-1 update of the active rows of A
-//     and Q^H in shared memory.
+//   - float32 (K2 on the opdim-1 SDW chains, whose matrices are real:
+//     the refactor QR of sdw_o1_l4 at n = 32, sdw_o1_full_l4 at n = 64 and
+//     sdw_o1_l8 at n = 128, and the opdim-1 log-det's QR): qr_f32_tc_kernel,
+//     K2c's complex64 body on real floats (cplx_tc.cuh, its products on the
+//     FP32 pipe, no TF32), A at stride np + 4, Q^T in registers (at n =
+//     128, RF = 16: two strips a warp, 64 registers a thread), 71 KB of
+//     shared memory at n = 128. It replaced qr_kernel, the design the
+//     float64 and complex instances had left: A and Q^H in shared memory
+//     (133,632 B at n = 128, one CTA per SM), n dependent reflector steps
+//     of three barriers each, warp 0 alone forming each norm and both
+//     operands of every multiply-add of the rank-1 updates read from
+//     shared memory: 1.297 ms of device time at B = 128, n = 128 (21.5 %
+//     of sdw_o1_l8's device time in chip_smoke.py's profile), 0.271 at
+//     n = 64, 0.074 at n = 32.
+//     This one takes 0.220, 0.067 and 0.026 ms there; what bounds it is
+//     the panel's chain, as in K2c: 105 of a CTA's 217 us at n = 128, the
+//     WY products 50 (A) and 46 (Q^T), loads and stores 15 (the probe,
+//     solve_timing.py --rows k2f32, NVIDIA H100 80GB HBM3, 700 W).
 // On exit R = triu(A) with its strict lower triangle exactly zero, and
 // Q = (Q^H)^H. R's diagonal is -sign(x_j)||x|| (real) or -(x_j/|x_j|)||x||
 // (complex, not real, unlike LAPACK's); udv_decompose folds the phase into
@@ -47,47 +58,8 @@
 
 namespace dq {
 
-template <typename S>
-__global__ void __launch_bounds__(kThreads)
-qr_kernel(const S* __restrict__ A_in, S* __restrict__ Q_out,
-          S* __restrict__ R_out, int n) {
-    using R = typename real_of<S>::type;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int ld = n + 1;
-    S* A = reinterpret_cast<S*>(smem_raw);   // n x ld
-    S* Qh = A + n * ld;                      // n x ld
-    S* v = Qh + n * ld;                      // n
-    S* s = v + n;                            // 2n
-    const int tid = threadIdx.x;
-    const size_t off = size_t(blockIdx.x) * n * n;
-    for (int idx = tid; idx < n * n; idx += kThreads) {
-        const int r = idx / n, c = idx - r * n;
-        A[r * ld + c] = A_in[off + idx];
-        Qh[r * ld + c] = from_real<S>(r == c ? R(1) : R(0));
-    }
-    __syncthreads();
-    householder_apply(A, Qh, v, s, n, ld);
-    for (int idx = tid; idx < n * n; idx += kThreads) {
-        const int r = idx / n, c = idx - r * n;
-        R_out[off + idx] = c >= r ? A[r * ld + c] : from_real<S>(R(0));
-        Q_out[off + idx] = conj_(Qh[c * ld + r]);
-    }
-}
-
-// mirrored by linalg/qr.py smem_bytes
-template <typename S>
-size_t qr_smem_bytes(int n) {
-    return sizeof(S) * (2 * size_t(n) * (n + 1) + 3 * size_t(n));
-}
-
-int qr_f32(int device, const void* A, void* Q, void* R, int batch, int n, void* stream) {
-    return launch_smem(device, qr_kernel<float>, batch, qr_smem_bytes<float>(n), stream,
-                       static_cast<const float*>(A), static_cast<float*>(Q),
-                       static_cast<float*>(R), n);
-}
-
-// K2c: names of their own, so a profile tells them from qr_kernel, from K2
-// in float64 and from K3c / K3c-rhs
+// K2c: names of their own, so a profile tells them from K2 in float32 and
+// float64 and from K3c / K3c-rhs
 template <int RF, int CFW, bool PROBE>
 __global__ void __launch_bounds__(kThreads, CFW == 1 ? 2 : 1)
 qr_c64_tc_kernel(const cplx<float>* __restrict__ A, cplx<float>* __restrict__ Q,
@@ -119,7 +91,7 @@ int with_qr_complex(int n, int missing, F f) {
         else
             return missing;
     } else {
-        return with_f64_rf(round_up(n, 8) / 8, missing, [&](auto R) {
+        return with_rf(round_up(n, 8) / 8, missing, [&](auto R) {
             constexpr int rf = decltype(R)::value, cfw = rf > 8 ? 2 : 1;
             if constexpr (c64)
                 return f(qr_c64_tc_kernel<rf, cfw, false>);
@@ -142,8 +114,8 @@ int qr_complex(int device, const void* A, void* Q, void* R, int batch, int n, vo
     });
 }
 
-// its own name, so a profile tells K2 in float64 from qr_kernel (float32,
-// K2c) and from K3 / K3r
+// its own name, so a profile tells K2 in float64 from K2 in float32, K2c
+// and K3 / K3r
 template <int RF, bool PROBE>
 __global__ void __launch_bounds__(kThreads, RF <= 8 ? 3 : 1)
 qr_f64_tc_kernel(const double* __restrict__ A, double* __restrict__ Q,
@@ -159,7 +131,7 @@ int with_qr_f64(int n, int missing, F f) {
     if constexpr (PROBE) {
         return round_up(n, 8) == 64 ? f(qr_f64_tc_kernel<8, true>) : missing;
     } else {
-        return with_f64_rf(round_up(n, 8) / 8, missing, [&](auto R) {
+        return with_rf(round_up(n, 8) / 8, missing, [&](auto R) {
             constexpr int rf = decltype(R)::value;
             return f(qr_f64_tc_kernel<rf, false>);
         });
@@ -176,13 +148,47 @@ int qr_f64(int device, const void* A, void* Q, void* R, int batch, int n, void* 
     });
 }
 
+// K2 in float32: K2c's complex64 body on real floats, its own name
+template <int RF, bool PROBE>
+__global__ void __launch_bounds__(kThreads, RF <= 8 ? 2 : 1)
+qr_f32_tc_kernel(const float* __restrict__ A, float* __restrict__ Q, float* __restrict__ R,
+                 int n, long long* probe_out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    solve_cplx_tc<float, RF, (RF + 7) / 8, kIdentityM, PROBE>(smem_raw, A, nullptr, Q, R, n,
+                                                              probe_out);
+}
+
+// the instance of this n (np = 8 rf up to 128: kernel_for sends float32
+// n <= 128 here), then f(kernel); the probe instance is compiled at np =
+// 128, the sdw_o1_l8 shape
+template <bool PROBE, typename F>
+int with_qr_f32(int n, int missing, F f) {
+    if constexpr (PROBE) {
+        return round_up(n, 8) == 128 ? f(qr_f32_tc_kernel<16, true>) : missing;
+    } else {
+        return with_rf<16>(round_up(n, 8) / 8, missing, [&](auto R) {
+            return f(qr_f32_tc_kernel<decltype(R)::value, false>);
+        });
+    }
+}
+
+template <bool PROBE>
+int qr_f32(int device, const void* A, void* Q, void* R, int batch, int n, void* stream,
+           long long* probe) {
+    return with_qr_f32<PROBE>(n, static_cast<int>(cudaErrorInvalidValue), [&](auto kernel) {
+        return launch_tc(device, kernel, batch, ctc_smem_bytes<float>(n), stream,
+                         static_cast<const float*>(A), static_cast<float*>(Q),
+                         static_cast<float*>(R), n, probe);
+    });
+}
+
 }  // namespace dq
 
 extern "C" {
 
 int dq_qr_f32(int device, const void* A, void* Q, void* R, int batch, int n,
               void* stream) {
-    return dq::qr_f32(device, A, Q, R, batch, n, stream);
+    return dq::qr_f32<false>(device, A, Q, R, batch, n, stream, nullptr);
 }
 
 int dq_qr_f64(int device, const void* A, void* Q, void* R, int batch, int n,
@@ -210,6 +216,13 @@ int dq_qr_probe_f64(int device, const void* A, void* Q, void* R, int batch, int 
                             static_cast<long long*>(probe));
 }
 
+// K2 in float32 with the phase probe on (n = 121..128 only), with the
+// float64 probe's phases
+int dq_qr_probe_f32(int device, const void* A, void* Q, void* R, int batch, int n,
+                    void* probe, void* stream) {
+    return dq::qr_f32<true>(device, A, Q, R, batch, n, stream, static_cast<long long*>(probe));
+}
+
 // K2c in complex64 with the phase probe on (n = 57..64 only), with the
 // float64 probe's phases
 int dq_qr_probe_c64(int device, const void* A, void* Q, void* R, int batch, int n,
@@ -223,8 +236,11 @@ int dq_qr_probe_c64(int device, const void* A, void* Q, void* R, int batch, int 
 // -(cudaError)
 int dq_qr_blocks_per_sm(int device, int dtype, int n) {
     switch (dtype) {
-        case 0: return dq::blocks_per_sm(device, dq::qr_kernel<float>,
-                                         dq::qr_smem_bytes<float>(n));
+        case 0:
+            return dq::with_qr_f32<false>(
+                n, -static_cast<int>(cudaErrorInvalidValue), [&](auto kernel) {
+                    return dq::blocks_per_sm(device, kernel, dq::ctc_smem_bytes<float>(n));
+                });
         case 1:
             return dq::with_qr_f64<false>(
                 n, -static_cast<int>(cudaErrorInvalidValue), [&](auto kernel) {

@@ -2,8 +2,26 @@
 // full opdim-3 model), q = 2 complex (the opdim-2 reduced sector) and q = 2
 // real (opdim 1), in single and double precision (the TPU kernel's real
 // single-plane variant, pallas_sdw_wrap.py:29-30); the notes below are
-// written for q = 4 complex, and the q = 2 instances are the same program
-// with q orbitals (the real ones on real lines), not tuned.
+// written for q = 4 complex. The q = 2 instances are the same program with
+// q orbitals (the real ones on real lines) and three things of their own:
+//   - F staged by cp.async, beside the first tile's line copies;
+//   - launch bounds of two CTAs per SM, and plans (linalg/sdw_wrap.py plan)
+//     that spread a walker's tiles over two CTAs where a plan with a
+//     prefetch buffer and a full kinetic step fits two CTAs per SM: float32
+//     at N = 64 (sdw_o1_l8) runs 32-line tiles, two a CTA, 256 CTAs, where
+//     it ran one CTA of four tiles a walker; elsewhere the q = 4 rule
+//     (complex64 at N = 64: one 141 KB CTA per SM, four 32-line tiles);
+//   - the wrappers' host work cut (the plan computed once a shape), which
+//     set one call's time: an apply's device time (complex64 0.033 ms,
+//     float32 0.021 at W = 128, h = 128) is a third of one call's.
+// At W = 128, h = 128 they take (device time a call, parent's first): wrap
+// 0.0710 -> 0.0676 (complex64) and 0.0480 -> 0.0439 ms (float32), apply
+// 0.0326 -> 0.0327 and 0.0227 -> 0.0212 ms; one bmm with the dense B takes
+// 0.0495 / 0.0166 ms of device time. What bounds them, by the probe (a
+// CTA): complex64 33 us, the kinetic step 19 of it (the FP32 pipe at about
+// half its peak with one CTA of 8 warps per SM), line copies 8, F 2.6, D
+// 2.7; float32 19 us, kinetic 9, F 4, lines 4, D 1.7 (solve_timing.py
+// --rows k6q2, NVIDIA H100 80GB HBM3, 700 W).
 //
 // Replaces the TPU kernels detqmc_tpu/linalg/pallas_sdw_wrap.py
 // (fused_wrap, kernel body _kernel; fused_apply_left, kernel body
@@ -106,8 +124,11 @@ __device__ __forceinline__ cplx<T> fma_s(cplx<T> x, T f, cplx<T> acc) {
 }
 
 // F_o[m][n] (m < N, n < round_up(N, 4), zero beyond N) for the og orbitals
-// from o0: E_o or, with e_trans, E_o^T; E read row by row (coalesced)
-template <typename T>
+// from o0: E_o or, with e_trans, E_o^T; E read row by row (coalesced). With
+// ASYNC the values go by cp.async (one committed group), so that the copy
+// of F runs beside the first tile's line copies and the caller's
+// cp_async_wait_all; else by plain loads and stores
+template <bool ASYNC, typename T>
 __device__ void stage_f(T* Fs, const T* E, int N, int o0, int og, int e_trans) {
     const int NP = round_up(N, 4), ldf = k6_ldf<T>(N);
     for (int oo = 0; oo < og; ++oo) {
@@ -116,19 +137,25 @@ __device__ void stage_f(T* Fs, const T* E, int N, int o0, int og, int e_trans) {
         for (int idx = threadIdx.x; idx < N * NP; idx += kThreads) {
             const int a = idx / NP, b = idx - a * NP;
             if (b < N) {
-                const T v = Eo[a * N + b];   // E_o[a][b]
-                if (e_trans) F[b * ldf + a] = v;
-                else         F[a * ldf + b] = v;
+                const T* src = Eo + a * N + b;              // E_o[a][b]
+                T* dst = e_trans ? F + b * ldf + a : F + a * ldf + b;
+                if constexpr (ASYNC) cp_async(dst, src);
+                else *dst = *src;
             } else {
                 F[a * ldf + b] = T(0);       // n = b beyond N, row m = a
             }
         }
     }
+    if constexpr (ASYNC) cp_async_commit();
 }
 
-// lines per thread in the kinetic step: 4 in complex64, 2 in complex128
-// (whose smaller tiles would leave threads idle at 4); mirrored by
-// linalg/sdw_wrap.py lines_per_thread
+// lines per thread in the kinetic step: 4 in complex64 and float32, 2 in
+// double precision (whose smaller tiles would leave threads idle at 4);
+// mirrored by linalg/sdw_wrap.py lines_per_thread. Two lines a thread in
+// complex64 where four leave threads idle (16-line tiles at q = 2, N = 64,
+// two CTAs per SM) took 8 % longer than the 32-line tiles at four lines a
+// thread and one CTA per SM (0.0355 against 0.0329 ms an apply,
+// solve_timing.py's k6q2 rows, NVIDIA H100 80GB HBM3, 700 W)
 template <typename T>
 __host__ __device__ constexpr int k6_rt() { return sizeof(T) == 4 ? 4 : 2; }
 
@@ -186,7 +213,7 @@ __device__ void kin_step(const S* in, S* out, typename real_of<S>::type* Fs,
     for (int o0 = 0; o0 < Q; o0 += og) {
         if (og < Q) {
             if (o0 > 0) __syncthreads();   // the last group is done with Fs
-            stage_f(Fs, E, N, o0, og, e_trans);
+            stage_f<false>(Fs, E, N, o0, og, e_trans);
             __syncthreads();
             probe.lap(kStageF);
         }
@@ -294,7 +321,7 @@ __device__ void store_lines(const S* src, S* X, int h, int ldt, int l0, int TL, 
 // the next tile's lines are copied by cp.async while the current one is
 // computed when there are three line buffers (nb == 3).
 template <typename S, int Q, bool PROBE>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, Q == 2 ? 2 : 1)
 line_pass_kernel(const S* X_in, S* X_out, const typename real_of<S>::type* __restrict__ E,
                  const S* __restrict__ D, int N, int TL, int og, int nb, int tpc,
                  PassFlags fl, long long* probe_out) {
@@ -324,7 +351,7 @@ line_pass_kernel(const S* X_in, S* X_out, const typename real_of<S>::type* __res
         Ds[idx] = d;
     }
     probe.lap(kLines);
-    if (og == Q) stage_f(Fs, E, N, 0, Q, fl.e_trans);
+    if (og == Q) stage_f<Q == 2>(Fs, E, N, 0, Q, fl.e_trans);   // q = 4: plain copies
     probe.lap(kStageF);
     S* cur = lines;
     S* nxt = lines + 2 * buf_elems;
@@ -444,26 +471,32 @@ DQ_SDW_WRAP_ENTRIES(dq_sdw_wrap_q2_c128, dq_sdw_apply_q2_c128, dq::cplx<double>,
 DQ_SDW_WRAP_ENTRIES(dq_sdw_wrap_q2_f32, dq_sdw_apply_q2_f32, float, 2)
 DQ_SDW_WRAP_ENTRIES(dq_sdw_wrap_q2_f64, dq_sdw_apply_q2_f64, double, 2)
 
+// the same with the phase probe on: probe gets each CTA's cycles per phase,
+// total cycles and total ns (a wrap: the right pass's CTAs, then the left
+// pass's). Instances: complex64 at q = 4 (sdw_l8) and q = 2 (sdw_o2_l8),
+// float32 at q = 2 (sdw_o1_l8), the main paths' K6
+#define DQ_SDW_WRAP_PROBE_ENTRIES(WRAP, APPLY, S, Q)                                     \
+    extern "C" int WRAP(int device, const void* G, void* Tmp, void* G_out,              \
+                        const void* E, const void* Einv, const void* D, const void* Dinv, \
+                        int W, int N, int up, int TL, int og, int nb, int tpc,          \
+                        void* probe, void* stream) {                                    \
+        return dq::sdw_wrap<S, Q>(device, G, Tmp, G_out, E, Einv, D, Dinv, W, N, up,    \
+                                  TL, og, nb, tpc, stream,                              \
+                                  static_cast<long long*>(probe));                      \
+    }                                                                                   \
+    extern "C" int APPLY(int device, const void* X, void* X_out, const void* E,         \
+                         const void* D, int W, int N, int herm, int TL, int og, int nb, \
+                         int tpc, void* probe, void* stream) {                          \
+        return dq::sdw_apply<S, Q>(device, X, X_out, E, D, W, N, herm, TL, og, nb, tpc, \
+                                   stream, static_cast<long long*>(probe));             \
+    }
+
+DQ_SDW_WRAP_PROBE_ENTRIES(dq_sdw_wrap_probe_c64, dq_sdw_apply_probe_c64, dq::cplx<float>, 4)
+DQ_SDW_WRAP_PROBE_ENTRIES(dq_sdw_wrap_probe_q2_c64, dq_sdw_apply_probe_q2_c64,
+                          dq::cplx<float>, 2)
+DQ_SDW_WRAP_PROBE_ENTRIES(dq_sdw_wrap_probe_q2_f32, dq_sdw_apply_probe_q2_f32, float, 2)
+
 extern "C" {
-
-// the same with the phase probe on (complex64, q = 4, the sdw_l8 path's
-// dtype): probe gets each CTA's cycles per phase, total cycles and total
-// ns (a wrap: the right pass's CTAs, then the left pass's)
-int dq_sdw_wrap_probe_c64(int device, const void* G, void* Tmp, void* G_out,
-                          const void* E, const void* Einv, const void* D,
-                          const void* Dinv, int W, int N, int up, int TL, int og, int nb,
-                          int tpc, void* probe, void* stream) {
-    return dq::sdw_wrap<dq::cplx<float>, 4>(device, G, Tmp, G_out, E, Einv, D, Dinv, W, N,
-                                            up, TL, og, nb, tpc, stream,
-                                            static_cast<long long*>(probe));
-}
-
-int dq_sdw_apply_probe_c64(int device, const void* X, void* X_out, const void* E,
-                           const void* D, int W, int N, int herm, int TL, int og,
-                           int nb, int tpc, void* probe, void* stream) {
-    return dq::sdw_apply<dq::cplx<float>, 4>(device, X, X_out, E, D, W, N, herm, TL, og,
-                                             nb, tpc, stream, static_cast<long long*>(probe));
-}
 
 // CTAs of a K6 line pass per SM at this plan (complex: complex128, else
 // complex64), or -(cudaError)

@@ -553,9 +553,9 @@ __host__ __device__ inline size_t vt_t_index(int n, int j0, int bw, int r, int i
 // and, given vt, every panel's V (v's head on the diagonal) in vt's lower
 // triangle and its T where vt_t_index says (form_q_backward, qr_big.cu).
 // The first panel reads A_in and C_in, every later one A and C (A_in may
-// be A, C_in may be C). The reflectors are those of householder_apply
-// (common.cuh) up to rounding. Per panel of BP columns at j0 (mp = n - j0
-// rows):
+// be A, C_in may be C). The reflectors are those of the one-CTA bodies
+// (f64_tc.cuh, cplx_tc.cuh) up to rounding. Per panel of BP columns at j0
+// (mp = n - j0 rows):
 //   1. the panel in shared memory, column by column, two barriers a
 //      column: every warp forms ||x|| itself (the same sum in the same
 //      order, so all agree bitwise), alpha and beta = 2 / v^H v with

@@ -24,6 +24,7 @@ proves that the kernel ran.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -62,6 +63,7 @@ _SIGNATURES = {
     "dq_qr_c64": [_I, _P, _P, _P, _I, _I, _P],
     "dq_qr_c128": [_I, _P, _P, _P, _I, _I, _P],
     # the same, then the phase probe's record (batch x 8 int64)
+    "dq_qr_probe_f32": [_I, _P, _P, _P, _I, _I, _P, _P],
     "dq_qr_probe_f64": [_I, _P, _P, _P, _I, _I, _P, _P],
     "dq_qr_probe_c64": [_I, _P, _P, _P, _I, _I, _P, _P],
     # CTAs per SM of the one-CTA QR (no launch): device, dtype code, n
@@ -99,8 +101,10 @@ _SIGNATURES = {
     "dq_sdw_apply_c64": [_I] + [_P] * 4 + [_I] * 7 + [_P],
     "dq_sdw_apply_c128": [_I] + [_P] * 4 + [_I] * 7 + [_P],
     # the same, then the phase probe's record (CTAs x 6 int64)
-    "dq_sdw_wrap_probe_c64": [_I] + [_P] * 7 + [_I] * 7 + [_P, _P],
-    "dq_sdw_apply_probe_c64": [_I] + [_P] * 4 + [_I] * 7 + [_P, _P],
+    **{f"dq_sdw_wrap_probe_{t}": [_I] + [_P] * 7 + [_I] * 7 + [_P, _P]
+       for t in ("c64", "q2_c64", "q2_f32")},
+    **{f"dq_sdw_apply_probe_{t}": [_I] + [_P] * 4 + [_I] * 7 + [_P, _P]
+       for t in ("c64", "q2_c64", "q2_f32")},
     # device, G, field, u01, sign, G_out, field_out, sign_out, acc_out,
     # W, C, N, k, alpha, stream
     "dq_slice_update_delayed_f32": [_I] + [_P] * 8 + [_I] * 4 + [_D, _P],
@@ -260,18 +264,30 @@ def launch(kernel: str, entry: str, *args) -> None:
     import torch
 
     lib = load()
-    devs = {a.device for a in args if isinstance(a, torch.Tensor)}
-    if len(devs) != 1:
-        raise ValueError(f"{entry}: tensors on several devices {devs}")
+    devs = {a.get_device() for a in args if isinstance(a, torch.Tensor)}
+    if len(devs) != 1 or min(devs) < 0:
+        raise ValueError(f"{entry}: tensors on several devices or off the "
+                         f"card {devs}")
     dev = devs.pop()
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
              for a in args]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, entry)(dev.index, *cargs, stream)
+    err = getattr(lib, entry)(dev, *cargs, _raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {entry} failed to launch: "
                            f"cudaError {err}")
     LAUNCHES[kernel] += 1
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream of CUDA device ``index`` as a pointer: torch's
+    raw getter where it has one (a Stream object costs microseconds a
+    launch), else the Stream's own."""
+    import torch
+
+    getter = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if getter is not None:
+        return getter(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def row_pad(dtype) -> int:
@@ -293,8 +309,9 @@ def query(entry: str, device, *ints) -> int:
     return res
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device) -> int:
-    """The number of SMs of a CUDA device."""
+    """The number of SMs of a CUDA device (asked once a device)."""
     import torch
 
     return torch.cuda.get_device_properties(device).multi_processor_count

@@ -11,12 +11,14 @@ per SM up to n = 64 (``f64_smem_bytes``, ``blocks_per_sm``); in the
 complex dtypes (K2c) the complex body of K3c and K3c-rhs
 (``csrc/cplx_tc.cuh``) with Q^H in registers, its products on the FP64
 tensor cores (complex128) or the FP32 pipe (complex64)
-(``complex_smem_bytes``); in float32 A and Q^H in shared memory
-(qr_kernel, ``smem_bytes``). ``kernel_for`` routes every dtype by
-``smem_bytes``, so the one-CTA routes keep their limits (n <= 119 in
-float64 and complex64, n <= 83 in complex128). Matrices beyond it
-(n > 128 in float32, n > 119 in float64 and complex64, n > 83 in
-complex128) go to K7, ``csrc/qr_big.cu``, the counterpart of
+(``complex_smem_bytes``); in float32 (K2 on the opdim-1 SDW chains: the
+refactor QR of sdw_o1_l4, sdw_o1_full_l4 and sdw_o1_l8 at n = 32, 64 and
+128, and the opdim-1 log-det's QR) K2c's complex64 body on real floats,
+its products on the FP32 pipe with no TF32 (``complex_smem_bytes``).
+``kernel_for`` routes each dtype by its body's shared memory up to the
+last n it routed there before (``ONE_CTA_LAST_N``: n <= 128 in float32,
+119 in float64 and complex64, 83 in complex128). Matrices beyond it go to
+K7, ``csrc/qr_big.cu``, the counterpart of
 pallas_qr_wy.py (``qr_wy``) and pallas_qr_big.py (``qr_big``) for real
 matrices and of pallas_cqr_wy.py (``cqr_wy``) and pallas_cqr.py
 (``cqr_big``) for complex ones: K8's blocked Householder QR
@@ -40,8 +42,12 @@ import torch
 
 from detqmc_tpu_torch.linalg import _kernels
 
-MAX_N = 128
 MAX_N_BIG = 512
+# the last n of each dtype's one-CTA route: float32 up to K2's np = 128
+# instance (RF = 16); the others where the first design's shared memory
+# (A and Q^H at n (n + 1) values each) stopped, so that no route changed
+ONE_CTA_LAST_N = {torch.float32: 128, torch.float64: 119,
+                  torch.complex64: 119, torch.complex128: 83}
 _ENTRIES = {torch.float32: ("qr", "dq_qr_f32"),
             torch.float64: ("qr", "dq_qr_f64"),
             torch.complex64: ("qr_complex", "dq_qr_c64"),
@@ -67,15 +73,6 @@ def qr_plain(A):
     return torch.linalg.qr(A)
 
 
-def smem_bytes(n: int, dtype) -> int:
-    """Dynamic shared memory of csrc/qr.cu qr_kernel (A and Q^H in shared
-    memory; float32 runs it); ``kernel_for`` routes every dtype by it, so
-    the one-CTA routes keep their limits (n <= 119 in float64 and
-    complex64, n <= 83 in complex128)."""
-    item = torch.empty((), dtype=dtype).element_size()
-    return item * (2 * n * (n + 1) + 3 * n)
-
-
 def f64_smem_bytes(n: int) -> int:
     """Dynamic shared memory of the float64 tensor-core body of K2, K3 and
     K3r (csrc/f64_tc.cuh f64_tc_smem_bytes): A at np x (np + 4), the side
@@ -87,17 +84,27 @@ def f64_smem_bytes(n: int) -> int:
 def complex_smem_bytes(n: int, dtype) -> int:
     """Dynamic shared memory of K2c (csrc/cplx_tc.cuh ctc_smem_bytes, the
     body of K3c and K3c-rhs): A at np x (np + pad), pad 2 in complex64 and
-    1 in complex128, the side buffer np x 9, T and V^H V 8 x 9 each, alpha
-    and v's heads (8 each), beta (8 reals)."""
+    1 in complex128 (4 in float32, K2's instance of the same body: np + 4
+    = 4 or 12 mod 16, the rows 2q + s of a warp's strip 8 banks apart),
+    the side buffer np x 9, T and V^H V 8 x 9 each, alpha and v's heads (8
+    each), beta (8 reals)."""
     np_ = -(-n // 8) * 8
-    pad = 2 if dtype == torch.complex64 else 1
+    pad = {torch.complex64: 2, torch.complex128: 1, torch.float32: 4}[dtype]
     return (dtype.itemsize * (np_ * (np_ + pad) + 9 * np_ + 2 * 8 * 9 + 16)
             + dtype.to_real().itemsize * 8)
 
 
+def one_cta_smem_bytes(n: int, dtype) -> int:
+    """Dynamic shared memory of the one-CTA QR body that ``dtype`` runs
+    at this n."""
+    if dtype == torch.float64:
+        return f64_smem_bytes(n)
+    return complex_smem_bytes(n, dtype)
+
+
 def blocks_per_sm(n: int, dtype, device="cuda") -> int:
-    """CTAs of the one-CTA QR (K2 in float64, K2c in the complex dtypes,
-    qr_kernel in float32) one SM of ``device`` holds at this n, as the CUDA
+    """CTAs of the one-CTA QR (K2 in float32 and float64, K2c in the
+    complex dtypes) one SM of ``device`` holds at this n, as the CUDA
     occupancy calculator reports it."""
     return _kernels.query("dq_qr_blocks_per_sm", device, _DTYPE_CODES[dtype],
                           n)
@@ -155,11 +162,12 @@ def big_blocks_per_sm(n: int, dtype, plan, device="cuda") -> int:
 
 def kernel_for(n: int, dtype) -> str:
     """The kernel a CUDA tensor of this size and dtype goes to:
-    "qr"/"qr_complex" (K2/K2c, one CTA in shared memory) when it fits,
-    else "qr_big"/"qr_complex_big" (K7) up to MAX_N_BIG; raises
-    beyond."""
+    "qr"/"qr_complex" (K2/K2c, one CTA in shared memory) up to
+    ``ONE_CTA_LAST_N`` where its body's shared memory fits, else
+    "qr_big"/"qr_complex_big" (K7) up to MAX_N_BIG; raises beyond."""
     kernel = _ENTRIES[dtype][0]
-    if n <= MAX_N and smem_bytes(n, dtype) <= _kernels.MAX_SMEM_BYTES - 1024:
+    if n <= ONE_CTA_LAST_N[dtype] and (one_cta_smem_bytes(n, dtype)
+                                       <= _kernels.MAX_SMEM_BYTES - 1024):
         return kernel
     if n <= MAX_N_BIG:
         return kernel + "_big"
@@ -176,12 +184,17 @@ BIG_PROBE_PHASES = ("panel", "T", "update of A", "update of Q",
 _BIG_PROBE_ENTRIES = {torch.float64: "dq_qr_big_probe_f64",
                       torch.complex64: "dq_qr_big_probe_c64"}
 # those of the one-CTA tensor-core bodies (f64_tc.cuh: K2 in float64, K3r;
-# green_solve.cu: K3c-rhs); K2's "apply to M" is the update of Q^T and its
-# back-substitution stays 0. K2's probe instance is compiled at np = 64.
+# cplx_tc.cuh: K2 in float32, K2c, K3c-rhs); K2's "apply to M" is the
+# update of Q^T and its back-substitution stays 0. K2's probe instances
+# are compiled at np = 64 in float64 and at np = 128 in float32 (the
+# sdw_o1_l8 shape).
 TC_PROBE_PHASES = ("panel", "apply to A", "apply to M",
                    "back-substitution", "barriers", "loads and stores")
-_PROBE_ENTRIES = {torch.float64: "dq_qr_probe_f64",
+_PROBE_ENTRIES = {torch.float32: "dq_qr_probe_f32",
+                  torch.float64: "dq_qr_probe_f64",
                   torch.complex64: "dq_qr_probe_c64"}
+# the padded size np of each real dtype's K2 probe instance
+_PROBE_NP = {torch.float32: 128, torch.float64: 64}
 
 
 def probe_phases(n: int, dtype):
@@ -190,7 +203,7 @@ def probe_phases(n: int, dtype):
     one-CTA plan), else None; K2c's is ``complex_probe_phases``."""
     if kernel_for(n, dtype).endswith("_big"):
         return BIG_PROBE_PHASES if dtype in _BIG_PROBE_ENTRIES else None
-    return (TC_PROBE_PHASES if dtype == torch.float64 and -(-n // 8) == 8
+    return (TC_PROBE_PHASES if _PROBE_NP.get(dtype) == -(-n // 8) * 8
             else None)
 
 
@@ -205,8 +218,9 @@ def qr(A, probe: bool = False):
     """K2 (float32/float64), K2c (complex64/complex128) or K7 (all four):
     CPU tensors run ``qr_plain``; CUDA tensors launch the kernel
     ``kernel_for`` names (contiguous (B, n, n)) or raise. With ``probe``
-    (K7 in float64 or complex64, K2 in float64 at n = 57..64, K2c in
-    complex64) the kernel's
+    (K7 in float64 or complex64, K2 in float64 at n = 57..64 and in
+    float32 at n = 121..128, K2c in complex64 at n = 57..64) the
+    kernel's
     instance with clock64() stamps runs instead, and the result gains a
     (B, len(phases) + 2) int64 record per CTA (``probe_phases``,
     ``complex_probe_phases``): cycles per phase, total cycles, total

@@ -32,6 +32,8 @@ launches K6 or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from detqmc_tpu_torch.linalg import _kernels
@@ -137,23 +139,37 @@ def has_instance(dtype, q: int = Q) -> bool:
     return (dtype, q) in _WRAP
 
 
+@functools.lru_cache(maxsize=None)
 def plan(N: int, dtype, W: int = 1, sms: int = _kernels.H100_SMS,
          q: int = Q):
-    """(TL, og, nb, tpc) of K6: the first of ``plans(q)`` within the
+    """(TL, og, nb, tpc) of K6 (computed once a shape: the wrappers ask
+    at every call). At q = 4: the first of ``plans(4)`` within the
     shared-memory budget whose kinetic step has a block for every thread
     (else the first within the budget), and tpc tiles per CTA so that a
     walker's tiles spread over max(1, sms // W) CTAs (one CTA per walker
-    at W >= sms); raises if no plan fits (N beyond 128 in complex128 at
-    q = 4)."""
-    fit = [p for p in plans(q) if smem_bytes(N, dtype, *p, q=q)
-           <= _kernels.MAX_SMEM_BYTES - 1024]
+    at W >= sms). At q = 2 (the reduced sectors): the first of
+    ``plans(2)`` with a prefetch buffer (nb = 3) that fits two CTAs per SM
+    and has a block for every thread of its kinetic step, its tiles
+    spread over max(1, 2 sms // W) CTAs (W = 128: a walker's tiles on two
+    CTAs, 256 CTAs in one wave at two per SM, each staging F once; the
+    float32 N = 64 of sdw_o1_l8); where none does, the q = 4 rule. Raises
+    if no plan fits (N beyond 128 in complex128 at q = 4)."""
+    budget = _kernels.MAX_SMEM_BYTES - 1024
+    fit = [p for p in plans(q) if smem_bytes(N, dtype, *p, q=q) <= budget]
     if not fit:
         raise ValueError(f"sdw_wrap: N={N} q={q} {dtype} exceeds the "
                          "shared-memory budget")
-    full = [p for p in fit if kinetic_blocks(N, dtype, p[0], p[1]) >= _THREADS]
-    TL, og, nb = (full or fit)[0]
+    twice = [p for p in fit if q != Q and p[2] == 3
+             and smem_bytes(N, dtype, *p, q=q) <= _kernels.TWO_CTA_SMEM_BYTES
+             and kinetic_blocks(N, dtype, p[0], p[1]) >= _THREADS]
+    if twice:
+        (TL, og, nb), per_sm = twice[0], 2
+    else:
+        full = [p for p in fit
+                if kinetic_blocks(N, dtype, p[0], p[1]) >= _THREADS]
+        (TL, og, nb), per_sm = (full or fit)[0], 1
     tiles = -(-q * N // TL)
-    ctas = max(1, min(tiles, sms // max(W, 1)))
+    ctas = max(1, min(tiles, per_sm * sms // max(W, 1)))
     return TL, og, nb, -(-tiles // ctas)
 
 
@@ -218,15 +234,24 @@ def _check(X, E, D, extra=()):
 
 # the phase probe's phases of K6 (sdw_wrap.cu), in the order of its per-CTA
 # record; the record ends with the CTA's total cycles and ns. The probe
-# instances are compiled for complex64 at q = 4 (the sdw_l8 path's K6).
+# instances: complex64 at q = 4 (sdw_l8) and q = 2 (sdw_o2_l8), float32 at
+# q = 2 (sdw_o1_l8), the main paths' K6; (G dtype, q) -> the C entries of
+# the wrap and the apply
 PROBE_PHASES = ("F staging", "kinetic step", "D step",
                 "line loads and stores")
+_PROBE_ENTRIES = {(torch.complex64, 4): "c64", (torch.complex64, 2): "q2_c64",
+                  (torch.float32, 2): "q2_f32"}
+
+
+def has_probe(dtype, q: int = Q) -> bool:
+    """Whether K6 has a phase-probe instance for G of ``dtype`` at q."""
+    return (dtype, q) in _PROBE_ENTRIES
 
 
 def _probe_record(X, n_ctas: int, q: int, probe: bool):
     if not probe:
         return None
-    if (X.dtype, q) != (torch.complex64, Q):
+    if not has_probe(X.dtype, q):
         raise ValueError(f"sdw_wrap: no phase probe for {X.dtype} q={q}")
     return torch.zeros((n_ctas, len(PROBE_PHASES) + 2), dtype=torch.int64,
                        device=X.device)
@@ -243,9 +268,9 @@ def _like(E, dtype):
 def wrap(G, E, Einv, D, Dinv, up: bool, probe: bool = False):
     """K6 wrap: CPU tensors run ``wrap_plain``; CUDA tensors launch the
     kernel (two line passes) or raise. E, Einv in G's dtype or their real
-    copies. With ``probe`` (complex64, q = 4) the kernel's instance with
-    clock64() stamps runs, and the result is (G', the per-CTA record of
-    both passes)."""
+    copies. With ``probe`` (``has_probe``: complex64 at q = 4 and 2,
+    float32 at q = 2) the kernel's instance with clock64() stamps runs,
+    and the result is (G', the per-CTA record of both passes)."""
     if G.device.type == "cpu":
         if probe:
             raise ValueError("sdw_wrap: the probe needs a CUDA tensor")
@@ -260,7 +285,8 @@ def wrap(G, E, Einv, D, Dinv, up: bool, probe: bool = False):
     args = (G, tmp, out, E, Einv, D, Dinv, W, N, int(up), TL, og, nb, tpc)
     rec = _probe_record(G, 2 * ctas(N, W, TL, tpc, q), q, probe)
     if rec is not None:
-        _kernels.launch("sdw_wrap", "dq_sdw_wrap_probe_c64", *args, rec)
+        _kernels.launch(_WRAP[(G.dtype, q)][0], "dq_sdw_wrap_probe_"
+                        + _PROBE_ENTRIES[(G.dtype, q)], *args, rec)
         return out, rec
     _kernels.launch(*_WRAP[(G.dtype, q)], *args)
     return out
@@ -279,7 +305,8 @@ def apply(X, E, D, herm: bool, probe: bool = False):
     args = (X, out, E, D, W, N, int(herm), TL, og, nb, tpc)
     rec = _probe_record(X, ctas(N, W, TL, tpc, q), q, probe)
     if rec is not None:
-        _kernels.launch("sdw_apply", "dq_sdw_apply_probe_c64", *args, rec)
+        _kernels.launch(_APPLY[(X.dtype, q)][0], "dq_sdw_apply_probe_"
+                        + _PROBE_ENTRIES[(X.dtype, q)], *args, rec)
         return out, rec
     _kernels.launch(*_APPLY[(X.dtype, q)], *args)
     return out

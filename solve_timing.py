@@ -1,14 +1,15 @@
 """Time the port's n > 128 inner solve (K8 + K9), K9 alone, the delayed
-Hubbard update K1b, the one-CTA solves K3c-rhs, K3r, K3 and K3c and the
-float64 refactor QR K2 on one CUDA card, at the shapes of the main
-paths, beside the library's calls:
+Hubbard update K1b, the one-CTA solves K3c-rhs, K3r, K3 and K3c, the
+refactor QR K2 (float64 and float32) and K6's q = 2 wrap and apply on
+one CUDA card, at the shapes of the main paths, beside the library's
+calls:
 
     python3 solve_timing.py                  # this checkout's kernels
     python3 solve_timing.py --tree OTHER     # the package of another checkout
     python3 solve_timing.py --plans          # also K8's and K9's other plans
     python3 solve_timing.py --rows k1b,k3    # only these groups (k8, k1b,
                                              # k3, k2, k7, k6, k5, k1,
-                                             # k2c, k4)
+                                             # k2c, k4, k2f32, k6q2)
 
 Rows of the k1b group: K1b float32 W=128 N=256 k=16 on slice 1 of a
 wrapped Hubbard L=16 G (chip_smoke.py's main-path shape) and K1b float64
@@ -42,6 +43,16 @@ where the package has them. K4 also runs with every site rejected and
 with every site accepted (lhs = +inf, -inf): device time and split of
 each, and the slowest CTA's time (a launch lasts as long as its slowest
 walker).
+
+Rows of the k2f32 group: K2 float32 B=128 on the refactor blocks of the
+opdim-1 cells (sdw_o1_l4 n=32, sdw_o1_full_l4 n=64, sdw_o1_l8 n=128)
+beside torch.linalg.qr; of the k6q2 group: K6's q = 2 wrap (up) and
+apply (B X), complex64 on an sdw_o2_l8 G and float32 on an sdw_o1_l8 G
+(W=128, h=128), beside the dense einsum / bmm. Each row gives one call,
+20 calls back to back (k2f32), the device time of one call over 20
+calls, CTAs per SM, K6's plan, the library call's device time (k6q2)
+and the probe's split where the package has it (K2 float32 at n=128,
+K6 q = 2 in both dtypes).
 
 Rows of the k5 group: the delayed SDW update K5 on slice 1 of a wrapped
 G, one whole slice (every chunk with its flush), complex64 W=128 h=256
@@ -592,6 +603,112 @@ def k4_rows(emit, gen, device, reps):
     torch.cuda.empty_cache()
 
 
+# chip_smoke.py's opdim-1 cells: sdw_o1_l4 (README's quick start at opdim
+# 1, dim 32), sdw_o1_full_l4 (sdw_l4 at opdim 1 full, dim 64) and
+# sdw_o1_l8 (sdw_l8 at opdim 1, dim 128), all float32; sdw_o2_l8 (sdw_l8
+# at opdim 2, complex64, dim 128)
+O1_CELLS = (("sdw_o1_l4", dict(L=4, opdim=1, r=1.0, beta=4.0, m=40, s=2,
+                               dtype="float32")),
+            ("sdw_o1_full_l4", dict(SDW4, opdim=1, fermion_matrix="full")),
+            ("sdw_o1_l8", dict(SDW8, opdim=1)))
+SDW_O2_L8 = dict(SDW8, opdim=2)
+
+
+def refactor_block(model, st):
+    """A refactor block of ``model``'s chain: s B's onto the stack's
+    factor (the sweep's lazy U, chip_smoke.py sdw_chain_inputs)."""
+    block = st.stack_U[:, 1]
+    for l in range(1, model.cfg.s + 1):
+        block = model.b_mult_left(model.exp_v_blocks(st.phi[:, l - 1]), block)
+    return block.contiguous()
+
+
+def k2f32_rows(emit, gen, device, reps, lib_reps):
+    """K2 float32 B=128 on the opdim-1 cells' refactor blocks (n = 32, 64,
+    128) beside torch.linalg.qr: one call, 20 back to back, the device
+    time of one call, CTAs per SM and the probe's split where the package
+    has them."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import qr
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    for cell, cfg in O1_CELLS:
+        model = SDWModel(SDWConfig(**cfg), device=device)
+        A = refactor_block(model, model.init_state(128, gen))
+        del model
+        B, n = A.shape[0], A.shape[-1]
+        Q, R = qr.qr(A)
+        torch.cuda.synchronize()
+        recon = float((Q @ R - A).abs().max() / A.abs().max())
+        row = dict(kernel="K2", dtype="float32", cell=cell, B=B, n=n,
+                   ms=time_ms(lambda: qr.qr(A), reps),
+                   batched_ms=time_ms_batched(lambda: qr.qr(A)),
+                   device_ms=device_ms(lambda: qr.qr(A)),
+                   library_ms=time_ms(lambda: torch.linalg.qr(A), lib_reps),
+                   library="torch.linalg.qr", qr_minus_a=recon,
+                   ctas_per_sm=qr.blocks_per_sm(n, torch.float32, device))
+        names = qr.probe_phases(n, torch.float32)
+        if names:
+            row["probe"] = split(qr.qr(A, probe=True)[-1], names)
+        emit(row)
+        del A, Q, R
+    torch.cuda.empty_cache()
+
+
+def k6q2_rows(emit, gen, device, reps, lib_reps):
+    """K6's q = 2 wrap (up) and apply (B X), complex64 on an sdw_o2_l8 G
+    and float32 on an sdw_o1_l8 G (W=128, h=128), beside the dense einsum
+    B G B^-1 / bmm B G: one call, the device time of one call over 20
+    calls, the plan and CTAs per SM, the probe's split where the package
+    has it."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import _kernels, sdw_wrap
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    W = 128
+    for cfg in (SDW_O2_L8, dict(SDW8, opdim=1)):
+        model = SDWModel(SDWConfig(**cfg), device=device)
+        st = model.init_state(W, gen)
+        dt, N, h = model.cdtype, model.cfg.n_sites, model.dim
+        G = st.G.contiguous()
+        D = model.exp_v_blocks(st.phi[:, 0])
+        Di = model.exp_v_blocks(st.phi[:, 0], 1.0)
+        E, Ei = model.expK_real, model.expK_inv_real
+        Ec, Eic = model.expK.to(dt), model.expK_inv.to(dt)
+        eye = torch.eye(h, dtype=dt, device=device).expand(W, h, h)
+        Bd = sdw_wrap.apply_plain(eye, Ec, D, False)
+        Bi = sdw_wrap.kin_left(Eic, sdw_wrap.dv_left(Di, eye))
+        p6 = sdw_wrap.plan(N, dt, W, _kernels.sm_count(device), 2)
+        cases = (("wrap",
+                  lambda **kw: sdw_wrap.wrap(G, E, Ei, D, Di, True, **kw),
+                  lambda: sdw_wrap.wrap_plain(G, Ec, Eic, D, Di, True),
+                  lambda: torch.einsum("wij,wjk,wkl->wil", Bd, G, Bi),
+                  "einsum B G B^-1"),
+                 ("apply", lambda **kw: sdw_wrap.apply(G, E, D, False, **kw),
+                  lambda: sdw_wrap.apply_plain(G, Ec, D, False),
+                  lambda: torch.bmm(Bd, G), "bmm B G"))
+        for mode, fn, plain, lib, lname in cases:
+            ref = plain()
+            torch.cuda.synchronize()
+            err = float((fn() - ref).abs().max() / ref.abs().max())
+            row = dict(kernel="K6", mode=mode, q=2, dtype=str(dt)[6:], W=W,
+                       h=h, ms=time_ms(fn, reps), device_ms=device_ms(fn),
+                       library_ms=time_ms(lib, lib_reps),
+                       library_device_ms=device_ms(lib), library=lname,
+                       rel_err=err, plan=p6,
+                       ctas_per_sm=sdw_wrap.blocks_per_sm(N, dt, p6, device,
+                                                          2))
+            if getattr(sdw_wrap, "has_probe", lambda *a: False)(dt, 2):
+                rec = fn(probe=True)[1]
+                row["probe"] = split(rec, sdw_wrap.PROBE_PHASES)
+                row["probe_ctas"] = rec.shape[0]
+            emit(row)
+        del model, st, G, Bd, Bi, eye
+        torch.cuda.empty_cache()
+
+
 def k7_rows(emit, gen, device, reps, lib_reps):
     """K7 float64 B=128 n=256 on a refactor block of the Hubbard L=16
     chain and complex64 B=128 n=256 on an sdw_l8 block, beside
@@ -696,9 +813,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=256)
     ap.add_argument("--plans", action="store_true",
                     help="also time K8's and K9's other plans")
-    ap.add_argument("--rows", default="k8,k1b,k3,k2,k7,k6,k5,k1,k2c,k4",
+    ap.add_argument("--rows",
+                    default="k8,k1b,k3,k2,k7,k6,k5,k1,k2c,k4,k2f32,k6q2",
                     help="comma-separated groups: k8, k1b, k3, k2, k7, k6, "
-                    "k5, k1, k2c, k4")
+                    "k5, k1, k2c, k4, k2f32, k6q2")
     args = ap.parse_args(argv)
     groups = set(args.rows.split(","))
     import torch
@@ -741,6 +859,10 @@ def main(argv=None) -> int:
         k2c_rows(emit, gen, device, args.reps, lib_reps)
     if "k4" in groups:
         k4_rows(emit, gen, device, args.reps)
+    if "k2f32" in groups:
+        k2f32_rows(emit, gen, device, args.reps, lib_reps)
+    if "k6q2" in groups:
+        k6q2_rows(emit, gen, device, args.reps, lib_reps)
     cases = (("K8+K9", torch.float64, 128, False),
              ("K8-rhs+K9", torch.float64, 5376, True),
              ("K8+K9", torch.complex128, 128, False),

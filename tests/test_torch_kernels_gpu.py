@@ -160,6 +160,19 @@ Tolerances (same inputs, same card):
   wraps; the repaired wrap route at opdim 2, L = 15, float32
   (no K6 plan): a sweep pair on the card against the CPU with identical
   fields and G within 1e-4 of max|G|.
+- K2 in float32 redesigned (K2c's complex64 body on real floats, Q^T in
+  registers, FP32 products) at n = 1, 7, 33, 64, 100, 120 and 128 (its
+  route's limit), batches of 3 and 133, on I + noise, column-graded and
+  zero-column matrices, and on the opdim-1 chains' own refactor blocks
+  (n = 32, 64, 128): one launch under "qr", R's strict lower triangle
+  exactly zero, Q^T Q - I and (Q R - A) / |A| within 1e-4, the sign-fixed
+  factors within 1e-4 of qr_plain's; two CTAs per SM up to n = 64; its
+  probe instance (n = 128) gives the same outputs bitwise.
+- K6's q = 2 instances at the plans the wrappers pick for N = 64 ... 144
+  and W = 3, 128, 130 in all four dtypes (float32 at N = 64: two CTAs per
+  SM, a walker's tiles on two CTAs): within 1e-5 / 1e-12 of max|G|; the
+  q = 2 probe instances (complex64, float32) equal to the production
+  ones.
 """
 
 import numpy as np
@@ -1296,24 +1309,27 @@ def test_k3c_redesign_matches_plain(cuda_device, batch):
             assert green_solve.c128_blocks_per_sm(n, False, cuda_device) >= 2
 
 
-K2C_TOL = {torch.complex64: 1e-4, torch.complex128: 1e-10}
+K2C_TOL = {torch.complex64: 1e-4, torch.complex128: 1e-10,
+           torch.float32: 1e-4}    # K2 in float32 runs K2c's body
 
 
 def _check_k2c(A, lead=None):
-    """K2c on A (B, n, n): one launch under the key "qr_complex", R's
-    strict lower triangle exactly zero, Q^H Q = I and Q R = A within the
-    dtype's tolerance (K2C_TOL), and the phase-fixed factors within it of
+    """K2c on A (B, n, n), or K2 in float32 (the same body on real floats):
+    one launch under the key "qr_complex" ("qr"), R's strict lower
+    triangle exactly zero, Q^H Q = I and Q R = A within the dtype's
+    tolerance (K2C_TOL), and the phase-fixed factors within it of
     qr_plain's (relative to each factor's largest entry); with ``lead``
     only the first ``lead`` columns of U, d and V (the columns a rank-
     deficient A determines). Returns (Q, R)."""
     B, n, _ = A.shape
     tol = K2C_TOL[A.dtype]
-    assert qr.kernel_for(n, A.dtype) == "qr_complex"
+    key = "qr_complex" if A.is_complex() else "qr"
+    assert qr.kernel_for(n, A.dtype) == key
     _kernels.reset_launch_counts()
     Qk, Rk = qr.qr(A)
     torch.cuda.synchronize()
     expect = dict.fromkeys(_kernels.LAUNCHES, 0)
-    expect["qr_complex"] = 1
+    expect[key] = 1
     assert _kernels.LAUNCHES == expect
     assert bool((torch.tril(Rk, -1) == 0).all())
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
@@ -1387,6 +1403,61 @@ def test_k2c_on_refactor_blocks(cuda_device, L):
             assert bool((rec[:, 3] == 0).all())    # no back-substitution
 
 
+@pytest.mark.parametrize("kind", ["near-identity", "graded", "zero-column"])
+@pytest.mark.parametrize("batch", [3, 133])
+def test_k2_f32_redesign_matches_plain(cuda_device, batch, kind):
+    """K2 in float32 (K2c's complex64 body on real floats, qr_f32_tc_kernel)
+    at ragged n up to its route's limit (1, 7, 33, 64, 100, 120, 128; n not
+    a multiple of 8 pads with the identity), batches of 3 and 133 (one more
+    than the SMs): I + noise, the same column-graded from 1 to 1e-11, and
+    one with an exactly zero column (as test_k2c_redesign_matches_plain);
+    the _check_k2c criteria at K2_TOL (1e-4); two CTAs per SM up to n =
+    64."""
+    gen = torch.Generator(cuda_device).manual_seed(batch + len(kind) + 32)
+    dt = torch.float32
+    for n in (1, 7, 33, 64, 100, 120, 128):
+        noise = torch.randn((batch, n, n), generator=gen, dtype=dt,
+                            device=cuda_device)
+        A = torch.eye(n, dtype=dt, device=cuda_device) + 0.3 * noise / n ** 0.5
+        if kind == "graded":
+            A = A * torch.logspace(0, -11, n, dtype=dt, device=cuda_device)
+        elif kind == "zero-column":
+            A[:, :, n // 2] = 0.0
+        lead = n // 2 if kind == "zero-column" else None
+        Qk, Rk = _check_k2c(A.contiguous(), lead)
+        if kind == "zero-column":
+            assert bool((Rk[:, :, n // 2] == 0).all())
+        assert qr.blocks_per_sm(n, dt, cuda_device) >= (2 if n <= 64 else 1)
+
+
+@pytest.mark.parametrize("L,full", [(4, False), (8, False), (4, True)])
+def test_k2_f32_on_refactor_blocks(cuda_device, L, full):
+    """The opdim-1 chains' own refactor blocks (s B's onto the stack's
+    orthogonal factor, built in float64 at sdw_l8's time step, then cast
+    to the paths' float32): sdw_o1_l4's n = 32, sdw_o1_l8's n = 128 and
+    sdw_o1_full_l4's n = 64; the _check_k2c criteria; at n = 128 the
+    probe instance gives the production instance's outputs bitwise."""
+    cfg = SDWConfig(L=L, opdim=1, r=0.5, beta=4.0, m=40, s=8,
+                    dtype="float64", checkerboard=L == 8,
+                    fermion_matrix="full" if full else "reduced")
+    model = SDWModel(cfg, device=cuda_device)
+    st = model.init_state(3, torch.Generator(cuda_device).manual_seed(L))
+    block = st.stack_U[:, 1]
+    for l in range(1, model.cfg.s + 1):
+        block = model.b_mult_left(model.exp_v_blocks(st.phi[:, l - 1]), block)
+    A = block.to(torch.float32).contiguous()
+    Qk, Rk = _check_k2c(A)
+    n = A.shape[-1]
+    assert n == (4 if full else 2) * L * L
+    if qr.probe_phases(n, torch.float32):
+        Qp, Rp, rec = qr.qr(A, probe=True)
+        torch.cuda.synchronize()
+        assert torch.equal(Qp, Qk) and torch.equal(Rp, Rk)
+        assert rec.shape == (A.shape[0], len(qr.TC_PROBE_PHASES) + 2)
+        assert bool((rec >= 0).all()) and bool((rec[:, -2] > 0).all())
+        assert bool((rec[:, 3] == 0).all())    # no back-substitution
+
+
 K7_TOL = {torch.float32: 1e-4, torch.float64: 1e-10, torch.complex64: 1e-4,
           torch.complex128: 1e-10}
 
@@ -1441,12 +1512,13 @@ def test_k7_probe_matches_production(cuda_device, dtype):
     assert bool((rec >= 0).all()) and bool((rec[:, -2] > 0).all())
 
 
-def _k6_operands(W, N, dtype, device, seed):
+def _k6_operands(W, N, dtype, device, seed, q=4):
     """A G, kinetic factors near the identity (real values in a complex
-    tensor, as the model's) and potential blocks near the identity."""
+    tensor, as the model's) and potential blocks near the identity, at q
+    orbitals."""
     gen = torch.Generator(device).manual_seed(seed)
     rdt = dtype.to_real()
-    h = 4 * N
+    h = q * N
 
     def near_eye(shape, dt):
         eye = torch.eye(shape[-1], dtype=dt, device=device)
@@ -1454,10 +1526,10 @@ def _k6_operands(W, N, dtype, device, seed):
             shape, generator=gen, dtype=dt, device=device)
 
     G = torch.randn((W, h, h), generator=gen, dtype=dtype, device=device)
-    E = near_eye((4, N, N), rdt).to(dtype)
+    E = near_eye((q, N, N), rdt).to(dtype)
     Ei = torch.linalg.inv(E)
-    Ei = Ei.real.to(dtype)
-    D, Di = near_eye((W, N, 4, 4), dtype), near_eye((W, N, 4, 4), dtype)
+    Ei = (Ei.real if Ei.is_complex() else Ei).to(dtype)
+    D, Di = near_eye((W, N, q, q), dtype), near_eye((W, N, q, q), dtype)
     return G, E, Ei, D, Di
 
 
@@ -1495,6 +1567,67 @@ def test_k6_probe_matches_production(cuda_device):
     for herm in (False, True):
         out, rec = sdw_wrap.apply(G, E, D, herm, probe=True)
         assert torch.equal(out, sdw_wrap.apply(G, E, D, herm))
+        assert bool((rec[:, -2] > 0).all())
+
+
+@pytest.mark.parametrize("W", [3, 128, 130])
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-5),
+                                       (torch.float32, 1e-5),
+                                       (torch.complex128, 1e-12),
+                                       (torch.float64, 1e-12)])
+def test_k6_q2_plans_match_plain(cuda_device, dtype, tol, W):
+    """K6's q = 2 instances at the plans the wrappers pick for the reduced
+    lattices on the fused route up to L = 12 (N = 64, 81, 100, 121, 144)
+    and W = 3, 128 (the main paths'; in float32 at N = 64 two CTAs per SM,
+    a walker's tiles on two CTAs) and 130: wrap up / down, apply and
+    apply-H within tol of max|G_plain| on synthetic operands, one launch a
+    call under the instance's count, at least the CTAs per SM the plan
+    was chosen for."""
+    sms = _kernels.sm_count(cuda_device)
+    for N in (64, 81, 100, 121, 144):
+        G, E, Ei, D, Di = _k6_operands(W, N, dtype, cuda_device, N + W, q=2)
+        Er, Eir = [(x.real if x.is_complex() else x).contiguous()
+                   for x in (E, Ei)]
+        _kernels.reset_launch_counts()
+        cases = [(sdw_wrap.wrap(G, Er, Eir, D, Di, up),
+                  sdw_wrap.wrap_plain(G, E, Ei, D, Di, up))
+                 for up in (True, False)]
+        cases += [(sdw_wrap.apply(G, Er, D, herm),
+                   sdw_wrap.apply_plain(G, E, D, herm))
+                  for herm in (False, True)]
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES[sdw_wrap.launch_name(dtype, 2)] == 2
+        assert _kernels.LAUNCHES[sdw_wrap.launch_name(dtype, 2, True)] == 2
+        for k, p in cases:
+            assert float((k - p).abs().max()) <= tol * float(p.abs().max()), N
+        p6 = sdw_wrap.plan(N, dtype, W, sms, 2)
+        two = sdw_wrap.smem_bytes(N, dtype, *p6[:3], q=2) <= \
+            _kernels.TWO_CTA_SMEM_BYTES
+        assert sdw_wrap.blocks_per_sm(N, dtype, p6, cuda_device, 2) >= \
+            (2 if two else 1), N
+        if N == 64 and W == 128 and dtype == torch.float32:   # sdw_o1_l8
+            assert two and sdw_wrap.ctas(N, W, p6[0], p6[3], 2) == 2 * W
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float32])
+def test_k6_q2_probe_matches_production(cuda_device, dtype):
+    """The q = 2 probe instances (sdw_o2_l8's complex64, sdw_o1_l8's
+    float32) give the production instances' outputs, one record per CTA
+    of each pass."""
+    G, E, Ei, D, Di = _k6_operands(128, 64, dtype, cuda_device, 5, q=2)
+    E, Ei = [(x.real if x.is_complex() else x).contiguous() for x in (E, Ei)]
+    TL, og, nb, tpc = sdw_wrap.plan(64, dtype, 128,
+                                    _kernels.sm_count(cuda_device), 2)
+    n_ctas = sdw_wrap.ctas(64, 128, TL, tpc, 2)
+    for up in (True, False):
+        out, rec = sdw_wrap.wrap(G, E, Ei, D, Di, up, probe=True)
+        assert torch.equal(out, sdw_wrap.wrap(G, E, Ei, D, Di, up))
+        assert rec.shape == (2 * n_ctas, len(sdw_wrap.PROBE_PHASES) + 2)
+        assert bool((rec[:, -2] > 0).all())
+    for herm in (False, True):
+        out, rec = sdw_wrap.apply(G, E, D, herm, probe=True)
+        assert torch.equal(out, sdw_wrap.apply(G, E, D, herm))
+        assert rec.shape == (n_ctas, len(sdw_wrap.PROBE_PHASES) + 2)
         assert bool((rec[:, -2] > 0).all())
 
 

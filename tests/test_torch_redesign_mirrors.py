@@ -19,11 +19,15 @@ versions on the card in tests/test_torch_kernels_gpu.py).
   up to n = 64; K3r's probe instance is compiled at np = 64.
 - K2 in float64 (csrc/qr.cu qr_f64_tc_kernel on f64_tc.cuh, K3's body with
   the companion Q^T) takes every n that ``qr.kernel_for`` sends to the
-  one-CTA float64 route (n <= 119, the routing limit, unchanged: float32
-  and the complex dtypes keep qr_kernel and their limits): its shared
+  one-CTA float64 route (n <= 119, the routing limit, unchanged; every
+  dtype keeps its limit, ``qr.ONE_CTA_LAST_N``): its shared
   memory, mirrored by ``qr.f64_smem_bytes`` (K3's layout), fits one block
   there and three per SM up to n = 64, every Hubbard lattice up to L = 10
   included; its probe instance is compiled at np = 64.
+- K2 in float32 (csrc/qr.cu qr_f32_tc_kernel, K2c's complex64 body on real
+  floats) takes every n = 1 ... 128 (its limit, unchanged), 71 KB of
+  shared memory at n = 128 and two CTAs per SM up to n = 64; from n = 129
+  on float32 goes to K7; its probe instance is compiled at np = 128.
 - K3c (csrc/green_solve.cu solve_inner_c128_tc_kernel, K3c-rhs's body with
   M = diag(r1)) takes every n the complex one-CTA route takes (n <= 83,
   unchanged; every SDW dim up to L = 4): K3c-rhs's shared memory, one
@@ -51,7 +55,10 @@ versions on the card in tests/test_torch_kernels_gpu.py).
   N from 32 to 128) in complex64 and complex128: ``plan``'s shared memory
   fits one block, F is staged once per CTA (all four orbitals) at the
   main path's N = 64 in complex64, and a walker's tiles spread over
-  max(1, SMs // W) CTAs.
+  max(1, SMs // W) CTAs. At q = 2 (the reduced sectors, every L <= 16 in
+  all four dtypes) a plan that fits two CTAs per SM with a prefetch buffer
+  and a full kinetic step spreads a walker's tiles over two CTAs at W =
+  128; the q = 2 probe instances are complex64's and float32's.
 - K5 (csrc/sdw_delayed.cu, one launch per slice) takes every dim the
   model routes to the delayed update up to h = 512 in complex64 and
   complex128 at every chunk K: ``plan`` keeps the C and R slots in
@@ -181,14 +188,15 @@ def test_k2_f64_shared_memory_and_routing(n):
                                         (torch.complex128, 83)])
 def test_k2_routing_limits_unchanged(dtype, last):
     """qr.kernel_for keeps its limits: the last n of the one-CTA route
-    (K2 / K2c) and the first of K7; the routing memory stays qr_kernel's
-    layout in every dtype."""
+    (K2 / K2c) and the first of K7. Since float32 left qr_kernel no dtype
+    routes by that design's memory: each stops at ``ONE_CTA_LAST_N``,
+    where its own body's shared memory still fits one block."""
     one = "qr_complex" if dtype.is_complex else "qr"
     assert qr.kernel_for(last, dtype) == one
     assert qr.kernel_for(last + 1, dtype) == one + "_big"
-    item = dtype.itemsize
-    assert qr.smem_bytes(last, dtype) == item * (2 * last * (last + 1)
-                                                 + 3 * last)
+    assert qr.ONE_CTA_LAST_N[dtype] == last
+    assert qr.one_cta_smem_bytes(last, dtype) <= \
+        _kernels.MAX_SMEM_BYTES - 1024
     # the probes: K2's in float64 at np = 64, K7's beyond the route
     assert (qr.probe_phases(64, dtype) is None) == (dtype != torch.float64)
     assert qr.probe_phases(last + 1, dtype) == (
@@ -270,8 +278,50 @@ def test_k2c_shared_memory_and_routing(dtype, last):
     assert qr.complex_smem_bytes(64, torch.complex64) == 39712
     assert qr.complex_smem_bytes(119, torch.complex64) == 127072
     assert qr.complex_smem_bytes(64, torch.complex128) == 78400
-    # float32 keeps qr_kernel (no main path runs it), which routes all
+    # K2 in float32 runs this body too (test_k2_f32_shared_memory_and_
+    # routing); its probe is K2's (probe_phases), not K2c's
     assert qr.complex_probe_phases(64, torch.float32) is None
+    assert qr.complex_probe_phases(128, torch.float32) is None
+
+
+def test_k2_f32_shared_memory_and_routing():
+    """K2 in float32 (csrc/qr.cu qr_f32_tc_kernel, K2c's complex64 body on
+    real floats) takes every n = 1 ... 128: its shared memory, mirrored by
+    ``qr.complex_smem_bytes`` at float32, fits one block (71 KB at n = 128, the
+    sdw_o1_l8 refactor) and two per SM up to n = 64 (sdw_o1_full_l4), A's
+    row stride np + 4 is 4 or 12 mod 16, np <= 128 (the instances qr.cu
+    compiles, RF <= 16); its probe instance is compiled at np = 128. From
+    n = 129 on float32 goes to K7, whose plan fits."""
+    budget = _kernels.MAX_SMEM_BYTES - 1024
+    for n in range(1, 137):
+        np_ = -(-n // 8) * 8
+        if n > 128:
+            assert qr.kernel_for(n, torch.float32) == "qr_big"
+            plan = qr.big_plan(n, torch.float32, 128)
+            assert qr.tc_smem_bytes(n, torch.float32, *plan) <= budget
+            assert qr.probe_phases(n, torch.float32) is None
+            continue
+        assert qr.kernel_for(n, torch.float32) == "qr"
+        smem = qr.complex_smem_bytes(n, torch.float32)
+        # A np x (np + 4), the side buffer np x 9, T and V^T V 8 x 9,
+        # alpha and v's heads, beta
+        assert smem == 4 * (np_ * (np_ + 4) + 9 * np_ + 144 + 16) + 32
+        assert smem == qr.one_cta_smem_bytes(n, torch.float32)
+        assert (np_ + 4) % 16 in (4, 12)
+        assert np_ <= 128 and smem <= budget
+        if n <= 64:
+            assert smem <= _kernels.TWO_CTA_SMEM_BYTES
+        assert qr.probe_phases(n, torch.float32) == (
+            qr.TC_PROBE_PHASES if np_ == 128 else None)
+    assert qr.complex_smem_bytes(128, torch.float32) == 72864
+    assert qr.complex_smem_bytes(64, torch.float32) == 20384
+    # the opdim-1 reduced paths' refactor QR (dim 2 L^2: sdw_o1_l4 n = 32,
+    # sdw_o1_l8 n = 128) and the full chain's at L = 4 (dim 64) run K2
+    for L, full in ((4, False), (8, False), (4, True)):
+        cfg = SDWConfig(L=L, opdim=1, m=8, s=4,
+                        fermion_matrix="full" if full else "reduced")
+        assert cfg.cdtype == torch.float32
+        assert qr.kernel_for(cfg.dim, torch.float32) == "qr"
 
 
 @pytest.mark.parametrize("opdim", [1, 2, 3])
@@ -591,6 +641,62 @@ def test_q2_instances_shared_memory_and_plans(dtype):
     sdw_wrap.plan(last, dtype, 1, 132, 2)
     with pytest.raises(ValueError):
         sdw_wrap.plan(last + 1, dtype, 1, 132, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128,
+                                   torch.float32, torch.float64])
+def test_k6_q2_plans_at_every_reduced_lattice(dtype):
+    """K6's q = 2 plans at every reduced lattice L <= 16 (N = L^2) and the
+    SDW cells' W = 128: where a plan exists (N up to 219 / 149 / 228 / 158
+    in complex64 / complex128 / float32 / float64), it is one of
+    ``plans(2)`` within the budget; a plan that fits two CTAs per SM with
+    a prefetch buffer and a full kinetic step spreads each walker's tiles
+    over two CTAs (2 W CTAs: one wave at two per SM), any other keeps one
+    CTA per walker (the q = 4 rule). At sdw_o1_l8's float32 N = 64: 32
+    lines a tile, F staged once, two tiles a CTA, 256 CTAs."""
+    budget = _kernels.MAX_SMEM_BYTES - 1024
+    last = {torch.complex64: 219, torch.complex128: 149,
+            torch.float32: 228, torch.float64: 158}[dtype]
+    W, sms = 128, _kernels.H100_SMS
+    for L in range(1, 17):
+        N = L * L
+        if N > last:
+            with pytest.raises(ValueError):
+                sdw_wrap.plan(N, dtype, W, sms, 2)
+            continue
+        TL, og, nb, tpc = sdw_wrap.plan(N, dtype, W, sms, 2)
+        assert (TL, og, nb) in sdw_wrap.plans(2)
+        smem = sdw_wrap.smem_bytes(N, dtype, TL, og, nb, q=2)
+        assert smem <= budget
+        tiles = -(-2 * N // TL)
+        ctas = sdw_wrap.ctas(N, W, TL, tpc, 2)
+        twice = (nb == 3 and smem <= _kernels.TWO_CTA_SMEM_BYTES
+                 and sdw_wrap.kinetic_blocks(N, dtype, TL, og) >= 256)
+        assert ctas == W * min(tiles, 2 if twice else 1)
+    if dtype == torch.float32:
+        assert sdw_wrap.plan(64, dtype, W, sms, 2) == (32, 2, 3, 2)
+        assert sdw_wrap.ctas(64, W, 32, 2, 2) == 256
+
+
+def test_k6_probe_instances():
+    """K6's phase probe has instances for complex64 at q = 4 (sdw_l8) and
+    at q = 2 (sdw_o2_l8), and for float32 at q = 2 (sdw_o1_l8): the four
+    phases of csrc/sdw_wrap.cu, and none in double precision."""
+    assert sdw_wrap.PROBE_PHASES == ("F staging", "kinetic step", "D step",
+                                     "line loads and stores")
+    for dtype, q in ((torch.complex64, 4), (torch.complex64, 2),
+                     (torch.float32, 2)):
+        assert sdw_wrap.has_probe(dtype, q)
+        entry = sdw_wrap._PROBE_ENTRIES[(dtype, q)]
+        for kind in ("wrap", "apply"):
+            assert f"dq_sdw_{kind}_probe_{entry}" in _kernels._SIGNATURES
+    for dtype, q in ((torch.complex128, 4), (torch.complex128, 2),
+                     (torch.float64, 2)):
+        assert not sdw_wrap.has_probe(dtype, q)
+    with pytest.raises(ValueError, match="probe"):
+        sdw_wrap.apply(torch.zeros(1, 8, 8, dtype=torch.float32),
+                       torch.zeros(2, 4, 4), torch.zeros(1, 4, 2, 2), False,
+                       probe=True)
 
 
 def test_reduced_routes_and_bounds_on_the_card():
