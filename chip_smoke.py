@@ -147,7 +147,8 @@ Phases (any failure raises, and the script exits non-zero):
    each against its plain version on the model's own slice-1 operands:
    the single precision the paths run (identical decisions but at
    near-ties, G within 1e-5; K6 1e-5 x max|G|) and double precision
-   (K4, K5 bitwise; K6 1e-12 x max|G|), timed with CTAs per SM and plans;
+   (K4, K5 bitwise; K6 1e-12 x max|G|), timed with CTAs per SM and plans
+   (K5's probe split too);
 18. reduced path parity: SDWConfig(L=2, m=8, s=4, float64) at opdim 2 and
    1, immediate and delayed/fused, swept on the card and on the CPU with
    the same draws: identical fields and acceptance, G within 1e-10, only
@@ -201,7 +202,7 @@ Phases (any failure raises, and the script exits non-zero):
      (sdw_delayed_real, K=8, on sdw_l8's: h=256) against their plain
      versions on the models' own slice-1 operands: float32 identical
      decisions but at near-ties and G within 1e-5, float64 bitwise;
-     timed with CTAs per SM and K5's plan;
+     timed with CTAs per SM and K5's plan and probe split;
    - card-vs-CPU parity of the chain (L=4, float64, immediate and
      delay=3): identical fields and acceptance, G within 1e-10, only the
      real q = 4 update instance launched;
@@ -879,9 +880,12 @@ DYN_GROUPS = (("solve_inner_rhs_f64_tc_kernel", "K3r"),
               ("qr_big_kernel", "K7 qr_complex_big"),
               ("line_pass_kernel", "K6 sdw_apply"),
               ("trinv_big_kernel", "K9 trinv_big"))
-# the groups of the reduced paths' profiles: SDW8_GROUPS, then the real
-# one-block QR (K2 float32) and the reduced L=4 routes
-REDUCED_GROUPS = SDW8_GROUPS + (("sdw_update_kernel", "K4 sdw_update q=2"),
+# the groups of the reduced paths' profiles: SDW8_GROUPS, K5's second
+# body (sdw_delayed_smem_kernel, its q = 2 and real q = 4 instances), then
+# the real one-block QR (K2 float32) and the reduced L=4 routes
+REDUCED_GROUPS = SDW8_GROUPS + (("sdw_delayed_smem_kernel",
+                                 "K5 sdw_delayed + flush"),
+                                ("sdw_update_kernel", "K4 sdw_update q=2"),
                                 ("qr_f32_tc_kernel", "K2 qr f32"),
                                 ("qr_c64_tc_kernel", "K2c qr"),
                                 ("solve_inner_c128_tc_kernel", "K3c"),
@@ -892,6 +896,7 @@ REDUCED_GROUPS = SDW8_GROUPS + (("sdw_update_kernel", "K4 sdw_update q=2"),
 # K3 at L = 4, real K7, K8 and K9 at L = 8
 FULL_REAL_GROUPS = (("sdw_update_kernel", "K4 sdw_update real q=4"),
                     ("sdw_delayed_kernel", "K5 sdw_delayed real q=4"),
+                    ("sdw_delayed_smem_kernel", "K5 sdw_delayed real q=4"),
                     ("qr_big_kernel", "K7 qr_big"),
                     ("solve_inner_big_kernel", "K8 solve_inner_big"),
                     ("trinv_big_kernel", "K9 trinv_big"),
@@ -2417,12 +2422,19 @@ def update_instance_check(title, model, args, kernel, plain, K=None):
                 plan = f"{bps} CTAs/SM"
             else:
                 ops = k5_ops(a[1], pk, K, h, q, cplx)
-                plan = (f"plan {sdw_delayed.plan(N, dt, K, model.cfg.opdim, q)}"
-                        f" x {sdw_delayed.blocks_per_sm(N, dt, K, a[0].device, model.cfg.opdim, q)} CTAs/SM")
+                p5 = sdw_delayed.plan(N, dt, K, model.cfg.opdim, q)
+                rows = (f", {sdw_delayed.g_rows(N, dt, K, model.cfg.opdim, q)}"
+                        f" of {h} rows of G in shared memory"
+                        if p5[0] == "G" else "")
+                plan = (f"plan {p5}{rows} x {sdw_delayed.blocks_per_sm(N, dt, K, a[0].device, model.cfg.opdim, q)} CTAs/SM")
             print(f"{title} {dt} (W={W}, h={h}, N={N}{'' if K is None else f', K={K}'}"
                   f", {plan}): max|dG|={err:.3e} (tol {K4_TOL['complex64']}), "
                   f"accepted {int(ak.sum())}/{W * N} sites, accept mismatches "
                   f"{n_mis}, kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            if K is not None and sdw_delayed.has_probe(dt, q):
+                prec = kernel(*a, *extra, probe=True)[-1]
+                print(f"  {title} {dt} probe (a CTA, {prec.shape[0]} CTAs): "
+                      f"{probe_split(prec, sdw_delayed.PROBE_PHASES)}")
             rec = record(err, ms, pms, None, bound(
                 nbytes(*a, model.nb, Gk, pk, ak), ops))
             out = (Gk, pk, ak)

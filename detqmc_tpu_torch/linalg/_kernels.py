@@ -92,7 +92,8 @@ _SIGNATURES = {
     **{f"dq_sdw_delayed_{t}": [_I] + [_P] * 10 + [_I] * 5 + [_D, _D, _P]
        for t in ("c64", "c128", "f32", "f64")},
     # the same, then the phase probe's record (W x 8 int64)
-    "dq_sdw_delayed_probe_c64": [_I] + [_P] * 10 + [_I] * 5 + [_D, _D, _P, _P],
+    **{f"dq_sdw_delayed_probe_{t}": [_I] + [_P] * 10 + [_I] * 5
+       + [_D, _D, _P, _P] for t in ("c64", "f32", "q2_c64", "q2_f32")},
     # device, G, tmp, G_out, E, Einv, D, Dinv, W, N, up, TL, og, nb, tpc,
     # stream
     "dq_sdw_wrap_c64": [_I] + [_P] * 7 + [_I] * 7 + [_P],

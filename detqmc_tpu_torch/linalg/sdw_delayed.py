@@ -10,8 +10,10 @@ chunks of K (the last one ragged); for each chunk the sites emit C
 (h x Kq) and R (Kq x h), Kq = q K, in site-major slot order, slot
 k = j q + b for orbital b of the chunk's j-th site, and G is flushed,
 G -= C @ R, before the next chunk reads it. One launch of K5 runs the
-whole slice, the flushes in its own body (one CTA per walker, G in global
-memory: see the source's note); the JAX package flushes outside Pallas
+whole slice, the flushes in its own body (one CTA per walker; the first
+body keeps G in global memory, the second, at q = 2 and real q = 4, G
+or its first rows in shared memory: ``plan`` and the source's note);
+the JAX package flushes outside Pallas
 (``_pmm``). Every entry, flushed or read by a site, is its input minus
 the slots' products in slot order, one rounding per product and per
 difference, so when a slot is flushed does not change a bit: the result
@@ -49,6 +51,8 @@ with h = q N; G and delta complex or real (q = 4 or 2).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from detqmc_tpu_torch.linalg import _kernels
@@ -68,6 +72,11 @@ _ENTRIES = {
     (torch.complex128, 2): ("sdw_delayed_q2", "dq_sdw_delayed_q2_c128"),
     (torch.float32, 2): ("sdw_delayed_q2_real", "dq_sdw_delayed_q2_f32"),
     (torch.float64, 2): ("sdw_delayed_q2_real", "dq_sdw_delayed_q2_f64")}
+# (G dtype, q) -> the C entry of the instance with the phase probe on
+_PROBES = {(torch.complex64, 4): "dq_sdw_delayed_probe_c64",
+           (torch.float32, 4): "dq_sdw_delayed_probe_f32",
+           (torch.complex64, 2): "dq_sdw_delayed_probe_q2_c64",
+           (torch.float32, 2): "dq_sdw_delayed_probe_q2_f32"}
 _WARPS = 8      # warps of a K5 CTA, each with its copy of the live field
 # the phase probe's phases of K5 (sdw_delayed.cu), in the order of its
 # per-CTA record; the record ends with the CTA's total cycles and ns
@@ -183,57 +192,111 @@ def sdw_delayed_plain(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
     return G, phi, acc
 
 
-# K5's slot residences: the slot buffers (q K x q N each) it keeps in
-# shared memory, C and R, R alone (C in a global scratch), or neither
-RESIDENCES = {"shared": 2, "rows": 1, "global": 0}
+# K5's residences (the C entries' ``resident`` codes): the second body's
+# (q = 2 and real q = 4 where N % 4 == 0, "G": G's first ``g_rows`` rows
+# in shared memory beside both slot buffers, the others in global
+# memory), then the first body's slot buffers (q K x q N each) in shared
+# memory: C and R, R alone (C in a global scratch) or neither. ``plan``
+# takes the first that fits.
+RESIDENCES = {"G": 3, "shared": 2, "rows": 1, "global": 0}
+_SMEM_BUDGET = _kernels.MAX_SMEM_BYTES - 1024
 
 
-def smem_bytes(N: int, dtype, K: int, buffers: int, opdim: int = 3,
+def _second_fixed(N: int, dtype, K: int, opdim: int, q: int) -> int:
+    """The second body's shared memory without G's rows, rounded up to 16
+    bytes (csrc/sdw_delayed.cu second_fixed; walk_warps: 4 up to h = 128,
+    else 8)."""
+    c, r, h = dtype.itemsize, dtype.to_real().itemsize, q * N
+    # the slots' rows: h entries and 16 bytes after each orbital's block
+    hs = h + q * 16 // c
+    walk = 4 if h <= 128 else 8
+    raw = ((2 * q * K * hs + q * q * N) * c
+           + r * (N * opdim * (1 + walk) + N) + 4 * (4 * N + 2))
+    return -(-raw // 16) * 16
+
+
+def g_rows(N: int, dtype, K: int, opdim: int = 3, q: int = Q) -> int:
+    """The rows of G the second body keeps in shared memory (row stride
+    h + 16 / itemsize, csrc/sdw_delayed.cu second_rows): all h where they
+    fit beside both slot buffers and the rest, else the most that fit, a
+    multiple of 8; -1 where the rest alone does not fit."""
+    fixed = _second_fixed(N, dtype, K, opdim, q)
+    if fixed > _SMEM_BUDGET:
+        return -1
+    h = q * N
+    row = (h + 16 // dtype.itemsize) * dtype.itemsize
+    return min(h, (_SMEM_BUDGET - fixed) // row // 8 * 8)
+
+
+def smem_bytes(N: int, dtype, K: int, res: int, opdim: int = 3,
                q: int = Q) -> int:
-    """Dynamic shared memory of K5 (csrc/sdw_delayed.cu delayed_smem): the
-    slot buffers it holds (``buffers`` of C and R, each q K x q N), the
-    slice's delta blocks (q^2 N), phi_new and lhs, every warp's copy of
-    the live field, the neighbour table."""
+    """Dynamic shared memory of K5 at residence code ``res``
+    (csrc/sdw_delayed.cu delayed_smem, delayed_smem_second): the first
+    body's slot buffers (``res`` of C and R, each q K x q N), the slice's
+    delta blocks (q^2 N), phi_new and lhs, every warp's copy of the live
+    field, the neighbour table; the second body's (``res`` = 3) both slot
+    buffers, the delta blocks, phi_new and lhs, the walk warps' copies of
+    the live field, the neighbour table and its command word, then
+    ``g_rows`` rows of G."""
     c = dtype.itemsize
     r = dtype.to_real().itemsize
     h = q * N
-    return (buffers * q * K * h * c + q * q * N * c
-            + r * (N * opdim * (1 + _WARPS) + N) + 4 * 4 * N)
+    if res <= 2:
+        return (res * q * K * h * c + q * q * N * c
+                + r * (N * opdim * (1 + _WARPS) + N) + 4 * 4 * N)
+    rows = max(g_rows(N, dtype, K, opdim, q), 0)
+    return (_second_fixed(N, dtype, K, opdim, q)
+            + rows * (h + 16 // c) * c)
 
 
-def flush_tile(dtype, q: int = Q):
-    """(rows, columns) of a thread's K5 flush tile: 2 x 4 complex128
-    entries, 4 x 4 of the other dtypes at q = 4; 2 x 2 at q = 2, where
-    h = 2 N need not be a multiple of 4."""
+def flush_tile(dtype, q: int = Q, residence: str = "shared"):
+    """(rows, columns) of a thread's K5 flush tile: the first body's 2 x 4
+    complex128 entries, 4 x 4 of the other dtypes at q = 4, 2 x 2 at
+    q = 2 (h = 2 N need not be a multiple of 4 there); the second body's
+    ("G") 8 x 4 float32, 2 x 4 complex128, 4 x 4 of the others."""
+    if residence == "G":
+        return {torch.float32: 8, torch.complex128: 2}.get(dtype, 4), 4
     if q == 2:
         return 2, 2
     return (2 if dtype == torch.complex128 else 4), 4
 
 
+@functools.lru_cache(maxsize=None)
 def plan(N: int, dtype, K: int, opdim: int = 3, q: int = Q):
-    """(residence, flush tile) of K5 at h = q N: the C and R slots in
-    shared memory ("shared") where both fit one block, else R there and C
-    in a global scratch ("rows": the flush reads R at a column per thread,
-    C at a row band per warp) where R fits, else both in the scratch
-    ("global"); ``flush_tile``. Raises beyond h = 512 (K is never
-    changed)."""
+    """(residence, flush tile) of K5 at h = q N: the first residence of
+    ``RESIDENCES`` that fits one block — the second body ("G") at q = 2
+    and real q = 4 where N % 4 == 0 and G's first eight rows fit beside
+    the slots, else the first body's C and R slots ("shared"), R there
+    and C in a global scratch ("rows": the flush reads R at a column per
+    thread, C at a row band per warp), or both in the scratch ("global");
+    ``flush_tile``. Raises beyond h = 512 (K is never changed)."""
     if q * N > MAX_DIM or not 1 <= K <= N or (dtype, q) not in _ENTRIES:
         raise ValueError(f"sdw_delayed: N={N} K={K} {dtype} q={q}: needs "
                          f"h = q N <= {MAX_DIM}, 1 <= K <= N, q = 4 or 2 "
                          "and complex64, complex128, float32 or float64")
-    budget = _kernels.MAX_SMEM_BYTES - 1024
-    residence = next(r for r, b in RESIDENCES.items()
-                     if smem_bytes(N, dtype, K, b, opdim, q) <= budget)
-    return residence, flush_tile(dtype, q)
+    second = ((q == 2 or not dtype.is_complex) and N % 4 == 0
+              and g_rows(N, dtype, K, opdim, q) >= 8)
+    residence = next(
+        r for r, b in RESIDENCES.items()
+        if (second if r == "G"
+            else smem_bytes(N, dtype, K, b, opdim, q) <= _SMEM_BUDGET))
+    return residence, flush_tile(dtype, q, residence)
 
 
+@functools.lru_cache(maxsize=None)
 def blocks_per_sm(N: int, dtype, K: int, device="cuda", opdim: int = 3,
                   q: int = Q) -> int:
     """CTAs of K5 one SM of ``device`` holds at its plan, as the CUDA
     occupancy calculator reports it."""
-    buffers = RESIDENCES[plan(N, dtype, K, opdim, q)[0]]
+    res = RESIDENCES[plan(N, dtype, K, opdim, q)[0]]
     return _kernels.query("dq_sdw_delayed_blocks_per_sm", device,
-                          _DTYPE_CODES[dtype], q, N, opdim, K, buffers)
+                          _DTYPE_CODES[dtype], q, N, opdim, K, res)
+
+
+def has_probe(dtype, q: int = Q) -> bool:
+    """Whether K5 has a phase-probe instance for G of ``dtype`` and q x q
+    site blocks (complex64 and float32, q = 4 and 2)."""
+    return (dtype, q) in _PROBES
 
 
 def launch_name(dtype, q: int) -> str:
@@ -247,9 +310,10 @@ def sdw_delayed(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
     """The slice in chunks of K sites (see the module docstring): one
     launch of K5 on CUDA tensors (q = 4 or 2: complex64, complex128,
     float32 or float64; contiguous, h = q N <= 512) or a raise;
-    ``sdw_delayed_plain`` on CPU tensors. With ``probe`` (complex64,
-    q = 4) the kernel's instance with clock64() stamps runs instead, and
-    the result gains a (W, len(PROBE_PHASES) + 2) int64 record per CTA:
+    ``sdw_delayed_plain`` on CPU tensors. With ``probe`` (``has_probe``:
+    complex64 or float32, q = 4 or 2; h <= 256, complex64 q = 4 up to
+    512) the kernel's instance with clock64() stamps runs instead, and the
+    result gains a (W, len(PROBE_PHASES) + 2) int64 record per CTA:
     cycles per phase, total cycles, total ns."""
     if G.device.type == "cpu":
         if probe:
@@ -262,7 +326,7 @@ def sdw_delayed(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
         raise NotImplementedError(f"sdw_delayed: no K5 instance for {cdt} "
                                   f"at q = {q} (q is 4 or 2)")
     _kernels.check_cuda_tensor("G", G, (cdt,), 3)
-    if probe and (cdt, q) != (torch.complex64, Q):
+    if probe and not has_probe(cdt, q):
         raise ValueError(f"sdw_delayed: no phase probe for {cdt} q={q}")
     W, h, h2 = G.shape
     N, opdim = phi_l.shape[1], phi_l.shape[2]
@@ -285,15 +349,16 @@ def sdw_delayed(G, phi_l, phi_new, lhs, delta, nb, dtau: float,
     G_out = torch.empty_like(G)
     phi_out = torch.empty_like(phi_l)
     acc = torch.empty(W, dtype=rdt, device=G.device)
-    buffers = RESIDENCES[residence]
-    slots = torch.empty((W, 2 - buffers, q * K, h), dtype=cdt,
-                        device=G.device)
+    res = RESIDENCES[residence]
+    # the global scratch of the slots that are not in shared memory
+    slots = None if res >= 2 else torch.empty((W, 2 - res, q * K, h),
+                                              dtype=cdt, device=G.device)
     args = (G, G_out, phi_l, phi_new, lhs, delta, nb, phi_out, acc, slots, W,
-            N, opdim, K, buffers, float(dtau), float(c_det))
+            N, opdim, K, res, float(dtau), float(c_det))
     if probe:
         rec = torch.zeros((W, len(PROBE_PHASES) + 2), dtype=torch.int64,
                           device=G.device)
-        _kernels.launch("sdw_delayed", "dq_sdw_delayed_probe_c64", *args, rec)
+        _kernels.launch(_ENTRIES[(cdt, q)][0], _PROBES[(cdt, q)], *args, rec)
         return G_out, phi_out, acc, rec
     _kernels.launch(*_ENTRIES[(cdt, q)], *args)
     return G_out, phi_out, acc

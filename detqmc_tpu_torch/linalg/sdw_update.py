@@ -43,6 +43,8 @@ in G's real dtype.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from detqmc_tpu_torch.linalg import _kernels
@@ -254,18 +256,20 @@ MAX_H = 160
 _WARPS = 8
 
 
+@functools.lru_cache(maxsize=None)
 def smem_bytes(N: int, opdim: int, dtype, q: int = 4) -> int:
     """Dynamic shared memory of the kernel (csrc/sdw_update.cu
     update_smem): G (h x h, h = q N), the staged rows and the combined
     columns (q h values each), phi_new, lhs and each warp's copy of the
     live field (reals), the neighbour table (4 N int32)."""
-    item = torch.empty((), dtype=dtype).element_size()
-    ritem = torch.empty((), dtype=dtype.to_real()).element_size()
+    item = dtype.itemsize
+    ritem = dtype.to_real().itemsize
     h = q * N
     return (item * (h * h + 2 * q * h)
             + ritem * (N * opdim * (1 + _WARPS) + N) + 4 * 4 * N)
 
 
+@functools.lru_cache(maxsize=None)
 def blocks_per_sm(N: int, dtype, device="cuda", opdim: int = 3,
                   q: int = 4) -> int:
     """CTAs of the kernel one SM of ``device`` holds at h = q N, as the

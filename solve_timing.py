@@ -9,7 +9,8 @@ calls:
     python3 solve_timing.py --plans          # also K8's and K9's other plans
     python3 solve_timing.py --rows k1b,k3    # only these groups (k8, k1b,
                                              # k3, k2, k7, k6, k5, k1,
-                                             # k2c, k4, k2f32, k6q2)
+                                             # k2c, k4, k2f32, k6q2,
+                                             # k5q2, k5real)
 
 Rows of the k1b group: K1b float32 W=128 N=256 k=16 on slice 1 of a
 wrapped Hubbard L=16 G (chip_smoke.py's main-path shape) and K1b float64
@@ -53,6 +54,16 @@ apply (B X), complex64 on an sdw_o2_l8 G and float32 on an sdw_o1_l8 G
 calls, CTAs per SM, K6's plan, the library call's device time (k6q2)
 and the probe's split where the package has it (K2 float32 at n=128,
 K6 q = 2 in both dtypes).
+
+Rows of the k5q2 group: K5's q = 2 instances over slice 1 of the
+reduced L=8 cells (W=128, K=8, h=128: complex64 on sdw_o2_l8, float32 on
+sdw_o1_l8); of the k5real group: K5's real q = 4 instance on
+sdw_o1_full_l8 (float32, h=256) and K4's on sdw_o1_full_l4 (h=64). Each
+K5 row gives the device time of one call over 20 calls, one call, 20
+calls back to back, the device time with every site rejected and with
+every site accepted, the plan (and G's rows in shared memory), CTAs per
+SM, the acceptance and, where the package has the instance's probe, its
+split and its slowest CTA.
 
 Rows of the k5 group: the delayed SDW update K5 on slice 1 of a wrapped
 G, one whole slice (every chunk with its flush), complex64 W=128 h=256
@@ -656,6 +667,92 @@ def k2f32_rows(emit, gen, device, reps, lib_reps):
     torch.cuda.empty_cache()
 
 
+def slice_operands(model, st, gen):
+    """Slice 1's update operands on G wrapped to slice 1, as
+    SDWModel.update_slice builds them (chip_smoke.py k4_operands)."""
+    import torch
+
+    phi, W = st.phi, st.phi.shape[0]
+    G = model.wrap_up(st.G, model.exp_v_blocks(phi[:, 0]),
+                      model.exp_v_blocks(phi[:, 0], 1.0))
+    u01, rnd = model._draw_proposal_randoms(W, gen)
+    phi_new, jac = model._propose_all(phi[:, 0], tuple(x[:, 0] for x in rnd),
+                                      st.box_width, st.sweeps_done % 2)
+    lhs = torch.log(u01[:, 0]) - jac + model._ds_static(
+        phi[:, 0], phi_new, phi[:, 1], phi[:, -1], st.r)
+    delta = model.exp_v_blocks(phi_new, -1.0) @ model.exp_v_blocks(
+        phi[:, 0], 1.0) - model._eye_q
+    return [x.contiguous() for x in (G, phi[:, 0], phi_new, lhs, delta)]
+
+
+# the K5 cells of the k5q2 and k5real groups: sdw_o2_l8 (complex64, q = 2,
+# h = 128), sdw_o1_l8 (float32, q = 2, h = 128), sdw_o1_full_l8 (float32,
+# real q = 4, h = 256); k5real also times K4 real q = 4 on sdw_o1_full_l4
+K5_CELLS = {"k5q2": (("sdw_o2_l8", SDW_O2_L8), ("sdw_o1_l8", dict(SDW8,
+                                                                  opdim=1))),
+            "k5real": (("sdw_o1_full_l8", dict(SDW8, opdim=1,
+                                               fermion_matrix="full")),)}
+
+
+def k5_cell_rows(emit, gen, device, reps, group):
+    """K5 over one slice of the group's cells (W=128, K=8, the models'
+    slice-1 operands): one call, 20 back to back, the device time of one
+    call, that with every site rejected and with every site accepted,
+    the plan, CTAs per SM, the acceptance, the probe's split (and its
+    slowest CTA) where the package has the instance's probe; k5real adds
+    K4 real q = 4 on sdw_o1_full_l4 (one call, 20 back to back and its
+    device time)."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import sdw_delayed, sdw_update
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    W = 128
+    for cell, cfg in K5_CELLS[group]:
+        model = SDWModel(SDWConfig(**cfg), device=device)
+        st = model.init_state(W, gen)
+        args = slice_operands(model, st, gen)
+        extra = (model.nb, model.cfg.dtau, model.c_det)
+        cdt, q, opdim = args[0].dtype, model.n_orb, model.cfg.opdim
+        K, N, h = model._delay_k, model.cfg.n_sites, model.dim
+        run = lambda: sdw_delayed.sdw_delayed(*args, *extra, K)  # noqa: E731
+        row = dict(kernel="K5", cell=cell, dtype=str(cdt)[6:], q=q, W=W, h=h,
+                   K=K, device_ms=device_ms(run), ms=time_ms(run, reps),
+                   batched_ms=time_ms_batched(run),
+                   acceptance=float(run()[2].sum()) / (W * N),
+                   plan=sdw_delayed.plan(N, cdt, K, opdim, q),
+                   ctas_per_sm=sdw_delayed.blocks_per_sm(N, cdt, K, device,
+                                                         opdim, q))
+        if hasattr(sdw_delayed, "g_rows"):
+            row["g_rows"] = sdw_delayed.g_rows(N, cdt, K, opdim, q)
+        # every site rejected (lhs = +inf: the walk's chains alone) and
+        # every site accepted (-inf: a flush every K sites)
+        for name, bound in (("reject", float("inf")),
+                            ("accept", -float("inf"))):
+            cut = args[:3] + [torch.full_like(args[3], bound)] + args[4:]
+            row[f"device_ms_all_{name}"] = device_ms(
+                lambda: sdw_delayed.sdw_delayed(*cut, *extra, K))
+        if getattr(sdw_delayed, "has_probe", lambda *a: False)(cdt, q):
+            rec = sdw_delayed.sdw_delayed(*args, *extra, K, probe=True)[-1]
+            row["probe"] = split(rec, sdw_delayed.PROBE_PHASES)
+            row["probe_max_cta_us"] = round(float(
+                (rec[:, -1].double() / 1e3).max()), 3)
+        emit(row)
+        del model, st, args
+        torch.cuda.empty_cache()
+    if group == "k5real":
+        model = SDWModel(SDWConfig(**O1_CELLS[1][1]), device=device)
+        st = model.init_state(W, gen)
+        args = slice_operands(model, st, gen)
+        extra = (model.nb, model.cfg.dtau, model.c_det)
+        run = lambda: sdw_update.sdw_update(*args, *extra)   # noqa: E731
+        emit(dict(kernel="K4", cell="sdw_o1_full_l4", dtype="float32", q=4,
+                  W=W, h=model.dim, device_ms=device_ms(run),
+                  ms=time_ms(run, reps), batched_ms=time_ms_batched(run)))
+        del model, st, args
+        torch.cuda.empty_cache()
+
+
 def k6q2_rows(emit, gen, device, reps, lib_reps):
     """K6's q = 2 wrap (up) and apply (B X), complex64 on an sdw_o2_l8 G
     and float32 on an sdw_o1_l8 G (W=128, h=128), beside the dense einsum
@@ -814,9 +911,10 @@ def main(argv=None) -> int:
     ap.add_argument("--plans", action="store_true",
                     help="also time K8's and K9's other plans")
     ap.add_argument("--rows",
-                    default="k8,k1b,k3,k2,k7,k6,k5,k1,k2c,k4,k2f32,k6q2",
+                    default="k8,k1b,k3,k2,k7,k6,k5,k1,k2c,k4,k2f32,k6q2,"
+                    "k5q2,k5real",
                     help="comma-separated groups: k8, k1b, k3, k2, k7, k6, "
-                    "k5, k1, k2c, k4, k2f32, k6q2")
+                    "k5, k1, k2c, k4, k2f32, k6q2, k5q2, k5real")
     args = ap.parse_args(argv)
     groups = set(args.rows.split(","))
     import torch
@@ -863,6 +961,9 @@ def main(argv=None) -> int:
         k2f32_rows(emit, gen, device, args.reps, lib_reps)
     if "k6q2" in groups:
         k6q2_rows(emit, gen, device, args.reps, lib_reps)
+    for group in ("k5q2", "k5real"):
+        if group in groups:
+            k5_cell_rows(emit, gen, device, args.reps, group)
     cases = (("K8+K9", torch.float64, 128, False),
              ("K8-rhs+K9", torch.float64, 5376, True),
              ("K8+K9", torch.complex128, 128, False),

@@ -1709,22 +1709,25 @@ def _q2_synthetic(device, N, dtype, W, seed, opdim, q=2):
     return [x.contiguous() for x in (G, phi, phi_new, lhs, delta)], nb
 
 
-@pytest.mark.parametrize("N", [9, 16, 64, 128, 256])
+@pytest.mark.parametrize("N", [9, 10, 16, 64, 100, 128, 256])
 @pytest.mark.parametrize("dtype", ["complex64", "complex128", "float32",
                                    "float64"])
 def test_sdw_delayed_q2_kernel_matches_plain(cuda_device, dtype, N):
-    """K5's q = 2 instances over one slice (h = 18 ... 512: odd N, the
-    slots in shared memory, R there and C in the scratch, or both in the
-    scratch as the plan says) at K = 1, 3, 8 and W = 3, 130: one launch;
-    double precision bitwise, single precision identical decisions and G
-    within 1e-5; and the immediate K4 where it fits, the same
-    decisions."""
+    """K5's q = 2 instances over one slice (h = 18 ... 512) at K = 1, 3,
+    8, 16 (ragged last chunks, K above N) and W = 3, 130, in every plan
+    branch: the second body with all of G or its first rows in shared
+    memory (N % 4 == 0), the first body's slots in shared memory, R there
+    and C in the scratch, or both in the scratch (other N, and where the
+    second body does not fit; tests/test_torch_redesign_mirrors.py lists
+    the branches these cases reach): one launch; double precision
+    bitwise, single precision identical decisions and G within 1e-5; and
+    the immediate K4 where it fits, the same decisions."""
     dt = getattr(torch, dtype)
     opdim = 1 if not dt.is_complex else 2
     name = sdw_delayed.launch_name(dt, 2)
-    for K in (1, 3, 8):
+    for K in (1, 3, 8, 16):
         for W in (3, 130):
-            at = f"K={K} W={W}"
+            at = f"K={K} W={W} plan {sdw_delayed.plan(N, dt, min(K, N), opdim, 2)}"
             ops, nb = _q2_synthetic(cuda_device, N, dt, W, N + K + W, opdim)
             extra = (nb, 0.1, 1.0)
             _kernels.reset_launch_counts()
@@ -1737,8 +1740,8 @@ def test_sdw_delayed_q2_kernel_matches_plain(cuda_device, dtype, N):
                 imm = sdw_update.sdw_update(*ops, *extra)
                 assert torch.equal(imm[1], kern[1]) and torch.equal(
                     imm[2], kern[2]), at
-            assert sdw_delayed.blocks_per_sm(N, dt, K, cuda_device, opdim,
-                                             2) >= 1
+            assert sdw_delayed.blocks_per_sm(N, dt, min(K, N), cuda_device,
+                                             opdim, 2) >= 1
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-12)])
@@ -1886,12 +1889,14 @@ def test_sdw_update_real_q4_across_h(cuda_device, dtype):
         assert 0 < float(kern[2].sum()) < 130 * N, N
 
 
-@pytest.mark.parametrize("N", [4, 9, 64, 121, 127, 128])
+@pytest.mark.parametrize("N", [4, 9, 50, 64, 121, 127, 128])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_sdw_delayed_real_q4_kernel_matches_plain(cuda_device, dtype, N):
     """K5's real q = 4 instances over one slice (h = 16 ... 512) at K = 1,
-    3, 8, 16 and W = 3, 130 (the slot residences "shared", "rows" and
-    "global" all occur, ragged last chunks, K above N): one launch,
+    3, 8, 16 and W = 3, 130 (every residence occurs: the second body
+    with all of G or its first rows in shared memory, the first body's
+    "shared", "rows" and "global"; ragged last chunks, K above N): one
+    launch,
     identical decisions and fields, G bitwise in float64 and within 1e-5
     in float32; the immediate K4 where it fits, the same decisions; and
     the full real L = 8 model's own slice 1 (h = 256), bitwise in
@@ -1899,7 +1904,7 @@ def test_sdw_delayed_real_q4_kernel_matches_plain(cuda_device, dtype, N):
     dt = getattr(torch, dtype)
     for K in (1, 3, 8, 16):
         for W in (3, 130):
-            at = f"K={K} W={W}"
+            at = f"K={K} W={W} plan {sdw_delayed.plan(N, dt, min(K, N), 1, 4)}"
             ops, nb = _q2_synthetic(cuda_device, N, dt, W, N + K + W, 1, q=4)
             extra = (nb, 0.1, 0.5)
             _kernels.reset_launch_counts()

@@ -65,7 +65,12 @@ versions on the card in tests/test_torch_kernels_gpu.py).
   shared memory where ``smem_bytes`` fits one block (sdw_l8's complex64
   h = 256, K = 8 does), R there and C in the global scratch where R fits
   (complex128 at h = 256, complex64 at h = 512), both in the scratch
-  otherwise, never refusing a dim up to 512.
+  otherwise, never refusing a dim up to 512. Its q = 2 and real q = 4
+  instances run the second body where h % 4 == 0 and it fits: G in
+  shared memory beside the slots up to h = 256, else K sites' column and
+  row panels beside them (``smem_bytes`` residence codes 3 and 4, rows
+  of stride h + 1); every other shape keeps the first body's residences.
+  The GPU tests' cases reach every branch.
 - K1 (csrc/slice_update.cu) holds G in registers (4 x 4 tiles a thread
   at the main path's N = 64, 256 threads, 4 x 8 tiles where those need
   more threads than the registers hold) and refuses the shapes neither
@@ -499,6 +504,79 @@ def test_k5_plan_and_shared_memory(dtype, K):
                 sdw_delayed.plan(bad["N"], dtype, bad["K"])
 
 
+def k5_second_body_mirror(N, dtype, K, opdim, q):
+    """The plan of K5's q = 2 and real q = 4 instances, from the layouts
+    (csrc/sdw_delayed.cu second_fixed, second_rows, delayed_smem):
+    (residence, bytes, flush tile, G's rows in shared memory)."""
+    budget = _kernels.MAX_SMEM_BYTES - 1024
+    c, r, h = dtype.itemsize, dtype.to_real().itemsize, q * N
+    walk = 4 if h <= 128 else 8
+    hs = h + q * 16 // c               # the slots' rows
+    fixed = ((2 * q * K * hs + q * q * N) * c
+             + r * (N * opdim * (1 + walk) + N) + 4 * (4 * N + 2))
+    fixed = (fixed + 15) // 16 * 16
+    row = (h + 16 // c) * c
+    rows = min(h, (budget - fixed) // row // 8 * 8) if fixed <= budget else -1
+    if N % 4 == 0 and rows >= 8:
+        tile = ({4: 8, 16: 2}.get(c, 4), 4)
+        return "G", fixed + rows * row, tile, rows
+    rest = q * q * N * c + r * (N * opdim * 9 + N) + 16 * N
+    residence, nbytes = next(
+        x for x in ((name, b * q * K * h * c + rest)
+                    for name, b in (("shared", 2), ("rows", 1), ("global", 0)))
+        if x[1] <= budget)
+    tile = (2, 2) if q == 2 else (2 if c == 16 else 4, 4)
+    return residence, nbytes, tile, rows
+
+
+@pytest.mark.parametrize("dtype,q", [
+    (torch.complex64, 2), (torch.complex128, 2), (torch.float32, 2),
+    (torch.float64, 2), (torch.float32, 4), (torch.float64, 4)])
+def test_k5_second_body_plan_and_shared_memory(dtype, q):
+    """At q = 2 and real q = 4, K = 1, 3, 8, 16 and every N up to
+    h = 512: the plan, its shared memory and G's rows in shared memory as
+    the mirror derives them, within one block."""
+    opdim = 2 if dtype.is_complex else 1
+    budget = _kernels.MAX_SMEM_BYTES - 1024
+    for K in (1, 3, 8, 16):
+        for N in range(K, 512 // q + 1):
+            residence, nbytes, tile, rows = k5_second_body_mirror(
+                N, dtype, K, opdim, q)
+            assert sdw_delayed.plan(N, dtype, K, opdim, q) == (residence,
+                                                               tile)
+            code = sdw_delayed.RESIDENCES[residence]
+            assert sdw_delayed.smem_bytes(N, dtype, K, code, opdim, q) == \
+                nbytes <= budget
+            assert sdw_delayed.g_rows(N, dtype, K, opdim, q) == rows
+        with pytest.raises(ValueError):
+            sdw_delayed.plan(512 // q + 1, dtype, K, opdim, q)
+
+
+@pytest.mark.parametrize("q,dtypes,Ns", [
+    (2, (torch.complex64, torch.complex128, torch.float32, torch.float64),
+     (9, 10, 16, 64, 100, 128, 256)),
+    (4, (torch.float32, torch.float64), (4, 9, 50, 64, 121, 127, 128))])
+def test_k5_gpu_cases_reach_every_plan(q, dtypes, Ns):
+    """The shapes of tests/test_torch_kernels_gpu.py's K5 q = 2 and real
+    q = 4 cases (K = 1, 3, 8, 16 clamped to N) reach, in each dtype, the
+    second body with all of G and with part of G in shared memory and a
+    first-body residence, and, together over the dtypes, every
+    residence."""
+    every = set()
+    for dtype in dtypes:
+        opdim = 2 if dtype.is_complex else 1
+        shapes = [(N, min(K, N)) for N in Ns for K in (1, 3, 8, 16)]
+        seen = {sdw_delayed.plan(N, dtype, K, opdim, q)[0]
+                for N, K in shapes}
+        assert "G" in seen and seen - {"G"}, dtype
+        rows = {sdw_delayed.g_rows(N, dtype, K, opdim, q) == q * N
+                for N, K in shapes
+                if sdw_delayed.plan(N, dtype, K, opdim, q)[0] == "G"}
+        assert rows == {True, False}, dtype
+        every |= seen
+    assert every == set(sdw_delayed.RESIDENCES)
+
+
 def test_k5_main_path_plans():
     # sdw_l8 (complex64, h = 256, K = 8): the slots in shared memory, one
     # CTA per walker; complex128 there and complex64 at h = 512: R there,
@@ -511,6 +589,23 @@ def test_k5_main_path_plans():
     assert sdw_delayed.plan(16, torch.complex128, 8)[0] == "shared"
     assert sdw_delayed.PROBE_PHASES == ("gather", "decision", "slot write",
                                         "barriers", "flush", "set-up")
+    # the second body on the three main-path shapes (K = 8): all of G in
+    # shared memory on the reduced L = 8 cells (h = 128; sdw_o1_l8 in
+    # float32, sdw_o2_l8 in complex64), its first 144 of 256 rows on the
+    # full real sdw_o1_full_l8 (float32)
+    for N, dt, opdim, q, rows in ((64, torch.float32, 1, 2, 128),
+                                  (64, torch.complex64, 2, 2, 128),
+                                  (64, torch.float32, 1, 4, 144)):
+        tile = (8 if dt == torch.float32 else 4, 4)
+        assert sdw_delayed.plan(N, dt, 8, opdim, q) == ("G", tile)
+        assert sdw_delayed.g_rows(N, dt, 8, opdim, q) == rows
+    assert sdw_delayed.smem_bytes(64, torch.float32, 8, 3, 1, 2) == 88592
+    assert sdw_delayed.smem_bytes(64, torch.complex64, 8, 3, 2, 2) == 172816
+    assert sdw_delayed.smem_bytes(64, torch.float32, 8, 3, 1, 4) == 227088
+    for dt, q in ((torch.complex64, 2), (torch.float32, 2),
+                  (torch.float32, 4), (torch.complex64, 4)):
+        assert sdw_delayed.has_probe(dt, q)
+    assert not sdw_delayed.has_probe(torch.float64, 4)
 
 
 # K1's plan at the shapes users run: (C, N, dtype) -> (plan, threads), or
@@ -578,10 +673,10 @@ def test_k1_limits_and_routes():
 def test_real_q4_instances_shared_memory_and_plans(dtype):
     """The full real opdim-1 chain's q = 4 instances of K4 and K5: their
     shared-memory mirrors (csrc/sdw_update.cu update_smem,
-    csrc/sdw_delayed.cu delayed_smem at real q = 4), K4 up to h = 160 (the
-    main path's L = 4, h = 64, in both dtypes), K5's 4 x 4 flush tile and
-    its plans at every h = 4 N <= 512 (the main path's L = 8: the slots in
-    shared memory)."""
+    csrc/sdw_delayed.cu delayed_smem and second_rows at real q = 4), K4 up
+    to h = 160 (the main path's L = 4, h = 64, in both dtypes), K5's flush
+    tile and its plans at every h = 4 N <= 512 (the main path's L = 8: the
+    second body, G's first rows in shared memory)."""
     budget = _kernels.MAX_SMEM_BYTES - 1024
     item = dtype.itemsize
     for N in range(1, 41):
@@ -591,12 +686,17 @@ def test_real_q4_instances_shared_memory_and_plans(dtype):
     for N in range(1, 129):
         for K in (1, min(8, N)):
             res, tile = sdw_delayed.plan(N, dtype, K, 1)
-            assert tile == sdw_delayed.flush_tile(dtype) == (4, 4)
+            residence, nbytes, mtile, _ = k5_second_body_mirror(N, dtype, K,
+                                                                1, 4)
+            assert (res, tile) == (residence, mtile)
+            assert tile == sdw_delayed.flush_tile(dtype, 4, res)
             b = sdw_delayed.RESIDENCES[res]
-            assert sdw_delayed.smem_bytes(N, dtype, K, b, 1) == (
-                b * 4 * K * 4 * N * item + 16 * N * item
-                + item * (N * 9 + N) + 16 * N) <= budget
-    assert sdw_delayed.plan(64, dtype, 8, 1)[0] == "shared"
+            assert sdw_delayed.smem_bytes(N, dtype, K, b, 1) == nbytes \
+                <= budget
+            if res != "G":
+                assert nbytes == (b * 4 * K * 4 * N * item + 16 * N * item
+                                  + item * (N * 9 + N) + 16 * N)
+    assert sdw_delayed.plan(64, dtype, 8, 1)[0] == "G"
     assert sdw_delayed.flush_tile(torch.complex128) == (2, 4)
     assert sdw_delayed.flush_tile(torch.complex64) == (4, 4)
     with pytest.raises(ValueError):
@@ -608,9 +708,10 @@ def test_real_q4_instances_shared_memory_and_plans(dtype):
 def test_q2_instances_shared_memory_and_plans(dtype):
     """The reduced sector's q = 2 instances of K4, K5 and K6: their
     shared-memory mirrors (csrc/sdw_update.cu update_smem,
-    csrc/sdw_delayed.cu delayed_smem, csrc/sdw_wrap.cu k6_smem_bytes at
-    q = 2), K5's 2 x 2 flush tile at every h = 2 N <= 512, and K6's plans
-    (og <= 2) within the budget wherever one orbital's F fits."""
+    csrc/sdw_delayed.cu delayed_smem and second_rows, csrc/sdw_wrap.cu
+    k6_smem_bytes at q = 2), K5's plans and flush tiles (the first body's
+    2 x 2 where N % 4 != 0), and K6's plans (og <= 2) within the budget
+    wherever one orbital's F fits."""
     budget = _kernels.MAX_SMEM_BYTES - 1024
     item, ritem = dtype.itemsize, dtype.to_real().itemsize
     for N in range(1, 81):
@@ -622,11 +723,16 @@ def test_q2_instances_shared_memory_and_plans(dtype):
     for N in (4, 9, 16, 64, 100, 256):
         for K in (1, min(8, N)):
             res, tile = sdw_delayed.plan(N, dtype, K, 2, 2)
-            assert tile == (2, 2)
+            residence, nbytes, mtile, _ = k5_second_body_mirror(N, dtype, K,
+                                                                2, 2)
+            assert (res, tile) == (residence, mtile)
+            assert (tile == (2, 2)) == (res != "G")
             b = sdw_delayed.RESIDENCES[res]
-            assert sdw_delayed.smem_bytes(N, dtype, K, b, 2, 2) == (
-                b * 2 * K * 2 * N * item + 4 * N * item
-                + ritem * (N * 2 * 9 + N) + 16 * N) <= budget
+            assert sdw_delayed.smem_bytes(N, dtype, K, b, 2, 2) == nbytes \
+                <= budget
+            if res != "G":
+                assert nbytes == (b * 2 * K * 2 * N * item + 4 * N * item
+                                  + ritem * (N * 2 * 9 + N) + 16 * N)
     with pytest.raises(ValueError):
         sdw_delayed.plan(257, dtype, 8, 2, 2)
     assert all(og <= 2 for _, og, _ in sdw_wrap.plans(2))
