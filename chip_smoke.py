@@ -882,10 +882,12 @@ DYN_GROUPS = (("solve_inner_rhs_f64_tc_kernel", "K3r"),
               ("trinv_big_kernel", "K9 trinv_big"))
 # the groups of the reduced paths' profiles: SDW8_GROUPS, K5's second
 # body (sdw_delayed_smem_kernel, its q = 2 and real q = 4 instances), then
-# the real one-block QR (K2 float32) and the reduced L=4 routes
+# the real one-block QR (K2 float32) and the reduced L=4 routes (K4's q = 2
+# instances run its look-ahead body)
 REDUCED_GROUPS = SDW8_GROUPS + (("sdw_delayed_smem_kernel",
                                  "K5 sdw_delayed + flush"),
-                                ("sdw_update_kernel", "K4 sdw_update q=2"),
+                                ("sdw_update_ahead_kernel",
+                                 "K4 sdw_update q=2"),
                                 ("qr_f32_tc_kernel", "K2 qr f32"),
                                 ("qr_c64_tc_kernel", "K2c qr"),
                                 ("solve_inner_c128_tc_kernel", "K3c"),
@@ -894,7 +896,7 @@ REDUCED_GROUPS = SDW8_GROUPS + (("sdw_delayed_smem_kernel",
 
 # the full real chain's (phase 22): the real q = 4 K4 / K5, K2 float32 and
 # K3 at L = 4, real K7, K8 and K9 at L = 8
-FULL_REAL_GROUPS = (("sdw_update_kernel", "K4 sdw_update real q=4"),
+FULL_REAL_GROUPS = (("sdw_update_ahead_kernel", "K4 sdw_update real q=4"),
                     ("sdw_delayed_kernel", "K5 sdw_delayed real q=4"),
                     ("sdw_delayed_smem_kernel", "K5 sdw_delayed real q=4"),
                     ("qr_big_kernel", "K7 qr_big"),
@@ -2419,7 +2421,9 @@ def update_instance_check(title, model, args, kernel, plain, K=None):
                 ops = float(ak.sum()) * (8 if cplx else 2) * q * h * h
                 bps = sdw_update.blocks_per_sm(N, dt, a[0].device,
                                                model.cfg.opdim, q)
-                plan = f"{bps} CTAs/SM"
+                dms = device_ms(lambda: kernel(*a, *extra))
+                plan = (f"{sdw_update.plan(dt, q)} body x {bps} CTAs/SM, "
+                        f"device {dms:.4f} ms a launch")
             else:
                 ops = k5_ops(a[1], pk, K, h, q, cplx)
                 p5 = sdw_delayed.plan(N, dt, K, model.cfg.opdim, q)
@@ -2437,6 +2441,8 @@ def update_instance_check(title, model, args, kernel, plain, K=None):
                       f"{probe_split(prec, sdw_delayed.PROBE_PHASES)}")
             rec = record(err, ms, pms, None, bound(
                 nbytes(*a, model.nb, Gk, pk, ak), ops))
+            if K is None:
+                rec["device_ms"] = dms
             out = (Gk, pk, ak)
         else:
             check(n_mis == 0 and torch.equal(Gk, Gp) and torch.equal(pk, pp)
@@ -2445,6 +2451,84 @@ def update_instance_check(title, model, args, kernel, plain, K=None):
             print(f"  {title} {dt}: bitwise equal to the plain version "
                   f"(accepted {int(ak.sum())} sites)")
     return rec, out
+
+
+def k4_kc_edges_check(device, dtype, q):
+    """K4's instance for G of ``dtype`` at q (q = 2, or real q = 4) and
+    its double-precision twin at the smallest and the largest h of each
+    look-ahead instance (KC = ceil(h / 32) columns a lane) among the h K4
+    takes (``smem_bytes``), on synthetic operands (W = 16, acceptance
+    ~0.5): in single precision identical decisions but at near-ties and G
+    within 1e-5, in double precision bitwise equal to the plain
+    version."""
+    import types
+
+    import torch
+
+    from detqmc_tpu_torch.linalg import _kernels, sdw_update
+
+    opdim, W = (2 if dtype.is_complex else 1), 16
+    c_det = 1.0 if dtype.is_complex else 0.5
+    gen = torch.Generator(device=device).manual_seed(1919)
+    for d in (dtype, torch.complex128 if dtype.is_complex else torch.float64):
+        edges, rdt, done = {}, d.to_real(), []
+        for N in range(1, sdw_update.MAX_H // q + 1):
+            if sdw_update.smem_bytes(N, opdim, d, q) <= \
+                    _kernels.MAX_SMEM_BYTES - 1024:
+                edges.setdefault((q * N + 31) // 32, []).append(N)
+        check(sdw_update.plan(d, q) == "ahead", f"K4 {d} q={q}: not the "
+              "look-ahead body")
+        for kc, Ns in edges.items():
+            for N in sorted({Ns[0], Ns[-1]}):
+                h = q * N
+
+                def rnd(*shape):
+                    x = torch.randn(shape, generator=gen, dtype=rdt,
+                                    device=device)
+                    return torch.complex(x, torch.randn(
+                        shape, generator=gen, dtype=rdt, device=device)) \
+                        if d.is_complex else x
+
+                G = 0.5 * torch.eye(h, dtype=d, device=device) \
+                    + rnd(W, h, h) * (0.5 / h ** 0.5)
+                phi = torch.randn((W, N, opdim), generator=gen, dtype=rdt,
+                                  device=device)
+                phin = phi + 0.5 * torch.randn((W, N, opdim), generator=gen,
+                                               dtype=rdt, device=device)
+                lhs = torch.log(torch.rand((W, N), generator=gen, dtype=rdt,
+                                           device=device))
+                i = torch.arange(N)
+                nb = torch.stack([(i + 1) % N, (i - 1) % N, (i + 2) % N,
+                                  (i - 2) % N], 1).to(torch.int32).to(device)
+                a = [x.contiguous() for x in
+                     (G, phi, phin, lhs, 0.3 * rnd(W, N, q, q))]
+                Gk, pk, ak = sdw_update.sdw_update(*a, nb, 0.1, c_det)
+                Gp, pp, ap = sdw_update.sdw_update_plain(*a, nb, 0.1, c_det)
+                torch.cuda.synchronize()
+                same = (pk == pp).flatten(1).all(dim=1)
+                if d.to_real() == torch.float64:
+                    check(bool(same.all()) and torch.equal(Gk, Gp)
+                          and torch.equal(ak, ap), f"K4 {d} q={q} h={h} "
+                          f"KC={kc}: not bitwise equal to the plain version")
+                else:
+                    model = types.SimpleNamespace(
+                        nb=nb, c_det=c_det, n_orb=q,
+                        cfg=types.SimpleNamespace(dtau=0.1, n_sites=N))
+                    for w in torch.nonzero(~same)[:, 0].tolist():
+                        site = int(torch.nonzero(
+                            (pk[w] != pp[w]).any(-1))[0, 0])
+                        margin, _ = k4_margin(model, a, w, site)
+                        check(margin < K4_NEAR_TIE, f"K4 {d} q={q} h={h}: "
+                              f"mismatch at walker {w} site {site} is not "
+                              f"a near-tie ({margin:.3e})")
+                    err = float((Gk - Gp)[same].abs().max())
+                    check(err <= K4_TOL["complex64"], f"K4 {d} q={q} h={h} "
+                          f"KC={kc}: max|dG| {err:.3e}")
+                done.append(f"h={h} KC={kc}")
+        print(f"K4 {d} q={q} at each plan's smallest and largest h (W={W}; "
+              + ("bitwise" if d.to_real() == torch.float64 else
+                 f"decisions, max|dG| <= {K4_TOL['complex64']}") + "): "
+              + ", ".join(done))
 
 
 def q2_wrap_check(model, state):
@@ -2558,6 +2642,7 @@ def reduced_kernel_phase(device):
             f"K4 sdw_update q=2 (opdim {model.cfg.opdim})", model, args,
             sdw_update.sdw_update, sdw_update.sdw_update_plain)
         out["sdw_update_q2" + suffix] = {str(model.cdtype)[6:]: rec}
+        k4_kc_edges_check(device, model.cdtype, 2)
     for suffix, cfg_kw in (("", SDW_O2_L8_CFG), ("_real", SDW_O1_L8_CFG)):
         model = SDWModel(SDWConfig(**cfg_kw), device=device)
         state = model.init_state(W_SDW, gen)
@@ -2711,6 +2796,7 @@ def full_real_phase(device, card):
             model._delay_k if delayed else None)
         kern[name] = {"float32": rec}
         del model, state, args
+    k4_kc_edges_check(device, torch.float32, 4)
     torch.cuda.empty_cache()
     lap("full real kernels (phase 22)")
     for kw, name in (({}, "sdw_update_real"),

@@ -158,6 +158,13 @@ __device__ __forceinline__ SiteDelta<S, Q> site_delta(const S* D, const SiteLane
     return d;
 }
 
+// no phase probe in the site step (K4's probe instances pass a callable
+// that charges the step's phases: 0 A, 1 det and adj, 2 the log and the
+// decision, 3 T)
+struct NoLap {
+    __device__ __forceinline__ void operator()(int) const {}
+};
+
 // The Metropolis step of one site over a warp, from the current G_II and
 // Delta_i:
 //     A = 1 + Delta (1 - G_II);  accept = lhs < c_det log|det A|^2 + live
@@ -168,11 +175,11 @@ __device__ __forceinline__ SiteDelta<S, Q> site_delta(const S* D, const SiteLane
 // by the operations the plain version (linalg/sdw_update.py site_step)
 // forms it with, in the same order, so both give the same bits. The whole
 // warp calls it (the shuffles need every lane).
-template <typename S, int Q>
+template <typename S, int Q, typename Lap = NoLap>
 __device__ bool site_step_warp(S g, const SiteDelta<S, Q>& d, typename real_of<S>::type lhs,
                                typename real_of<S>::type live,
                                typename real_of<S>::type c_det, const SiteLanes<Q>& L,
-                               S& Te) {
+                               S& Te, Lap lap = Lap()) {
     using T = typename real_of<S>::type;
     const S M = rsub_rn(L.a == L.b ? T(1) : T(0), g);
     S acc = cmul_rn(d.row[0], shfl_c(M, L.b));
@@ -180,6 +187,7 @@ __device__ bool site_step_warp(S g, const SiteDelta<S, Q>& d, typename real_of<S
     for (int k = 1; k < Q; ++k)
         acc = cadd_rn(acc, cmul_rn(d.row[k], shfl_c(M, Q * k + L.b)));
     const S A = radd_rn(acc, L.a == L.b ? T(1) : T(0));
+    lap(0);
     S det, adj;
     if constexpr (Q == 4) {
         // the twelve minors (lanes 0-11), their six products (lanes 0-5)
@@ -198,9 +206,11 @@ __device__ bool site_step_warp(S g, const SiteDelta<S, Q>& d, typename real_of<S
         const S t = shfl_c(A, L.src);
         adj = L.neg ? -t : t;
     }
+    lap(1);
     const T r2 = abs2_rn(det);
     const T rhs = add_rn(mul_rn(c_det, log_t(r2)), live);
     const bool accept = lhs < rhs;
+    lap(2);
     if (accept) {                            // warp-uniform
         const T inv_den = div_rn(T(1), r2);
         const S rinv = conj_scale_rn(det, inv_den);
@@ -208,6 +218,7 @@ __device__ bool site_step_warp(S g, const SiteDelta<S, Q>& d, typename real_of<S
 #pragma unroll
         for (int k = 1; k < Q; ++k) u = cadd_rn(u, cmul_rn(shfl_c(adj, Q * L.a + k), d.col[k]));
         Te = cmul_rn(u, rinv);
+        lap(3);
     }
     return accept;
 }

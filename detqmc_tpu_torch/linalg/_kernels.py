@@ -85,8 +85,10 @@ _SIGNATURES = {
     # W, N, opdim, dtau, c_det, stream
     **{f"dq_sdw_update_{t}": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P]
        for t in ("c64", "c128", "f32", "f64")},
-    # the same, then the phase probe's record (W x 8 int64)
-    "dq_sdw_update_probe_c64": [_I] + [_P] * 9 + [_I, _I, _I, _D, _D, _P, _P],
+    # the same, then the phase probe's record (W x 13 int64)
+    **{f"dq_sdw_update_probe_{t}": [_I] + [_P] * 9
+       + [_I, _I, _I, _D, _D, _P, _P] for t in ("c64", "f32", "q2_c64",
+                                                 "q2_f32")},
     # device, G, G_out, phi, phi_new, lhs, delta, nb, phi_out, acc_out,
     # slots, W, N, opdim, K, resident, dtau, c_det, stream
     **{f"dq_sdw_delayed_{t}": [_I] + [_P] * 10 + [_I] * 5 + [_D, _D, _P]

@@ -5,9 +5,15 @@ complex (opdim 2) or real (opdim 1) blocks) — wrapper and plain version.
 Replaces detqmc_tpu/linalg/pallas_sdw_update.py (``slice_update_sdw``,
 Pallas kernel ``_kernel``, generic over q and over real / complex) on the
 card with ``csrc/sdw_update.cu``: one CTA per walker, the walker's G in
-shared memory, the N sequential site steps inside the block, the scalar
-chain in every warp and each thread owning fixed entries of G
-(``smem_bytes``; see the source's note for what bounds it).
+shared memory, the N sequential site steps inside the block. Two bodies
+(``plan``): the first (complex q = 4; ``smem_bytes``) runs the scalar
+chain in every warp, each thread owning fixed entries of G; the
+look-ahead body (q = 2 and real q = 4; ``ahead_smem_bytes``) decides a
+round of eight sites at once, warp w site i0 + w as if the round's
+earlier sites are rejected, and continues after the first accepted one,
+so the decisions are the sequential walk's (see the source's notes for
+what bounds each). ``smem_bytes`` sizes what K4 takes at every instance:
+the look-ahead body fits wherever the first body would.
 
 Per site i, with the orbital-major indices j_b = b N + i, b < q
 (pallas_sdw_update.py:197-331; models/sdw.py ``_site_indices``):
@@ -64,11 +70,17 @@ _ENTRIES = {
     (torch.float64, 2): ("sdw_update_q2_real", "dq_sdw_update_q2_f64")}
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.complex64: 2,
                 torch.complex128: 3}
+# (G dtype, q) -> the C entry of the instance with the phase probe on (in
+# the body the instance runs)
+_PROBES = {(torch.complex64, 4): "dq_sdw_update_probe_c64",
+           (torch.float32, 4): "dq_sdw_update_probe_f32",
+           (torch.complex64, 2): "dq_sdw_update_probe_q2_c64",
+           (torch.float32, 2): "dq_sdw_update_probe_q2_f32"}
 # the phase probe's phases (csrc/sdw_update.cu), in the order of its
-# per-CTA record; the record ends with the CTA's total cycles and ns. The
-# probe instance is compiled for complex64 at q = 4.
-PROBE_PHASES = ("chain", "barriers", "staging", "combined columns",
-                "rank-4 update", "loads and stores")
+# per-CTA record; the record ends with the CTA's total cycles and ns
+PROBE_PHASES = ("gather", "live term", "A", "det/adj", "log and decision",
+                "T", "barriers", "staging", "combined columns",
+                "rank-q update", "loads and stores")
 # 2x2 minors: s_k of rows (0, 1) and c_k of rows (2, 3) over these column
 # pairs; minors = (s_0..s_5, c_0..c_5)
 _PAIR_A = [0, 0, 0, 1, 1, 2]
@@ -269,13 +281,43 @@ def smem_bytes(N: int, opdim: int, dtype, q: int = 4) -> int:
             + ritem * (N * opdim * (1 + _WARPS) + N) + 4 * 4 * N)
 
 
+def _al16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+@functools.lru_cache(maxsize=None)
+def ahead_smem_bytes(N: int, opdim: int, dtype, q: int) -> int:
+    """Dynamic shared memory of the look-ahead body (csrc/sdw_update.cu
+    ahead_smem): G at row stride h + 1, the staged rows and the combined
+    columns (h x q each), Delta (N q^2), each of the eight warps' T (q^2),
+    phi_new and the live field (N opdim reals each), lhs, the round flags
+    (16 bytes) and the neighbour table (4 N int32), each segment rounded
+    up to 16 bytes."""
+    item, ritem, h = dtype.itemsize, dtype.to_real().itemsize, q * N
+    return (_al16(item * h * (h + 1)) + 2 * _al16(item * h * q)
+            + _al16(item * N * q * q) + _al16(item * _WARPS * q * q)
+            + 2 * _al16(ritem * N * opdim) + _al16(ritem * N) + 16
+            + _al16(16 * N))
+
+
+def plan(dtype, q: int = 4) -> str:
+    """K4's body for G of ``dtype`` at q: "ahead", the look-ahead body
+    (q = 2, and real q = 4), or "cta", the first body (complex q = 4)."""
+    return "ahead" if q == 2 or not dtype.is_complex else "cta"
+
+
 @functools.lru_cache(maxsize=None)
 def blocks_per_sm(N: int, dtype, device="cuda", opdim: int = 3,
                   q: int = 4) -> int:
-    """CTAs of the kernel one SM of ``device`` holds at h = q N, as the
-    CUDA occupancy calculator reports it."""
+    """CTAs of the kernel one SM of ``device`` holds at h = q N in the
+    body ``plan`` picks, as the CUDA occupancy calculator reports it."""
     return _kernels.query("dq_sdw_update_blocks_per_sm", device,
                           _DTYPE_CODES[dtype], q, N, opdim)
+
+
+def has_probe(dtype, q: int = 4) -> bool:
+    """Whether K4 has a phase-probe instance for G of ``dtype`` at q."""
+    return (dtype, q) in _PROBES
 
 
 def launch_name(dtype, q: int) -> str:
@@ -289,10 +331,11 @@ def sdw_update(G, phi_l, phi_new, lhs, delta, nb, dtau: float, c_det: float,
     """K4: CPU tensors run ``sdw_update_plain``; CUDA tensors launch the
     kernel (q = 4 or 2: complex64, complex128, float32 or float64;
     contiguous, h = q N within the shared-memory budget: h <= 160 and
-    ``smem_bytes``) or raise. With ``probe`` (complex64, q = 4) the
-    kernel's instance with clock64() stamps runs instead, and the result
-    gains a (W, 8) int64 record per CTA: cycles per phase
-    (``PROBE_PHASES``), total cycles, total ns."""
+    ``smem_bytes``; opdim <= 3 in the look-ahead body) in the body
+    ``plan`` picks, or raise. With ``probe`` (``has_probe``) the body's
+    instance with clock64() stamps runs instead, and the result gains a
+    (W, len(PROBE_PHASES) + 2) int64 record per CTA: cycles per phase,
+    total cycles, total ns."""
     if G.device.type == "cpu":
         if probe:
             raise ValueError("sdw_update: the probe needs a CUDA tensor")
@@ -319,22 +362,25 @@ def sdw_update(G, phi_l, phi_new, lhs, delta, nb, dtau: float, c_det: float,
         if tuple(t.shape) != shape:
             raise ValueError(f"sdw_update: {name} shape "
                              f"{tuple(t.shape)} != {shape}")
-    if h > MAX_H or smem_bytes(N, opdim, G.dtype, q) > \
-            _kernels.MAX_SMEM_BYTES - 1024:
-        raise ValueError(f"sdw_update: h={h} {G.dtype} exceeds the "
-                         "shared-memory budget")
-    if probe and (G.dtype, q) != (torch.complex64, 4):
-        raise ValueError("sdw_update: the probe instance is complex64, "
-                         "q = 4")
+    budget = _kernels.MAX_SMEM_BYTES - 1024
+    if h > MAX_H or smem_bytes(N, opdim, G.dtype, q) > budget or (
+            plan(G.dtype, q) == "ahead" and (
+                opdim > 3 or ahead_smem_bytes(N, opdim, G.dtype, q) > budget)):
+        raise ValueError(f"sdw_update: h={h} {G.dtype} (opdim {opdim}) "
+                         "exceeds the shared-memory budget")
+    if probe and not has_probe(G.dtype, q):
+        raise ValueError(f"sdw_update: no probe instance for {G.dtype} at "
+                         f"q = {q}")
     G_out = torch.empty_like(G)
     phi_out = torch.empty_like(phi_l)
     acc = torch.empty(W, dtype=rdt, device=G.device)
+    name, entry = _ENTRIES[(G.dtype, q)]
     args = (G, phi_l, phi_new, lhs, delta, nb, G_out, phi_out, acc, W, N,
             opdim, float(dtau), float(c_det))
     if probe:
         rec = torch.zeros((W, len(PROBE_PHASES) + 2), dtype=torch.int64,
                           device=G.device)
-        _kernels.launch("sdw_update", "dq_sdw_update_probe_c64", *args, rec)
+        _kernels.launch(name, _PROBES[(G.dtype, q)], *args, rec)
         return G_out, phi_out, acc, rec
-    _kernels.launch(*_ENTRIES[(G.dtype, q)], *args)
+    _kernels.launch(name, entry, *args)
     return G_out, phi_out, acc

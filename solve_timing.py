@@ -10,7 +10,8 @@ calls:
     python3 solve_timing.py --rows k1b,k3    # only these groups (k8, k1b,
                                              # k3, k2, k7, k6, k5, k1,
                                              # k2c, k4, k2f32, k6q2,
-                                             # k5q2, k5real)
+                                             # k5q2, k5real, k4q2,
+                                             # k4real, k4paths)
 
 Rows of the k1b group: K1b float32 W=128 N=256 k=16 on slice 1 of a
 wrapped Hubbard L=16 G (chip_smoke.py's main-path shape) and K1b float64
@@ -64,6 +65,25 @@ calls back to back, the device time with every site rejected and with
 every site accepted, the plan (and G's rows in shared memory), CTAs per
 SM, the acceptance and, where the package has the instance's probe, its
 split and its slowest CTA.
+
+Rows of the k4q2 group: K4's q = 2 instances over slice 1 of the
+reduced L=4 cells at h=32 (complex64 on sdw_o2_quickstart, W=128, and on
+pt_sdw_r_grid, W=64; float32 on sdw_o1_l4, W=128); of the k4real group:
+K4's real q = 4 instance on sdw_o1_full_l4 (float32, h=64, W=128). Each
+row gives the device time of one call over 20 calls, one call, 20 calls
+back to back, CTAs per SM, the acceptance, the byte bound, a latency
+floor (a model on assumed latencies, ``LAT``), the body where the
+package names it, the device time with every site rejected and with
+every site accepted and, where the package has the instance's probe,
+the probe's split of each with its slowest CTA.
+
+Rows of the k4paths group: the main paths of the K4 cells
+sdw_o2_quickstart, sdw_o1_l4 and sdw_o1_full_l4 at W=128, as chip_smoke.py
+drives them (init_state, one warm-up sweep_pair(measure=True)): sweeps/s
+of three blocks of three timed pairs each and their median, the wall time
+of a pair, and one profiled pair's device time, K4's share of it and the
+device's busy share of the wall. Run it on two trees in one call, parent,
+change, change, parent, to compare them on one host.
 
 Rows of the k5 group: the delayed SDW update K5 on slice 1 of a wrapped
 G, one whole slice (every chunk with its flush), complex64 W=128 h=256
@@ -753,6 +773,168 @@ def k5_cell_rows(emit, gen, device, reps, group):
         torch.cuda.empty_cache()
 
 
+# the K4 cells of the k4q2 and k4real groups, (cell, config, walkers):
+# sdw_o2_quickstart (README's O(2) quick start, complex64, q = 2, h = 32),
+# sdw_o1_l4 (its opdim-1 twin, float32), pt_sdw_r_grid
+# (examples/pt_sdw_r_grid.conf: 8 r values x 8 ensembles, complex64,
+# h = 32, at r = 0.5), sdw_o1_full_l4 (float32, real q = 4, h = 64)
+SDW_O2_L4 = dict(L=4, opdim=2, r=1.0, beta=4.0, m=40, s=2, dtype="float32")
+K4_CELLS = {"k4q2": (("sdw_o2_quickstart", SDW_O2_L4, 128),
+                     ("sdw_o1_l4", O1_CELLS[0][1], 128),
+                     ("pt_sdw_r_grid", dict(SDW_O2_L4, r=0.5, s=4), 64)),
+            "k4real": (("sdw_o1_full_l4", O1_CELLS[1][1], 128),)}
+
+
+def k4_clock_hz() -> float:
+    """The card's largest SM clock (nvidia-smi clocks.max.sm, MHz)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.split()[0]
+    return float(out) * 1e6
+
+
+# the latency floor of K4's site walk is a model on these assumed
+# latencies (none is measured): cycles of one dependent rounded FP32
+# (FP64) operation, logf (log), a shared-memory round trip, a CTA
+# barrier, and one global round trip with the store drain (G in and out)
+LAT = dict(fp32=4, fp64=8, log32=40, log64=80, smem=30, bar=20, io=800)
+
+
+def k4_latency_floor_ms(N: int, n_acc: int, q: int, cplx: bool, f64: bool,
+                        clock_hz: float) -> float:
+    """A model of the least time of one walker's K4 walk from its
+    dependent operations alone at the assumed latencies ``LAT``
+    (csrc/sdw_update.cu site_step_lane and the accepted
+    site's steps, every other operation off the critical path): per site
+    the chain to the decision (1 - G_II, A, det, |det|^2, log, the
+    comparison), per accepted site T, the combined column (a load, its
+    products and sums), a barrier, an update step (a load, its products
+    and sums, the difference), a barrier and the next site's G_II; plus
+    G's round trip. n_acc: the accepted sites of the slowest walker."""
+    op = LAT["fp64" if f64 else "fp32"]
+    mul = 2 if cplx else 1              # a complex product: mul, then sub
+    a = 1 + mul + (q - 1) + 1           # M, the first product, the sums, + 1
+    det = (2 + 1 + 3) if q == 4 else (mul + 1)
+    decide = (1 + a + det + (2 if cplx else 1) + 2) * op \
+        + LAT["log64" if f64 else "log32"]
+    t = ((3 if q == 4 else 0) + mul + (q - 1) + mul) * op
+    comb = LAT["smem"] + (mul + q - 1) * op
+    upd = LAT["smem"] + (mul + q - 1 + 1) * op
+    accept = t + comb + upd + 2 * LAT["bar"] + LAT["smem"]
+    return (N * decide + n_acc * accept + LAT["io"]) / clock_hz * 1e3
+
+
+def k4_cell_rows(emit, gen, device, reps, group):
+    """K4 over slice 1 of the group's cells (the models' slice-1
+    operands): one call, 20 back to back, CTAs per SM, the acceptance, the
+    device time of one call over 20 calls with the sites as drawn, all
+    rejected and all accepted, and the probe's split of each with its
+    slowest CTA where the package has the instance's probe."""
+    import torch
+
+    from detqmc_tpu_torch.linalg import sdw_update
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    for cell, cfg, W in K4_CELLS[group]:
+        model = SDWModel(SDWConfig(**cfg), device=device)
+        st = model.init_state(W, gen)
+        args = slice_operands(model, st, gen)
+        extra = (model.nb, model.cfg.dtau, model.c_det)
+        cdt, q, opdim = args[0].dtype, model.n_orb, model.cfg.opdim
+        N, h = model.cfg.n_sites, model.dim
+        run = lambda: sdw_update.sdw_update(*args, *extra)   # noqa: E731
+        acc = run()[2]
+        row = dict(kernel="K4", cell=cell, dtype=str(cdt)[6:], q=q, W=W, h=h,
+                   N=N, device_ms=device_ms(run), ms=time_ms(run, reps),
+                   batched_ms=time_ms_batched(run),
+                   acceptance=float(acc.sum()) / (W * N),
+                   ctas_per_sm=sdw_update.blocks_per_sm(N, cdt, device, opdim,
+                                                        q))
+        # the bound: G read and written, the field read and written, lhs,
+        # Delta, phi_new and acc once; the latency floor at the card's
+        # largest SM clock, for the walker that accepts the most sites
+        # and for every site accepted
+        row["bound_ms"] = 1e3 * sum(
+            x.numel() * x.element_size() for x in (*args, *args[:2], acc)
+        ) / 3.35e12
+        clock = k4_clock_hz()
+        for name, n_acc in (("", int(acc.max())), ("_all_accept", N)):
+            row[f"latency_floor_ms{name}"] = k4_latency_floor_ms(
+                N, n_acc, q, cdt.is_complex, cdt.to_real() == torch.float64,
+                clock)
+        if hasattr(sdw_update, "plan"):
+            row["plan"] = sdw_update.plan(cdt, q)
+        has_probe = getattr(sdw_update, "has_probe", lambda *a: False)(cdt, q)
+        # the sites as drawn, every site rejected (lhs = +inf: the chains
+        # alone) and every site accepted (-inf: every update)
+        for name, bound in (("", None), ("reject", float("inf")),
+                            ("accept", -float("inf"))):
+            cut = args if bound is None else (
+                args[:3] + [torch.full_like(args[3], bound)] + args[4:])
+            sfx = f"_all_{name}" if name else ""
+            if bound is not None:
+                row[f"device_ms{sfx}"] = device_ms(
+                    lambda: sdw_update.sdw_update(*cut, *extra))
+            if has_probe:
+                prec = sdw_update.sdw_update(*cut, *extra, probe=True)[-1]
+                row[f"probe{sfx}"] = split(prec, sdw_update.PROBE_PHASES)
+                row[f"probe{sfx}_max_cta_us"] = round(float(
+                    (prec[:, -1].double() / 1e3).max()), 3)
+        emit(row)
+        del model, st, args
+        torch.cuda.empty_cache()
+
+
+def k4_path_rows(emit, gen, device):
+    """The main paths of the K4 cells (W=128): sweeps/s of three blocks of
+    three sweep pairs, and one profiled pair's device time, K4's part and
+    the busy share (torch.profiler's kernel time)."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    # chip_smoke.py's SDW_O2_L4_CFG, SDW_O1_L4_CFG, SDW_O1_FULL_L4_CFG
+    o2 = dict(SDW_O2_L4, globalShift=True, wolffClusterUpdate=True)
+    cells = (("sdw_o2_quickstart", o2), ("sdw_o1_l4", dict(o2, opdim=1)),
+             ("sdw_o1_full_l4", O1_CELLS[1][1]))
+    W, blocks, pairs = 128, 3, 3
+    for cell, cfg in cells:
+        model = SDWModel(SDWConfig(**cfg), device=device)
+        st = model.init_state(W, gen)
+        st, _ = model.sweep_pair(st, measure=True, generator=gen)
+        torch.cuda.synchronize()
+        rates = []
+        for _ in range(blocks):
+            t0 = time.perf_counter()
+            for _ in range(pairs):
+                st, _ = model.sweep_pair(st, measure=True, generator=gen)
+            torch.cuda.synchronize()
+            rates.append(W * pairs * 2 / (time.perf_counter() - t0))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            st, _ = model.sweep_pair(st, measure=True, generator=gen)
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and getattr(ev, "self_device_time_total", 0.0) > 0]
+        dev = sum(ev.self_device_time_total for ev in evs) / 1e3
+        k4 = sum(ev.self_device_time_total for ev in evs
+                 if "sdw_update" in ev.key) / 1e3
+        rate = statistics.median(rates)
+        wall = 1e3 * W * 2 / rate
+        emit(dict(kernel="K4 path", cell=cell, W=W, sweeps_per_s=rate,
+                  sweeps_per_s_blocks=rates, wall_ms_pair=wall,
+                  device_ms_pair=dev, k4_device_ms_pair=k4,
+                  busy=dev / wall))
+        del model, st
+        torch.cuda.empty_cache()
+
+
 def k6q2_rows(emit, gen, device, reps, lib_reps):
     """K6's q = 2 wrap (up) and apply (B X), complex64 on an sdw_o2_l8 G
     and float32 on an sdw_o1_l8 G (W=128, h=128), beside the dense einsum
@@ -912,9 +1094,10 @@ def main(argv=None) -> int:
                     help="also time K8's and K9's other plans")
     ap.add_argument("--rows",
                     default="k8,k1b,k3,k2,k7,k6,k5,k1,k2c,k4,k2f32,k6q2,"
-                    "k5q2,k5real",
+                    "k5q2,k5real,k4q2,k4real",
                     help="comma-separated groups: k8, k1b, k3, k2, k7, k6, "
-                    "k5, k1, k2c, k4, k2f32, k6q2, k5q2, k5real")
+                    "k5, k1, k2c, k4, k2f32, k6q2, k5q2, k5real, k4q2, "
+                    "k4real, k4paths (only when named)")
     args = ap.parse_args(argv)
     groups = set(args.rows.split(","))
     import torch
@@ -964,6 +1147,11 @@ def main(argv=None) -> int:
     for group in ("k5q2", "k5real"):
         if group in groups:
             k5_cell_rows(emit, gen, device, args.reps, group)
+    for group in ("k4q2", "k4real"):
+        if group in groups:
+            k4_cell_rows(emit, gen, device, args.reps, group)
+    if "k4paths" in groups:
+        k4_path_rows(emit, gen, device)
     cases = (("K8+K9", torch.float64, 128, False),
              ("K8-rhs+K9", torch.float64, 5376, True),
              ("K8+K9", torch.complex128, 128, False),

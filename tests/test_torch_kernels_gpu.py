@@ -1662,24 +1662,70 @@ def _check_q2(kern, plain, dtype, n_launch, name, at=""):
         assert float((kern[0] - plain[0]).abs().max()) <= 1e-5, at
 
 
+def _check_k4_modes(ops, extra, q, at=""):
+    """K4 on ``ops`` with the sites as drawn, every site rejected and every
+    site accepted (lhs = +inf, -inf): one launch each under the
+    instance's count, _check_q2's criteria against sdw_update_plain; the
+    probe instance (where it exists) gives the production bits. Returns
+    the output on the drawn sites."""
+    dt = ops[0].dtype
+    name, out = sdw_update.launch_name(dt, q), None
+    for mode, bound in (("drawn", None), ("reject", float("inf")),
+                        ("accept", -float("inf"))):
+        cut = ops if bound is None else (
+            ops[:3] + [torch.full_like(ops[3], bound)] + ops[4:])
+        where = f"{at} {mode}"
+        _kernels.reset_launch_counts()
+        kern = sdw_update.sdw_update(*cut, *extra)
+        _check_q2(kern, sdw_update.sdw_update_plain(*cut, *extra), dt, 1,
+                  name, where)
+        if bound is None:
+            out = kern
+        if sdw_update.has_probe(dt, q):
+            pr = sdw_update.sdw_update(*cut, *extra, probe=True)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(pr[:3], kern)), \
+                where
+            assert bool((pr[3][:, -2] > 0).all()), where
+    return out
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("opdim", [1, 2])
 @pytest.mark.parametrize("L", [2, 3, 4, 6])
 def test_sdw_update_q2_kernel_matches_plain(cuda_device, dtype, opdim, L):
     """K4's q = 2 instances (complex at opdim 2, real at opdim 1) on the
-    reduced model's own slice-1 operands (h = 8 ... 72): one launch under
-    its own count, identical decisions, G bitwise in double precision."""
+    reduced model's own slice-1 operands (h = 8 ... 72), with the sites as
+    drawn, all rejected and all accepted (_check_k4_modes): one launch
+    under its own count, identical decisions, G bitwise in double
+    precision."""
     model, st, gen = _sdw_reduced(cuda_device, opdim, L=L, dtype=dtype)
     args = _k4_operands(model, st, gen)
     extra = (model.nb, model.cfg.dtau, model.c_det)
-    name = sdw_update.launch_name(model.cdtype, 2)
-    _kernels.reset_launch_counts()
-    kern = sdw_update.sdw_update(*args, *extra)
-    _check_q2(kern, sdw_update.sdw_update_plain(*args, *extra), model.cdtype,
-              1, name)
+    kern = _check_k4_modes(args, extra, 2, f"L={L}")
     assert 0 < float(kern[2].sum()) < 3 * model.cfg.n_sites
     assert sdw_update.blocks_per_sm(model.cfg.n_sites, model.cdtype,
                                     cuda_device, opdim, 2) >= 1
+
+
+@pytest.mark.parametrize("dtype", ["complex64", "complex128", "float32",
+                                   "float64"])
+def test_sdw_update_q2_across_h(cuda_device, dtype):
+    """K4's q = 2 instances on synthetic operands (W = 130) from h = 2 to
+    the largest h the dtype takes (160; 114 in complex128), at both sides
+    of every KC step of the look-ahead body (the columns a lane owns,
+    ceil(h / 32): h = 32 / 34, 64 / 66, 96 / 98, 128 / 130) and at N < 8
+    (a round with idle warps): _check_k4_modes."""
+    dt = getattr(torch, dtype)
+    opdim = 2 if dt.is_complex else 1
+    last = 57 if dt == torch.complex128 else 80
+    for N in [n for n in (1, 3, 16, 17, 32, 33, 48, 49, 64, 65)
+              if n < last] + [last]:
+        ops, nb = _q2_synthetic(cuda_device, N, dt, 130, 3 * N, opdim)
+        kern = _check_k4_modes(ops, (nb, 0.1, 1.0 if dt.is_complex else 0.5),
+                               2, f"N={N}")
+        assert 0 < float(kern[2].sum()) < 130 * N, N
+    assert sdw_update.plan(dt, 2) == "ahead"
 
 
 def _q2_synthetic(device, N, dtype, W, seed, opdim, q=2):
@@ -1850,25 +1896,21 @@ def _sdw_full_real(device, L=4, dtype="float64", W=3, seed=0, **kw):
 def test_sdw_update_real_q4_kernel_matches_plain(cuda_device, dtype):
     """K4's real q = 4 instances on the full real chain's own slice-1
     operands at L = 1 ... 5 (h = 4 ... 100) and on synthetic ones at
-    h = 160 (the limit): one launch under "sdw_update_real", identical
-    decisions, fields and acceptance, G bitwise in float64 and within
-    1e-5 in float32."""
+    h = 160 (the limit), with the sites as drawn, all rejected and all
+    accepted (_check_k4_modes): one launch under
+    "sdw_update_real", identical decisions, fields and acceptance, G
+    bitwise in float64 and within 1e-5 in float32."""
     for L in range(1, 6):
         model, st, gen = _sdw_full_real(cuda_device, L=L, dtype=dtype)
         args = _k4_operands(model, st, gen)
         extra = (model.nb, model.cfg.dtau, model.c_det)
         assert model.c_det == 0.5 and args[0].dtype == getattr(torch, dtype)
-        _kernels.reset_launch_counts()
-        kern = sdw_update.sdw_update(*args, *extra)
-        _check_q2(kern, sdw_update.sdw_update_plain(*args, *extra),
-                  model.cdtype, 1, "sdw_update_real", f"L={L}")
+        assert sdw_update.launch_name(model.cdtype, 4) == "sdw_update_real"
+        kern = _check_k4_modes(args, extra, 4, f"L={L}")
         if L > 1:
             assert 0 < float(kern[2].sum()) < 3 * model.cfg.n_sites, L
     ops, nb = _q2_synthetic(cuda_device, 40, model.cdtype, 130, 5, 1, q=4)
-    _kernels.reset_launch_counts()
-    kern = sdw_update.sdw_update(*ops, nb, 0.1, 0.5)
-    _check_q2(kern, sdw_update.sdw_update_plain(*ops, nb, 0.1, 0.5),
-              model.cdtype, 1, "sdw_update_real")
+    kern = _check_k4_modes(ops, (nb, 0.1, 0.5), 4, "h=160")
     assert 0 < float(kern[2].sum()) < 130 * 40
     assert sdw_update.blocks_per_sm(40, model.cdtype, cuda_device, 1) >= 1
 
@@ -1876,17 +1918,18 @@ def test_sdw_update_real_q4_kernel_matches_plain(cuda_device, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_sdw_update_real_q4_across_h(cuda_device, dtype):
     """K4's real q = 4 instances on synthetic operands from h = 4 to its
-    limit, 160 (W = 130; the models' N = L^2 and the odd N between): one
-    launch, identical decisions, fields and acceptance, G bitwise in
-    float64 and within 1e-5 in float32."""
+    limit, 160 (W = 130; the models' N = L^2, the odd N between and both
+    sides of every KC step of the look-ahead body: h = 32 / 36, 64 / 68,
+    96 / 100, 128 / 132), with the sites as drawn, all rejected and all
+    accepted (_check_k4_modes): one launch, identical
+    decisions, fields and acceptance, G bitwise in float64 and within 1e-5
+    in float32; the look-ahead body runs at every h."""
     dt = getattr(torch, dtype)
-    for N in (1, 2, 3, 5, 8, 16, 25, 33, 40):
+    for N in (1, 2, 3, 5, 8, 9, 16, 17, 24, 25, 32, 33, 40):
         ops, nb = _q2_synthetic(cuda_device, N, dt, 130, 7 * N, 1, q=4)
-        _kernels.reset_launch_counts()
-        kern = sdw_update.sdw_update(*ops, nb, 0.1, 0.5)
-        _check_q2(kern, sdw_update.sdw_update_plain(*ops, nb, 0.1, 0.5), dt,
-                  1, "sdw_update_real", f"N={N}")
+        kern = _check_k4_modes(ops, (nb, 0.1, 0.5), 4, f"N={N}")
         assert 0 < float(kern[2].sum()) < 130 * N, N
+    assert sdw_update.plan(dt, 4) == "ahead"
 
 
 @pytest.mark.parametrize("N", [4, 9, 50, 64, 121, 127, 128])

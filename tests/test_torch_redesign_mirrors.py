@@ -44,7 +44,10 @@ versions on the card in tests/test_torch_kernels_gpu.py).
   layout did (no h that ran before is refused, at every opdim) and
   refuses the same first h beyond it, so the SDW model takes every
   L = 1 ... 5 on the immediate route and the forced route's limits stay
-  h = 160 (complex64) and h = 112 (complex128).
+  h = 160 (complex64) and h = 112 (complex128). Its q = 2 and real q = 4
+  instances run the look-ahead body (``plan``: eight warps decide a
+  round of eight sites at once) wherever the first body took h; complex
+  q = 4 keeps the first body.
 - K7 (csrc/qr_big.cu on tc_blocked.cuh householder_tc) takes every n from
   129 to MAX_N_BIG = 512 in all four dtypes: ``big_plan`` names a plan
   that csrc/qr_big.cu compiles, its shared memory (``tc_smem_bytes``, the
@@ -354,9 +357,12 @@ def test_k4_plan_at_every_sdw_dim(dtype, opdim):
     assert sdw_update.smem_bytes(last, 3, dtype) <= budget
     assert (sdw_update.smem_bytes(last + 1, 3, dtype) > budget
             or 4 * (last + 1) > sdw_update.MAX_H)
-    assert sdw_update.PROBE_PHASES == ("chain", "barriers", "staging",
-                                       "combined columns", "rank-4 update",
-                                       "loads and stores")
+    assert sdw_update.PROBE_PHASES == (
+        "gather", "live term", "A", "det/adj", "log and decision", "T",
+        "barriers", "staging", "combined columns", "rank-q update",
+        "loads and stores")
+    # complex q = 4 keeps the first body
+    assert sdw_update.plan(dtype, 4) == "cta"
 
 
 def test_k4_takes_every_sdw_lattice():
@@ -376,6 +382,59 @@ def test_k4_takes_every_sdw_lattice():
         with pytest.raises(NotImplementedError):
             SDWModel._check_kernel_bounds(SDWConfig(
                 L=L, opdim=3, m=8, s=4, dtype=dt, update_kernel="pallas"))
+
+
+def k4_ahead_mirror(N, opdim, dtype, q):
+    """The look-ahead body's shared memory (csrc/sdw_update.cu
+    ahead_smem: G at row stride h + 1, the staged rows, the combined
+    columns, Delta, each of the eight warps' T, phi_new and the live
+    field, lhs, the round flags, the neighbour table, each segment
+    rounded to 16 bytes) and whether it fits one block."""
+    al = lambda b: (b + 15) // 16 * 16                   # noqa: E731
+    c, r, h = dtype.itemsize, dtype.to_real().itemsize, q * N
+    nbytes = (al(c * h * (h + 1)) + 2 * al(c * h * q) + al(c * N * q * q)
+              + al(c * 8 * q * q) + 2 * al(r * N * opdim) + al(r * N) + 16
+              + al(16 * N))
+    return nbytes, nbytes <= _kernels.MAX_SMEM_BYTES - 1024
+
+
+@pytest.mark.parametrize("dtype,q", [
+    (torch.complex64, 2), (torch.complex128, 2), (torch.float32, 2),
+    (torch.float64, 2), (torch.float32, 4), (torch.float64, 4)])
+def test_k4_ahead_body_plan_and_shared_memory(dtype, q):
+    """K4's q = 2 and real q = 4 instances at opdim 1-3 and every
+    h = q N up to 160: the plan is the look-ahead body and its shared
+    memory is what the mirror derives; wherever the first body's layout
+    takes h (``smem_bytes`` within one block, h <= MAX_H: every h K4 took
+    before the look-ahead body, and what the models size K4 by), the
+    look-ahead body fits one block too. The probe instances are complex64
+    q = 4 (first body), float32 q = 4, complex64 and float32 q = 2."""
+    budget = _kernels.MAX_SMEM_BYTES - 1024
+    assert sdw_update.plan(dtype, q) == "ahead"
+    for opdim in ((2,) if dtype.is_complex else (1, 2, 3)):
+        for N in range(1, sdw_update.MAX_H // q + 1):
+            nbytes, fits = k4_ahead_mirror(N, opdim, dtype, q)
+            assert sdw_update.ahead_smem_bytes(N, opdim, dtype, q) == nbytes
+            if sdw_update.smem_bytes(N, opdim, dtype, q) <= budget:
+                assert fits, (N, opdim)
+    assert sdw_update.has_probe(dtype, q) == (
+        dtype in (torch.complex64, torch.float32))
+    assert sdw_update.has_probe(torch.complex64, 4)
+    assert not sdw_update.has_probe(torch.complex128, 4)
+
+
+def test_k4_main_path_plans():
+    """The plans on the K4 cells' shapes (h = 32: sdw_o2_quickstart and
+    pt_sdw_r_grid in complex64, sdw_o1_l4 in float32; h = 64:
+    sdw_o1_full_l4 in float32; sdw_l4's complex q = 4 keeps the first
+    body) and their shared memory."""
+    for dt, q in ((torch.complex64, 2), (torch.float32, 2),
+                  (torch.float32, 4)):
+        assert sdw_update.plan(dt, q) == "ahead"
+    assert sdw_update.plan(torch.complex64, 4) == "cta"
+    assert sdw_update.ahead_smem_bytes(16, 2, torch.complex64, 2) == 10832
+    assert sdw_update.ahead_smem_bytes(16, 1, torch.float32, 2) == 5584
+    assert sdw_update.ahead_smem_bytes(16, 1, torch.float32, 4) == 20688
 
 
 # the (b, tc) instances csrc/qr_big.cu compiles (qr_plan_ok)
