@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's main paths once on one CUDA card: the
 Hubbard model and the O(3) SDW model, their sweeps and their unequal-time
-measurements, the reduced SDW chains, parallel tempering and the full real
-opdim-1 SDW chain.
+measurements, the reduced SDW chains, parallel tempering, the full real
+opdim-1 SDW chain and the analysis stack.
 
     python3 chip_smoke.py      # one card; exits 0 only if every phase passed
 
@@ -214,6 +214,14 @@ Phases (any failure raises, and the script exits non-zero):
    - sweep_simple against sweep_up on the card (the full real SDW chain
      and Hubbard, L=4, float64): identical fields, G and observables
      within 1e-8.
+23. the analysis stack on phase 21's pt_sdw_r_grid run: deteval on every
+   p{k}; mrpt --binder --jackknife 4 --maxsusc phiSquared on the card and
+   with --device cpu (mrpt.values and the printed estimates within rtol
+   1e-10, f within 1e-8); sdwcorr on the phi dump of a short sdw_l4 run
+   on the card against its CPU route (1e-12); the FS solve plus a
+   51-point curve timed on the card and on the CPU at the uncut conf's
+   sample count (8 values x 8 ensembles x 2000 sweeps, synthetic series
+   from a seed).
 Phase 19 also times K2's float32 instance (qr_f32_tc_kernel, K2c's body
 on real floats) on the opdim-1 paths' refactor blocks (n = 32 and 128)
 beside the plain QR and torch.linalg.qr, with its device time a launch,
@@ -3092,11 +3100,15 @@ class RunCapture:
         self.cls.run = self._orig
 
 
-def pt_cli_run(main, argv, drivers):
+def pt_cli_run(main, argv, drivers, keep=None):
     """``main(argv + [outdir])`` in-process on the card with the launch
     counts reset: (rc, the driver instance, {file: text of the run's
     top-level info.dat, exchange-rates.dat}, {k: p{k}'s results},
-    {k: p{k}'s file names}, launches, the log-det's launches, wall s)."""
+    {k: p{k}'s file names}, launches, the log-det's launches, wall s).
+    The run's directory is a temporary one, removed after, unless
+    ``keep`` names a directory to write it to (the analysis phase reads
+    it)."""
+    import contextlib
     import os
     import tempfile
 
@@ -3106,7 +3118,8 @@ def pt_cli_run(main, argv, drivers):
     from detqmc_tpu_torch.linalg import _kernels
     from detqmc_tpu_torch.metadata import string_to_metadata
 
-    with tempfile.TemporaryDirectory() as outdir:
+    with (tempfile.TemporaryDirectory() if keep is None
+          else contextlib.nullcontext(str(keep))) as outdir:
         torch.cuda.synchronize()
         _kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3157,15 +3170,18 @@ def pt_sdw_phase(card):
     counts and a swap accepted, finite results, median green_dev under the
     gate, phase exactly 1, the launches against the routes' formulas; then
     the wall of a round (median of N_PT_TIMED) and a profiled round.
-    Returns the run's launch counts."""
+    Returns the run's launch counts and its directory (a temporary one the
+    caller removes), which phase 23's analysis reads."""
     import math
+    import tempfile
 
     from detqmc_tpu_torch.cli.main_pt_sdw import main as cli_main
     from detqmc_tpu_torch.parallel.pt_driver import DetQMCPT
 
     argv = ["--conf", str(PT_CONF), *PT_SDW_CUT]
+    run_dir = tempfile.mkdtemp(prefix="pt_sdw_r_grid_")
     rc, qmc, info, rates, res, files, counts, ld, wall = pt_cli_run(
-        cli_main, argv, DetQMCPT)
+        cli_main, argv, DetQMCPT, keep=run_dir)
     check(rc == 0, f"pt_sdw_r_grid CLI exited {rc}")
     R, E, ei = qmc.R, qmc.E, qmc.ptp.exchange_interval
     want = {"info.dat", "results.values", "phiSquared.series",
@@ -3211,7 +3227,7 @@ def pt_sdw_phase(card):
           f"{W * 2 * ei / ms * 1e3:.1f} walker-sweeps/s on {card}")
     profile_phase(lambda: qmc.round(measure=True), ms, REDUCED_GROUPS,
                   "pt_sdw_r_grid profile", "one round")
-    return counts
+    return counts, run_dir
 
 
 def pt_hubbard_phase(card):
@@ -3373,10 +3389,10 @@ def pt_resume_check():
 def pt_phase(device, card):
     """Phase 21: parallel tempering — card-vs-CPU parity, the three PT
     configurations through the CLIs, a resume. Returns the launches of
-    the main paths."""
+    the main paths and the pt_sdw_r_grid run's directory."""
     pt_parity_phase(device)
     lap("PT parity (phase 21)")
-    counts = pt_sdw_phase(card)
+    counts, run_dir = pt_sdw_phase(card)
     lap("pt_sdw_r_grid (phase 21)")
     pt_hubbard_phase(card)
     lap("pt_hubbard_h_l8 (phase 21)")
@@ -3384,7 +3400,162 @@ def pt_phase(device, card):
     lap("detpt_sdw_beta (phase 21)")
     pt_resume_check()
     lap("PT resume (phase 21)")
-    return counts
+    return counts, run_dir
+
+
+# ---- phase 23: the analysis stack -------------------------------------------
+# the uncut examples/pt_sdw_r_grid.conf's sample count: 8 r values, 8
+# ensembles, 2000 sweeps (one row per ensemble and measurement)
+MRPT_VALUES, MRPT_SAMPLES = 8, 8 * 2000
+MRPT_TOL_F, MRPT_TOL_CURVE = 1e-8, 1e-10
+SDWCORR_TOL = 1e-12
+
+
+def analysis_phase(device, card, pt_dir):
+    """Phase 23: the port's analysis stack on phase 21's pt_sdw_r_grid run
+    (``pt_dir``, removed here): deteval on every p{k} (host NumPy: exit 0,
+    finite results); mrpt --binder --jackknife 4 --maxsusc phiSquared on
+    the card and with --device cpu (mrpt.values and the printed estimates
+    within rtol MRPT_TOL_CURVE; f within MRPT_TOL_F and a 51-point curve
+    within MRPT_TOL_CURVE by the library on the same series); sdwcorr on
+    the phi dump of a short sdw_l4 run on the card against its CPU route
+    (SDWCORR_TOL); and the FS solve plus a 51-point curve timed on the
+    card and on the CPU at the uncut conf's sample count, on synthetic
+    series made from a seed."""
+    import contextlib
+    import io
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from detqmc_tpu_torch.analysis import mrpt, sdwcorr
+    from detqmc_tpu_torch.cli.main_deteval import main as deteval_main
+    from detqmc_tpu_torch.cli.main_mrpt import load_pt_run
+    from detqmc_tpu_torch.cli.main_mrpt import main as mrpt_main
+    from detqmc_tpu_torch.driver import DetQMC, DriverConfig
+    from detqmc_tpu_torch.io.binarystream import read_binarystream
+    from detqmc_tpu_torch.io.series import load_results
+    from detqmc_tpu_torch.models.sdw import SDWConfig, SDWModel
+
+    work = tempfile.mkdtemp(prefix="analysis_")
+    subs = sorted((d for d in os.listdir(pt_dir) if d.startswith("p")),
+                  key=lambda d: int(d[1:]))
+    for d in subs:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = deteval_main([os.path.join(pt_dir, d)])
+        res = load_results(os.path.join(pt_dir, d, "eval-results.values"))
+        check(rc == 0 and res and all(np.isfinite(v).all()
+                                      for v in res.values()),
+              f"deteval {d}: rc {rc}")
+    print(f"deteval on {len(subs)} directories p0..p{len(subs) - 1}: exit "
+          f"0, {len(res)} observables each, finite")
+    num = re.compile(r"-?\d+\.\d+(?:e[-+]?\d+)?")
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        run = os.path.join(work, f"mrpt_{dev}")
+        shutil.copytree(pt_dir, run)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mrpt_main([run, "--binder", "--jackknife", "4", "--maxsusc",
+                            "phiSquared", "--device", dev])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"mrpt --device {dev}: rc {rc}")
+        outs[dev] = (np.loadtxt(os.path.join(run, "mrpt.values")),
+                     buf.getvalue().replace(run, "#"), wall)
+    (vg, og, wg), (vc, oc, wc) = outs["cuda"], outs["cpu"]
+    check(num.sub("#", og) == num.sub("#", oc), f"mrpt printed {og!r} / "
+          f"{oc!r}")
+    pg = np.array([float(x) for x in num.findall(og)])
+    pc = np.array([float(x) for x in num.findall(oc)])
+    rel = float(np.max(np.abs(vg - vc) / np.maximum(np.abs(vc), 1e-300)))
+    prel = float(np.max(np.abs(pg - pc) / np.maximum(np.abs(pc), 1e-300)))
+    check(rel <= MRPT_TOL_CURVE and prel <= MRPT_TOL_CURVE,
+          f"mrpt card vs CPU: mrpt.values {rel:.3e}, printed {prel:.3e}")
+    r, a, o = load_pt_run(pt_dir, ["phiSquared", "phiFourth"])
+    ms = {}
+    for dev in ("cuda", "cpu"):
+        ms[dev] = mrpt.MultireweightPT(r, a, o, device=dev)
+        ms[dev].solve()
+    grid = np.linspace(r.min(), r.max(), 51)
+    df = float(np.abs(ms["cuda"].f - ms["cpu"].f).max())
+    cg, cc = (ms[d].curve("phiSquared", grid) for d in ("cuda", "cpu"))
+    dc = float(np.max(np.abs(cg - cc) / np.abs(cc)))
+    check(df <= MRPT_TOL_F and dc <= MRPT_TOL_CURVE,
+          f"mrpt library card vs CPU: f {df:.3e}, curve {dc:.3e}")
+    print(f"mrpt --binder --jackknife 4 --maxsusc phiSquared on the "
+          f"pt_sdw_r_grid run ({len(subs)} values, {len(a[0])} samples "
+          f"each): card {wg:.3f} s, --device cpu {wc:.3f} s; mrpt.values "
+          f"max rel {rel:.3e}, printed estimates max rel {prel:.3e}; f "
+          f"{np.round(ms['cuda'].f, 4).tolist()} max|df| {df:.3e}, 51-point "
+          f"curve max rel {dc:.3e} (tol {MRPT_TOL_F} / {MRPT_TOL_CURVE})")
+    for line in og.strip().splitlines():
+        print("  " + line)
+
+    # sdwcorr on the phi dump of a short sdw_l4 run on the card
+    out = os.path.join(work, "sdw")
+    model = SDWModel(SDWConfig(**SDW_CFG), device=device)
+    DetQMC(model, DriverConfig(sweeps=2, thermalization=1, n_walkers=8,
+                               block_meas=1, jk_blocks=2, seed=5,
+                               outdir=out, dump_config_stream=True),
+           meta_extra={"model": "sdw"}).run()
+    phi = read_binarystream(os.path.join(out, "phi.binarystream"))
+    L = SDW_CFG["L"]
+    res = {dev: sdwcorr.phi_correlations(phi, L, device=dev)
+           for dev in ("cuda", "cpu")}
+    dcorr = max(float(np.abs(np.asarray(res["cuda"][k])
+                             - np.asarray(res["cpu"][k])).max())
+                for k in res["cpu"])
+    check(dcorr <= SDWCORR_TOL, f"sdwcorr card vs CPU {dcorr:.3e}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(sdwcorr.main([os.path.join(out, "phi.binarystream")]) == 0,
+              "sdwcorr CLI")
+    print(f"sdwcorr on an sdw_l4 phi dump ({phi.shape}): card vs CPU max "
+          f"|d| {dcorr:.3e} (tol {SDWCORR_TOL}); chi(q=0) "
+          f"{float(res['cuda']['chi_q0']):.6g}")
+
+    # the FS solve + a 51-point curve at the uncut conf's sample count
+    rng = np.random.default_rng(2000)
+    r_syn = np.array([0.0, 0.25, 0.5, 0.75, 1.0, 1.25, 1.5, 2.0])
+    A_box = 3.0
+
+    def sample(rr, n):
+        u = rng.random(n)
+        if rr == 0.0:
+            return u * A_box
+        return -np.log(1.0 - u * (1.0 - np.exp(-rr * A_box))) / rr
+
+    acts = [sample(rr, MRPT_SAMPLES) for rr in r_syn]
+    obs = {"phiSquared": [x.copy() for x in acts]}
+    grid = np.linspace(0.0, 2.0, 51)
+    timing = {}
+    for dev in ("cuda", "cpu"):
+        walls = []
+        for _ in range(3):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = mrpt.MultireweightPT(r_syn, acts, obs, device=dev)
+            m.solve()
+            curve = m.curve("phiSquared", grid)
+            walls.append(time.perf_counter() - t0)
+        timing[dev] = (statistics.median(walls), m.f, curve)
+    (tg, fg, cg), (tc, fc, cc) = timing["cuda"], timing["cpu"]
+    df = float(np.abs(fg - fc).max())
+    dc = float(np.max(np.abs(cg - cc) / np.abs(cc)))
+    check(df <= MRPT_TOL_F and dc <= MRPT_TOL_CURVE,
+          f"mrpt synthetic card vs CPU: f {df:.3e}, curve {dc:.3e}")
+    print(f"mrpt FS solve + 51-point curve at the uncut conf's sample count "
+          f"({MRPT_VALUES} values x {MRPT_SAMPLES} samples, synthetic, "
+          f"seed 2000): card {1e3 * tg:.2f} ms, CPU {1e3 * tc:.2f} ms "
+          f"(median of 3, wall), max|df| {df:.3e}, curve max rel {dc:.3e} "
+          f"on {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(pt_dir, ignore_errors=True)
 
 
 def main() -> int:
@@ -3557,11 +3728,14 @@ def main() -> int:
     quickstart_cli_phase()
     lap("quick start CLI (phase 20)")
     # phase 21: parallel tempering
-    pt_phase(device, card)
+    _, pt_dir = pt_phase(device, card)
     # phase 22: the full real opdim-1 chain and the naive cross-check
     c, k = full_real_phase(device, card)
     counts.update(c)
     kern.update(k)
+    # phase 23: the analysis stack on phase 21's PT run
+    analysis_phase(device, card, pt_dir)
+    lap("analysis (phase 23)")
 
     meta = {"slice_update": ("detqmc_tpu_torch/csrc/slice_update.cu",
                              "detqmc_tpu/linalg/pallas_update_lanes.py:185",

@@ -16,7 +16,8 @@ Vector observables write one whitespace-separated row per measurement.
     occupancy 1.0000 0.0001
 
 The port's own copy of detqmc_tpu/io/series.py: the same file formats, so
-the JAX package's analysis tools read the port's runs.
+the port's analysis tools (``detqmc_tpu_torch.analysis``) and the JAX
+package's read the port's runs.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from detqmc_tpu_torch.metadata import Metadata, metadata_to_string
+from detqmc_tpu_torch.metadata import (Metadata, metadata_to_string,
+                                       string_to_metadata)
 
 
 class SeriesWriter:
@@ -56,6 +58,31 @@ class SeriesWriter:
 
     def flush(self) -> None:  # writes are flushed per append
         pass
+
+
+def load_series(path: str) -> Tuple[np.ndarray, Metadata]:
+    """Read a .series file -> (values array, header metadata).
+
+    (Reference: DataSeriesLoader.) Scalar series -> (T,), vector -> (T, k).
+    """
+    header_lines = []
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            if line.startswith("##"):
+                header_lines.append(line[2:].strip())
+            elif line.startswith("#"):
+                continue
+            else:
+                rows.append([float(t) for t in line.split()])
+    meta = string_to_metadata("\n".join(header_lines))
+    arr = np.asarray(rows)
+    if arr.ndim == 2 and arr.shape[1] == 1:
+        arr = arr[:, 0]
+    return arr, meta
 
 
 def write_results(path: str, results: Dict[str, Tuple[float, float]],

@@ -39,3 +39,8 @@ def write_metadata(path: str | os.PathLike, meta: Metadata) -> None:
     with open(tmp, "w") as f:
         f.write(metadata_to_string(meta))
     os.replace(tmp, path)  # atomic-ish, like the reference's save pattern
+
+
+def read_metadata(path: str | os.PathLike) -> Metadata:
+    with open(path) as f:
+        return string_to_metadata(f.read())

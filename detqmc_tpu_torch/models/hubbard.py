@@ -22,9 +22,13 @@ From JAX to PyTorch:
   ``HubbardModel.routes``: the delayed rank-k update (K1b) when ``delay >
   0`` or ``update_kernel="pallas"``, as the JAX model routes it, and on
   the card also when G does not fit K1's shared memory (N > 128); the
-  rank-1 update (K1) otherwise. ``green_kernel`` is validated and
-  otherwise not read; ``"refine"`` is not ported yet and raises
-  NotImplementedError.
+  rank-1 update (K1) otherwise. ``green_kernel`` "auto", "xla",
+  "pallas" and "refine" all mean the inner solve K3 (K8 + K9 beyond one
+  block); "refine" keeps the JAX model's rule (float32 with the f64
+  stabilization island, else ValueError), and ``green_refine_iters`` is
+  accepted and not read. The JAX refine route (a float32 QR, R^{-1} and
+  Newton-Schulz steps) was slower than the inner solve on the card at
+  equal or worse green_dev (PERF.md; ROADMAP.md Queue 3, Divergences).
 - ``stab_dtype`` and ``ozaki_chain_limbs`` are accepted and not read: the
   whole UdV stack (U, d and V), the lazy block products that feed its
   refactor QR, the inner matrix and its solve are always f64 (native on
@@ -39,8 +43,9 @@ Unequal-time measurements (``timedisplaced``, ``timedisplacedSlices`` and
 ``currentCorrelators`` of detqmc_tpu/driver.py): ``_td_stacks`` builds
 both half-chain stacks from the field, ``time_displaced_greens`` solves
 G(tau, 0) at the K+1 anchors with the dense-RHS inner solve
-(udv.green_tau_zero: K3's ``_rhs`` entry on the card; the JAX model's
-df32 / refine choice of that solve is a TPU device and is not ported),
+(udv.green_tau_zero: K3's ``_rhs`` entry on the card, on every
+``green_kernel``; the JAX model's df32 / refine choices of that solve are
+not ported),
 the ``_all`` variants wrap between anchors to every slice, and
 ``measure_time_displaced``, ``pair_susceptibilities`` and
 ``measure_current_correlators`` reduce them. Walkers lead, then the
@@ -214,15 +219,19 @@ class HubbardModel(nn.Module):
     def __init__(self, cfg: HubbardConfig, device=None):
         super().__init__()
         if cfg.green_kernel == "refine":
-            raise NotImplementedError(
-                "green_kernel='refine' is not ported yet: ROADMAP.md "
-                "Queue 1 item 9 (the refine route with the trinv kernel)")
+            # the JAX model's rule (hubbard.py:323-330): float32 with the
+            # f64 stabilization island
+            stab = (("float64" if cfg.dtype == "float32" else cfg.dtype)
+                    if cfg.stab_dtype == "auto" else cfg.stab_dtype)
+            if cfg.dtype != "float32" or stab == cfg.dtype:
+                raise ValueError("green_kernel='refine' needs dtype="
+                                 "float32 with the f64 stab island")
         if cfg.update_kernel not in ("auto", "scan", "pallas", "lanes"):
             raise ValueError(f"unknown update_kernel {cfg.update_kernel!r}")
         if cfg.update_kernel == "lanes" and cfg.delay > 0:
             raise ValueError("update_kernel='lanes' has no delayed path "
                              "(use 'pallas' or 'scan')")
-        if cfg.green_kernel not in ("auto", "xla", "pallas"):
+        if cfg.green_kernel not in ("auto", "xla", "pallas", "refine"):
             raise ValueError(f"unknown green_kernel {cfg.green_kernel!r}")
         if cfg.ph_on and cfg.mu != 0.0:
             raise ValueError("ph_symmetry='on' requires mu == 0")

@@ -33,7 +33,13 @@ float32 or float64, d and V in float64. None of the TPU's representations
 is ported: no (re, im) pair planes, no real rho-embedding, no df32, no
 Ozaki limbs (ROADMAP.md Queue 1 item 12). So ``fermion_repr`` "auto",
 "complex" and "native_pair" all mean native complex, and
-``green_kernel`` "auto", "xla", "df32" and "pallas" all mean K3c;
+``green_kernel`` "auto", "xla", "df32", "pallas" and "refine" all mean
+the inner solve K3c (K3 on the real chain; K8 + K9 beyond one block);
+"refine" keeps the JAX model's rule (the native complex chain or a real
+float32 one, else ValueError). The JAX refine route (a float32 /
+complex64 QR, R^{-1} and Newton-Schulz steps), which the JAX model's
+"auto" takes on its native chain, was slower than the inner solve on the
+card at equal green_dev (PERF.md; ROADMAP.md Queue 3, Divergences).
 ``green_refine_iters``, ``ozaki_chain_limbs``, ``stab_dtype`` and
 ``wrap_prec`` are accepted and not read (wraps always run at full
 precision). ``cb_apply="sparse"`` runs the dense checkerboard product,
@@ -109,9 +115,8 @@ runs the sweep's site updates on such a G at every slice with the same
 draws as ``sweep_up``, so both walk the same chain.
 
 Not ported (each raises NotImplementedError naming ROADMAP.md): the real
-embedding (Queue 1 item 12, a TPU device), the refine green route (item
-9), dims above 512 (L >= 12 full, L >= 17 reduced) on a CUDA device, and
-there ``update_kernel="pallas"`` / ``"scan"`` (K4) at a dim whose G
+embedding (Queue 1 item 12, a TPU device), dims above 512 (L >= 12
+full, L >= 17 reduced) on a CUDA device, and there ``update_kernel="pallas"`` / ``"scan"`` (K4) at a dim whose G
 exceeds K4's shared memory. An explicit ``wrap_kernel="fused"`` where K6
 has no instance or no plan raises ValueError on a CUDA device, as the JAX
 model refuses a fused wrap outside its native-pair chain.
@@ -362,7 +367,8 @@ class SDWModel(nn.Module):
     def __init__(self, cfg: SDWConfig, device=None):
         super().__init__()
         self._check_ported(cfg)
-        if cfg.green_kernel not in ("auto", "xla", "df32", "pallas"):
+        if cfg.green_kernel not in ("auto", "xla", "df32", "pallas",
+                                    "refine"):
             raise ValueError(f"unknown green_kernel {cfg.green_kernel!r}")
         self.cfg = cfg
         self.lat = lattice_mod.SquareLattice(cfg.L)
@@ -453,9 +459,12 @@ class SDWModel(nn.Module):
                             "to be ported)", "ROADMAP.md Queue 1 item 12")
         if cfg.fermion_repr not in ("auto", "complex", "native_pair"):
             raise ValueError(f"bad fermion_repr {cfg.fermion_repr!r}")
-        if cfg.green_kernel == "refine":
-            raise _unported("green_kernel='refine'",
-                            "ROADMAP.md Queue 1 item 9")
+        if cfg.green_kernel == "refine" and cfg.cdtype == torch.float64:
+            # the JAX model's rule (sdw.py:596-600): the native complex
+            # chain or a real float32 matrix
+            raise ValueError("green_kernel='refine' needs the native-pair "
+                             "chain or a real f32 fermion matrix (embed or "
+                             "opdim 1)")
         if cfg.turnoffFermions and cfg.update_kernel in ("pallas",
                                                           "delayed"):
             raise ValueError(f"update_kernel={cfg.update_kernel!r} is a "

@@ -179,12 +179,16 @@ def test_model_buffers_and_unported_paths():
     bufs = dict(model.named_buffers())
     for name in ("expK", "expK_inv", "K_mat", "stagger", "disp_idx"):
         assert name in bufs
-    # the delayed update (K1b) builds; the refine route is not ported
+    # the delayed update (K1b) builds; green_kernel="refine" (the inner
+    # solve, as "auto") builds in float32 with the f64 stack and is refused
+    # in float64, as in the JAX model (tests/test_torch_refine.py)
     delayed = th.HubbardModel(th.HubbardConfig(L=2, m=4, s=2, delay=2),
                               device="cpu")
     assert delayed.route == {"update": "slice_update_delayed", "chunk": 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.HubbardModel(th.HubbardConfig(L=2, m=4, s=2,
+    th.HubbardModel(th.HubbardConfig(L=2, m=4, s=2, green_kernel="refine"),
+                    device="cpu")
+    with pytest.raises(ValueError, match="refine"):
+        th.HubbardModel(th.HubbardConfig(L=2, m=4, s=2, dtype="float64",
                                          green_kernel="refine"),
                         device="cpu")
 

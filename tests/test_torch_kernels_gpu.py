@@ -173,7 +173,12 @@ Tolerances (same inputs, same card):
   SM, a walker's tiles on two CTAs): within 1e-5 / 1e-12 of max|G|; the
   q = 2 probe instances (complex64, float32) equal to the production
   ones.
+- the analysis stack's card routes: mrpt (f within 1e-8, curves, the
+  golden-section maximum and a jackknifed Binder estimate within rtol
+  1e-10 of its CPU route) and sdwcorr (within 1e-12).
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -198,6 +203,22 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _each(check, device, *grids):
+    """``check(device, **case)`` for every case of the parametrize-style
+    ``grids`` ((argnames, values), ...): one test runs every shape on the
+    card (the cases would all skip off it), and a failing case is named."""
+    for combo in itertools.product(*[values for _, values in grids]):
+        case = {}
+        for (argnames, _), value in zip(grids, combo):
+            keys = [k.strip() for k in argnames.split(",")]
+            case.update(zip(keys, value) if len(keys) > 1
+                        else {keys[0]: value})
+        try:
+            check(device, **case)
+        except AssertionError as e:
+            raise AssertionError(f"case {case}: {e}") from e
+
+
 def _model_state(device, ph="on", dtype="float64", L=4, W=3, seed=0,
                  delay=0):
     cfg = HubbardConfig(L=L, U=4.0, beta=4.0, m=16, s=4, dtype=dtype,
@@ -207,10 +228,7 @@ def _model_state(device, ph="on", dtype="float64", L=4, W=3, seed=0,
     return model, model.init_state(W, gen), gen
 
 
-@pytest.mark.parametrize("ph", ["on", "off"])
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("L", [4, 8, 10])
-def test_slice_update_kernel_matches_plain(cuda_device, ph, dtype, L):
+def _slice_update_kernel_matches_plain(cuda_device, ph, dtype, L):
     model, state, gen = _model_state(cuda_device, ph, dtype, L=L)
     G = model.wrap_up(state.G, model.exp_v(state.field[:, 0])).contiguous()
     fl = state.field[:, 0].contiguous()
@@ -238,6 +256,13 @@ def test_slice_update_kernel_matches_plain(cuda_device, ph, dtype, L):
     assert float((Gk - Gp).abs().max()) <= tol
 
 
+def test_slice_update_kernel_matches_plain(cuda_device):
+    _each(_slice_update_kernel_matches_plain, cuda_device,
+          ("L", [4, 8, 10]),
+          ("dtype", ["float32", "float64"]),
+          ("ph", ["on", "off"]))
+
+
 # (L, C) of float64 shapes K1 takes (4 x 4 tiles up to L = 8, 4 x 8 at
 # L = 10 with one sector; L = 10 with two sectors and L = 11 go to K1b): a
 # pure function of the sizes, the same on every worker
@@ -245,9 +270,7 @@ K1_CASES = [(L, C) for L in (4, 8, 10, 11) for C in (1, 2)
             if slice_update.fits(C, L * L, torch.float64)]
 
 
-@pytest.mark.parametrize("L,C", K1_CASES)
-@pytest.mark.parametrize("u", ["accept", "reject", "uniform"])
-def test_k1_redesign_bitwise_f64(cuda_device, u, L, C):
+def _k1_redesign_bitwise_f64(cuda_device, u, L, C):
     """K1 with G in register tiles at every accept rate, each plan
     through the shape that selects it: bitwise equal to the plain version
     in float64; its probe instance too."""
@@ -279,10 +302,13 @@ def test_k1_redesign_bitwise_f64(cuda_device, u, L, C):
         assert torch.equal(ref[1], fl) and float(ref[3].abs().max()) == 0
 
 
-@pytest.mark.parametrize("dtype,tol,sizes", [
-    (torch.float32, 1e-4, (16, 64, 128)),
-    (torch.float64, 1e-10, (16, 64, 112))])
-def test_qr_kernel_matches_plain(cuda_device, dtype, tol, sizes):
+def test_k1_redesign_bitwise_f64(cuda_device):
+    _each(_k1_redesign_bitwise_f64, cuda_device,
+          ("u", ["accept", "reject", "uniform"]),
+          ("L,C", K1_CASES))
+
+
+def _qr_kernel_matches_plain(cuda_device, dtype, tol, sizes):
     rng = np.random.default_rng(5)
     for n in sizes:
         A = torch.as_tensor(np.eye(n) + 0.3 * rng.standard_normal((7, n, n)),
@@ -294,6 +320,13 @@ def test_qr_kernel_matches_plain(cuda_device, dtype, tol, sizes):
         fp = _sign_fix(*qr.qr_plain(A))
         for a, b in zip(fk, fp):
             assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def test_qr_kernel_matches_plain(cuda_device):
+    _each(_qr_kernel_matches_plain, cuda_device,
+          ("dtype,tol,sizes", [
+            (torch.float32, 1e-4, (16, 64, 128)),
+            (torch.float64, 1e-10, (16, 64, 112))]))
 
 
 def test_qr_refuses_beyond_shared_memory(cuda_device):
@@ -324,8 +357,7 @@ def test_solve_inner_kernel_matches_plain(cuda_device):
     assert bool((amax(mk - mp) / amax(mp) <= bound).all())
 
 
-@pytest.mark.parametrize("ph", ["on", "off"])
-def test_sweep_on_card_matches_cpu(cuda_device, ph):
+def _sweep_on_card_matches_cpu(cuda_device, ph):
     cfg = HubbardConfig(L=4, U=4.0, beta=2.0, m=8, s=4, dtype="float64",
                         ph_symmetry=ph)
     cpu = HubbardModel(cfg, device="cpu")
@@ -348,6 +380,11 @@ def test_sweep_on_card_matches_cpu(cuda_device, ph):
     assert torch.equal(sg.field.cpu(), sc.field)
     assert torch.equal(sg.sign.cpu(), sc.sign)
     assert float((sg.G.cpu() - sc.G).abs().max()) <= 1e-10
+
+
+def test_sweep_on_card_matches_cpu(cuda_device):
+    _each(_sweep_on_card_matches_cpu, cuda_device,
+          ("ph", ["on", "off"]))
 
 
 def _sdw(device, L=4, dtype="float64", W=3, seed=0):
@@ -400,9 +437,7 @@ def _check_k4(args, extra):
     return k
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("L", [1, 2, 3, 4, 5])
-def test_sdw_update_kernel_matches_plain(cuda_device, dtype, L):
+def _sdw_update_kernel_matches_plain(cuda_device, dtype, L):
     """K4 on the SDW model's own slice-1 operands at every L the immediate
     route takes (h = 4 ... 100), the _check_k4 criteria; one CTA per SM at
     least."""
@@ -413,9 +448,13 @@ def test_sdw_update_kernel_matches_plain(cuda_device, dtype, L):
                                     cuda_device) >= 1
 
 
-@pytest.mark.parametrize("dtype,N", [("complex64", 17), ("complex64", 40),
-                                     ("complex128", 17), ("complex128", 28)])
-def test_k4_at_the_shared_memory_limits(cuda_device, dtype, N):
+def test_sdw_update_kernel_matches_plain(cuda_device):
+    _each(_sdw_update_kernel_matches_plain, cuda_device,
+          ("L", [1, 2, 3, 4, 5]),
+          ("dtype", ["float32", "float64"]))
+
+
+def _k4_at_the_shared_memory_limits(cuda_device, dtype, N):
     """K4 on synthetic operands (W = 130, acceptance ~0.5) at h = 68 and
     at the largest h each dtype takes (h = 160 in complex64, 112 in
     complex128: the model's limits through smem_bytes and MAX_H): the
@@ -429,10 +468,13 @@ def test_k4_at_the_shared_memory_limits(cuda_device, dtype, N):
             _kernels.MAX_SMEM_BYTES - 1024 or 4 * (N + 1) > sdw_update.MAX_H
 
 
-@pytest.mark.parametrize("dtype,tol,sizes", [
-    (torch.complex64, 1e-4, (16, 64, 112)),
-    (torch.complex128, 1e-10, (16, 64, 80))])
-def test_qr_complex_kernel_matches_plain(cuda_device, dtype, tol, sizes):
+def test_k4_at_the_shared_memory_limits(cuda_device):
+    _each(_k4_at_the_shared_memory_limits, cuda_device,
+          ("dtype,N", [("complex64", 17), ("complex64", 40),
+                                     ("complex128", 17), ("complex128", 28)]))
+
+
+def _qr_complex_kernel_matches_plain(cuda_device, dtype, tol, sizes):
     rng = np.random.default_rng(6)
     for n in sizes:
         A = torch.as_tensor(np.eye(n) + 0.3 * rng.standard_normal((5, n, n))
@@ -445,6 +487,13 @@ def test_qr_complex_kernel_matches_plain(cuda_device, dtype, tol, sizes):
         fp = _sign_fix(*qr.qr_plain(A))
         for a, b in zip(fk, fp):
             assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def test_qr_complex_kernel_matches_plain(cuda_device):
+    _each(_qr_complex_kernel_matches_plain, cuda_device,
+          ("dtype,tol,sizes", [
+            (torch.complex64, 1e-4, (16, 64, 112)),
+            (torch.complex128, 1e-10, (16, 64, 80))]))
 
 
 def test_qr_complex_refuses_beyond_shared_memory(cuda_device):
@@ -529,11 +578,7 @@ def _k5_operands(device, N, cdt, W, seed):
     return [x.contiguous() for x in (G, phi, phi_new, lhs, delta)], nb
 
 
-@pytest.mark.parametrize("W", [3, 130])
-@pytest.mark.parametrize("N", [16, 64, 128])
-@pytest.mark.parametrize("K", [1, 3, 8, 16])
-@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
-def test_sdw_delayed_kernel_matches_plain(cuda_device, dtype, K, N, W):
+def _sdw_delayed_kernel_matches_plain(cuda_device, dtype, K, N, W):
     """K5 over one slice (one launch; K = 3 leaves a ragged last chunk;
     h = 64, 256, 512: the slots in shared memory, R there and C in the
     global scratch, or both in the scratch, as the plan says) against the
@@ -582,9 +627,15 @@ def test_sdw_delayed_kernel_matches_plain(cuda_device, dtype, K, N, W):
     assert sdw_delayed.blocks_per_sm(N, cdt, K, cuda_device) >= 1
 
 
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-12)])
-@pytest.mark.parametrize("L,cb", [(2, False), (4, True), (8, True)])
-def test_sdw_wrap_kernel_matches_plain(cuda_device, dtype, tol, L, cb):
+def test_sdw_delayed_kernel_matches_plain(cuda_device):
+    _each(_sdw_delayed_kernel_matches_plain, cuda_device,
+          ("dtype", ["complex64", "complex128"]),
+          ("K", [1, 3, 8, 16]),
+          ("N", [16, 64, 128]),
+          ("W", [3, 130]))
+
+
+def _sdw_wrap_kernel_matches_plain(cuda_device, dtype, tol, L, cb):
     cfg = SDWConfig(L=L, opdim=3, r=0.5, beta=4.0, m=8, s=4, dtype=dtype,
                     checkerboard=cb)
     model = SDWModel(cfg, device=cuda_device)
@@ -605,10 +656,13 @@ def test_sdw_wrap_kernel_matches_plain(cuda_device, dtype, tol, L, cb):
         assert float((k - p).abs().max()) <= tol * float(p.abs().max())
 
 
-@pytest.mark.parametrize("dtype,tol,sizes", [
-    (torch.complex64, 1e-4, (120, 144, 256)),
-    (torch.complex128, 1e-10, (96, 144, 256))])
-def test_qr_big_kernel_matches_plain(cuda_device, dtype, tol, sizes):
+def test_sdw_wrap_kernel_matches_plain(cuda_device):
+    _each(_sdw_wrap_kernel_matches_plain, cuda_device,
+          ("L,cb", [(2, False), (4, True), (8, True)]),
+          ("dtype,tol", [("float32", 1e-5), ("float64", 1e-12)]))
+
+
+def _qr_big_kernel_matches_plain(cuda_device, dtype, tol, sizes):
     rng = np.random.default_rng(7)
     for n in sizes:
         assert qr.kernel_for(n, dtype) == "qr_complex_big"
@@ -624,8 +678,14 @@ def test_qr_big_kernel_matches_plain(cuda_device, dtype, tol, sizes):
             assert float((a - b).abs().max()) <= tol * float(b.abs().max())
 
 
-@pytest.mark.parametrize("L", [6, 8])
-def test_solve_inner_big_kernel_matches_plain(cuda_device, L):
+def test_qr_big_kernel_matches_plain(cuda_device):
+    _each(_qr_big_kernel_matches_plain, cuda_device,
+          ("dtype,tol,sizes", [
+            (torch.complex64, 1e-4, (120, 144, 256)),
+            (torch.complex128, 1e-10, (96, 144, 256))]))
+
+
+def _solve_inner_big_kernel_matches_plain(cuda_device, L):
     model, st, _ = _sdw(cuda_device, L=L, W=4)
     f = model._eye_mixed(4)
     for l in range(1, 5):
@@ -646,12 +706,12 @@ def test_solve_inner_big_kernel_matches_plain(cuda_device, L):
     assert bool((amax(mk - mp) / amax(mp) <= bound).all())
 
 
-@pytest.mark.parametrize("dtype,tol", [
-    (torch.float32, 1e-4), (torch.float64, 1e-12), (torch.complex64, 1e-4),
-    (torch.complex128, 1e-12)])
-@pytest.mark.parametrize("n", [40, 256, 300])
-@pytest.mark.parametrize("rhs", [False, True], ids=["inverse", "rhs"])
-def test_trinv_kernel_matches_plain(cuda_device, dtype, tol, n, rhs):
+def test_solve_inner_big_kernel_matches_plain(cuda_device):
+    _each(_solve_inner_big_kernel_matches_plain, cuda_device,
+          ("L", [6, 8]))
+
+
+def _trinv_kernel_matches_plain(cuda_device, dtype, tol, n, rhs):
     # R of a well-conditioned matrix (the inverse of a random triangle
     # grows like 2^n), with a column grading as the inner matrix has
     gen = torch.Generator(cuda_device).manual_seed(n)
@@ -671,10 +731,16 @@ def test_trinv_kernel_matches_plain(cuda_device, dtype, tol, n, rhs):
         assert float(torch.tril(got, -1).abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("L,kw", [
-    (2, dict(update_kernel="delayed", delay=3, wrap_kernel="fused")),
-    (6, dict())])
-def test_sdw_sweep_delayed_fused_on_card_matches_cpu(cuda_device, L, kw):
+def test_trinv_kernel_matches_plain(cuda_device):
+    _each(_trinv_kernel_matches_plain, cuda_device,
+          ("rhs", [False, True]),
+          ("n", [40, 256, 300]),
+          ("dtype,tol", [
+            (torch.float32, 1e-4), (torch.float64, 1e-12),
+            (torch.complex64, 1e-4), (torch.complex128, 1e-12)]))
+
+
+def _sdw_sweep_delayed_fused_on_card_matches_cpu(cuda_device, L, kw):
     cfg = SDWConfig(L=L, opdim=3, r=0.5, beta=1.0, m=8, s=4,
                     dtype="float64", **kw)
     cpu = SDWModel(cfg, device="cpu")
@@ -706,9 +772,14 @@ def test_sdw_sweep_delayed_fused_on_card_matches_cpu(cuda_device, L, kw):
     assert float((sg.G.cpu() - sc.G).abs().max()) <= 1e-10
 
 
-@pytest.mark.parametrize("case", ["hubbard-f64-64", "sdw-c128-64",
-                                  "sdw-c128-144", "sdw-c128-256"])
-def test_solve_inner_rhs_kernel_matches_plain(cuda_device, case):
+def test_sdw_sweep_delayed_fused_on_card_matches_cpu(cuda_device):
+    _each(_sdw_sweep_delayed_fused_on_card_matches_cpu, cuda_device,
+          ("L,kw", [
+            (2, dict(update_kernel="delayed", delay=3, wrap_kernel="fused")),
+            (6, dict())]))
+
+
+def _solve_inner_rhs_kernel_matches_plain(cuda_device, case):
     if case.startswith("hubbard"):
         model, st, _ = _model_state(cuda_device, "off", "float64", L=8, W=2)
         x = st.field
@@ -736,6 +807,12 @@ def test_solve_inner_rhs_kernel_matches_plain(cuda_device, case):
     assert bool((amax(xk - xp) / amax(xp) <= bound).all())
 
 
+def test_solve_inner_rhs_kernel_matches_plain(cuda_device):
+    _each(_solve_inner_rhs_kernel_matches_plain, cuda_device,
+          ("case", ["hubbard-f64-64", "sdw-c128-64",
+                                  "sdw-c128-144", "sdw-c128-256"]))
+
+
 def test_solve_inner_rhs_refuses_real_beyond_one_block(cuda_device):
     # beyond K3r's block float64 goes to K8-rhs, beyond qr.MAX_N_BIG
     # nothing takes it
@@ -753,8 +830,7 @@ def _close_on_card(got, ref, tol=1e-10):
         assert float((a.cpu() - b).abs().max()) <= tol
 
 
-@pytest.mark.parametrize("ph", ["on", "off"])
-def test_hubbard_dynamics_on_card_match_cpu(cuda_device, ph):
+def _hubbard_dynamics_on_card_match_cpu(cuda_device, ph):
     cfg = HubbardConfig(L=4, U=4.0, beta=2.0, m=8, s=4, dtype="float64",
                         ph_symmetry=ph)
     cpu = HubbardModel(cfg, device="cpu")
@@ -779,8 +855,12 @@ def test_hubbard_dynamics_on_card_match_cpu(cuda_device, ph):
     assert _kernels.LAUNCHES["solve_inner"] == 2
 
 
-@pytest.mark.parametrize("L", [2, 6])
-def test_sdw_dynamics_on_card_match_cpu(cuda_device, L):
+def test_hubbard_dynamics_on_card_match_cpu(cuda_device):
+    _each(_hubbard_dynamics_on_card_match_cpu, cuda_device,
+          ("ph", ["on", "off"]))
+
+
+def _sdw_dynamics_on_card_match_cpu(cuda_device, L):
     cfg = SDWConfig(L=L, opdim=3, r=0.5, beta=1.0, m=8, s=4,
                     dtype="float64")
     cpu = SDWModel(cfg, device="cpu")
@@ -804,15 +884,12 @@ def test_sdw_dynamics_on_card_match_cpu(cuda_device, L):
         assert _kernels.LAUNCHES["sdw_apply"] >= 2 * cfg.s
 
 
-@pytest.mark.parametrize("dtype,ph,L,k", [
-    ("float64", "on", 4, 3), ("float64", "off", 12, 5),
-    ("float64", "on", 16, 16), ("float32", "on", 16, 16),
-    ("float32", "off", 12, 24),
-    # ragged flush tiles: N % 8 = 4 (float32's 8-wide tile rows end in
-    # scalar loads), N % 4 = 1 (no vector loads at all)
-    ("float32", "off", 10, 7), ("float32", "on", 14, 16),
-    ("float64", "off", 5, 4)])
-def test_slice_update_delayed_kernel_matches_plain(cuda_device, dtype, ph, L,
+def test_sdw_dynamics_on_card_match_cpu(cuda_device):
+    _each(_sdw_dynamics_on_card_match_cpu, cuda_device,
+          ("L", [2, 6]))
+
+
+def _slice_update_delayed_kernel_matches_plain(cuda_device, dtype, ph, L,
                                                    k):
     model, state, gen = _model_state(cuda_device, ph, dtype, L=L, W=3,
                                      delay=k)
@@ -850,10 +927,19 @@ def test_slice_update_delayed_kernel_matches_plain(cuda_device, dtype, ph, L,
     assert float((Gk - Gp)[same].abs().max()) <= 1e-5 * float(Gp.abs().max())
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.float64, 1e-10)])
-@pytest.mark.parametrize("n", [144, 256])
-def test_qr_big_real_kernel_matches_plain(cuda_device, dtype, tol, n):
+def test_slice_update_delayed_kernel_matches_plain(cuda_device):
+    _each(_slice_update_delayed_kernel_matches_plain, cuda_device,
+          ("dtype,ph,L,k", [
+            ("float64", "on", 4, 3), ("float64", "off", 12, 5),
+            ("float64", "on", 16, 16), ("float32", "on", 16, 16),
+            ("float32", "off", 12, 24),
+            # ragged flush tiles: N % 8 = 4 (float32's 8-wide tile rows end in
+            # scalar loads), N % 4 = 1 (no vector loads at all)
+            ("float32", "off", 10, 7), ("float32", "on", 14, 16),
+            ("float64", "off", 5, 4)]))
+
+
+def _qr_big_real_kernel_matches_plain(cuda_device, dtype, tol, n):
     assert qr.kernel_for(n, dtype) == "qr_big"
     rng = np.random.default_rng(n)
     # well conditioned: the sign-fixed factors of two f32 QRs differ by
@@ -872,9 +958,14 @@ def test_qr_big_real_kernel_matches_plain(cuda_device, dtype, tol, n):
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
 
 
-@pytest.mark.parametrize("rhs", [False, True], ids=["diag", "rhs"])
-@pytest.mark.parametrize("L", [12, 16])
-def test_solve_inner_big_real_kernels_match_plain(cuda_device, L, rhs):
+def test_qr_big_real_kernel_matches_plain(cuda_device):
+    _each(_qr_big_real_kernel_matches_plain, cuda_device,
+          ("n", [144, 256]),
+          ("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)]))
+
+
+def _solve_inner_big_real_kernels_match_plain(cuda_device, L, rhs):
     model, st, _ = _model_state(cuda_device, "off", "float64", L=L, W=2)
     n = L * L
     if rhs:
@@ -904,8 +995,13 @@ def test_solve_inner_big_real_kernels_match_plain(cuda_device, L, rhs):
     assert bool((amax(xk - xp) / amax(xp) <= bound).all())
 
 
-@pytest.mark.parametrize("delay,ph", [(3, "auto"), (0, "off")])
-def test_hubbard_l12_sweep_on_card_matches_cpu(cuda_device, delay, ph):
+def test_solve_inner_big_real_kernels_match_plain(cuda_device):
+    _each(_solve_inner_big_real_kernels_match_plain, cuda_device,
+          ("L", [12, 16]),
+          ("rhs", [False, True]))
+
+
+def _hubbard_l12_sweep_on_card_matches_cpu(cuda_device, delay, ph):
     cfg = HubbardConfig(L=12, U=4.0, beta=2.0, m=8, s=4, dtype="float64",
                         ph_symmetry=ph, delay=delay)
     cpu = HubbardModel(cfg, device="cpu")
@@ -935,6 +1031,11 @@ def test_hubbard_l12_sweep_on_card_matches_cpu(cuda_device, delay, ph):
     assert torch.equal(sg.sign.cpu(), sc.sign)
     assert float((sg.G.cpu() - sc.G).abs().max()) <= 1e-10
     _close_on_card(og, oc)
+
+
+def test_hubbard_l12_sweep_on_card_matches_cpu(cuda_device):
+    _each(_hubbard_l12_sweep_on_card_matches_cpu, cuda_device,
+          ("delay,ph", [(3, "auto"), (0, "off")]))
 
 
 def test_mma884_fragment_mapping(cuda_device):
@@ -1006,17 +1107,20 @@ def _check_k8(inner, gen, rhs, plan=None, cond=1e11):
     assert bool((amax(xk - xp) / amax(xp) <= bound).all())
 
 
-@pytest.mark.parametrize("batch", [1, 133, 300])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
-@pytest.mark.parametrize("n", [120, 136, 200, 255, 256, 384, 512])
-def test_k8_redesign_matches_plain(cuda_device, n, dtype, batch):
+def _k8_redesign_matches_plain(cuda_device, n, dtype, batch):
     inner, gen = _graded_inner(batch, n, dtype, cuda_device, n + batch)
     for rhs in (False, True):
         _check_k8(inner, gen, rhs)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
-def test_k8_every_plan_matches_plain(cuda_device, dtype):
+def test_k8_redesign_matches_plain(cuda_device):
+    _each(_k8_redesign_matches_plain, cuda_device,
+          ("n", [120, 136, 200, 255, 256, 384, 512]),
+          ("dtype", [torch.float64, torch.complex128]),
+          ("batch", [1, 133, 300]))
+
+
+def _k8_every_plan_matches_plain(cuda_device, dtype):
     inner, gen = _graded_inner(3, 256, dtype, cuda_device, 7)
     plans = set(green_solve._BIG_PLANS[dtype]
                 + green_solve._BIG_PLANS_TWO_CTA[dtype])
@@ -1027,8 +1131,12 @@ def test_k8_every_plan_matches_plain(cuda_device, dtype):
                 _check_k8(inner, gen, rhs, plan)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
-def test_two_cta_plans_fit_twice(cuda_device, dtype):
+def test_k8_every_plan_matches_plain(cuda_device):
+    _each(_k8_every_plan_matches_plain, cuda_device,
+          ("dtype", [torch.float64, torch.complex128]))
+
+
+def _two_cta_plans_fit_twice(cuda_device, dtype):
     sms = _kernels.sm_count(cuda_device)
     for plan in green_solve._BIG_PLANS_TWO_CTA[dtype] + (
             (8, 8, 1),) * (dtype == torch.complex128):
@@ -1045,6 +1153,11 @@ def test_two_cta_plans_fit_twice(cuda_device, dtype):
     assert trinv.blocks_per_sm(256, dtype, p9, cuda_device) >= 2
 
 
+def test_two_cta_plans_fit_twice(cuda_device):
+    _each(_two_cta_plans_fit_twice, cuda_device,
+          ("dtype", [torch.float64, torch.complex128]))
+
+
 def _triangle(B, n, dtype, device, seed):
     gen = torch.Generator(device).manual_seed(seed)
     eye = torch.eye(n, dtype=dtype, device=device)
@@ -1054,8 +1167,7 @@ def _triangle(B, n, dtype, device, seed):
     return torch.linalg.qr(A).R.contiguous(), gen
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
-def test_trinv_every_plan_matches_plain(cuda_device, dtype):
+def _trinv_every_plan_matches_plain(cuda_device, dtype):
     n = 256
     R, gen = _triangle(3, n, dtype, cuda_device, 9)
     X = torch.randn((3, n, n), generator=gen, dtype=dtype, device=cuda_device)
@@ -1070,11 +1182,12 @@ def test_trinv_every_plan_matches_plain(cuda_device, dtype):
         assert float(((got - ref).abs() / col).max()) <= 1e-12, plan
 
 
-@pytest.mark.parametrize("dtype,tol", [
-    (torch.float32, 1e-4), (torch.float64, 1e-12), (torch.complex64, 1e-4),
-    (torch.complex128, 1e-12)])
-@pytest.mark.parametrize("batch", [2, 133])
-def test_trinv_zero_diagonal_is_guarded(cuda_device, dtype, tol, batch):
+def test_trinv_every_plan_matches_plain(cuda_device):
+    _each(_trinv_every_plan_matches_plain, cuda_device,
+          ("dtype", [torch.float64, torch.complex128]))
+
+
+def _trinv_zero_diagonal_is_guarded(cuda_device, dtype, tol, batch):
     # an exactly zero R_jj takes pallas_trinv_common.py's guarded
     # reciprocal: 1 / (0 + 1) in the real case, 0 in the complex one
     n = 136
@@ -1096,6 +1209,14 @@ def test_trinv_zero_diagonal_is_guarded(cuda_device, dtype, tol, batch):
     assert bool(torch.isfinite(got).all())
     col = ref.abs().amax(-2, keepdim=True).clamp_min(1e-30)
     assert float(((got.to(ref.dtype) - ref).abs() / col).max()) <= tol
+
+
+def test_trinv_zero_diagonal_is_guarded(cuda_device):
+    _each(_trinv_zero_diagonal_is_guarded, cuda_device,
+          ("batch", [2, 133]),
+          ("dtype,tol", [
+            (torch.float32, 1e-4), (torch.float64, 1e-12),
+            (torch.complex64, 1e-4), (torch.complex128, 1e-12)]))
 
 
 # (k, L, C) whose float64 buffers fit one block (C = 2 at k = 32 fits only
@@ -1133,9 +1254,7 @@ def test_k1b_redesign_bitwise_f64(cuda_device, u, k, L, C):
         assert torch.equal(out[1], fl) and float(out[3].abs().max()) == 0
 
 
-@pytest.mark.parametrize("batch", [1, 267])
-@pytest.mark.parametrize("n", [1, 8, 37, 64, 83])
-def test_k3c_rhs_redesign_matches_plain(cuda_device, n, batch):
+def _k3c_rhs_redesign_matches_plain(cuda_device, n, batch):
     inner, gen = _graded_inner(batch, n, torch.complex128, cuda_device,
                                n + batch)
     M = torch.randn((batch, n, n), generator=gen, dtype=torch.complex128,
@@ -1163,6 +1282,12 @@ def test_k3c_rhs_redesign_matches_plain(cuda_device, n, batch):
         assert torch.equal(xq, xk)
         assert rec.shape == (batch, len(green_solve.TC_RHS_PROBE_PHASES) + 2)
         assert bool((rec[:, -2] > 0).all())
+
+
+def test_k3c_rhs_redesign_matches_plain(cuda_device):
+    _each(_k3c_rhs_redesign_matches_plain, cuda_device,
+          ("n", [1, 8, 37, 64, 83]),
+          ("batch", [1, 267]))
 
 
 @pytest.mark.parametrize("kind", ["perm", "usv"])
@@ -1233,9 +1358,7 @@ def _check_k2_f64(A, tol=1e-10):
     return Qk, Rk
 
 
-@pytest.mark.parametrize("kind", ["random", "graded", "zero-column"])
-@pytest.mark.parametrize("batch", [3, 300])
-def test_k2_f64_redesign_matches_plain(cuda_device, batch, kind):
+def _k2_f64_redesign_matches_plain(cuda_device, batch, kind):
     """Every n the float64 one-CTA route takes (1 ... 119): a random
     matrix, a column-graded one (the refactor's M diag(d), d from 1 to
     1e-11 in the decreasing order of its pre-pivoting: Householder QR is
@@ -1257,8 +1380,13 @@ def test_k2_f64_redesign_matches_plain(cuda_device, batch, kind):
             assert qr.blocks_per_sm(n, dt, cuda_device) >= 3
 
 
-@pytest.mark.parametrize("L", [4, 6, 8])
-def test_k2_f64_on_refactor_blocks(cuda_device, L):
+def test_k2_f64_redesign_matches_plain(cuda_device):
+    _each(_k2_f64_redesign_matches_plain, cuda_device,
+          ("batch", [3, 300]),
+          ("kind", ["random", "graded", "zero-column"]))
+
+
+def _k2_f64_on_refactor_blocks(cuda_device, L):
     """The Hubbard chain's own refactor blocks (s B's onto the orthogonal
     stack factor, the sweep's lazy U; n = L^2); at n = 64 the probe
     instance gives the production instance's outputs."""
@@ -1279,8 +1407,12 @@ def test_k2_f64_on_refactor_blocks(cuda_device, L):
         assert bool((rec >= 0).all()) and bool((rec[:, -2] > 0).all())
 
 
-@pytest.mark.parametrize("batch", [3, 267])
-def test_k3c_redesign_matches_plain(cuda_device, batch):
+def test_k2_f64_on_refactor_blocks(cuda_device):
+    _each(_k2_f64_on_refactor_blocks, cuda_device,
+          ("L", [4, 6, 8]))
+
+
+def _k3c_redesign_matches_plain(cuda_device, batch):
     """K3c (complex128, diag(r1), on K3c-rhs's tensor-core body) at every
     n of the one-CTA route (1 ... 83) on graded inner matrices at cond
     1e11: the K3 criteria (the forward bound at n >= 8), one launch under
@@ -1307,6 +1439,11 @@ def test_k3c_redesign_matches_plain(cuda_device, batch):
             assert bool((amax(xk - xp) / amax(xp) <= bound).all())
         if n <= 64:
             assert green_solve.c128_blocks_per_sm(n, False, cuda_device) >= 2
+
+
+def test_k3c_redesign_matches_plain(cuda_device):
+    _each(_k3c_redesign_matches_plain, cuda_device,
+          ("batch", [3, 267]))
 
 
 K2C_TOL = {torch.complex64: 1e-4, torch.complex128: 1e-10,
@@ -1377,8 +1514,7 @@ def test_k2c_redesign_matches_plain(cuda_device, dtype, batch, kind):
             assert qr.blocks_per_sm(n, dtype, cuda_device) >= 2
 
 
-@pytest.mark.parametrize("L", [2, 3, 4])
-def test_k2c_on_refactor_blocks(cuda_device, L):
+def _k2c_on_refactor_blocks(cuda_device, L):
     """The SDW chain's own refactor blocks (s B's onto the stack's unitary
     factor, the sweep's lazy U; n = 4 L^2) at the sdw_l4 path's time step
     (beta = 4, m = 40: the blocks' conditioning, which sets the complex64
@@ -1403,9 +1539,12 @@ def test_k2c_on_refactor_blocks(cuda_device, L):
             assert bool((rec[:, 3] == 0).all())    # no back-substitution
 
 
-@pytest.mark.parametrize("kind", ["near-identity", "graded", "zero-column"])
-@pytest.mark.parametrize("batch", [3, 133])
-def test_k2_f32_redesign_matches_plain(cuda_device, batch, kind):
+def test_k2c_on_refactor_blocks(cuda_device):
+    _each(_k2c_on_refactor_blocks, cuda_device,
+          ("L", [2, 3, 4]))
+
+
+def _k2_f32_redesign_matches_plain(cuda_device, batch, kind):
     """K2 in float32 (K2c's complex64 body on real floats, qr_f32_tc_kernel)
     at ragged n up to its route's limit (1, 7, 33, 64, 100, 120, 128; n not
     a multiple of 8 pads with the identity), batches of 3 and 133 (one more
@@ -1430,8 +1569,13 @@ def test_k2_f32_redesign_matches_plain(cuda_device, batch, kind):
         assert qr.blocks_per_sm(n, dt, cuda_device) >= (2 if n <= 64 else 1)
 
 
-@pytest.mark.parametrize("L,full", [(4, False), (8, False), (4, True)])
-def test_k2_f32_on_refactor_blocks(cuda_device, L, full):
+def test_k2_f32_redesign_matches_plain(cuda_device):
+    _each(_k2_f32_redesign_matches_plain, cuda_device,
+          ("batch", [3, 133]),
+          ("kind", ["near-identity", "graded", "zero-column"]))
+
+
+def _k2_f32_on_refactor_blocks(cuda_device, L, full):
     """The opdim-1 chains' own refactor blocks (s B's onto the stack's
     orthogonal factor, built in float64 at sdw_l8's time step, then cast
     to the paths' float32): sdw_o1_l4's n = 32, sdw_o1_l8's n = 128 and
@@ -1458,15 +1602,16 @@ def test_k2_f32_on_refactor_blocks(cuda_device, L, full):
         assert bool((rec[:, 3] == 0).all())    # no back-substitution
 
 
+def test_k2_f32_on_refactor_blocks(cuda_device):
+    _each(_k2_f32_on_refactor_blocks, cuda_device,
+          ("L,full", [(4, False), (8, False), (4, True)]))
+
+
 K7_TOL = {torch.float32: 1e-4, torch.float64: 1e-10, torch.complex64: 1e-4,
           torch.complex128: 1e-10}
 
 
-@pytest.mark.parametrize("batch", [3, 133])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
-                                   torch.complex64, torch.complex128])
-@pytest.mark.parametrize("n", [129, 144, 200, 256, 384, 512])
-def test_k7_redesign_matches_plain(cuda_device, n, dtype, batch):
+def _k7_redesign_matches_plain(cuda_device, n, dtype, batch):
     # well conditioned (eye + 0.3 / sqrt(n) noise): the sign-fixed factors
     # of two float32 QRs differ by ~n eps cond(A)
     gen = torch.Generator(cuda_device).manual_seed(n + batch)
@@ -1499,8 +1644,15 @@ def test_k7_redesign_matches_plain(cuda_device, n, dtype, batch):
         2 if two else 1)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.complex64])
-def test_k7_probe_matches_production(cuda_device, dtype):
+def test_k7_redesign_matches_plain(cuda_device):
+    _each(_k7_redesign_matches_plain, cuda_device,
+          ("n", [129, 144, 200, 256, 384, 512]),
+          ("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128]),
+          ("batch", [3, 133]))
+
+
+def _k7_probe_matches_production(cuda_device, dtype):
     gen = torch.Generator(cuda_device).manual_seed(5)
     n = 256
     A = torch.randn((4, n, n), generator=gen, dtype=dtype, device=cuda_device)
@@ -1510,6 +1662,11 @@ def test_k7_probe_matches_production(cuda_device, dtype):
     assert torch.equal(Q, Qp) and torch.equal(R, Rp)
     assert rec.shape == (4, len(qr.BIG_PROBE_PHASES) + 2)
     assert bool((rec >= 0).all()) and bool((rec[:, -2] > 0).all())
+
+
+def test_k7_probe_matches_production(cuda_device):
+    _each(_k7_probe_matches_production, cuda_device,
+          ("dtype", [torch.float64, torch.complex64]))
 
 
 def _k6_operands(W, N, dtype, device, seed, q=4):
@@ -1533,11 +1690,7 @@ def _k6_operands(W, N, dtype, device, seed, q=4):
     return G, E, Ei, D, Di
 
 
-@pytest.mark.parametrize("W", [3, 130])
-@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-5),
-                                       (torch.complex128, 1e-12)])
-@pytest.mark.parametrize("N", [32, 49, 64, 100, 128])
-def test_k6_redesign_matches_plain(cuda_device, N, dtype, tol, W):
+def _k6_redesign_matches_plain(cuda_device, N, dtype, tol, W):
     G, E, Ei, D, Di = _k6_operands(W, N, dtype, cuda_device, N + W)
     Er, Eir = E.real.contiguous(), Ei.real.contiguous()
     _kernels.reset_launch_counts()
@@ -1557,6 +1710,14 @@ def test_k6_redesign_matches_plain(cuda_device, N, dtype, tol, W):
         _kernels.MAX_SMEM_BYTES - 1024
 
 
+def test_k6_redesign_matches_plain(cuda_device):
+    _each(_k6_redesign_matches_plain, cuda_device,
+          ("N", [32, 49, 64, 100, 128]),
+          ("dtype,tol", [(torch.complex64, 1e-5),
+                                       (torch.complex128, 1e-12)]),
+          ("W", [3, 130]))
+
+
 def test_k6_probe_matches_production(cuda_device):
     G, E, Ei, D, Di = _k6_operands(4, 64, torch.complex64, cuda_device, 3)
     for up in (True, False):
@@ -1570,12 +1731,7 @@ def test_k6_probe_matches_production(cuda_device):
         assert bool((rec[:, -2] > 0).all())
 
 
-@pytest.mark.parametrize("W", [3, 128, 130])
-@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-5),
-                                       (torch.float32, 1e-5),
-                                       (torch.complex128, 1e-12),
-                                       (torch.float64, 1e-12)])
-def test_k6_q2_plans_match_plain(cuda_device, dtype, tol, W):
+def _k6_q2_plans_match_plain(cuda_device, dtype, tol, W):
     """K6's q = 2 instances at the plans the wrappers pick for the reduced
     lattices on the fused route up to L = 12 (N = 64, 81, 100, 121, 144)
     and W = 3, 128 (the main paths'; in float32 at N = 64 two CTAs per SM,
@@ -1609,8 +1765,16 @@ def test_k6_q2_plans_match_plain(cuda_device, dtype, tol, W):
             assert two and sdw_wrap.ctas(N, W, p6[0], p6[3], 2) == 2 * W
 
 
-@pytest.mark.parametrize("dtype", [torch.complex64, torch.float32])
-def test_k6_q2_probe_matches_production(cuda_device, dtype):
+def test_k6_q2_plans_match_plain(cuda_device):
+    _each(_k6_q2_plans_match_plain, cuda_device,
+          ("dtype,tol", [(torch.complex64, 1e-5),
+                                       (torch.float32, 1e-5),
+                                       (torch.complex128, 1e-12),
+                                       (torch.float64, 1e-12)]),
+          ("W", [3, 128, 130]))
+
+
+def _k6_q2_probe_matches_production(cuda_device, dtype):
     """The q = 2 probe instances (sdw_o2_l8's complex64, sdw_o1_l8's
     float32) give the production instances' outputs, one record per CTA
     of each pass."""
@@ -1629,6 +1793,11 @@ def test_k6_q2_probe_matches_production(cuda_device, dtype):
         assert torch.equal(out, sdw_wrap.apply(G, E, D, herm))
         assert rec.shape == (n_ctas, len(sdw_wrap.PROBE_PHASES) + 2)
         assert bool((rec[:, -2] > 0).all())
+
+
+def test_k6_q2_probe_matches_production(cuda_device):
+    _each(_k6_q2_probe_matches_production, cuda_device,
+          ("dtype", [torch.complex64, torch.float32]))
 
 
 def test_k6_refuses_what_it_cannot_take(cuda_device):
@@ -1690,10 +1859,7 @@ def _check_k4_modes(ops, extra, q, at=""):
     return out
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("opdim", [1, 2])
-@pytest.mark.parametrize("L", [2, 3, 4, 6])
-def test_sdw_update_q2_kernel_matches_plain(cuda_device, dtype, opdim, L):
+def _sdw_update_q2_kernel_matches_plain(cuda_device, dtype, opdim, L):
     """K4's q = 2 instances (complex at opdim 2, real at opdim 1) on the
     reduced model's own slice-1 operands (h = 8 ... 72), with the sites as
     drawn, all rejected and all accepted (_check_k4_modes): one launch
@@ -1708,9 +1874,14 @@ def test_sdw_update_q2_kernel_matches_plain(cuda_device, dtype, opdim, L):
                                     cuda_device, opdim, 2) >= 1
 
 
-@pytest.mark.parametrize("dtype", ["complex64", "complex128", "float32",
-                                   "float64"])
-def test_sdw_update_q2_across_h(cuda_device, dtype):
+def test_sdw_update_q2_kernel_matches_plain(cuda_device):
+    _each(_sdw_update_q2_kernel_matches_plain, cuda_device,
+          ("L", [2, 3, 4, 6]),
+          ("opdim", [1, 2]),
+          ("dtype", ["float32", "float64"]))
+
+
+def _sdw_update_q2_across_h(cuda_device, dtype):
     """K4's q = 2 instances on synthetic operands (W = 130) from h = 2 to
     the largest h the dtype takes (160; 114 in complex128), at both sides
     of every KC step of the look-ahead body (the columns a lane owns,
@@ -1726,6 +1897,12 @@ def test_sdw_update_q2_across_h(cuda_device, dtype):
                                2, f"N={N}")
         assert 0 < float(kern[2].sum()) < 130 * N, N
     assert sdw_update.plan(dt, 2) == "ahead"
+
+
+def test_sdw_update_q2_across_h(cuda_device):
+    _each(_sdw_update_q2_across_h, cuda_device,
+          ("dtype", ["complex64", "complex128", "float32",
+                                   "float64"]))
 
 
 def _q2_synthetic(device, N, dtype, W, seed, opdim, q=2):
@@ -1755,10 +1932,7 @@ def _q2_synthetic(device, N, dtype, W, seed, opdim, q=2):
     return [x.contiguous() for x in (G, phi, phi_new, lhs, delta)], nb
 
 
-@pytest.mark.parametrize("N", [9, 10, 16, 64, 100, 128, 256])
-@pytest.mark.parametrize("dtype", ["complex64", "complex128", "float32",
-                                   "float64"])
-def test_sdw_delayed_q2_kernel_matches_plain(cuda_device, dtype, N):
+def _sdw_delayed_q2_kernel_matches_plain(cuda_device, dtype, N):
     """K5's q = 2 instances over one slice (h = 18 ... 512) at K = 1, 3,
     8, 16 (ragged last chunks, K above N) and W = 3, 130, in every plan
     branch: the second body with all of G or its first rows in shared
@@ -1790,11 +1964,14 @@ def test_sdw_delayed_q2_kernel_matches_plain(cuda_device, dtype, N):
                                              opdim, 2) >= 1
 
 
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-12)])
-@pytest.mark.parametrize("opdim", [1, 2])
-@pytest.mark.parametrize("L,cb", [(2, False), (3, False), (4, True),
-                                  (8, True), (12, True)])
-def test_sdw_wrap_q2_kernel_matches_plain(cuda_device, dtype, tol, opdim, L,
+def test_sdw_delayed_q2_kernel_matches_plain(cuda_device):
+    _each(_sdw_delayed_q2_kernel_matches_plain, cuda_device,
+          ("dtype", ["complex64", "complex128", "float32",
+                                   "float64"]),
+          ("N", [9, 10, 16, 64, 100, 128, 256]))
+
+
+def _sdw_wrap_q2_kernel_matches_plain(cuda_device, dtype, tol, opdim, L,
                                           cb):
     """K6's q = 2 instances (wrap up / down, apply, apply-H) on the reduced
     model's G and slice-1 blocks (h = 8 ... 288: odd N, real float32 lines
@@ -1824,11 +2001,15 @@ def test_sdw_wrap_q2_kernel_matches_plain(cuda_device, dtype, tol, opdim, L,
                                   cuda_device, 2) >= 1
 
 
-@pytest.mark.parametrize("opdim", [1, 2])
-@pytest.mark.parametrize("kw", [
-    dict(), dict(update_kernel="delayed", delay=3, wrap_kernel="fused")],
-    ids=["immediate", "delayed-fused"])
-def test_sdw_reduced_sweep_on_card_matches_cpu(cuda_device, opdim, kw):
+def test_sdw_wrap_q2_kernel_matches_plain(cuda_device):
+    _each(_sdw_wrap_q2_kernel_matches_plain, cuda_device,
+          ("L,cb", [(2, False), (3, False), (4, True),
+                                  (8, True), (12, True)]),
+          ("opdim", [1, 2]),
+          ("dtype,tol", [("float32", 1e-5), ("float64", 1e-12)]))
+
+
+def _sdw_reduced_sweep_on_card_matches_cpu(cuda_device, opdim, kw):
     """A reduced sweep pair (L = 2, f64) on the card against the CPU from
     one state and one set of draws: identical fields and acceptance, G
     within 1e-10, the launch counts of the sweep structure (the q = 2
@@ -1866,6 +2047,14 @@ def test_sdw_reduced_sweep_on_card_matches_cpu(cuda_device, opdim, kw):
         assert float((a.cpu() - b).abs().max()) <= 1e-10
 
 
+def test_sdw_reduced_sweep_on_card_matches_cpu(cuda_device):
+    _each(_sdw_reduced_sweep_on_card_matches_cpu, cuda_device,
+          ("kw", [
+            dict(),
+            dict(update_kernel="delayed", delay=3, wrap_kernel="fused")]),
+          ("opdim", [1, 2]))
+
+
 def test_sdw_reduced_refuses_what_it_lacks(cuda_device):
     """K6 has no real q = 4 instance (the full opdim-1 chain runs the plain
     wraps, as the JAX model); beyond K6's plan at q = 2 (complex128 at
@@ -1892,8 +2081,7 @@ def _sdw_full_real(device, L=4, dtype="float64", W=3, seed=0, **kw):
                         fermion_matrix="full", **kw)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_sdw_update_real_q4_kernel_matches_plain(cuda_device, dtype):
+def _sdw_update_real_q4_kernel_matches_plain(cuda_device, dtype):
     """K4's real q = 4 instances on the full real chain's own slice-1
     operands at L = 1 ... 5 (h = 4 ... 100) and on synthetic ones at
     h = 160 (the limit), with the sites as drawn, all rejected and all
@@ -1915,8 +2103,12 @@ def test_sdw_update_real_q4_kernel_matches_plain(cuda_device, dtype):
     assert sdw_update.blocks_per_sm(40, model.cdtype, cuda_device, 1) >= 1
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_sdw_update_real_q4_across_h(cuda_device, dtype):
+def test_sdw_update_real_q4_kernel_matches_plain(cuda_device):
+    _each(_sdw_update_real_q4_kernel_matches_plain, cuda_device,
+          ("dtype", ["float32", "float64"]))
+
+
+def _sdw_update_real_q4_across_h(cuda_device, dtype):
     """K4's real q = 4 instances on synthetic operands from h = 4 to its
     limit, 160 (W = 130; the models' N = L^2, the odd N between and both
     sides of every KC step of the look-ahead body: h = 32 / 36, 64 / 68,
@@ -1932,9 +2124,12 @@ def test_sdw_update_real_q4_across_h(cuda_device, dtype):
     assert sdw_update.plan(dt, 4) == "ahead"
 
 
-@pytest.mark.parametrize("N", [4, 9, 50, 64, 121, 127, 128])
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_sdw_delayed_real_q4_kernel_matches_plain(cuda_device, dtype, N):
+def test_sdw_update_real_q4_across_h(cuda_device):
+    _each(_sdw_update_real_q4_across_h, cuda_device,
+          ("dtype", ["float32", "float64"]))
+
+
+def _sdw_delayed_real_q4_kernel_matches_plain(cuda_device, dtype, N):
     """K5's real q = 4 instances over one slice (h = 16 ... 512) at K = 1,
     3, 8, 16 and W = 3, 130 (every residence occurs: the second body
     with all of G or its first rows in shared memory, the first body's
@@ -1974,11 +2169,13 @@ def test_sdw_delayed_real_q4_kernel_matches_plain(cuda_device, dtype, N):
                       1, "sdw_delayed_real", f"L=8 K={K}")
 
 
-@pytest.mark.parametrize("L,kw", [(2, {}), (2, dict(delay=3)), (6, {}),
-                                  (4, dict(checkerboard=True,
-                                           cb_apply="sparse"))],
-                         ids=["L2", "L2-delay3", "L6", "L4-cb-sparse"])
-def test_sdw_full_real_sweep_on_card_matches_cpu(cuda_device, L, kw):
+def test_sdw_delayed_real_q4_kernel_matches_plain(cuda_device):
+    _each(_sdw_delayed_real_q4_kernel_matches_plain, cuda_device,
+          ("dtype", ["float32", "float64"]),
+          ("N", [4, 9, 50, 64, 121, 127, 128]))
+
+
+def _sdw_full_real_sweep_on_card_matches_cpu(cuda_device, L, kw):
     """A full real opdim-1 sweep pair (f64) on the card against the CPU
     from one state and one set of draws: identical fields and acceptance,
     G and the observables within 1e-10, the launch counts of the sweep
@@ -2016,6 +2213,13 @@ def test_sdw_full_real_sweep_on_card_matches_cpu(cuda_device, L, kw):
         assert float((a.cpu() - b).abs().max()) <= 1e-10
 
 
+def test_sdw_full_real_sweep_on_card_matches_cpu(cuda_device):
+    _each(_sdw_full_real_sweep_on_card_matches_cpu, cuda_device,
+          ("L,kw", [(2, {}), (2, dict(delay=3)), (6, {}),
+                                  (4, dict(checkerboard=True,
+                                           cb_apply="sparse"))]))
+
+
 def test_sdw_reduced_l15_sweep_on_card_matches_cpu(cuda_device):
     """The repaired wrap route: opdim 2, reduced, L = 15 in float32 (no K6
     plan at N = 225 in complex64) builds on the card with the plain wraps
@@ -2044,3 +2248,50 @@ def test_sdw_reduced_l15_sweep_on_card_matches_cpu(cuda_device):
     assert torch.equal(og.acceptance.cpu(), oc.acceptance)
     assert float((sg.G.cpu() - sc.G).abs().max()) <= 1e-4 * float(
         sc.G.abs().max())
+
+
+# ---- the analysis stack -----------------------------------------------------
+
+def test_mrpt_and_sdwcorr_card_routes_match_cpu(cuda_device):
+    """analysis.mrpt on the card against its CPU route on an exponential
+    toy over 8 r values (2000 samples each): f within 1e-8, 51-point
+    curves within rtol 1e-10, the golden-section maximum and a jackknifed
+    estimate within rtol 1e-10; analysis.sdwcorr within 1e-12."""
+    from detqmc_tpu_torch.analysis import mrpt, sdwcorr
+
+    rng = np.random.default_rng(9)
+    r_values = np.linspace(0.5, 2.0, 8)
+    A = 3.0
+
+    def sample(r, n):
+        u = rng.random(n)
+        return -np.log(1.0 - u * (1.0 - np.exp(-r * A))) / r
+
+    actions = [sample(r, 2000) for r in r_values]
+    obs = {"phiSquared": [a.copy() for a in actions],
+           "phiFourth": [2.5 * a ** 2 for a in actions],
+           "chi": [a * (A - a) for a in actions]}
+    ms = {}
+    for dev in (cuda_device, "cpu"):
+        ms[str(dev)] = m = mrpt.MultireweightPT(r_values, actions, obs,
+                                                device=dev)
+        m.solve()
+    g, c = ms[str(cuda_device)], ms["cpu"]
+    np.testing.assert_allclose(g.f, c.f, rtol=0, atol=1e-8)
+    grid = np.linspace(0.5, 2.0, 51)
+    for name in obs:
+        np.testing.assert_allclose(g.curve(name, grid), c.curve(name, grid),
+                                   rtol=1e-10)
+    np.testing.assert_allclose(
+        mrpt.find_observable_maximum(g, "chi", 0.5, 2.0),
+        mrpt.find_observable_maximum(c, "chi", 0.5, 2.0), rtol=1e-10)
+    est = [mrpt.jackknife_reweighted(
+        r_values, actions, obs, lambda m: m.binder(1.2), n_blocks=4,
+        device=dev) for dev in (cuda_device, "cpu")]
+    np.testing.assert_allclose(est[0], est[1], rtol=1e-10)
+    phi = rng.normal(size=(3, 8, 16, 3))
+    out = [sdwcorr.phi_correlations(phi, 4, device=dev)
+           for dev in (cuda_device, "cpu")]
+    for key in out[1]:
+        np.testing.assert_allclose(out[0][key], out[1][key], rtol=0,
+                                   atol=1e-12)

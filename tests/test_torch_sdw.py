@@ -188,9 +188,7 @@ def test_f32_main_path_config_cut_to_m8():
     assert (obs.acceptance > 0).all()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(fermion_repr="real_embed"), dict(green_kernel="refine"),
-    dict(opdim=2, green_kernel="refine")],
+@pytest.mark.parametrize("kw", [dict(fermion_repr="real_embed")],
     ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_knobs_raise(kw):
     cfg = ts.SDWConfig(**dict(dict(L=2, opdim=3, m=4, s=2), **kw))

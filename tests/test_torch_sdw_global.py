@@ -333,10 +333,12 @@ def test_global_move_knobs_build(knob):
                            device="cpu").has_global_moves
 
 
-def test_sdw_cli_refusals():
+def test_sdw_cli_refusals(tmp_path):
     assert port_main(["--bogus", "1", "device=cpu"]) == 2
     assert port_main(["--conf", CONF, "updateMethod=sometimes",
                       "device=cpu"]) == 2
+    # greenKernel=refine builds (tests/test_torch_refine.py); the real
+    # embedding is a TPU device the port refuses
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_main(["--conf", CONF, "L=2", "m=8", "greenKernel=refine",
-                   "device=cpu"])
+        port_main(["--conf", CONF, "L=2", "m=8", "fermionRepr=real_embed",
+                   f"outdir={tmp_path}", "device=cpu"])
